@@ -1,0 +1,21 @@
+"""apex_tpu_torch — the PyTorch/CUDA port of apex_tpu for an NVIDIA H100.
+
+The package mirrors ``apex_tpu/`` file for file (``apex_tpu_torch/ops/
+flash_attention.py`` is the counterpart of ``apex_tpu/ops/
+flash_attention.py``) and keeps the JAX package's public layouts, so the
+two can be compared on the same inputs.  It imports ``torch`` and
+``numpy``, never ``jax`` and nothing of ``apex_tpu``.
+
+Every Pallas kernel the JAX package runs on a slice's path becomes a CUDA
+C++ kernel for ``sm_90a`` under ``csrc/``, built at first use by
+:mod:`apex_tpu_torch._kernels`.  Each kernel wrapper dispatches on its
+tensor's device: the plain PyTorch version for a CPU tensor, the kernel
+for a CUDA tensor.
+
+This slice is GPT serving: ``GPTModel.prefill`` / ``decode_step`` driven
+by the continuous-batching ``InferenceEngine`` over a ``KVCache`` slot
+ring, on three kernels (LayerNorm forward, causal flash-attention forward,
+single-query decode attention).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,130 @@
+"""apex_tpu_torch stands alone: no JAX, nothing of apex_tpu, entry points
+that default to the card, kernels that launch only for CUDA tensors, and a
+kernel build that reports nvcc's failure."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from apex_tpu_torch import _kernels
+from apex_tpu_torch.inference import InferenceEngine, KVCache, Request
+from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+from apex_tpu_torch.normalization import MixedFusedLayerNorm
+from apex_tpu_torch.ops.flash_attention import (flash_attention_decode,
+                                                flash_fwd)
+from apex_tpu_torch.ops.layer_norm import layer_norm_fwd
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "apex_tpu_torch"
+TINY = dict(vocab_size=64, hidden_size=64, num_layers=2,
+            num_attention_heads=4, max_seq_len=32)
+COUNTERS = (layer_norm_fwd, flash_fwd, flash_attention_decode)
+
+
+def _port_files():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
+    modules = sorted(
+        "apex_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
+        .replace(".__init__", "") for p in PKG.rglob("*.py"))
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m.rstrip('.'))\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'apex_tpu' or m.startswith('apex_tpu.')]\n"
+        "print(len(sys.modules)); assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_jax_or_apex_tpu(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "apex_tpu"), \
+                f"{path.name} imports {name}"
+
+
+def test_default_device_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = GPTConfig(**TINY)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPTModel(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MixedFusedLayerNorm(8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        KVCache(1, 1, 4, 1, 8)
+    model = GPTModel(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceEngine(model)
+    with pytest.raises(ValueError, match="model on cpu"):
+        InferenceEngine(model, device="meta")
+
+
+def test_cpu_serving_launches_no_kernel():
+    for c in COUNTERS:
+        c.launches = 0
+    model = GPTModel(GPTConfig(**TINY), device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    engine = InferenceEngine(model, max_slots=2, device="cpu")
+    for i, n in enumerate((3, 9, 5)):
+        engine.submit(Request(request_id=i, prompt=list(range(1, n + 1)),
+                              max_new_tokens=3))
+    done = engine.run()
+    assert sorted(r.finish_reason for r in done) == ["length"] * 3
+    assert [c.launches for c in COUNTERS] == [0, 0, 0]
+
+
+def test_cuda_wrappers_refuse_what_their_kernels_do_not_take():
+    """Argument checks run before any launch, so they hold here too."""
+    meta = torch.empty((2, 4, 8, 48), device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_fwd(meta, meta, meta, True, 1.0)
+    x = torch.empty((4, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        layer_norm_fwd(x, torch.ones(8), None, 1e-5, False)
+
+
+def test_failed_build_raises_with_nvcc_output(monkeypatch, tmp_path):
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: fake nvcc refused' >&2\nexit 3\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_kernels, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="fake nvcc refused"):
+        _kernels.build()
+    name = _kernels.library_path().name
+    assert name.startswith("libapex_tpu_torch_") and name.endswith(".so")
+    assert _kernels.source_hash() in name
+
+
+def test_build_dir_is_gitignored():
+    ignored = (ROOT / ".gitignore").read_text().split()
+    assert "build/" in ignored
+    assert _kernels.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
+
+
+def test_kernel_dtype_codes_cover_the_served_dtypes():
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        assert _kernels.dtype_code(torch.empty(0, dtype=dt), "k") in (0, 1, 2)
+    with pytest.raises(TypeError, match="not supported"):
+        _kernels.dtype_code(torch.empty(0, dtype=torch.float64), "k")
+    assert np.unique(list(_kernels.DTYPE_CODES.values())).size == 3
