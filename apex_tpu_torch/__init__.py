@@ -12,10 +12,15 @@ C++ kernel for ``sm_90a`` under ``csrc/``, built at first use by
 tensor's device: the plain PyTorch version for a CPU tensor, the kernel
 for a CUDA tensor.
 
-This slice is GPT serving: ``GPTModel.prefill`` / ``decode_step`` driven
-by the continuous-batching ``InferenceEngine`` over a ``KVCache`` slot
-ring, on three kernels (LayerNorm forward, causal flash-attention forward,
-single-query decode attention).
+Slice 1 is GPT serving: ``GPTModel.prefill`` / ``decode_step`` driven by
+the continuous-batching ``InferenceEngine`` over a ``KVCache`` slot ring, on
+three kernels (LayerNorm forward, causal flash-attention forward,
+single-query decode attention).  Slice 2 is GPT training:
+``GPTModel.loss`` and its backward, accumulated over micro-batches by
+``transformer.pipeline_parallel.forward_backward_no_pipelining``, then
+``optimizers.FusedAdam.step``, on four more kernels (LayerNorm backward,
+flash-attention dq and dk/dv, multi-tensor Adam) and the flash forward with
+attention dropout.
 """
 
 __version__ = "0.1.0"

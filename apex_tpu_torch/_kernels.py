@@ -30,7 +30,9 @@ import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
-SOURCES = ("layer_norm_fwd.cu", "flash_fwd.cu", "flash_decode.cu")
+SOURCES = ("layer_norm_fwd.cu", "layer_norm_bwd.cu", "flash_fwd.cu",
+           "flash_bwd_dq.cu", "flash_bwd_dkv.cu", "flash_decode.cu",
+           "multi_tensor_adam.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "apex_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,12 +45,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
+_U = ctypes.c_uint32
+# scale, causal, then dropout (on, threshold, keep scale, seed), dtype, stream
+_FLASH_TAIL = [_F, _I, _I, _U, _F, _U, _I, _P]
 _SIGNATURES = {
     "apex_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _P],
-    "apex_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
-                      + [_L] * 12 + [_F, _I, _I, _P],
+    "apex_layer_norm_bwd": [_P] * 9 + [_L, _I, _I, _I, _I, _I, _P],
+    "apex_flash_fwd": [_P] * 6 + [_I] * 5 + [_L] * 12 + _FLASH_TAIL,
+    "apex_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_L] * 15 + _FLASH_TAIL,
+    "apex_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_L] * 18 + _FLASH_TAIL,
     "apex_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I]
                          + [_L] * 10 + [_F, _I, _P],
+    "apex_multi_tensor_adam": [_I] + [_P] * 9 + [_I, _P, _P],
 }
 
 _lib = None

@@ -1,7 +1,8 @@
-// Flash-attention forward (causal prefill, kv_seqlens) for Hopper.
+// Flash-attention forward (causal, kv_seqlens, probability dropout) for
+// Hopper.
 //
 // Replaces apex_tpu/ops/flash_attention.py `_fwd_kernel` (launched by
-// `_flash_fwd_impl`), forward only and without dropout.  What bounds it on
+// `_flash_fwd_impl`).  What bounds it on
 // the H100: operations.  At a 512-token prompt every (batch, head) does
 // 2 * 512 * 512 * 64 multiply-adds for QK^T and PV (half of them under the
 // causal mask) against 3 * 512 * 64 inputs, hundreds of operations per byte.
@@ -17,6 +18,9 @@
 // as it is (16, 32 or 64), not padded to 128, and the ragged query/key edge
 // of any prompt bucket is masked.  The finite mask value and the l == 0
 // guard make a fully masked row come out as 0, as in the JAX kernel.
+// Dropout regenerates the JAX counter-hash keep factor per (row, key) from
+// absolute positions (common.cuh): l sums the undropped p, so the saved
+// lse is dropout-free, and the factor scales p only in the PV product.
 
 #include "common.cuh"
 
@@ -34,12 +38,12 @@ struct FlashStrides {
   int64_t o_b, o_h, o_s;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kDropout>
 __global__ void __launch_bounds__(kFlashThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse,
                  const int* __restrict__ kv_lens, int heads, int sq, int sk,
-                 FlashStrides st, float scale, int causal) {
+                 FlashStrides st, float scale, int causal, Dropout dr) {
   constexpr int NC = (D + 31) / 32;  // output columns per lane
   __shared__ float qs[kFlashBQ][D];
   __shared__ float ks[kFlashBK][D + 1];
@@ -109,8 +113,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const float s = valid ? dot * scale : kMask;
       const float m_new = fmaxf(warp_max(s), m[r]);
       const float alpha = expf(m[r] - m_new);
-      const float p = valid ? expf(s - m_new) : 0.f;
+      float p = valid ? expf(s - m_new) : 0.f;
       l[r] = alpha * l[r] + warp_sum(p);
+      if (kDropout) p *= dropout_factor(dr, dropout_row_hash(dr, bh, qpos), kpos);
 #pragma unroll
       for (int c = 0; c < NC; ++c) acc[r][c] *= alpha;
 #pragma unroll
@@ -145,29 +150,34 @@ template <typename T, int D>
 static void launch_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                              const void* kv_lens, int batch, int heads, int sq, int sk,
                              const FlashStrides& st, float scale, int causal,
-                             cudaStream_t stream) {
+                             const Dropout& dr, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>(batch * heads),
                   static_cast<unsigned>((sq + kFlashBQ - 1) / kFlashBQ));
-  flash_fwd_kernel<T, D><<<grid, kFlashThreads, 0, stream>>>(
+  // dropout is a template flag: the plain path keeps its registers
+  auto kernel = dr.on ? flash_fwd_kernel<T, D, true> : flash_fwd_kernel<T, D, false>;
+  kernel<<<grid, kFlashThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<float*>(lse), static_cast<const int*>(kv_lens),
-      heads, sq, sk, st, scale, causal);
+      heads, sq, sk, st, scale, causal, dr);
 }
 
 template <typename T>
 static int dispatch_flash_fwd(int head_dim, const void* q, const void* k, const void* v,
                               void* o, void* lse, const void* kv_lens, int batch, int heads,
                               int sq, int sk, const FlashStrides& st, float scale, int causal,
-                              cudaStream_t stream) {
+                              const Dropout& dr, cudaStream_t stream) {
   switch (head_dim) {
     case 16:
-      launch_flash_fwd<T, 16>(q, k, v, o, lse, kv_lens, batch, heads, sq, sk, st, scale, causal, stream);
+      launch_flash_fwd<T, 16>(q, k, v, o, lse, kv_lens, batch, heads, sq, sk, st, scale, causal,
+                                 dr, stream);
       return 0;
     case 32:
-      launch_flash_fwd<T, 32>(q, k, v, o, lse, kv_lens, batch, heads, sq, sk, st, scale, causal, stream);
+      launch_flash_fwd<T, 32>(q, k, v, o, lse, kv_lens, batch, heads, sq, sk, st, scale, causal,
+                                 dr, stream);
       return 0;
     case 64:
-      launch_flash_fwd<T, 64>(q, k, v, o, lse, kv_lens, batch, heads, sq, sk, st, scale, causal, stream);
+      launch_flash_fwd<T, 64>(q, k, v, o, lse, kv_lens, batch, heads, sq, sk, st, scale, causal,
+                                 dr, stream);
       return 0;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -180,26 +190,32 @@ using namespace apex_tpu_torch;
 
 // q: (b, h, sq, d), k/v: (b, h, sk, d), o: (b, h, sq, d), each with the
 // given batch/head/seq strides (in elements) and a contiguous last dim;
-// lse: (b*h, sq) f32 or null; kv_lens: (b,) int32 or null.
+// lse: (b*h, sq) f32 or null; kv_lens: (b,) int32 or null; dropout: 0 or 1,
+// with the keep threshold, keep scale and seed of common.cuh `Dropout`.
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               const void* kv_lens, int batch, int heads, int sq, int sk,
                               int head_dim, int64_t q_b, int64_t q_h, int64_t q_s,
                               int64_t k_b, int64_t k_h, int64_t k_s, int64_t v_b, int64_t v_h,
                               int64_t v_s, int64_t o_b, int64_t o_h, int64_t o_s, float scale,
-                              int causal, int dtype, void* stream) {
+                              int causal, int dropout, uint32_t threshold, float keep_scale,
+                              uint32_t seed, int dtype, void* stream) {
   if (batch <= 0 || heads <= 0 || sq <= 0) return 0;
   const FlashStrides st{q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s};
+  const Dropout dr{dropout, threshold, keep_scale, seed};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   switch (dtype) {
     case kF32:
-      rc = dispatch_flash_fwd<float>(head_dim, q, k, v, o, lse, kv_lens, batch, heads, sq, sk, st, scale, causal, s);
+      rc = dispatch_flash_fwd<float>(head_dim, q, k, v, o, lse, kv_lens, batch, heads, sq, sk, st,
+                                             scale, causal, dr, s);
       break;
     case kBF16:
-      rc = dispatch_flash_fwd<__nv_bfloat16>(head_dim, q, k, v, o, lse, kv_lens, batch, heads, sq, sk, st, scale, causal, s);
+      rc = dispatch_flash_fwd<__nv_bfloat16>(head_dim, q, k, v, o, lse, kv_lens, batch, heads, sq, sk, st,
+                                             scale, causal, dr, s);
       break;
     case kF16:
-      rc = dispatch_flash_fwd<__half>(head_dim, q, k, v, o, lse, kv_lens, batch, heads, sq, sk, st, scale, causal, s);
+      rc = dispatch_flash_fwd<__half>(head_dim, q, k, v, o, lse, kv_lens, batch, heads, sq, sk, st,
+                                             scale, causal, dr, s);
       break;
     default:
       rc = static_cast<int>(cudaErrorInvalidValue);

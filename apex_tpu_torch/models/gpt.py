@@ -1,14 +1,19 @@
-"""GPT decoder for serving — port of ``apex_tpu/models/gpt.py`` (the serial
-prefill / decode path).
+"""GPT decoder for serving and training — port of ``apex_tpu/models/gpt.py``
+(the serial path: prefill / decode, and the training loss).
 
 The same pre-LN wiring as the JAX model: vocab embedding → N ×
 (MixedFusedLayerNorm → causal attention with RoPE → residual →
 MixedFusedLayerNorm → fc1 / tanh-GELU / fc2 → residual) → final
 MixedFusedLayerNorm → tied head in f32.  Activations are
-``(batch, seq, hidden)`` at ``cfg.dtype`` with f32 parameters.  The three
-kernels of the path are the LayerNorm forward, the causal flash-attention
-forward (prefill) and the single-query decode attention, reached through
-:mod:`apex_tpu_torch.normalization` and :mod:`apex_tpu_torch.ops`.
+``(batch, seq, hidden)`` at ``cfg.dtype`` with f32 parameters.  Serving runs
+the LayerNorm forward, the causal flash-attention forward (prefill) and the
+single-query decode attention kernels; training (:meth:`GPTModel.loss`,
+then ``backward``) runs the LayerNorm forward and backward and the flash
+forward, dq and dk/dv kernels, with the attention-dropout mask of the JAX
+model, all reached through :mod:`apex_tpu_torch.normalization` and
+:mod:`apex_tpu_torch.ops`.  The head's cross entropy is the vocab-parallel
+one at world size 1 (``fused_lm_head=False``); the fused LM head kernels
+are not ported yet.
 
 Parameter names mirror the JAX parameter tree (``layers.3.attention.qkv.
 weight`` is ``params["layers"][3]["attention"]["qkv"]["weight"]``), which
@@ -36,9 +41,16 @@ from apex_tpu_torch.utils.device import resolve_device
 
 _f32 = torch.float32
 
-TRAINING_SLICE = "the training slice"
+LM_HEAD_SLICE = "the BERT / fused LM head slice"
+FUSED_FFN_SLICE = "the fused-FFN slice"
+REMAT_SLICE = "a later training slice (activation recompute)"
 MULTI_GPU_SLICE = "the multi-GPU slice"
 QUANT_SERVING_SLICE = "the paged/quantized serving slice"
+
+# layer i's attention-dropout stream is seeded dropout_seed + i * stride
+# (modulo 2**32), as in the JAX model: a caller advancing the base seed by
+# +1 per step never replays another layer's mask
+_SEED_LAYER_STRIDE = 0x3C6EF35F
 
 
 @dataclasses.dataclass
@@ -54,7 +66,8 @@ class GPTConfig:
     rotary: bool = True
     context_axis: Optional[str] = None
     n_experts: int = 0
-    attention_dropout: float = 0.0
+    attention_dropout: float = 0.0             # fused flash-kernel dropout
+    fused_lm_head: bool = True                 # logit-free blockwise CE
     fused_ffn: bool = False
     weight_quant: Optional[str] = None
     remat: bool = False
@@ -71,10 +84,8 @@ class GPTConfig:
             raise ValueError(f"attention_dropout must be in [0, 1), got "
                              f"{self.attention_dropout}")
         unsupported = [
-            (self.fused_ffn, "fused_ffn", TRAINING_SLICE),
-            (self.remat, "remat", TRAINING_SLICE),
-            (self.attention_dropout > 0.0, "attention_dropout > 0",
-             TRAINING_SLICE),
+            (self.fused_ffn, "fused_ffn", FUSED_FFN_SLICE),
+            (self.remat, "remat", REMAT_SLICE),
             (self.weight_quant is not None, "weight_quant",
              QUANT_SERVING_SLICE),
             (self.n_experts > 0, "n_experts > 0", MULTI_GPU_SLICE),
@@ -123,9 +134,11 @@ class ParallelAttention(nn.Module):
         nh = qkv.shape[-1] // (3 * hd)
         return qkv.reshape(b, s, nh, 3 * hd).split(hd, dim=-1)
 
-    def prefill(self, x, rope_cos=None, rope_sin=None):
+    def prefill(self, x, rope_cos=None, rope_sin=None, dropout_seed=None):
         """Full-sequence causal attention that also returns the post-RoPE
-        K/V in cache layout ``(b, s, local_heads, head_dim)``."""
+        K/V in cache layout ``(b, s, local_heads, head_dim)``.
+        ``dropout_seed`` turns on ``cfg.attention_dropout`` (no seed, no
+        dropout, as in the JAX model)."""
         b = x.shape[0]
         q, k, v = self._qkv(x)                    # (b, s, nh, hd)
         s, nh = q.shape[1], q.shape[2]
@@ -135,14 +148,17 @@ class ParallelAttention(nn.Module):
                 q.transpose(0, 1), rope_cos, rope_sin).transpose(0, 1)
             k = fused_apply_rotary_pos_emb_cached(
                 k.transpose(0, 1), rope_cos, rope_sin).transpose(0, 1)
+        rate = self.cfg.attention_dropout if dropout_seed is not None \
+            else 0.0
         ctx = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=True)
+                              v.transpose(1, 2), causal=True, dropout=rate,
+                              dropout_seed=dropout_seed)
         ctx = ctx.transpose(1, 2).reshape(b, s, nh * self.cfg.head_dim)
         out, _ = self.proj(ctx)
         return out, (k, v)
 
-    def forward(self, x, rope_cos=None, rope_sin=None):
-        out, _ = self.prefill(x, rope_cos, rope_sin)
+    def forward(self, x, rope_cos=None, rope_sin=None, dropout_seed=None):
+        out, _ = self.prefill(x, rope_cos, rope_sin, dropout_seed)
         return out
 
     def decode(self, x, cache, layer_index, positions, rope_cos=None,
@@ -206,15 +222,15 @@ class ParallelTransformerLayer(nn.Module):
                                                             device=device)
         self.mlp = ParallelMLP(cfg, device)
 
-    def forward(self, x, rope_cos=None, rope_sin=None):
-        x, _ = self.prefill(x, rope_cos, rope_sin)
+    def forward(self, x, rope_cos=None, rope_sin=None, dropout_seed=None):
+        x, _ = self.prefill(x, rope_cos, rope_sin, dropout_seed)
         return x
 
-    def prefill(self, x, rope_cos=None, rope_sin=None):
+    def prefill(self, x, rope_cos=None, rope_sin=None, dropout_seed=None):
         """Returns ``(x_out, (k, v))`` with this layer's post-RoPE cache
         entries."""
         attn, kv = self.attention.prefill(self.input_layernorm(x), rope_cos,
-                                          rope_sin)
+                                          rope_sin, dropout_seed)
         x = x + attn
         return x + self.mlp(self.post_attention_layernorm(x)), kv
 
@@ -308,14 +324,46 @@ class GPTModel(nn.Module):
         """Final LN + tied head: ``(b, s, vocab)`` f32."""
         return self._head_logits(self.final_layernorm(x))
 
-    def forward(self, tokens):
-        """Full causal forward: ``tokens (b, s)`` → logits ``(b, s, vocab)``.
-        Forward only: call it under ``torch.no_grad()``."""
-        x = self.embed(tokens)
-        cos, sin = self.rope_tables(tokens.shape[1])
-        for layer in self.layers:
-            x = layer(x, cos, sin)
-        return self.logits(x)
+    def backbone(self, x, dropout_seed=None):
+        """The layers over embedded ``x`` ``(b, s, hidden)``.  With a
+        ``dropout_seed``, layer ``i`` drops attention probabilities with
+        the stream ``dropout_seed + i * _SEED_LAYER_STRIDE``."""
+        cos, sin = self.rope_tables(x.shape[1])
+        for li, layer in enumerate(self.layers):
+            seed = (None if dropout_seed is None
+                    else int(dropout_seed) + li * _SEED_LAYER_STRIDE)
+            x = layer(x, cos, sin, seed)
+        return x
+
+    def head_loss(self, x, targets):
+        """Per-token cross entropy ``(b, s)`` f32 of the tied head on
+        backbone output ``x``: final LN, the f32 head GEMM, then
+        :func:`~apex_tpu_torch.transformer.tensor_parallel.
+        vocab_parallel_cross_entropy` (``fused_lm_head=False``)."""
+        if self.cfg.fused_lm_head:
+            raise NotImplementedError(
+                "GPTConfig.fused_lm_head=True (the logit-free fused LM head, "
+                f"TPU kernels #8-#10) comes with {LM_HEAD_SLICE} of "
+                "apex_tpu_torch; build the config with fused_lm_head=False "
+                "to train through the f32 logits")
+        b, s = targets.shape
+        logits = self.logits(x)
+        return tp.vocab_parallel_cross_entropy(
+            logits.reshape(b * s, logits.shape[-1]),
+            targets.reshape(b * s)).reshape(b, s)
+
+    def loss(self, tokens, targets, dropout_seed=None):
+        """Mean next-token loss (f32 scalar) of ``tokens (b, s)`` against
+        ``targets (b, s)``; differentiable in every parameter.
+        ``dropout_seed`` (int) enables ``cfg.attention_dropout`` for this
+        step (advance it by +1 per step); ``None`` means no dropout."""
+        x = self.backbone(self.embed(tokens), dropout_seed)
+        return torch.mean(self.head_loss(x, targets))
+
+    def forward(self, tokens, dropout_seed=None):
+        """Full causal forward: ``tokens (b, s)`` → logits ``(b, s, vocab)``
+        f32; differentiable."""
+        return self.logits(self.backbone(self.embed(tokens), dropout_seed))
 
     @torch.no_grad()
     def prefill(self, tokens):

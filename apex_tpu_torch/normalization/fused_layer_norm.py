@@ -3,8 +3,9 @@
 
 ``nn.Module``\\ s holding their own parameters.  ``MixedFused*`` keeps the
 parameters in f32 and returns the input's dtype (apex's
-``MixedFusedLayerNorm``).  Forward only in this slice (see
-:mod:`apex_tpu_torch.ops.layer_norm`).
+``MixedFusedLayerNorm``).  Trainable: the backward is the LayerNorm
+backward kernel (see :mod:`apex_tpu_torch.ops.layer_norm`), and
+``memory_efficient=True`` saves the output instead of the input for it.
 """
 
 from __future__ import annotations

@@ -2,7 +2,9 @@
 
 Plain PyTorch: the JAX package has no kernel here either (XLA fuses the
 rotate-half pattern into its neighbours).  Math in f32, result cast back to
-the input's dtype, as in the JAX ``_apply``.  Forward only.
+the input's dtype, as in the JAX ``_apply``.  Autograd differentiates it:
+through the f32 product, the backward is the JAX custom VJP's analytic
+rotation by -theta, and the tables get no gradient when they need none.
 """
 
 from __future__ import annotations

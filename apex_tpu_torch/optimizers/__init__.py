@@ -1,0 +1,5 @@
+"""Fused optimizers (per-parameter layout): FusedAdam in this slice."""
+from apex_tpu_torch.optimizers.base import FusedOptimizer
+from apex_tpu_torch.optimizers.fused_adam import FusedAdam
+
+__all__ = ["FusedOptimizer", "FusedAdam"]

@@ -1,3 +1,6 @@
+from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
+    vocab_parallel_cross_entropy,
+)
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -5,4 +8,4 @@ from apex_tpu_torch.transformer.tensor_parallel.layers import (
 )
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding"]
+           "VocabParallelEmbedding", "vocab_parallel_cross_entropy"]

@@ -4,12 +4,14 @@
 ``ColumnParallelLinear`` / ``RowParallelLinear`` compute
 ``y = x @ W.to(x.dtype).T + b`` at the activation dtype, as the JAX layers
 do (``layers.py:117, :289``); these are plain products that the JAX
-package leaves to XLA and the port leaves to ``torch.matmul``.  Weights
-are initialised N(0, 0.02) and biases 0, as the JAX ``init_params``.
-A world size above 1 (and sequence parallelism) waits for the multi-GPU
-slice and raises.  Like apex's layers, both linears return
-``(output, None)`` (apex's second item is the bias under
-``skip_bias_add``, which the serving path does not use).
+package leaves to XLA and the port leaves to ``torch.matmul``.  They are
+trainable through autograd: the gradient of an f32 weight comes back
+through the ``W.to(x.dtype)`` cast (computed at the activation dtype, then
+widened), as through JAX's ``astype``.  Weights are initialised N(0, 0.02)
+and biases 0, as the JAX ``init_params``.  A world size above 1 (and
+sequence parallelism) waits for the multi-GPU slice and raises.  Like
+apex's layers, both linears return ``(output, None)`` (apex's second item
+is the bias under ``skip_bias_add``, which the port does not use).
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ class _Linear(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
-        # compute at the ACTIVATION dtype (bf16 serving keeps f32 params)
+        # compute at the ACTIVATION dtype (bf16 activations keep f32 params)
         y = torch.matmul(x, self.weight.to(x.dtype).t())
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)

@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
-"""Drive apex_tpu_torch's serving path on one NVIDIA H100 and hold every
-kernel of the path against its plain PyTorch version.
+"""Drive apex_tpu_torch's serving and training paths on one NVIDIA H100 and
+hold every kernel of the paths against its plain PyTorch version.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--profile breakdown.txt]
 
 Phases (any failure exits non-zero; nothing is caught):
 
 1. build the CUDA kernels from ``apex_tpu_torch/csrc`` (nvcc, sm_90a);
-2. for each kernel, at the shapes the serving path gives it: the kernel
-   against its plain version on the same card inputs (max abs error and
-   tolerance), the kernel's time, the plain version's time, one PyTorch
-   library call computing the same function (a yardstick the port never
-   calls) and the least time the card could take (bytes / 3.35 TB/s or
-   operations / peak, whichever is larger);
+2. for each kernel, at the shapes the paths give it: the kernel against its
+   plain version on the same card inputs (max abs error and tolerance), the
+   kernel's time, the plain version's time, one PyTorch library call
+   computing the same function (a yardstick the port never calls) and the
+   least time the card could take (bytes / 3.35 TB/s or operations / peak,
+   whichever is larger);
 3. GPT-350M (vocab 50304, hidden 1024, 24 layers, 16 heads, ffn 4096,
    max_seq 1024, bf16 activations, f32 params, random weights from seed 0)
    served by ``InferenceEngine`` (8 slots, bf16 cache): 10 greedy requests,
@@ -21,7 +21,17 @@ Phases (any failure exits non-zero; nothing is caught):
    path implies;
 4. one request's prefill and 4 decode steps on the card against a CPU copy
    of the same model (the plain versions): logits within a bf16 tolerance,
-   same greedy tokens.
+   same greedy tokens;
+5. GPT-350M training (``fused_lm_head=False``, micro-batch 8 x
+   accumulation 2 x seq 1024 = 16,384 tokens per step, ``FusedAdam(lr=1e-4)``
+   AdamW) for 4 steps on one fixed batch from seed 0, through
+   ``forward_backward_no_pipelining`` over ``GPTModel``'s loss and backward
+   and ``FusedAdam.step``: losses finite and falling, step time, tokens/s,
+   peak memory, exact launch counts per kernel, and no call of a plain
+   version;
+6. a small GPT (4 layers, hidden 256, vocab 50304, seq 256, attention
+   dropout 0.1) trained 2 steps on the card and on a CPU copy: loss, every
+   gradient and the parameters within stated tolerances.
 
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -30,6 +40,9 @@ JSON line, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
+import importlib
 import json
 import statistics
 import subprocess
@@ -49,6 +62,9 @@ GPT350M = dict(vocab_size=50304, hidden_size=1024, num_layers=24,
                max_seq_len=1024)
 SLOTS = 8
 HEADS, HEAD_DIM, HIDDEN, MAX_SEQ = 16, 64, 1024, 1024
+# the training slice: bench.py's GPT train step less the fused LM head
+MICRO, ACCUM, SEQ, LR, TRAIN_STEPS = 8, 2, 1024, 1e-4, 4
+TRAIN_ROWS = MICRO * SEQ       # rows of every LayerNorm on that path
 BF16_ATOL = BF16_RTOL = 2e-2   # one bf16 ulp at |y| <= 4 is 2**-6 = 0.0156
 # Whole path, card vs CPU, both bf16: the two runs round and reduce in other
 # orders, so the final hidden state drifts by ~1-2% over 24 residual layers
@@ -56,6 +72,17 @@ BF16_ATOL = BF16_RTOL = 2e-2   # one bf16 ulp at |y| <= 4 is 2**-6 = 0.0156
 # ~0.64, whose maximum over the 5 x 50304 logits compared is ~5 sigma.
 LOGITS_ATOL = 0.1              # max |logit diff|
 LOGITS_MEAN_ATOL = 0.02        # mean |logit diff|
+# Training, card vs CPU, bf16 activations: each gradient within 5e-2 of its
+# largest entry (bf16 rounding places and sum orders differ; the same bound
+# holds the port against JAX on the CPU); the loss within 2e-3 relative.
+# Adam moves an entry by about lr per step whatever its gradient's size, so
+# an entry whose gradient is at noise level (the key bias, which softmax
+# ignores) may move the other way on one side.  At step 2 |m^ / sqrt(v^)|
+# is at most 1.0014 lr (Cauchy-Schwarz over the two gradients), so after 2
+# steps entries may differ by 4.003 lr: checked at 4.5 lr; 99% of entries
+# agree to lr / 2.
+TRAIN_GRAD_TOL = 5e-2
+TRAIN_LOSS_RTOL = 2e-3
 
 
 def log(msg):
@@ -130,6 +157,18 @@ def check_close(name, out, ref, atol, rtol):
     return err
 
 
+def numbers(err, ms, plain, lib, bound, host):
+    bms, by = bound
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=bms, bound_by=by, call_ms=host)
+
+
+def log_numbers(name, n, lib_name):
+    log(f"  {name}: {n['ms']:.4f} ms (eager call {n['call_ms']:.4f} ms), "
+        f"plain {n['plain_ms']:.4f} ms, {lib_name} {n['library_ms']:.4f} ms, "
+        f"bound {n['bound_ms']:.5f} ms ({n['bound_by']})")
+
+
 # -- phase 1 -----------------------------------------------------------------
 
 def phase_build():
@@ -155,7 +194,7 @@ def kernel_layer_norm(gen):
     b = (0.1 * torch.randn(HIDDEN, generator=gen)).to(dev)
     w16, b16 = w.bfloat16(), b.bfloat16()
     rows_main = {}
-    for rows in (SLOTS, 512):
+    for rows in (SLOTS, 512, TRAIN_ROWS):
         x = torch.randn(rows, HIDDEN, generator=gen).to(dev, torch.bfloat16)
         err = 0.0
         for rms in (False, True):
@@ -168,40 +207,105 @@ def kernel_layer_norm(gen):
                                        BF16_RTOL))
             check_close(tag + " mean", mean, rmean, 1e-5, 1e-5)
             check_close(tag + " rstd", rstd, rrstd, 1e-5, 1e-4)
-        ms = time_ms(lambda: layer_norm_fwd(x, w, b, 1e-5, False))
-        host = call_ms(lambda: layer_norm_fwd(x, w, b, 1e-5, False))
-        plain = time_ms(lambda: layer_norm_fwd_reference(x, w, b, 1e-5,
-                                                         False))
-        lib = time_ms(lambda: F.layer_norm(x, (HIDDEN,), w16, b16, 1e-5))
         n_bytes = 2 * rows * HIDDEN * 2 + 2 * HIDDEN * 4 + 2 * rows * 4
-        bms, by = bound_ms(n_bytes, 8 * rows * HIDDEN, PEAK_F32_FLOPS)
-        log(f"  layer_norm_fwd rows={rows}: {ms:.4f} ms (eager call "
-            f"{host:.4f} ms), plain {plain:.4f} ms, F.layer_norm {lib:.4f} "
-            f"ms, bound {bms:.5f} ms ({by})")
-        rows_main[rows] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                               library_ms=lib, bound_ms=bms, bound_by=by,
-                               call_ms=host)
+        n = numbers(
+            err, time_ms(lambda: layer_norm_fwd(x, w, b, 1e-5, False)),
+            time_ms(lambda: layer_norm_fwd_reference(x, w, b, 1e-5, False)),
+            time_ms(lambda: F.layer_norm(x, (HIDDEN,), w16, b16, 1e-5)),
+            bound_ms(n_bytes, 8 * rows * HIDDEN, PEAK_F32_FLOPS),
+            call_ms(lambda: layer_norm_fwd(x, w, b, 1e-5, False)))
+        log_numbers(f"layer_norm_fwd rows={rows}", n, "F.layer_norm")
+        rows_main[rows] = n
     return rows_main
 
 
-def _flash_bound(s, causal):
-    pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 4 * HEAD_DIM * pairs * HEADS
-    n_bytes = 4 * HEADS * s * HEAD_DIM * 2 + HEADS * s * 4
+def kernel_layer_norm_bwd(gen):
+    """#2 at the training shape (8192 x 1024 bf16, LN from x), plus small
+    from_y / RMS / f32 cases."""
+    from apex_tpu_torch.ops.layer_norm import (layer_norm_bwd,
+                                               layer_norm_bwd_reference,
+                                               layer_norm_fwd)
+    dev = "cuda"
+    out = {}
+    cases = [(TRAIN_ROWS, torch.bfloat16, False, False),
+             (512, torch.bfloat16, False, True), (512, torch.bfloat16, True,
+                                                  False),
+             (512, torch.bfloat16, True, True), (300, torch.float32, False,
+                                                 True)]
+    for rows, dt, rms, from_y in cases:
+        w = (1 + 0.1 * torch.randn(HIDDEN, generator=gen)).to(dev)
+        b = None if rms else (0.1 * torch.randn(HIDDEN, generator=gen)).to(dev)
+        x = torch.randn(rows, HIDDEN, generator=gen).to(dev, dt)
+        dy = torch.randn(rows, HIDDEN, generator=gen).to(dev, dt)
+        y, mean, rstd = layer_norm_fwd(x, w, b, 1e-5, rms)
+        res = y if from_y else x
+        dx, dw, db = layer_norm_bwd(dy, res, w, b, mean, rstd, rms, from_y)
+        rdx, rdw, rdb = layer_norm_bwd_reference(dy, res, w, b, mean, rstd,
+                                                 rms, from_y)
+        torch.cuda.synchronize()
+        tag = (f"layer_norm_bwd rows={rows} {str(dt)[6:]} "
+               f"{'rms' if rms else 'ln'}{' from_y' if from_y else ''}")
+        tol = BF16_ATOL if dt == torch.bfloat16 else 1e-4
+        err = check_close(tag + " dx", dx, rdx, tol, tol)
+        # f32 sums over `rows` products in another order
+        check_close(tag + " dgamma", dw, rdw, 1e-3, 1e-4)
+        if not rms:
+            check_close(tag + " dbeta", db, rdb, 1e-3, 1e-4)
+        if (rows, rms, from_y) != (TRAIN_ROWS, False, False):
+            continue
+        x_, w16, b16 = x, w.bfloat16(), b.bfloat16()
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(x_, [HIDDEN], w16,
+                                                           b16, 1e-5)
+        n_bytes = 3 * rows * HIDDEN * 2 + 2 * HIDDEN * 4 + 2 * rows * 4 \
+            + 2 * HIDDEN * 4
+        n = numbers(
+            err,
+            time_ms(lambda: layer_norm_bwd(dy, x, w, b, mean, rstd, False,
+                                           False)),
+            time_ms(lambda: layer_norm_bwd_reference(dy, x, w, b, mean, rstd,
+                                                     False, False)),
+            time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x_, [HIDDEN], lmean, lrstd, w16, b16, [True, True, True])),
+            bound_ms(n_bytes, 12 * rows * HIDDEN, PEAK_F32_FLOPS),
+            call_ms(lambda: layer_norm_bwd(dy, x, w, b, mean, rstd, False,
+                                           False)))
+        log_numbers(f"layer_norm_bwd rows={rows}", n,
+                    "aten native_layer_norm_backward")
+        out = n
+    return out
+
+
+def _flash_bound(batch, s, causal, n_products, n_io, lens=None):
+    """Bytes: n_io (b, h, s, d) bf16 tensors read or written once, plus the
+    f32 row statistics; operations: n_products products of head_dim per
+    (query, key) pair the masks leave."""
+    if lens is not None:
+        pairs = int(sum(min(int(n), s) for n in lens)) * s
+    elif causal:
+        pairs = batch * s * (s + 1) // 2
+    else:
+        pairs = batch * s * s
+    flops = 2 * n_products * HEAD_DIM * pairs * HEADS
+    n_bytes = n_io * batch * HEADS * s * HEAD_DIM * 2 + batch * HEADS * s * 4
     return bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
+
+
+def _qkv_views(gen, batch, s):
+    """q, k, v as the model gives them: strided (b, h, s, d) views of one
+    (b, s, h, 3*hd) projection."""
+    qkv = torch.randn(batch, s, HEADS, 3 * HEAD_DIM, generator=gen).to(
+        "cuda", torch.bfloat16)
+    return [t.transpose(1, 2) for t in qkv.split(HEAD_DIM, dim=-1)]
 
 
 def kernel_flash(gen):
     from apex_tpu_torch.ops.flash_attention import (flash_attention_reference,
-                                                    flash_fwd)
+                                                    flash_fwd,
+                                                    flash_fwd_reference)
     scale = HEAD_DIM ** -0.5
-    by_len = {}
+    by_len = {}                  # JSON keys: "s=<len>", "train_dropout_<rate>"
     for s in (8, 136, 512):
-        # the prefill layout: heads interleaved in one (1, s, h, 3*hd)
-        # projection, q/k/v are strided (b, h, s, d) views of it
-        qkv = torch.randn(1, s, HEADS, 3 * HEAD_DIM, generator=gen).to(
-            "cuda", torch.bfloat16)
-        q, k, v = (t.transpose(1, 2) for t in qkv.split(HEAD_DIM, dim=-1))
+        q, k, v = _qkv_views(gen, 1, s)
         o, _ = flash_fwd(q, k, v, True, scale)
         ref = flash_attention_reference(q, k, v, True, scale)
         torch.cuda.synchronize()
@@ -213,20 +317,105 @@ def kernel_flash(gen):
             ref2 = flash_attention_reference(q, k, v, False, scale, lens)
             check_close("flash_fwd kv_seqlens=100 s=136", o2, ref2,
                         BF16_ATOL, BF16_RTOL)
-        ms = time_ms(lambda: flash_fwd(q, k, v, True, scale))
-        host = call_ms(lambda: flash_fwd(q, k, v, True, scale))
-        plain = time_ms(lambda: flash_attention_reference(q, k, v, True,
-                                                          scale))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=scale))
-        bms, by = _flash_bound(s, True)
-        log(f"  flash_fwd s={s}: {ms:.4f} ms (eager call {host:.4f} ms), "
-            f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.5f} ms "
-            f"({by})")
-        by_len[s] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                         library_ms=lib, bound_ms=bms, bound_by=by,
-                         call_ms=host)
+        n = numbers(
+            err, time_ms(lambda: flash_fwd(q, k, v, True, scale)),
+            time_ms(lambda: flash_attention_reference(q, k, v, True, scale)),
+            time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=scale)),
+            _flash_bound(1, s, True, 2, 4),
+            call_ms(lambda: flash_fwd(q, k, v, True, scale)))
+        log_numbers(f"flash_fwd s={s}", n, "sdpa")
+        by_len[f"s={s}"] = n
+    # the training shape, without and with dropout (the hash mask is
+    # compared through the plain version, which draws it densely)
+    q, k, v = _qkv_views(gen, MICRO, SEQ)
+    for rate in (0.0, 0.1):
+        seed = 1234 if rate else None
+        o, lse = flash_fwd(q, k, v, True, scale, None, rate, seed)
+        ro, rlse = flash_fwd_reference(q, k, v, True, scale, None, rate, seed)
+        torch.cuda.synchronize()
+        tag = f"flash_fwd causal ({MICRO},{HEADS},{SEQ},{HEAD_DIM}) " \
+              f"dropout={rate}"
+        err = check_close(tag, o, ro, BF16_ATOL, BF16_RTOL)
+        check_close(tag + " lse", lse, rlse, 1e-4, 1e-5)
+        n = numbers(
+            err, time_ms(lambda: flash_fwd(q, k, v, True, scale, None, rate,
+                                           seed)),
+            time_ms(lambda: flash_fwd_reference(q, k, v, True, scale, None,
+                                                rate, seed)),
+            time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=scale)),
+            _flash_bound(MICRO, SEQ, True, 2, 4),
+            call_ms(lambda: flash_fwd(q, k, v, True, scale, None, rate,
+                                      seed)))
+        log_numbers(f"flash_fwd train dropout={rate}", n,
+                    "sdpa (no dropout)")
+        by_len[f"train_dropout_{rate}"] = n
     return by_len
+
+
+def kernel_flash_bwd(gen):
+    """#4 / #5 at (8, 16, 1024, 64) bf16: causal with and without dropout,
+    and kv_seqlens (non-causal)."""
+    from apex_tpu_torch.ops.flash_attention import (
+        flash_attention_dkv, flash_attention_dkv_reference, flash_attention_dq,
+        flash_attention_dq_reference, flash_fwd)
+    scale = HEAD_DIM ** -0.5
+    q, k, v = _qkv_views(gen, MICRO, SEQ)
+    # dO as autograd hands it back: a (b, h, s, d) view of (b, s, h*d)
+    do = torch.randn(MICRO, SEQ, HEADS, HEAD_DIM, generator=gen).to(
+        "cuda", torch.bfloat16).transpose(1, 2)
+    lens = torch.tensor([1024, 700, 333, 1, 1024, 512, 64, 999],
+                        dtype=torch.int32, device="cuda")
+    out = {}
+    for tag, causal, rate, seed, kl in (
+            ("causal", True, 0.0, None, None),
+            ("causal dropout=0.1", True, 0.1, 99, None),
+            ("kv_seqlens", False, 0.0, None, lens)):
+        o, lse = flash_fwd(q, k, v, causal, scale, kl, rate, seed)
+        delta = (do.float() * o.float()).sum(-1).reshape(MICRO * HEADS, SEQ)
+        args = (q, k, v, do, lse, delta, causal, scale, kl, rate, seed)
+        dq = flash_attention_dq(*args)
+        dk, dv = flash_attention_dkv(*args)
+        rdq = flash_attention_dq_reference(*args)
+        rdk, rdv = flash_attention_dkv_reference(*args)
+        torch.cuda.synchronize()
+        name = f"({MICRO},{HEADS},{SEQ},{HEAD_DIM}) {tag}"
+        err_q = check_close(f"flash_attention_dq {name}", dq, rdq,
+                            BF16_ATOL, BF16_RTOL)
+        err_k = check_close(f"flash_attention_dkv {name} dk", dk, rdk,
+                            BF16_ATOL, BF16_RTOL)
+        err_v = check_close(f"flash_attention_dkv {name} dv", dv, rdv,
+                            BF16_ATOL, BF16_RTOL)
+        if tag != "causal":
+            continue
+        ql, kl_, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(ql, kl_, vl, is_causal=True,
+                                                  scale=scale)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa_fwd(), (ql, kl_, vl), do)
+
+        # SDPA computes dq, dk and dv in one backward: its time is the
+        # graph of forward + backward less the forward alone
+        lib_bwd = time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd)
+        out["dq"] = numbers(
+            err_q, time_ms(lambda: flash_attention_dq(*args)),
+            time_ms(lambda: flash_attention_dq_reference(*args)), lib_bwd,
+            _flash_bound(MICRO, SEQ, True, 3, 5),
+            call_ms(lambda: flash_attention_dq(*args)))
+        out["dkv"] = numbers(
+            max(err_k, err_v), time_ms(lambda: flash_attention_dkv(*args)),
+            time_ms(lambda: flash_attention_dkv_reference(*args)), lib_bwd,
+            _flash_bound(MICRO, SEQ, True, 4, 6),
+            call_ms(lambda: flash_attention_dkv(*args)))
+        log_numbers("flash_attention_dq causal", out["dq"],
+                    "sdpa backward (dq+dk+dv)")
+        log_numbers("flash_attention_dkv causal", out["dkv"],
+                    "sdpa backward (dq+dk+dv)")
+    return out
 
 
 def kernel_decode(gen):
@@ -250,34 +439,165 @@ def kernel_decode(gen):
     err = check_close("flash_attention_decode ragged lens, strided cache",
                       o, ref, BF16_ATOL, BF16_RTOL)
     views = [(cache[:, li, 0], cache[:, li, 1]) for li in range(layers)]
-    ms = time_ms([lambda k=k, v=v: flash_attention_decode(q, k, v, lens,
-                                                          scale)
-                  for k, v in views])
-    host = call_ms(lambda: flash_attention_decode(q, k, v, lens, scale))
-    plain = time_ms([lambda k=k, v=v: flash_attention_decode_reference(
-        q, k, v, lens, scale) for k, v in views])
     mask = (torch.arange(MAX_SEQ, device="cuda")[None, :]
             < lens[:, None])[:, None, None, :]
-    lib = time_ms([lambda k=k, v=v: F.scaled_dot_product_attention(
-        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
-        scale=scale) for k, v in views])
     total = int(lens.sum())
     n_bytes = 2 * total * HEADS * HEAD_DIM * 2 + 2 * q.numel() * 2 \
         + lens.numel() * 4
-    bms, by = bound_ms(n_bytes, 4 * HEAD_DIM * HEADS * total,
-                       PEAK_BF16_FLOPS)
-    log(f"  flash_attention_decode: {ms:.4f} ms (eager call {host:.4f} ms), "
-        f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.5f} ms ({by})")
+    n = numbers(
+        err,
+        time_ms([lambda k=k, v=v: flash_attention_decode(q, k, v, lens,
+                                                         scale)
+                 for k, v in views]),
+        time_ms([lambda k=k, v=v: flash_attention_decode_reference(
+            q, k, v, lens, scale) for k, v in views]),
+        time_ms([lambda k=k, v=v: F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, scale=scale) for k, v in views]),
+        bound_ms(n_bytes, 4 * HEAD_DIM * HEADS * total, PEAK_BF16_FLOPS),
+        call_ms(lambda: flash_attention_decode(q, k, v, lens, scale)))
+    log_numbers("flash_attention_decode", n, "sdpa + mask")
     del cache, views
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bms, bound_by=by, call_ms=host)
+    return n
+
+
+def adam_launches(numels, max_tensors=36, max_blocks=320, chunk=65536):
+    """Launches of csrc/multi_tensor_adam.cu for tensors of these sizes:
+    a table launches when its 320 blocks or 36 tensors are full, carrying
+    a tensor whose chunks are not all issued."""
+    launches = nt = nb = 0
+    for n in numels:
+        if n <= 0:
+            continue
+        nt += 1
+        chunks = -(-n // chunk)
+        for c in range(chunks):
+            nb += 1
+            done = c == chunks - 1
+            if nb == max_blocks or (nt == max_tensors and done):
+                launches += 1
+                nb = 0
+                nt = 0 if done else 1
+    return launches + (nb > 0)
+
+
+def kernel_adam(gen_cuda):
+    """#18 over the GPT-350M parameter list (291 f32 tensors), noop 0 and
+    1, against its plain version on copies of the same tensors."""
+    from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+    from apex_tpu_torch.ops.multi_tensor import (multi_tensor_adam,
+                                                 multi_tensor_adam_reference)
+    shapes = [p.shape for p in GPTModel(GPTConfig(**GPT350M),
+                                        device="meta").parameters()]
+    numels = [int(np.prod(s)) for s in shapes]
+
+    def rand(shape, std, positive=False):
+        t = torch.randn(shape, generator=gen_cuda, device="cuda") * std
+        return t.abs() if positive else t
+
+    # mixed dtypes (bf16 / f16 / f32 params and grads) over 40 tensors, so
+    # the 36-tensor table limit and chunk carry-over are crossed too: the
+    # params round once from the same f32 value, so one ulp of their dtype
+    mixed = [(n, pdt, gdt) for n, pdt, gdt in zip(
+        [70000, 65536, 1, 3, 200000, 129] * 7, [torch.bfloat16, torch.float16,
+                                                 torch.float32] * 14,
+        [torch.bfloat16, torch.float16, torch.bfloat16, torch.float32] * 10)]
+    mg = [rand(n, 1e-3).to(gdt) for n, _, gdt in mixed]
+    mp = [rand(n, 0.02).to(pdt) for n, pdt, _ in mixed]
+    step1 = torch.tensor([1e-3, 0.9, 0.999, 1e-8, 0.01, 0.1, 0.001, 0.5],
+                         dtype=torch.float32, device="cuda")
+    outs = []
+    for fn in (multi_tensor_adam, multi_tensor_adam_reference):
+        p = [t.clone() for t in mp]
+        m = [torch.zeros(t.shape, device="cuda") for t in mp]
+        v = [torch.zeros(t.shape, device="cuda") for t in mp]
+        fn(mg, p, m, v, step1)
+        outs.append((p, m, v))
+    torch.cuda.synchronize()
+    # relative ulp, and the absolute spacing of f16 subnormals
+    ulp = {torch.bfloat16: (2 ** -7, 1e-9),
+           torch.float16: (2 ** -10, 2 ** -24),
+           torch.float32: (1e-6, 1e-9)}
+    for (kp, km, kv), (rp, rm, rv), (_, pdt, _) in zip(
+            zip(*outs[0]), zip(*outs[1]), mixed):
+        rtol, atol = ulp[pdt]
+        if not (torch.allclose(kp.float(), rp.float(), rtol=rtol, atol=atol)
+                and torch.allclose(km, rm, rtol=1e-6, atol=1e-12)
+                and torch.allclose(kv, rv, rtol=1e-6, atol=1e-15)):
+            raise AssertionError(f"multi_tensor_adam disagrees with its plain "
+                                 f"version on a {pdt} parameter")
+    err_p = max(max_err(a, b) for a, b in zip(outs[0][0], outs[1][0]))
+    log(f"  multi_tensor_adam {len(mixed)} mixed bf16/f16/f32 tensors: "
+        f"max_abs_err p {err_p:.3e} (tolerance one ulp of the param dtype) "
+        f"ok")
+    del mg, mp, outs
+
+    gs = [rand(s, 1e-3) for s in shapes]
+    ps = [rand(s, 0.02) for s in shapes]
+    ms = [rand(s, 1e-4) for s in shapes]
+    vs = [rand(s, 1e-6, positive=True) for s in shapes]
+    # step 3 of AdamW(lr=1e-4, betas=(0.9, 0.999), eps=1e-8, wd=0.01)
+    scal = torch.tensor([LR, 0.9, 0.999, 1e-8, 0.01, 1 - 0.9 ** 3,
+                         1 - 0.999 ** 3, 1.0], dtype=torch.float32,
+                        device="cuda")
+    err = 0.0
+    for noop_v in (0, 1):
+        noop = torch.tensor(noop_v, dtype=torch.int32, device="cuda")
+        kp, km, kv = ([t.clone() for t in ts] for ts in (ps, ms, vs))
+        rp, rm, rv = ([t.clone() for t in ts] for ts in (ps, ms, vs))
+        before = multi_tensor_adam.launches
+        multi_tensor_adam(gs, kp, km, kv, scal, noop)
+        n_launch = multi_tensor_adam.launches - before
+        multi_tensor_adam_reference(gs, rp, rm, rv, scal, noop)
+        torch.cuda.synchronize()
+        if n_launch != adam_launches(numels):
+            raise AssertionError(f"multi_tensor_adam made {n_launch} "
+                                 f"launches, the table rule says "
+                                 f"{adam_launches(numels)}")
+        for name, a, b in (("p", kp, rp), ("m", km, rm), ("v", kv, rv)):
+            # f32 on both sides; FMA contraction on the card moves the
+            # last bits: 1e-6 relative
+            e = max(max_err(x, y) for x, y in zip(a, b))
+            ok = all(torch.allclose(x, y, rtol=1e-6, atol=1e-9)
+                     for x, y in zip(a, b))
+            log(f"  multi_tensor_adam noop={noop_v} {name}: max_abs_err="
+                f"{e:.3e} (tolerance |d| <= 1e-9 + 1e-6*|ref|) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("multi_tensor_adam disagrees with its "
+                                     "plain version")
+            err = max(err, e)
+        if noop_v and not all(torch.equal(x, y) for x, y in zip(kp, ps)):
+            raise AssertionError("multi_tensor_adam noop=1 changed params")
+        del kp, km, kv, rp, rm, rv
+    noop = torch.tensor(0, dtype=torch.int32, device="cuda")
+    lib_ps = [torch.nn.Parameter(p.clone()) for p in ps]
+    for p, g in zip(lib_ps, gs):
+        p.grad = g
+    lib_opt = torch.optim.AdamW(lib_ps, lr=LR, weight_decay=0.01, fused=True)
+    n_el = sum(numels)
+    n = numbers(
+        err, time_ms([lambda: multi_tensor_adam(gs, ps, ms, vs, scal, noop)]
+                     * 5),
+        time_ms([lambda: multi_tensor_adam_reference(gs, ps, ms, vs, scal,
+                                                     noop)] * 2, rounds=3),
+        call_ms(lib_opt.step, iters=10),
+        bound_ms(7 * 4 * n_el, 15 * n_el, PEAK_F32_FLOPS),
+        call_ms(lambda: multi_tensor_adam(gs, ps, ms, vs, scal, noop),
+                iters=10))
+    log_numbers(f"multi_tensor_adam {len(shapes)} tensors, {n_el} elements, "
+                f"{adam_launches(numels)} launches", n,
+                "AdamW(fused=True).step (eager)")
+    n["tensors"], n["elements"] = len(shapes), n_el
+    n["launches_per_step"] = adam_launches(numels)
+    return n
 
 
 # -- phase 3 -----------------------------------------------------------------
 
-def build_model(device):
+def build_model(device, **overrides):
     from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
-    cfg = GPTConfig(**GPT350M, dtype=torch.bfloat16)
+    cfg = GPTConfig(**dict(GPT350M, dtype=torch.bfloat16, **overrides))
     return GPTModel(cfg, device=device)
 
 
@@ -413,38 +733,212 @@ def phase_parity(model, rng):
                 tokens=tokens, min_top2_margin=margin)
 
 
+# -- phase 5 -----------------------------------------------------------------
+
+def _train_counters():
+    from apex_tpu_torch.ops.flash_attention import (flash_attention_dkv,
+                                                    flash_attention_dq,
+                                                    flash_fwd)
+    from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
+    from apex_tpu_torch.ops.multi_tensor import multi_tensor_adam
+    return (layer_norm_fwd, layer_norm_bwd, flash_fwd, flash_attention_dq,
+            flash_attention_dkv, multi_tensor_adam)
+
+
+_PLAIN_VERSIONS = {
+    "apex_tpu_torch.ops.layer_norm": ("layer_norm_fwd_reference",
+                                      "layer_norm_bwd_reference"),
+    "apex_tpu_torch.ops.flash_attention": (
+        "flash_fwd_reference", "flash_attention_reference",
+        "flash_attention_dq_reference", "flash_attention_dkv_reference",
+        "flash_attention_decode_reference"),
+    "apex_tpu_torch.ops.multi_tensor": ("multi_tensor_adam_reference",),
+}
+
+
+@contextlib.contextmanager
+def counting_plain_versions():
+    """Count every call of a kernel's plain version while the block runs
+    (the wrappers look their plain versions up by module attribute)."""
+    calls = collections.Counter()
+    saved = []
+    for mod_name, names in _PLAIN_VERSIONS.items():
+        mod = importlib.import_module(mod_name)
+        for name in names:
+            fn = getattr(mod, name)
+
+            def counted(*args, _fn=fn, _name=name, **kwargs):
+                calls[_name] += 1
+                return _fn(*args, **kwargs)
+            saved.append((mod, name, fn))
+            setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def train_step(model, opt, tokens, targets, dropout_seed=None):
+    """One step of the slice: the schedule over the model's loss and
+    backward (M micro-batches), then FusedAdam.  Returns the mean loss."""
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        forward_backward_no_pipelining)
+    opt.zero_grad()
+    loss = forward_backward_no_pipelining(
+        lambda m, x: m.backbone(m.embed(x), dropout_seed),
+        lambda x, t: model.head_loss(x, t).mean(), model, tokens, targets)
+    opt.step()
+    return loss
+
+
+def phase_train():
+    from apex_tpu_torch.optimizers import FusedAdam
+    model = build_model("cuda", fused_lm_head=False).init_params(
+        torch.Generator().manual_seed(0))
+    opt = FusedAdam(model.parameters(), lr=LR)
+    numels = [p.numel() for p in model.parameters()]
+    rng = np.random.RandomState(0)
+    shape = (ACCUM, MICRO, SEQ)
+    tokens = torch.from_numpy(rng.randint(0, GPT350M["vocab_size"],
+                                          shape)).to("cuda")
+    targets = torch.from_numpy(rng.randint(0, GPT350M["vocab_size"],
+                                           shape)).to("cuda")
+    counters = _train_counters()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    with counting_plain_versions() as plain_calls:
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss = train_step(model, opt, tokens, targets)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    per_mb = 2 * GPT350M["num_layers"] + 1
+    n_steps, layers = TRAIN_STEPS, GPT350M["num_layers"]
+    expected = {"layer_norm_fwd": n_steps * ACCUM * per_mb,
+                "layer_norm_bwd": n_steps * ACCUM * per_mb,
+                "flash_fwd": n_steps * ACCUM * layers,
+                "flash_attention_dq": n_steps * ACCUM * layers,
+                "flash_attention_dkv": n_steps * ACCUM * layers,
+                "multi_tensor_adam": n_steps * adam_launches(numels)}
+    step_s = statistics.median(times[1:])
+    tokens_per_step = ACCUM * MICRO * SEQ
+    log(f"[5] trained GPT-350M {n_steps} steps ({ACCUM} x {MICRO} x {SEQ} "
+        f"tokens, FusedAdam lr={LR}): losses "
+        f"{[round(x, 5) for x in losses]}; step times (s) "
+        f"{[round(t, 4) for t in times]}, median of steps 2-{n_steps} "
+        f"{step_s:.4f} s, {tokens_per_step / step_s:.1f} tokens/s; peak "
+        f"memory {peak / 2 ** 30:.2f} GiB")
+    log(f"    launches {launches} (expected {expected}); per step "
+        f"{ {k: v // n_steps for k, v in launches.items()} }; plain-version "
+        f"calls {dict(plain_calls)}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if launches != expected:
+        raise AssertionError("training launch counts do not match the path")
+    if sum(plain_calls.values()):
+        raise AssertionError(f"the training path called plain versions: "
+                             f"{dict(plain_calls)}")
+    return model, opt, tokens, targets, dict(
+        losses=losses, step_times_s=times, median_step_s=step_s,
+        tokens_per_s=tokens_per_step / step_s, peak_memory_bytes=peak,
+        launches=launches, launches_per_step={
+            k: v // n_steps for k, v in launches.items()},
+        adam_tensors=len(numels), adam_elements=sum(numels))
+
+
+# -- phase 6 -----------------------------------------------------------------
+
+PARITY_TRAIN = dict(vocab_size=50304, hidden_size=256, num_layers=4,
+                    num_attention_heads=4, ffn_hidden_size=1024,
+                    max_seq_len=256, fused_lm_head=False,
+                    attention_dropout=0.1, dtype=torch.bfloat16)
+
+
+def phase_train_parity():
+    """2 training steps of a small GPT with attention dropout on the card
+    and on a CPU copy (the plain versions): loss, grads, params."""
+    from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+    from apex_tpu_torch.optimizers import FusedAdam
+    cfg = GPTConfig(**PARITY_TRAIN)
+    card = GPTModel(cfg, device="cuda").init_params(
+        torch.Generator().manual_seed(1))
+    cpu = GPTModel(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    rng = np.random.RandomState(2)
+    shape = (2, 2, PARITY_TRAIN["max_seq_len"])
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape))
+    targets = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape))
+    runs = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        dev = next(model.parameters()).device
+        opt = FusedAdam(model.parameters(), lr=LR)
+        losses, grads = [], None
+        for step in range(2):
+            losses.append(float(train_step(model, opt, tokens.to(dev),
+                                           targets.to(dev), dropout_seed=3)))
+            if step == 0:
+                grads = {n: p.grad.float().cpu()
+                         for n, p in model.named_parameters()}
+        runs[name] = (losses, grads, {n: p.detach().float().cpu()
+                                      for n, p in model.named_parameters()})
+    (cl, cg, cp), (rl, rg, rp) = runs["card"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(cl, rl))
+    grad_err = max(float((cg[n] - rg[n]).abs().max() / rg[n].abs().max())
+                   for n in rg)
+    worst = max(rg, key=lambda n: float((cg[n] - rg[n]).abs().max()
+                                        / rg[n].abs().max()))
+    diffs = torch.sort(torch.cat([(cp[n] - rp[n]).abs().flatten()
+                                  for n in rp])).values
+    p_max = float(diffs[-1])
+    p_q99 = float(diffs[int(0.99 * (diffs.numel() - 1))])
+    log(f"[6] training card vs CPU (4 layers, hidden 256, dropout 0.1, 2 "
+        f"steps): losses card {cl} cpu {rl}, max relative loss diff "
+        f"{loss_err:.3e} (tolerance {TRAIN_LOSS_RTOL}); step-1 grads max "
+        f"|diff| / max|grad| {grad_err:.3e} at {worst} (tolerance "
+        f"{TRAIN_GRAD_TOL}); params after 2 steps max |diff| {p_max:.3e} "
+        f"(tolerance {4.5 * LR}), 99th percentile {p_q99:.3e} (tolerance "
+        f"{LR / 2})")
+    if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_TOL
+            and p_max <= 4.5 * LR and p_q99 <= LR / 2):
+        raise AssertionError("card and CPU training disagree")
+    return dict(losses_card=cl, losses_cpu=rl, loss_rel_err=loss_err,
+                grad_rel_err=grad_err, worst_grad=worst, param_max_diff=p_max,
+                param_q99_diff=p_q99)
+
+
 # -- optional: where the time goes ------------------------------------------
 
+_KERNEL_CLASSES = (("layer_norm_bwd", "layer_norm_bwd"),
+                   ("layer_norm_fwd_kernel", "layer_norm_fwd"),
+                   ("flash_fwd_kernel", "flash_fwd"),
+                   ("flash_bwd_dq_kernel", "flash_attention_dq"),
+                   ("flash_bwd_dkv_kernel", "flash_attention_dkv"),
+                   ("flash_decode_kernel", "flash_attention_decode"),
+                   ("multi_tensor_adam_kernel", "multi_tensor_adam"))
+
+
 def _kernel_class(name):
-    if "layer_norm_fwd_kernel" in name:
-        return "layer_norm_fwd"
-    if "flash_fwd_kernel" in name:
-        return "flash_fwd"
-    if "flash_decode_kernel" in name:
-        return "flash_attention_decode"
+    for key, cls in _KERNEL_CLASSES:
+        if key in name:
+            return cls
     low = name.lower()
     if any(k in low for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
         return "matmul (cuBLAS)"
     return "other (elementwise, copies, indexing)"
 
 
-def phase_profile(model, rng, path):
-    """torch.profiler over one prefill(512) and one 8-slot decode step:
-    device time by kernel class, and the device's idle share of the
-    profiled wall time.  Written to ``path`` and summarized on stdout."""
+def _profile_programs(programs, lines):
     from torch.profiler import ProfilerActivity, profile
-    cfg = model.cfg
-    prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, 512))).to(
-        "cuda")
-    cache = torch.zeros((SLOTS, cfg.num_layers, 2, cfg.max_seq_len, HEADS,
-                         HEAD_DIM), dtype=cfg.dtype, device="cuda")
-    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, SLOTS)).to(
-        "cuda")
-    positions = torch.full((SLOTS,), 512, dtype=torch.int32, device="cuda")
-    programs = {"prefill_512": lambda: model.prefill(prompt),
-                "decode_step_8_slots": lambda: model.decode_step(
-                    tokens, cache, positions)}
-    lines, out = [], {}
+    out = {}
     for name, fn in programs.items():
         fn()
         torch.cuda.synchronize()
@@ -456,7 +950,10 @@ def phase_profile(model, rng, path):
             wall_ms = (time.perf_counter() - t0) * 1e3
         by_class, by_name, n_kernels = {}, {}, 0
         for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
+            # device kernels only: a user annotation (Optimizer.step's
+            # range) spans kernels already counted
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or getattr(e, "is_user_annotation", False)):
                 continue
             ms = e.device_time_total / 1e3
             n_kernels += 1
@@ -475,9 +972,33 @@ def phase_profile(model, rng, path):
         lines.append(f"== {name} wall {wall_ms:.3f} ms busy {busy:.3f} ms")
         lines += [f"{v:10.4f} ms  {k[:150]}" for k, v in sorted(
             by_name.items(), key=lambda kv: -kv[1])[:25]]
-    with open(path, "w") as f:
-        f.write("\n".join(lines) + "\n")
     return out
+
+
+def phase_profile_serving(model, rng, lines):
+    """torch.profiler over one prefill(512) and one 8-slot decode step:
+    device time by kernel class, and the device's idle share of the
+    profiled wall time."""
+    cfg = model.cfg
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, 512))).to(
+        "cuda")
+    cache = torch.zeros((SLOTS, cfg.num_layers, 2, cfg.max_seq_len, HEADS,
+                         HEAD_DIM), dtype=cfg.dtype, device="cuda")
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, SLOTS)).to(
+        "cuda")
+    positions = torch.full((SLOTS,), 512, dtype=torch.int32, device="cuda")
+    return _profile_programs(
+        {"prefill_512": lambda: model.prefill(prompt),
+         "decode_step_8_slots": lambda: model.decode_step(tokens, cache,
+                                                          positions)}, lines)
+
+
+def phase_profile_train(model, opt, tokens, targets, lines):
+    """torch.profiler over one whole training step (2 micro-batches of
+    loss + backward, then FusedAdam)."""
+    return _profile_programs(
+        {"train_step": lambda: train_step(model, opt, tokens, targets)},
+        lines)
 
 
 # -- main --------------------------------------------------------------------
@@ -486,8 +1007,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write all results to this JSON file")
     ap.add_argument("--profile", metavar="PATH",
-                    help="also profile one prefill and one decode step and "
-                         "write the kernel breakdown to PATH")
+                    help="also profile one prefill, one decode step and one "
+                         "training step and write the kernel breakdown to "
+                         "PATH")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -503,38 +1025,73 @@ def main(argv=None):
     gen = torch.Generator().manual_seed(0)
     log("[2] kernels against their plain versions on the card")
     ln = kernel_layer_norm(gen)
+    ln_bwd = kernel_layer_norm_bwd(gen)
     fl = kernel_flash(gen)
+    fl_bwd = kernel_flash_bwd(gen)
     dec = kernel_decode(gen)
+    adam = kernel_adam(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.empty_cache()
 
     model = build_model("cuda").init_params(torch.Generator().manual_seed(0))
     rng = np.random.RandomState(0)
     serve = phase_serve(model, rng)
     parity = phase_parity(model, rng)
-    profiled = phase_profile(model, rng, args.profile) if args.profile \
-        else None
+    profile_lines, profiled = [], {}
+    if args.profile:
+        profiled.update(phase_profile_serving(model, rng, profile_lines))
+    del model
+    torch.cuda.empty_cache()
+
+    tmodel, topt, ttokens, ttargets, train = phase_train()
+    if args.profile:
+        profiled.update(phase_profile_train(tmodel, topt, ttokens, ttargets,
+                                            profile_lines))
+        with open(args.profile, "w") as f:
+            f.write("\n".join(profile_lines) + "\n")
+    del tmodel, topt
+    torch.cuda.empty_cache()
+    train_parity = phase_train_parity()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    sources = {"layer_norm_fwd": ("apex_tpu_torch/csrc/layer_norm_fwd.cu",
-                                  "apex_tpu/ops/layer_norm.py:91", ln[SLOTS]),
-               "flash_fwd": ("apex_tpu_torch/csrc/flash_fwd.cu",
-                             "apex_tpu/ops/flash_attention.py:139", fl[512]),
-               "flash_attention_decode": (
-                   "apex_tpu_torch/csrc/flash_decode.cu",
-                   "apex_tpu/ops/flash_attention.py:586", dec)}
+    both = collections.Counter(serve["launches"])
+    both.update(train["launches"])
+    sources = {
+        "layer_norm_fwd": ("apex_tpu_torch/csrc/layer_norm_fwd.cu",
+                           "apex_tpu/ops/layer_norm.py:91", ln[TRAIN_ROWS]),
+        "layer_norm_bwd": ("apex_tpu_torch/csrc/layer_norm_bwd.cu",
+                           "apex_tpu/ops/layer_norm.py:102", ln_bwd),
+        "flash_fwd": ("apex_tpu_torch/csrc/flash_fwd.cu",
+                      "apex_tpu/ops/flash_attention.py:139",
+                      fl["train_dropout_0.0"]),
+        "flash_attention_dq": ("apex_tpu_torch/csrc/flash_bwd_dq.cu",
+                               "apex_tpu/ops/flash_attention.py:238",
+                               fl_bwd["dq"]),
+        "flash_attention_dkv": ("apex_tpu_torch/csrc/flash_bwd_dkv.cu",
+                                "apex_tpu/ops/flash_attention.py:282",
+                                fl_bwd["dkv"]),
+        "flash_attention_decode": ("apex_tpu_torch/csrc/flash_decode.cu",
+                                   "apex_tpu/ops/flash_attention.py:586",
+                                   dec),
+        "multi_tensor_adam": ("apex_tpu_torch/csrc/multi_tensor_adam.cu",
+                              "apex_tpu/ops/multi_tensor.py:214", adam)}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=serve["launches"][name],
-                    **{k: nums[k] for k in keys})
+                    launches=both[name], **{k: nums[k] for k in keys})
                for name, (src, rep, nums) in sources.items()]
+    if any(k["launches"] == 0 for k in kernels):
+        raise AssertionError("a kernel of the paths was never launched")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(device=kind, nvidia_smi=smi, layer_norm=ln,
-                           flash=fl, decode=dec, serve=serve, parity=parity,
-                           profile=profiled, kernels=kernels), f, indent=1, sort_keys=True)
+                           layer_norm_bwd=ln_bwd, flash=fl, flash_bwd=fl_bwd,
+                           decode=dec, adam=adam, serve=serve, parity=parity,
+                           train=train, train_parity=train_parity,
+                           profile=profiled or None, kernels=kernels), f,
+                      indent=1, sort_keys=True)
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

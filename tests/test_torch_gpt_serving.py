@@ -204,8 +204,7 @@ def test_sampling_streams_are_deterministic_with_top_k_and_top_p():
 @pytest.mark.parametrize("knob", [
     dict(fused_ffn=True), dict(weight_quant="int8"), dict(n_experts=2),
     dict(context_axis="ctx"), dict(sequence_parallel=True),
-    dict(tensor_parallel_size=2), dict(remat=True),
-    dict(attention_dropout=0.1)])
+    dict(tensor_parallel_size=2), dict(remat=True)])
 def test_unported_config_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="slice"):
         GPTConfig(**TINY, **knob)

@@ -1,12 +1,16 @@
-"""apex_tpu_torch LayerNorm/RMSNorm forward against apex_tpu on the CPU.
+"""apex_tpu_torch LayerNorm/RMSNorm forward and backward against apex_tpu on
+the CPU.
 
-The JAX side runs twice — through its Pallas kernel in interpret mode
+The JAX side runs twice — through its Pallas kernels in interpret mode
 (``set_force_pallas(True)``) and through its default path — and both are
-held against the port's plain version (what a CPU tensor takes).
+held against the port's plain versions (what a CPU tensor takes).
 Tolerances: f32 atol 1e-5; bf16 inputs compared in f32 at 1e-2 (one bf16
-ulp at |y| ~ 2).
+ulp at |y| ~ 2).  Backward: dx at 1e-5 (f32) / one bf16 ulp 2e-2 (bf16);
+dgamma/dbeta, f32 sums over 6 rows of the same products, at 1e-5 (f32) /
+1e-4 (bf16 inputs, the sums run in f32 on both sides).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -118,6 +122,104 @@ def test_modules_match_jax(cls_name):
 
 
 def test_forward_only_refuses_grad():
+    """Under ``torch.no_grad()`` (the serving path) the module records no
+    graph; with grad enabled it is trainable: its output carries the
+    backward, and gamma, beta and x all receive gradients."""
     m = tnorm.MixedFusedLayerNorm(HIDDEN, device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        m(torch.zeros(2, HIDDEN))
+    x = torch.randn(2, HIDDEN, generator=torch.Generator().manual_seed(0),
+                    requires_grad=True)
+    with torch.no_grad():
+        assert m(x).grad_fn is None
+    y = m(x)
+    assert y.grad_fn is not None
+    (y * torch.arange(HIDDEN, dtype=torch.float32)).sum().backward()
+    assert x.grad is not None and m.weight.grad is not None
+    assert m.bias.grad is not None and x.grad.abs().sum() > 0
+
+
+def _bwd_inputs(dtype):
+    jx, tx, w, b = _inputs(4, dtype)
+    dy = np.random.RandomState(5).randn(*tx.shape).astype(np.float32)
+    jdy = jnp.asarray(dy, jx.dtype)
+    tdy = torch.from_numpy(dy).to(tx.dtype)
+    return jx, tx, w, b, jdy, tdy
+
+
+def _jax_grads(jx, w, b, jdy, rms, memory_efficient):
+    if rms:
+        def f(x, w):
+            return jln.fused_rms_norm_affine(
+                x, w, memory_efficient=memory_efficient)
+        _, pull = jax.vjp(f, jx, jnp.asarray(w))
+        return pull(jdy) + (None,)
+    def f(x, w, b):
+        return jln.fused_layer_norm_affine(
+            x, w, b, memory_efficient=memory_efficient)
+    _, pull = jax.vjp(f, jx, jnp.asarray(w), jnp.asarray(b))
+    return pull(jdy)
+
+
+def _assert_grads(got, ref, dtype):
+    tol_x = 1e-5 if dtype == "f32" else 2e-2
+    tol_w = 1e-5 if dtype == "f32" else 1e-4
+    np.testing.assert_allclose(_f32(got[0]), _f32(ref[0]), rtol=tol_x,
+                               atol=tol_x)
+    for g, r in zip(got[1:], ref[1:]):
+        if r is None:
+            assert g is None
+            continue
+        np.testing.assert_allclose(_f32(g), _f32(r), rtol=tol_w, atol=tol_w)
+
+
+@pytest.mark.parametrize("memory_efficient", [False, True])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("rms", [False, True])
+def test_autograd_grads_match_jax(jax_path, rms, dtype, memory_efficient):
+    """``jax.vjp`` of the JAX op against ``backward`` through the port's
+    autograd Function (forward kernel wrapper + backward kernel wrapper)."""
+    jx, tx, w, b, jdy, tdy = _bwd_inputs(dtype)
+    ref = _jax_grads(jx, w, b, jdy, rms, memory_efficient)
+    x = tx.clone().requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    tb = None if rms else torch.from_numpy(b).requires_grad_()
+    if rms:
+        y = tln.fused_rms_norm_affine(x, tw, memory_efficient=memory_efficient)
+    else:
+        y = tln.fused_layer_norm_affine(x, tw, tb,
+                                        memory_efficient=memory_efficient)
+    y.backward(tdy)
+    assert x.grad.dtype == tx.dtype and tw.grad.dtype == torch.float32
+    _assert_grads((x.grad, tw.grad, None if rms else tb.grad), ref, dtype)
+
+
+@pytest.mark.parametrize("memory_efficient", [False, True])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("rms", [False, True])
+def test_bwd_reference_matches_jax(jax_path, rms, dtype, memory_efficient):
+    """The backward kernel's plain version called directly on the saved
+    residual (x, or y when ``memory_efficient``) and mean/rstd."""
+    jx, tx, w, b, jdy, tdy = _bwd_inputs(dtype)
+    ref = _jax_grads(jx, w, b, jdy, rms, memory_efficient)
+    tw, tb = torch.from_numpy(w), torch.from_numpy(b)
+    x2 = tx.reshape(-1, HIDDEN)
+    y2, mean, rstd = tln.layer_norm_fwd_reference(x2, tw, None if rms else tb,
+                                                  1e-5, rms)
+    dx, dw, db = tln.layer_norm_bwd_reference(
+        tdy.reshape(-1, HIDDEN), y2 if memory_efficient else x2, tw,
+        None if rms else tb, mean, rstd, rms, memory_efficient)
+    assert dx.dtype == tx.dtype and dw.shape == (HIDDEN,)
+    _assert_grads((dx.reshape(tx.shape), dw, None if rms else db), ref,
+                  dtype)
+
+
+def test_from_y_guards_zero_gamma():
+    """memory_efficient rebuilds xhat as y / gamma: a zero gamma entry is
+    guarded (no NaN), as in the JAX backward."""
+    x = torch.randn(4, HIDDEN, generator=torch.Generator().manual_seed(1))
+    w = torch.ones(HIDDEN)
+    w[3] = 0.0
+    b = torch.zeros(HIDDEN)
+    y, mean, rstd = tln.layer_norm_fwd_reference(x, w, b, 1e-5, False)
+    dx, dw, db = tln.layer_norm_bwd_reference(torch.ones_like(x), y, w, b,
+                                              mean, rstd, False, True)
+    assert torch.isfinite(dx).all() and torch.isfinite(dw).all()

@@ -1,0 +1,169 @@
+"""apex_tpu_torch multi-tensor Adam and FusedAdam against apex_tpu on the CPU.
+
+``multi_tensor_adam`` (the plain version a CPU tensor takes) is held against
+the JAX ``adam_packed`` over the packed bucket of the same leaves, through
+its Pallas kernel in interpret mode and its default path; ``FusedAdam`` is
+held against the JAX ``FusedAdam(bucketed=False)`` over three steps, one of
+them skipped by the noop flag.  Both sides run the same f32 ``_adam_math``:
+parameters and moments agree to 1e-6 relative (only the order of f32
+operations in pow/sqrt may differ).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch import nn
+
+from apex_tpu.multi_tensor_apply import bucketing as jB
+from apex_tpu.ops import multi_tensor as jK
+from apex_tpu.optimizers import FusedAdam as JFusedAdam
+from apex_tpu.utils import set_force_pallas
+
+from apex_tpu_torch.convert import fused_adam_state_from_jax
+from apex_tpu_torch.ops import multi_tensor as tK
+from apex_tpu_torch.optimizers import FusedAdam
+
+SHAPES = [(3, 5), (7,), (130,), (2, 3, 4)]   # off the 128-lane multiple
+TOL = 1e-6
+
+
+@pytest.fixture(params=["pallas_interpret", "jax_default"])
+def jax_path(request):
+    set_force_pallas(True if request.param == "pallas_interpret" else None)
+    yield request.param
+    set_force_pallas(None)
+
+
+def _leaves(seed, shapes=SHAPES, positive=False):
+    rng = np.random.RandomState(seed)
+    out = [rng.randn(*s).astype(np.float32) for s in shapes]
+    return [np.abs(a) for a in out] if positive else out
+
+
+@pytest.mark.parametrize("noop", [0, 1])
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+def test_multi_tensor_adam_matches_adam_packed(jax_path, adam_w_mode, noop):
+    g, p, m = _leaves(0), _leaves(1), _leaves(2)
+    v = _leaves(3, positive=True)
+    hyper = dict(lr=1e-2, beta1=0.9, beta2=0.99, eps=1e-8, weight_decay=0.1,
+                 bias_correction1=0.271, bias_correction2=0.0394,
+                 grad_scale=0.5)
+    meta = jB.bucket_meta(SHAPES, jnp.float32, block_rows=8)
+    packed = [jB.flatten_bucket([jnp.asarray(a) for a in leaves], meta)
+              for leaves in (g, p, m, v)]
+    outs = jK.adam_packed(*packed, adam_w_mode=adam_w_mode,
+                          noop_flag=jnp.int32(noop), block_rows=8, **hyper)
+    ref = [jB.unflatten_bucket(o, meta) for o in outs]
+
+    tg, tp, tm, tv = ([torch.from_numpy(a.copy()) for a in leaves]
+                      for leaves in (g, p, m, v))
+    scal = torch.tensor([hyper[k] for k in (
+        "lr", "beta1", "beta2", "eps", "weight_decay", "bias_correction1",
+        "bias_correction2", "grad_scale")], dtype=torch.float32)
+    tK.multi_tensor_adam(tg, tp, tm, tv, scal,
+                         torch.tensor(noop, dtype=torch.int32), adam_w_mode)
+    for got, want in zip((tp, tm, tv), ref):
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=TOL,
+                                       atol=TOL)
+    if noop:
+        assert all(np.array_equal(a.numpy(), b) for a, b in zip(tp, p))
+
+
+def test_adam_math_bf16_params_round_like_jax():
+    """bf16 parameters: the update runs in f32 and rounds once to bf16."""
+    g, p, m = _leaves(4), _leaves(5), _leaves(6)
+    v = _leaves(7, positive=True)
+    scal = np.array([1e-2, 0.9, 0.99, 1e-8, 0.0, 1.0, 1.0, 1.0], np.float32)
+    for gi, pi, mi, vi in zip(g, p, m, v):
+        jp = jnp.asarray(pi, jnp.bfloat16)
+        rp, rm, rv = jK._adam_math(True, jnp.asarray(scal), False,
+                                   jnp.asarray(gi), jp.astype(jnp.float32),
+                                   jnp.asarray(mi), jnp.asarray(vi))
+        tp = torch.from_numpy(pi).bfloat16()
+        tm, tv = torch.from_numpy(mi.copy()), torch.from_numpy(vi.copy())
+        tK.multi_tensor_adam([torch.from_numpy(gi)], [tp], [tm], [tv],
+                             torch.from_numpy(scal))
+        np.testing.assert_array_equal(
+            tp.float().numpy(), np.asarray(rp.astype(jnp.bfloat16),
+                                           np.float32))
+        np.testing.assert_allclose(tm.numpy(), np.asarray(rm), rtol=TOL)
+
+
+class _Tiny(nn.Module):
+    """Parameters named like the JAX tree {"a": ..., "b": [..., ...]}."""
+
+    def __init__(self, a, b):
+        super().__init__()
+        self.a = nn.Parameter(torch.from_numpy(a.copy()))
+        self.b = nn.ParameterList(nn.Parameter(torch.from_numpy(x.copy()))
+                                  for x in b)
+
+
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+def test_fused_adam_three_steps_match_jax(adam_w_mode):
+    """Three steps with fresh gradients each; the second is skipped by a
+    device noop flag (no update, no step advance)."""
+    init = _leaves(10, [(4, 3), (5,), (2, 2)])
+    jparams = {"a": jnp.asarray(init[0]),
+               "b": [jnp.asarray(init[1]), jnp.asarray(init[2])]}
+    kw = dict(lr=1e-2, betas=(0.9, 0.98), eps=1e-6, weight_decay=0.05,
+              adam_w_mode=adam_w_mode)
+    jopt = JFusedAdam(bucketed=False, **kw)
+    jstate = jopt.init(jparams)
+    model = _Tiny(init[0], init[1:])
+    opt = FusedAdam(model.parameters(), **kw)
+    for step in range(3):
+        grads = _leaves(20 + step, [(4, 3), (5,), (2, 2)])
+        noop = int(step == 1)
+        jgrads = {"a": jnp.asarray(grads[0]),
+                  "b": [jnp.asarray(grads[1]), jnp.asarray(grads[2])]}
+        jparams, jstate = jopt.step(jgrads, jparams, jstate,
+                                    noop_flag=jnp.int32(noop))
+        for p, g in zip(model.parameters(), grads):
+            p.grad = torch.from_numpy(g)
+        opt.step(noop_flag=torch.tensor(noop, dtype=torch.int32))
+        want = [jparams["a"]] + jparams["b"]
+        for p, w in zip(model.parameters(), want):
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(w),
+                                       rtol=TOL, atol=TOL)
+    assert int(opt.param_groups[0]["step"]) == int(jstate["step"]) == 2
+    np_state = {"step": np.asarray(jstate["step"]),
+                "buckets": {k: {"m": [np.asarray(x) for x in b["m"]],
+                                "v": [np.asarray(x) for x in b["v"]]}
+                            for k, b in jstate["buckets"].items()}}
+    carried = fused_adam_state_from_jax(np_state, model)
+    assert carried["step"] == 2
+    for name, p in model.named_parameters():
+        for key in ("exp_avg", "exp_avg_sq"):
+            np.testing.assert_allclose(opt.state[p][key].numpy(),
+                                       carried["state"][name][key].numpy(),
+                                       rtol=TOL, atol=1e-12)
+
+
+def test_fused_adam_refuses_what_is_not_ported():
+    params = [nn.Parameter(torch.zeros(3))]
+    with pytest.raises(RuntimeError, match="AMSGrad"):
+        FusedAdam(params, amsgrad=True)
+    with pytest.raises(NotImplementedError, match="ZeRO"):
+        FusedAdam(params, bucketed=True)
+    with pytest.raises(NotImplementedError, match="O2"):
+        FusedAdam(params, master_weights=True)
+
+
+def test_fused_adam_grad_scale_and_zero_grad():
+    """``grad_scale`` multiplies the gradient inside the update (Adam is
+    scale-invariant but for eps and weight decay); ``zero_grad`` drops
+    the gradients when ``set_grad_none``."""
+    p1 = nn.Parameter(torch.ones(4))
+    p2 = nn.Parameter(torch.ones(4))
+    o1 = FusedAdam([p1], lr=0.1, eps=1.0)
+    o2 = FusedAdam([p2], lr=0.1, eps=1.0)
+    p1.grad = torch.full((4,), 2.0)
+    p2.grad = torch.full((4,), 4.0)
+    o1.step()
+    o2.step(grad_scale=0.5)
+    assert torch.equal(p1, p2)
+    o1.zero_grad()
+    assert p1.grad is None

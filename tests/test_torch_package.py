@@ -16,14 +16,21 @@ from apex_tpu_torch.inference import InferenceEngine, KVCache, Request
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
 from apex_tpu_torch.normalization import MixedFusedLayerNorm
 from apex_tpu_torch.ops.flash_attention import (flash_attention_decode,
-                                                flash_fwd)
-from apex_tpu_torch.ops.layer_norm import layer_norm_fwd
+                                                flash_attention_dkv,
+                                                flash_attention_dq, flash_fwd)
+from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
+from apex_tpu_torch.ops.multi_tensor import multi_tensor_adam
+from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.transformer.pipeline_parallel import (
+    forward_backward_no_pipelining)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "apex_tpu_torch"
 TINY = dict(vocab_size=64, hidden_size=64, num_layers=2,
             num_attention_heads=4, max_seq_len=32)
-COUNTERS = (layer_norm_fwd, flash_fwd, flash_attention_decode)
+COUNTERS = (layer_norm_fwd, flash_fwd, flash_attention_decode,
+            layer_norm_bwd, flash_attention_dq, flash_attention_dkv,
+            multi_tensor_adam)
 
 
 def _port_files():
@@ -90,7 +97,27 @@ def test_cpu_serving_launches_no_kernel():
                               max_new_tokens=3))
     done = engine.run()
     assert sorted(r.finish_reason for r in done) == ["length"] * 3
-    assert [c.launches for c in COUNTERS] == [0, 0, 0]
+    assert [c.launches for c in COUNTERS] == [0] * len(COUNTERS)
+
+
+def test_cpu_training_launches_no_kernel():
+    """A CPU training step (loss, backward, FusedAdam) takes every
+    wrapper's plain version: no counter moves."""
+    for c in COUNTERS:
+        c.launches = 0
+    model = GPTModel(GPTConfig(**TINY, fused_lm_head=False,
+                               attention_dropout=0.1), device="cpu")
+    model.init_params(torch.Generator().manual_seed(0))
+    opt = FusedAdam(model.parameters(), lr=1e-3)
+    tokens = torch.randint(0, 64, (2, 1, 16),
+                           generator=torch.Generator().manual_seed(1))
+    loss = forward_backward_no_pipelining(
+        lambda m, x: m.backbone(m.embed(x), dropout_seed=0),
+        lambda x, t: model.head_loss(x, t).mean(), model, tokens, tokens)
+    opt.step()
+    assert torch.isfinite(loss)
+    assert all(p.grad is not None for p in model.parameters())
+    assert [c.launches for c in COUNTERS] == [0] * len(COUNTERS)
 
 
 def test_cuda_wrappers_refuse_what_their_kernels_do_not_take():
@@ -101,6 +128,30 @@ def test_cuda_wrappers_refuse_what_their_kernels_do_not_take():
     x = torch.empty((4, 8), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         layer_norm_fwd(x, torch.ones(8), None, 1e-5, False)
+
+
+@pytest.mark.parametrize("kernel", ["layer_norm_bwd", "flash_attention_dq",
+                                    "flash_attention_dkv",
+                                    "multi_tensor_adam"])
+def test_training_wrappers_refuse_non_cpu_tensors_they_cannot_launch(kernel):
+    """A tensor that is not on the CPU never takes a plain version: the
+    new wrappers run their checks and raise before any launch (here on
+    the ``meta`` device, which no kernel takes)."""
+    meta = torch.empty((2, 4, 8, 16), device="meta")
+    stats = torch.empty((8, 8), device="meta")
+    x = torch.empty((4, 8), device="meta")
+    calls = {
+        "layer_norm_bwd": lambda: layer_norm_bwd(
+            x, x, torch.ones(8), None, stats, stats, False, False),
+        "flash_attention_dq": lambda: flash_attention_dq(
+            meta, meta, meta, meta, stats, stats, True, 1.0),
+        "flash_attention_dkv": lambda: flash_attention_dkv(
+            meta, meta, meta, meta, stats, stats, True, 1.0),
+        "multi_tensor_adam": lambda: multi_tensor_adam(
+            [x], [x], [x], [x], torch.empty(8, device="meta")),
+    }
+    with pytest.raises(ValueError, match="unsupported device|CUDA device"):
+        calls[kernel]()
 
 
 def test_failed_build_raises_with_nvcc_output(monkeypatch, tmp_path):
