@@ -20,7 +20,12 @@ single-query decode attention).  Slice 2 is GPT training:
 ``transformer.pipeline_parallel.forward_backward_no_pipelining``, then
 ``optimizers.FusedAdam.step``, on four more kernels (LayerNorm backward,
 flash-attention dq and dk/dv, multi-tensor Adam) and the flash forward with
-attention dropout.
+attention dropout.  Slice 3 is BERT training under amp O2:
+``amp.initialize``, ``models.bert.BertModel.loss`` and its backward through
+the non-causal flash kernels, then ``optimizers.FusedLAMB.step`` with f32
+master weights, on four more kernels (multi-tensor L2 norm, LAMB stages 1
+and 2, and the multi-tensor scale of ``amp.LossScaler.unscale`` and
+``contrib.clip_grad.clip_grad_norm_``).
 """
 
 __version__ = "0.1.0"

@@ -32,8 +32,9 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 SOURCES = ("layer_norm_fwd.cu", "layer_norm_bwd.cu", "flash_fwd.cu",
            "flash_bwd_dq.cu", "flash_bwd_dkv.cu", "flash_decode.cu",
-           "multi_tensor_adam.cu")
-HEADERS = ("common.cuh",)
+           "multi_tensor_adam.cu", "multi_tensor_scale.cu",
+           "multi_tensor_l2norm.cu", "multi_tensor_lamb.cu")
+HEADERS = ("common.cuh", "multi_tensor.cuh")
 BUILD_DIR = _PKG.parent / "build" / "apex_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -57,6 +58,10 @@ _SIGNATURES = {
     "apex_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I]
                          + [_L] * 10 + [_F, _I, _P],
     "apex_multi_tensor_adam": [_I] + [_P] * 9 + [_I, _P, _P],
+    "apex_multi_tensor_scale": [_I] + [_P] * 9,
+    "apex_multi_tensor_l2norm": [_I] + [_P] * 9,
+    "apex_multi_tensor_lamb_stage1": [_I] + [_P] * 10 + [_I, _P, _P, _P, _P],
+    "apex_multi_tensor_lamb_stage2": [_I] + [_P] * 10 + [_I, _P, _P],
 }
 
 _lib = None

@@ -8,8 +8,13 @@ imports JAX) and returns a state dict for
 are the tree's paths joined by dots, so the mapping is a flatten; shapes
 are checked against the model the config describes.
 
-:func:`fused_adam_state_from_jax` carries the per-leaf moments of the JAX
-``FusedAdam(bucketed=False)`` state over to the port's ``FusedAdam``.
+:func:`bert_params_from_jax` does the same for
+:class:`apex_tpu_torch.models.bert.BertModel`.
+
+:func:`fused_adam_state_from_jax` and :func:`fused_lamb_state_from_jax`
+carry the per-leaf state of the JAX ``FusedAdam`` / ``FusedLAMB``
+(``bucketed=False``) over to the port's optimizers: the moments and, under
+master weights, the f32 masters.
 """
 
 from __future__ import annotations
@@ -17,9 +22,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from apex_tpu_torch.models.bert import BertConfig, BertModel
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
 
-__all__ = ["gpt_params_from_jax", "fused_adam_state_from_jax"]
+__all__ = ["gpt_params_from_jax", "bert_params_from_jax",
+           "fused_adam_state_from_jax", "fused_lamb_state_from_jax"]
 
 
 def _flatten(tree, prefix=""):
@@ -34,27 +41,45 @@ def _flatten(tree, prefix=""):
         yield from _flatten(sub, f"{prefix}{key}.")
 
 
-def gpt_params_from_jax(tree, cfg: GPTConfig) -> dict:
-    """State dict (CPU tensors in ``cfg.param_dtype``) for
-    ``GPTModel(cfg)`` from a JAX GPT parameter tree of numpy arrays.
-    Load it with ``model.load_state_dict(sd)``.  Raises when the tree's
-    names or shapes do not match the model."""
-    expected = {name: tuple(p.shape) for name, p in
-                GPTModel(cfg, device="meta").state_dict().items()}
+def _params_from_jax(tree, model) -> dict:
+    """State dict of ``model`` (a model on the ``meta`` device) from a JAX
+    parameter tree: each leaf as a CPU tensor in the dtype of the port
+    parameter it fills (a bf16 leaf goes through f32, which holds it
+    exactly)."""
+    expected = {name: p for name, p in model.state_dict().items()}
     sd = {}
     for name, leaf in _flatten(tree):
         arr = np.asarray(leaf, dtype=np.float32)
         if name not in expected:
             raise KeyError(f"JAX parameter {name!r} has no counterpart in "
-                           "apex_tpu_torch's GPTModel")
-        if arr.shape != expected[name]:
+                           f"apex_tpu_torch's {type(model).__name__}")
+        want = expected[name]
+        if arr.shape != tuple(want.shape):
             raise ValueError(f"{name}: JAX shape {arr.shape} != port shape "
-                             f"{expected[name]}")
-        sd[name] = torch.from_numpy(arr.copy()).to(cfg.param_dtype)
+                             f"{tuple(want.shape)}")
+        sd[name] = torch.from_numpy(arr.copy()).to(want.dtype)
     missing = sorted(set(expected) - set(sd))
     if missing:
         raise KeyError(f"JAX tree lacks {missing}")
     return sd
+
+
+def gpt_params_from_jax(tree, cfg: GPTConfig) -> dict:
+    """State dict (CPU tensors in ``cfg.param_dtype``) for
+    ``GPTModel(cfg)`` from a JAX GPT parameter tree of numpy arrays.
+    Load it with ``model.load_state_dict(sd)``.  Raises when the tree's
+    names or shapes do not match the model."""
+    return _params_from_jax(tree, GPTModel(cfg, device="meta"))
+
+
+def bert_params_from_jax(tree, cfg: BertConfig) -> dict:
+    """State dict for ``BertModel(cfg)`` from a JAX BERT parameter tree of
+    numpy arrays: each leaf in the dtype of the port parameter it fills
+    (``cfg.param_dtype``, f32 for the LayerNorms), so an O2-cast tree
+    (bf16 leaves) carries over exactly; ``load_state_dict`` then rounds
+    nothing into a model cast by ``amp.initialize``.  Raises when the
+    tree's names or shapes do not match the model."""
+    return _params_from_jax(tree, BertModel(cfg, device="meta"))
 
 
 def _jax_leaf_order(names):
@@ -65,6 +90,53 @@ def _jax_leaf_order(names):
         return tuple((0, int(c), "") if c.isdigit() else (1, 0, c)
                      for c in name.split("."))
     return sorted(names, key=key)
+
+
+_TORCH_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                      torch.float16: "float16"}
+
+
+def _per_leaf_state_from_jax(state, model, keys) -> dict:
+    """The per-leaf state of a JAX ``bucketed=False`` optimizer over
+    ``model``'s parameter tree, keyed by ``model.named_parameters()`` names.
+
+    ``state``: ``{"step": int, "buckets": {"<group>/<dtype>": {key:
+    [...]}}}`` with numpy leaves.  There is one bucket per (group, dtype):
+    a bucket's lists follow the tree's leaves of its dtype in flatten order
+    (JAX ``base.py:165-181``), so the model's parameters must carry the
+    dtypes of the JAX tree the state was made for (cast the model as the
+    tree was).  ``keys`` maps JAX state keys to port state keys; a key a
+    bucket lacks (``master`` for an f32 bucket) is left out.
+    """
+    params = dict(model.named_parameters())
+    by_dtype = {}
+    for name in _jax_leaf_order(params):
+        by_dtype.setdefault(_TORCH_DTYPE_NAMES[params[name].dtype],
+                            []).append(name)
+    groups = {key.split("/")[0] for key in state["buckets"]}
+    if len(groups) != 1:
+        raise ValueError(f"expected the buckets of one parameter group, got "
+                         f"{list(state['buckets'])}")
+    out = {name: {} for name in params}
+    for key, bucket in state["buckets"].items():
+        dtype = key.split("/")[1]
+        names = by_dtype.get(dtype, [])
+        for jkey, tkey in keys.items():
+            if jkey not in bucket:
+                continue
+            leaves = bucket[jkey]
+            if len(leaves) != len(names):
+                raise ValueError(f"bucket {key}: the JAX state has "
+                                 f"{len(leaves)} leaves, the model "
+                                 f"{len(names)} {dtype} parameters")
+            for name, leaf in zip(names, leaves):
+                p = params[name]
+                arr = np.asarray(leaf, np.float32)
+                if arr.shape != tuple(p.shape):
+                    raise ValueError(f"{name}: JAX {jkey} shape {arr.shape} "
+                                     f"!= parameter shape {tuple(p.shape)}")
+                out[name][tkey] = torch.from_numpy(arr.copy()).to(p.device)
+    return {"step": int(np.asarray(state["step"])), "state": out}
 
 
 def fused_adam_state_from_jax(state, model) -> dict:
@@ -79,23 +151,15 @@ def fused_adam_state_from_jax(state, model) -> dict:
     on the parameters' devices: copy ``state[name]`` into
     ``optimizer.state[param]`` and ``step`` into the group's ``"step"``.
     """
-    params = dict(model.named_parameters())
-    names = _jax_leaf_order(params)
-    buckets = list(state["buckets"].values())
-    if len(buckets) != 1:
-        raise ValueError(f"expected one per-leaf bucket (one group, one "
-                         f"dtype), got {list(state['buckets'])}")
-    ms, vs = buckets[0]["m"], buckets[0]["v"]
-    if len(ms) != len(names) or len(vs) != len(names):
-        raise ValueError(f"the JAX state has {len(ms)} leaves, the model "
-                         f"{len(names)} parameters")
-    out = {}
-    for name, m, v in zip(names, ms, vs):
-        p = params[name]
-        m, v = np.asarray(m, np.float32), np.asarray(v, np.float32)
-        if m.shape != tuple(p.shape) or v.shape != tuple(p.shape):
-            raise ValueError(f"{name}: JAX moment shape {m.shape} != "
-                             f"parameter shape {tuple(p.shape)}")
-        out[name] = {"exp_avg": torch.from_numpy(m.copy()).to(p.device),
-                     "exp_avg_sq": torch.from_numpy(v.copy()).to(p.device)}
-    return {"step": int(np.asarray(state["step"])), "state": out}
+    return _per_leaf_state_from_jax(state, model, {"m": "exp_avg",
+                                                   "v": "exp_avg_sq"})
+
+
+def fused_lamb_state_from_jax(state, model) -> dict:
+    """The JAX per-leaf ``FusedLAMB`` state of ``model``'s parameter tree,
+    for the port's :class:`~apex_tpu_torch.optimizers.FusedLAMB`: as
+    :func:`fused_adam_state_from_jax`, plus ``"master"`` (f32) for every
+    parameter of a bucket that keeps masters (the non-f32 buckets under
+    master weights, e.g. amp O2's bf16 leaves)."""
+    return _per_leaf_state_from_jax(state, model, {
+        "m": "exp_avg", "v": "exp_avg_sq", "master": "master"})

@@ -41,7 +41,7 @@ from apex_tpu_torch.utils.device import resolve_device
 
 _f32 = torch.float32
 
-LM_HEAD_SLICE = "the BERT / fused LM head slice"
+LM_HEAD_SLICE = "the fused LM head slice (slice 4)"
 FUSED_FFN_SLICE = "the fused-FFN slice"
 REMAT_SLICE = "a later training slice (activation recompute)"
 MULTI_GPU_SLICE = "the multi-GPU slice"

@@ -1,18 +1,31 @@
-"""Multi-tensor Adam — port of the Adam part of
-``apex_tpu/ops/multi_tensor.py``.
+"""Multi-tensor kernels — port of ``apex_tpu/ops/multi_tensor.py`` (scale,
+L2 norm, Adam, the two LAMB stages).
 
-:func:`multi_tensor_adam` updates lists of parameters and their f32 moments
-in place with one multi-tensor launch set (apex's ``multi_tensor_apply``
-design): a CUDA tensor launches ``csrc/multi_tensor_adam.cu`` (the
-counterpart of the Pallas ``_adam_kernel``), a CPU tensor takes
-:func:`multi_tensor_adam_reference`, which applies :func:`_adam_math` (the
-JAX single-source update) tensor by tensor.
+Each function updates or reads lists of tensors with one multi-tensor
+launch set (apex's ``multi_tensor_apply`` design, the by-value table of
+``csrc/multi_tensor.cuh``): a CUDA tensor launches its kernel, a CPU tensor
+takes the function's plain version (``*_reference``), which applies the JAX
+single-source math (:func:`_adam_math`, :func:`_lamb_stage1_math`) tensor
+by tensor.
 
-The scalars ride in one f32 device tensor ``scal = [lr, beta1, beta2, eps,
-weight_decay, bias_correction1, bias_correction2, grad_scale]`` and the skip
-flag in an int32 device tensor ``noop``: the kernel reads both on the card,
-so neither a learning-rate change nor a dynamic-loss-scale skip needs a host
-sync.
+* :func:`multi_tensor_scale_` — ``out = x * s`` with found-inf
+  (``csrc/multi_tensor_scale.cu``, the Pallas ``_scale_kernel``);
+* :func:`multi_tensor_sumsq` — sums of squares, global and per tensor,
+  with found-inf (``csrc/multi_tensor_l2norm.cu``, ``_l2norm_kernel``; the
+  norms are :func:`apex_tpu_torch.multi_tensor_apply.multi_tensor_l2norm`);
+* :func:`multi_tensor_adam` (``csrc/multi_tensor_adam.cu``,
+  ``_adam_kernel``);
+* :func:`multi_tensor_lamb_stage1` / :func:`multi_tensor_lamb_stage2`
+  (``csrc/multi_tensor_lamb.cu``, ``_lamb_stage1_kernel`` /
+  ``_lamb_stage2_kernel``).
+
+The TPU kernels reduce per 128-lane row; these reduce per 64K-element chunk
+of each tensor (:data:`CHUNK`), and the chunk partials of a call are laid
+out tensor after tensor (:func:`chunk_counts`).  Scalars ride in f32 device
+tensors (``scal``) and the skip flag in an int32 device tensor ``noop``;
+found-inf flags are f32 device scalars (0.0 / 1.0): the kernels read and
+write them on the card, so neither a learning-rate change nor a
+dynamic-loss-scale skip needs a host sync.
 """
 
 from __future__ import annotations
@@ -26,7 +39,32 @@ from apex_tpu_torch import _kernels
 
 _f32 = torch.float32
 
-__all__ = ["multi_tensor_adam", "multi_tensor_adam_reference", "_adam_math"]
+# elements per block of the multi-tensor kernels (csrc/multi_tensor.cuh)
+CHUNK = 65536
+
+__all__ = ["multi_tensor_scale_", "multi_tensor_scale_reference",
+           "multi_tensor_sumsq", "multi_tensor_sumsq_reference",
+           "multi_tensor_adam", "multi_tensor_adam_reference",
+           "multi_tensor_lamb_stage1", "multi_tensor_lamb_stage1_reference",
+           "multi_tensor_lamb_stage2", "multi_tensor_lamb_stage2_reference",
+           "chunk_counts", "device_scalars", "_adam_math",
+           "_lamb_stage1_math"]
+
+
+def chunk_counts(numels):
+    """Chunks (one block, one partial each) of tensors of these sizes."""
+    return [-(-int(n) // CHUNK) if n > 0 else 0 for n in numels]
+
+
+def device_scalars(values, device):
+    """One f32 ``(len(values),)`` tensor on ``device`` from Python numbers
+    and device scalars, with no host-to-device copy (a copy from pageable
+    host memory would wait for the stream)."""
+    return torch.stack([
+        v.to(device=device, dtype=_f32).reshape(())
+        if isinstance(v, torch.Tensor)
+        else torch.full((), float(v), dtype=_f32, device=device)
+        for v in values])
 
 
 def _adam_math(adam_w_mode, scal, skip, g, p, m, v):
@@ -55,6 +93,69 @@ def _skip(noop, device):
     return noop.reshape(()) != 0
 
 
+# ---------------------------------------------------------------------------
+# shared checks of the CUDA wrappers
+# ---------------------------------------------------------------------------
+
+def _cuda_device(kernel, tensors):
+    """The one device of ``tensors``: "cpu" (the plain version runs) or a
+    CUDA device; anything else raises."""
+    device = tensors[0].device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel}: unsupported device {device}")
+    return device
+
+
+def _check_lists(kernel, device, lists, f32_lists=()):
+    """Per position the tensors of ``lists`` share one shape; every tensor
+    is contiguous and on ``device``; the lists named in ``f32_lists`` (by
+    index) hold f32 tensors.  ``None`` entries are skipped."""
+    for row in zip(*lists):
+        shape = row[0].shape
+        for j, t in enumerate(row):
+            if t is None:
+                continue
+            if t.shape != shape:
+                raise ValueError(f"{kernel}: tensors of one position disagree "
+                                 f"in shape: {tuple(shape)} and "
+                                 f"{tuple(t.shape)}")
+            if t.device != device or not t.is_contiguous():
+                raise ValueError(f"{kernel}: every tensor must be contiguous "
+                                 f"and on {device}")
+            if j in f32_lists and t.dtype != _f32:
+                raise TypeError(f"{kernel}: list {j} must hold f32 tensors")
+
+
+def _check_scalars(kernel, device, t, n, dtype=_f32):
+    if (t.dtype != dtype or t.numel() != n or t.device != device
+            or not t.is_contiguous()):
+        raise ValueError(f"{kernel}: expected a contiguous {dtype} tensor of "
+                         f"{n} element(s) on {device}")
+
+
+def _codes(tensors, kernel):
+    return np.array([0 if t is None else _kernels.dtype_code(t, kernel)
+                     for t in tensors], dtype=np.int32)
+
+
+def _numels(tensors):
+    return np.array([t.numel() for t in tensors], dtype=np.int64)
+
+
+def _addresses(tensors):
+    return np.array([0 if t is None else t.data_ptr() for t in tensors],
+                    dtype=np.uint64)
+
+
+def _ptr(arr):
+    return arr.ctypes.data_as(ctypes.c_void_p)
+
+
+
+# ---------------------------------------------------------------------------
+# adam (#18)
+# ---------------------------------------------------------------------------
+
 @torch.no_grad()
 def multi_tensor_adam_reference(grads, params, exp_avgs, exp_avg_sqs, scal,
                                 noop=None, adam_w_mode=True):
@@ -68,14 +169,6 @@ def multi_tensor_adam_reference(grads, params, exp_avgs, exp_avg_sqs, scal,
         p.copy_(p2)
         m.copy_(m2)
         v.copy_(v2)
-
-
-def _pointers(tensors):
-    return np.array([t.data_ptr() for t in tensors], dtype=np.uint64)
-
-
-def _ptr(arr):
-    return arr.ctypes.data_as(ctypes.c_void_p)
 
 
 @torch.no_grad()
@@ -92,47 +185,25 @@ def multi_tensor_adam(grads, params, exp_avgs, exp_avg_sqs, scal, noop=None,
     ``multi_tensor_adam.launches``) or raise.
     """
     lists = (grads, params, exp_avgs, exp_avg_sqs)
-    n = len(params)
-    if any(len(x) != n for x in lists):
+    if any(len(x) != len(params) for x in lists):
         raise ValueError("multi_tensor_adam: the four lists differ in length")
-    if n == 0:
+    if not params:
         return
-    device = params[0].device
+    device = _cuda_device("multi_tensor_adam", params)
     if device.type == "cpu":
         return multi_tensor_adam_reference(grads, params, exp_avgs,
                                            exp_avg_sqs, scal, noop,
                                            adam_w_mode)
-    if device.type != "cuda":
-        raise ValueError(f"multi_tensor_adam: unsupported device {device}")
-    for g, p, m, v in zip(*lists):
-        if not (g.shape == p.shape == m.shape == v.shape):
-            raise ValueError("multi_tensor_adam: a gradient, parameter and "
-                             f"moments disagree in shape: {tuple(g.shape)}, "
-                             f"{tuple(p.shape)}, {tuple(m.shape)}")
-        if m.dtype != _f32 or v.dtype != _f32:
-            raise TypeError("multi_tensor_adam: moments must be f32")
-        if any(t.device != device or not t.is_contiguous()
-               for t in (g, p, m, v)):
-            raise ValueError("multi_tensor_adam: every tensor must be "
-                             f"contiguous and on {device}")
-    if (scal.dtype != _f32 or scal.shape != (8,) or scal.device != device
-            or not scal.is_contiguous()):
-        raise ValueError(f"multi_tensor_adam: scal must be a contiguous f32 "
-                         f"(8,) tensor on {device}")
-    if noop is not None and (noop.dtype != torch.int32 or noop.numel() != 1
-                             or noop.device != device):
-        raise ValueError(f"multi_tensor_adam: noop must be an int32 scalar "
-                         f"tensor on {device}")
-    numels = np.array([p.numel() for p in params], dtype=np.int64)
-    g_codes = np.array([_kernels.dtype_code(g, "multi_tensor_adam")
-                        for g in grads], dtype=np.int32)
-    p_codes = np.array([_kernels.dtype_code(p, "multi_tensor_adam")
-                        for p in params], dtype=np.int32)
-    arrays = [_pointers(x) for x in lists]
+    _check_lists("multi_tensor_adam", device, lists, f32_lists=(2, 3))
+    _check_scalars("multi_tensor_adam", device, scal, 8)
+    if noop is not None:
+        _check_scalars("multi_tensor_adam", device, noop, 1, torch.int32)
+    arrays = [_addresses(x) for x in lists] + [
+        _numels(params), _codes(grads, "multi_tensor_adam"),
+        _codes(params, "multi_tensor_adam")]
     launches = ctypes.c_int(0)
     rc = _kernels.lib().apex_multi_tensor_adam(
-        n, *(_ptr(a) for a in arrays), _ptr(numels), _ptr(g_codes),
-        _ptr(p_codes), scal.data_ptr(),
+        len(params), *(_ptr(a) for a in arrays), scal.data_ptr(),
         None if noop is None else noop.data_ptr(), int(bool(adam_w_mode)),
         ctypes.byref(launches), _kernels.stream())
     _kernels.check(rc, "multi_tensor_adam")
@@ -140,3 +211,298 @@ def multi_tensor_adam(grads, params, exp_avgs, exp_avg_sqs, scal, noop=None,
 
 
 multi_tensor_adam.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# scale (#15)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def multi_tensor_scale_reference(inputs, outputs, scale):
+    """Plain version: ``out = (x in f32) * scale`` rounded to each output's
+    dtype; returns the f32 found-inf flag of the scaled values."""
+    s = torch.as_tensor(scale, dtype=_f32).reshape(())
+    bad = torch.zeros((), dtype=torch.bool, device=inputs[0].device)
+    for x, out in zip(inputs, outputs):
+        y = x.to(_f32) * s.to(x.device)
+        bad = bad | ~torch.all(torch.isfinite(y))
+        out.copy_(y)
+    return bad.to(_f32)
+
+
+@torch.no_grad()
+def multi_tensor_scale_(inputs, outputs, scale):
+    """``outputs[i] = inputs[i] * scale`` for all ``i``, in place in
+    ``outputs`` (same shapes; dtypes f32, bf16 or f16 each, and an output
+    may be its input).  ``scale``: a float or an f32 device scalar.
+    Returns the found-inf flag (f32 scalar tensor, 1.0 where a scaled value
+    is not finite).  CPU tensors take :func:`multi_tensor_scale_reference`;
+    CUDA tensors launch ``csrc/multi_tensor_scale.cu`` (launches added to
+    ``multi_tensor_scale_.launches``) or raise."""
+    if len(outputs) != len(inputs):
+        raise ValueError("multi_tensor_scale_: the lists differ in length")
+    if not inputs:
+        return torch.zeros((), dtype=_f32)
+    device = _cuda_device("multi_tensor_scale_", inputs)
+    if device.type == "cpu":
+        return multi_tensor_scale_reference(inputs, outputs, scale)
+    _check_lists("multi_tensor_scale_", device, (inputs, outputs))
+    s = device_scalars([scale], device)
+    found_inf = torch.zeros((), dtype=_f32, device=device)
+    arrays = [_addresses(inputs), _addresses(outputs), _numels(inputs),
+              _codes(inputs, "multi_tensor_scale_"),
+              _codes(outputs, "multi_tensor_scale_")]
+    launches = ctypes.c_int(0)
+    rc = _kernels.lib().apex_multi_tensor_scale(
+        len(inputs), *(_ptr(a) for a in arrays), s.data_ptr(),
+        found_inf.data_ptr(), ctypes.byref(launches), _kernels.stream())
+    _kernels.check(rc, "multi_tensor_scale_")
+    multi_tensor_scale_.launches += launches.value
+    return found_inf
+
+
+multi_tensor_scale_.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# sums of squares (#17)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def multi_tensor_sumsq_reference(tensors, per_tensor=False):
+    """Plain version: ``(sum of x^2 over all tensors, per-tensor sums or
+    None, found-inf of the inputs)``, all f32 and in f32."""
+    sums = torch.stack([torch.sum(torch.square(x.to(_f32))) for x in tensors])
+    bad = torch.zeros((), dtype=torch.bool, device=tensors[0].device)
+    for x in tensors:
+        bad = bad | ~torch.all(torch.isfinite(x))
+    return torch.sum(sums), (sums if per_tensor else None), bad.to(_f32)
+
+
+@torch.no_grad()
+def multi_tensor_sumsq(tensors, per_tensor=False):
+    """Sums of squares of a list of tensors (f32, bf16 or f16 each, any
+    shapes): returns ``(total, per_tensor_sums, found_inf)``: ``total`` the
+    f32 sum of x^2 over every element, ``per_tensor_sums`` an f32 ``(n,)``
+    tensor when ``per_tensor`` (else None), ``found_inf`` 1.0 where an
+    input is not finite.  The norms are their square roots
+    (:func:`apex_tpu_torch.multi_tensor_apply.multi_tensor_l2norm`).  CPU
+    tensors take :func:`multi_tensor_sumsq_reference`; CUDA tensors launch
+    ``csrc/multi_tensor_l2norm.cu`` (per-chunk partials, then a fixed-order
+    sum by a second kernel: bit for bit repeatable; the launches of both
+    added to ``multi_tensor_sumsq.launches``) or raise."""
+    if not tensors:
+        raise ValueError("multi_tensor_sumsq: no tensors")
+    device = _cuda_device("multi_tensor_sumsq", tensors)
+    if device.type == "cpu":
+        return multi_tensor_sumsq_reference(tensors, per_tensor)
+    _check_lists("multi_tensor_sumsq", device, (tensors,))
+    numels = _numels(tensors)
+    partials = torch.empty(max(1, sum(chunk_counts(numels))), dtype=_f32,
+                           device=device)
+    per = (torch.empty(len(tensors), dtype=_f32, device=device)
+           if per_tensor else None)
+    total = torch.empty((), dtype=_f32, device=device)
+    found_inf = torch.zeros((), dtype=_f32, device=device)
+    arrays = [_addresses(tensors), numels, _codes(tensors,
+                                                  "multi_tensor_sumsq")]
+    launches = ctypes.c_int(0)
+    rc = _kernels.lib().apex_multi_tensor_l2norm(
+        len(tensors), *(_ptr(a) for a in arrays), partials.data_ptr(),
+        None if per is None else per.data_ptr(), total.data_ptr(),
+        found_inf.data_ptr(), ctypes.byref(launches), _kernels.stream())
+    _kernels.check(rc, "multi_tensor_sumsq")
+    multi_tensor_sumsq.launches += launches.value
+    return total, per, found_inf
+
+
+multi_tensor_sumsq.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# LAMB stage 1 (#20) and stage 2 (#21)
+# ---------------------------------------------------------------------------
+
+def _lamb_stage1_math(adam_w_mode, scal, skip, g, p, m, v):
+    """Pure f32 LAMB stage 1 (the JAX ``_lamb_stage1_math``): moments, raw
+    update ``u`` and the row sums of u^2 and p^2.
+
+    scal: [beta1, beta2, eps, wd, bc1, bc2, grad_scale, clip, beta3]
+    (beta3 = 1-beta1 with grad averaging, else 1.0).
+    """
+    beta1, beta2, eps, wd, bc1, bc2, gscale, clip, beta3 = (
+        scal[k] for k in range(9))
+    g = g * gscale * clip
+    if not adam_w_mode:
+        g = g + wd * p
+    m_new = beta1 * m + beta3 * g
+    v_new = beta2 * v + (1.0 - beta2) * g * g
+    u = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+    if adam_w_mode:
+        u = u + wd * p
+    u = torch.where(skip, torch.zeros_like(u), u)
+    return (u,
+            torch.where(skip, m, m_new),
+            torch.where(skip, v, v_new),
+            torch.sum(u * u, dim=1, keepdim=True),
+            torch.sum(p * p, dim=1, keepdim=True))
+
+
+def _chunked(x):
+    """``x`` flattened in f32 and zero-padded to ``(chunks, CHUNK)`` rows:
+    row sums are the kernels' chunk partials (a zero pad adds nothing)."""
+    flat = x.reshape(-1).to(_f32)
+    pad = -flat.numel() % CHUNK
+    return torch.nn.functional.pad(flat, (0, pad)).reshape(-1, CHUNK)
+
+
+@torch.no_grad()
+def multi_tensor_lamb_stage1_reference(grads, params, exp_avgs, exp_avg_sqs,
+                                       updates, scal, noop=None,
+                                       adam_w_mode=True):
+    """Plain version: :func:`_lamb_stage1_math` over each tensor's chunks;
+    m, v and u copied into their tensors.  Returns the chunk partials
+    ``(u_sq, p_sq)``."""
+    skip = _skip(noop, params[0].device)
+    scal = scal.to(_f32)
+    usq, psq = [], []
+    for g, p, m, v, u in zip(grads, params, exp_avgs, exp_avg_sqs, updates):
+        n = p.numel()
+        u2, m2, v2, us, ps = _lamb_stage1_math(
+            bool(adam_w_mode), scal, skip, _chunked(g), _chunked(p),
+            _chunked(m), _chunked(v))
+        for dst, src in ((u, u2), (m, m2), (v, v2)):
+            dst.copy_(src.reshape(-1)[:n].reshape(dst.shape))
+        usq.append(us.reshape(-1))
+        psq.append(ps.reshape(-1))
+    return torch.cat(usq), torch.cat(psq)
+
+
+@torch.no_grad()
+def multi_tensor_lamb_stage1(grads, params, exp_avgs, exp_avg_sqs, updates,
+                             scal, noop=None, adam_w_mode=True):
+    """LAMB stage 1 over lists of tensors: moments (in place), the raw
+    update ``u`` (into ``updates``) and the chunk partials of u^2 and p^2.
+
+    ``grads``/``params``: f32, bf16 or f16 (``params`` are the f32 masters
+    under master weights); ``exp_avgs``/``exp_avg_sqs``/``updates``: f32;
+    ``scal``: f32 ``(9,)`` device tensor as in :func:`_lamb_stage1_math`;
+    ``noop``: optional int32 scalar tensor (non-zero: u = 0, moments kept).
+    Returns ``(u_sq, p_sq)``, f32 ``(chunks,)`` partials laid out tensor
+    after tensor (:func:`chunk_counts`), for
+    :func:`multi_tensor_lamb_stage2`.  CPU tensors take
+    :func:`multi_tensor_lamb_stage1_reference`; CUDA tensors launch
+    ``csrc/multi_tensor_lamb.cu`` (launches added to
+    ``multi_tensor_lamb_stage1.launches``) or raise."""
+    lists = (grads, params, exp_avgs, exp_avg_sqs, updates)
+    if any(len(x) != len(params) for x in lists) or not params:
+        raise ValueError("multi_tensor_lamb_stage1: the five lists must have "
+                         "one (non-zero) length")
+    device = _cuda_device("multi_tensor_lamb_stage1", params)
+    if device.type == "cpu":
+        return multi_tensor_lamb_stage1_reference(*lists, scal, noop,
+                                                  adam_w_mode)
+    _check_lists("multi_tensor_lamb_stage1", device, lists, f32_lists=(2, 3,
+                                                                      4))
+    _check_scalars("multi_tensor_lamb_stage1", device, scal, 9)
+    if noop is not None:
+        _check_scalars("multi_tensor_lamb_stage1", device, noop, 1,
+                       torch.int32)
+    numels = _numels(params)
+    n_chunks = max(1, sum(chunk_counts(numels)))
+    usq = torch.empty(n_chunks, dtype=_f32, device=device)
+    psq = torch.empty(n_chunks, dtype=_f32, device=device)
+    arrays = [_addresses(x) for x in lists] + [
+        numels, _codes(grads, "multi_tensor_lamb_stage1"),
+        _codes(params, "multi_tensor_lamb_stage1")]
+    launches = ctypes.c_int(0)
+    rc = _kernels.lib().apex_multi_tensor_lamb_stage1(
+        len(params), *(_ptr(a) for a in arrays), scal.data_ptr(),
+        None if noop is None else noop.data_ptr(), int(bool(adam_w_mode)),
+        usq.data_ptr(), psq.data_ptr(), ctypes.byref(launches),
+        _kernels.stream())
+    _kernels.check(rc, "multi_tensor_lamb_stage1")
+    multi_tensor_lamb_stage1.launches += launches.value
+    return usq, psq
+
+
+multi_tensor_lamb_stage1.launches = 0
+
+
+def _trust_ratio(u_sq, p_sq, use_nvlamb):
+    """||p|| / ||u|| with the JAX rule: 1 where a norm is 0 (use_nvlamb:
+    only where ||u|| is 0)."""
+    u_norm, p_norm = torch.sqrt(u_sq), torch.sqrt(p_sq)
+    apply = u_norm > 0 if use_nvlamb else (p_norm > 0) & (u_norm > 0)
+    return torch.where(apply, p_norm / u_norm, torch.ones_like(u_norm))
+
+
+@torch.no_grad()
+def multi_tensor_lamb_stage2_reference(updates, params, copies, u_sq, p_sq,
+                                       lr, noop=None, use_nvlamb=False):
+    """Plain version: each tensor's trust ratio from its chunk partials,
+    then ``p - (lr * ratio) * u`` in f32, copied into ``params`` and, where
+    given, ``copies`` (rounded to their dtypes); under ``noop`` nothing
+    changes."""
+    skip = _skip(noop, params[0].device)
+    lr = torch.as_tensor(lr, dtype=_f32).reshape(())
+    off = 0
+    for u, p, c, nc in zip(updates, params, copies,
+                           chunk_counts(t.numel() for t in params)):
+        ratio = _trust_ratio(torch.sum(u_sq[off:off + nc]),
+                             torch.sum(p_sq[off:off + nc]), use_nvlamb)
+        off += nc
+        pf = p.to(_f32)
+        p_new = torch.where(skip, pf, pf - lr * ratio * u)
+        p.copy_(p_new)
+        if c is not None:
+            c.copy_(torch.where(skip, c, p_new.to(c.dtype)))
+
+
+@torch.no_grad()
+def multi_tensor_lamb_stage2(updates, params, copies, u_sq, p_sq, lr,
+                             noop=None, use_nvlamb=False):
+    """LAMB stage 2 over the lists stage 1 ran on: per tensor the trust
+    ratio from ``u_sq``/``p_sq`` (stage 1's partials), then ``p <- p -
+    (lr * ratio) * u`` in place; a non-zero ``noop`` skips the update
+    (params and copies keep their values).
+
+    ``updates``: f32; ``params``: f32, bf16 or f16; ``copies``: a list of
+    tensors or ``None`` entries — where set (``params`` holds f32 masters)
+    the new value is also written there, rounded to its dtype (the model's
+    parameter).  ``lr``: a float or f32 device scalar.  CPU tensors take
+    :func:`multi_tensor_lamb_stage2_reference`; CUDA tensors launch
+    ``csrc/multi_tensor_lamb.cu`` (launches added to
+    ``multi_tensor_lamb_stage2.launches``) or raise."""
+    if (len(updates) != len(params) or len(copies) != len(params)
+            or not params):
+        raise ValueError("multi_tensor_lamb_stage2: the three lists must "
+                         "have one (non-zero) length")
+    device = _cuda_device("multi_tensor_lamb_stage2", params)
+    if device.type == "cpu":
+        return multi_tensor_lamb_stage2_reference(
+            updates, params, copies, u_sq, p_sq, lr, noop, use_nvlamb)
+    _check_lists("multi_tensor_lamb_stage2", device,
+                 (updates, params, copies), f32_lists=(0,))
+    numels = _numels(params)
+    n_chunks = max(1, sum(chunk_counts(numels)))
+    for t in (u_sq, p_sq):
+        _check_scalars("multi_tensor_lamb_stage2", device, t, n_chunks)
+    if noop is not None:
+        _check_scalars("multi_tensor_lamb_stage2", device, noop, 1,
+                       torch.int32)
+    lr_t = device_scalars([lr], device)
+    arrays = [_addresses(updates), _addresses(params), _addresses(copies),
+              numels, _codes(params, "multi_tensor_lamb_stage2"),
+              _codes(copies, "multi_tensor_lamb_stage2")]
+    launches = ctypes.c_int(0)
+    rc = _kernels.lib().apex_multi_tensor_lamb_stage2(
+        len(params), *(_ptr(a) for a in arrays), u_sq.data_ptr(),
+        p_sq.data_ptr(), lr_t.data_ptr(),
+        None if noop is None else noop.data_ptr(), int(bool(use_nvlamb)),
+        ctypes.byref(launches), _kernels.stream())
+    _kernels.check(rc, "multi_tensor_lamb_stage2")
+    multi_tensor_lamb_stage2.launches += launches.value
+
+
+multi_tensor_lamb_stage2.launches = 0

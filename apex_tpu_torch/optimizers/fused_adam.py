@@ -7,14 +7,19 @@ makes ``zero_grad`` drop the gradients.  ``capturable`` is accepted for
 signature parity: every step already reads its scalars and step count from
 the device.  One step is one :func:`~apex_tpu_torch.ops.multi_tensor.
 multi_tensor_adam` launch set per parameter group over the per-parameter
-f32 moments ``exp_avg`` / ``exp_avg_sq``.
+f32 moments ``exp_avg`` / ``exp_avg_sq``; under ``master_weights`` the
+kernel updates the f32 masters and the parameters then take their masters'
+values, rounded to their dtypes, in one
+:func:`~apex_tpu_torch.ops.multi_tensor.multi_tensor_scale_` launch set
+(a scale of 1).
 """
 
 from __future__ import annotations
 
 import torch
 
-from apex_tpu_torch.ops.multi_tensor import multi_tensor_adam
+from apex_tpu_torch.ops.multi_tensor import (device_scalars, multi_tensor_adam,
+                                             multi_tensor_scale_)
 from apex_tpu_torch.optimizers.base import FusedOptimizer
 
 _f32 = torch.float32
@@ -40,22 +45,21 @@ class FusedAdam(FusedOptimizer):
         super().zero_grad(self.set_grad_none if set_to_none is None
                           else set_to_none)
 
-    def _update_group(self, group, params, step_count, grad_scale, noop):
+    def _init_state(self, p, st):
+        st["exp_avg"] = torch.zeros_like(p, dtype=_f32)
+        st["exp_avg_sq"] = torch.zeros_like(p, dtype=_f32)
+
+    def _update_group(self, group, params, grads, targets, copies,
+                      step_count, grad_scale, noop, extras):
         beta1, beta2 = group["betas"]
         bc1, bc2 = self._bias_corrections(group, step_count)
-        device = params[0].device
-        # one f32 device tensor: floats and device scalars alike
-        scal = torch.stack([
-            torch.as_tensor(v, dtype=_f32, device=device).reshape(())
-            for v in (group["lr"], beta1, beta2, group["eps"],
-                      group["weight_decay"], bc1, bc2, grad_scale)])
-        ms, vs = [], []
-        for p in params:
-            st = self.state[p]
-            if not st:
-                st["exp_avg"] = torch.zeros_like(p, dtype=_f32)
-                st["exp_avg_sq"] = torch.zeros_like(p, dtype=_f32)
-            ms.append(st["exp_avg"])
-            vs.append(st["exp_avg_sq"])
-        multi_tensor_adam([p.grad for p in params], params, ms, vs, scal,
-                          noop, group["adam_w_mode"])
+        scal = device_scalars((group["lr"], beta1, beta2, group["eps"],
+                               group["weight_decay"], bc1, bc2, grad_scale),
+                              targets[0].device)
+        states = [self.state[p] for p in params]
+        multi_tensor_adam(grads, targets, [st["exp_avg"] for st in states],
+                          [st["exp_avg_sq"] for st in states], scal, noop,
+                          group["adam_w_mode"])
+        pairs = [(t, c) for t, c in zip(targets, copies) if c is not None]
+        if pairs:
+            multi_tensor_scale_(*map(list, zip(*pairs)), 1.0)

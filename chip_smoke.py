@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive apex_tpu_torch's serving and training paths on one NVIDIA H100 and
-hold every kernel of the paths against its plain PyTorch version.
+"""Drive apex_tpu_torch's serving and training paths (GPT serving, GPT
+training, BERT training under amp O2) on one NVIDIA H100 and hold every
+kernel of the paths against its plain PyTorch version.
 
     python3 chip_smoke.py [--out results.json] [--profile breakdown.txt]
 
@@ -31,7 +32,21 @@ Phases (any failure exits non-zero; nothing is caught):
    version;
 6. a small GPT (4 layers, hidden 256, vocab 50304, seq 256, attention
    dropout 0.1) trained 2 steps on the card and on a CPU copy: loss, every
-   gradient and the parameters within stated tolerances.
+   gradient and the parameters within stated tolerances;
+7. BERT-large (vocab 30528, hidden 1024, 24 layers, 16 heads, ffn 4096,
+   seq 512, ``fused_lm_head=False``) under ``amp.initialize(...,
+   opt_level="O2")`` with ``FusedLAMB(lr=1e-3)``: micro-batch 16 x
+   accumulation 2 x seq 512, 15% MLM labels from seed 0 (bench.py's
+   recipe), 4 steps through ``forward_backward_no_pipelining`` over
+   ``BertModel.loss`` and ``FusedLAMB.step``: losses, step time, tokens/s,
+   peak memory, exact launch counts per kernel, no plain version called;
+   then (7b) ``LossScaler.unscale`` and ``clip_grad_norm_`` on that step's
+   gradients against their plain versions, their launches counted alone;
+8. a small BERT (4 layers, hidden 256, seq 128, vocab 30528) under O2 +
+   FusedLAMB trained 2 steps on the card and on a CPU copy: loss, every
+   gradient, the masters, m and v within stated bounds; then (8b) a
+   dynamic-loss-scale step with an inf in one gradient, skipped on the
+   device.
 
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -83,6 +98,19 @@ LOGITS_MEAN_ATOL = 0.02        # mean |logit diff|
 # agree to lr / 2.
 TRAIN_GRAD_TOL = 5e-2
 TRAIN_LOSS_RTOL = 2e-3
+# the BERT slice: bench.py's BERT-large + amp O2 + FusedLAMB step less the
+# fused LM head
+BERT_LARGE = dict(vocab_size=30528, hidden_size=1024, num_layers=24,
+                  num_attention_heads=16, ffn_hidden_size=4096,
+                  max_seq_len=512, type_vocab_size=2)
+BERT_MICRO, BERT_ACCUM, BERT_SEQ, BERT_LR, BERT_STEPS = 16, 2, 512, 1e-3, 4
+BERT_ROWS = BERT_MICRO * BERT_SEQ
+LAMB_BETAS, LAMB_WD = (0.9, 0.999), 0.01
+# Training, card vs CPU under LAMB: each leaf's whole move over the steps
+# agrees, ||p_card - p_cpu|| <= MOVE_RTOL ||p_cpu - p0||.  The entry-wise
+# bound of phase 8 admits a master that never moved (share 1) or moved at
+# half the learning rate (0.5); the CPU tests against JAX see at most 0.2.
+MOVE_RTOL = 0.35
 
 
 def log(msg):
@@ -164,8 +192,10 @@ def numbers(err, ms, plain, lib, bound, host):
 
 
 def log_numbers(name, n, lib_name):
+    lib = ("" if n["library_ms"] is None
+           else f" {n['library_ms']:.4f} ms")
     log(f"  {name}: {n['ms']:.4f} ms (eager call {n['call_ms']:.4f} ms), "
-        f"plain {n['plain_ms']:.4f} ms, {lib_name} {n['library_ms']:.4f} ms, "
+        f"plain {n['plain_ms']:.4f} ms, {lib_name}{lib}, "
         f"bound {n['bound_ms']:.5f} ms ({n['bound_by']})")
 
 
@@ -216,18 +246,33 @@ def kernel_layer_norm(gen):
             call_ms(lambda: layer_norm_fwd(x, w, b, 1e-5, False)))
         log_numbers(f"layer_norm_fwd rows={rows}", n, "F.layer_norm")
         rows_main[rows] = n
+    # BERT's MLM LayerNorm takes the f32 output of its transform (f32 in,
+    # f32 out): the same math without the bf16 rounding of y, so the
+    # kernel and its plain version differ only in their f32 sum orders
+    x = torch.randn(TRAIN_ROWS, HIDDEN, generator=gen).to(dev)
+    y, mean, rstd = layer_norm_fwd(x, w, b, 1e-5, False)
+    ry, rmean, rrstd = layer_norm_fwd_reference(x, w, b, 1e-5, False)
+    torch.cuda.synchronize()
+    tag = f"layer_norm_fwd rows={TRAIN_ROWS} f32 ln"
+    if y.dtype != torch.float32:
+        raise AssertionError(f"{tag}: y is {y.dtype}, not f32")
+    check_close(tag + " y", y, ry, 1e-5, 1e-5)
+    check_close(tag + " mean", mean, rmean, 1e-5, 1e-5)
+    check_close(tag + " rstd", rstd, rrstd, 1e-5, 1e-4)
     return rows_main
 
 
 def kernel_layer_norm_bwd(gen):
-    """#2 at the training shape (8192 x 1024 bf16, LN from x), plus small
-    from_y / RMS / f32 cases."""
+    """#2 at the training shape (8192 x 1024 bf16, LN from x), the same
+    shape in f32 (BERT's MLM LayerNorm), plus small from_y / RMS / f32
+    cases."""
     from apex_tpu_torch.ops.layer_norm import (layer_norm_bwd,
                                                layer_norm_bwd_reference,
                                                layer_norm_fwd)
     dev = "cuda"
     out = {}
     cases = [(TRAIN_ROWS, torch.bfloat16, False, False),
+             (TRAIN_ROWS, torch.float32, False, False),
              (512, torch.bfloat16, False, True), (512, torch.bfloat16, True,
                                                   False),
              (512, torch.bfloat16, True, True), (300, torch.float32, False,
@@ -251,7 +296,8 @@ def kernel_layer_norm_bwd(gen):
         check_close(tag + " dgamma", dw, rdw, 1e-3, 1e-4)
         if not rms:
             check_close(tag + " dbeta", db, rdb, 1e-3, 1e-4)
-        if (rows, rms, from_y) != (TRAIN_ROWS, False, False):
+        if (rows, dt, rms, from_y) != (TRAIN_ROWS, torch.bfloat16, False,
+                                       False):
             continue
         x_, w16, b16 = x, w.bfloat16(), b.bfloat16()
         _, lmean, lrstd = torch.ops.aten.native_layer_norm(x_, [HIDDEN], w16,
@@ -351,12 +397,45 @@ def kernel_flash(gen):
         log_numbers(f"flash_fwd train dropout={rate}", n,
                     "sdpa (no dropout)")
         by_len[f"train_dropout_{rate}"] = n
+    # the BERT training shape: bidirectional (no mask)
+    q, k, v = _qkv_views(gen, BERT_MICRO, BERT_SEQ)
+    o, lse = flash_fwd(q, k, v, False, scale)
+    ro, rlse = flash_fwd_reference(q, k, v, False, scale)
+    torch.cuda.synchronize()
+    tag = f"flash_fwd non-causal ({BERT_MICRO},{HEADS},{BERT_SEQ},{HEAD_DIM})"
+    err = check_close(tag, o, ro, BF16_ATOL, BF16_RTOL)
+    check_close(tag + " lse", lse, rlse, 1e-4, 1e-5)
+    n = numbers(
+        err, time_ms(lambda: flash_fwd(q, k, v, False, scale)),
+        time_ms(lambda: flash_fwd_reference(q, k, v, False, scale)),
+        time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       scale=scale)),
+        _flash_bound(BERT_MICRO, BERT_SEQ, False, 2, 4),
+        call_ms(lambda: flash_fwd(q, k, v, False, scale)))
+    log_numbers("flash_fwd bert non-causal", n, "sdpa")
+    by_len["bert_noncausal"] = n
     return by_len
+
+
+def _flash_bwd_library_ms(q, k, v, do, causal, scale):
+    """SDPA computes dq, dk and dv in one backward: its time is the graph
+    of forward + backward less the forward alone."""
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                              scale=scale)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa_fwd(), (ql, kl, vl), do)
+
+    return time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd)
 
 
 def kernel_flash_bwd(gen):
     """#4 / #5 at (8, 16, 1024, 64) bf16: causal with and without dropout,
-    and kv_seqlens (non-causal)."""
+    and kv_seqlens (non-causal); then at BERT's (16, 16, 512, 64),
+    non-causal."""
     from apex_tpu_torch.ops.flash_attention import (
         flash_attention_dkv, flash_attention_dkv_reference, flash_attention_dq,
         flash_attention_dq_reference, flash_fwd)
@@ -389,18 +468,7 @@ def kernel_flash_bwd(gen):
                             BF16_ATOL, BF16_RTOL)
         if tag != "causal":
             continue
-        ql, kl_, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
-
-        def sdpa_fwd():
-            return F.scaled_dot_product_attention(ql, kl_, vl, is_causal=True,
-                                                  scale=scale)
-
-        def sdpa_fwd_bwd():
-            return torch.autograd.grad(sdpa_fwd(), (ql, kl_, vl), do)
-
-        # SDPA computes dq, dk and dv in one backward: its time is the
-        # graph of forward + backward less the forward alone
-        lib_bwd = time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd)
+        lib_bwd = _flash_bwd_library_ms(q, k, v, do, True, scale)
         out["dq"] = numbers(
             err_q, time_ms(lambda: flash_attention_dq(*args)),
             time_ms(lambda: flash_attention_dq_reference(*args)), lib_bwd,
@@ -415,6 +483,41 @@ def kernel_flash_bwd(gen):
                     "sdpa backward (dq+dk+dv)")
         log_numbers("flash_attention_dkv causal", out["dkv"],
                     "sdpa backward (dq+dk+dv)")
+    # BERT: (16, 16, 512, 64), no mask
+    q, k, v = _qkv_views(gen, BERT_MICRO, BERT_SEQ)
+    do = torch.randn(BERT_MICRO, BERT_SEQ, HEADS, HEAD_DIM, generator=gen).to(
+        "cuda", torch.bfloat16).transpose(1, 2)
+    o, lse = flash_fwd(q, k, v, False, scale)
+    delta = (do.float() * o.float()).sum(-1).reshape(BERT_MICRO * HEADS,
+                                                     BERT_SEQ)
+    args = (q, k, v, do, lse, delta, False, scale)
+    dq = flash_attention_dq(*args)
+    dk, dv = flash_attention_dkv(*args)
+    rdq = flash_attention_dq_reference(*args)
+    rdk, rdv = flash_attention_dkv_reference(*args)
+    torch.cuda.synchronize()
+    name = f"({BERT_MICRO},{HEADS},{BERT_SEQ},{HEAD_DIM}) non-causal"
+    err_q = check_close(f"flash_attention_dq {name}", dq, rdq, BF16_ATOL,
+                        BF16_RTOL)
+    err_k = check_close(f"flash_attention_dkv {name} dk", dk, rdk, BF16_ATOL,
+                        BF16_RTOL)
+    err_v = check_close(f"flash_attention_dkv {name} dv", dv, rdv, BF16_ATOL,
+                        BF16_RTOL)
+    lib_bwd = _flash_bwd_library_ms(q, k, v, do, False, scale)
+    out["dq_bert"] = numbers(
+        err_q, time_ms(lambda: flash_attention_dq(*args)),
+        time_ms(lambda: flash_attention_dq_reference(*args)), lib_bwd,
+        _flash_bound(BERT_MICRO, BERT_SEQ, False, 3, 5),
+        call_ms(lambda: flash_attention_dq(*args)))
+    out["dkv_bert"] = numbers(
+        max(err_k, err_v), time_ms(lambda: flash_attention_dkv(*args)),
+        time_ms(lambda: flash_attention_dkv_reference(*args)), lib_bwd,
+        _flash_bound(BERT_MICRO, BERT_SEQ, False, 4, 6),
+        call_ms(lambda: flash_attention_dkv(*args)))
+    log_numbers("flash_attention_dq bert non-causal", out["dq_bert"],
+                "sdpa backward (dq+dk+dv)")
+    log_numbers("flash_attention_dkv bert non-causal", out["dkv_bert"],
+                "sdpa backward (dq+dk+dv)")
     return out
 
 
@@ -461,10 +564,11 @@ def kernel_decode(gen):
     return n
 
 
-def adam_launches(numels, max_tensors=36, max_blocks=320, chunk=65536):
-    """Launches of csrc/multi_tensor_adam.cu for tensors of these sizes:
-    a table launches when its 320 blocks or 36 tensors are full, carrying
-    a tensor whose chunks are not all issued."""
+def table_launches(numels, max_tensors=36, max_blocks=320, chunk=65536):
+    """Launches of a multi-tensor kernel (csrc/multi_tensor.cuh) over
+    tensors of these sizes: a table launches when its 320 blocks or 36
+    tensors are full, carrying a tensor whose chunks are not all
+    issued."""
     launches = nt = nb = 0
     for n in numels:
         if n <= 0:
@@ -479,6 +583,14 @@ def adam_launches(numels, max_tensors=36, max_blocks=320, chunk=65536):
                 nb = 0
                 nt = 0 if done else 1
     return launches + (nb > 0)
+
+
+def sumsq_launches(numels, per_tensor=False):
+    """Launches of multi_tensor_sumsq: the table's first pass, then the
+    fixed-order sums of its partials (csrc/multi_tensor_l2norm.cu), one
+    launch per 480 tensors with per-tensor sums, else one."""
+    return table_launches(numels) + (-(-len(numels) // 480) if per_tensor
+                                     else 1)
 
 
 def kernel_adam(gen_cuda):
@@ -550,23 +662,15 @@ def kernel_adam(gen_cuda):
         n_launch = multi_tensor_adam.launches - before
         multi_tensor_adam_reference(gs, rp, rm, rv, scal, noop)
         torch.cuda.synchronize()
-        if n_launch != adam_launches(numels):
+        if n_launch != table_launches(numels):
             raise AssertionError(f"multi_tensor_adam made {n_launch} "
                                  f"launches, the table rule says "
-                                 f"{adam_launches(numels)}")
+                                 f"{table_launches(numels)}")
         for name, a, b in (("p", kp, rp), ("m", km, rm), ("v", kv, rv)):
             # f32 on both sides; FMA contraction on the card moves the
             # last bits: 1e-6 relative
-            e = max(max_err(x, y) for x, y in zip(a, b))
-            ok = all(torch.allclose(x, y, rtol=1e-6, atol=1e-9)
-                     for x, y in zip(a, b))
-            log(f"  multi_tensor_adam noop={noop_v} {name}: max_abs_err="
-                f"{e:.3e} (tolerance |d| <= 1e-9 + 1e-6*|ref|) "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError("multi_tensor_adam disagrees with its "
-                                     "plain version")
-            err = max(err, e)
+            err = max(err, _check_lists(f"multi_tensor_adam noop={noop_v} "
+                                        f"{name}", a, b, 1e-6, 1e-9))
         if noop_v and not all(torch.equal(x, y) for x, y in zip(kp, ps)):
             raise AssertionError("multi_tensor_adam noop=1 changed params")
         del kp, km, kv, rp, rm, rv
@@ -586,11 +690,241 @@ def kernel_adam(gen_cuda):
         call_ms(lambda: multi_tensor_adam(gs, ps, ms, vs, scal, noop),
                 iters=10))
     log_numbers(f"multi_tensor_adam {len(shapes)} tensors, {n_el} elements, "
-                f"{adam_launches(numels)} launches", n,
+                f"{table_launches(numels)} launches", n,
                 "AdamW(fused=True).step (eager)")
     n["tensors"], n["elements"] = len(shapes), n_el
-    n["launches_per_step"] = adam_launches(numels)
+    n["launches_per_step"] = table_launches(numels)
     return n
+
+
+def bert_param_specs():
+    """(shape, dtype) of BERT-large's 299 parameters under amp O2: bf16,
+    the LayerNorms f32."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.bert import BertConfig, BertModel
+    model = BertModel(BertConfig(**BERT_LARGE, fused_lm_head=False),
+                      device="meta")
+    amp.initialize(model, None, opt_level="O2")
+    return [(tuple(p.shape), p.dtype) for p in model.parameters()]
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _check_lists(name, got, ref, rtol, atol, scale_rtol=0.0):
+    """Every pair within |d| <= atol + rtol*|ref| + scale_rtol*max|ref|
+    (the largest entry of that tensor); returns the max error."""
+    pairs = [(a, b) for a, b in zip(got, ref) if a is not None]
+    err = max(max_err(a, b) for a, b in pairs)
+    ok = all(torch.allclose(a.float(), b.float(), rtol=rtol, atol=atol + (
+        scale_rtol * float(b.float().abs().max()) if scale_rtol else 0.0))
+        for a, b in pairs)
+    scale = f" + {scale_rtol}*max|ref|" if scale_rtol else ""
+    log(f"  {name}: max_abs_err={err:.3e} (tolerance |d| <= {atol} + "
+        f"{rtol}*|ref|{scale}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        i, (a, b) = max(enumerate(pairs), key=lambda ip: max_err(*ip[1]))
+        j = int((a.float() - b.float()).abs().argmax())
+        log(f"    worst: tensor {i} {tuple(b.shape)} element {j}: got "
+            f"{float(a.flatten()[j])!r}, plain {float(b.flatten()[j])!r}")
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
+
+
+def _check_found_inf(name, kernel_fn, plain_fn, tensors):
+    """The found-inf flag of kernel and plain version, clean and with one
+    inf in the middle of the list."""
+    t = tensors[len(tensors) // 2].view(-1)
+    saved = t[7].clone()
+    flags = []
+    for bad in (False, True):
+        if bad:
+            t[7] = float("inf")
+        flags.append((float(kernel_fn()), float(plain_fn())))
+    t[7] = saved
+    log(f"  {name} found_inf clean / with an inf: kernel "
+        f"{[f[0] for f in flags]}, plain {[f[1] for f in flags]}")
+    if flags != [(0.0, 0.0), (1.0, 1.0)]:
+        raise AssertionError(f"{name}: wrong found-inf flag")
+
+
+def kernel_multi_tensor_lamb(gen_cuda):
+    """#17, #15, #20 and #21 over BERT-large's O2 tensor list (299
+    tensors: bf16 gradients for bf16 parameters, f32 for the LayerNorms;
+    f32 masters and moments), each against its plain version."""
+    from apex_tpu_torch.ops import multi_tensor as K
+    specs = bert_param_specs()
+    numels = [int(np.prod(s)) for s, _ in specs]
+    n_el, launches = sum(numels), table_launches(numels)
+
+    def rand(shape, std, positive=False):
+        t = torch.randn(shape, generator=gen_cuda, device="cuda") * std
+        return t.abs() if positive else t
+
+    grads = [rand(s, 1e-3).to(dt) for s, dt in specs]
+    # f32 masters hold bf16 values at the start, as amp O2 makes them
+    masters = [rand(s, 0.02).to(dt).float() for s, dt in specs]
+    copies = [None if dt == torch.float32 else torch.empty(s, dtype=dt,
+                                                           device="cuda")
+              for s, dt in specs]
+    out = {}
+
+    # #17: sums of squares, global and per tensor
+    total, per, _ = K.multi_tensor_sumsq(grads, per_tensor=True)
+    rtotal, rper, _ = K.multi_tensor_sumsq_reference(grads, per_tensor=True)
+    torch.cuda.synchronize()
+    # f32 sums of 335M squares in other orders (chunk partials, then a
+    # fixed tree): 1e-5 relative
+    err = check_close("multi_tensor_sumsq total", total, rtotal, 0, 1e-5)
+    check_close("multi_tensor_sumsq per tensor", per, rper, 0, 1e-5)
+    _check_found_inf("multi_tensor_sumsq",
+                     lambda: K.multi_tensor_sumsq(grads)[2],
+                     lambda: K.multi_tensor_sumsq_reference(grads)[2],
+                     grads)
+    before = K.multi_tensor_sumsq.launches
+    K.multi_tensor_sumsq(grads)
+    if K.multi_tensor_sumsq.launches - before != sumsq_launches(numels):
+        raise AssertionError("multi_tensor_sumsq launch count")
+    g_bytes = _nbytes(grads)
+    out["sumsq"] = numbers(
+        err, time_ms([lambda: K.multi_tensor_sumsq(grads)] * 5),
+        time_ms([lambda: K.multi_tensor_sumsq_reference(grads)] * 2,
+                rounds=3),
+        time_ms([lambda: torch._foreach_norm(grads)] * 5),
+        bound_ms(g_bytes, 2 * n_el, PEAK_F32_FLOPS),
+        call_ms(lambda: K.multi_tensor_sumsq(grads), iters=10))
+    log_numbers(f"multi_tensor_sumsq {len(specs)} tensors, {n_el} "
+                f"elements, {sumsq_launches(numels)} launches", out["sumsq"],
+                "torch._foreach_norm")
+
+    # #15: out = x * s into the gradients' dtypes (the unscale)
+    scale = torch.full((), 2.0 ** -10, device="cuda")
+    kout = [torch.empty_like(g) for g in grads]
+    rout = [torch.empty_like(g) for g in grads]
+    K.multi_tensor_scale_(grads, kout, scale)
+    K.multi_tensor_scale_reference(grads, rout, scale)
+    torch.cuda.synchronize()
+    # the same f32 product rounded once: one ulp of bf16 at most
+    err = _check_lists("multi_tensor_scale_ bf16/f32 outputs", kout, rout,
+                       2.0 ** -8, 0.0)
+    _check_found_inf("multi_tensor_scale_",
+                     lambda: K.multi_tensor_scale_(grads, kout, scale),
+                     lambda: K.multi_tensor_scale_reference(grads, rout,
+                                                            scale), grads)
+    out["scale"] = numbers(
+        err, time_ms([lambda: K.multi_tensor_scale_(grads, kout, scale)] * 5),
+        time_ms([lambda: K.multi_tensor_scale_reference(grads, rout, scale)]
+                * 2, rounds=3),
+        time_ms([lambda: torch._foreach_mul(grads, scale)] * 5),
+        bound_ms(2 * g_bytes, n_el, PEAK_F32_FLOPS),
+        call_ms(lambda: K.multi_tensor_scale_(grads, kout, scale), iters=10))
+    log_numbers(f"multi_tensor_scale_ {len(specs)} tensors", out["scale"],
+                "torch._foreach_mul")
+    del kout, rout
+
+    # #20: stage 1 at step 3, clip 0.5, noop 0 and 1
+    b1, b2 = LAMB_BETAS
+    scal = torch.tensor([b1, b2, 1e-6, LAMB_WD, 1 - b1 ** 3, 1 - b2 ** 3,
+                         1.0, 0.5, 1 - b1], dtype=torch.float32,
+                        device="cuda")
+    ms = [rand(s, 1e-4) for s, _ in specs]
+    vs = [rand(s, 1e-8, positive=True) for s, _ in specs]
+    err = 0.0
+    for noop_v in (1, 0):
+        noop = torch.tensor(noop_v, dtype=torch.int32, device="cuda")
+        km, kv, rm, rv = ([t.clone() for t in ts] for ts in (ms, vs, ms, vs))
+        ku = [torch.empty_like(t) for t in masters]
+        ru = [torch.empty_like(t) for t in masters]
+        before = K.multi_tensor_lamb_stage1.launches
+        kusq, kpsq = K.multi_tensor_lamb_stage1(grads, masters, km, kv, ku,
+                                                scal, noop)
+        n_launch = K.multi_tensor_lamb_stage1.launches - before
+        rusq, rpsq = K.multi_tensor_lamb_stage1_reference(
+            grads, masters, rm, rv, ru, scal, noop)
+        torch.cuda.synchronize()
+        if n_launch != launches:
+            raise AssertionError(f"multi_tensor_lamb_stage1 made {n_launch} "
+                                 f"launches, the table rule says {launches}")
+        tag = f"multi_tensor_lamb_stage1 noop={noop_v}"
+        # f32 on both sides; FMA contraction on the card rounds
+        # b1*m + b3*g once where the plain version rounds twice, which
+        # moves an entry where the two terms cancel by an ulp of the terms
+        # (not of the result), and u divides it by sqrt(v): 1e-6 of each
+        # tensor's largest entry; the chunk partials sum 64K terms in
+        # another order (1e-5 relative)
+        for name, a, b in (("u", ku, ru), ("m", km, rm), ("v", kv, rv)):
+            err = max(err, _check_lists(f"{tag} {name}", a, b, 1e-6, 0.0,
+                                        scale_rtol=1e-6))
+        check_close(f"{tag} chunk sums of u^2", kusq, rusq, 1e-30, 1e-5)
+        check_close(f"{tag} chunk sums of p^2", kpsq, rpsq, 1e-30, 1e-5)
+        if noop_v and not (all(torch.equal(a, b) for a, b in zip(km, ms))
+                           and all(torch.equal(a, b) for a, b in zip(kv, vs))
+                           and not any(bool(u.any()) for u in ku)):
+            raise AssertionError("multi_tensor_lamb_stage1 noop=1 changed "
+                                 "the moments or wrote a nonzero u")
+        del rm, rv, ru
+    s1_bytes = _nbytes(grads) + 6 * 4 * n_el
+    out["stage1"] = numbers(
+        err, time_ms([lambda: K.multi_tensor_lamb_stage1(
+            grads, masters, km, kv, ku, scal, noop)] * 5),
+        time_ms([lambda: K.multi_tensor_lamb_stage1_reference(
+            grads, masters, km, kv, ku, scal, noop)], rounds=3),
+        None, bound_ms(s1_bytes, 20 * n_el, PEAK_F32_FLOPS),
+        call_ms(lambda: K.multi_tensor_lamb_stage1(
+            grads, masters, km, kv, ku, scal, noop), iters=10))
+    log_numbers(f"multi_tensor_lamb_stage1 {len(specs)} tensors",
+                out["stage1"], "no library call")
+    del km, kv
+
+    # #21: stage 2 on stage 1's u and partials, masters and bf16 copies
+    lr = torch.full((), BERT_LR, device="cuda")
+    err = 0.0
+    for noop_v in (1, 0):
+        noop = torch.tensor(noop_v, dtype=torch.int32, device="cuda")
+        kp, rp = [t.clone() for t in masters], [t.clone() for t in masters]
+        kc = [None if c is None else torch.zeros_like(c) for c in copies]
+        rc = [None if c is None else torch.zeros_like(c) for c in copies]
+        before = K.multi_tensor_lamb_stage2.launches
+        K.multi_tensor_lamb_stage2(ku, kp, kc, kusq, kpsq, lr, noop)
+        n_launch = K.multi_tensor_lamb_stage2.launches - before
+        K.multi_tensor_lamb_stage2_reference(ku, rp, rc, kusq, kpsq, lr,
+                                             noop)
+        torch.cuda.synchronize()
+        if n_launch != launches:
+            raise AssertionError(f"multi_tensor_lamb_stage2 made {n_launch} "
+                                 f"launches, the table rule says {launches}")
+        tag = f"multi_tensor_lamb_stage2 noop={noop_v}"
+        err = max(err, _check_lists(f"{tag} masters", kp, rp, 1e-6, 0.0,
+                                    scale_rtol=1e-6))
+        # the model copy is the new master rounded to nearest even, on both
+        # sides (under noop: unchanged)
+        for side, ps, cs in (("kernel", kp, kc), ("plain", rp, rc)):
+            want = [None if c is None else (torch.zeros_like(c) if noop_v
+                                            else p.to(c.dtype))
+                    for p, c in zip(ps, cs)]
+            _check_lists(f"{tag} {side} bf16 copies vs its masters", cs, want,
+                         0.0, 0.0)
+        if noop_v and not all(torch.equal(a, b) for a, b in zip(kp, masters)):
+            raise AssertionError("multi_tensor_lamb_stage2 noop=1 changed "
+                                 "the parameters")
+        del rp, rc
+    s2_bytes = 3 * 4 * n_el + _nbytes(kc)
+    out["stage2"] = numbers(
+        err, time_ms([lambda: K.multi_tensor_lamb_stage2(
+            ku, kp, kc, kusq, kpsq, lr, noop)] * 5),
+        time_ms([lambda: K.multi_tensor_lamb_stage2_reference(
+            ku, kp, kc, kusq, kpsq, lr, noop)] * 2, rounds=3),
+        None, bound_ms(s2_bytes, 3 * n_el, PEAK_F32_FLOPS),
+        call_ms(lambda: K.multi_tensor_lamb_stage2(
+            ku, kp, kc, kusq, kpsq, lr, noop), iters=10))
+    log_numbers(f"multi_tensor_lamb_stage2 {len(specs)} tensors",
+                out["stage2"], "no library call")
+    for n in out.values():
+        n["tensors"], n["elements"], n["launches_per_call"] = (
+            len(specs), n_el, launches)
+    out["sumsq"]["launches_per_call"] = sumsq_launches(numels)
+    return out
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -752,7 +1086,10 @@ _PLAIN_VERSIONS = {
         "flash_fwd_reference", "flash_attention_reference",
         "flash_attention_dq_reference", "flash_attention_dkv_reference",
         "flash_attention_decode_reference"),
-    "apex_tpu_torch.ops.multi_tensor": ("multi_tensor_adam_reference",),
+    "apex_tpu_torch.ops.multi_tensor": (
+        "multi_tensor_adam_reference", "multi_tensor_scale_reference",
+        "multi_tensor_sumsq_reference", "multi_tensor_lamb_stage1_reference",
+        "multi_tensor_lamb_stage2_reference"),
 }
 
 
@@ -826,7 +1163,7 @@ def phase_train():
                 "flash_fwd": n_steps * ACCUM * layers,
                 "flash_attention_dq": n_steps * ACCUM * layers,
                 "flash_attention_dkv": n_steps * ACCUM * layers,
-                "multi_tensor_adam": n_steps * adam_launches(numels)}
+                "multi_tensor_adam": n_steps * table_launches(numels)}
     step_s = statistics.median(times[1:])
     tokens_per_step = ACCUM * MICRO * SEQ
     log(f"[5] trained GPT-350M {n_steps} steps ({ACCUM} x {MICRO} x {SEQ} "
@@ -915,6 +1252,356 @@ def phase_train_parity():
                 param_q99_diff=p_q99)
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+def _bert_counters():
+    from apex_tpu_torch.ops.flash_attention import (flash_attention_dkv,
+                                                    flash_attention_dq,
+                                                    flash_fwd)
+    from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
+    from apex_tpu_torch.ops.multi_tensor import (multi_tensor_sumsq,
+                                                 multi_tensor_lamb_stage1,
+                                                 multi_tensor_lamb_stage2)
+    return (layer_norm_fwd, layer_norm_bwd, flash_fwd, flash_attention_dq,
+            flash_attention_dkv, multi_tensor_sumsq, multi_tensor_lamb_stage1,
+            multi_tensor_lamb_stage2)
+
+
+def build_bert(device, cfg_overrides, lr, seed, loss_scale=None):
+    """BERT under amp O2 with FusedLAMB, through ``amp.initialize``:
+    bf16 parameters, f32 LayerNorms, f32 masters."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.bert import BertConfig, BertModel
+    from apex_tpu_torch.optimizers import FusedLAMB
+    cfg = BertConfig(**cfg_overrides, fused_lm_head=False,
+                     dtype=torch.bfloat16)
+    model = BertModel(cfg, device=device).init_params(
+        torch.Generator().manual_seed(seed))
+    opt = FusedLAMB(model.parameters(), lr=lr, betas=LAMB_BETAS,
+                    weight_decay=LAMB_WD)
+    state = amp.initialize(model, opt, opt_level="O2", loss_scale=loss_scale)
+    return model, opt, state
+
+
+def mlm_batch(vocab, shape, seed):
+    """Tokens and MLM labels as bench.py draws them: 15% masked positions
+    carry a random id, -1 elsewhere."""
+    rng = np.random.RandomState(seed)
+    tokens = rng.randint(0, vocab, shape)
+    labels = np.where(rng.rand(*shape) < 0.15,
+                      rng.randint(0, vocab, shape), -1)
+    return torch.from_numpy(tokens), torch.from_numpy(labels)
+
+
+def bert_step(model, opt, tokens, labels, scaler=None):
+    """One step of the slice: the schedule over ``BertModel.loss`` and its
+    backward (M micro-batches), then ``FusedLAMB.step`` (or, with a
+    scaler, the scaled loss and ``amp.unscale_step``).  Returns the mean
+    loss."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        forward_backward_no_pipelining)
+    opt.zero_grad()
+    if scaler is None:
+        loss_fn = lambda x, t: model.loss(x, t)              # noqa: E731
+    else:
+        loss_fn = lambda x, t: amp.scale_loss(model.loss(x, t),  # noqa
+                                              scaler)
+    loss = forward_backward_no_pipelining(lambda m, x: x, loss_fn, model,
+                                          tokens, labels)
+    if scaler is None:
+        opt.step()
+        return loss
+    amp.unscale_step(opt, scaler)
+    return loss / scaler.loss_scale
+
+
+def phase_bert_train():
+    """4 steps of BERT-large O2 + FusedLAMB; losses, times, memory, exact
+    launch counts, and no plain version called."""
+    model, opt, _ = build_bert("cuda", BERT_LARGE, BERT_LR, 0)
+    numels = [p.numel() for p in model.parameters()]
+    shape = (BERT_ACCUM, BERT_MICRO, BERT_SEQ)
+    tokens, labels = (t.to("cuda") for t in mlm_batch(
+        BERT_LARGE["vocab_size"], shape, 0))
+    counters = _bert_counters()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    with counting_plain_versions() as plain_calls:
+        for _ in range(BERT_STEPS):
+            t0 = time.perf_counter()
+            loss = bert_step(model, opt, tokens, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    n, layers = BERT_STEPS, BERT_LARGE["num_layers"]
+    per_mb = 2 * layers + 2           # embedding LN, 2 per layer, MLM LN
+    table = table_launches(numels)
+    expected = {"layer_norm_fwd": n * BERT_ACCUM * per_mb,
+                "layer_norm_bwd": n * BERT_ACCUM * per_mb,
+                "flash_fwd": n * BERT_ACCUM * layers,
+                "flash_attention_dq": n * BERT_ACCUM * layers,
+                "flash_attention_dkv": n * BERT_ACCUM * layers,
+                "multi_tensor_sumsq": n * sumsq_launches(numels),
+                "multi_tensor_lamb_stage1": n * table,
+                "multi_tensor_lamb_stage2": n * table}
+    step_s = statistics.median(times[1:])
+    tokens_per_step = BERT_ACCUM * BERT_MICRO * BERT_SEQ
+    log(f"[7] trained BERT-large O2 + FusedLAMB {n} steps ({BERT_ACCUM} x "
+        f"{BERT_MICRO} x {BERT_SEQ} tokens, lr={BERT_LR}, {len(numels)} "
+        f"parameters, {sum(numels)} elements): losses "
+        f"{[round(x, 5) for x in losses]} (ln vocab = "
+        f"{np.log(BERT_LARGE['vocab_size']):.3f}); step times (s) "
+        f"{[round(t, 4) for t in times]}, median of steps 2-{n} "
+        f"{step_s:.4f} s, {tokens_per_step / step_s:.1f} tokens/s; peak "
+        f"memory {peak / 2 ** 30:.2f} GiB")
+    log(f"    launches {launches} (expected {expected}); per step "
+        f"{ {k: v // n for k, v in launches.items()} }; plain-version "
+        f"calls {dict(plain_calls)}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not (abs(losses[0] - np.log(BERT_LARGE["vocab_size"])) < 1.0
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss did not start near ln(vocab) and "
+                             f"fall: {losses}")
+    if launches != expected:
+        raise AssertionError("BERT launch counts do not match the path")
+    if sum(plain_calls.values()):
+        raise AssertionError(f"the BERT path called plain versions: "
+                             f"{dict(plain_calls)}")
+    return model, opt, tokens, labels, dict(
+        losses=losses, step_times_s=times, median_step_s=step_s,
+        tokens_per_s=tokens_per_step / step_s, peak_memory_bytes=peak,
+        launches=launches, launches_per_step={
+            k: v // n for k, v in launches.items()},
+        lamb_tensors=len(numels), lamb_elements=sum(numels))
+
+
+def phase_unscale_clip(model):
+    """#15 and #17 on the last BERT step's real gradients, through
+    ``LossScaler.unscale`` and ``clip_grad_norm_`` (counted alone), each
+    against the plain versions on the same gradients."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.contrib.clip_grad import clip_grad_norm_
+    from apex_tpu_torch.ops import multi_tensor as K
+    params = [p for p in model.parameters() if p.grad is not None]
+    grads = [p.grad for p in params]
+    scaler = amp.LossScaler(init_scale=1024.0, device="cuda")
+    ref_unscaled = [torch.empty_like(g) for g in grads]
+    ref_clipped = [g.clone() for g in grads]
+    K.multi_tensor_scale_reference(grads, ref_unscaled,
+                                   1.0 / scaler.loss_scale)
+    total, _, _ = K.multi_tensor_sumsq_reference(grads)
+    ref_norm = torch.sqrt(total)
+    max_norm = 0.5 * float(ref_norm)       # so that the clip rescales
+    coef = torch.clamp(max_norm / (ref_norm + 1e-6), max=1.0)
+    K.multi_tensor_scale_reference(grads, ref_clipped, coef)
+    counters = (K.multi_tensor_scale_, K.multi_tensor_sumsq)
+    for c in counters:
+        c.launches = 0
+    unscaled, found_inf = scaler.unscale(grads)
+    norm = clip_grad_norm_(params, max_norm)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    numels = [g.numel() for g in grads]
+    expected = {"multi_tensor_scale_": 2 * table_launches(numels),
+                "multi_tensor_sumsq": sumsq_launches(numels)}
+    log(f"[7b] LossScaler.unscale and clip_grad_norm_(max_norm={max_norm:.4g})"
+        f" on the last step's {len(grads)} gradients: launches {launches} "
+        f"(expected {expected}); found_inf {float(found_inf)}; norm "
+        f"{float(norm):.6g}, plain {float(ref_norm):.6g}")
+    err_u = _check_lists("unscale vs plain", unscaled, ref_unscaled,
+                         2.0 ** -8, 0.0)
+    check_close("clip_grad_norm_ total norm vs plain", norm, ref_norm, 0,
+                1e-5)
+    err_c = _check_lists("clipped gradients vs plain", grads, ref_clipped,
+                         2.0 ** -7, 0.0)
+    if launches != expected or float(found_inf) != 0.0:
+        raise AssertionError("the unscale / clip path did not run as "
+                             "expected")
+    return dict(launches=launches, max_norm=max_norm, norm=float(norm),
+                unscale_err=err_u, clip_err=err_c)
+
+
+# -- phase 8 -----------------------------------------------------------------
+
+PARITY_BERT = dict(vocab_size=30528, hidden_size=256, num_layers=4,
+                   num_attention_heads=4, ffn_hidden_size=1024,
+                   max_seq_len=128)
+
+
+def _cs_bound(t, b1=LAMB_BETAS[0], b2=LAMB_BETAS[1]):
+    """max |m^ / sqrt(v^)| over gradient histories of length t
+    (Cauchy-Schwarz): 1 at step 1, 1.0014 at step 2."""
+    k = np.arange(1, t + 1)
+    a = (1 - b1) * b1 ** (t - k) / (1 - b1 ** t)
+    b = (1 - b2) * b2 ** (t - k) / (1 - b2 ** t)
+    return float(np.sqrt(np.sum(a * a / b)))
+
+
+def phase_bert_parity():
+    """2 steps of a small BERT under O2 + FusedLAMB on the card and on a
+    CPU copy (the plain versions): losses, every gradient of both steps,
+    then the masters, m and v.
+
+    Tolerances: the loss 2e-3 relative and each gradient within 5e-2 of
+    its largest entry (bf16 rounding places and sum orders differ; the
+    bound of the CPU tests against JAX).  The optimizer's state follows
+    from its update rule: m' = b1 m + (1 - b1) c g and v' = b2 v + (1 - b2)
+    (c g)^2, with c the clip factor (within 1% on the two sides), bound
+    |dm|, |dv| by the measured gradient differences E_t of each leaf; a
+    master moves by lr r_t u with |u| <= C_t + wd |p| (C_t the
+    Cauchy-Schwarz bound of |m^ / sqrt(v^)|) and r_t the leaf's trust
+    ratio (the CPU run's, 5% allowed for the card's), and an entry whose
+    gradient is noise may move the other way on one side: 2.1 lr r_t
+    (C_t + wd |p|) per step.  That bound admits a master that never moved,
+    so each leaf's move from its start p0 is held as a whole too (within
+    MOVE_RTOL of the CPU run's move).
+    """
+    card, copt, _ = build_bert("cuda", PARITY_BERT, BERT_LR, 1)
+    cpu, popt, _ = build_bert("cpu", PARITY_BERT, BERT_LR, 1)
+    cpu.load_state_dict(card.state_dict())
+    # the masters start as the parameters in f32
+    p0 = {n: p.detach().float().cpu().clone()
+          for n, p in card.named_parameters()}
+    shape = (2, 2, PARITY_BERT["max_seq_len"])
+    tokens, labels = mlm_batch(PARITY_BERT["vocab_size"], shape, 2)
+    runs = {}
+    for name, model, opt in (("card", card, copt), ("cpu", cpu, popt)):
+        dev = next(model.parameters()).device
+        losses, grads, ratios, clips = [], [], [], []
+        for _ in range(2):
+            before = {n: t.detach().cpu().clone() for n, t in zip(
+                (n for n, _ in model.named_parameters()),
+                opt.master_params())}
+            losses.append(float(bert_step(model, opt, tokens.to(dev),
+                                          labels.to(dev))))
+            g = {n: (torch.zeros(p.shape) if p.grad is None
+                     else p.grad.float().cpu())
+                 for n, p in model.named_parameters()}
+            grads.append(g)
+            gnorm = float(torch.sqrt(sum(torch.sum(x * x)
+                                         for x in g.values())))
+            clips.append(min(1.0, 1.0 / gnorm))
+            ratios.append({})
+            for n, p in model.named_parameters():
+                u = opt._updates[p].cpu()
+                pn, un = float(before[n].norm()), float(u.norm())
+                ratios[-1][n] = pn / un if pn > 0 and un > 0 else 1.0
+        # m, v and the updated f32 value (the master, or the f32 param)
+        state = {n: {"exp_avg": opt.state[p]["exp_avg"].cpu(),
+                     "exp_avg_sq": opt.state[p]["exp_avg_sq"].cpu(),
+                     "value": value.detach().cpu().clone()}
+                 for (n, p), value in zip(model.named_parameters(),
+                                          opt.master_params())}
+        runs[name] = (losses, grads, state, ratios, clips)
+    (cl, cg, cs, _, cc), (rl, rg, rs, rr, rc) = runs["card"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(cl, rl))
+    grad_err, worst, diffs = 0.0, None, []
+    for t in range(2):
+        diffs.append({})
+        for n in rg[t]:
+            d = float((cg[t][n] - rg[t][n]).abs().max())
+            diffs[t][n] = d
+            rel = d / max(float(rg[t][n].abs().max()), 1e-30)
+            if worst is None or rel > grad_err:
+                grad_err, worst = rel, (t + 1, n)
+    b1, b2 = LAMB_BETAS
+    state_ok, state_worst, move_worst = True, {}, (0.0, None)
+    for n in rs:
+        g_max = [float(rg[t][n].abs().max()) for t in range(2)]
+        e = [diffs[t][n] for t in range(2)]
+        dm = [(1 - b1) * rc[t] * (e[t] + 1e-2 * g_max[t]) for t in range(2)]
+        dv = [1.02 * (1 - b2) * rc[t] ** 2 * (2 * g_max[t] + e[t])
+              * (e[t] + 1e-2 * g_max[t]) for t in range(2)]
+        tol = {"exp_avg": b1 * dm[0] + dm[1] + 1e-9,
+               "exp_avg_sq": b2 * dv[0] + dv[1] + 1e-12}
+        for key in rs[n]:
+            d = (cs[n][key] - rs[n][key]).abs()
+            if key == "value":
+                bound = sum(2.1 * BERT_LR * rr[t][n]
+                            * (_cs_bound(t + 1)
+                               + LAMB_WD * rs[n]["value"].abs())
+                            for t in range(2)) + 1e-7
+                ok = bool((d <= bound).all())
+                share = float((d / bound).max())
+                moved = float((rs[n]["value"] - p0[n]).norm())
+                off = float(d.norm())
+                ok &= off <= MOVE_RTOL * moved + 1e-9
+                move_share = off / moved if moved > 0 else (
+                    0.0 if off == 0 else float("inf"))
+                if move_share >= move_worst[0]:
+                    move_worst = (move_share, n)
+            else:
+                ok = float(d.max()) <= tol[key]
+                share = float(d.max()) / tol[key]
+            state_worst[key] = max(state_worst.get(key, 0.0), share)
+            state_ok &= ok
+    log(f"[8] BERT O2 + FusedLAMB card vs CPU (4 layers, hidden 256, seq "
+        f"128, 2 steps): losses card {cl} cpu {rl}, max relative loss diff "
+        f"{loss_err:.3e} (tolerance {TRAIN_LOSS_RTOL}); grads max |diff| / "
+        f"max|grad| {grad_err:.3e} at step {worst[0]} {worst[1]} (tolerance "
+        f"{TRAIN_GRAD_TOL}); f32 values (masters), m, v: largest share of "
+        f"their update-rule bounds {state_worst}; largest ||card - cpu|| / "
+        f"||cpu - p0|| of a leaf {move_worst[0]:.4f} ({move_worst[1]}, "
+        f"tolerance {MOVE_RTOL})")
+    if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_TOL
+            and state_ok):
+        raise AssertionError("card and CPU BERT training disagree")
+    return dict(losses_card=cl, losses_cpu=rl, loss_rel_err=loss_err,
+                grad_rel_err=grad_err, worst_grad=list(worst),
+                state_bound_shares=state_worst, move_share=move_worst[0],
+                move_worst_leaf=move_worst[1])
+
+
+def phase_dynamic_skip():
+    """A dynamic-loss-scale step with an inf injected into one gradient is
+    skipped on the device: masters, m, v, the step count and the
+    parameters unchanged bit for bit, and the scale halves."""
+    from apex_tpu_torch import amp
+    model, opt, state = build_bert("cuda", PARITY_BERT, BERT_LR, 3,
+                                   loss_scale="dynamic")
+    scaler = state.scaler
+    tokens, labels = (t.to("cuda") for t in mlm_batch(
+        PARITY_BERT["vocab_size"], (2, 2, PARITY_BERT["max_seq_len"]), 4))
+    loss = float(bert_step(model, opt, tokens, labels, scaler))
+    snap = {n: ({k: v.clone() for k, v in opt.state[p].items()},
+                p.detach().clone()) for n, p in model.named_parameters()}
+    step0, scale0 = int(opt.param_groups[0]["step"]), float(
+        scaler.loss_scale)
+    opt.zero_grad()
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        forward_backward_no_pipelining)
+    forward_backward_no_pipelining(
+        lambda m, x: x,
+        lambda x, t: amp.scale_loss(model.loss(x, t), scaler), model,
+        tokens, labels)
+    model.layers[1].fc1.weight.grad[3, 5] = float("inf")
+    found_inf = amp.unscale_step(opt, scaler)
+    torch.cuda.synchronize()
+    same = all(torch.equal(p, snap[n][1]) and all(
+        torch.equal(opt.state[p][k], v) for k, v in snap[n][0].items())
+        for n, p in model.named_parameters())
+    step1, scale1 = int(opt.param_groups[0]["step"]), float(
+        scaler.loss_scale)
+    log(f"[8b] dynamic loss scale: clean step (loss {loss:.5f}) then an inf "
+        f"in layers.1.fc1.weight's gradient: found_inf "
+        f"{float(found_inf)}, step count {step0} -> {step1}, scale {scale0} "
+        f"-> {scale1}, masters/m/v/parameters unchanged bit for bit: {same}")
+    if not (float(found_inf) == 1.0 and same and step1 == step0 == 1
+            and scale1 == scale0 / 2):
+        raise AssertionError("the overflow step was not skipped on the "
+                             "device")
+    return dict(found_inf=float(found_inf), step_before=step0,
+                step_after=step1, scale_before=scale0, scale_after=scale1,
+                unchanged=same)
+
+
 # -- optional: where the time goes ------------------------------------------
 
 _KERNEL_CLASSES = (("layer_norm_bwd", "layer_norm_bwd"),
@@ -923,7 +1610,12 @@ _KERNEL_CLASSES = (("layer_norm_bwd", "layer_norm_bwd"),
                    ("flash_bwd_dq_kernel", "flash_attention_dq"),
                    ("flash_bwd_dkv_kernel", "flash_attention_dkv"),
                    ("flash_decode_kernel", "flash_attention_decode"),
-                   ("multi_tensor_adam_kernel", "multi_tensor_adam"))
+                   ("multi_tensor_adam_kernel", "multi_tensor_adam"),
+                   ("multi_tensor_scale_kernel", "multi_tensor_scale_"),
+                   ("multi_tensor_l2norm_kernel", "multi_tensor_sumsq"),
+                   ("multi_tensor_sum_partials", "multi_tensor_sumsq"),
+                   ("lamb_stage1_kernel", "multi_tensor_lamb_stage1"),
+                   ("lamb_stage2_kernel", "multi_tensor_lamb_stage2"))
 
 
 def _kernel_class(name):
@@ -1001,6 +1693,14 @@ def phase_profile_train(model, opt, tokens, targets, lines):
         lines)
 
 
+def phase_profile_bert(model, opt, tokens, labels, lines):
+    """torch.profiler over one whole BERT-large step (2 micro-batches of
+    loss + backward, then FusedLAMB)."""
+    return _profile_programs(
+        {"bert_train_step": lambda: bert_step(model, opt, tokens, labels)},
+        lines)
+
+
 # -- main --------------------------------------------------------------------
 
 def main(argv=None):
@@ -1008,8 +1708,8 @@ def main(argv=None):
     ap.add_argument("--out", help="also write all results to this JSON file")
     ap.add_argument("--profile", metavar="PATH",
                     help="also profile one prefill, one decode step and one "
-                         "training step and write the kernel breakdown to "
-                         "PATH")
+                         "step of each training path and write the kernel "
+                         "breakdown to PATH")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1031,6 +1731,8 @@ def main(argv=None):
     dec = kernel_decode(gen)
     adam = kernel_adam(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.empty_cache()
+    mt = kernel_multi_tensor_lamb(torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.empty_cache()
 
     model = build_model("cuda").init_params(torch.Generator().manual_seed(0))
     rng = np.random.RandomState(0)
@@ -1046,18 +1748,30 @@ def main(argv=None):
     if args.profile:
         profiled.update(phase_profile_train(tmodel, topt, ttokens, ttargets,
                                             profile_lines))
-        with open(args.profile, "w") as f:
-            f.write("\n".join(profile_lines) + "\n")
     del tmodel, topt
     torch.cuda.empty_cache()
     train_parity = phase_train_parity()
+    torch.cuda.empty_cache()
+
+    bmodel, bopt, btokens, blabels, bert = phase_bert_train()
+    clip = phase_unscale_clip(bmodel)
+    if args.profile:
+        profiled.update(phase_profile_bert(bmodel, bopt, btokens, blabels,
+                                           profile_lines))
+        with open(args.profile, "w") as f:
+            f.write("\n".join(profile_lines) + "\n")
+    del bmodel, bopt
+    torch.cuda.empty_cache()
+    bert_parity = phase_bert_parity()
+    skip = phase_dynamic_skip()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     both = collections.Counter(serve["launches"])
-    both.update(train["launches"])
+    for run in (train, bert, clip):
+        both.update(run["launches"])
     sources = {
         "layer_norm_fwd": ("apex_tpu_torch/csrc/layer_norm_fwd.cu",
                            "apex_tpu/ops/layer_norm.py:91", ln[TRAIN_ROWS]),
@@ -1076,7 +1790,19 @@ def main(argv=None):
                                    "apex_tpu/ops/flash_attention.py:586",
                                    dec),
         "multi_tensor_adam": ("apex_tpu_torch/csrc/multi_tensor_adam.cu",
-                              "apex_tpu/ops/multi_tensor.py:214", adam)}
+                              "apex_tpu/ops/multi_tensor.py:214", adam),
+        "multi_tensor_scale_": ("apex_tpu_torch/csrc/multi_tensor_scale.cu",
+                                "apex_tpu/ops/multi_tensor.py:99",
+                                mt["scale"]),
+        "multi_tensor_sumsq": ("apex_tpu_torch/csrc/multi_tensor_l2norm.cu",
+                               "apex_tpu/ops/multi_tensor.py:161",
+                               mt["sumsq"]),
+        "multi_tensor_lamb_stage1": ("apex_tpu_torch/csrc/multi_tensor_lamb.cu",
+                                     "apex_tpu/ops/multi_tensor.py:352",
+                                     mt["stage1"]),
+        "multi_tensor_lamb_stage2": ("apex_tpu_torch/csrc/multi_tensor_lamb.cu",
+                                     "apex_tpu/ops/multi_tensor.py:404",
+                                     mt["stage2"])}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -1088,8 +1814,11 @@ def main(argv=None):
         with open(args.out, "w") as f:
             json.dump(dict(device=kind, nvidia_smi=smi, layer_norm=ln,
                            layer_norm_bwd=ln_bwd, flash=fl, flash_bwd=fl_bwd,
-                           decode=dec, adam=adam, serve=serve, parity=parity,
-                           train=train, train_parity=train_parity,
+                           decode=dec, adam=adam, multi_tensor=mt,
+                           serve=serve, parity=parity, train=train,
+                           train_parity=train_parity, bert=bert,
+                           unscale_clip=clip, bert_parity=bert_parity,
+                           dynamic_skip=skip,
                            profile=profiled or None, kernels=kernels), f,
                       indent=1, sort_keys=True)
     log(smi)

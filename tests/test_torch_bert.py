@@ -1,0 +1,175 @@
+"""apex_tpu_torch's BertModel against apex_tpu's on the CPU.
+
+A tiny BERT (vocab 512, hidden 64, 2 layers, 4 heads, seq 32,
+``fused_lm_head=False``) is initialised by the JAX package and carried into
+the port (``convert.bert_params_from_jax``).  The hidden states of
+``apply``, the MLM loss (labels -1 off the masked positions; with and
+without ``nsp_labels``, ``token_type_ids`` and ``seqlens``) and every
+gradient are held against JAX (``jax.grad``, the JAX default path),
+in f32 and under amp O2 (bf16 parameters and activations, f32 LayerNorms).
+
+Tolerances: f32 hidden states 1e-5, the loss 1e-5 relative and every
+gradient within 1e-5 of its largest entry (sums in another order through 2
+layers); O2: the loss 2e-3 relative and every gradient within 5e-2 of its
+largest entry (bf16 keeps 8 bits and rounds at other places in the two
+frameworks; the bounds of test_torch_gpt_training.py) plus the JAX bf16
+gradient's own distance from the f32 gradient of the same parameters.
+That allowance is needed where a gradient is a sum with cancellation over
+the tokens (the attention's value bias, the segment embedding): there the
+JAX bf16 path lands 7.6% of the largest entry away from the f32 gradient,
+the port 0.5% (seed 1, mlm-only case), so the port is also held to 2e-2 of
+the f32 gradient's largest entry everywhere.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from apex_tpu import amp as jamp
+from apex_tpu.models.bert import BertConfig as JConfig
+from apex_tpu.models.bert import BertModel as JModel
+
+from apex_tpu_torch import amp
+from apex_tpu_torch.convert import bert_params_from_jax
+from apex_tpu_torch.models.bert import BertConfig, BertModel
+
+TINY = dict(vocab_size=512, hidden_size=64, num_layers=2,
+            num_attention_heads=4, max_seq_len=32, fused_lm_head=False)
+B, S = 2, 32
+
+
+def _names(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _names(tree[k], f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from _names(sub, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def _inputs(seed=0):
+    rng = np.random.RandomState(seed)
+    tokens = rng.randint(0, TINY["vocab_size"], (B, S))
+    labels = np.where(rng.rand(B, S) < 0.15,
+                      rng.randint(0, TINY["vocab_size"], (B, S)), -1)
+    labels[0, 3] = 7                     # at least one masked position
+    return dict(tokens=tokens, labels=labels,
+                token_type_ids=rng.randint(0, 2, (B, S)),
+                seqlens=np.array([S, 20], np.int32),
+                nsp_labels=rng.randint(0, 2, (B,)))
+
+
+def _models(o2):
+    """(JAX model, JAX params, port model) from one JAX init; under O2 both
+    sides cast with their amp.initialize."""
+    dtype = jnp.bfloat16 if o2 else jnp.float32
+    jm = JModel(JConfig(**TINY, dtype=dtype))
+    jp = jm.init_params(jax.random.PRNGKey(0))
+    cfg = BertConfig(**TINY, dtype=torch.bfloat16 if o2 else torch.float32)
+    tm = BertModel(cfg, device="cpu")
+    tm.load_state_dict(bert_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), cfg))
+    if o2:
+        jp = jamp.initialize(jm.loss, None, opt_level="O2").cast_params(jp)
+        amp.initialize(tm, None, opt_level="O2")
+    return jm, jp, tm
+
+
+def _args(inp, extras, torch_side):
+    conv = torch.from_numpy if torch_side else jnp.asarray
+    kw = {k: conv(inp[k]) for k in ("token_type_ids", "seqlens",
+                                    "nsp_labels") if k in extras}
+    return conv(inp["tokens"]), conv(inp["labels"]), kw
+
+
+def test_apply_matches_jax():
+    jm, jp, tm = _models(False)
+    inp = _inputs()
+    want = jm.apply(jp, jnp.asarray(inp["tokens"]),
+                    jnp.asarray(inp["token_type_ids"]),
+                    jnp.asarray(inp["seqlens"]))
+    got = tm.apply(torch.from_numpy(inp["tokens"]),
+                   torch.from_numpy(inp["token_type_ids"]),
+                   torch.from_numpy(inp["seqlens"]))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+
+
+_EXTRAS = {"mlm": (), "all": ("token_type_ids", "seqlens", "nsp_labels")}
+
+
+@pytest.mark.parametrize("extras", ["mlm", "all"])
+@pytest.mark.parametrize("o2", [False, True], ids=["f32", "O2"])
+def test_loss_and_every_grad_match_jax(o2, extras):
+    jm, jp, tm = _models(o2)
+    inp = _inputs(1)
+    tokens, labels, kw = _args(inp, _EXTRAS[extras], False)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jm.loss(p, tokens, labels, **kw))(jp)
+    # the f32 gradient of the same (bf16-valued) parameters
+    jm32 = JModel(JConfig(**TINY))
+    f32 = dict(_names(jax.grad(lambda p: jm32.loss(p, tokens, labels, **kw))(
+        jax.tree_util.tree_map(lambda a: a.astype(jnp.float32), jp))))
+    tokens, labels, kw = _args(inp, _EXTRAS[extras], True)
+    loss = tm.loss(tokens, labels, **kw)
+    loss.backward()
+    loss_tol, grad_tol = (2e-3, 5e-2) if o2 else (1e-5, 1e-5)
+    assert loss.dtype == torch.float32
+    assert abs(loss.item() - float(jloss)) <= loss_tol * abs(float(jloss))
+    params = dict(tm.named_parameters())
+    for name, want in _names(jgrads):
+        p = params[name]
+        assert p.dtype == {jnp.dtype(jnp.float32): torch.float32,
+                           jnp.dtype(jnp.bfloat16): torch.bfloat16}[
+            jnp.dtype(want.dtype)], name
+        want = np.asarray(want, np.float32)
+        # the NSP head without NSP labels: JAX's zero gradient, no .grad
+        got = (np.zeros_like(want) if p.grad is None
+               else p.grad.float().numpy())
+        err = np.abs(got - want).max()
+        ref = np.asarray(f32[name])
+        own = np.abs(want - ref).max() if o2 else 0.0
+        assert err <= grad_tol * np.abs(want).max() + own, (name, err)
+        if o2:
+            assert np.abs(got - ref).max() <= 2e-2 * np.abs(ref).max(), name
+    assert (params["nsp_head.weight"].grad is None) == (extras == "mlm")
+
+
+def test_bert_params_from_jax_carries_an_o2_tree_exactly():
+    """An O2-cast JAX tree (bf16 leaves, f32 LayerNorms) lands in an
+    O2-cast port model value for value."""
+    jm, jp, tm = _models(True)
+    for name, p in tm.named_parameters():
+        leaf = dict(_names(jp))[name]
+        assert p.dtype == (torch.float32 if "layernorm" in name
+                           else torch.bfloat16)
+        np.testing.assert_array_equal(p.detach().float().numpy(),
+                                      np.asarray(leaf, np.float32))
+
+
+def test_unported_knobs_raise_and_name_their_slice():
+    model = BertModel(BertConfig(**dict(TINY, fused_lm_head=True)),
+                      device="cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.long)
+    assert model.apply(tokens).shape == (1, 8, TINY["hidden_size"])
+    with pytest.raises(NotImplementedError, match="LM head slice"):
+        model.loss(tokens, tokens)
+    for knob in (dict(fused_ffn=True), dict(remat=True),
+                 dict(tensor_parallel_size=2), dict(sequence_parallel=True),
+                 dict(plan=object())):
+        with pytest.raises(NotImplementedError, match="slice"):
+            BertConfig(**TINY, **knob)
+
+
+def test_init_params_draws_the_jax_init_distribution():
+    """Weights N(0, 0.02), biases and the NSP head 0, LayerNorm gains 1."""
+    m = BertModel(BertConfig(**TINY), device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    assert abs(float(m.embedding.weight.std()) - 0.02) < 2e-3
+    assert abs(float(m.mlm_transform.weight.std()) - 0.02) < 4e-3
+    assert not m.nsp_head.weight.any() and not m.layers[0].fc1.bias.any()
+    assert bool((m.layers[1].output_layernorm.weight == 1).all())

@@ -148,8 +148,7 @@ def test_fused_adam_refuses_what_is_not_ported():
         FusedAdam(params, amsgrad=True)
     with pytest.raises(NotImplementedError, match="ZeRO"):
         FusedAdam(params, bucketed=True)
-    with pytest.raises(NotImplementedError, match="O2"):
-        FusedAdam(params, master_weights=True)
+    assert FusedAdam(params, master_weights=True).master_weights
 
 
 def test_fused_adam_grad_scale_and_zero_grad():
@@ -167,3 +166,68 @@ def test_fused_adam_grad_scale_and_zero_grad():
     assert torch.equal(p1, p2)
     o1.zero_grad()
     assert p1.grad is None
+
+
+@pytest.mark.parametrize("kind", ["adam", "lamb"])
+def test_unreached_parameter_steps_with_a_zero_gradient_as_in_jax(kind):
+    """A parameter the loss did not reach (``.grad`` None) is stepped with
+    a zero gradient, as the JAX optimizers step every leaf: with weight
+    decay a nonzero one moves (by lr * wd * p under AdamW).  Skipping it
+    instead left it lr * wd * max|b| = 1.5e-3 away from JAX here."""
+    from apex_tpu.optimizers import FusedLAMB as JFusedLAMB
+    from apex_tpu_torch.optimizers import FusedLAMB
+    rng = np.random.RandomState(30)
+    a = rng.randn(4, 3).astype(np.float32)
+    b = rng.randn(5).astype(np.float32)
+    ga = rng.randn(4, 3).astype(np.float32)
+    kw = dict(lr=1e-2, weight_decay=0.1)
+    jcls, tcls = ((JFusedAdam, FusedAdam) if kind == "adam"
+                  else (JFusedLAMB, FusedLAMB))
+    jopt = jcls(bucketed=False, **kw)
+    jparams = {"a": jnp.asarray(a), "b": jnp.asarray(b)}
+    jstate = jopt.init(jparams)
+    model = _Tiny(a, [b])
+    opt = tcls(model.parameters(), **kw)
+    for _ in range(2):
+        jparams, jstate = jopt.step({"a": jnp.asarray(ga),
+                                     "b": jnp.zeros(5)}, jparams, jstate)
+        model.a.grad = torch.from_numpy(ga)
+        opt.step()
+    assert model.b[0].grad is None
+    moved = np.abs(model.b[0].detach().numpy() - b).max()
+    assert moved > 1e-3
+    for p, w in ((model.a, jparams["a"]), (model.b[0], jparams["b"])):
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(w),
+                                   rtol=TOL, atol=TOL)
+
+
+def test_fused_adam_master_weights_match_jax():
+    """bf16 parameters with f32 masters (amp O2's layout): the update runs
+    on the masters, and each parameter takes its master rounded to
+    nearest even, as JAX's ``astype`` rounds: the parameters equal JAX's
+    bit for bit after two steps."""
+    init = [np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+            for a in _leaves(40, [(4, 3), (5,), (2, 2)])]
+    kw = dict(lr=1e-2, weight_decay=0.05)
+    jopt = JFusedAdam(bucketed=False, master_weights=True, **kw)
+    jparams = {"a": jnp.asarray(init[0], jnp.bfloat16),
+               "b": [jnp.asarray(x, jnp.bfloat16) for x in init[1:]]}
+    jstate = jopt.init(jparams)
+    model = _Tiny(init[0], init[1:]).to(torch.bfloat16)
+    opt = FusedAdam(model.parameters(), master_weights=True, **kw)
+    for step in range(2):
+        grads = _leaves(50 + step, [(4, 3), (5,), (2, 2)])
+        jparams, jstate = jopt.step(
+            {"a": jnp.asarray(grads[0], jnp.bfloat16),
+             "b": [jnp.asarray(g, jnp.bfloat16) for g in grads[1:]]},
+            jparams, jstate)
+        for p, g in zip(model.parameters(), grads):
+            p.grad = torch.from_numpy(g).bfloat16()
+        opt.step()
+    want = [jparams["a"]] + jparams["b"]
+    for p, master, w in zip(model.parameters(), opt.master_params(), want):
+        assert p.dtype == torch.bfloat16
+        np.testing.assert_array_equal(p.detach().float().numpy(),
+                                      np.asarray(w, np.float32))
+        assert torch.equal(p.detach(), master.to(torch.bfloat16))
+        assert not torch.equal(master, p.detach().float())

@@ -11,16 +11,21 @@ import numpy as np
 import pytest
 import torch
 
-from apex_tpu_torch import _kernels
+from apex_tpu_torch import _kernels, amp
 from apex_tpu_torch.inference import InferenceEngine, KVCache, Request
+from apex_tpu_torch.models.bert import BertConfig, BertModel
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
 from apex_tpu_torch.normalization import MixedFusedLayerNorm
 from apex_tpu_torch.ops.flash_attention import (flash_attention_decode,
                                                 flash_attention_dkv,
                                                 flash_attention_dq, flash_fwd)
 from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
-from apex_tpu_torch.ops.multi_tensor import multi_tensor_adam
-from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.ops.multi_tensor import (multi_tensor_adam,
+                                             multi_tensor_lamb_stage1,
+                                             multi_tensor_lamb_stage2,
+                                             multi_tensor_scale_,
+                                             multi_tensor_sumsq)
+from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
 from apex_tpu_torch.transformer.pipeline_parallel import (
     forward_backward_no_pipelining)
 
@@ -30,7 +35,10 @@ TINY = dict(vocab_size=64, hidden_size=64, num_layers=2,
             num_attention_heads=4, max_seq_len=32)
 COUNTERS = (layer_norm_fwd, flash_fwd, flash_attention_decode,
             layer_norm_bwd, flash_attention_dq, flash_attention_dkv,
-            multi_tensor_adam)
+            multi_tensor_adam, multi_tensor_scale_, multi_tensor_sumsq,
+            multi_tensor_lamb_stage1, multi_tensor_lamb_stage2)
+BERT_TINY = dict(vocab_size=64, hidden_size=64, num_layers=2,
+                 num_attention_heads=4, max_seq_len=32, fused_lm_head=False)
 
 
 def _port_files():
@@ -84,6 +92,12 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         InferenceEngine(model)
     with pytest.raises(ValueError, match="model on cpu"):
         InferenceEngine(model, device="meta")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BertModel(BertConfig(**BERT_TINY))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        amp.LossScaler()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        amp.initialize(None, None, opt_level="O2")
 
 
 def test_cpu_serving_launches_no_kernel():
@@ -120,6 +134,31 @@ def test_cpu_training_launches_no_kernel():
     assert [c.launches for c in COUNTERS] == [0] * len(COUNTERS)
 
 
+def test_cpu_bert_o2_lamb_training_launches_no_kernel():
+    """A CPU BERT step under O2 (loss, backward, the clip and unscale
+    passes, FusedLAMB with masters) takes every wrapper's plain version."""
+    from apex_tpu_torch.contrib.clip_grad import clip_grad_norm_
+    for c in COUNTERS:
+        c.launches = 0
+    model = BertModel(BertConfig(**BERT_TINY, dtype=torch.bfloat16),
+                      device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    opt = FusedLAMB(model.parameters(), lr=1e-3)
+    state = amp.initialize(model, opt, opt_level="O2")
+    tokens = torch.randint(0, 64, (2, 1, 16),
+                           generator=torch.Generator().manual_seed(1))
+    labels = torch.where(tokens % 3 == 0, tokens, -1)
+    loss = forward_backward_no_pipelining(
+        lambda m, x: x, lambda x, t: model.loss(x, t), model, tokens, labels)
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    state.scaler.unscale(grads, out=grads)
+    clip_grad_norm_(model.parameters(), 1.0)
+    opt.step()
+    assert torch.isfinite(loss)
+    assert all(p.dtype == torch.float32 for p in opt.master_params())
+    assert [c.launches for c in COUNTERS] == [0] * len(COUNTERS)
+
+
 def test_cuda_wrappers_refuse_what_their_kernels_do_not_take():
     """Argument checks run before any launch, so they hold here too."""
     meta = torch.empty((2, 4, 8, 48), device="meta")
@@ -132,7 +171,10 @@ def test_cuda_wrappers_refuse_what_their_kernels_do_not_take():
 
 @pytest.mark.parametrize("kernel", ["layer_norm_bwd", "flash_attention_dq",
                                     "flash_attention_dkv",
-                                    "multi_tensor_adam"])
+                                    "multi_tensor_adam", "multi_tensor_scale_",
+                                    "multi_tensor_sumsq",
+                                    "multi_tensor_lamb_stage1",
+                                    "multi_tensor_lamb_stage2"])
 def test_training_wrappers_refuse_non_cpu_tensors_they_cannot_launch(kernel):
     """A tensor that is not on the CPU never takes a plain version: the
     new wrappers run their checks and raise before any launch (here on
@@ -149,6 +191,12 @@ def test_training_wrappers_refuse_non_cpu_tensors_they_cannot_launch(kernel):
             meta, meta, meta, meta, stats, stats, True, 1.0),
         "multi_tensor_adam": lambda: multi_tensor_adam(
             [x], [x], [x], [x], torch.empty(8, device="meta")),
+        "multi_tensor_scale_": lambda: multi_tensor_scale_([x], [x], 2.0),
+        "multi_tensor_sumsq": lambda: multi_tensor_sumsq([x]),
+        "multi_tensor_lamb_stage1": lambda: multi_tensor_lamb_stage1(
+            [x], [x], [x], [x], [x], torch.empty(9, device="meta")),
+        "multi_tensor_lamb_stage2": lambda: multi_tensor_lamb_stage2(
+            [x], [x], [None], x, x, 1.0),
     }
     with pytest.raises(ValueError, match="unsupported device|CUDA device"):
         calls[kernel]()
@@ -179,3 +227,39 @@ def test_kernel_dtype_codes_cover_the_served_dtypes():
     with pytest.raises(TypeError, match="not supported"):
         _kernels.dtype_code(torch.empty(0, dtype=torch.float64), "k")
     assert np.unique(list(_kernels.DTYPE_CODES.values())).size == 3
+
+
+def _c_signatures():
+    """argtypes of every ``extern "C"`` entry point, read from the CUDA
+    sources (a pointer is c_void_p; int64_t, uint32_t, float and int map
+    to their ctypes)."""
+    import ctypes
+    import re
+    src = "".join((_kernels.CSRC / name).read_text()
+                  for name in _kernels.SOURCES)
+    out = {}
+    for m in re.finditer(r'extern "C" \w+\s*\*?\s*(\w+)\(([^)]*)\)', src):
+        types = []
+        for param in m.group(2).split(","):
+            param = " ".join(param.split())
+            if "*" in param:
+                types.append(ctypes.c_void_p)
+            elif "int64_t" in param:
+                types.append(ctypes.c_int64)
+            elif "uint32_t" in param:
+                types.append(ctypes.c_uint32)
+            elif "float" in param:
+                types.append(ctypes.c_float)
+            else:
+                assert param.startswith("int "), param
+                types.append(ctypes.c_int)
+        out[m.group(1)] = types
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_kernels._SIGNATURES))
+def test_ctypes_signatures_match_the_c_entry_points(name):
+    """A wrong argtypes list passes a pointer through a 32-bit int (or the
+    reverse) without any error on the host: the kernel then reads a bad
+    address on the card."""
+    assert _c_signatures()[name] == _kernels._SIGNATURES[name]
