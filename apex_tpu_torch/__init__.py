@@ -25,7 +25,10 @@ attention dropout.  Slice 3 is BERT training under amp O2:
 the non-causal flash kernels, then ``optimizers.FusedLAMB.step`` with f32
 master weights, on four more kernels (multi-tensor L2 norm, LAMB stages 1
 and 2, and the multi-tensor scale of ``amp.LossScaler.unscale`` and
-``contrib.clip_grad.clip_grad_norm_``).
+``contrib.clip_grad.clip_grad_norm_``).  Slice 4 is the fused LM head
+(``ops.lm_head.fused_linear_cross_entropy``, on by default in both models'
+losses as in JAX) on three more kernels: the logit-free forward and its
+dX and dW backward.
 """
 
 __version__ = "0.1.0"

@@ -33,8 +33,9 @@ CSRC = _PKG / "csrc"
 SOURCES = ("layer_norm_fwd.cu", "layer_norm_bwd.cu", "flash_fwd.cu",
            "flash_bwd_dq.cu", "flash_bwd_dkv.cu", "flash_decode.cu",
            "multi_tensor_adam.cu", "multi_tensor_scale.cu",
-           "multi_tensor_l2norm.cu", "multi_tensor_lamb.cu")
-HEADERS = ("common.cuh", "multi_tensor.cuh")
+           "multi_tensor_l2norm.cu", "multi_tensor_lamb.cu", "lm_head_fwd.cu",
+           "lm_head_bwd.cu")
+HEADERS = ("common.cuh", "multi_tensor.cuh", "lm_head.cuh")
 BUILD_DIR = _PKG.parent / "build" / "apex_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -62,6 +63,10 @@ _SIGNATURES = {
     "apex_multi_tensor_l2norm": [_I] + [_P] * 9,
     "apex_multi_tensor_lamb_stage1": [_I] + [_P] * 10 + [_I, _P, _P, _P, _P],
     "apex_multi_tensor_lamb_stage2": [_I] + [_P] * 10 + [_I, _P, _P],
+    "apex_lm_head_fwd_splits": [_I, _I, _I],
+    "apex_lm_head_fwd": [_P] * 6 + [_I] * 6 + [_P],
+    "apex_lm_head_dx": [_P] * 6 + [_I] * 5 + [_P],
+    "apex_lm_head_dw": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 _lib = None

@@ -5,9 +5,12 @@ The JAX model's wiring: token (vocab) + learned position + segment
 embeddings → MixedFusedLayerNorm → N × post-LN blocks (bidirectional flash
 attention with ``seqlens`` as the kernel's ``kv_seqlens`` → residual → LN →
 fc1 / tanh-GELU / fc2 → residual → LN) → MLM transform (f32 dense + GELU +
-LN) → tied decoder in f32 → vocab-parallel cross entropy over the masked
-positions (labels ``-1`` elsewhere), plus the NSP head when labels are
-given.  Training runs the LayerNorm forward and backward and the
+LN) → tied decoder → cross entropy over the masked positions (labels ``-1``
+elsewhere), plus the NSP head when labels are given.  The decoder and its
+cross entropy are the logit-free fused LM head (``fused_lm_head=True``, the
+JAX default: :mod:`apex_tpu_torch.ops.lm_head` on compute-dtype operands),
+or with ``fused_lm_head=False`` the f32 decoder GEMM and the vocab-parallel
+cross entropy.  Training runs the LayerNorm forward and backward and the
 non-causal flash forward, dq and dk/dv kernels through
 :mod:`apex_tpu_torch.normalization` and :mod:`apex_tpu_torch.ops`.
 
@@ -28,11 +31,11 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from apex_tpu_torch.models.gpt import (FUSED_FFN_SLICE, LM_HEAD_SLICE,
-                                       MULTI_GPU_SLICE, REMAT_SLICE,
-                                       _reset_layer_norm)
+from apex_tpu_torch.models.gpt import (FUSED_FFN_SLICE, MULTI_GPU_SLICE,
+                                       REMAT_SLICE, _reset_layer_norm)
 from apex_tpu_torch.normalization import MixedFusedLayerNorm
 from apex_tpu_torch.ops.flash_attention import flash_attention
+from apex_tpu_torch.ops.lm_head import fused_linear_cross_entropy
 from apex_tpu_torch.transformer import tensor_parallel as tp
 from apex_tpu_torch.transformer.tensor_parallel.layers import _normal_
 from apex_tpu_torch.utils.device import resolve_device
@@ -167,12 +170,12 @@ class BertModel(nn.Module):
 
     ``apply(tokens, token_type_ids=None, seqlens=None)`` returns the final
     hidden states ``(b, s, hidden)`` at ``cfg.dtype``; :meth:`loss`
-    computes the MLM (+ optional NSP) loss with vocab-parallel cross
-    entropy over the tied decoder.  ``device`` defaults to ``"cuda"`` and
-    raises when CUDA is absent (pass ``device="cpu"`` for the plain
-    PyTorch path).  Parameters start as a fresh ``nn.Module``'s (zero
-    weights, unit LN gains); :meth:`init_params` draws random weights, or
-    load a state dict (for instance one from
+    computes the MLM (+ optional NSP) loss over the tied decoder (the
+    fused LM head, or the f32 logits and vocab-parallel cross entropy).
+    ``device`` defaults to ``"cuda"`` and raises when CUDA is absent (pass
+    ``device="cpu"`` for the plain PyTorch path).  Parameters start as a
+    fresh ``nn.Module``'s (zero weights, unit LN gains); :meth:`init_params`
+    draws random weights, or load a state dict (for instance one from
     :func:`apex_tpu_torch.convert.bert_params_from_jax`).
     """
 
@@ -260,21 +263,31 @@ class BertModel(nn.Module):
              nsp_labels=None):
         """Mean MLM loss over the masked positions (+ the NSP loss when
         ``nsp_labels`` are given), an f32 scalar.  ``mlm_labels``: the
-        original ids at masked positions, ``-1`` elsewhere."""
-        if self.cfg.fused_lm_head:
-            raise NotImplementedError(
-                "BertConfig.fused_lm_head=True (the logit-free fused LM "
-                f"head, TPU kernels #8-#10) comes with {LM_HEAD_SLICE} of "
-                "apex_tpu_torch; build the config with fused_lm_head=False "
-                "to train through the f32 logits")
+        original ids at masked positions, ``-1`` elsewhere.
+
+        With ``cfg.fused_lm_head`` the MLM transform's f32 output and the
+        tied embedding go to the fused LM head at ``cfg.dtype`` (under O2
+        the embedding is bf16 already); unmasked positions take target 0
+        and are masked out below, so their rows carry a zero cotangent
+        into the dX and dW kernels.  At an f32 ``cfg.dtype`` the kernels
+        run their f32 instantiation (see :meth:`GPTModel.head_loss
+        <apex_tpu_torch.models.gpt.GPTModel.head_loss>`: slower on the card
+        than ``fused_lm_head=False``)."""
         hidden = self.apply(tokens, token_type_ids, seqlens)
         b, s = mlm_labels.shape
         mask = mlm_labels >= 0
         safe = torch.where(mask, mlm_labels, torch.zeros_like(mlm_labels))
-        logits = self.mlm_logits(hidden)
-        per = tp.vocab_parallel_cross_entropy(
-            logits.reshape(b * s, logits.shape[-1]),
-            safe.reshape(b * s)).reshape(b, s)
+        if self.cfg.fused_lm_head:
+            h = self._mlm_transform(hidden)
+            per = fused_linear_cross_entropy(
+                h.reshape(b * s, h.shape[-1]).to(self.cfg.dtype),
+                self.embedding.weight.to(self.cfg.dtype),
+                safe.reshape(b * s)).reshape(b, s)
+        else:
+            logits = self.mlm_logits(hidden)
+            per = tp.vocab_parallel_cross_entropy(
+                logits.reshape(b * s, logits.shape[-1]),
+                safe.reshape(b * s)).reshape(b, s)
         denom = torch.clamp(torch.sum(mask), min=1)
         loss = torch.sum(torch.where(mask, per, torch.zeros_like(per))) \
             / denom

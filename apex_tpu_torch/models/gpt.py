@@ -4,16 +4,18 @@
 The same pre-LN wiring as the JAX model: vocab embedding → N ×
 (MixedFusedLayerNorm → causal attention with RoPE → residual →
 MixedFusedLayerNorm → fc1 / tanh-GELU / fc2 → residual) → final
-MixedFusedLayerNorm → tied head in f32.  Activations are
+MixedFusedLayerNorm → tied head.  Activations are
 ``(batch, seq, hidden)`` at ``cfg.dtype`` with f32 parameters.  Serving runs
 the LayerNorm forward, the causal flash-attention forward (prefill) and the
 single-query decode attention kernels; training (:meth:`GPTModel.loss`,
 then ``backward``) runs the LayerNorm forward and backward and the flash
 forward, dq and dk/dv kernels, with the attention-dropout mask of the JAX
 model, all reached through :mod:`apex_tpu_torch.normalization` and
-:mod:`apex_tpu_torch.ops`.  The head's cross entropy is the vocab-parallel
-one at world size 1 (``fused_lm_head=False``); the fused LM head kernels
-are not ported yet.
+:mod:`apex_tpu_torch.ops`.  The training loss's head is the logit-free fused
+LM head (``fused_lm_head=True``, the JAX default: the forward, dX and dW
+kernels of :mod:`apex_tpu_torch.ops.lm_head` on compute-dtype operands), or
+with ``fused_lm_head=False`` the f32 head GEMM and the vocab-parallel cross
+entropy at world size 1.  Serving's logits are the f32 head GEMM.
 
 Parameter names mirror the JAX parameter tree (``layers.3.attention.qkv.
 weight`` is ``params["layers"][3]["attention"]["qkv"]["weight"]``), which
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 from apex_tpu_torch.normalization import MixedFusedLayerNorm
 from apex_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_decode)
+from apex_tpu_torch.ops.lm_head import fused_linear_cross_entropy
 from apex_tpu_torch.ops.rope import (fused_apply_rotary_pos_emb_at_positions,
                                      fused_apply_rotary_pos_emb_cached,
                                      rope_freqs)
@@ -41,7 +44,6 @@ from apex_tpu_torch.utils.device import resolve_device
 
 _f32 = torch.float32
 
-LM_HEAD_SLICE = "the fused LM head slice (slice 4)"
 FUSED_FFN_SLICE = "the fused-FFN slice"
 REMAT_SLICE = "a later training slice (activation recompute)"
 MULTI_GPU_SLICE = "the multi-GPU slice"
@@ -244,7 +246,8 @@ class ParallelTransformerLayer(nn.Module):
 
 
 class GPTModel(nn.Module):
-    """Decoder LM: embedding → N layers → final LN → tied f32 head.
+    """Decoder LM: embedding → N layers → final LN → tied head (f32 logits
+    for serving; the fused LM head or the f32 logits for the loss).
 
     ``device`` defaults to ``"cuda"`` and raises when CUDA is absent (pass
     ``device="cpu"`` for the plain PyTorch path).  Parameters start at the
@@ -337,16 +340,27 @@ class GPTModel(nn.Module):
 
     def head_loss(self, x, targets):
         """Per-token cross entropy ``(b, s)`` f32 of the tied head on
-        backbone output ``x``: final LN, the f32 head GEMM, then
+        backbone output ``x``.
+
+        With ``cfg.fused_lm_head`` (the default): final LN, then
+        :func:`~apex_tpu_torch.ops.lm_head.fused_linear_cross_entropy` on
+        operands at the compute dtype (the kernels dot at operand precision
+        with f32 accumulation; the ``(b*s, vocab)`` logits never exist).
+        The ``.to`` of the f32 tied weight is differentiable, so the
+        kernel's bf16 dW flows into the f32 embedding's gradient.  At an f32
+        ``cfg.dtype`` (the config's default) the kernels run their f32
+        instantiation on the FMA units, about ten times the time of the f32
+        head GEMMs on an H100 (PERF.md): an f32 model trains faster on the
+        card with ``fused_lm_head=False``.  Else the f32 head GEMM, then
         :func:`~apex_tpu_torch.transformer.tensor_parallel.
-        vocab_parallel_cross_entropy` (``fused_lm_head=False``)."""
-        if self.cfg.fused_lm_head:
-            raise NotImplementedError(
-                "GPTConfig.fused_lm_head=True (the logit-free fused LM head, "
-                f"TPU kernels #8-#10) comes with {LM_HEAD_SLICE} of "
-                "apex_tpu_torch; build the config with fused_lm_head=False "
-                "to train through the f32 logits")
+        vocab_parallel_cross_entropy`."""
         b, s = targets.shape
+        if self.cfg.fused_lm_head:
+            h = self.final_layernorm(x)
+            return fused_linear_cross_entropy(
+                h.reshape(b * s, h.shape[-1]).to(self.cfg.dtype),
+                self.embedding.weight.to(self.cfg.dtype),
+                targets.reshape(b * s)).reshape(b, s)
         logits = self.logits(x)
         return tp.vocab_parallel_cross_entropy(
             logits.reshape(b * s, logits.shape[-1]),

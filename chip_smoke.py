@@ -13,7 +13,11 @@ Phases (any failure exits non-zero; nothing is caught):
    kernel's time, the plain version's time, one PyTorch library call
    computing the same function (a yardstick the port never calls) and the
    least time the card could take (bytes / 3.35 TB/s or operations / peak,
-   whichever is larger);
+   whichever is larger); the fused LM head (#8-#10) at GPT-350M's and
+   BERT-large's head shapes in bf16 and GPT-350M's in f32, a peaked-softmax
+   bf16 case off the token and vocab grids, and three small off-grid cases
+   (f32, bf16, a mixed pair), its yardstick the two calls matmul +
+   F.cross_entropy;
 3. GPT-350M (vocab 50304, hidden 1024, 24 layers, 16 heads, ffn 4096,
    max_seq 1024, bf16 activations, f32 params, random weights from seed 0)
    served by ``InferenceEngine`` (8 slots, bf16 cache): 10 greedy requests,
@@ -23,18 +27,20 @@ Phases (any failure exits non-zero; nothing is caught):
 4. one request's prefill and 4 decode steps on the card against a CPU copy
    of the same model (the plain versions): logits within a bf16 tolerance,
    same greedy tokens;
-5. GPT-350M training (``fused_lm_head=False``, micro-batch 8 x
-   accumulation 2 x seq 1024 = 16,384 tokens per step, ``FusedAdam(lr=1e-4)``
-   AdamW) for 4 steps on one fixed batch from seed 0, through
-   ``forward_backward_no_pipelining`` over ``GPTModel``'s loss and backward
+5. GPT-350M training (the fused LM head, micro-batch 8 x accumulation 2 x
+   seq 1024 = 16,384 tokens per step, ``FusedAdam(lr=1e-4)`` AdamW: the
+   configuration of bench.py's GPT leg) for 4 steps on one fixed batch
+   from seed 0, through ``forward_backward_no_pipelining`` over ``GPTModel``'s loss and backward
    and ``FusedAdam.step``: losses finite and falling, step time, tokens/s,
    peak memory, exact launch counts per kernel, and no call of a plain
    version;
 6. a small GPT (4 layers, hidden 256, vocab 50304, seq 256, attention
-   dropout 0.1) trained 2 steps on the card and on a CPU copy: loss, every
-   gradient and the parameters within stated tolerances;
+   dropout 0.1) trained 2 steps on the card and on a CPU copy, with the
+   fused LM head and again with the f32-logits head
+   (``fused_lm_head=False``): loss, every gradient and the parameters
+   within stated tolerances;
 7. BERT-large (vocab 30528, hidden 1024, 24 layers, 16 heads, ffn 4096,
-   seq 512, ``fused_lm_head=False``) under ``amp.initialize(...,
+   seq 512, the fused LM head) under ``amp.initialize(...,
    opt_level="O2")`` with ``FusedLAMB(lr=1e-3)``: micro-batch 16 x
    accumulation 2 x seq 512, 15% MLM labels from seed 0 (bench.py's
    recipe), 4 steps through ``forward_backward_no_pipelining`` over
@@ -42,9 +48,10 @@ Phases (any failure exits non-zero; nothing is caught):
    peak memory, exact launch counts per kernel, no plain version called;
    then (7b) ``LossScaler.unscale`` and ``clip_grad_norm_`` on that step's
    gradients against their plain versions, their launches counted alone;
-8. a small BERT (4 layers, hidden 256, seq 128, vocab 30528) under O2 +
-   FusedLAMB trained 2 steps on the card and on a CPU copy: loss, every
-   gradient, the masters, m and v within stated bounds; then (8b) a
+8. a small BERT (4 layers, hidden 256, seq 128, vocab 30528, the fused LM
+   head) under O2 + FusedLAMB trained 2 steps on the card and on a CPU
+   copy: loss, every gradient, the masters, m and v within stated bounds;
+   then (8b) a
    dynamic-loss-scale step with an inf in one gradient, skipped on the
    device.
 
@@ -77,7 +84,7 @@ GPT350M = dict(vocab_size=50304, hidden_size=1024, num_layers=24,
                max_seq_len=1024)
 SLOTS = 8
 HEADS, HEAD_DIM, HIDDEN, MAX_SEQ = 16, 64, 1024, 1024
-# the training slice: bench.py's GPT train step less the fused LM head
+# bench.py's GPT train step (bench_gpt_train_step)
 MICRO, ACCUM, SEQ, LR, TRAIN_STEPS = 8, 2, 1024, 1e-4, 4
 TRAIN_ROWS = MICRO * SEQ       # rows of every LayerNorm on that path
 BF16_ATOL = BF16_RTOL = 2e-2   # one bf16 ulp at |y| <= 4 is 2**-6 = 0.0156
@@ -98,8 +105,7 @@ LOGITS_MEAN_ATOL = 0.02        # mean |logit diff|
 # agree to lr / 2.
 TRAIN_GRAD_TOL = 5e-2
 TRAIN_LOSS_RTOL = 2e-3
-# the BERT slice: bench.py's BERT-large + amp O2 + FusedLAMB step less the
-# fused LM head
+# bench.py's BERT-large + amp O2 + FusedLAMB step (_make_bert_lamb_step)
 BERT_LARGE = dict(vocab_size=30528, hidden_size=1024, num_layers=24,
                   num_attention_heads=16, ffn_hidden_size=4096,
                   max_seq_len=512, type_vocab_size=2)
@@ -563,6 +569,209 @@ def kernel_decode(gen):
     del cache, views
     return n
 
+def _lm_head_inputs(gen, n, h, v, x_dtype, w_dtype, masked=False,
+                    w_std=0.02):
+    """x as a LayerNorm output, W as the N(0, 0.02) tied embedding (or
+    N(0, w_std): at 0.1 and H 1024 the scores have a std of 3.2 and the
+    softmax is peaked, so p carries most of the gradient), random targets;
+    g = 1 per token (so the gradients are O(1e-2) and their check means
+    something), 0 at 85% of the rows when ``masked`` (BERT's unmasked
+    positions carry a zero cotangent)."""
+    x = torch.randn(n, h, generator=gen).to("cuda", x_dtype)
+    w = (w_std * torch.randn(v, h, generator=gen)).to("cuda", w_dtype)
+    t = torch.randint(0, v, (n,), generator=gen).to("cuda")
+    g = torch.ones(n)
+    if masked:
+        g = (torch.rand(n, generator=gen) < 0.15).float()
+    return x, w, t, g.to("cuda")
+
+
+def _lm_head_library(x, w, t, g):
+    """The two-call yardstick (never called by the port): a matmul to
+    logits in the operands' dtype, then F.cross_entropy(reduction='none')
+    in f32; forward alone, and forward + autograd backward."""
+    xl, wl = (a.detach().clone().requires_grad_() for a in (x, w))
+
+    def fwd():
+        return F.cross_entropy((xl @ wl.t()).float(), t, reduction="none")
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), (xl, wl), g)
+
+    return fwd, fwd_bwd
+
+
+# The dX and dW kernels against their plain versions, entry by entry:
+#   |d| <= ulp |ref| + ulp (|dS near a midpoint| @ |B|) + SUM (|dS| @ |B|)
+# where B is the other operand of the product (W for dX, X for dW).
+# - Both round the f32 result once: one unit in the last place, 2**-7 |ref|
+#   in bf16 (2**-23 in f32).
+# - The bf16 kernels round dS to bf16 from their own f32 scores.  A dS entry
+#   within 1e-4 (relative, in p) of a bf16 rounding midpoint may round to
+#   the neighbouring value on one side, moving the result by one ulp of
+#   that dS times B; the scores of the two sides differ by ~1e-5, so 1e-4
+#   is a wide margin.  f32 and mixed pairs do not round dS.
+# - Both sum the same terms in f32 in other orders (the tensor cores'
+#   accumulation truncates): the sums differ by ~sqrt(K) 2**-23 of the
+#   terms' magnitude sum (2.7e-5 at K = 50304); allowed 2.5e-4 of it.
+# A wrong softmax term (p dropped or halved, or the lse of another row)
+# moves entries by ~4e-4 |x| in dX, many times this bound at the GPT-350M
+# and BERT-large shapes and in the peaked case.
+LM_HEAD_ULP = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -23}
+LM_HEAD_MIDPOINT = 1e-4
+LM_HEAD_SUM = 2.5e-4
+
+
+def _lm_head_grad_bounds(x, w, t, lse, g, rounds_ds):
+    """Per entry of dX and of dW, the bound above less its ulp |ref| term:
+    (dx_slack, dw_slack), f32, computed on the card from the plain
+    version's f32 scores."""
+    s = x.float() @ w.float().t()
+    p = torch.exp(s - lse[:, None])
+    del s
+    hit = (torch.arange(w.shape[0], device=x.device)[None, :]
+           == t[:, None]).float()
+    gcol = g[:, None].float()
+    ds = ((p - hit) * gcol).abs()
+    sx = LM_HEAD_SUM * (ds @ w.float().abs())
+    sw = LM_HEAD_SUM * (ds.t() @ x.float().abs())
+    if rounds_ds:
+        hi = ((p * (1 + LM_HEAD_MIDPOINT) - hit) * gcol).bfloat16()
+        lo = ((p * (1 - LM_HEAD_MIDPOINT) - hit) * gcol).bfloat16()
+        del p, hit
+        ulp = LM_HEAD_ULP[torch.bfloat16]
+        near = torch.where(hi != lo, ds, 0.0)
+        del hi, lo, ds
+        sx += ulp * (near @ w.float().abs())
+        sw += ulp * (near.t() @ x.float().abs())
+    return sx, sw
+
+
+def _check_lm_head_grad(name, got, ref, slack, rows=None):
+    """One gradient against its plain version by the rule above; ``rows``
+    (a bool mask) also reports those rows on their own.  Returns the max
+    abs error."""
+    if got.dtype != ref.dtype:
+        raise AssertionError(f"{name}: dtype {got.dtype}, want {ref.dtype}")
+    ulp = LM_HEAD_ULP[ref.dtype]
+    ref32 = ref.float()
+    d = (got.float() - ref32).abs()
+    lim = ulp * ref32.abs() + slack
+    ratio = torch.where(d > 0, d / lim, 0.0)   # d > 0 = lim: inf
+    parts = [("", ratio, d, ref32)]
+    if rows is not None:
+        parts.append((f", the {int(rows.sum())} rows with no target",
+                      ratio[rows], d[rows], ref32[rows]))
+    for tag, r, dd, rr in parts:
+        worst = float(r.max())
+        share = float(dd.max() / rr.abs().max().clamp_min(1e-30))
+        log(f"  {name}{tag}: max_abs_err={float(dd.max()):.3e} (max |d| / "
+            f"max |ref| {share:.3e}; |d| <= {ulp:.3g} |ref| + slack, largest "
+            f"share of it {worst:.3f}) {'ok' if worst <= 1 else 'FAIL'}")
+        if not worst <= 1:
+            raise AssertionError(f"{name}{tag} disagrees with its plain "
+                                 f"version")
+    return float(d.max())
+
+
+def _no_target_rows(v, t, g):
+    """dW's rows that no token with g != 0 targets: they hold only the
+    softmax term sum_i g_i p_iv x_i."""
+    free = torch.ones(v, dtype=torch.bool, device=t.device)
+    free[t[(g != 0) & (t >= 0)]] = False
+    return free
+
+
+def kernel_lm_head(gen):
+    """#8, #9 and #10 against their plain versions: bf16 at GPT-350M's head
+    (8192 x 1024 x 50304) and BERT-large's (8192 x 1024 x 30528, 85% of
+    rows with g = 0), both timed; f32 at GPT-350M's head, timed (the f32
+    instantiation an f32 model runs); bf16 with a peaked softmax off the
+    token and vocab grids (1000 x 1024 x 30522); small off-grid cases
+    (200 x 96 x 1000: bf16, f32, bf16 x with f32 W).  The off-grid cases
+    carry a target of -1.  loss and lse within f32 tolerances, dX and dW
+    entry by entry (``_check_lm_head_grad``), dW's rows with no target also
+    reported on their own."""
+    from apex_tpu_torch.ops.lm_head import (
+        lm_head_dw, lm_head_dw_reference, lm_head_dx, lm_head_dx_reference,
+        lm_head_fwd, lm_head_fwd_reference)
+    out = {}
+    bf, f32 = torch.bfloat16, torch.float32
+    vg, vb = GPT350M["vocab_size"], BERT_LARGE["vocab_size"]
+    # tag, n, h, v, x dtype, w dtype, masked, w std, timed
+    cases = [("gpt", TRAIN_ROWS, HIDDEN, vg, bf, bf, False, 0.02, True),
+             ("bert", BERT_ROWS, HIDDEN, vb, bf, bf, True, 0.02, True),
+             ("gpt f32", TRAIN_ROWS, HIDDEN, vg, f32, f32, False, 0.02, True),
+             ("peaked", 1000, HIDDEN, 30522, bf, bf, False, 0.1, False),
+             ("small bf16", 200, 96, 1000, bf, bf, True, 0.02, False),
+             ("small f32", 200, 96, 1000, f32, f32, True, 0.02, False),
+             ("small bf16 x f32 w", 200, 96, 1000, bf, f32, True, 0.02,
+              False)]
+    for tag, n, h, v, xdt, wdt, masked, w_std, timed in cases:
+        x, w, t, g = _lm_head_inputs(gen, n, h, v, xdt, wdt, masked, w_std)
+        off_grid = not timed
+        if off_grid:
+            t[3] = -1                        # matches no column: loss = lse
+        before = lm_head_fwd.launches
+        loss, lse = lm_head_fwd(x, w, t)
+        if lm_head_fwd.launches - before != 2:
+            raise AssertionError("lm_head_fwd: expected 2 launches per call")
+        rloss, rlse = lm_head_fwd_reference(x, w, t)
+        dx = lm_head_dx(x, w, t, lse, g)
+        dw = lm_head_dw(x, w, t, lse, g)
+        rdx = lm_head_dx_reference(x, w, t, lse, g)
+        rdw = lm_head_dw_reference(x, w, t, lse, g)
+        torch.cuda.synchronize()
+        name = f"lm_head {tag} ({n}x{h}x{v})"
+        # f32 scores summed in another order over H, then a logsumexp over
+        # V in another order
+        err_f = max(check_close(f"{name} loss", loss, rloss, 1e-4, 1e-5),
+                    check_close(f"{name} lse", lse, rlse, 1e-4, 1e-5))
+        # the kernels round dS to bf16 for a bf16 pair only
+        slx, slw = _lm_head_grad_bounds(x, w, t, lse, g, xdt == wdt == bf)
+        errs = dict(dx=_check_lm_head_grad(f"{name} dx", dx, rdx, slx),
+                    dw=_check_lm_head_grad(f"{name} dw", dw, rdw, slw,
+                                           _no_target_rows(v, t, g)))
+        del slx, slw
+        if off_grid:
+            if float(loss[3]) != float(lse[3]):
+                raise AssertionError(f"{name}: target -1 must give loss "
+                                     f"= lse")
+            continue
+        ops = 2 * n * v * h
+        isz = x.element_size()
+        io = n * h * isz + v * h * w.element_size() + n * 8
+        peak = PEAK_BF16_FLOPS if xdt == bf else PEAK_F32_FLOPS
+        f32_case = xdt == f32            # slow: fewer calls per sample
+        reps, rounds = (3, 3) if f32_case else (20, 5)
+        lib_fwd, lib_bwd = _lm_head_library(x, w, t, g)
+        t_fwd = time_ms([lib_fwd] * reps, rounds)
+        lib_grad = time_ms([lib_bwd] * reps, rounds) - t_fwd
+        plain = dict(fwd=lambda: lm_head_fwd_reference(x, w, t),
+                     dx=lambda: lm_head_dx_reference(x, w, t, lse, g),
+                     dw=lambda: lm_head_dw_reference(x, w, t, lse, g))
+        kern = dict(fwd=lambda: lm_head_fwd(x, w, t),
+                    dx=lambda: lm_head_dx(x, w, t, lse, g),
+                    dw=lambda: lm_head_dw(x, w, t, lse, g))
+        io_part = dict(fwd=io + n * 8, dx=io + n * 8 + n * h * isz,
+                       dw=io + n * 8 + v * h * w.element_size())
+        for part, work in (("fwd", ops), ("dx", 2 * ops), ("dw", 2 * ops)):
+            key = f"{part}_{tag.replace(' ', '_')}"
+            out[key] = numbers(
+                err_f if part == "fwd" else errs[part],
+                time_ms([kern[part]] * reps, rounds),
+                time_ms([plain[part]] * 3, rounds=3),
+                t_fwd if part == "fwd" else lib_grad,
+                bound_ms(io_part[part], work, peak),
+                call_ms(kern[part], iters=5 if f32_case else 50))
+            log_numbers(f"lm_head_{part} {tag}", out[key],
+                        "matmul + F.cross_entropy (two calls; "
+                        + ("forward)" if part == "fwd"
+                           else "backward, dX and dW together)"))
+        del x, w, t, g, rloss, rlse, rdx, rdw, lib_fwd, lib_bwd, plain, kern
+        torch.cuda.empty_cache()
+    return out
+
 
 def table_launches(numels, max_tensors=36, max_blocks=320, chunk=65536):
     """Launches of a multi-tensor kernel (csrc/multi_tensor.cuh) over
@@ -702,8 +911,7 @@ def bert_param_specs():
     the LayerNorms f32."""
     from apex_tpu_torch import amp
     from apex_tpu_torch.models.bert import BertConfig, BertModel
-    model = BertModel(BertConfig(**BERT_LARGE, fused_lm_head=False),
-                      device="meta")
+    model = BertModel(BertConfig(**BERT_LARGE), device="meta")
     amp.initialize(model, None, opt_level="O2")
     return [(tuple(p.shape), p.dtype) for p in model.parameters()]
 
@@ -1074,9 +1282,11 @@ def _train_counters():
                                                     flash_attention_dq,
                                                     flash_fwd)
     from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
+    from apex_tpu_torch.ops.lm_head import lm_head_dw, lm_head_dx, lm_head_fwd
     from apex_tpu_torch.ops.multi_tensor import multi_tensor_adam
     return (layer_norm_fwd, layer_norm_bwd, flash_fwd, flash_attention_dq,
-            flash_attention_dkv, multi_tensor_adam)
+            flash_attention_dkv, multi_tensor_adam, lm_head_fwd, lm_head_dx,
+            lm_head_dw)
 
 
 _PLAIN_VERSIONS = {
@@ -1090,6 +1300,9 @@ _PLAIN_VERSIONS = {
         "multi_tensor_adam_reference", "multi_tensor_scale_reference",
         "multi_tensor_sumsq_reference", "multi_tensor_lamb_stage1_reference",
         "multi_tensor_lamb_stage2_reference"),
+    "apex_tpu_torch.ops.lm_head": ("lm_head_fwd_reference",
+                                   "lm_head_dx_reference",
+                                   "lm_head_dw_reference"),
 }
 
 
@@ -1131,8 +1344,7 @@ def train_step(model, opt, tokens, targets, dropout_seed=None):
 
 def phase_train():
     from apex_tpu_torch.optimizers import FusedAdam
-    model = build_model("cuda", fused_lm_head=False).init_params(
-        torch.Generator().manual_seed(0))
+    model = build_model("cuda").init_params(torch.Generator().manual_seed(0))
     opt = FusedAdam(model.parameters(), lr=LR)
     numels = [p.numel() for p in model.parameters()]
     rng = np.random.RandomState(0)
@@ -1163,12 +1375,17 @@ def phase_train():
                 "flash_fwd": n_steps * ACCUM * layers,
                 "flash_attention_dq": n_steps * ACCUM * layers,
                 "flash_attention_dkv": n_steps * ACCUM * layers,
-                "multi_tensor_adam": n_steps * table_launches(numels)}
+                "multi_tensor_adam": n_steps * table_launches(numels),
+                # the forward's split pass and its combine, then dX, dW
+                "lm_head_fwd": n_steps * ACCUM * 2,
+                "lm_head_dx": n_steps * ACCUM,
+                "lm_head_dw": n_steps * ACCUM}
     step_s = statistics.median(times[1:])
     tokens_per_step = ACCUM * MICRO * SEQ
     log(f"[5] trained GPT-350M {n_steps} steps ({ACCUM} x {MICRO} x {SEQ} "
-        f"tokens, FusedAdam lr={LR}): losses "
-        f"{[round(x, 5) for x in losses]}; step times (s) "
+        f"tokens, fused LM head, FusedAdam lr={LR}): losses "
+        f"{[round(x, 5) for x in losses]} (ln vocab = "
+        f"{np.log(GPT350M['vocab_size']):.3f}); step times (s) "
         f"{[round(t, 4) for t in times]}, median of steps 2-{n_steps} "
         f"{step_s:.4f} s, {tokens_per_step / step_s:.1f} tokens/s; peak "
         f"memory {peak / 2 ** 30:.2f} GiB")
@@ -1196,16 +1413,16 @@ def phase_train():
 
 PARITY_TRAIN = dict(vocab_size=50304, hidden_size=256, num_layers=4,
                     num_attention_heads=4, ffn_hidden_size=1024,
-                    max_seq_len=256, fused_lm_head=False,
-                    attention_dropout=0.1, dtype=torch.bfloat16)
+                    max_seq_len=256, attention_dropout=0.1,
+                    dtype=torch.bfloat16)
 
 
-def phase_train_parity():
+def phase_train_parity(fused_lm_head=True):
     """2 training steps of a small GPT with attention dropout on the card
     and on a CPU copy (the plain versions): loss, grads, params."""
     from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
     from apex_tpu_torch.optimizers import FusedAdam
-    cfg = GPTConfig(**PARITY_TRAIN)
+    cfg = GPTConfig(**PARITY_TRAIN, fused_lm_head=fused_lm_head)
     card = GPTModel(cfg, device="cuda").init_params(
         torch.Generator().manual_seed(1))
     cpu = GPTModel(cfg, device="cpu")
@@ -1237,8 +1454,9 @@ def phase_train_parity():
                                   for n in rp])).values
     p_max = float(diffs[-1])
     p_q99 = float(diffs[int(0.99 * (diffs.numel() - 1))])
-    log(f"[6] training card vs CPU (4 layers, hidden 256, dropout 0.1, 2 "
-        f"steps): losses card {cl} cpu {rl}, max relative loss diff "
+    head = "fused LM head" if fused_lm_head else "f32-logits head"
+    log(f"[6] training card vs CPU (4 layers, hidden 256, dropout 0.1, "
+        f"{head}, 2 steps): losses card {cl} cpu {rl}, max relative loss diff "
         f"{loss_err:.3e} (tolerance {TRAIN_LOSS_RTOL}); step-1 grads max "
         f"|diff| / max|grad| {grad_err:.3e} at {worst} (tolerance "
         f"{TRAIN_GRAD_TOL}); params after 2 steps max |diff| {p_max:.3e} "
@@ -1259,12 +1477,13 @@ def _bert_counters():
                                                     flash_attention_dq,
                                                     flash_fwd)
     from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
+    from apex_tpu_torch.ops.lm_head import lm_head_dw, lm_head_dx, lm_head_fwd
     from apex_tpu_torch.ops.multi_tensor import (multi_tensor_sumsq,
                                                  multi_tensor_lamb_stage1,
                                                  multi_tensor_lamb_stage2)
     return (layer_norm_fwd, layer_norm_bwd, flash_fwd, flash_attention_dq,
             flash_attention_dkv, multi_tensor_sumsq, multi_tensor_lamb_stage1,
-            multi_tensor_lamb_stage2)
+            multi_tensor_lamb_stage2, lm_head_fwd, lm_head_dx, lm_head_dw)
 
 
 def build_bert(device, cfg_overrides, lr, seed, loss_scale=None):
@@ -1273,8 +1492,7 @@ def build_bert(device, cfg_overrides, lr, seed, loss_scale=None):
     from apex_tpu_torch import amp
     from apex_tpu_torch.models.bert import BertConfig, BertModel
     from apex_tpu_torch.optimizers import FusedLAMB
-    cfg = BertConfig(**cfg_overrides, fused_lm_head=False,
-                     dtype=torch.bfloat16)
+    cfg = BertConfig(**cfg_overrides, dtype=torch.bfloat16)
     model = BertModel(cfg, device=device).init_params(
         torch.Generator().manual_seed(seed))
     opt = FusedLAMB(model.parameters(), lr=lr, betas=LAMB_BETAS,
@@ -1349,11 +1567,15 @@ def phase_bert_train():
                 "flash_attention_dkv": n * BERT_ACCUM * layers,
                 "multi_tensor_sumsq": n * sumsq_launches(numels),
                 "multi_tensor_lamb_stage1": n * table,
-                "multi_tensor_lamb_stage2": n * table}
+                "multi_tensor_lamb_stage2": n * table,
+                "lm_head_fwd": n * BERT_ACCUM * 2,
+                "lm_head_dx": n * BERT_ACCUM,
+                "lm_head_dw": n * BERT_ACCUM}
     step_s = statistics.median(times[1:])
     tokens_per_step = BERT_ACCUM * BERT_MICRO * BERT_SEQ
     log(f"[7] trained BERT-large O2 + FusedLAMB {n} steps ({BERT_ACCUM} x "
-        f"{BERT_MICRO} x {BERT_SEQ} tokens, lr={BERT_LR}, {len(numels)} "
+        f"{BERT_MICRO} x {BERT_SEQ} tokens, fused LM head, lr={BERT_LR}, "
+        f"{len(numels)} "
         f"parameters, {sum(numels)} elements): losses "
         f"{[round(x, 5) for x in losses]} (ln vocab = "
         f"{np.log(BERT_LARGE['vocab_size']):.3f}); step times (s) "
@@ -1615,7 +1837,10 @@ _KERNEL_CLASSES = (("layer_norm_bwd", "layer_norm_bwd"),
                    ("multi_tensor_l2norm_kernel", "multi_tensor_sumsq"),
                    ("multi_tensor_sum_partials", "multi_tensor_sumsq"),
                    ("lamb_stage1_kernel", "multi_tensor_lamb_stage1"),
-                   ("lamb_stage2_kernel", "multi_tensor_lamb_stage2"))
+                   ("lamb_stage2_kernel", "multi_tensor_lamb_stage2"),
+                   ("lm_head_fwd", "lm_head_fwd"),
+                   ("lm_head_dx", "lm_head_dx"),
+                   ("lm_head_dw", "lm_head_dw"))
 
 
 def _kernel_class(name):
@@ -1733,6 +1958,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     mt = kernel_multi_tensor_lamb(torch.Generator(device="cuda").manual_seed(1))
     torch.cuda.empty_cache()
+    lmh = kernel_lm_head(gen)
+    torch.cuda.empty_cache()
 
     model = build_model("cuda").init_params(torch.Generator().manual_seed(0))
     rng = np.random.RandomState(0)
@@ -1751,6 +1978,7 @@ def main(argv=None):
     del tmodel, topt
     torch.cuda.empty_cache()
     train_parity = phase_train_parity()
+    train_parity_f32_head = phase_train_parity(fused_lm_head=False)
     torch.cuda.empty_cache()
 
     bmodel, bopt, btokens, blabels, bert = phase_bert_train()
@@ -1802,7 +2030,13 @@ def main(argv=None):
                                      mt["stage1"]),
         "multi_tensor_lamb_stage2": ("apex_tpu_torch/csrc/multi_tensor_lamb.cu",
                                      "apex_tpu/ops/multi_tensor.py:404",
-                                     mt["stage2"])}
+                                     mt["stage2"]),
+        "lm_head_fwd": ("apex_tpu_torch/csrc/lm_head_fwd.cu",
+                        "apex_tpu/ops/lm_head.py:70", lmh["fwd_gpt"]),
+        "lm_head_dx": ("apex_tpu_torch/csrc/lm_head_bwd.cu",
+                       "apex_tpu/ops/lm_head.py:129", lmh["dx_gpt"]),
+        "lm_head_dw": ("apex_tpu_torch/csrc/lm_head_bwd.cu",
+                       "apex_tpu/ops/lm_head.py:157", lmh["dw_gpt"])}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -1815,8 +2049,10 @@ def main(argv=None):
             json.dump(dict(device=kind, nvidia_smi=smi, layer_norm=ln,
                            layer_norm_bwd=ln_bwd, flash=fl, flash_bwd=fl_bwd,
                            decode=dec, adam=adam, multi_tensor=mt,
-                           serve=serve, parity=parity, train=train,
-                           train_parity=train_parity, bert=bert,
+                           lm_head=lmh, serve=serve, parity=parity,
+                           train=train, train_parity=train_parity,
+                           train_parity_f32_head=train_parity_f32_head,
+                           bert=bert,
                            unscale_clip=clip, bert_parity=bert_parity,
                            dynamic_skip=skip,
                            profile=profiled or None, kernels=kernels), f,

@@ -10,7 +10,8 @@ masters and moments agree to 1e-6 relative, and a bf16 parameter (its
 master rounded to nearest even) within one bf16 ulp.
 
 Then three steps of a tiny BERT (vocab 512, hidden 64, 2 layers, seq 32,
-micro-batch 2 x accumulation 2) under O2 with FusedLAMB, through
+micro-batch 2 x accumulation 2; the f32-logits head, and the JAX default
+fused LM head in the ``fused_head`` tests) under O2 with FusedLAMB, through
 ``forward_backward_no_pipelining``: each port step starts from the JAX
 step's own parameters and state (``convert.bert_params_from_jax``,
 ``convert.fused_lamb_state_from_jax``), and its loss, gradients, masters
@@ -231,12 +232,13 @@ def _jax_ratio(p, g, m, v, clip, t):
     return pn / un if pn > 0 and un > 0 else 1.0
 
 
-def _run_jax(steps=3):
+def _run_jax(steps=3, fused=False):
     """Per step: (start params, start state, loss, grads, f32 grads of the
     same parameters), then the state and parameters after the last
     step."""
-    jm = JModel(JConfig(**TINY, dtype=jnp.bfloat16))
-    jm32 = JModel(JConfig(**TINY))
+    tiny = dict(TINY, fused_lm_head=fused)
+    jm = JModel(JConfig(**tiny, dtype=jnp.bfloat16))
+    jm32 = JModel(JConfig(**tiny))
     opt = JFusedLAMB(lr=LR, bucketed=False)
     jstate_amp = jamp.initialize(jm.loss, opt, opt_level="O2")
     assert opt.master_weights
@@ -259,10 +261,10 @@ def _run_jax(steps=3):
     return out, (_np(state), dict(_names(_np(params))))
 
 
-def _port_step(jparams, jstate):
+def _port_step(jparams, jstate, fused=False):
     """One port step from a JAX start: returns (loss, grads, state,
     parameters after the step)."""
-    cfg = BertConfig(**TINY, dtype=torch.bfloat16)
+    cfg = BertConfig(**dict(TINY, fused_lm_head=fused), dtype=torch.bfloat16)
     model = BertModel(cfg, device="cpu")
     opt = FusedLAMB(model.parameters(), lr=LR)
     amp.initialize(model, opt, opt_level="O2")
@@ -290,12 +292,12 @@ def _port_step(jparams, jstate):
 _CACHE = {}
 
 
-def _three_steps():
-    if not _CACHE:
-        jout, jfinal = _run_jax()
-        _CACHE["jax"] = jout, jfinal
-        _CACHE["port"] = [_port_step(p, s) for p, s, *_ in jout]
-    return _CACHE["jax"], _CACHE["port"]
+def _three_steps(fused=False):
+    if fused not in _CACHE:
+        jout, jfinal = _run_jax(fused=fused)
+        _CACHE[fused] = ((jout, jfinal),
+                         [_port_step(p, s, fused) for p, s, *_ in jout])
+    return _CACHE[fused]
 
 
 def _grad_bound(want, ref):
@@ -304,9 +306,16 @@ def _grad_bound(want, ref):
     return 5e-2 * np.abs(want).max() + np.abs(want - ref).max()
 
 
-@pytest.mark.parametrize("step", [0, 1, 2])
-def test_three_o2_lamb_steps_loss_and_grads_match_jax(step):
-    (jout, _), port = _three_steps()
+# (step, fused LM head): the f32-logits head, then the JAX default fused
+# head on both sides, held to the same bounds
+_STEPS = [pytest.param(step, fused, id=("fused_head-" if fused else "")
+                       + str(step)) for fused in (False, True)
+          for step in (0, 1, 2)]
+
+
+@pytest.mark.parametrize("step,fused", _STEPS)
+def test_three_o2_lamb_steps_loss_and_grads_match_jax(step, fused):
+    (jout, _), port = _three_steps(fused)
     _, _, jloss, jgrads, jg32 = jout[step]
     loss, grads = port[step][:2]
     assert abs(loss - jloss) <= 2e-3 * abs(jloss), (loss, jloss)
@@ -317,11 +326,11 @@ def test_three_o2_lamb_steps_loss_and_grads_match_jax(step):
         assert err <= _grad_bound(want, jg32[name]), (name, err)
 
 
-@pytest.mark.parametrize("step", [0, 1, 2])
-def test_three_o2_lamb_steps_state_matches_jax(step):
+@pytest.mark.parametrize("step,fused", _STEPS)
+def test_three_o2_lamb_steps_state_matches_jax(step, fused):
     """Masters, m and v after each step within the update-rule bounds of
     the module docstring; the step count advances on both sides."""
-    (jout, (jfinal, jfinal_params)), port = _three_steps()
+    (jout, (jfinal, jfinal_params)), port = _three_steps(fused)
     t = step + 1
     jparams, jstate, _, jgrads, jg32 = jout[step]
     after, after_params = ((jout[step + 1][1], dict(_names(jout[step + 1][0])))

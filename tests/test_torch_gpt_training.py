@@ -1,7 +1,8 @@
 """The training slice of apex_tpu_torch against apex_tpu on the CPU.
 
 A tiny GPT (vocab 256, hidden 64, 2 layers, 4 heads, seq 64, micro-batch 2
-x accumulation 2, ``fused_lm_head=False``) is initialised by the JAX package
+x accumulation 2; ``fused_lm_head=False``, and in the ``fused_head`` cases
+the JAX default ``fused_lm_head=True``) is initialised by the JAX package
 and carried into the port.  ``forward_backward_no_pipelining`` over the
 port's ``GPTModel`` (its loss and ``backward``) is held against the JAX
 schedule of the same name over ``GPTModel.loss`` (``jax.vjp`` seeded at 1/M,
@@ -75,10 +76,11 @@ def _np_state(state):
     return jax.tree_util.tree_map(np.asarray, state)
 
 
-def _run_jax(dtype, dropout, steps=2):
+def _run_jax(dtype, dropout, steps=2, fused=False):
     """Per step: the params and optimizer state it starts from (numpy),
     its mean loss and {name: grad}; then the params after the last."""
-    cfg = JConfig(**TINY, attention_dropout=0.1 if dropout else 0.0,
+    cfg = JConfig(**dict(TINY, fused_lm_head=fused),
+                  attention_dropout=0.1 if dropout else 0.0,
                   dtype=_JAX_DT[dtype])
     model = JModel(cfg)
     params = model.init_params(jax.random.PRNGKey(0))
@@ -99,8 +101,9 @@ def _run_jax(dtype, dropout, steps=2):
     return out, dict(_names(_np_state(params)))
 
 
-def _port(dtype, dropout, init):
-    cfg = GPTConfig(**TINY, attention_dropout=0.1 if dropout else 0.0,
+def _port(dtype, dropout, init, fused=False):
+    cfg = GPTConfig(**dict(TINY, fused_lm_head=fused),
+                    attention_dropout=0.1 if dropout else 0.0,
                     dtype=_T_DT[dtype])
     model = GPTModel(cfg, device="cpu")
     model.load_state_dict(gpt_params_from_jax(init, cfg))
@@ -122,12 +125,12 @@ def _port_step(model, opt, dropout):
     return float(loss), grads
 
 
-def _run_port_from_jax_states(jout, dtype, dropout):
+def _run_port_from_jax_states(jout, dtype, dropout, fused=False):
     """Each step from the JAX step's own start (params and Adam moments
     carried over with the convert functions)."""
     out = []
     for (params, state), _, _ in jout:
-        model, opt = _port(dtype, dropout, params)
+        model, opt = _port(dtype, dropout, params, fused)
         carried = fused_adam_state_from_jax(state, model)
         for name, p in model.named_parameters():
             if carried["step"]:
@@ -138,9 +141,9 @@ def _run_port_from_jax_states(jout, dtype, dropout):
     return out
 
 
-def _run_port(init, dtype, dropout, steps=2):
+def _run_port(init, dtype, dropout, steps=2, fused=False):
     """The port's own trajectory from the same initial params."""
-    model, opt = _port(dtype, dropout, init)
+    model, opt = _port(dtype, dropout, init, fused)
     for _ in range(steps):
         _port_step(model, opt, dropout)
     return {n: p.detach().float().numpy() for n, p in model.named_parameters()}
@@ -149,18 +152,23 @@ def _run_port(init, dtype, dropout, steps=2):
 _CACHE = {}
 
 
-def _both(dtype, dropout):
-    key = (dtype, dropout)
+def _both(dtype, dropout, fused=False):
+    key = (dtype, dropout, fused)
     if key not in _CACHE:
-        jout, jfinal = _run_jax(dtype, dropout)
+        jout, jfinal = _run_jax(dtype, dropout, fused=fused)
         _CACHE[key] = (jout, jfinal,
-                       _run_port_from_jax_states(jout, dtype, dropout),
-                       _run_port(jout[0][0][0], dtype, dropout))
+                       _run_port_from_jax_states(jout, dtype, dropout, fused),
+                       _run_port(jout[0][0][0], dtype, dropout, fused=fused))
     return _CACHE[key]
 
 
-_CASES = [("f32", False), ("f32", True), ("bf16", False), ("bf16", True)]
-_IDS = [f"{d}-{'dropout' if p else 'no_dropout'}" for d, p in _CASES]
+# (dtype, dropout, fused LM head); with the fused head (the JAX default)
+# JAX's default path on the CPU is its materialized f32 reference, the
+# port's the kernels' plain versions
+_CASES = [("f32", False, False), ("f32", True, False), ("bf16", False, False),
+          ("bf16", True, False), ("f32", False, True), ("bf16", True, True)]
+_IDS = [("fused_head-" if f else "") + f"{d}-{'dropout' if p else 'no_dropout'}"
+        for d, p, f in _CASES]
 
 
 def _assert_step_matches(jout, tout, dtype):
@@ -174,14 +182,14 @@ def _assert_step_matches(jout, tout, dtype):
             assert err <= grad_tol * np.abs(want).max(), (name, err)
 
 
-@pytest.mark.parametrize("dtype,dropout", _CASES, ids=_IDS)
-def test_loss_and_every_grad_match_jax(dtype, dropout):
-    jout, _, tout, _ = _both(dtype, dropout)
+@pytest.mark.parametrize("dtype,dropout,fused", _CASES, ids=_IDS)
+def test_loss_and_every_grad_match_jax(dtype, dropout, fused):
+    jout, _, tout, _ = _both(dtype, dropout, fused)
     _assert_step_matches(jout, tout, dtype)
 
 
-@pytest.mark.parametrize("dtype,dropout", _CASES, ids=_IDS)
-def test_params_after_two_fused_adam_steps_match_jax(dtype, dropout):
+@pytest.mark.parametrize("dtype,dropout,fused", _CASES, ids=_IDS)
+def test_params_after_two_fused_adam_steps_match_jax(dtype, dropout, fused):
     """The port's own two-step trajectory.  Adam moves an entry by about lr
     per step whatever the gradient's size, so an entry whose gradient is
     at noise level (the key bias: softmax ignores it) may move the other
@@ -189,7 +197,7 @@ def test_params_after_two_fused_adam_steps_match_jax(dtype, dropout):
     step 2 (Cauchy-Schwarz), so such entries differ by at most 4.003 lr
     after two steps (checked at 4.5 lr); 99% of entries agree to 1e-6
     (f32) / 5e-4 (bf16)."""
-    _, jfinal, _, tfinal = _both(dtype, dropout)
+    _, jfinal, _, tfinal = _both(dtype, dropout, fused)
     diffs = np.concatenate([np.abs(tfinal[n] - want).ravel()
                             for n, want in jfinal.items()])
     assert diffs.max() <= 4.5 * LR, diffs.max()
@@ -219,15 +227,31 @@ def test_dropout_needs_a_seed_and_changes_the_loss():
 
 
 def test_fused_lm_head_raises_in_head_loss_only():
-    """``fused_lm_head=True`` (the JAX default) raises in ``head_loss``,
-    naming its slice; serving never calls it, and remat still raises."""
-    model = GPTModel(GPTConfig(**dict(TINY, fused_lm_head=True)),
-                     device="cpu")
-    tokens = torch.zeros((1, 8), dtype=torch.long)
-    logits, _ = model.prefill(tokens)
-    assert logits.shape == (1, 8, TINY["vocab_size"])
-    with pytest.raises(NotImplementedError, match="LM head slice"):
-        model.loss(tokens, tokens)
+    """``fused_lm_head=True`` (the JAX default) now runs in ``head_loss``:
+    in f32 its loss equals the f32-logits head's within 1e-6 relative and
+    every gradient within 1e-5 of its largest entry (the same math, sums
+    in other orders); serving's prefill logits are the same f32 head GEMM
+    on both configs; remat still raises."""
+    fused = GPTModel(GPTConfig(**dict(TINY, fused_lm_head=True)),
+                     device="cpu").init_params(
+        torch.Generator().manual_seed(3))
+    plain = GPTModel(GPTConfig(**TINY), device="cpu")
+    plain.load_state_dict(fused.state_dict())
+    tokens, targets = (torch.from_numpy(a[0]) for a in _batch(4))
+    a, _ = fused.prefill(tokens)
+    b, _ = plain.prefill(tokens)
+    assert a.shape == (MB, SEQ, TINY["vocab_size"]) and torch.equal(a, b)
+    losses = []
+    for model in (fused, plain):
+        loss = model.loss(tokens, targets)
+        loss.backward()
+        losses.append(loss.item())
+    assert losses[0] == pytest.approx(losses[1], rel=1e-6)
+    grads = dict(plain.named_parameters())
+    for name, p in fused.named_parameters():
+        want = grads[name].grad
+        assert float((p.grad - want).abs().max()) <= 1e-5 * float(
+            want.abs().max()), name
     with pytest.raises(NotImplementedError, match="slice"):
         GPTConfig(**TINY, remat=True)
 
@@ -298,13 +322,24 @@ def test_rope_gradient_matches_jax_custom_vjp(dtype):
                                atol=tol)
 
 
+def _pallas_interpret_step_matches(fused):
+    set_force_pallas(True)
+    try:
+        jout, _ = _run_jax("bf16", True, fused=fused)
+    finally:
+        set_force_pallas(None)
+    _assert_step_matches(
+        jout, _run_port_from_jax_states(jout, "bf16", True, fused), "bf16")
+
+
 def test_pallas_interpret_grads_match_the_port():
     """One config (bf16, dropout) with the JAX side forced through its
     Pallas kernels in interpret mode (LayerNorm and flash fwd/bwd)."""
-    set_force_pallas(True)
-    try:
-        jout, _ = _run_jax("bf16", True)
-    finally:
-        set_force_pallas(None)
-    _assert_step_matches(jout, _run_port_from_jax_states(jout, "bf16", True),
-                         "bf16")
+    _pallas_interpret_step_matches(fused=False)
+
+
+def test_pallas_interpret_fused_head_grads_match_the_port():
+    """The same with the fused LM head: the JAX side runs its three LM-head
+    kernels in interpret mode too (dS rounded to bf16, as the port's plain
+    versions round it)."""
+    _pallas_interpret_step_matches(fused=True)

@@ -20,6 +20,7 @@ from apex_tpu_torch.ops.flash_attention import (flash_attention_decode,
                                                 flash_attention_dkv,
                                                 flash_attention_dq, flash_fwd)
 from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
+from apex_tpu_torch.ops.lm_head import lm_head_dw, lm_head_dx, lm_head_fwd
 from apex_tpu_torch.ops.multi_tensor import (multi_tensor_adam,
                                              multi_tensor_lamb_stage1,
                                              multi_tensor_lamb_stage2,
@@ -36,7 +37,8 @@ TINY = dict(vocab_size=64, hidden_size=64, num_layers=2,
 COUNTERS = (layer_norm_fwd, flash_fwd, flash_attention_decode,
             layer_norm_bwd, flash_attention_dq, flash_attention_dkv,
             multi_tensor_adam, multi_tensor_scale_, multi_tensor_sumsq,
-            multi_tensor_lamb_stage1, multi_tensor_lamb_stage2)
+            multi_tensor_lamb_stage1, multi_tensor_lamb_stage2, lm_head_fwd,
+            lm_head_dx, lm_head_dw)
 BERT_TINY = dict(vocab_size=64, hidden_size=64, num_layers=2,
                  num_attention_heads=4, max_seq_len=32, fused_lm_head=False)
 
@@ -116,21 +118,23 @@ def test_cpu_serving_launches_no_kernel():
 
 def test_cpu_training_launches_no_kernel():
     """A CPU training step (loss, backward, FusedAdam) takes every
-    wrapper's plain version: no counter moves."""
+    wrapper's plain version, with the f32-logits head and with the fused
+    LM head: no counter moves."""
     for c in COUNTERS:
         c.launches = 0
-    model = GPTModel(GPTConfig(**TINY, fused_lm_head=False,
-                               attention_dropout=0.1), device="cpu")
-    model.init_params(torch.Generator().manual_seed(0))
-    opt = FusedAdam(model.parameters(), lr=1e-3)
-    tokens = torch.randint(0, 64, (2, 1, 16),
-                           generator=torch.Generator().manual_seed(1))
-    loss = forward_backward_no_pipelining(
-        lambda m, x: m.backbone(m.embed(x), dropout_seed=0),
-        lambda x, t: model.head_loss(x, t).mean(), model, tokens, tokens)
-    opt.step()
-    assert torch.isfinite(loss)
-    assert all(p.grad is not None for p in model.parameters())
+    for fused in (False, True):
+        model = GPTModel(GPTConfig(**TINY, fused_lm_head=fused,
+                                   attention_dropout=0.1), device="cpu")
+        model.init_params(torch.Generator().manual_seed(0))
+        opt = FusedAdam(model.parameters(), lr=1e-3)
+        tokens = torch.randint(0, 64, (2, 1, 16),
+                               generator=torch.Generator().manual_seed(1))
+        loss = forward_backward_no_pipelining(
+            lambda m, x: m.backbone(m.embed(x), dropout_seed=0),
+            lambda x, t: model.head_loss(x, t).mean(), model, tokens, tokens)
+        opt.step()
+        assert torch.isfinite(loss)
+        assert all(p.grad is not None for p in model.parameters())
     assert [c.launches for c in COUNTERS] == [0] * len(COUNTERS)
 
 
@@ -140,22 +144,25 @@ def test_cpu_bert_o2_lamb_training_launches_no_kernel():
     from apex_tpu_torch.contrib.clip_grad import clip_grad_norm_
     for c in COUNTERS:
         c.launches = 0
-    model = BertModel(BertConfig(**BERT_TINY, dtype=torch.bfloat16),
-                      device="cpu").init_params(
-        torch.Generator().manual_seed(0))
-    opt = FusedLAMB(model.parameters(), lr=1e-3)
-    state = amp.initialize(model, opt, opt_level="O2")
-    tokens = torch.randint(0, 64, (2, 1, 16),
-                           generator=torch.Generator().manual_seed(1))
-    labels = torch.where(tokens % 3 == 0, tokens, -1)
-    loss = forward_backward_no_pipelining(
-        lambda m, x: x, lambda x, t: model.loss(x, t), model, tokens, labels)
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    state.scaler.unscale(grads, out=grads)
-    clip_grad_norm_(model.parameters(), 1.0)
-    opt.step()
-    assert torch.isfinite(loss)
-    assert all(p.dtype == torch.float32 for p in opt.master_params())
+    for fused in (False, True):
+        model = BertModel(BertConfig(**dict(BERT_TINY, fused_lm_head=fused),
+                                     dtype=torch.bfloat16),
+                          device="cpu").init_params(
+            torch.Generator().manual_seed(0))
+        opt = FusedLAMB(model.parameters(), lr=1e-3)
+        state = amp.initialize(model, opt, opt_level="O2")
+        tokens = torch.randint(0, 64, (2, 1, 16),
+                               generator=torch.Generator().manual_seed(1))
+        labels = torch.where(tokens % 3 == 0, tokens, -1)
+        loss = forward_backward_no_pipelining(
+            lambda m, x: x, lambda x, t: model.loss(x, t), model, tokens,
+            labels)
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        state.scaler.unscale(grads, out=grads)
+        clip_grad_norm_(model.parameters(), 1.0)
+        opt.step()
+        assert torch.isfinite(loss)
+        assert all(p.dtype == torch.float32 for p in opt.master_params())
     assert [c.launches for c in COUNTERS] == [0] * len(COUNTERS)
 
 
@@ -174,7 +181,9 @@ def test_cuda_wrappers_refuse_what_their_kernels_do_not_take():
                                     "multi_tensor_adam", "multi_tensor_scale_",
                                     "multi_tensor_sumsq",
                                     "multi_tensor_lamb_stage1",
-                                    "multi_tensor_lamb_stage2"])
+                                    "multi_tensor_lamb_stage2",
+                                    "lm_head_fwd", "lm_head_dx",
+                                    "lm_head_dw"])
 def test_training_wrappers_refuse_non_cpu_tensors_they_cannot_launch(kernel):
     """A tensor that is not on the CPU never takes a plain version: the
     new wrappers run their checks and raise before any launch (here on
@@ -182,6 +191,7 @@ def test_training_wrappers_refuse_non_cpu_tensors_they_cannot_launch(kernel):
     meta = torch.empty((2, 4, 8, 16), device="meta")
     stats = torch.empty((8, 8), device="meta")
     x = torch.empty((4, 8), device="meta")
+    rows = torch.empty(4, dtype=torch.long, device="meta")
     calls = {
         "layer_norm_bwd": lambda: layer_norm_bwd(
             x, x, torch.ones(8), None, stats, stats, False, False),
@@ -197,6 +207,11 @@ def test_training_wrappers_refuse_non_cpu_tensors_they_cannot_launch(kernel):
             [x], [x], [x], [x], [x], torch.empty(9, device="meta")),
         "multi_tensor_lamb_stage2": lambda: multi_tensor_lamb_stage2(
             [x], [x], [None], x, x, 1.0),
+        "lm_head_fwd": lambda: lm_head_fwd(x, x, rows),
+        "lm_head_dx": lambda: lm_head_dx(x, x, rows, rows.float(),
+                                         rows.float()),
+        "lm_head_dw": lambda: lm_head_dw(x, x, rows, rows.float(),
+                                         rows.float()),
     }
     with pytest.raises(ValueError, match="unsupported device|CUDA device"):
         calls[kernel]()
