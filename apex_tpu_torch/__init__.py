@@ -28,7 +28,9 @@ and 2, and the multi-tensor scale of ``amp.LossScaler.unscale`` and
 ``contrib.clip_grad.clip_grad_norm_``).  Slice 4 is the fused LM head
 (``ops.lm_head.fused_linear_cross_entropy``, on by default in both models'
 losses as in JAX) on three more kernels: the logit-free forward and its
-dX and dW backward.
+dX and dW backward.  Slice 5 is the fused bias-GELU FFN
+(``ops.fused_ffn.fused_ffn``, with ``fused_ffn=True`` in both models and in
+``mlp`` / ``fused_dense``) on three more kernels: its forward, dX and dW.
 """
 
 __version__ = "0.1.0"

@@ -19,6 +19,7 @@ package on a machine with no ``nvcc`` and no card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -34,8 +35,9 @@ SOURCES = ("layer_norm_fwd.cu", "layer_norm_bwd.cu", "flash_fwd.cu",
            "flash_bwd_dq.cu", "flash_bwd_dkv.cu", "flash_decode.cu",
            "multi_tensor_adam.cu", "multi_tensor_scale.cu",
            "multi_tensor_l2norm.cu", "multi_tensor_lamb.cu", "lm_head_fwd.cu",
-           "lm_head_bwd.cu")
-HEADERS = ("common.cuh", "multi_tensor.cuh", "lm_head.cuh")
+           "lm_head_bwd.cu", "ffn_fwd.cu", "ffn_bwd.cu")
+HEADERS = ("common.cuh", "multi_tensor.cuh", "mma.cuh", "lm_head.cuh",
+           "ffn.cuh")
 BUILD_DIR = _PKG.parent / "build" / "apex_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -67,6 +69,10 @@ _SIGNATURES = {
     "apex_lm_head_fwd": [_P] * 6 + [_I] * 6 + [_P],
     "apex_lm_head_dx": [_P] * 6 + [_I] * 5 + [_P],
     "apex_lm_head_dw": [_P] * 6 + [_I] * 5 + [_P],
+    "apex_ffn_splits": [_I] * 4,
+    "apex_ffn_fwd": [_P] * 8 + [_I] * 6 + [_P],
+    "apex_ffn_dx": [_P] * 6 + [_I] * 6 + [_P],
+    "apex_ffn_dw": [_P] * 7 + [_I] * 7 + [_P],
 }
 
 _lib = None
@@ -166,6 +172,13 @@ def dtype_code(t: torch.Tensor, kernel: str) -> int:
     except KeyError:
         raise TypeError(f"{kernel}: dtype {t.dtype} is not supported "
                         f"(float32, bfloat16, float16)") from None
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Multiprocessors of CUDA device ``index`` (kernels split work by
+    it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream() -> int:

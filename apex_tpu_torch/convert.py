@@ -9,7 +9,11 @@ are the tree's paths joined by dots, so the mapping is a flatten; shapes
 are checked against the model the config describes.
 
 :func:`bert_params_from_jax` does the same for
-:class:`apex_tpu_torch.models.bert.BertModel`.
+:class:`apex_tpu_torch.models.bert.BertModel`, and
+:func:`mlp_params_from_jax` / :func:`fused_dense_params_from_jax` for the
+modules of :mod:`apex_tpu_torch.mlp` and :mod:`apex_tpu_torch.fused_dense`
+(their parameter names are the JAX dicts' keys).  The fused FFN reads the
+models' ``fc1`` / ``fc2`` leaves, so ``fused_ffn`` changes no conversion.
 
 :func:`fused_adam_state_from_jax` and :func:`fused_lamb_state_from_jax`
 carry the per-leaf state of the JAX ``FusedAdam`` / ``FusedLAMB``
@@ -26,6 +30,7 @@ from apex_tpu_torch.models.bert import BertConfig, BertModel
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
 
 __all__ = ["gpt_params_from_jax", "bert_params_from_jax",
+           "mlp_params_from_jax", "fused_dense_params_from_jax",
            "fused_adam_state_from_jax", "fused_lamb_state_from_jax"]
 
 
@@ -80,6 +85,20 @@ def bert_params_from_jax(tree, cfg: BertConfig) -> dict:
     nothing into a model cast by ``amp.initialize``.  Raises when the
     tree's names or shapes do not match the model."""
     return _params_from_jax(tree, BertModel(cfg, device="meta"))
+
+
+def mlp_params_from_jax(tree, module) -> dict:
+    """State dict for ``module`` (an :class:`apex_tpu_torch.mlp.MLP` of the
+    JAX ``MLP``'s sizes and bias) from the JAX ``init_params`` dict of
+    numpy arrays (``{"weights": [...], "biases": [...]}``)."""
+    return _params_from_jax(tree, module)
+
+
+def fused_dense_params_from_jax(tree, module) -> dict:
+    """State dict for ``module`` (a :class:`~apex_tpu_torch.fused_dense.
+    FusedDense` or ``FusedDenseGeluDense``) from the JAX module's
+    ``init_params`` dict of numpy arrays."""
+    return _params_from_jax(tree, module)
 
 
 def _jax_leaf_order(names):

@@ -4,9 +4,11 @@
 The JAX model's wiring: token (vocab) + learned position + segment
 embeddings → MixedFusedLayerNorm → N × post-LN blocks (bidirectional flash
 attention with ``seqlens`` as the kernel's ``kv_seqlens`` → residual → LN →
-fc1 / tanh-GELU / fc2 → residual → LN) → MLM transform (f32 dense + GELU +
-LN) → tied decoder → cross entropy over the masked positions (labels ``-1``
-elsewhere), plus the NSP head when labels are given.  The decoder and its
+fc1 / tanh-GELU / fc2, or with ``fused_ffn=True`` the fused FFN op of
+:mod:`apex_tpu_torch.ops.fused_ffn` → residual → LN) → MLM transform (f32
+dense + GELU + LN) → tied decoder → cross entropy over the masked
+positions (labels ``-1`` elsewhere), plus the NSP head when labels are
+given.  The decoder and its
 cross entropy are the logit-free fused LM head (``fused_lm_head=True``, the
 JAX default: :mod:`apex_tpu_torch.ops.lm_head` on compute-dtype operands),
 or with ``fused_lm_head=False`` the f32 decoder GEMM and the vocab-parallel
@@ -31,10 +33,11 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from apex_tpu_torch.models.gpt import (FUSED_FFN_SLICE, MULTI_GPU_SLICE,
-                                       REMAT_SLICE, _reset_layer_norm)
+from apex_tpu_torch.models.gpt import (MULTI_GPU_SLICE, REMAT_SLICE,
+                                       _reset_layer_norm)
 from apex_tpu_torch.normalization import MixedFusedLayerNorm
 from apex_tpu_torch.ops.flash_attention import flash_attention
+from apex_tpu_torch.ops.fused_ffn import fused_ffn
 from apex_tpu_torch.ops.lm_head import fused_linear_cross_entropy
 from apex_tpu_torch.transformer import tensor_parallel as tp
 from apex_tpu_torch.transformer.tensor_parallel.layers import _normal_
@@ -76,7 +79,6 @@ class BertConfig:
             raise ValueError(
                 "hidden_size must be divisible by num_attention_heads")
         unsupported = [
-            (self.fused_ffn, "fused_ffn", FUSED_FFN_SLICE),
             (self.remat, "remat", REMAT_SLICE),
             (self.plan is not None, "plan", MULTI_GPU_SLICE),
             (self.tensor_parallel_size > 1, "tensor_parallel_size > 1",
@@ -130,6 +132,7 @@ class BertLayer(nn.Module):
 
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
+        self.fused_ffn = cfg.fused_ffn
         self.attention = BertSelfAttention(cfg, device)
         self.attention_layernorm = MixedFusedLayerNorm(cfg.hidden_size,
                                                        device=device)
@@ -144,8 +147,12 @@ class BertLayer(nn.Module):
 
     def forward(self, x, seqlens=None):
         x = self.attention_layernorm(x + self.attention(x, seqlens))
-        h, _ = self.fc1(x)
-        h, _ = self.fc2(F.gelu(h, approximate="tanh"))
+        if self.fused_ffn:
+            h = fused_ffn(x, self.fc1.weight, self.fc1.bias, self.fc2.weight,
+                          self.fc2.bias)
+        else:
+            h, _ = self.fc1(x)
+            h, _ = self.fc2(F.gelu(h, approximate="tanh"))
         return self.output_layernorm(x + h)
 
 

@@ -4,7 +4,10 @@
 The same pre-LN wiring as the JAX model: vocab embedding → N ×
 (MixedFusedLayerNorm → causal attention with RoPE → residual →
 MixedFusedLayerNorm → fc1 / tanh-GELU / fc2 → residual) → final
-MixedFusedLayerNorm → tied head.  Activations are
+MixedFusedLayerNorm → tied head.  With ``fused_ffn=True`` the fc1 / GELU /
+fc2 pair is the fused FFN op (the forward, dX and dW kernels of
+:mod:`apex_tpu_torch.ops.fused_ffn`) on every path: loss, prefill and
+decode.  Activations are
 ``(batch, seq, hidden)`` at ``cfg.dtype`` with f32 parameters.  Serving runs
 the LayerNorm forward, the causal flash-attention forward (prefill) and the
 single-query decode attention kernels; training (:meth:`GPTModel.loss`,
@@ -34,6 +37,7 @@ import torch.nn.functional as F
 from apex_tpu_torch.normalization import MixedFusedLayerNorm
 from apex_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_decode)
+from apex_tpu_torch.ops.fused_ffn import fused_ffn
 from apex_tpu_torch.ops.lm_head import fused_linear_cross_entropy
 from apex_tpu_torch.ops.rope import (fused_apply_rotary_pos_emb_at_positions,
                                      fused_apply_rotary_pos_emb_cached,
@@ -44,7 +48,6 @@ from apex_tpu_torch.utils.device import resolve_device
 
 _f32 = torch.float32
 
-FUSED_FFN_SLICE = "the fused-FFN slice"
 REMAT_SLICE = "a later training slice (activation recompute)"
 MULTI_GPU_SLICE = "the multi-GPU slice"
 QUANT_SERVING_SLICE = "the paged/quantized serving slice"
@@ -85,8 +88,18 @@ class GPTConfig:
         if not 0.0 <= self.attention_dropout < 1.0:
             raise ValueError(f"attention_dropout must be in [0, 1), got "
                              f"{self.attention_dropout}")
+        if self.fused_ffn and self.n_experts > 0:
+            raise ValueError(
+                "fused_ffn fuses the dense ParallelMLP pair; with "
+                "n_experts > 0 every FFN slot is a MoEFFN and the knob "
+                "would be silently dead — enable one or the other")
+        if self.weight_quant is not None and self.fused_ffn:
+            raise ValueError(
+                "weight_quant routes the FFN through the int8 "
+                "dequant-GEMMs, which fused_ffn would bypass (the fused "
+                "kernel consumes raw f32/bf16 fc1/fc2 leaves) — enable "
+                "one or the other")
         unsupported = [
-            (self.fused_ffn, "fused_ffn", FUSED_FFN_SLICE),
             (self.remat, "remat", REMAT_SLICE),
             (self.weight_quant is not None, "weight_quant",
              QUANT_SERVING_SLICE),
@@ -195,10 +208,13 @@ class ParallelAttention(nn.Module):
 
 
 class ParallelMLP(nn.Module):
-    """Column → tanh-GELU → Row block (apex ParallelMLP), unfused."""
+    """Column → tanh-GELU → Row block (apex ParallelMLP): unfused, or with
+    ``cfg.fused_ffn`` the fused op of :mod:`apex_tpu_torch.ops.fused_ffn`
+    on the same ``fc1`` / ``fc2`` parameters."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
+        self.fused_ffn = cfg.fused_ffn
         self.fc1 = tp.ColumnParallelLinear(
             cfg.hidden_size, cfg.ffn_hidden_size,
             param_dtype=cfg.param_dtype, device=device)
@@ -207,6 +223,9 @@ class ParallelMLP(nn.Module):
             param_dtype=cfg.param_dtype, device=device)
 
     def forward(self, x):
+        if self.fused_ffn:
+            return fused_ffn(x, self.fc1.weight, self.fc1.bias,
+                             self.fc2.weight, self.fc2.bias)
         h, _ = self.fc1(x)
         y, _ = self.fc2(F.gelu(h, approximate="tanh"))
         return y

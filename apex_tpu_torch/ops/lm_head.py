@@ -41,8 +41,6 @@ materialized reference (Mosaic has no f16).
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from apex_tpu_torch import _kernels
@@ -133,11 +131,6 @@ def _use_mma(x, w):
     return _dot_dtype(x.dtype, w.dtype) == torch.bfloat16
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _check_operands(kernel, x, w, targets):
     """Shapes, dtypes, device and layout the CUDA kernels take; returns
     ``(targets as int32, (x dtype code, w dtype code))``."""
@@ -192,7 +185,7 @@ def lm_head_fwd(x, w, targets):
     if n == 0:
         return loss, lse
     lib = _kernels.lib()
-    splits = lib.apex_lm_head_fwd_splits(n, v, _sm_count(x.device.index or 0))
+    splits = lib.apex_lm_head_fwd_splits(n, v, _kernels.sm_count(x.device.index or 0))
     partials = torch.empty((3, splits, n), dtype=_f32, device=x.device)
     rc = lib.apex_lm_head_fwd(
         x.data_ptr(), w.data_ptr(), tgt.data_ptr(), loss.data_ptr(),

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive apex_tpu_torch's serving and training paths (GPT serving, GPT
-training, BERT training under amp O2) on one NVIDIA H100 and hold every
-kernel of the paths against its plain PyTorch version.
+training, BERT training under amp O2, each also with the fused FFN) on one
+NVIDIA H100 and hold every kernel of the paths against its plain PyTorch
+version.
 
     python3 chip_smoke.py [--out results.json] [--profile breakdown.txt]
 
@@ -17,28 +18,36 @@ Phases (any failure exits non-zero; nothing is caught):
    BERT-large's head shapes in bf16 and GPT-350M's in f32, a peaked-softmax
    bf16 case off the token and vocab grids, and three small off-grid cases
    (f32, bf16, a mixed pair), its yardstick the two calls matmul +
-   F.cross_entropy;
+   F.cross_entropy; the fused FFN (#11-#13) at GPT-350M's and BERT-large's
+   micro-batch (bf16 x with f32 W, bf16/bf16), the serving shapes (512
+   and 8 rows), GPT-2 XL's widths off the grids (1000 x 1600 -> 6400 ->
+   1600), GPT-350M's shape in f32 and small cases, every output held
+   entry by entry (``ffn_bounds``), its yardstick the unfused
+   F.linear + gelu + F.linear chain;
 3. GPT-350M (vocab 50304, hidden 1024, 24 layers, 16 heads, ffn 4096,
    max_seq 1024, bf16 activations, f32 params, random weights from seed 0)
    served by ``InferenceEngine`` (8 slots, bf16 cache): 10 greedy requests,
    prompts of 37..512 tokens, 32 new tokens each.  Every kernel's launch
    count is read around this run alone and checked against the count the
-   path implies;
+   path implies, and no plain version may be called; (3f) the same model
+   with ``fused_ffn=True`` (its FFN is #11 in every prefill and decode
+   step) serves the same requests under the same checks;
 4. one request's prefill and 4 decode steps on the card against a CPU copy
    of the same model (the plain versions): logits within a bf16 tolerance,
-   same greedy tokens;
+   same greedy tokens; (4f) the same with ``fused_ffn=True``;
 5. GPT-350M training (the fused LM head, micro-batch 8 x accumulation 2 x
    seq 1024 = 16,384 tokens per step, ``FusedAdam(lr=1e-4)`` AdamW: the
    configuration of bench.py's GPT leg) for 4 steps on one fixed batch
    from seed 0, through ``forward_backward_no_pipelining`` over ``GPTModel``'s loss and backward
    and ``FusedAdam.step``: losses finite and falling, step time, tokens/s,
    peak memory, exact launch counts per kernel, and no call of a plain
-   version;
+   version; (5f) the same with ``fused_ffn=True`` (#11-#13 in every layer),
+   its step time, tokens/s and peak memory beside phase 5's;
 6. a small GPT (4 layers, hidden 256, vocab 50304, seq 256, attention
    dropout 0.1) trained 2 steps on the card and on a CPU copy, with the
-   fused LM head and again with the f32-logits head
-   (``fused_lm_head=False``): loss, every gradient and the parameters
-   within stated tolerances;
+   fused LM head, again with the f32-logits head (``fused_lm_head=False``)
+   and again with ``fused_ffn=True``: loss, every gradient and the
+   parameters within stated tolerances;
 7. BERT-large (vocab 30528, hidden 1024, 24 layers, 16 heads, ffn 4096,
    seq 512, the fused LM head) under ``amp.initialize(...,
    opt_level="O2")`` with ``FusedLAMB(lr=1e-3)``: micro-batch 16 x
@@ -46,12 +55,13 @@ Phases (any failure exits non-zero; nothing is caught):
    recipe), 4 steps through ``forward_backward_no_pipelining`` over
    ``BertModel.loss`` and ``FusedLAMB.step``: losses, step time, tokens/s,
    peak memory, exact launch counts per kernel, no plain version called;
-   then (7b) ``LossScaler.unscale`` and ``clip_grad_norm_`` on that step's
+   (7f) the same with ``fused_ffn=True``; then (7b)
+   ``LossScaler.unscale`` and ``clip_grad_norm_`` on phase 7's last step's
    gradients against their plain versions, their launches counted alone;
 8. a small BERT (4 layers, hidden 256, seq 128, vocab 30528, the fused LM
    head) under O2 + FusedLAMB trained 2 steps on the card and on a CPU
-   copy: loss, every gradient, the masters, m and v within stated bounds;
-   then (8b) a
+   copy, and again with ``fused_ffn=True``: loss, every gradient, the
+   masters, m and v within stated bounds; then (8b) a
    dynamic-loss-scale step with an inf in one gradient, skipped on the
    device.
 
@@ -617,9 +627,10 @@ def _lm_head_library(x, w, t, g):
 # A wrong softmax term (p dropped or halved, or the lse of another row)
 # moves entries by ~4e-4 |x| in dX, many times this bound at the GPT-350M
 # and BERT-large shapes and in the peaked case.
-LM_HEAD_ULP = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -23}
-LM_HEAD_MIDPOINT = 1e-4
-LM_HEAD_SUM = 2.5e-4
+ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
+       torch.float32: 2.0 ** -23}
+MIDPOINT = 1e-4
+SUM_ORDER = 2.5e-4
 
 
 def _lm_head_grad_bounds(x, w, t, lse, g, rounds_ds):
@@ -633,13 +644,13 @@ def _lm_head_grad_bounds(x, w, t, lse, g, rounds_ds):
            == t[:, None]).float()
     gcol = g[:, None].float()
     ds = ((p - hit) * gcol).abs()
-    sx = LM_HEAD_SUM * (ds @ w.float().abs())
-    sw = LM_HEAD_SUM * (ds.t() @ x.float().abs())
+    sx = SUM_ORDER * (ds @ w.float().abs())
+    sw = SUM_ORDER * (ds.t() @ x.float().abs())
     if rounds_ds:
-        hi = ((p * (1 + LM_HEAD_MIDPOINT) - hit) * gcol).bfloat16()
-        lo = ((p * (1 - LM_HEAD_MIDPOINT) - hit) * gcol).bfloat16()
+        hi = ((p * (1 + MIDPOINT) - hit) * gcol).bfloat16()
+        lo = ((p * (1 - MIDPOINT) - hit) * gcol).bfloat16()
         del p, hit
-        ulp = LM_HEAD_ULP[torch.bfloat16]
+        ulp = ULP[torch.bfloat16]
         near = torch.where(hi != lo, ds, 0.0)
         del hi, lo, ds
         sx += ulp * (near @ w.float().abs())
@@ -647,13 +658,14 @@ def _lm_head_grad_bounds(x, w, t, lse, g, rounds_ds):
     return sx, sw
 
 
-def _check_lm_head_grad(name, got, ref, slack, rows=None):
-    """One gradient against its plain version by the rule above; ``rows``
-    (a bool mask) also reports those rows on their own.  Returns the max
-    abs error."""
+def check_entrywise(name, got, ref, slack, rows=None):
+    """One output against its plain version entry by entry: |d| <= ulp
+    |ref| + slack (the LM head's rule above, the FFN's below); ``rows`` (a
+    bool mask) also reports those rows on their own.  Returns the max abs
+    error."""
     if got.dtype != ref.dtype:
         raise AssertionError(f"{name}: dtype {got.dtype}, want {ref.dtype}")
-    ulp = LM_HEAD_ULP[ref.dtype]
+    ulp = ULP[ref.dtype]
     ref32 = ref.float()
     d = (got.float() - ref32).abs()
     lim = ulp * ref32.abs() + slack
@@ -729,8 +741,8 @@ def kernel_lm_head(gen):
                     check_close(f"{name} lse", lse, rlse, 1e-4, 1e-5))
         # the kernels round dS to bf16 for a bf16 pair only
         slx, slw = _lm_head_grad_bounds(x, w, t, lse, g, xdt == wdt == bf)
-        errs = dict(dx=_check_lm_head_grad(f"{name} dx", dx, rdx, slx),
-                    dw=_check_lm_head_grad(f"{name} dw", dw, rdw, slw,
+        errs = dict(dx=check_entrywise(f"{name} dx", dx, rdx, slx),
+                    dw=check_entrywise(f"{name} dw", dw, rdw, slw,
                                            _no_target_rows(v, t, g)))
         del slx, slw
         if off_grid:
@@ -769,6 +781,194 @@ def kernel_lm_head(gen):
                         + ("forward)" if part == "fwd"
                            else "backward, dX and dW together)"))
         del x, w, t, g, rloss, rlse, rdx, rdw, lib_fwd, lib_bwd, plain, kern
+        torch.cuda.empty_cache()
+    return out
+
+
+# The fused FFN's outputs against their plain versions, entry by entry:
+#   |d| <= ulp |ref| + SUM_ORDER (|A| @ |B|) + R
+# for an output that is the product A B (A = h for y, dz for dX and dW1,
+# gelu(z1) for dW2: the terms' magnitude sum gives the summation-order
+# slack, as for the LM head).  R covers the one intermediate each kernel
+# makes from f32 sums of its own and rounds to the activation dtype: the
+# forward's h = gelu(x W1^T + b1) and the backward's dz = (dy W2) gelu'(z1).
+# An entry within MIDPOINT (relative) of a rounding midpoint may round to
+# the neighbouring value on one side, moving the output by one ulp of that
+# entry times the other operand: R = (ulp |near entries|) @ |B|.  In f32
+# nothing is rounded and the intermediate's own sum-order difference
+# (within MIDPOINT of it) carries through: R = MIDPOINT |A| @ |B|.  Both
+# sides read the same z1, so gelu(z1) and gelu'(z1) differ only in the f32
+# tanh's last bits (within MIDPOINT).  z1 = x W1^T + b1 takes the SUM_ORDER
+# term alone; db1 (f32 sums of the unrounded dz) takes (SUM_ORDER +
+# MIDPOINT) of the sum of |dz|.  Wrong GELU' terms, dW2 taken from z
+# instead of gelu(z) and a dropped b1 fail this rule by large factors
+# (tests/test_torch_fused_ffn.py, on an emulation of the kernels).
+
+def ffn_bounds(x, w1, b1, w2, dy, z1):
+    """Per entry of each output, the slack of the rule above:
+    ``{"z1", "y", "dx", "dw1", "db1", "dw2"}``, f32, from the plain
+    version's own f32 intermediates on the inputs' device."""
+    from apex_tpu_torch.ops.fused_ffn import _gelu, _gelu_grad
+    dt = x.dtype
+    xf, dyf = x.float(), dy.float()
+    w1f, w2f = w1.to(dt).float(), w2.to(dt).float()
+    ax, adj, aw1, aw2 = xf.abs(), dyf.abs(), w1f.abs(), w2f.abs()
+
+    def carry(v):
+        if dt == torch.float32:
+            return MIDPOINT * v.abs()
+        hi, lo = (v * (1 + MIDPOINT)).to(dt), (v * (1 - MIDPOINT)).to(dt)
+        return torch.where(hi != lo, ULP[dt] * v.abs(), 0.0)
+
+    out = dict(z1=SUM_ORDER * (ax @ aw1.t()))
+    h = _gelu(xf @ w1f.t() + b1.float())
+    out["y"] = (SUM_ORDER * h.abs() + carry(h)) @ aw2.t()
+    del h
+    z = z1.float()
+    dz = (dyf @ w2f) * _gelu_grad(z)
+    a = SUM_ORDER * dz.abs() + carry(dz)
+    out["dx"] = a @ aw1
+    out["dw1"] = a.t() @ ax
+    out["db1"] = (SUM_ORDER + MIDPOINT) * dz.abs().sum(0)
+    del a, dz
+    h1 = _gelu(z)
+    out["dw2"] = adj.t() @ (SUM_ORDER * h1.abs() + carry(h1))
+    return out
+
+
+def _ffn_inputs(gen, m, k, f, n, x_dtype, w_dtype):
+    """x as a LayerNorm output, W1 and W2 N(0, 0.02) as the models draw
+    them, b1 and b2 N(0, 0.1) (the models start them at 0: a random bias
+    is what a check can see), dy N(0, 1)."""
+    x = torch.randn(m, k, generator=gen).to("cuda", x_dtype)
+    w1 = (0.02 * torch.randn(f, k, generator=gen)).to("cuda", w_dtype)
+    b1 = (0.1 * torch.randn(f, generator=gen)).to("cuda", w_dtype)
+    w2 = (0.02 * torch.randn(n, f, generator=gen)).to("cuda", w_dtype)
+    b2 = (0.1 * torch.randn(n, generator=gen)).to("cuda", w_dtype)
+    dy = torch.randn(m, n, generator=gen).to("cuda", x_dtype)
+    return x, w1, b1, w2, b2, dy
+
+
+def _ffn_library(x, w1, b1, w2, b2, dy):
+    """The unfused cuBLAS chain (the yardstick; the port never calls it):
+    F.linear, F.gelu(approximate="tanh"), F.linear on operands cast to the
+    activation dtype beforehand; forward alone, and forward + autograd
+    backward (dX, dW1, db1, dW2, db2 together)."""
+    leaves = [a.detach().to(x.dtype).clone().requires_grad_()
+              for a in (x, w1, b1, w2, b2) if a is not None]
+
+    def fwd():
+        h = F.gelu(F.linear(leaves[0], leaves[1], leaves[2]),
+                   approximate="tanh")
+        return F.linear(h, *leaves[3:])
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), leaves, dy)
+
+    return fwd, fwd_bwd
+
+
+def kernel_fused_ffn(gen):
+    """#11, #12 and #13 against their plain versions, entry by entry
+    (``ffn_bounds``), and timed: bf16 x with f32 W at GPT-350M's
+    micro-batch (8192 x 1024 -> 4096 -> 1024), bf16/bf16 at BERT-large's
+    (the same shape, O2), at the serving shapes (prefill 512 rows; decode 8
+    rows, timed over 24 weight sets so that W comes from device memory as
+    on the path), GPT-2 XL's widths off the grids (1000 x 1600 -> 6400 ->
+    1600, bf16), GPT-350M's shape in f32 (the FMA instantiation); small
+    off-grid cases (200 x 96 -> 320 -> 80: f32, bf16, bf16 x f32 W, f16)
+    and one off the 16-byte loads (77 x 100 -> 200 -> 36, bf16, no b2).
+    The backward kernels read the forward kernel's z1 on both sides."""
+    from apex_tpu_torch.ops.fused_ffn import (
+        ffn_dw, ffn_dw_reference, ffn_dx, ffn_dx_reference, ffn_fwd,
+        ffn_fwd_reference)
+    out = {}
+    bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    k, f, n = HIDDEN, GPT350M["ffn_hidden_size"], HIDDEN
+    # tag, m, k, f, n, x dtype, w dtype, timed
+    cases = [("gpt", TRAIN_ROWS, k, f, n, bf, f32, True),
+             ("bert", BERT_ROWS, k, f, n, bf, bf, True),
+             ("prefill", 512, k, f, n, bf, f32, True),
+             ("decode", SLOTS, k, f, n, bf, f32, True),
+             ("gpt2-xl", 1000, 1600, 6400, 1600, bf, bf, True),
+             ("gpt f32", TRAIN_ROWS, k, f, n, f32, f32, True),
+             ("small f32", 200, 96, 320, 80, f32, f32, False),
+             ("small bf16", 200, 96, 320, 80, bf, bf, False),
+             ("small bf16 x f32 w", 200, 96, 320, 80, bf, f32, False),
+             ("small f16", 200, 96, 320, 80, f16, f16, False),
+             ("unaligned bf16", 77, 100, 200, 36, bf, bf, False)]
+    for tag, m, k, f, n, xdt, wdt, timed in cases:
+        x, w1, b1, w2, b2, dy = _ffn_inputs(gen, m, k, f, n, xdt, wdt)
+        if tag.startswith("unaligned"):
+            b2 = None
+        before = ffn_fwd.launches
+        y, z1 = ffn_fwd(x, w1, b1, w2, b2)
+        if ffn_fwd.launches - before != 2:
+            raise AssertionError("ffn_fwd: expected 2 launches per call")
+        ry, rz1 = ffn_fwd_reference(x, w1, b1, w2, b2)
+        dx = ffn_dx(dy, z1, w1, w2)
+        dw1, db1, dw2 = ffn_dw(x, dy, z1, w1, w2)
+        rdx = ffn_dx_reference(dy, z1, w1, w2)
+        rdw1, rdb1, rdw2 = ffn_dw_reference(x, dy, z1, w1, w2)
+        torch.cuda.synchronize()
+        name = f"fused_ffn {tag} ({m}x{k}->{f}->{n})"
+        slack = ffn_bounds(x, w1, b1, w2, dy, z1)
+        errs = {part: check_entrywise(f"{name} {part}", got, ref,
+                                      slack[part])
+                for part, got, ref in (("z1", z1, rz1), ("y", y, ry),
+                                       ("dx", dx, rdx), ("dw1", dw1, rdw1),
+                                       ("db1", db1, rdb1),
+                                       ("dw2", dw2, rdw2))}
+        del slack, ry, rz1, rdx, rdw1, rdb1, rdw2, dx, dw1, db1, dw2
+        if not timed:
+            continue
+        isz, wsz = x.element_size(), w1.element_size()
+        w_bytes = (f * k + n * f) * wsz
+        io = dict(fwd=m * k * isz + w_bytes + (f + n) * wsz
+                  + (m * n + m * f) * isz,
+                  dx=(m * n + m * f + m * k) * isz + w_bytes,
+                  dw=(m * k + m * n + m * f) * isz + n * f * wsz + w_bytes
+                  + f * 4)
+        work = dict(fwd=2 * m * f * (k + n), dx=2 * m * f * (n + k),
+                    dw=2 * m * f * (2 * n + k))
+        peak = PEAK_BF16_FLOPS if xdt == bf else PEAK_F32_FLOPS
+        f32_case = xdt == f32
+        reps, rounds = (3, 3) if f32_case else (20, 5)
+        sets = [(w1, b1, w2, b2)]
+        if tag == "decode":              # one weight set per layer
+            sets += [tuple((0.02 * torch.randn(a.shape, device="cuda")).to(
+                wdt) for a in (w1, b1, w2, b2)) for _ in range(23)]
+            reps = len(sets)
+
+        def cycle(fn):
+            return [lambda s=s: fn(*s) for s in sets] * (reps // len(sets))
+        lib = [_ffn_library(x, *s, dy) for s in sets]
+        t_fwd = time_ms([lf for lf, _ in lib] * (reps // len(sets)), rounds)
+        t_bwd = time_ms([lb for _, lb in lib] * (reps // len(sets)),
+                        rounds) - t_fwd
+        kern = dict(
+            fwd=cycle(lambda a, b, c, d: ffn_fwd(x, a, b, c, d)),
+            dx=cycle(lambda a, b, c, d: ffn_dx(dy, z1, a, c)),
+            dw=cycle(lambda a, b, c, d: ffn_dw(x, dy, z1, a, c)))
+        plain = dict(
+            fwd=cycle(lambda a, b, c, d: ffn_fwd_reference(x, a, b, c, d)),
+            dx=cycle(lambda a, b, c, d: ffn_dx_reference(dy, z1, a, c)),
+            dw=cycle(lambda a, b, c, d: ffn_dw_reference(x, dy, z1, a, c)))
+        err = dict(fwd=max(errs["y"], errs["z1"]), dx=errs["dx"],
+                   dw=max(errs["dw1"], errs["db1"], errs["dw2"]))
+        for part in ("fwd", "dx", "dw"):
+            key = f"{part}_{tag.replace(' ', '_')}"
+            out[key] = numbers(
+                err[part], time_ms(kern[part], rounds),
+                time_ms(plain[part][:3], rounds=3),
+                t_fwd if part == "fwd" else t_bwd,
+                bound_ms(io[part], work[part], peak),
+                call_ms(kern[part][0], iters=5 if f32_case else 50))
+            log_numbers(f"ffn_{part} {tag}", out[key],
+                        "unfused F.linear + gelu + F.linear chain ("
+                        + ("forward)" if part == "fwd" else
+                           "backward: dX, dW1, db1, dW2, db2 together)"))
+        del x, w1, b1, w2, b2, dy, y, z1, sets, lib, kern, plain
         torch.cuda.empty_cache()
     return out
 
@@ -1143,12 +1343,17 @@ def build_model(device, **overrides):
     return GPTModel(cfg, device=device)
 
 
-def phase_serve(model, rng):
+def phase_serve(model, rng, tag="[3]"):
+    """Phase 3's 10 requests through ``InferenceEngine`` (``tag`` [3f]: the
+    same with ``fused_ffn=True``, whose FFN runs #11 in every prefill and
+    decode step): finish reasons, exact launches, no plain version
+    called, then prefill(512) and decode-step times."""
     from apex_tpu_torch.inference import InferenceEngine, Request
     from apex_tpu_torch.ops.flash_attention import (flash_attention_decode,
                                                     flash_fwd)
+    from apex_tpu_torch.ops.fused_ffn import ffn_fwd
     from apex_tpu_torch.ops.layer_norm import layer_norm_fwd
-    counters = (layer_norm_fwd, flash_fwd, flash_attention_decode)
+    counters = (layer_norm_fwd, flash_fwd, flash_attention_decode, ffn_fwd)
     cfg = model.cfg
     engine = InferenceEngine(model, max_slots=SLOTS, device="cuda")
     lens = rng.randint(37, 513, size=10)
@@ -1161,14 +1366,16 @@ def phase_serve(model, rng):
         c.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    responses = engine.run()
+    with counting_plain_versions() as plain_calls:
+        responses = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
 
     reasons = {r.request_id: r.finish_reason for r in responses}
-    log(f"[3] served {len(responses)} requests in {wall:.3f} s: reasons "
-        f"{sorted(set(reasons.values()))}")
+    ffn = "fused FFN" if cfg.fused_ffn else "unfused FFN"
+    log(f"{tag} served {len(responses)} requests ({ffn}) in {wall:.3f} s: "
+        f"reasons {sorted(set(reasons.values()))}")
     errors = [r for r in responses if r.finish_reason == "error"]
     if errors:
         raise AssertionError(f"requests failed inside the engine: "
@@ -1185,11 +1392,17 @@ def phase_serve(model, rng):
     layers = cfg.num_layers
     expected = {"layer_norm_fwd": (2 * layers + 1) * (prefills + steps),
                 "flash_fwd": layers * prefills,
-                "flash_attention_decode": layers * steps}
+                "flash_attention_decode": layers * steps,
+                # the row kernel and its combine per layer and program
+                "ffn_fwd": 2 * layers * (prefills + steps) * cfg.fused_ffn}
     log(f"    launches {launches} (expected {expected}: {prefills} "
-        f"prefills, {steps} decode steps)")
+        f"prefills, {steps} decode steps); plain-version calls "
+        f"{dict(plain_calls)}")
     if launches != expected:
         raise AssertionError("kernel launch counts do not match the path")
+    if sum(plain_calls.values()):
+        raise AssertionError(f"the serving path called plain versions: "
+                             f"{dict(plain_calls)}")
     summary = engine.metrics.summary()
     log("    metrics " + json.dumps(summary, sort_keys=True))
 
@@ -1248,8 +1461,8 @@ def _prefill_and_decode(model, prompt, steps, forced=None):
     return torch.stack(rows).float().cpu()
 
 
-def phase_parity(model, rng):
-    cpu_model = build_model("cpu")
+def phase_parity(model, rng, tag="[4]"):
+    cpu_model = build_model("cpu", fused_ffn=model.cfg.fused_ffn)
     cpu_model.load_state_dict(model.state_dict())
     prompt = torch.from_numpy(rng.randint(0, model.cfg.vocab_size, (1, 64)))
     card = _prefill_and_decode(model, prompt, 4)
@@ -1261,7 +1474,7 @@ def phase_parity(model, rng):
         raise AssertionError("non-finite logits on the card")
     top2 = cpu.topk(2, dim=-1).values
     margin = float((top2[:, 0] - top2[:, 1]).min())
-    log(f"[4] card vs CPU, prefill(64) + 4 decode steps: max |logit diff| "
+    log(f"{tag} card vs CPU, prefill(64) + 4 decode steps: max |logit diff| "
         f"{err:.3e} (tolerance {LOGITS_ATOL}), mean {mean_err:.3e} "
         f"(tolerance {LOGITS_MEAN_ATOL}); logit std "
         f"{float(cpu.std()):.3f}, smallest top-2 margin {margin:.3e}); "
@@ -1282,11 +1495,12 @@ def _train_counters():
                                                     flash_attention_dq,
                                                     flash_fwd)
     from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
+    from apex_tpu_torch.ops.fused_ffn import ffn_dw, ffn_dx, ffn_fwd
     from apex_tpu_torch.ops.lm_head import lm_head_dw, lm_head_dx, lm_head_fwd
     from apex_tpu_torch.ops.multi_tensor import multi_tensor_adam
     return (layer_norm_fwd, layer_norm_bwd, flash_fwd, flash_attention_dq,
             flash_attention_dkv, multi_tensor_adam, lm_head_fwd, lm_head_dx,
-            lm_head_dw)
+            lm_head_dw, ffn_fwd, ffn_dx, ffn_dw)
 
 
 _PLAIN_VERSIONS = {
@@ -1303,6 +1517,9 @@ _PLAIN_VERSIONS = {
     "apex_tpu_torch.ops.lm_head": ("lm_head_fwd_reference",
                                    "lm_head_dx_reference",
                                    "lm_head_dw_reference"),
+    "apex_tpu_torch.ops.fused_ffn": ("ffn_fwd_reference", "ffn_dx_reference",
+                                     "ffn_dw_reference",
+                                     "fused_ffn_reference"),
 }
 
 
@@ -1342,9 +1559,18 @@ def train_step(model, opt, tokens, targets, dropout_seed=None):
     return loss
 
 
-def phase_train():
+def ffn_launches(steps, micro, layers, fused):
+    """#11-#13 launches of ``steps`` training steps: per micro-batch and
+    layer, the forward and dX (two launches each) and dW (one)."""
+    n = steps * micro * layers * fused
+    return {"ffn_fwd": 2 * n, "ffn_dx": 2 * n, "ffn_dw": n}
+
+
+def phase_train(fused_ffn=False, tag="[5]"):
+    """Phase 5 (``tag`` [5f]: with ``fused_ffn=True``)."""
     from apex_tpu_torch.optimizers import FusedAdam
-    model = build_model("cuda").init_params(torch.Generator().manual_seed(0))
+    model = build_model("cuda", fused_ffn=fused_ffn).init_params(
+        torch.Generator().manual_seed(0))
     opt = FusedAdam(model.parameters(), lr=LR)
     numels = [p.numel() for p in model.parameters()]
     rng = np.random.RandomState(0)
@@ -1379,11 +1605,13 @@ def phase_train():
                 # the forward's split pass and its combine, then dX, dW
                 "lm_head_fwd": n_steps * ACCUM * 2,
                 "lm_head_dx": n_steps * ACCUM,
-                "lm_head_dw": n_steps * ACCUM}
+                "lm_head_dw": n_steps * ACCUM,
+                **ffn_launches(n_steps, ACCUM, layers, fused_ffn)}
     step_s = statistics.median(times[1:])
     tokens_per_step = ACCUM * MICRO * SEQ
-    log(f"[5] trained GPT-350M {n_steps} steps ({ACCUM} x {MICRO} x {SEQ} "
-        f"tokens, fused LM head, FusedAdam lr={LR}): losses "
+    ffn = "fused FFN" if fused_ffn else "unfused FFN"
+    log(f"{tag} trained GPT-350M {n_steps} steps ({ACCUM} x {MICRO} x {SEQ} "
+        f"tokens, fused LM head, {ffn}, FusedAdam lr={LR}): losses "
         f"{[round(x, 5) for x in losses]} (ln vocab = "
         f"{np.log(GPT350M['vocab_size']):.3f}); step times (s) "
         f"{[round(t, 4) for t in times]}, median of steps 2-{n_steps} "
@@ -1417,12 +1645,13 @@ PARITY_TRAIN = dict(vocab_size=50304, hidden_size=256, num_layers=4,
                     dtype=torch.bfloat16)
 
 
-def phase_train_parity(fused_lm_head=True):
+def phase_train_parity(fused_lm_head=True, fused_ffn=False):
     """2 training steps of a small GPT with attention dropout on the card
     and on a CPU copy (the plain versions): loss, grads, params."""
     from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
     from apex_tpu_torch.optimizers import FusedAdam
-    cfg = GPTConfig(**PARITY_TRAIN, fused_lm_head=fused_lm_head)
+    cfg = GPTConfig(**PARITY_TRAIN, fused_lm_head=fused_lm_head,
+                    fused_ffn=fused_ffn)
     card = GPTModel(cfg, device="cuda").init_params(
         torch.Generator().manual_seed(1))
     cpu = GPTModel(cfg, device="cpu")
@@ -1455,6 +1684,7 @@ def phase_train_parity(fused_lm_head=True):
     p_max = float(diffs[-1])
     p_q99 = float(diffs[int(0.99 * (diffs.numel() - 1))])
     head = "fused LM head" if fused_lm_head else "f32-logits head"
+    head += ", fused FFN" if fused_ffn else ""
     log(f"[6] training card vs CPU (4 layers, hidden 256, dropout 0.1, "
         f"{head}, 2 steps): losses card {cl} cpu {rl}, max relative loss diff "
         f"{loss_err:.3e} (tolerance {TRAIN_LOSS_RTOL}); step-1 grads max "
@@ -1481,9 +1711,11 @@ def _bert_counters():
     from apex_tpu_torch.ops.multi_tensor import (multi_tensor_sumsq,
                                                  multi_tensor_lamb_stage1,
                                                  multi_tensor_lamb_stage2)
+    from apex_tpu_torch.ops.fused_ffn import ffn_dw, ffn_dx, ffn_fwd
     return (layer_norm_fwd, layer_norm_bwd, flash_fwd, flash_attention_dq,
             flash_attention_dkv, multi_tensor_sumsq, multi_tensor_lamb_stage1,
-            multi_tensor_lamb_stage2, lm_head_fwd, lm_head_dx, lm_head_dw)
+            multi_tensor_lamb_stage2, lm_head_fwd, lm_head_dx, lm_head_dw,
+            ffn_fwd, ffn_dx, ffn_dw)
 
 
 def build_bert(device, cfg_overrides, lr, seed, loss_scale=None):
@@ -1534,10 +1766,12 @@ def bert_step(model, opt, tokens, labels, scaler=None):
     return loss / scaler.loss_scale
 
 
-def phase_bert_train():
-    """4 steps of BERT-large O2 + FusedLAMB; losses, times, memory, exact
-    launch counts, and no plain version called."""
-    model, opt, _ = build_bert("cuda", BERT_LARGE, BERT_LR, 0)
+def phase_bert_train(fused_ffn=False, tag="[7]"):
+    """4 steps of BERT-large O2 + FusedLAMB (``tag`` [7f]: with
+    ``fused_ffn=True``); losses, times, memory, exact launch counts, and no
+    plain version called."""
+    model, opt, _ = build_bert("cuda", dict(BERT_LARGE, fused_ffn=fused_ffn),
+                               BERT_LR, 0)
     numels = [p.numel() for p in model.parameters()]
     shape = (BERT_ACCUM, BERT_MICRO, BERT_SEQ)
     tokens, labels = (t.to("cuda") for t in mlm_batch(
@@ -1570,11 +1804,14 @@ def phase_bert_train():
                 "multi_tensor_lamb_stage2": n * table,
                 "lm_head_fwd": n * BERT_ACCUM * 2,
                 "lm_head_dx": n * BERT_ACCUM,
-                "lm_head_dw": n * BERT_ACCUM}
+                "lm_head_dw": n * BERT_ACCUM,
+                **ffn_launches(n, BERT_ACCUM, layers, fused_ffn)}
     step_s = statistics.median(times[1:])
     tokens_per_step = BERT_ACCUM * BERT_MICRO * BERT_SEQ
-    log(f"[7] trained BERT-large O2 + FusedLAMB {n} steps ({BERT_ACCUM} x "
-        f"{BERT_MICRO} x {BERT_SEQ} tokens, fused LM head, lr={BERT_LR}, "
+    ffn = "fused FFN" if fused_ffn else "unfused FFN"
+    log(f"{tag} trained BERT-large O2 + FusedLAMB {n} steps ({BERT_ACCUM} x "
+        f"{BERT_MICRO} x {BERT_SEQ} tokens, fused LM head, {ffn}, "
+        f"lr={BERT_LR}, "
         f"{len(numels)} "
         f"parameters, {sum(numels)} elements): losses "
         f"{[round(x, 5) for x in losses]} (ln vocab = "
@@ -1666,7 +1903,7 @@ def _cs_bound(t, b1=LAMB_BETAS[0], b2=LAMB_BETAS[1]):
     return float(np.sqrt(np.sum(a * a / b)))
 
 
-def phase_bert_parity():
+def phase_bert_parity(fused_ffn=False):
     """2 steps of a small BERT under O2 + FusedLAMB on the card and on a
     CPU copy (the plain versions): losses, every gradient of both steps,
     then the masters, m and v.
@@ -1685,8 +1922,9 @@ def phase_bert_parity():
     so each leaf's move from its start p0 is held as a whole too (within
     MOVE_RTOL of the CPU run's move).
     """
-    card, copt, _ = build_bert("cuda", PARITY_BERT, BERT_LR, 1)
-    cpu, popt, _ = build_bert("cpu", PARITY_BERT, BERT_LR, 1)
+    cfg = dict(PARITY_BERT, fused_ffn=fused_ffn)
+    card, copt, _ = build_bert("cuda", cfg, BERT_LR, 1)
+    cpu, popt, _ = build_bert("cpu", cfg, BERT_LR, 1)
     cpu.load_state_dict(card.state_dict())
     # the masters start as the parameters in f32
     p0 = {n: p.detach().float().cpu().clone()
@@ -1764,8 +2002,10 @@ def phase_bert_parity():
                 share = float(d.max()) / tol[key]
             state_worst[key] = max(state_worst.get(key, 0.0), share)
             state_ok &= ok
+    ffn = ", fused FFN" if fused_ffn else ""
     log(f"[8] BERT O2 + FusedLAMB card vs CPU (4 layers, hidden 256, seq "
-        f"128, 2 steps): losses card {cl} cpu {rl}, max relative loss diff "
+        f"128{ffn}, 2 steps): losses card {cl} cpu {rl}, max relative loss "
+        f"diff "
         f"{loss_err:.3e} (tolerance {TRAIN_LOSS_RTOL}); grads max |diff| / "
         f"max|grad| {grad_err:.3e} at step {worst[0]} {worst[1]} (tolerance "
         f"{TRAIN_GRAD_TOL}); f32 values (masters), m, v: largest share of "
@@ -1840,7 +2080,13 @@ _KERNEL_CLASSES = (("layer_norm_bwd", "layer_norm_bwd"),
                    ("lamb_stage2_kernel", "multi_tensor_lamb_stage2"),
                    ("lm_head_fwd", "lm_head_fwd"),
                    ("lm_head_dx", "lm_head_dx"),
-                   ("lm_head_dw", "lm_head_dw"))
+                   ("lm_head_dw", "lm_head_dw"),
+                   ("ffn_rows_kernel<__nv_bfloat16, false>", "ffn_fwd"),
+                   ("ffn_rows_kernel<float, false>", "ffn_fwd"),
+                   ("ffn_rows_kernel<__nv_bfloat16, true>", "ffn_dx"),
+                   ("ffn_rows_kernel<float, true>", "ffn_dx"),
+                   ("ffn_combine_kernel", "ffn_fwd / ffn_dx combine"),
+                   ("ffn_dw_kernel", "ffn_dw"))
 
 
 def _kernel_class(name):
@@ -1892,10 +2138,10 @@ def _profile_programs(programs, lines):
     return out
 
 
-def phase_profile_serving(model, rng, lines):
+def phase_profile_serving(model, rng, lines, suffix=""):
     """torch.profiler over one prefill(512) and one 8-slot decode step:
     device time by kernel class, and the device's idle share of the
-    profiled wall time."""
+    profiled wall time (``suffix`` tags the programs' names)."""
     cfg = model.cfg
     prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, 512))).to(
         "cuda")
@@ -1905,25 +2151,36 @@ def phase_profile_serving(model, rng, lines):
         "cuda")
     positions = torch.full((SLOTS,), 512, dtype=torch.int32, device="cuda")
     return _profile_programs(
-        {"prefill_512": lambda: model.prefill(prompt),
-         "decode_step_8_slots": lambda: model.decode_step(tokens, cache,
-                                                          positions)}, lines)
+        {"prefill_512" + suffix: lambda: model.prefill(prompt),
+         "decode_step_8_slots" + suffix: lambda: model.decode_step(
+             tokens, cache, positions)}, lines)
 
 
-def phase_profile_train(model, opt, tokens, targets, lines):
+def phase_profile_train(model, opt, tokens, targets, lines,
+                        name="train_step"):
     """torch.profiler over one whole training step (2 micro-batches of
     loss + backward, then FusedAdam)."""
     return _profile_programs(
-        {"train_step": lambda: train_step(model, opt, tokens, targets)},
-        lines)
+        {name: lambda: train_step(model, opt, tokens, targets)}, lines)
 
 
-def phase_profile_bert(model, opt, tokens, labels, lines):
+def phase_profile_bert(model, opt, tokens, labels, lines,
+                       name="bert_train_step"):
     """torch.profiler over one whole BERT-large step (2 micro-batches of
     loss + backward, then FusedLAMB)."""
     return _profile_programs(
-        {"bert_train_step": lambda: bert_step(model, opt, tokens, labels)},
-        lines)
+        {name: lambda: bert_step(model, opt, tokens, labels)}, lines)
+
+
+def log_fused_change(tag, base, fused):
+    """Step time, tokens/s and peak memory of a fused_ffn=True training run
+    beside the same path's unfused run (this process, this card)."""
+    log(f"{tag} fused_ffn=True against False: median step "
+        f"{fused['median_step_s']:.4f} s vs {base['median_step_s']:.4f} s "
+        f"({fused['median_step_s'] / base['median_step_s']:.3f}x), "
+        f"{fused['tokens_per_s']:.1f} vs {base['tokens_per_s']:.1f} "
+        f"tokens/s, peak memory {fused['peak_memory_bytes'] / 2 ** 30:.2f} "
+        f"vs {base['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
 
 
 # -- main --------------------------------------------------------------------
@@ -1933,8 +2190,9 @@ def main(argv=None):
     ap.add_argument("--out", help="also write all results to this JSON file")
     ap.add_argument("--profile", metavar="PATH",
                     help="also profile one prefill, one decode step and one "
-                         "step of each training path and write the kernel "
-                         "breakdown to PATH")
+                         "step of each training path, each with and without "
+                         "the fused FFN, and write the kernel breakdown to "
+                         "PATH")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1960,6 +2218,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     lmh = kernel_lm_head(gen)
     torch.cuda.empty_cache()
+    ffn = kernel_fused_ffn(gen)
+    torch.cuda.empty_cache()
 
     model = build_model("cuda").init_params(torch.Generator().manual_seed(0))
     rng = np.random.RandomState(0)
@@ -1968,7 +2228,16 @@ def main(argv=None):
     profile_lines, profiled = [], {}
     if args.profile:
         profiled.update(phase_profile_serving(model, rng, profile_lines))
+    # the same weights with fused_ffn=True: the same requests (seed 0)
+    fmodel = build_model("cuda", fused_ffn=True)
+    fmodel.load_state_dict(model.state_dict())
     del model
+    serve_f = phase_serve(fmodel, np.random.RandomState(0), tag="[3f]")
+    parity_f = phase_parity(fmodel, rng, tag="[4f]")
+    if args.profile:
+        profiled.update(phase_profile_serving(fmodel, rng, profile_lines,
+                                              "_ffn"))
+    del fmodel
     torch.cuda.empty_cache()
 
     tmodel, topt, ttokens, ttargets, train = phase_train()
@@ -1977,8 +2246,16 @@ def main(argv=None):
                                             profile_lines))
     del tmodel, topt
     torch.cuda.empty_cache()
+    tmodel, topt, ttokens, ttargets, train_f = phase_train(True, "[5f]")
+    if args.profile:
+        profiled.update(phase_profile_train(tmodel, topt, ttokens, ttargets,
+                                            profile_lines, "train_step_ffn"))
+    log_fused_change("[5f] GPT-350M", train, train_f)
+    del tmodel, topt
+    torch.cuda.empty_cache()
     train_parity = phase_train_parity()
     train_parity_f32_head = phase_train_parity(fused_lm_head=False)
+    train_parity_ffn = phase_train_parity(fused_ffn=True)
     torch.cuda.empty_cache()
 
     bmodel, bopt, btokens, blabels, bert = phase_bert_train()
@@ -1986,11 +2263,20 @@ def main(argv=None):
     if args.profile:
         profiled.update(phase_profile_bert(bmodel, bopt, btokens, blabels,
                                            profile_lines))
+    del bmodel, bopt
+    torch.cuda.empty_cache()
+    bmodel, bopt, btokens, blabels, bert_f = phase_bert_train(True, "[7f]")
+    if args.profile:
+        profiled.update(phase_profile_bert(bmodel, bopt, btokens, blabels,
+                                           profile_lines,
+                                           "bert_train_step_ffn"))
         with open(args.profile, "w") as f:
             f.write("\n".join(profile_lines) + "\n")
+    log_fused_change("[7f] BERT-large O2", bert, bert_f)
     del bmodel, bopt
     torch.cuda.empty_cache()
     bert_parity = phase_bert_parity()
+    bert_parity_ffn = phase_bert_parity(fused_ffn=True)
     skip = phase_dynamic_skip()
 
     smi = subprocess.run(
@@ -1998,7 +2284,7 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     both = collections.Counter(serve["launches"])
-    for run in (train, bert, clip):
+    for run in (serve_f, train, train_f, bert, bert_f, clip):
         both.update(run["launches"])
     sources = {
         "layer_norm_fwd": ("apex_tpu_torch/csrc/layer_norm_fwd.cu",
@@ -2036,7 +2322,13 @@ def main(argv=None):
         "lm_head_dx": ("apex_tpu_torch/csrc/lm_head_bwd.cu",
                        "apex_tpu/ops/lm_head.py:129", lmh["dx_gpt"]),
         "lm_head_dw": ("apex_tpu_torch/csrc/lm_head_bwd.cu",
-                       "apex_tpu/ops/lm_head.py:157", lmh["dw_gpt"])}
+                       "apex_tpu/ops/lm_head.py:157", lmh["dw_gpt"]),
+        "ffn_fwd": ("apex_tpu_torch/csrc/ffn_fwd.cu",
+                    "apex_tpu/ops/fused_ffn.py:110", ffn["fwd_gpt"]),
+        "ffn_dx": ("apex_tpu_torch/csrc/ffn_bwd.cu",
+                   "apex_tpu/ops/fused_ffn.py:137", ffn["dx_gpt"]),
+        "ffn_dw": ("apex_tpu_torch/csrc/ffn_bwd.cu",
+                   "apex_tpu/ops/fused_ffn.py:162", ffn["dw_gpt"])}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -2049,11 +2341,15 @@ def main(argv=None):
             json.dump(dict(device=kind, nvidia_smi=smi, layer_norm=ln,
                            layer_norm_bwd=ln_bwd, flash=fl, flash_bwd=fl_bwd,
                            decode=dec, adam=adam, multi_tensor=mt,
-                           lm_head=lmh, serve=serve, parity=parity,
-                           train=train, train_parity=train_parity,
+                           lm_head=lmh, fused_ffn=ffn, serve=serve,
+                           parity=parity, serve_ffn=serve_f,
+                           parity_ffn=parity_f, train=train,
+                           train_ffn=train_f, train_parity=train_parity,
                            train_parity_f32_head=train_parity_f32_head,
-                           bert=bert,
-                           unscale_clip=clip, bert_parity=bert_parity,
+                           train_parity_ffn=train_parity_ffn, bert=bert,
+                           bert_ffn=bert_f, unscale_clip=clip,
+                           bert_parity=bert_parity,
+                           bert_parity_ffn=bert_parity_ffn,
                            dynamic_skip=skip,
                            profile=profiled or None, kernels=kernels), f,
                       indent=1, sort_keys=True)

@@ -2,7 +2,9 @@
 
 A tiny BERT (vocab 512, hidden 64, 2 layers, 4 heads, seq 32,
 ``fused_lm_head=False``, and the JAX default ``fused_lm_head=True`` in the
-``fused_head`` cases) is initialised by the JAX package and carried into
+``fused_head`` cases; ``fused_ffn=True`` in the ``fused_ffn`` cases, where
+JAX's default path on the CPU is its unfused reference and the port's the
+three FFN kernels' plain versions) is initialised by the JAX package and carried into
 the port (``convert.bert_params_from_jax``).  The hidden states of
 ``apply``, the MLM loss (labels -1 off the masked positions; with and
 without ``nsp_labels``, ``token_type_ids`` and ``seqlens``) and every
@@ -64,11 +66,11 @@ def _inputs(seed=0):
                 nsp_labels=rng.randint(0, 2, (B,)))
 
 
-def _models(o2, fused=False):
+def _models(o2, fused=False, ffn=False):
     """(JAX model, JAX params, port model) from one JAX init; under O2 both
     sides cast with their amp.initialize."""
     dtype = jnp.bfloat16 if o2 else jnp.float32
-    tiny = dict(TINY, fused_lm_head=fused)
+    tiny = dict(TINY, fused_lm_head=fused, fused_ffn=ffn)
     jm = JModel(JConfig(**tiny, dtype=dtype))
     jp = jm.init_params(jax.random.PRNGKey(0))
     cfg = BertConfig(**tiny, dtype=torch.bfloat16 if o2 else torch.float32)
@@ -115,13 +117,26 @@ _GRAD_IDS = [("fused_head-" if fused else "") + ("O2" if o2 else "f32")
 
 @pytest.mark.parametrize("o2,extras,fused", _GRAD_CASES, ids=_GRAD_IDS)
 def test_loss_and_every_grad_match_jax(o2, extras, fused):
-    jm, jp, tm = _models(o2, fused)
+    _check_loss_and_grads(o2, extras, fused)
+
+
+@pytest.mark.parametrize("o2", [False, True], ids=["f32", "O2"])
+def test_fused_ffn_loss_and_every_grad_match_jax(o2):
+    """``fused_ffn=True`` with every input (token types, seqlens, NSP) and
+    the fused LM head, under the same bounds: the port rounds the FFN's
+    pre-activation and dz to bf16 where JAX's unfused path rounds x @ W1,
+    its bias and the GELU each."""
+    _check_loss_and_grads(o2, "all", True, ffn=True)
+
+
+def _check_loss_and_grads(o2, extras, fused, ffn=False):
+    jm, jp, tm = _models(o2, fused, ffn)
     inp = _inputs(1)
     tokens, labels, kw = _args(inp, _EXTRAS[extras], False)
     jloss, jgrads = jax.value_and_grad(
         lambda p: jm.loss(p, tokens, labels, **kw))(jp)
     # the f32 gradient of the same (bf16-valued) parameters
-    jm32 = JModel(JConfig(**dict(TINY, fused_lm_head=fused)))
+    jm32 = JModel(JConfig(**dict(TINY, fused_lm_head=fused, fused_ffn=ffn)))
     f32 = dict(_names(jax.grad(lambda p: jm32.loss(p, tokens, labels, **kw))(
         jax.tree_util.tree_map(lambda a: a.astype(jnp.float32), jp))))
     tokens, labels, kw = _args(inp, _EXTRAS[extras], True)
@@ -165,7 +180,8 @@ def test_unported_knobs_raise_and_name_their_slice():
     """``fused_lm_head=True`` (the JAX default) now runs: in f32 its MLM
     loss equals the f32-logits head's within 1e-6 relative and every
     gradient within 1e-5 of its largest entry, and ``apply`` is the same;
-    the knobs of later slices still raise, naming their slice."""
+    the knobs of later slices still raise, naming their slice
+    (``fused_ffn`` runs now: ``test_fused_ffn_loss_and_every_grad_match_jax``)."""
     fused = BertModel(BertConfig(**dict(TINY, fused_lm_head=True)),
                       device="cpu").init_params(
         torch.Generator().manual_seed(2))
@@ -188,7 +204,7 @@ def test_unported_knobs_raise_and_name_their_slice():
             continue
         assert float((p.grad - want).abs().max()) <= 1e-5 * float(
             want.abs().max()), name
-    for knob in (dict(fused_ffn=True), dict(remat=True),
+    for knob in (dict(remat=True),
                  dict(tensor_parallel_size=2), dict(sequence_parallel=True),
                  dict(plan=object())):
         with pytest.raises(NotImplementedError, match="slice"):

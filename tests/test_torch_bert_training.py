@@ -11,7 +11,9 @@ master rounded to nearest even) within one bf16 ulp.
 
 Then three steps of a tiny BERT (vocab 512, hidden 64, 2 layers, seq 32,
 micro-batch 2 x accumulation 2; the f32-logits head, and the JAX default
-fused LM head in the ``fused_head`` tests) under O2 with FusedLAMB, through
+fused LM head in the ``fused_head`` tests; one step with ``fused_ffn=True``
+and the fused head in ``test_fused_ffn_o2_lamb_step_matches_jax``) under
+O2 with FusedLAMB, through
 ``forward_backward_no_pipelining``: each port step starts from the JAX
 step's own parameters and state (``convert.bert_params_from_jax``,
 ``convert.fused_lamb_state_from_jax``), and its loss, gradients, masters
@@ -232,11 +234,11 @@ def _jax_ratio(p, g, m, v, clip, t):
     return pn / un if pn > 0 and un > 0 else 1.0
 
 
-def _run_jax(steps=3, fused=False):
+def _run_jax(steps=3, fused=False, ffn=False):
     """Per step: (start params, start state, loss, grads, f32 grads of the
     same parameters), then the state and parameters after the last
     step."""
-    tiny = dict(TINY, fused_lm_head=fused)
+    tiny = dict(TINY, fused_lm_head=fused, fused_ffn=ffn)
     jm = JModel(JConfig(**tiny, dtype=jnp.bfloat16))
     jm32 = JModel(JConfig(**tiny))
     opt = JFusedLAMB(lr=LR, bucketed=False)
@@ -261,10 +263,11 @@ def _run_jax(steps=3, fused=False):
     return out, (_np(state), dict(_names(_np(params))))
 
 
-def _port_step(jparams, jstate, fused=False):
+def _port_step(jparams, jstate, fused=False, ffn=False):
     """One port step from a JAX start: returns (loss, grads, state,
     parameters after the step)."""
-    cfg = BertConfig(**dict(TINY, fused_lm_head=fused), dtype=torch.bfloat16)
+    cfg = BertConfig(**dict(TINY, fused_lm_head=fused, fused_ffn=ffn),
+                     dtype=torch.bfloat16)
     model = BertModel(cfg, device="cpu")
     opt = FusedLAMB(model.parameters(), lr=LR)
     amp.initialize(model, opt, opt_level="O2")
@@ -292,12 +295,13 @@ def _port_step(jparams, jstate, fused=False):
 _CACHE = {}
 
 
-def _three_steps(fused=False):
-    if fused not in _CACHE:
-        jout, jfinal = _run_jax(fused=fused)
-        _CACHE[fused] = ((jout, jfinal),
-                         [_port_step(p, s, fused) for p, s, *_ in jout])
-    return _CACHE[fused]
+def _three_steps(fused=False, ffn=False, steps=3):
+    key = (fused, ffn, steps)
+    if key not in _CACHE:
+        jout, jfinal = _run_jax(steps, fused, ffn)
+        _CACHE[key] = ((jout, jfinal),
+                       [_port_step(p, s, fused, ffn) for p, s, *_ in jout])
+    return _CACHE[key]
 
 
 def _grad_bound(want, ref):
@@ -315,7 +319,27 @@ _STEPS = [pytest.param(step, fused, id=("fused_head-" if fused else "")
 
 @pytest.mark.parametrize("step,fused", _STEPS)
 def test_three_o2_lamb_steps_loss_and_grads_match_jax(step, fused):
-    (jout, _), port = _three_steps(fused)
+    _check_loss_and_grads(step, fused)
+
+
+@pytest.mark.parametrize("step,fused", _STEPS)
+def test_three_o2_lamb_steps_state_matches_jax(step, fused):
+    """Masters, m and v after each step within the update-rule bounds of
+    the module docstring; the step count advances on both sides."""
+    _check_state(step, fused)
+
+
+def test_fused_ffn_o2_lamb_step_matches_jax():
+    """One O2 + FusedLAMB step with ``fused_ffn=True`` (and the fused
+    head): loss, gradients, masters, m and v by the same bounds.  JAX's
+    default path on the CPU is its unfused FFN reference; the port's the
+    three FFN kernels' plain versions."""
+    _check_loss_and_grads(0, True, ffn=True, steps=1)
+    _check_state(0, True, ffn=True, steps=1)
+
+
+def _check_loss_and_grads(step, fused, ffn=False, steps=3):
+    (jout, _), port = _three_steps(fused, ffn, steps)
     _, _, jloss, jgrads, jg32 = jout[step]
     loss, grads = port[step][:2]
     assert abs(loss - jloss) <= 2e-3 * abs(jloss), (loss, jloss)
@@ -326,11 +350,8 @@ def test_three_o2_lamb_steps_loss_and_grads_match_jax(step, fused):
         assert err <= _grad_bound(want, jg32[name]), (name, err)
 
 
-@pytest.mark.parametrize("step,fused", _STEPS)
-def test_three_o2_lamb_steps_state_matches_jax(step, fused):
-    """Masters, m and v after each step within the update-rule bounds of
-    the module docstring; the step count advances on both sides."""
-    (jout, (jfinal, jfinal_params)), port = _three_steps(fused)
+def _check_state(step, fused, ffn=False, steps=3):
+    (jout, (jfinal, jfinal_params)), port = _three_steps(fused, ffn, steps)
     t = step + 1
     jparams, jstate, _, jgrads, jg32 = jout[step]
     after, after_params = ((jout[step + 1][1], dict(_names(jout[step + 1][0])))

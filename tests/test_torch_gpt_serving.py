@@ -202,12 +202,58 @@ def test_sampling_streams_are_deterministic_with_top_k_and_top_p():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(fused_ffn=True), dict(weight_quant="int8"), dict(n_experts=2),
+    dict(fused_ffn=True, remat=True), dict(weight_quant="int8"),
+    dict(n_experts=2),
     dict(context_axis="ctx"), dict(sequence_parallel=True),
     dict(tensor_parallel_size=2), dict(remat=True)])
 def test_unported_config_knobs_raise(knob):
+    """Knobs of later slices raise, naming their slice (``fused_ffn`` runs
+    now; with remat it still raises for remat)."""
     with pytest.raises(NotImplementedError, match="slice"):
         GPTConfig(**TINY, **knob)
+
+
+def test_fused_ffn_config_raises_jax_value_errors():
+    """JAX's refusals come before the not-ported ones."""
+    with pytest.raises(ValueError, match="n_experts > 0"):
+        GPTConfig(**TINY, fused_ffn=True, n_experts=2)
+    with pytest.raises(ValueError, match="weight_quant"):
+        GPTConfig(**TINY, fused_ffn=True, weight_quant="int8")
+    for knob in (dict(n_experts=2), dict(weight_quant="int8")):
+        with pytest.raises(ValueError):
+            JConfig(**TINY, fused_ffn=True, **knob)
+
+
+def test_fused_ffn_prefill_and_decode_match_jax():
+    """``fused_ffn=True`` on the serving path (the FFN kernel's plain
+    version on the CPU, JAX's unfused reference): prefill logits and K/V,
+    then 3 decode steps, within the same 1e-4 (f32)."""
+    cfg = dict(TINY, fused_ffn=True)
+    jm = JModel(JConfig(**cfg))
+    jp = jm.init_params(jax.random.PRNGKey(5))
+    tm = GPTModel(GPTConfig(**cfg), device="cpu")
+    tm.load_state_dict(gpt_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), GPTConfig(**cfg)))
+    toks = _tokens(7, (2, 12))
+    n = 9
+    jl, jkv = jm.prefill(jp, jnp.asarray(toks[:, :n]))
+    tl, tkv = tm.prefill(torch.from_numpy(toks[:, :n]))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(tkv.numpy(), np.asarray(jkv), atol=TOL,
+                               rtol=TOL)
+    shape = (2, TINY["num_layers"], 2, TINY["max_seq_len"],
+             tm.cfg.local_heads, tm.cfg.head_dim)
+    jcache = jnp.zeros(shape, jnp.float32).at[:, :, :, :n].set(
+        jkv.transpose(2, 0, 1, 3, 4, 5))
+    tcache = torch.from_numpy(np.asarray(jcache).copy())
+    for i in range(3):
+        pos = np.full(2, n + i, np.int32)
+        jl, jcache = jm.decode_step(jp, jnp.asarray(toks[:, n + i]), jcache,
+                                    jnp.asarray(pos))
+        tl, tcache = tm.decode_step(torch.from_numpy(toks[:, n + i]), tcache,
+                                    torch.from_numpy(pos))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL,
+                                   rtol=TOL)
 
 
 def test_convert_rejects_mismatched_trees(models):

@@ -2,7 +2,8 @@
 
 A tiny GPT (vocab 256, hidden 64, 2 layers, 4 heads, seq 64, micro-batch 2
 x accumulation 2; ``fused_lm_head=False``, and in the ``fused_head`` cases
-the JAX default ``fused_lm_head=True``) is initialised by the JAX package
+the JAX default ``fused_lm_head=True``; ``fused_ffn=True`` in the
+``fused_ffn`` cases) is initialised by the JAX package
 and carried into the port.  ``forward_backward_no_pipelining`` over the
 port's ``GPTModel`` (its loss and ``backward``) is held against the JAX
 schedule of the same name over ``GPTModel.loss`` (``jax.vjp`` seeded at 1/M,
@@ -76,10 +77,10 @@ def _np_state(state):
     return jax.tree_util.tree_map(np.asarray, state)
 
 
-def _run_jax(dtype, dropout, steps=2, fused=False):
+def _run_jax(dtype, dropout, steps=2, fused=False, ffn=False):
     """Per step: the params and optimizer state it starts from (numpy),
     its mean loss and {name: grad}; then the params after the last."""
-    cfg = JConfig(**dict(TINY, fused_lm_head=fused),
+    cfg = JConfig(**dict(TINY, fused_lm_head=fused, fused_ffn=ffn),
                   attention_dropout=0.1 if dropout else 0.0,
                   dtype=_JAX_DT[dtype])
     model = JModel(cfg)
@@ -101,8 +102,8 @@ def _run_jax(dtype, dropout, steps=2, fused=False):
     return out, dict(_names(_np_state(params)))
 
 
-def _port(dtype, dropout, init, fused=False):
-    cfg = GPTConfig(**dict(TINY, fused_lm_head=fused),
+def _port(dtype, dropout, init, fused=False, ffn=False):
+    cfg = GPTConfig(**dict(TINY, fused_lm_head=fused, fused_ffn=ffn),
                     attention_dropout=0.1 if dropout else 0.0,
                     dtype=_T_DT[dtype])
     model = GPTModel(cfg, device="cpu")
@@ -125,12 +126,13 @@ def _port_step(model, opt, dropout):
     return float(loss), grads
 
 
-def _run_port_from_jax_states(jout, dtype, dropout, fused=False):
+def _run_port_from_jax_states(jout, dtype, dropout, fused=False,
+                              ffn=False):
     """Each step from the JAX step's own start (params and Adam moments
     carried over with the convert functions)."""
     out = []
     for (params, state), _, _ in jout:
-        model, opt = _port(dtype, dropout, params, fused)
+        model, opt = _port(dtype, dropout, params, fused, ffn)
         carried = fused_adam_state_from_jax(state, model)
         for name, p in model.named_parameters():
             if carried["step"]:
@@ -141,9 +143,9 @@ def _run_port_from_jax_states(jout, dtype, dropout, fused=False):
     return out
 
 
-def _run_port(init, dtype, dropout, steps=2, fused=False):
+def _run_port(init, dtype, dropout, steps=2, fused=False, ffn=False):
     """The port's own trajectory from the same initial params."""
-    model, opt = _port(dtype, dropout, init, fused)
+    model, opt = _port(dtype, dropout, init, fused, ffn)
     for _ in range(steps):
         _port_step(model, opt, dropout)
     return {n: p.detach().float().numpy() for n, p in model.named_parameters()}
@@ -152,13 +154,15 @@ def _run_port(init, dtype, dropout, steps=2, fused=False):
 _CACHE = {}
 
 
-def _both(dtype, dropout, fused=False):
-    key = (dtype, dropout, fused)
+def _both(dtype, dropout, fused=False, ffn=False):
+    key = (dtype, dropout, fused, ffn)
     if key not in _CACHE:
-        jout, jfinal = _run_jax(dtype, dropout, fused=fused)
+        jout, jfinal = _run_jax(dtype, dropout, fused=fused, ffn=ffn)
         _CACHE[key] = (jout, jfinal,
-                       _run_port_from_jax_states(jout, dtype, dropout, fused),
-                       _run_port(jout[0][0][0], dtype, dropout, fused=fused))
+                       _run_port_from_jax_states(jout, dtype, dropout, fused,
+                                                 ffn),
+                       _run_port(jout[0][0][0], dtype, dropout, fused=fused,
+                                 ffn=ffn))
     return _CACHE[key]
 
 
@@ -198,6 +202,33 @@ def test_params_after_two_fused_adam_steps_match_jax(dtype, dropout, fused):
     after two steps (checked at 4.5 lr); 99% of entries agree to 1e-6
     (f32) / 5e-4 (bf16)."""
     _, jfinal, _, tfinal = _both(dtype, dropout, fused)
+    _assert_params_match(jfinal, tfinal, dtype)
+
+
+# fused_ffn=True (with the fused LM head): JAX's default path on the CPU is
+# its unfused reference, the port's the FFN kernels' plain versions, which
+# keep the pre-activation in f32 until GELU; the bounds are the same
+_FFN_CASES = [("f32", False), ("bf16", True)]
+_FFN_IDS = [f"fused_ffn-{d}-{'dropout' if p else 'no_dropout'}"
+            for d, p in _FFN_CASES]
+
+
+@pytest.mark.parametrize("dtype,dropout", _FFN_CASES, ids=_FFN_IDS)
+def test_fused_ffn_loss_and_every_grad_match_jax(dtype, dropout):
+    jout, _, tout, _ = _both(dtype, dropout, True, ffn=True)
+    _assert_step_matches(jout, tout, dtype)
+
+
+@pytest.mark.parametrize("dtype,dropout", _FFN_CASES, ids=_FFN_IDS)
+def test_fused_ffn_params_after_two_fused_adam_steps_match_jax(dtype,
+                                                               dropout):
+    """Two FusedAdam steps with ``fused_ffn=True``, by the bounds of
+    ``test_params_after_two_fused_adam_steps_match_jax``."""
+    _, jfinal, _, tfinal = _both(dtype, dropout, True, ffn=True)
+    _assert_params_match(jfinal, tfinal, dtype)
+
+
+def _assert_params_match(jfinal, tfinal, dtype):
     diffs = np.concatenate([np.abs(tfinal[n] - want).ravel()
                             for n, want in jfinal.items()])
     assert diffs.max() <= 4.5 * LR, diffs.max()
@@ -322,14 +353,15 @@ def test_rope_gradient_matches_jax_custom_vjp(dtype):
                                atol=tol)
 
 
-def _pallas_interpret_step_matches(fused):
+def _pallas_interpret_step_matches(fused, ffn=False):
     set_force_pallas(True)
     try:
-        jout, _ = _run_jax("bf16", True, fused=fused)
+        jout, _ = _run_jax("bf16", True, fused=fused, ffn=ffn)
     finally:
         set_force_pallas(None)
     _assert_step_matches(
-        jout, _run_port_from_jax_states(jout, "bf16", True, fused), "bf16")
+        jout, _run_port_from_jax_states(jout, "bf16", True, fused, ffn),
+        "bf16")
 
 
 def test_pallas_interpret_grads_match_the_port():
@@ -343,3 +375,10 @@ def test_pallas_interpret_fused_head_grads_match_the_port():
     kernels in interpret mode too (dS rounded to bf16, as the port's plain
     versions round it)."""
     _pallas_interpret_step_matches(fused=True)
+
+
+def test_pallas_interpret_fused_ffn_grads_match_the_port():
+    """The same with ``fused_ffn=True`` and the fused head: the JAX side
+    runs its three FFN kernels in interpret mode too (the port's plain
+    versions take their casts)."""
+    _pallas_interpret_step_matches(fused=True, ffn=True)

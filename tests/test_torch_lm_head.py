@@ -286,7 +286,7 @@ def test_card_gradient_rule_rejects_a_wrong_softmax_term(w_std, fault):
     for name, got, ref, slack, only in (("dx", dx, rdx, sx, None),
                                         ("dw", dw, rdw, sw, rows)):
         try:
-            card._check_lm_head_grad(name, got, ref, slack, only)
+            card.check_entrywise(name, got, ref, slack, only)
             verdicts.append(True)
         except AssertionError:
             verdicts.append(False)

@@ -19,6 +19,7 @@ from apex_tpu_torch.normalization import MixedFusedLayerNorm
 from apex_tpu_torch.ops.flash_attention import (flash_attention_decode,
                                                 flash_attention_dkv,
                                                 flash_attention_dq, flash_fwd)
+from apex_tpu_torch.ops.fused_ffn import ffn_dw, ffn_dx, ffn_fwd
 from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
 from apex_tpu_torch.ops.lm_head import lm_head_dw, lm_head_dx, lm_head_fwd
 from apex_tpu_torch.ops.multi_tensor import (multi_tensor_adam,
@@ -38,7 +39,7 @@ COUNTERS = (layer_norm_fwd, flash_fwd, flash_attention_decode,
             layer_norm_bwd, flash_attention_dq, flash_attention_dkv,
             multi_tensor_adam, multi_tensor_scale_, multi_tensor_sumsq,
             multi_tensor_lamb_stage1, multi_tensor_lamb_stage2, lm_head_fwd,
-            lm_head_dx, lm_head_dw)
+            lm_head_dx, lm_head_dw, ffn_fwd, ffn_dx, ffn_dw)
 BERT_TINY = dict(vocab_size=64, hidden_size=64, num_layers=2,
                  num_attention_heads=4, max_seq_len=32, fused_lm_head=False)
 
@@ -118,13 +119,14 @@ def test_cpu_serving_launches_no_kernel():
 
 def test_cpu_training_launches_no_kernel():
     """A CPU training step (loss, backward, FusedAdam) takes every
-    wrapper's plain version, with the f32-logits head and with the fused
-    LM head: no counter moves."""
+    wrapper's plain version, with the f32-logits head, with the fused LM
+    head and with the fused FFN: no counter moves."""
     for c in COUNTERS:
         c.launches = 0
-    for fused in (False, True):
+    for fused, ffn in ((False, False), (True, False), (True, True)):
         model = GPTModel(GPTConfig(**TINY, fused_lm_head=fused,
-                                   attention_dropout=0.1), device="cpu")
+                                   fused_ffn=ffn, attention_dropout=0.1),
+                         device="cpu")
         model.init_params(torch.Generator().manual_seed(0))
         opt = FusedAdam(model.parameters(), lr=1e-3)
         tokens = torch.randint(0, 64, (2, 1, 16),
@@ -140,12 +142,14 @@ def test_cpu_training_launches_no_kernel():
 
 def test_cpu_bert_o2_lamb_training_launches_no_kernel():
     """A CPU BERT step under O2 (loss, backward, the clip and unscale
-    passes, FusedLAMB with masters) takes every wrapper's plain version."""
+    passes, FusedLAMB with masters) takes every wrapper's plain version,
+    with and without the fused LM head and the fused FFN."""
     from apex_tpu_torch.contrib.clip_grad import clip_grad_norm_
     for c in COUNTERS:
         c.launches = 0
-    for fused in (False, True):
-        model = BertModel(BertConfig(**dict(BERT_TINY, fused_lm_head=fused),
+    for fused, ffn in ((False, False), (True, False), (True, True)):
+        model = BertModel(BertConfig(**dict(BERT_TINY, fused_lm_head=fused,
+                                            fused_ffn=ffn),
                                      dtype=torch.bfloat16),
                           device="cpu").init_params(
             torch.Generator().manual_seed(0))
@@ -183,7 +187,8 @@ def test_cuda_wrappers_refuse_what_their_kernels_do_not_take():
                                     "multi_tensor_lamb_stage1",
                                     "multi_tensor_lamb_stage2",
                                     "lm_head_fwd", "lm_head_dx",
-                                    "lm_head_dw"])
+                                    "lm_head_dw", "ffn_fwd", "ffn_dx",
+                                    "ffn_dw"])
 def test_training_wrappers_refuse_non_cpu_tensors_they_cannot_launch(kernel):
     """A tensor that is not on the CPU never takes a plain version: the
     new wrappers run their checks and raise before any launch (here on
@@ -212,6 +217,9 @@ def test_training_wrappers_refuse_non_cpu_tensors_they_cannot_launch(kernel):
                                          rows.float()),
         "lm_head_dw": lambda: lm_head_dw(x, x, rows, rows.float(),
                                          rows.float()),
+        "ffn_fwd": lambda: ffn_fwd(x, x.t(), rows.float()[:4], x),
+        "ffn_dx": lambda: ffn_dx(x, x, x.t(), x),
+        "ffn_dw": lambda: ffn_dw(x, x, x, x.t(), x),
     }
     with pytest.raises(ValueError, match="unsupported device|CUDA device"):
         calls[kernel]()
@@ -278,3 +286,17 @@ def test_ctypes_signatures_match_the_c_entry_points(name):
     reverse) without any error on the host: the kernel then reads a bad
     address on the card."""
     assert _c_signatures()[name] == _kernels._SIGNATURES[name]
+
+
+def test_configs_accept_fused_ffn_and_keep_jax_refusals():
+    """``fused_ffn=True`` constructs on both configs (it is ported); GPT's
+    JAX ValueErrors for MoE and int8 weights come before any
+    not-ported error."""
+    assert GPTConfig(**TINY, fused_ffn=True).fused_ffn
+    assert BertConfig(**BERT_TINY, fused_ffn=True).fused_ffn
+    model = GPTModel(GPTConfig(**TINY, fused_ffn=True), device="cpu")
+    assert model.layers[0].mlp.fused_ffn
+    with pytest.raises(ValueError, match="n_experts > 0"):
+        GPTConfig(**TINY, fused_ffn=True, n_experts=4)
+    with pytest.raises(ValueError, match="weight_quant"):
+        GPTConfig(**TINY, fused_ffn=True, weight_quant="int8")
