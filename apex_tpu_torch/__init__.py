@@ -31,6 +31,12 @@ losses as in JAX) on three more kernels: the logit-free forward and its
 dX and dW backward.  Slice 5 is the fused bias-GELU FFN
 (``ops.fused_ffn.fused_ffn``, with ``fused_ffn=True`` in both models and in
 ``mlp`` / ``fused_dense``) on three more kernels: its forward, dX and dW.
+Slice 6 is ResNet-50 ImageNet training (``models.resnet``, batch norm from
+``parallel.sync_batchnorm``, the example ``examples.imagenet.main_amp``)
+under amp O1 (``amp.autocast`` over the cast lists of ``amp.lists``) and
+O2 with ``optimizers.FusedSGD``, on the multi-tensor SGD kernel, with
+``FusedAdagrad``, ``FusedNovoGrad`` and ``multi_tensor_axpby`` on three
+more (Adagrad, NovoGrad, axpby).
 """
 
 __version__ = "0.1.0"

@@ -34,7 +34,10 @@ CSRC = _PKG / "csrc"
 SOURCES = ("layer_norm_fwd.cu", "layer_norm_bwd.cu", "flash_fwd.cu",
            "flash_bwd_dq.cu", "flash_bwd_dkv.cu", "flash_decode.cu",
            "multi_tensor_adam.cu", "multi_tensor_scale.cu",
-           "multi_tensor_l2norm.cu", "multi_tensor_lamb.cu", "lm_head_fwd.cu",
+           "multi_tensor_l2norm.cu", "multi_tensor_lamb.cu",
+           "multi_tensor_axpby.cu", "multi_tensor_sgd.cu",
+           "multi_tensor_adagrad.cu", "multi_tensor_novograd.cu",
+           "lm_head_fwd.cu",
            "lm_head_bwd.cu", "ffn_fwd.cu", "ffn_bwd.cu")
 HEADERS = ("common.cuh", "multi_tensor.cuh", "mma.cuh", "lm_head.cuh",
            "ffn.cuh")
@@ -65,6 +68,10 @@ _SIGNATURES = {
     "apex_multi_tensor_l2norm": [_I] + [_P] * 9,
     "apex_multi_tensor_lamb_stage1": [_I] + [_P] * 10 + [_I, _P, _P, _P, _P],
     "apex_multi_tensor_lamb_stage2": [_I] + [_P] * 10 + [_I, _P, _P],
+    "apex_multi_tensor_axpby": [_I] + [_P] * 11,
+    "apex_multi_tensor_sgd": [_I] + [_P] * 10 + [_I] * 4 + [_P, _P],
+    "apex_multi_tensor_adagrad": [_I] + [_P] * 10 + [_I, _P, _P],
+    "apex_multi_tensor_novograd": [_I] + [_P] * 11 + [_I, _P, _P],
     "apex_lm_head_fwd_splits": [_I, _I, _I],
     "apex_lm_head_fwd": [_P] * 6 + [_I] * 6 + [_P],
     "apex_lm_head_dx": [_P] * 6 + [_I] * 5 + [_P],

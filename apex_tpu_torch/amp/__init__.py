@@ -1,9 +1,10 @@
-"""Automatic mixed precision — port of ``apex_tpu/amp`` (O0, O2, O3, the
-loss scaler and the train-loop helpers).  O1's autocast interpreter and
-cast lists, and the legacy pre-``initialize`` surface (``amp/legacy.py``),
-are not ported yet."""
+"""Automatic mixed precision — port of ``apex_tpu/amp`` (O0-O3, O1's
+autocast and cast lists, the loss scaler and the train-loop helpers).  The
+legacy pre-``initialize`` surface (``amp/legacy.py``) is not ported yet."""
 from apex_tpu_torch.amp.frontend import AmpState, Properties, initialize
 from apex_tpu_torch.amp.handle import scale_loss, unscale_step
+from apex_tpu_torch.amp.interpreter import autocast
+from apex_tpu_torch.amp.lists import BLACKLIST, PROMOTE, WHITELIST
 from apex_tpu_torch.amp.scaler import LossScaler
 
 
@@ -14,4 +15,5 @@ def master_params(optimizer):
 
 
 __all__ = ["AmpState", "Properties", "initialize", "scale_loss",
-           "unscale_step", "master_params", "LossScaler"]
+           "unscale_step", "master_params", "autocast", "LossScaler",
+           "WHITELIST", "BLACKLIST", "PROMOTE"]

@@ -4,9 +4,11 @@
 Opt levels keep apex's meaning, with bf16 as the default half type:
 
 * **O0** — f32 everything.
-* **O1** — per-op autocast: not ported yet (it comes with
-  ``amp/interpreter.py`` and ``amp/lists.py`` as a ``torch.autocast``
-  policy) and raises.
+* **O1** — per-op autocast: convolutions and matrix products in half,
+  precision-sensitive ops in f32, multi-argument ops promoted
+  (:func:`~apex_tpu_torch.amp.interpreter.autocast` over the lists of
+  :mod:`~apex_tpu_torch.amp.lists`); the model's ``forward`` is wrapped in
+  place, as apex patches the functions it calls.
 * **O2** — "almost half": model parameters and inputs cast to half, except
   normalization layers (``keep_batchnorm_fp32``), f32 master weights held
   by the optimizer, loss scaling (static 1.0 for bf16, dynamic for fp16).
@@ -25,10 +27,8 @@ from typing import Any, NamedTuple
 
 import torch
 
+from apex_tpu_torch.amp.interpreter import autocast
 from apex_tpu_torch.amp.scaler import LossScaler
-
-O1_SLICE = ("the amp O1 slice (amp/interpreter.py and amp/lists.py as a "
-            "torch.autocast policy)")
 
 _BN_PATTERN = re.compile(
     r"(batch_?norm|bn|layer_?norm|ln|group_?norm|rms_?norm|norm)",
@@ -138,9 +138,11 @@ def initialize(model=None, optimizer=None, opt_level: str = "O1",
                **unused):
     """``apex.amp.initialize(model, optimizer, ...)`` for one
     ``nn.Module`` and one fused optimizer: resolves the opt level's
-    properties (keyword overrides win), casts ``model`` in place, sets the
-    optimizer's ``master_weights`` where the level asks for them, and makes
-    the :class:`LossScaler` (on the model's device, else ``device``).
+    properties (keyword overrides win), casts ``model`` in place (or, where
+    the level patches functions, O1, wraps its ``forward`` in
+    :func:`autocast` at ``half_dtype``), sets the optimizer's
+    ``master_weights`` where the level asks for them, and makes the
+    :class:`LossScaler` (on the model's device, else ``device``).
     Build the optimizer over ``model.parameters()`` before or after: the
     cast keeps every ``Parameter`` object.  Returns an :class:`AmpState`.
     """
@@ -152,11 +154,6 @@ def initialize(model=None, optimizer=None, opt_level: str = "O1",
                           loss_scale=loss_scale).items():
         if val is not None:
             setattr(props, name, val)
-    if props.patch_torch_functions:
-        raise NotImplementedError(
-            f"amp opt_level {opt_level!r} patches functions for per-op "
-            f"autocast, which comes with {O1_SLICE} of apex_tpu_torch; use "
-            "'O0', 'O2' or 'O3'")
     if optimizer is not None and props.master_weights:
         optimizer.master_weights = True
     if model is not None:
@@ -169,4 +166,6 @@ def initialize(model=None, optimizer=None, opt_level: str = "O1",
     state = AmpState(model, optimizer, scaler, props)
     if model is not None:
         state.cast_params(model)
+        if props.patch_torch_functions:
+            model.forward = autocast(model.forward, half_dtype)
     return state

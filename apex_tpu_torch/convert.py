@@ -15,10 +15,19 @@ modules of :mod:`apex_tpu_torch.mlp` and :mod:`apex_tpu_torch.fused_dense`
 (their parameter names are the JAX dicts' keys).  The fused FFN reads the
 models' ``fc1`` / ``fc2`` leaves, so ``fused_ffn`` changes no conversion.
 
-:func:`fused_adam_state_from_jax` and :func:`fused_lamb_state_from_jax`
-carry the per-leaf state of the JAX ``FusedAdam`` / ``FusedLAMB``
-(``bucketed=False``) over to the port's optimizers: the moments and, under
-master weights, the f32 masters.
+:func:`resnet_params_from_jax` takes the ``(params, state)`` trees of
+``apex_tpu.models.resnet.ResNet`` and returns a state dict for
+:class:`apex_tpu_torch.models.resnet.ResNet`: HWIO convolution weights
+become OIHW, the head's ``(features, classes)`` weight becomes ``(classes,
+features)``, and each ``BatchNormState`` fills its unit's buffers.
+
+:func:`fused_adam_state_from_jax`, :func:`fused_lamb_state_from_jax`,
+:func:`fused_sgd_state_from_jax`, :func:`fused_adagrad_state_from_jax` and
+:func:`fused_novograd_state_from_jax` carry the per-leaf state of the JAX
+optimizers (``bucketed=False``) over to the port's: the moments and,
+under master weights, the f32 masters.  Each takes the model's leaf layout
+(``layout=resnet_layout`` for a ResNet; the transformers keep the JAX
+layout).
 """
 
 from __future__ import annotations
@@ -28,10 +37,14 @@ import torch
 
 from apex_tpu_torch.models.bert import BertConfig, BertModel
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+from apex_tpu_torch.models.resnet import ResNet, ResNetConfig
 
 __all__ = ["gpt_params_from_jax", "bert_params_from_jax",
            "mlp_params_from_jax", "fused_dense_params_from_jax",
-           "fused_adam_state_from_jax", "fused_lamb_state_from_jax"]
+           "resnet_params_from_jax", "resnet_layout",
+           "fused_adam_state_from_jax",
+           "fused_lamb_state_from_jax", "fused_sgd_state_from_jax",
+           "fused_adagrad_state_from_jax", "fused_novograd_state_from_jax"]
 
 
 def _flatten(tree, prefix=""):
@@ -101,6 +114,54 @@ def fused_dense_params_from_jax(tree, module) -> dict:
     return _params_from_jax(tree, module)
 
 
+def resnet_layout(name, arr):
+    """A ResNet leaf in the port's layout: HWIO convolution weights to
+    OIHW, the head weight ``(features, classes)`` to ``(classes,
+    features)``; anything else as it is."""
+    if name == "head.weight":
+        return arr.T
+    if arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)
+    return arr
+
+
+def resnet_params_from_jax(params, state, cfg: ResNetConfig) -> dict:
+    """State dict (CPU tensors) for ``ResNet(cfg)`` from the JAX ResNet's
+    ``params`` and ``state`` trees with numpy leaves: the parameters in the
+    port's layout and each ``BatchNormState`` (``running_mean``,
+    ``running_var``, ``num_batches_tracked``) in its unit's buffers.  Load
+    it with ``model.load_state_dict(sd)``.  Raises when names or shapes do
+    not match the model."""
+    tree = {name: resnet_layout(name, np.asarray(leaf, np.float32))
+            for name, leaf in _flatten(params)}
+    fields = ("running_mean", "running_var", "num_batches_tracked")
+
+    def units(prefix, st):
+        if isinstance(st, tuple) and len(st) == 3 and not isinstance(
+                st[0], (dict, list, tuple)):
+            for field, leaf in zip(fields, st):
+                tree[f"{prefix}{field}"] = np.asarray(leaf)
+            return
+        items = st.items() if isinstance(st, dict) else enumerate(st)
+        for key, sub in items:
+            units(f"{prefix}{key}.", sub)
+
+    units("", state)
+    model = ResNet(cfg, device="meta")
+    expected = model.state_dict()
+    if set(tree) != set(expected):
+        raise KeyError(f"JAX ResNet trees and the port's ResNet differ: "
+                       f"{sorted(set(tree) ^ set(expected))}")
+    sd = {}
+    for name, arr in tree.items():
+        want = expected[name]
+        if arr.shape != tuple(want.shape):
+            raise ValueError(f"{name}: JAX shape {arr.shape} (port layout) "
+                             f"!= port shape {tuple(want.shape)}")
+        sd[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(want.dtype)
+    return sd
+
+
 def _jax_leaf_order(names):
     """``names`` (dotted parameter paths) in the order ``jax.tree_util``
     flattens the nested tree they spell: dict keys sorted, list items
@@ -115,7 +176,11 @@ _TORCH_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                       torch.float16: "float16"}
 
 
-def _per_leaf_state_from_jax(state, model, keys) -> dict:
+def _same_layout(name, arr):
+    return arr
+
+
+def _per_leaf_state_from_jax(state, model, keys, layout) -> dict:
     """The per-leaf state of a JAX ``bucketed=False`` optimizer over
     ``model``'s parameter tree, keyed by ``model.named_parameters()`` names.
 
@@ -125,9 +190,11 @@ def _per_leaf_state_from_jax(state, model, keys) -> dict:
     (JAX ``base.py:165-181``), so the model's parameters must carry the
     dtypes of the JAX tree the state was made for (cast the model as the
     tree was).  ``keys`` maps JAX state keys to port state keys; a key a
-    bucket lacks (``master`` for an f32 bucket) is left out.
+    bucket lacks (``master`` for an f32 bucket) is left out.  ``layout``
+    puts a leaf in the port's layout (None: the JAX layout).
     """
     params = dict(model.named_parameters())
+    layout = layout or _same_layout
     by_dtype = {}
     for name in _jax_leaf_order(params):
         by_dtype.setdefault(_TORCH_DTYPE_NAMES[params[name].dtype],
@@ -151,14 +218,16 @@ def _per_leaf_state_from_jax(state, model, keys) -> dict:
             for name, leaf in zip(names, leaves):
                 p = params[name]
                 arr = np.asarray(leaf, np.float32)
-                if arr.shape != tuple(p.shape):
+                if arr.ndim:
+                    arr = np.ascontiguousarray(layout(name, arr))
+                if arr.ndim and arr.shape != tuple(p.shape):
                     raise ValueError(f"{name}: JAX {jkey} shape {arr.shape} "
                                      f"!= parameter shape {tuple(p.shape)}")
                 out[name][tkey] = torch.from_numpy(arr.copy()).to(p.device)
     return {"step": int(np.asarray(state["step"])), "state": out}
 
 
-def fused_adam_state_from_jax(state, model) -> dict:
+def fused_adam_state_from_jax(state, model, layout=None) -> dict:
     """The JAX per-leaf ``FusedAdam`` state of ``model``'s parameter tree,
     for the port's :class:`~apex_tpu_torch.optimizers.FusedAdam`.
 
@@ -169,16 +238,47 @@ def fused_adam_state_from_jax(state, model) -> dict:
     "exp_avg_sq": tensor}}}`` keyed by ``model.named_parameters()`` names,
     on the parameters' devices: copy ``state[name]`` into
     ``optimizer.state[param]`` and ``step`` into the group's ``"step"``.
+    ``layout(name, array)`` puts a leaf in the port's layout where the
+    model's differs from the JAX tree's (:func:`resnet_layout` for a
+    ResNet); None keeps it.
     """
     return _per_leaf_state_from_jax(state, model, {"m": "exp_avg",
-                                                   "v": "exp_avg_sq"})
+                                                   "v": "exp_avg_sq"},
+                                    layout)
 
 
-def fused_lamb_state_from_jax(state, model) -> dict:
+def fused_lamb_state_from_jax(state, model, layout=None) -> dict:
     """The JAX per-leaf ``FusedLAMB`` state of ``model``'s parameter tree,
     for the port's :class:`~apex_tpu_torch.optimizers.FusedLAMB`: as
     :func:`fused_adam_state_from_jax`, plus ``"master"`` (f32) for every
     parameter of a bucket that keeps masters (the non-f32 buckets under
     master weights, e.g. amp O2's bf16 leaves)."""
     return _per_leaf_state_from_jax(state, model, {
-        "m": "exp_avg", "v": "exp_avg_sq", "master": "master"})
+        "m": "exp_avg", "v": "exp_avg_sq", "master": "master"}, layout)
+
+
+def fused_sgd_state_from_jax(state, model, layout=None) -> dict:
+    """The JAX per-leaf ``FusedSGD`` state of ``model``'s parameter tree,
+    for the port's :class:`~apex_tpu_torch.optimizers.FusedSGD`: as
+    :func:`fused_adam_state_from_jax`, with ``"momentum_buffer"`` (and
+    ``"master"`` under master weights)."""
+    return _per_leaf_state_from_jax(state, model, {
+        "momentum_buffer": "momentum_buffer", "master": "master"}, layout)
+
+
+def fused_adagrad_state_from_jax(state, model, layout=None) -> dict:
+    """The JAX per-leaf ``FusedAdagrad`` state, for the port's
+    :class:`~apex_tpu_torch.optimizers.FusedAdagrad`: ``"sum"`` (and
+    ``"master"`` under master weights)."""
+    return _per_leaf_state_from_jax(state, model, {"sum": "sum",
+                                                   "master": "master"},
+                                    layout)
+
+
+def fused_novograd_state_from_jax(state, model, layout=None) -> dict:
+    """The JAX per-leaf ``FusedNovoGrad`` state, for the port's
+    :class:`~apex_tpu_torch.optimizers.FusedNovoGrad`: ``"exp_avg"`` (the
+    JAX ``m``), ``"exp_avg_sq"`` (``v``, one 0-dim f32 tensor per
+    parameter) and ``"master"`` under master weights."""
+    return _per_leaf_state_from_jax(state, model, {
+        "m": "exp_avg", "v": "exp_avg_sq", "master": "master"}, layout)

@@ -67,17 +67,27 @@ class GPTConfig:
     max_seq_len: int = 1024
     ffn_hidden_size: Optional[int] = None      # default 4*hidden
     tensor_parallel_size: int = 1
+    axis_name: Optional[str] = None            # "model" inside shard_map
     sequence_parallel: bool = False
+    overlap_chunks: int = 0                    # >0: ring-overlapped TP GEMMs
     rotary: bool = True
     context_axis: Optional[str] = None
+    context_mechanism: str = "ring"            # "ring" | "ulysses"
     n_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 1e-2
+    expert_axis: Optional[str] = None
+    expert_parallel_size: int = 1
     attention_dropout: float = 0.0             # fused flash-kernel dropout
     fused_lm_head: bool = True                 # logit-free blockwise CE
     fused_ffn: bool = False
     weight_quant: Optional[str] = None
     remat: bool = False
+    remat_policy: str = "full"                 # "full" | "dots"
     dtype: torch.dtype = _f32                  # activation/compute dtype
     param_dtype: torch.dtype = _f32
+    plan: Optional[object] = None              # a ParallelPlan
 
     def __post_init__(self):
         if self.ffn_hidden_size is None:
@@ -88,6 +98,20 @@ class GPTConfig:
         if not 0.0 <= self.attention_dropout < 1.0:
             raise ValueError(f"attention_dropout must be in [0, 1), got "
                              f"{self.attention_dropout}")
+        if self.context_mechanism not in ("ring", "ulysses"):
+            raise ValueError(f"context_mechanism must be 'ring' or "
+                             f"'ulysses', got {self.context_mechanism!r}")
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(f"remat_policy must be 'full' or 'dots', got "
+                             f"{self.remat_policy!r}")
+        if self.overlap_chunks < 0:
+            raise ValueError("overlap_chunks must be >= 0")
+        if self.overlap_chunks > 0 and not self.sequence_parallel:
+            raise ValueError("overlap_chunks > 0 rings the sequence-parallel "
+                             "GEMMs; it requires sequence_parallel=True")
+        if self.expert_axis is not None and self.n_experts <= 0:
+            raise ValueError("expert_axis shards MoE experts; it requires "
+                             "n_experts > 0")
         if self.fused_ffn and self.n_experts > 0:
             raise ValueError(
                 "fused_ffn fuses the dense ParallelMLP pair; with "
@@ -99,13 +123,28 @@ class GPTConfig:
                 "dequant-GEMMs, which fused_ffn would bypass (the fused "
                 "kernel consumes raw f32/bf16 fc1/fc2 leaves) — enable "
                 "one or the other")
+        # every field of the JAX config is accepted at its default; a
+        # value that needs a part not ported yet raises naming its slice
         unsupported = [
             (self.remat, "remat", REMAT_SLICE),
+            (self.remat_policy != "full", "remat_policy", REMAT_SLICE),
             (self.weight_quant is not None, "weight_quant",
              QUANT_SERVING_SLICE),
+            (self.plan is not None, "plan", MULTI_GPU_SLICE),
             (self.n_experts > 0, "n_experts > 0", MULTI_GPU_SLICE),
+            (self.moe_top_k != 1, "moe_top_k", MULTI_GPU_SLICE),
+            (self.moe_capacity_factor != 1.25, "moe_capacity_factor",
+             MULTI_GPU_SLICE),
+            (self.moe_aux_weight != 1e-2, "moe_aux_weight", MULTI_GPU_SLICE),
+            (self.expert_axis is not None, "expert_axis", MULTI_GPU_SLICE),
+            (self.expert_parallel_size != 1, "expert_parallel_size",
+             MULTI_GPU_SLICE),
             (self.context_axis is not None, "context_axis", MULTI_GPU_SLICE),
+            (self.context_mechanism != "ring", "context_mechanism",
+             MULTI_GPU_SLICE),
+            (self.axis_name is not None, "axis_name", MULTI_GPU_SLICE),
             (self.sequence_parallel, "sequence_parallel", MULTI_GPU_SLICE),
+            (self.overlap_chunks > 0, "overlap_chunks", MULTI_GPU_SLICE),
             (self.tensor_parallel_size > 1, "tensor_parallel_size > 1",
              MULTI_GPU_SLICE),
         ]

@@ -17,10 +17,9 @@ from typing import Sequence
 
 import torch
 
-from apex_tpu_torch.ops.multi_tensor import (CHUNK, multi_tensor_scale_,
+from apex_tpu_torch.ops.multi_tensor import (CHUNK, multi_tensor_axpby_,
+                                             multi_tensor_scale_,
                                              multi_tensor_sumsq)
-
-AXPBY_SLICE = "the slice of the other training kernels (#16)"
 
 __all__ = ["MultiTensorApply", "multi_tensor_applier", "multi_tensor_scale",
            "multi_tensor_axpby", "multi_tensor_l2norm"]
@@ -42,11 +41,21 @@ def multi_tensor_scale(tensors: Sequence[torch.Tensor], scale,
     return list(out), found_inf
 
 
-def multi_tensor_axpby(a, xs, b, ys, out_dtype=None):
-    """``out_i = a*x_i + b*y_i``: kernel #16 is not ported yet."""
-    raise NotImplementedError(
-        f"multi_tensor_axpby (TPU kernel #16) comes with {AXPBY_SLICE} of "
-        "apex_tpu_torch")
+def multi_tensor_axpby(a, xs: Sequence[torch.Tensor], b,
+                       ys: Sequence[torch.Tensor], out_dtype=None, out=None):
+    """``out_i = a*x_i + b*y_i`` (in f32) for all i; returns ``(outs,
+    found_inf)``, the flag taken on the outputs.  ``out`` (a list of
+    tensors, which may be ``xs`` or ``ys``) receives the results in place;
+    otherwise new tensors of ``out_dtype`` (default: each x's dtype) are
+    made.  x and y may differ in dtype.  Reference:
+    ``csrc/multi_tensor_axpby_kernel.cu`` (kernel #16)."""
+    xs, ys = list(xs), list(ys)
+    if len(xs) != len(ys):
+        raise ValueError("multi_tensor_axpby: xs and ys differ in length")
+    if out is None:
+        out = [torch.empty_like(x, dtype=out_dtype or x.dtype) for x in xs]
+    found_inf = multi_tensor_axpby_(xs, ys, list(out), a, b)
+    return list(out), found_inf
 
 
 def multi_tensor_l2norm(tensors: Sequence[torch.Tensor],
@@ -87,8 +96,9 @@ class MultiTensorApply:
             out = tensor_lists[1] if len(tensor_lists) > 1 else None
             return op(tensor_lists[0], *args, out=out, **kwargs)
         if op is multi_tensor_axpby:
+            out = tensor_lists[2] if len(tensor_lists) > 2 else None
             return op(args[0], tensor_lists[0], args[1], tensor_lists[1],
-                      **kwargs)
+                      *args[2:], out=out, **kwargs)
         if op is multi_tensor_l2norm:
             return op(tensor_lists[0], *args, **kwargs)
         return op(tensor_lists, *args, **kwargs)

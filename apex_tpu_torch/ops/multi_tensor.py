@@ -1,23 +1,37 @@
 """Multi-tensor kernels — port of ``apex_tpu/ops/multi_tensor.py`` (scale,
-L2 norm, Adam, the two LAMB stages).
+axpby, L2 norm, Adam, SGD, the two LAMB stages, Adagrad, NovoGrad).
 
 Each function updates or reads lists of tensors with one multi-tensor
 launch set (apex's ``multi_tensor_apply`` design, the by-value table of
 ``csrc/multi_tensor.cuh``): a CUDA tensor launches its kernel, a CPU tensor
 takes the function's plain version (``*_reference``), which applies the JAX
-single-source math (:func:`_adam_math`, :func:`_lamb_stage1_math`) tensor
-by tensor.
+single-source math (:func:`_adam_math`, :func:`_sgd_math`,
+:func:`_lamb_stage1_math`, :func:`_adagrad_math`, :func:`_novograd_math`)
+tensor by tensor.
 
 * :func:`multi_tensor_scale_` — ``out = x * s`` with found-inf
   (``csrc/multi_tensor_scale.cu``, the Pallas ``_scale_kernel``);
+* :func:`multi_tensor_axpby_` — ``out = a * x + b * y`` with found-inf
+  (``csrc/multi_tensor_axpby.cu``, ``_axpby_kernel``);
 * :func:`multi_tensor_sumsq` — sums of squares, global and per tensor,
   with found-inf (``csrc/multi_tensor_l2norm.cu``, ``_l2norm_kernel``; the
   norms are :func:`apex_tpu_torch.multi_tensor_apply.multi_tensor_l2norm`);
 * :func:`multi_tensor_adam` (``csrc/multi_tensor_adam.cu``,
   ``_adam_kernel``);
+* :func:`multi_tensor_sgd` (``csrc/multi_tensor_sgd.cu``, ``_sgd_kernel``);
 * :func:`multi_tensor_lamb_stage1` / :func:`multi_tensor_lamb_stage2`
   (``csrc/multi_tensor_lamb.cu``, ``_lamb_stage1_kernel`` /
-  ``_lamb_stage2_kernel``).
+  ``_lamb_stage2_kernel``);
+* :func:`multi_tensor_adagrad` (``csrc/multi_tensor_adagrad.cu``,
+  ``_adagrad_kernel``);
+* :func:`multi_tensor_novograd` (``csrc/multi_tensor_novograd.cu``,
+  ``_novograd_kernel``; the per-tensor second moment comes from
+  :func:`multi_tensor_sumsq`).
+
+The optimizer kernels (SGD, Adagrad, NovoGrad) take a ``copies`` list
+beside the parameters, as LAMB stage 2 does: where an entry is set (the
+parameter is an f32 master) the new value is also written there, rounded
+to its dtype (the model's parameter), in the same pass.
 
 The TPU kernels reduce per 128-lane row; these reduce per 64K-element chunk
 of each tensor (:data:`CHUNK`), and the chunk partials of a call are laid
@@ -47,8 +61,12 @@ __all__ = ["multi_tensor_scale_", "multi_tensor_scale_reference",
            "multi_tensor_adam", "multi_tensor_adam_reference",
            "multi_tensor_lamb_stage1", "multi_tensor_lamb_stage1_reference",
            "multi_tensor_lamb_stage2", "multi_tensor_lamb_stage2_reference",
-           "chunk_counts", "device_scalars", "_adam_math",
-           "_lamb_stage1_math"]
+           "multi_tensor_axpby_", "multi_tensor_axpby_reference",
+           "multi_tensor_sgd", "multi_tensor_sgd_reference",
+           "multi_tensor_adagrad", "multi_tensor_adagrad_reference",
+           "multi_tensor_novograd", "multi_tensor_novograd_reference",
+           "chunk_counts", "device_scalars", "_adam_math", "_sgd_math",
+           "_lamb_stage1_math", "_adagrad_math", "_novograd_math"]
 
 
 def chunk_counts(numels):
@@ -506,3 +524,311 @@ def multi_tensor_lamb_stage2(updates, params, copies, u_sq, p_sq, lr,
 
 
 multi_tensor_lamb_stage2.launches = 0
+
+
+
+# ---------------------------------------------------------------------------
+# axpby (#16)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def multi_tensor_axpby_reference(xs, ys, outs, a, b):
+    """Plain version: ``out = a * (x in f32) + b * (y in f32)`` rounded to
+    each output's dtype; returns the f32 found-inf flag of the f32 results
+    (taken on the output, as the JAX kernel takes it)."""
+    a, b = device_scalars([a, b], xs[0].device)
+    bad = torch.zeros((), dtype=torch.bool, device=xs[0].device)
+    for x, y, out in zip(xs, ys, outs):
+        r = a * x.to(_f32) + b * y.to(_f32)
+        bad = bad | ~torch.all(torch.isfinite(r))
+        out.copy_(r)
+    return bad.to(_f32)
+
+
+@torch.no_grad()
+def multi_tensor_axpby_(xs, ys, outs, a, b):
+    """``outs[i] = a * xs[i] + b * ys[i]`` for all ``i``, in f32, stored
+    in place in ``outs`` (same shapes; f32, bf16 or f16 each, x, y and out
+    may all differ, and an output may be one of its inputs).  ``a``, ``b``:
+    floats or f32 device scalars.  Returns the found-inf flag (f32 scalar,
+    1.0 where a result is not finite).  CPU tensors take
+    :func:`multi_tensor_axpby_reference`; CUDA tensors launch
+    ``csrc/multi_tensor_axpby.cu`` (launches added to
+    ``multi_tensor_axpby_.launches``) or raise."""
+    if not len(xs) == len(ys) == len(outs):
+        raise ValueError("multi_tensor_axpby_: the lists differ in length")
+    if not xs:
+        return torch.zeros((), dtype=_f32)
+    device = _cuda_device("multi_tensor_axpby_", xs)
+    if device.type == "cpu":
+        return multi_tensor_axpby_reference(xs, ys, outs, a, b)
+    _check_lists("multi_tensor_axpby_", device, (xs, ys, outs))
+    ab = device_scalars([a, b], device)
+    found_inf = torch.zeros((), dtype=_f32, device=device)
+    arrays = [_addresses(xs), _addresses(ys), _addresses(outs), _numels(xs)]
+    arrays += [_codes(t, "multi_tensor_axpby_") for t in (xs, ys, outs)]
+    launches = ctypes.c_int(0)
+    rc = _kernels.lib().apex_multi_tensor_axpby(
+        len(xs), *(_ptr(arr) for arr in arrays), ab.data_ptr(),
+        found_inf.data_ptr(), ctypes.byref(launches), _kernels.stream())
+    _kernels.check(rc, "multi_tensor_axpby_")
+    multi_tensor_axpby_.launches += launches.value
+    return found_inf
+
+
+multi_tensor_axpby_.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the optimizer kernels' shared plain-version loop and launch
+# ---------------------------------------------------------------------------
+
+def _copies(copies, n):
+    return [None] * n if copies is None else list(copies)
+
+
+def _write_back(skip, p, p_new, copy):
+    """``p_new`` (f32) into the parameter (rounded to its dtype) and, where
+    given, into its model copy; under ``skip`` both keep their values."""
+    p.copy_(p_new)
+    if copy is not None:
+        copy.copy_(torch.where(skip, copy, p_new.to(copy.dtype)))
+
+
+def _launch_optimizer(kernel, fn, lists, scal, n_scal, noop, extra,
+                      more_addresses=()):
+    """Checks, then the C entry point ``apex_<kernel>`` over ``lists``
+    (grads, params, f32 state, copies) with their addresses (and the
+    address arrays ``more_addresses``), numels, the dtype codes of grads,
+    params and copies, the device scalars, the noop flag and ``extra``
+    ints; adds the launches made to ``fn.launches``."""
+    device = lists[1][0].device
+    _check_lists(kernel, device, lists, f32_lists=(2,))
+    _check_scalars(kernel, device, scal, n_scal)
+    if noop is not None:
+        _check_scalars(kernel, device, noop, 1, torch.int32)
+    arrays = [_addresses(x) for x in lists] + list(more_addresses) + [
+        _numels(lists[1])] + [_codes(lists[i], kernel) for i in (0, 1, 3)]
+    launches = ctypes.c_int(0)
+    rc = getattr(_kernels.lib(), "apex_" + kernel)(
+        len(lists[1]), *(_ptr(a) for a in arrays), scal.data_ptr(),
+        None if noop is None else noop.data_ptr(), *extra,
+        ctypes.byref(launches), _kernels.stream())
+    _kernels.check(rc, kernel)
+    fn.launches += launches.value
+
+
+# ---------------------------------------------------------------------------
+# sgd (#19)
+# ---------------------------------------------------------------------------
+
+def _sgd_math(nesterov, first_run, wd_after_momentum, momentum_zero,
+              scal, skip, g, p, buf):
+    """Pure f32 SGD update (the JAX ``_sgd_math``).
+    scal: [lr, wd, momentum, dampening, grad_scale]."""
+    lr, wd, mom_c, damp, gscale = (scal[k] for k in range(5))
+    g = g * gscale
+    if not wd_after_momentum:
+        g = g + wd * p
+    if momentum_zero:
+        new_buf, upd = buf, g
+    else:
+        new_buf = g if first_run else mom_c * buf + (1.0 - damp) * g
+        upd = g + mom_c * new_buf if nesterov else new_buf
+    if wd_after_momentum:
+        upd = upd + wd * p
+    p_new = p - lr * upd
+    return torch.where(skip, p, p_new), torch.where(skip, buf, new_buf)
+
+
+@torch.no_grad()
+def multi_tensor_sgd_reference(grads, params, momentum_buffers, copies, scal,
+                               noop=None, nesterov=False, first_run=False,
+                               wd_after_momentum=False, momentum_zero=False):
+    """Plain version: :func:`_sgd_math` per tensor; the new values copied
+    into ``params`` (rounded to their dtype), ``momentum_buffers`` and,
+    where set, ``copies``."""
+    flags = (bool(nesterov), bool(first_run), bool(wd_after_momentum),
+             bool(momentum_zero))
+    skip = _skip(noop, params[0].device)
+    scal = scal.to(_f32)
+    for g, p, buf, c in zip(grads, params, momentum_buffers,
+                            _copies(copies, len(params))):
+        p2, b2 = _sgd_math(*flags, scal, skip, g.to(_f32), p.to(_f32), buf)
+        buf.copy_(b2)
+        _write_back(skip, p, p2, c)
+
+
+@torch.no_grad()
+def multi_tensor_sgd(grads, params, momentum_buffers, copies, scal,
+                     noop=None, nesterov=False, first_run=False,
+                     wd_after_momentum=False, momentum_zero=False):
+    """One SGD (+ momentum) step over lists of tensors, in place.
+
+    ``grads``/``params``: same-shape contiguous tensors (f32, bf16 or f16;
+    ``params`` are the f32 masters under master weights);
+    ``momentum_buffers``: f32; ``copies``: None or a list of tensors or
+    ``None`` entries, each written with its new parameter rounded to its
+    dtype; ``scal``: f32 ``(5,)`` device tensor ``[lr, wd, momentum,
+    dampening, grad_scale]``; ``noop``: optional int32 scalar tensor,
+    non-zero skips the step (parameters, buffers and copies keep their
+    values).  The flags are static, as in JAX: ``first_run`` seeds the
+    buffer with the gradient, ``momentum_zero`` skips the buffer.  CPU
+    tensors take :func:`multi_tensor_sgd_reference`; CUDA tensors launch
+    ``csrc/multi_tensor_sgd.cu`` (launches added to
+    ``multi_tensor_sgd.launches``) or raise."""
+    copies = _copies(copies, len(params))
+    lists = (grads, params, momentum_buffers, copies)
+    if any(len(x) != len(params) for x in lists) or not params:
+        raise ValueError("multi_tensor_sgd: the four lists must have one "
+                         "(non-zero) length")
+    device = _cuda_device("multi_tensor_sgd", params)
+    if device.type == "cpu":
+        return multi_tensor_sgd_reference(grads, params, momentum_buffers,
+                                          copies, scal, noop, nesterov,
+                                          first_run, wd_after_momentum,
+                                          momentum_zero)
+    _launch_optimizer("multi_tensor_sgd", multi_tensor_sgd, lists, scal, 5,
+                      noop, [int(bool(nesterov)), int(bool(first_run)),
+                       int(bool(wd_after_momentum)),
+                       int(bool(momentum_zero))])
+
+
+multi_tensor_sgd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# adagrad (#22)
+# ---------------------------------------------------------------------------
+
+def _adagrad_math(scal, skip, g, p, h):
+    """Pure f32 Adagrad update (the JAX ``_adagrad_math``).
+    scal: [lr, eps, weight_decay, grad_scale]."""
+    lr, eps, wd, gscale = (scal[k] for k in range(4))
+    g = g * gscale + wd * p
+    h_new = h + g * g
+    p_new = p - lr * g / (torch.sqrt(h_new) + eps)
+    return torch.where(skip, p, p_new), torch.where(skip, h, h_new)
+
+
+@torch.no_grad()
+def multi_tensor_adagrad_reference(grads, params, sums, copies, scal,
+                                   noop=None, adagrad_w_mode=False):
+    """Plain version: :func:`_adagrad_math` per tensor (with a zero L2 term
+    and then ``p - lr * wd * p_old`` under ``adagrad_w_mode``, the JAX
+    optimizer's order); the new values copied into ``params`` (rounded),
+    ``sums`` and, where set, ``copies``."""
+    skip = _skip(noop, params[0].device)
+    scal = scal.to(_f32)
+    lr, wd = scal[0], scal[2]
+    if adagrad_w_mode:
+        scal = torch.stack([scal[0], scal[1], torch.zeros_like(wd), scal[3]])
+    for g, p, h, c in zip(grads, params, sums, _copies(copies, len(params))):
+        pf = p.to(_f32)
+        p2, h2 = _adagrad_math(scal, skip, g.to(_f32), pf, h)
+        if adagrad_w_mode:
+            p2 = torch.where(skip, pf, p2 - (lr * wd) * pf)
+        h.copy_(h2)
+        _write_back(skip, p, p2, c)
+
+
+@torch.no_grad()
+def multi_tensor_adagrad(grads, params, sums, copies, scal, noop=None,
+                         adagrad_w_mode=False):
+    """One Adagrad step over lists of tensors, in place.
+
+    ``sums``: the f32 accumulators h; ``scal``: f32 ``(4,)`` device tensor
+    ``[lr, eps, weight_decay, grad_scale]``.  Without ``adagrad_w_mode``
+    the decay is L2 in the gradient (the JAX ``_adagrad_math``); with it
+    the decay is decoupled, ``p <- p_adagrad - lr * wd * p_old``, in the
+    same pass (the JAX optimizer applies it after the kernel, from the old
+    p).  ``copies``, ``noop`` and the dtypes as in :func:`multi_tensor_sgd`.
+    CPU tensors take :func:`multi_tensor_adagrad_reference`; CUDA tensors
+    launch ``csrc/multi_tensor_adagrad.cu`` (launches added to
+    ``multi_tensor_adagrad.launches``) or raise."""
+    copies = _copies(copies, len(params))
+    lists = (grads, params, sums, copies)
+    if any(len(x) != len(params) for x in lists) or not params:
+        raise ValueError("multi_tensor_adagrad: the four lists must have one "
+                         "(non-zero) length")
+    device = _cuda_device("multi_tensor_adagrad", params)
+    if device.type == "cpu":
+        return multi_tensor_adagrad_reference(grads, params, sums, copies,
+                                              scal, noop, adagrad_w_mode)
+    _launch_optimizer("multi_tensor_adagrad", multi_tensor_adagrad, lists,
+                      scal, 4, noop, [int(bool(adagrad_w_mode))])
+
+
+multi_tensor_adagrad.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# novograd (#23)
+# ---------------------------------------------------------------------------
+
+def _novograd_math(reg_inside_moment, scal, skip, g, p, m, v_row):
+    """Pure f32 NovoGrad element-wise stage (the JAX ``_novograd_math``).
+    scal: [lr, beta1, weight_decay, eps, grad_scale, beta3]; ``v_row`` is
+    the tensor's second moment (a scalar, broadcast)."""
+    lr, beta1, wd, eps, gscale, beta3 = (scal[k] for k in range(6))
+    g = g * gscale
+    g = g / (torch.sqrt(v_row) + eps)
+    if reg_inside_moment:
+        g = g + wd * p
+    m_new = beta1 * m + beta3 * g
+    update = m_new if reg_inside_moment else m_new + wd * p
+    p_new = p - lr * update
+    return torch.where(skip, p, p_new), torch.where(skip, m, m_new)
+
+
+@torch.no_grad()
+def multi_tensor_novograd_reference(grads, params, exp_avgs, copies, v, scal,
+                                    noop=None, reg_inside_moment=False):
+    """Plain version: :func:`_novograd_math` per tensor with its entry of
+    ``v``; the new values copied into ``params`` (rounded), ``exp_avgs``
+    and, where set, ``copies``."""
+    skip = _skip(noop, params[0].device)
+    scal = scal.to(_f32)
+    for i, (g, p, m, c) in enumerate(zip(grads, params, exp_avgs,
+                                         _copies(copies, len(params)))):
+        p2, m2 = _novograd_math(bool(reg_inside_moment), scal, skip,
+                                g.to(_f32), p.to(_f32), m, v[i])
+        m.copy_(m2)
+        _write_back(skip, p, p2, c)
+
+
+@torch.no_grad()
+def multi_tensor_novograd(grads, params, exp_avgs, copies, v, scal, noop=None,
+                          reg_inside_moment=False):
+    """NovoGrad's element-wise stage over lists of tensors, in place.
+
+    ``exp_avgs``: the f32 first moments m; ``v``: one contiguous f32
+    ``(n,)`` device tensor, the per-tensor second moments (already updated
+    for this step, as the JAX ``novograd_packed`` takes them); ``scal``:
+    f32 ``(6,)`` device tensor ``[lr, beta1, weight_decay, eps,
+    grad_scale, beta3]``.  ``copies``, ``noop`` and the dtypes as in
+    :func:`multi_tensor_sgd`.  CPU tensors take
+    :func:`multi_tensor_novograd_reference`; CUDA tensors launch
+    ``csrc/multi_tensor_novograd.cu`` (launches added to
+    ``multi_tensor_novograd.launches``) or raise."""
+    copies = _copies(copies, len(params))
+    if (any(len(x) != len(params) for x in (grads, exp_avgs, copies))
+            or not params):
+        raise ValueError("multi_tensor_novograd: the four lists must have "
+                         "one (non-zero) length")
+    device = _cuda_device("multi_tensor_novograd", params)
+    if device.type == "cpu":
+        return multi_tensor_novograd_reference(grads, params, exp_avgs,
+                                               copies, v, scal, noop,
+                                               reg_inside_moment)
+    _check_scalars("multi_tensor_novograd", device, v, len(params))
+    # each tensor's v is one f32: the table carries its address as a fifth
+    # list (a block knows its table slot, not the tensor's index in the call)
+    v_addresses = np.uint64(v.data_ptr()) + np.arange(
+        len(params), dtype=np.uint64) * np.uint64(4)
+    _launch_optimizer("multi_tensor_novograd", multi_tensor_novograd,
+                      (grads, params, exp_avgs, copies), scal, 6, noop,
+                      [int(bool(reg_inside_moment))], [v_addresses])
+
+
+multi_tensor_novograd.launches = 0

@@ -17,8 +17,9 @@ gradient, so weight decay still moves it.
 parameter that is not f32 (``state[p]["master"]``, made from the parameter
 at its first step): the update runs on the master, and the parameter
 receives the master rounded to its dtype (JAX ``base.py:165-181,
-273-303``).  The packed ``bucketed=True`` layout (the ZeRO optimizers'
-sharding unit) is not ported yet and raises.
+273-303``).  ``load_state_dict`` keeps the saved dtypes of the state.
+The packed ``bucketed=True`` layout (the ZeRO optimizers' sharding unit)
+is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -67,6 +68,19 @@ class FusedOptimizer(torch.optim.Optimizer):
 
     def _init_state(self, p, st):
         raise NotImplementedError
+
+    def load_state_dict(self, state_dict):
+        """torch's, with each state tensor kept in its saved dtype: torch
+        casts floating state to its parameter's dtype, which would round
+        the f32 masters and moments of a bf16 parameter."""
+        super().load_state_dict(state_dict)
+        saved = state_dict["state"]
+        for saved_group, group in zip(state_dict["param_groups"],
+                                      self.param_groups):
+            for i, p in zip(saved_group["params"], group["params"]):
+                for key, value in saved.get(i, {}).items():
+                    if torch.is_tensor(value):
+                        self.state[p][key] = value.to(device=p.device)
 
     def master_params(self):
         """The f32 values the optimizer updates, one per parameter in group

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive apex_tpu_torch's serving and training paths (GPT serving, GPT
-training, BERT training under amp O2, each also with the fused FFN) on one
-NVIDIA H100 and hold every kernel of the paths against its plain PyTorch
-version.
+training, BERT training under amp O2, each also with the fused FFN,
+ResNet-50 ImageNet training under amp O1 and O2) on one NVIDIA H100 and
+hold every kernel of the paths against its plain PyTorch version.
 
     python3 chip_smoke.py [--out results.json] [--profile breakdown.txt]
 
@@ -23,7 +23,12 @@ Phases (any failure exits non-zero; nothing is caught):
    and 8 rows), GPT-2 XL's widths off the grids (1000 x 1600 -> 6400 ->
    1600), GPT-350M's shape in f32 and small cases, every output held
    entry by entry (``ffn_bounds``), its yardstick the unfused
-   F.linear + gelu + F.linear chain;
+   F.linear + gelu + F.linear chain; the multi-tensor axpby, SGD, Adagrad
+   and NovoGrad (#16, #19, #22, #23) at GPT-350M's f32 list (291 tensors,
+   as Adam), on a mixed list of 40 bf16 / f16 / f32 tensors with f32
+   masters and model copies, and SGD at ResNet-50's O1 and O2 lists (161
+   tensors), their yardsticks ``SGD(fused=True)`` and
+   ``Adagrad(foreach=True)``;
 3. GPT-350M (vocab 50304, hidden 1024, 24 layers, 16 heads, ffn 4096,
    max_seq 1024, bf16 activations, f32 params, random weights from seed 0)
    served by ``InferenceEngine`` (8 slots, bf16 cache): 10 greedy requests,
@@ -63,7 +68,22 @@ Phases (any failure exits non-zero; nothing is caught):
    copy, and again with ``fused_ffn=True``: loss, every gradient, the
    masters, m and v within stated bounds; then (8b) a
    dynamic-loss-scale step with an inf in one gradient, skipped on the
-   device.
+   device;
+9. ResNet-50 ImageNet through the ported example's ``main()``
+   (``apex_tpu_torch/examples/imagenet/main_amp.py`` at its defaults:
+   batch 256 x 224^2, 1000 classes, FusedSGD lr 0.1, momentum 0.9, wd
+   1e-4, synthetic data from seed 0; a warm-up step, then 4) under amp O1:
+   losses, step time, img/s, peak memory, the exact #19 launches and no
+   plain version called; (9b) the same under O2 (f32 batch norm, FusedSGD
+   with f32 masters); (9c) one step each with FusedAdagrad (#22) and
+   FusedNovoGrad (#17 per-tensor sums, #23) on 9b's model; (9d) the
+   example's hand-written SGD (#17 overflow check, #16 update);
+10. resnet26 (width 16, 64 x 64, batch 8, 10 classes) trained 2 steps
+   under O1 on the card and on a CPU copy (and in f32 on the CPU, the
+   yardstick) with each of the three optimizers: losses, the first
+   step's gradients, the parameters' moves and the running statistics
+   within stated bounds; FusedSGD's card run again with the process-wide
+   matmul flags as torch set them before the GPT phases.
 
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -1335,6 +1355,350 @@ def kernel_multi_tensor_lamb(gen_cuda):
     return out
 
 
+def gpt350m_shapes():
+    from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+    return [p.shape for p in GPTModel(GPTConfig(**GPT350M),
+                                      device="meta").parameters()]
+
+
+def resnet50_specs(opt_level):
+    """(shape, dtype) of ResNet-50's 161 parameters under ``amp.initialize``
+    at ``opt_level``: f32 at O1, bf16 with f32 batch norms at O2."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.resnet import resnet50
+    model = resnet50(device="meta", dtype=torch.bfloat16
+                     if opt_level == "O2" else torch.float32)
+    amp.initialize(model, None, opt_level=opt_level)
+    return [(tuple(p.shape), p.dtype) for p in model.parameters()]
+
+
+def _opt_kernel_check(tag, kernel, plain, run, params, state, copies,
+                      numels):
+    """``run(f, params, state, copies, noop)`` with ``f`` the kernel's
+    wrapper against the same with its plain version, on clones of the same
+    tensors, noop 1 then 0: exact table launches; f32
+    params and state within 1e-6 relative plus 1e-6 of each tensor's
+    largest entry (FMA contraction on the card rounds a product-sum once
+    where the plain version rounds twice); each side's model copies equal
+    its params rounded to nearest even (unchanged under noop); under noop
+    nothing moves.  Returns the largest error."""
+    err = 0.0
+    for noop_v in (1, 0):
+        noop = torch.tensor(noop_v, dtype=torch.int32, device="cuda")
+        sides = []
+        for f in (kernel, plain):
+            kp = [t.clone() for t in params]
+            ks = [t.clone() for t in state]
+            kc = [None if c is None else torch.zeros_like(c) for c in copies]
+            before = kernel.launches
+            run(f, kp, ks, kc, noop)
+            sides.append((kp, ks, kc, kernel.launches - before))
+        torch.cuda.synchronize()
+        (kp, ks, kc, n_launch), (rp, rs, rc, n_plain) = sides
+        if n_launch != table_launches(numels) or n_plain:
+            raise AssertionError(f"{tag} made {n_launch} launches (plain "
+                                 f"{n_plain}), the table rule says "
+                                 f"{table_launches(numels)}")
+        t = f"{tag} noop={noop_v}"
+        err = max(err, _check_lists(f"{t} params", kp, rp, 1e-6, 0.0,
+                                    scale_rtol=1e-6))
+        _check_lists(f"{t} state", ks, rs, 1e-6, 0.0, scale_rtol=1e-6)
+        for side, ps, cs in (("kernel", kp, kc), ("plain", rp, rc)):
+            want = [None if c is None else (torch.zeros_like(c) if noop_v
+                                            else p.to(c.dtype))
+                    for p, c in zip(ps, cs)]
+            if any(c is not None for c in cs):
+                _check_lists(f"{t} {side} copies vs its params", cs, want,
+                             0.0, 0.0)
+        if noop_v and not (all(torch.equal(a, b) for a, b in zip(kp, params))
+                           and all(torch.equal(a, b)
+                                   for a, b in zip(ks, state))):
+            raise AssertionError(f"{tag} noop=1 changed the parameters or "
+                                 f"the state")
+        del sides, kp, ks, kc, rp, rs, rc
+    return err
+
+
+def _mixed_opt_lists(rand):
+    """40 tensors crossing the 36-tensor table limit and the chunk
+    carry-over: bf16 / f16 grads of f32 masters with bf16 / f16 model
+    copies, and f32 parameters without one."""
+    sizes = [70000, 65536, 1, 3, 200000, 129] * 7
+    out = []
+    for i, n in enumerate(sizes[:40]):
+        cdt = (torch.bfloat16, torch.float16, None)[i % 3]
+        gdt = cdt or torch.float32
+        master = rand(n, 0.02)
+        if cdt is not None:
+            master = master.to(cdt).float()
+        out.append((rand(n, 1e-2).to(gdt), master,
+                    None if cdt is None else master.to(cdt)))
+    return out
+
+
+def kernel_optimizers(gen_cuda):
+    """#16, #19, #22 and #23 against their plain versions over GPT-350M's
+    f32 parameter list (291 tensors, as #18), a mixed-dtype list with
+    master weights and model copies, and over ResNet-50's lists as its
+    paths run them: #19 at O1 (f32) and O2 (bf16 with f32 masters and
+    copies, f32 batch norm), #16 in place at O1 (the hand-written SGD), #22
+    and #23 at O2 (phase 9c)."""
+    from apex_tpu_torch.ops import multi_tensor as K
+    shapes = gpt350m_shapes()
+    numels = [int(np.prod(s)) for s in shapes]
+    n_el = sum(numels)
+
+    def rand(shape, std, positive=False):
+        t = torch.randn(shape, generator=gen_cuda, device="cuda") * std
+        return t.abs() + 1e-3 if positive else t
+
+    out = {}
+    noop0 = torch.tensor(0, dtype=torch.int32, device="cuda")
+    sgd_scal = torch.tensor([0.1, 1e-4, 0.9, 0.0, 0.5], device="cuda")
+    ada_scal = torch.tensor([1e-2, 1e-10, 1e-4, 0.5], device="cuda")
+    # NovoGrad at step 3: lr with the bias corrections folded in
+    nv_scal = torch.tensor([1e-3 * (1 - 0.98 ** 3) ** 0.5 / (1 - 0.95 ** 3),
+                            0.95, 1e-3, 1e-8, 0.5, 0.05], device="cuda")
+    runs = {
+        "sgd": (K.multi_tensor_sgd, K.multi_tensor_sgd_reference,
+                lambda g, p, s, c, n, f: f(g, p, s, c, sgd_scal, n),
+                dict(std=1e-3, positive=False)),
+        "sgd_nesterov_wd_after": (
+            K.multi_tensor_sgd, K.multi_tensor_sgd_reference,
+            lambda g, p, s, c, n, f: f(g, p, s, c, sgd_scal, n,
+                                       nesterov=True, wd_after_momentum=True),
+            dict(std=1e-3, positive=False)),
+        "adagrad": (K.multi_tensor_adagrad, K.multi_tensor_adagrad_reference,
+                    lambda g, p, s, c, n, f: f(g, p, s, c, ada_scal, n),
+                    dict(std=1e-4, positive=True)),
+        "adagrad_w_mode": (
+            K.multi_tensor_adagrad, K.multi_tensor_adagrad_reference,
+            lambda g, p, s, c, n, f: f(g, p, s, c, ada_scal, n, True),
+            dict(std=1e-4, positive=True)),
+    }
+
+    # the mixed list: masters and copies, every optimizer kernel
+    mixed = _mixed_opt_lists(rand)
+    mg, mp, mc = (list(x) for x in zip(*mixed))
+    m_numels = [t.numel() for t in mp]
+    for name, (kern, plain, call, st) in runs.items():
+        ms = [rand(t.numel(), st["std"], st["positive"]) for t in mp]
+        _opt_kernel_check(
+            f"{kern.__name__} ({name}) {len(mp)} mixed tensors", kern, plain,
+            lambda f, p, s, c, n, _c=call: _c(mg, p, s, c, n, f),
+            mp, ms, mc, m_numels)
+    v_mixed = rand(len(mp), 1e-4, positive=True)
+    ms = [rand(t.numel(), 1e-4) for t in mp]
+    _opt_kernel_check(
+        f"multi_tensor_novograd {len(mp)} mixed tensors",
+        K.multi_tensor_novograd, K.multi_tensor_novograd_reference,
+        lambda f, p, s, c, n: f(mg, p, s, c, v_mixed, nv_scal, n, True),
+        mp, ms, mc, m_numels)
+    del mixed, mg, mp, mc, ms
+
+    # #16 axpby over the GPT list (f32), then a bf16 output
+    xs = [rand(s, 1e-2) for s in shapes]
+    ys = [rand(s, 1e-2) for s in shapes]
+    kout = [torch.empty_like(x) for x in xs]
+    rout = [torch.empty_like(x) for x in xs]
+    before = K.multi_tensor_axpby_.launches
+    K.multi_tensor_axpby_(xs, ys, kout, 0.9, -0.3)
+    n_launch = K.multi_tensor_axpby_.launches - before
+    K.multi_tensor_axpby_reference(xs, ys, rout, 0.9, -0.3)
+    torch.cuda.synchronize()
+    if n_launch != table_launches(numels):
+        raise AssertionError("multi_tensor_axpby_ launch count")
+    # a x + b y: FMA contraction rounds once where the plain version
+    # rounds twice; where the two terms cancel that is an ulp of the terms
+    err = _check_lists("multi_tensor_axpby_ f32", kout, rout, 1e-6, 0.0,
+                       scale_rtol=1e-6)
+    kb = [torch.empty_like(x, dtype=torch.bfloat16) for x in xs[:40]]
+    rb = [torch.empty_like(x, dtype=torch.bfloat16) for x in xs[:40]]
+    K.multi_tensor_axpby_(xs[:40], ys[:40], kb, 0.9, -0.3)
+    K.multi_tensor_axpby_reference(xs[:40], ys[:40], rb, 0.9, -0.3)
+    # the two f32 values may differ in their last bits (above), and a value
+    # near a bf16 rounding midpoint then rounds to the neighbour: one bf16
+    # ulp, up to 2**-7 of the result
+    _check_lists("multi_tensor_axpby_ f32 -> bf16 outputs (one bf16 ulp)",
+                 kb, rb, 2.0 ** -7, 0.0, scale_rtol=1e-6)
+    del kb, rb
+    _check_found_inf("multi_tensor_axpby_",
+                     lambda: K.multi_tensor_axpby_(xs, ys, kout, 0.9, -0.3),
+                     lambda: K.multi_tensor_axpby_reference(xs, ys, rout,
+                                                            0.9, -0.3), xs)
+    out["axpby"] = numbers(
+        err, time_ms([lambda: K.multi_tensor_axpby_(xs, ys, kout, 0.9, -0.3)]
+                     * 5),
+        time_ms([lambda: K.multi_tensor_axpby_reference(xs, ys, rout, 0.9,
+                                                        -0.3)] * 2, rounds=3),
+        None, bound_ms(3 * 4 * n_el, 3 * n_el, PEAK_F32_FLOPS),
+        call_ms(lambda: K.multi_tensor_axpby_(xs, ys, kout, 0.9, -0.3),
+                iters=10))
+    log_numbers(f"multi_tensor_axpby_ {len(shapes)} tensors, {n_el} "
+                f"elements, {table_launches(numels)} launches", out["axpby"],
+                "no single library call for a x + b y")
+    del xs, ys, kout, rout
+    torch.cuda.empty_cache()
+
+    # #19, #22, #23 over the GPT list (f32 g, p and state)
+    gs = [rand(s, 1e-3) for s in shapes]
+    ps = [rand(s, 0.02) for s in shapes]
+    none = [None] * len(shapes)
+    for name, (kern, plain, call, st) in runs.items():
+        ss = [rand(s, st["std"], st["positive"]) for s in shapes]
+        err = _opt_kernel_check(
+            f"{kern.__name__} ({name}) {len(shapes)} tensors", kern, plain,
+            lambda f, p, s, c, n, _c=call: _c(gs, p, s, c, n, f),
+            ps, ss, none, numels)
+        if name in ("sgd", "adagrad"):
+            lib_ps = [torch.nn.Parameter(p.clone()) for p in ps]
+            for p, g in zip(lib_ps, gs):
+                p.grad = g
+            lib = (torch.optim.SGD(lib_ps, lr=0.1, momentum=0.9,
+                                   weight_decay=1e-4, fused=True)
+                   if name == "sgd" else
+                   torch.optim.Adagrad(lib_ps, lr=1e-2, weight_decay=1e-4,
+                                       foreach=True))
+            lib.step()
+            out[name] = numbers(
+                err, time_ms([lambda: call(gs, ps, ss, none, noop0, kern)]
+                             * 5),
+                time_ms([lambda: call(gs, ps, ss, none, noop0, plain)] * 2,
+                        rounds=3),
+                call_ms(lib.step, iters=10),
+                bound_ms(5 * 4 * n_el, 10 * n_el, PEAK_F32_FLOPS),
+                call_ms(lambda: call(gs, ps, ss, none, noop0, kern),
+                        iters=10))
+            lib_name = ("SGD(fused=True).step (eager)" if name == "sgd"
+                        else "Adagrad(foreach=True).step (eager)")
+            log_numbers(f"{kern.__name__} {len(shapes)} tensors, {n_el} "
+                        f"elements, {table_launches(numels)} launches",
+                        out[name], lib_name)
+            del lib, lib_ps
+        del ss
+        torch.cuda.empty_cache()
+    v = rand(len(shapes), 1e-6, positive=True)
+    ms = [rand(s, 1e-4) for s in shapes]
+    for reg in (False, True):
+        err = _opt_kernel_check(
+            f"multi_tensor_novograd (reg_inside_moment={reg}) "
+            f"{len(shapes)} tensors", K.multi_tensor_novograd,
+            K.multi_tensor_novograd_reference,
+            lambda f, p, s, c, n, _r=reg: f(gs, p, s, c, v, nv_scal, n, _r),
+            ps, ms, none, numels)
+    out["novograd"] = numbers(
+        err, time_ms([lambda: K.multi_tensor_novograd(gs, ps, ms, none, v,
+                                                      nv_scal, noop0)] * 5),
+        time_ms([lambda: K.multi_tensor_novograd_reference(
+            gs, ps, ms, none, v, nv_scal, noop0)] * 2, rounds=3),
+        None, bound_ms(5 * 4 * n_el + 4 * len(shapes), 10 * n_el,
+                       PEAK_F32_FLOPS),
+        call_ms(lambda: K.multi_tensor_novograd(gs, ps, ms, none, v, nv_scal,
+                                                noop0), iters=10))
+    log_numbers(f"multi_tensor_novograd {len(shapes)} tensors, {n_el} "
+                f"elements, {table_launches(numels)} launches",
+                out["novograd"], "no single library call")
+    del gs, ps, ms
+    torch.cuda.empty_cache()
+    for n in (out["axpby"], out["sgd"], out["adagrad"], out["novograd"]):
+        n["tensors"], n["elements"] = len(shapes), n_el
+        n["launches_per_call"] = table_launches(numels)
+
+    # #19 over ResNet-50's lists, as phase 9 steps them
+    for level in ("O1", "O2"):
+        specs = resnet50_specs(level)
+        r_numels = [int(np.prod(s)) for s, _ in specs]
+        gs = [rand(s, 1e-3).to(dt) for s, dt in specs]
+        masters = [rand(s, 0.05).to(dt).float() for s, dt in specs]
+        copies = [None if dt == torch.float32 else m.to(dt)
+                  for m, (_, dt) in zip(masters, specs)]
+        bufs = [rand(s, 1e-3) for s, _ in specs]
+        err = _opt_kernel_check(
+            f"multi_tensor_sgd ResNet-50 {level} {len(specs)} tensors",
+            K.multi_tensor_sgd, K.multi_tensor_sgd_reference,
+            lambda f, p, s, c, n: f(gs, p, s, c, sgd_scal, n),
+            masters, bufs, copies, r_numels)
+        r_el = sum(r_numels)
+        lib_ps = [torch.nn.Parameter(m.clone()) for m in masters]
+        for p, g in zip(lib_ps, gs):
+            p.grad = g.float()
+        lib = torch.optim.SGD(lib_ps, lr=0.1, momentum=0.9,
+                              weight_decay=1e-4, fused=True)
+        lib.step()
+        key = f"sgd_resnet50_{level}"
+        out[key] = numbers(
+            err, time_ms([lambda: K.multi_tensor_sgd(
+                gs, masters, bufs, copies, sgd_scal, noop0)] * 5),
+            time_ms([lambda: K.multi_tensor_sgd_reference(
+                gs, masters, bufs, copies, sgd_scal, noop0)] * 2, rounds=3),
+            call_ms(lib.step, iters=10),
+            bound_ms(_nbytes(gs) + 4 * 4 * r_el + _nbytes(copies),
+                     10 * r_el, PEAK_F32_FLOPS),
+            call_ms(lambda: K.multi_tensor_sgd(gs, masters, bufs, copies,
+                                               sgd_scal, noop0), iters=10))
+        log_numbers(f"multi_tensor_sgd ResNet-50 {level} {len(specs)} "
+                    f"tensors, {r_el} elements, {table_launches(r_numels)} "
+                    f"launches", out[key],
+                    "SGD(fused=True).step on f32 copies (eager)")
+        out[key].update(tensors=len(specs), elements=r_el,
+                        launches_per_call=table_launches(r_numels))
+        if level == "O1":
+            # the hand-written SGD's update: #16 in place on the
+            # parameters (outs = xs), a and b as f32 device scalars
+            _axpby_in_place_check(
+                f"multi_tensor_axpby_ ResNet-50 O1 {len(specs)} tensors, "
+                f"in place", masters, bufs,
+                torch.tensor(1.0 - 0.1 * 1e-4, device="cuda"),
+                torch.tensor(-0.1, device="cuda"), r_numels)
+        else:
+            # phase 9c's steps: #22 and #23 on the O2 list, bf16 grads of
+            # f32 masters with bf16 model copies, f32 batch norm
+            for name in ("adagrad", "adagrad_w_mode"):
+                kern, plain, call, st = runs[name]
+                ss = [rand(s, st["std"], st["positive"]) for s, _ in specs]
+                _opt_kernel_check(
+                    f"{kern.__name__} ({name}) ResNet-50 O2 {len(specs)} "
+                    f"tensors", kern, plain,
+                    lambda f, p, s, c, n, _c=call: _c(gs, p, s, c, n, f),
+                    masters, ss, copies, r_numels)
+                del ss
+            v = rand(len(specs), 1e-6, positive=True)
+            ms = [rand(s, 1e-4) for s, _ in specs]
+            for reg in (False, True):
+                _opt_kernel_check(
+                    f"multi_tensor_novograd (reg_inside_moment={reg}) "
+                    f"ResNet-50 O2 {len(specs)} tensors",
+                    K.multi_tensor_novograd,
+                    K.multi_tensor_novograd_reference,
+                    lambda f, p, s, c, n, _r=reg: f(gs, p, s, c, v, nv_scal,
+                                                    n, _r),
+                    masters, ms, copies, r_numels)
+            del v, ms
+        del gs, masters, copies, bufs, lib, lib_ps
+        torch.cuda.empty_cache()
+    return out
+
+
+def _axpby_in_place_check(tag, xs, ys, a, b, numels):
+    """#16 writing over its x (``outs=xs``) against its plain version, each
+    on its own clones of ``xs``: exact table launches, the same found-inf
+    flag, values as #16's f32 check in phase 2."""
+    from apex_tpu_torch.ops import multi_tensor as K
+    kx, rx = [x.clone() for x in xs], [x.clone() for x in xs]
+    before = K.multi_tensor_axpby_.launches
+    kf = K.multi_tensor_axpby_(kx, ys, kx, a, b)
+    n_launch = K.multi_tensor_axpby_.launches - before
+    rf = K.multi_tensor_axpby_reference(rx, ys, rx, a, b)
+    torch.cuda.synchronize()
+    if n_launch != table_launches(numels) or float(kf) != float(rf):
+        raise AssertionError(f"{tag}: {n_launch} launches (the table rule "
+                             f"says {table_launches(numels)}), found-inf "
+                             f"{float(kf)} vs plain {float(rf)}")
+    err = _check_lists(tag, kx, rx, 1e-6, 0.0, scale_rtol=1e-6)
+    del kx, rx
+    return err
+
+
 # -- phase 3 -----------------------------------------------------------------
 
 def build_model(device, **overrides):
@@ -1513,7 +1877,10 @@ _PLAIN_VERSIONS = {
     "apex_tpu_torch.ops.multi_tensor": (
         "multi_tensor_adam_reference", "multi_tensor_scale_reference",
         "multi_tensor_sumsq_reference", "multi_tensor_lamb_stage1_reference",
-        "multi_tensor_lamb_stage2_reference"),
+        "multi_tensor_lamb_stage2_reference",
+        "multi_tensor_axpby_reference", "multi_tensor_sgd_reference",
+        "multi_tensor_adagrad_reference",
+        "multi_tensor_novograd_reference"),
     "apex_tpu_torch.ops.lm_head": ("lm_head_fwd_reference",
                                    "lm_head_dx_reference",
                                    "lm_head_dw_reference"),
@@ -2064,6 +2431,291 @@ def phase_dynamic_skip():
                 unchanged=same)
 
 
+# -- phase 9 -----------------------------------------------------------------
+
+# examples/imagenet/main_amp.py at its defaults: ResNet-50, batch 256 at
+# 224 x 224, 1000 classes, FusedSGD(lr 0.1, momentum 0.9, wd 1e-4),
+# synthetic data from seed 0; a warm-up step, then 4 steps
+RESNET_ARGV = ["--arch", "resnet50", "--batch-size", "256", "--image-size",
+               "224", "--num-classes", "1000", "--steps", "4",
+               "--print-freq", "4", "--seed", "0", "--lr", "0.1",
+               "--momentum", "0.9", "--weight-decay", "1e-4"]
+RESNET_STEPS = 1 + 4
+
+
+def _all_counters():
+    from apex_tpu_torch.ops import multi_tensor as K
+    return tuple(dict.fromkeys(_train_counters() + _bert_counters() + (
+        K.multi_tensor_scale_, K.multi_tensor_axpby_, K.multi_tensor_sgd,
+        K.multi_tensor_adagrad, K.multi_tensor_novograd)))
+
+
+def _launches_of(counters):
+    return {c.__name__: c.launches for c in counters if c.launches}
+
+
+def phase_resnet(opt_level, tag):
+    """The ported ImageNet example's ``main()`` at ``opt_level``: losses,
+    step times, img/s and peak memory; every kernel counter read around
+    the run (only #19, exactly its table launches per step) and no plain
+    version called.  Returns the trainer and the numbers."""
+    from apex_tpu_torch.examples.imagenet import main_amp
+    numels = [int(np.prod(s)) for s, _ in resnet50_specs(opt_level)]
+    counters = _all_counters()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    with counting_plain_versions() as plain_calls:
+        res = main_amp.main(RESNET_ARGV + ["--opt-level", opt_level])
+    torch.cuda.synchronize()
+    launches = _launches_of(counters)
+    trainer = res.pop("trainer")
+    batch = res.pop("batch")
+    per_step = table_launches(numels)
+    expected = {"multi_tensor_sgd": RESNET_STEPS * per_step}
+    step_s = statistics.median(res["step_times_s"])
+    peak = res["peak_memory_bytes"]
+    log(f"{tag} ResNet-50 ImageNet {opt_level} (examples/imagenet/main_amp,"
+        f" batch 256 x 224^2, FusedSGD lr 0.1): warm-up loss "
+        f"{res['warmup_loss']:.5f}, losses "
+        f"{[round(x, 5) for x in res['losses']]}; step times (s) "
+        f"{[round(t, 4) for t in res['step_times_s']]}, median "
+        f"{step_s:.4f} s, {256 / step_s:.1f} img/s (main's "
+        f"{res['images_per_s']:.1f}); peak memory {peak / 2 ** 30:.2f} GiB")
+    log(f"    launches {launches} (expected {expected}: {per_step} per "
+        f"step over {len(numels)} tensors); plain-version calls "
+        f"{dict(plain_calls)}")
+    if not np.all(np.isfinite(res["losses"] + [res["warmup_loss"]])):
+        raise AssertionError(f"non-finite ResNet-50 loss: {res['losses']}")
+    if launches != expected:
+        raise AssertionError("ResNet-50 launch counts do not match the path")
+    if sum(plain_calls.values()):
+        raise AssertionError(f"the ResNet-50 path called plain versions: "
+                             f"{dict(plain_calls)}")
+    model, opt = trainer.model, trainer.optimizer
+    if opt_level == "O2":
+        f32 = {n for n, p in model.named_parameters()
+               if p.dtype == torch.float32}
+        if not (f32 and all("bn_" in n for n in f32)
+                and all(("master" in opt.state[p])
+                        == (p.dtype == torch.bfloat16)
+                        for p in model.parameters())):
+            raise AssertionError("O2: batch norm not f32 or masters missing")
+        log(f"    O2: {len(f32)} batch-norm parameters f32, "
+            f"{len(numels) - len(f32)} bf16 with f32 masters")
+    res.update(median_step_s=step_s, launches=launches,
+               launches_per_step={k: v // RESNET_STEPS
+                                  for k, v in launches.items()},
+               sgd_tensors=len(numels), sgd_elements=sum(numels))
+    return trainer, batch, res
+
+
+def phase_resnet_optimizers(trainer, batch, tag="[9c]"):
+    """One step each with FusedAdagrad and FusedNovoGrad in place of
+    FusedSGD on phase 9b's model (bf16 with f32 batch norm, masters): exact
+    launches of #22, and of #17 (per-tensor sums) and #23."""
+    from apex_tpu_torch.optimizers import FusedAdagrad, FusedNovoGrad
+    model = trainer.model
+    numels = [p.numel() for p in model.parameters()]
+    table = table_launches(numels)
+    out = {}
+    for cls, kw, expected in (
+            (FusedAdagrad, dict(lr=1e-3, weight_decay=1e-4),
+             {"multi_tensor_adagrad": table}),
+            (FusedNovoGrad, dict(lr=1e-3, weight_decay=1e-4),
+             {"multi_tensor_sumsq": sumsq_launches(numels, per_tensor=True),
+              "multi_tensor_novograd": table})):
+        trainer.optimizer = cls(model.parameters(), master_weights=True,
+                                **kw)
+        counters = _all_counters()
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        with counting_plain_versions() as plain_calls:
+            t0 = time.perf_counter()
+            loss = float(trainer.step(*batch))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches = _launches_of(counters)
+        log(f"{tag} {cls.__name__} step on ResNet-50 O2: loss {loss:.5f}, "
+            f"{dt:.4f} s; launches {launches} (expected {expected}); "
+            f"plain-version calls {dict(plain_calls)}")
+        if not np.isfinite(loss) or launches != expected or sum(
+                plain_calls.values()):
+            raise AssertionError(f"{cls.__name__} on ResNet-50: launches, "
+                                 f"plain calls or loss")
+        out[cls.__name__] = dict(loss=loss, step_s=dt, launches=launches)
+    return out
+
+
+def phase_resnet_baseline(tag="[9d]"):
+    """The example's hand-written SGD (``--no-fused-sgd``) at O1, a warm-up
+    step and one step: its overflow check is #17 and its parameter update
+    #16, exact launches of both; no plain version called."""
+    from apex_tpu_torch.examples.imagenet import main_amp
+    numels = [int(np.prod(s)) for s, _ in resnet50_specs("O1")]
+    counters = _all_counters()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    with counting_plain_versions() as plain_calls:
+        res = main_amp.main(RESNET_ARGV + ["--opt-level", "O1", "--steps",
+                                           "1", "--no-fused-sgd"])
+    torch.cuda.synchronize()
+    res.pop("trainer")
+    res.pop("batch")
+    launches = _launches_of(counters)
+    expected = {"multi_tensor_sumsq": 2 * sumsq_launches(numels),
+                "multi_tensor_axpby_": 2 * table_launches(numels)}
+    log(f"{tag} ResNet-50 O1, hand-written SGD: losses "
+        f"{[res['warmup_loss']] + res['losses']}, step "
+        f"{res['step_times_s'][0]:.4f} s; launches {launches} (expected "
+        f"{expected}); plain-version calls {dict(plain_calls)}")
+    if (launches != expected or sum(plain_calls.values())
+            or not np.all(np.isfinite(res["losses"]))):
+        raise AssertionError("the hand-written SGD path: launches, plain "
+                             "calls or losses")
+    res["launches"] = launches
+    return res
+
+
+# -- phase 10 ----------------------------------------------------------------
+
+PARITY_RESNET = dict(width=16, num_classes=10)
+PARITY_IMAGES, PARITY_BATCH = 64, 8
+
+
+def _matmul_flags():
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+
+
+def _set_matmul_flags(flags):
+    (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction) = \
+        flags
+
+
+def _resnet_two_steps(device, opt_level, cls, kw, x, y):
+    """``resnet26`` (width 16) from seed 0 under ``opt_level``, 2 steps of
+    ``cls`` on one batch: the losses, the first step's gradients (same
+    parameters on every side), the parameters' moves and the BN running
+    statistics after the steps, on the CPU."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.resnet import resnet26
+    model = resnet26(device=device, **PARITY_RESNET).init_params(
+        torch.Generator().manual_seed(0))
+    p0 = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    opt = cls(model.parameters(), **kw)
+    amp.initialize(model, opt, opt_level=opt_level)
+    xd, yd = x.to(device), y.to(device)
+    losses, grads = [], None
+    for step in range(2):
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(xd, yd)
+        loss.backward()
+        if step == 0:
+            grads = {n: p.grad.detach().float().cpu()
+                     for n, p in model.named_parameters()}
+        opt.step()
+        losses.append(float(loss.detach()))
+    moves = {n: p.detach().float().cpu() - p0[n]
+             for n, p in model.named_parameters()}
+    stats = {n: b.detach().float().cpu() for n, b in model.named_buffers()
+             if "running" in n}
+    return dict(losses=losses, grads=grads, moves=moves, stats=stats)
+
+
+# Card vs CPU under O1: both round the same values to bf16 (the
+# convolutions' inputs) but sum the products in other orders, and a bf16
+# rounding that flips is amplified by the batch norms (8 images, a 2 x 2
+# map at stage 4): a gradient whose terms cancel (the BN parameters') moves
+# by up to ~70% between bf16 and f32 on the CPU.  So the yardstick is the
+# CPU's own O1-to-f32 distance d: each tensor (gradient, parameter move,
+# running statistic) of the card within 3 d + a share of the f32 tensor's
+# norm (1e-2; 1e-3 for the running statistics), the whole first-step
+# gradient within d + 1e-2 of its norm, and each loss within 3 d + 2e-3 of
+# it.  The card's bf16 convolutions land further from the CPU's than the
+# CPU's from f32: on an H100 (700 W) a 2 d bound was 0.79-0.92 used by
+# the losses and 0.72 by the moves, so the factor is 3.
+PARITY_SHARE = {"grads": 1e-2, "moves": 1e-2, "stats": 1e-3}
+
+
+def _parity_check(tag, card, cpu, f32):
+    norm = np.linalg.norm
+    worst = {}
+    for key, share in PARITY_SHARE.items():
+        ratio = 0.0
+        for n in cpu[key]:
+            a, b, c = (r[key][n].numpy().astype(np.float64)
+                       for r in (card, cpu, f32))
+            bound = 3 * norm(b - c) + share * norm(c)
+            ratio = max(ratio, norm(a - b) / max(bound, 1e-30))
+        worst[key] = float(ratio)
+    cat = {k: np.concatenate([r["grads"][n].numpy().ravel()
+                              for n in sorted(cpu["grads"])])
+           for k, r in (("card", card), ("cpu", cpu), ("f32", f32))}
+    worst["grads_global"] = float(norm(cat["card"] - cat["cpu"]) / (
+        norm(cat["cpu"] - cat["f32"]) + 1e-2 * norm(cat["f32"])))
+    worst["losses"] = max(abs(a - b) / (3 * abs(b - c) + 2e-3 * abs(c))
+                          for a, b, c in zip(card["losses"], cpu["losses"],
+                                             f32["losses"]))
+    log(f"{tag} losses card {[round(v, 5) for v in card['losses']]} cpu "
+        f"{[round(v, 5) for v in cpu['losses']]} cpu f32 "
+        f"{[round(v, 5) for v in f32['losses']]}; worst share of the bound "
+        + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
+    if max(worst.values()) > 1.0:
+        raise AssertionError(f"{tag}: the card and the CPU disagree beyond "
+                             f"the bound")
+    return worst
+
+
+def phase_resnet_parity(flags_at_start):
+    """resnet26 (width 16, 64 x 64, batch 8, 10 classes) trained 2 steps
+    under O1 on the card and on a CPU copy (and in f32 on the CPU, the
+    yardstick), with each of FusedSGD, FusedAdagrad and FusedNovoGrad;
+    then FusedSGD's card run again with the matmul flags as torch set them
+    before any GPTModel turned them (TF32, bf16 reduced-precision
+    reduction) process-wide."""
+    from apex_tpu_torch.optimizers import (FusedAdagrad, FusedNovoGrad,
+                                           FusedSGD)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(PARITY_BATCH, PARITY_IMAGES,
+                                   PARITY_IMAGES, 3).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 10, PARITY_BATCH))
+    out = {}
+    for cls, kw in ((FusedSGD, dict(lr=0.1, momentum=0.9,
+                                    weight_decay=1e-4)),
+                    (FusedAdagrad, dict(lr=1e-2, weight_decay=1e-4)),
+                    (FusedNovoGrad, dict(lr=1e-2, weight_decay=1e-3))):
+        card = _resnet_two_steps("cuda", "O1", cls, kw, x, y)
+        cpu = _resnet_two_steps("cpu", "O1", cls, kw, x, y)
+        f32 = _resnet_two_steps("cpu", "O0", cls, kw, x, y)
+        out[cls.__name__] = _parity_check(f"[10] {cls.__name__} card vs "
+                                          f"CPU, O1", card, cpu, f32)
+        if cls is FusedSGD:
+            now = _matmul_flags()
+            _set_matmul_flags(flags_at_start)
+            try:
+                default = _resnet_two_steps("cuda", "O1", cls, kw, x, y)
+            finally:
+                _set_matmul_flags(now)
+            diff = max(float((default[k][n] - card[k][n]).abs().max())
+                       for k in ("grads", "moves", "stats")
+                       for n in card[k])
+            log(f"[10] matmul flags (tf32, cudnn tf32, bf16 reduced "
+                f"reduction) as the GPT phases left them {now} against "
+                f"torch's at start {flags_at_start}: losses "
+                f"{card['losses']} vs {default['losses']}, largest "
+                f"difference of a gradient, move or running statistic "
+                f"{diff:.3e}")
+            out["flags"] = dict(now=now, at_start=flags_at_start,
+                                max_diff=diff,
+                                losses=[card["losses"], default["losses"]])
+    return out
+
+
 # -- optional: where the time goes ------------------------------------------
 
 _KERNEL_CLASSES = (("layer_norm_bwd", "layer_norm_bwd"),
@@ -2078,6 +2730,10 @@ _KERNEL_CLASSES = (("layer_norm_bwd", "layer_norm_bwd"),
                    ("multi_tensor_sum_partials", "multi_tensor_sumsq"),
                    ("lamb_stage1_kernel", "multi_tensor_lamb_stage1"),
                    ("lamb_stage2_kernel", "multi_tensor_lamb_stage2"),
+                   ("multi_tensor_axpby_kernel", "multi_tensor_axpby_"),
+                   ("multi_tensor_sgd_kernel", "multi_tensor_sgd"),
+                   ("multi_tensor_adagrad_kernel", "multi_tensor_adagrad"),
+                   ("multi_tensor_novograd_kernel", "multi_tensor_novograd"),
                    ("lm_head_fwd", "lm_head_fwd"),
                    ("lm_head_dx", "lm_head_dx"),
                    ("lm_head_dw", "lm_head_dw"),
@@ -2094,6 +2750,10 @@ def _kernel_class(name):
         if key in name:
             return cls
     low = name.lower()
+    if "batch_norm" in low or "batchnorm" in low:
+        return "batch norm"
+    if any(k in low for k in ("fprop", "dgrad", "wgrad", "conv")):
+        return "convolution (cuDNN)"
     if any(k in low for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
         return "matmul (cuBLAS)"
     return "other (elementwise, copies, indexing)"
@@ -2191,8 +2851,8 @@ def main(argv=None):
     ap.add_argument("--profile", metavar="PATH",
                     help="also profile one prefill, one decode step and one "
                          "step of each training path, each with and without "
-                         "the fused FFN, and write the kernel breakdown to "
-                         "PATH")
+                         "the fused FFN, and one ResNet-50 step at O1 and "
+                         "O2, and write the kernel breakdown to PATH")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2200,6 +2860,7 @@ def main(argv=None):
         return 2
     import apex_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    flags_at_start = _matmul_flags()
     kind = torch.cuda.get_device_name(0)
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
         f"{torch.version.cuda} on {kind}")
@@ -2219,6 +2880,8 @@ def main(argv=None):
     lmh = kernel_lm_head(gen)
     torch.cuda.empty_cache()
     ffn = kernel_fused_ffn(gen)
+    torch.cuda.empty_cache()
+    opts = kernel_optimizers(torch.Generator(device="cuda").manual_seed(2))
     torch.cuda.empty_cache()
 
     model = build_model("cuda").init_params(torch.Generator().manual_seed(0))
@@ -2270,21 +2933,41 @@ def main(argv=None):
         profiled.update(phase_profile_bert(bmodel, bopt, btokens, blabels,
                                            profile_lines,
                                            "bert_train_step_ffn"))
-        with open(args.profile, "w") as f:
-            f.write("\n".join(profile_lines) + "\n")
     log_fused_change("[7f] BERT-large O2", bert, bert_f)
     del bmodel, bopt
     torch.cuda.empty_cache()
     bert_parity = phase_bert_parity()
     bert_parity_ffn = phase_bert_parity(fused_ffn=True)
     skip = phase_dynamic_skip()
+    torch.cuda.empty_cache()
+
+    resnet = {}
+    for level, tag in (("O1", "[9]"), ("O2", "[9b]")):
+        trainer, batch, resnet[level] = phase_resnet(level, tag)
+        if args.profile:
+            profiled.update(_profile_programs(
+                {f"resnet50_{level}_step": lambda: trainer.step(*batch)},
+                profile_lines))
+        if level == "O1":
+            del trainer, batch
+            torch.cuda.empty_cache()
+    resnet_opts = phase_resnet_optimizers(trainer, batch)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    resnet_baseline = phase_resnet_baseline()
+    torch.cuda.empty_cache()
+    resnet_parity = phase_resnet_parity(flags_at_start)
+    if args.profile:
+        with open(args.profile, "w") as f:
+            f.write("\n".join(profile_lines) + "\n")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     both = collections.Counter(serve["launches"])
-    for run in (serve_f, train, train_f, bert, bert_f, clip):
+    for run in (serve_f, train, train_f, bert, bert_f, clip, resnet["O1"],
+                resnet["O2"], resnet_baseline, *resnet_opts.values()):
         both.update(run["launches"])
     sources = {
         "layer_norm_fwd": ("apex_tpu_torch/csrc/layer_norm_fwd.cu",
@@ -2328,7 +3011,18 @@ def main(argv=None):
         "ffn_dx": ("apex_tpu_torch/csrc/ffn_bwd.cu",
                    "apex_tpu/ops/fused_ffn.py:137", ffn["dx_gpt"]),
         "ffn_dw": ("apex_tpu_torch/csrc/ffn_bwd.cu",
-                   "apex_tpu/ops/fused_ffn.py:162", ffn["dw_gpt"])}
+                   "apex_tpu/ops/fused_ffn.py:162", ffn["dw_gpt"]),
+        "multi_tensor_axpby_": ("apex_tpu_torch/csrc/multi_tensor_axpby.cu",
+                                "apex_tpu/ops/multi_tensor.py:131",
+                                opts["axpby"]),
+        "multi_tensor_sgd": ("apex_tpu_torch/csrc/multi_tensor_sgd.cu",
+                             "apex_tpu/ops/multi_tensor.py:281", opts["sgd"]),
+        "multi_tensor_adagrad": ("apex_tpu_torch/csrc/multi_tensor_adagrad.cu",
+                                 "apex_tpu/ops/multi_tensor.py:446",
+                                 opts["adagrad"]),
+        "multi_tensor_novograd": (
+            "apex_tpu_torch/csrc/multi_tensor_novograd.cu",
+            "apex_tpu/ops/multi_tensor.py:499", opts["novograd"])}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -2341,7 +3035,8 @@ def main(argv=None):
             json.dump(dict(device=kind, nvidia_smi=smi, layer_norm=ln,
                            layer_norm_bwd=ln_bwd, flash=fl, flash_bwd=fl_bwd,
                            decode=dec, adam=adam, multi_tensor=mt,
-                           lm_head=lmh, fused_ffn=ffn, serve=serve,
+                           lm_head=lmh, fused_ffn=ffn, optimizers=opts,
+                           serve=serve,
                            parity=parity, serve_ffn=serve_f,
                            parity_ffn=parity_f, train=train,
                            train_ffn=train_f, train_parity=train_parity,
@@ -2350,7 +3045,10 @@ def main(argv=None):
                            bert_ffn=bert_f, unscale_clip=clip,
                            bert_parity=bert_parity,
                            bert_parity_ffn=bert_parity_ffn,
-                           dynamic_skip=skip,
+                           dynamic_skip=skip, resnet50=resnet,
+                           resnet50_optimizers=resnet_opts,
+                           resnet50_hand_written_sgd=resnet_baseline,
+                           resnet_parity=resnet_parity,
                            profile=profiled or None, kernels=kernels), f,
                       indent=1, sort_keys=True)
     log(smi)

@@ -74,13 +74,22 @@ def test_cast_params_matches_jax_on_tiny_bert(level):
 
 
 def test_initialize_refuses_o1_and_sets_masters():
+    """O1 no longer raises (it refused until the autocast was ported): it
+    keeps the model f32 and wraps ``forward`` in the autocast, so a linear
+    layer's product comes back in bf16; ``patch_torch_functions=True`` does
+    the same at O2.  O2 sets the optimizer's masters."""
     model = nn.Linear(2, 2)
     opt = FusedLAMB(model.parameters())
-    with pytest.raises(NotImplementedError, match="O1"):
-        amp.initialize(model, opt, opt_level="O1")
-    with pytest.raises(NotImplementedError, match="autocast"):
-        amp.initialize(model, opt, opt_level="O2",
-                       patch_torch_functions=True)
+    o1 = amp.initialize(model, opt, opt_level="O1")
+    assert o1.properties.patch_torch_functions and not opt.master_weights
+    assert model.weight.dtype == torch.float32
+    assert model(torch.ones(3, 2)).dtype == torch.bfloat16
+    patched = nn.Linear(2, 2)
+    amp.initialize(patched, None, opt_level="O2", patch_torch_functions=True)
+    assert patched(torch.ones(3, 2, dtype=torch.bfloat16)).dtype == \
+        torch.bfloat16
+    model = nn.Linear(2, 2)
+    opt = FusedLAMB(model.parameters())
     state = amp.initialize(model, opt, opt_level="O2")
     assert opt.master_weights and state.scaler.device.type == "cpu"
     assert not state.scaler.dynamic and float(state.scaler.loss_scale) == 1.0

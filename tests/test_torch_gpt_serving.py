@@ -7,6 +7,8 @@ and four decode steps of logits and cache, agree within 1e-4; the
 continuous-batching engines give the same greedy tokens, token for token.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -282,3 +284,62 @@ def test_init_params_is_seeded_and_shaped_like_jax():
     shapes = {k: tuple(v.shape) for k, v in a.state_dict().items()}
     assert shapes == {k: v.shape for k, v in gpt_params_from_jax(
         jax.tree_util.tree_map(np.asarray, jp), cfg).items()}
+
+
+def _jax_field_default(f):
+    if f.default is not dataclasses.MISSING:
+        return f.default
+    return f.default_factory()
+
+
+@pytest.mark.parametrize("name", [f.name for f in dataclasses.fields(
+    JConfig)])
+def test_gpt_config_takes_every_jax_field_at_its_default(name):
+    """Every field of the JAX ``GPTConfig`` exists in the port's with the
+    same default, and the port's config builds with it.  Ten of the 28
+    (``axis_name``, ``overlap_chunks``, ``context_mechanism``, the three
+    ``moe_*``, ``expert_axis``, ``expert_parallel_size``, ``remat_policy``,
+    ``plan``) were missing and raised ``TypeError``."""
+    jf = {f.name: f for f in dataclasses.fields(JConfig)}[name]
+    tf = {f.name: f for f in dataclasses.fields(GPTConfig)}
+    assert name in tf
+    jdefault = _jax_field_default(jf)
+    tdefault = _jax_field_default(tf[name])
+    if name in ("dtype", "param_dtype"):
+        assert jnp.dtype(jdefault) == jnp.float32
+        assert tdefault == torch.float32
+        return
+    assert tdefault == jdefault
+    if name in TINY:
+        return
+    cfg = GPTConfig(**TINY, **{name: jdefault})
+    assert getattr(cfg, name) == jdefault or name == "ffn_hidden_size"
+
+
+@pytest.mark.parametrize("knob", [
+    dict(axis_name="model"), dict(sequence_parallel=True, overlap_chunks=2),
+    dict(context_mechanism="ulysses"), dict(moe_top_k=2),
+    dict(moe_capacity_factor=2.0), dict(moe_aux_weight=0.1),
+    dict(n_experts=4, expert_axis="expert"), dict(expert_parallel_size=2),
+    dict(remat_policy="dots"), dict(plan=object())],
+    ids=lambda k: list(k)[-1])
+def test_gpt_config_new_fields_raise_naming_their_slice(knob):
+    """A value other than the default of the ten added fields needs a part
+    not ported yet: it raises ``NotImplementedError`` naming the slice
+    (the JAX config accepts each of these)."""
+    if "plan" not in knob:
+        JConfig(**TINY, **knob)
+    with pytest.raises(NotImplementedError, match="slice"):
+        GPTConfig(**TINY, **knob)
+
+
+def test_gpt_config_keeps_jax_value_errors_for_the_new_fields():
+    for knob, match in ((dict(context_mechanism="all2all"),
+                         "context_mechanism"),
+                        (dict(remat_policy="some"), "remat_policy"),
+                        (dict(overlap_chunks=2), "sequence_parallel"),
+                        (dict(expert_axis="expert"), "n_experts")):
+        with pytest.raises(ValueError):
+            JConfig(**TINY, **knob)
+        with pytest.raises(ValueError, match=match):
+            GPTConfig(**TINY, **knob)

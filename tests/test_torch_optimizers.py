@@ -1,4 +1,5 @@
-"""apex_tpu_torch multi-tensor Adam and FusedAdam against apex_tpu on the CPU.
+"""apex_tpu_torch multi-tensor Adam and the fused optimizers against
+apex_tpu on the CPU.
 
 ``multi_tensor_adam`` (the plain version a CPU tensor takes) is held against
 the JAX ``adam_packed`` over the packed bucket of the same leaves, through
@@ -7,8 +8,21 @@ held against the JAX ``FusedAdam(bucketed=False)`` over three steps, one of
 them skipped by the noop flag.  Both sides run the same f32 ``_adam_math``:
 parameters and moments agree to 1e-6 relative (only the order of f32
 operations in pow/sqrt may differ).
+
+``FusedSGD``, ``FusedAdagrad`` and ``FusedNovoGrad`` are held against their
+JAX namesakes over three steps (the second skipped by a device noop flag)
+in the JAX optimizers' per-leaf layout (they refuse ``bucketed=True``; the
+packed kernels are held in ``test_torch_multi_tensor.py``), with and
+without Pallas forced; their state is carried over with
+``convert.fused_*_state_from_jax`` and compared too (1e-6 relative, or an
+f32 ulp of a 0.1-sized entry).  Where the parameters are bf16 with f32
+masters, the masters agree likewise and each parameter is its master
+rounded to bf16.
 """
 
+import copy
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,9 +34,17 @@ from apex_tpu.ops import multi_tensor as jK
 from apex_tpu.optimizers import FusedAdam as JFusedAdam
 from apex_tpu.utils import set_force_pallas
 
-from apex_tpu_torch.convert import fused_adam_state_from_jax
+from apex_tpu.optimizers import FusedAdagrad as JFusedAdagrad
+from apex_tpu.optimizers import FusedNovoGrad as JFusedNovoGrad
+from apex_tpu.optimizers import FusedSGD as JFusedSGD
+
+from apex_tpu_torch.convert import (fused_adagrad_state_from_jax,
+                                    fused_adam_state_from_jax,
+                                    fused_novograd_state_from_jax,
+                                    fused_sgd_state_from_jax)
 from apex_tpu_torch.ops import multi_tensor as tK
-from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.optimizers import (FusedAdagrad, FusedAdam,
+                                       FusedLAMB, FusedNovoGrad, FusedSGD)
 
 SHAPES = [(3, 5), (7,), (130,), (2, 3, 4)]   # off the 128-lane multiple
 TOL = 1e-6
@@ -231,3 +253,206 @@ def test_fused_adam_master_weights_match_jax():
                                       np.asarray(w, np.float32))
         assert torch.equal(p.detach(), master.to(torch.bfloat16))
         assert not torch.equal(master, p.detach().float())
+
+
+# ---------------------------------------------------------------------------
+# FusedSGD, FusedAdagrad, FusedNovoGrad against JAX
+# ---------------------------------------------------------------------------
+
+STEP_SHAPES = [(4, 3), (5,), (2, 2), (130,)]
+
+
+@pytest.fixture(params=["per_leaf", "per_leaf_pallas_forced"])
+def jax_layout(request):
+    """The JAX optimizer's per-leaf layout, with the Pallas switch as the
+    platform sets it or forced on."""
+    if request.param == "per_leaf_pallas_forced":
+        set_force_pallas(True)
+    yield request.param
+    set_force_pallas(None)
+
+
+def _run_three_steps(jcls, tcls, kw, layout, masters=False, state_keys=(),
+                     convert=None):
+    """Three steps on both sides with fresh gradients (the second skipped
+    by a noop flag); parameters compared after every step, the per-leaf
+    state at the end.  Returns the port's optimizer and model."""
+    dt = jnp.bfloat16 if masters else jnp.float32
+    init = _leaves(60, STEP_SHAPES)
+    if masters:
+        init = [np.asarray(jnp.asarray(a, dt), np.float32) for a in init]
+    jparams = {"a": jnp.asarray(init[0], dt),
+               "b": [jnp.asarray(x, dt) for x in init[1:]]}
+    jopt = jcls(bucketed=False, master_weights=masters, **kw)
+    jstate = jopt.init(jparams)
+    model = _Tiny(init[0], init[1:])
+    if masters:
+        model = model.to(torch.bfloat16)
+    opt = tcls(model.parameters(), master_weights=masters, **kw)
+    for step in range(3):
+        grads = _leaves(70 + step, STEP_SHAPES)
+        if masters:
+            grads = [np.asarray(jnp.asarray(g, dt), np.float32)
+                     for g in grads]
+        noop = int(step == 1)
+        jparams, jstate = jopt.step(
+            {"a": jnp.asarray(grads[0], dt),
+             "b": [jnp.asarray(g, dt) for g in grads[1:]]},
+            jparams, jstate, noop_flag=jnp.int32(noop))
+        for p, g in zip(model.parameters(), grads):
+            p.grad = torch.from_numpy(g).to(p.dtype)
+        opt.step(noop_flag=torch.tensor(noop, dtype=torch.int32))
+        want = [jparams["a"]] + jparams["b"]
+        for p, w in zip(model.parameters(), want):
+            if masters:   # bf16 on both sides: one ulp (the masters below)
+                np.testing.assert_allclose(
+                    p.detach().float().numpy(), np.asarray(w, np.float32),
+                    rtol=2.0 ** -7, atol=1e-30)
+            else:
+                np.testing.assert_allclose(p.detach().numpy(),
+                                           np.asarray(w), rtol=TOL, atol=TOL)
+    assert int(opt.param_groups[0]["step"]) == int(jstate["step"]) == 2
+    np_state = jax.tree_util.tree_map(np.asarray, jstate)
+    carried = convert(np_state, model)
+    assert carried["step"] == 2
+    for name, p in model.named_parameters():
+        for key in state_keys + (("master",) if masters else ()):
+            np.testing.assert_allclose(
+                opt.state[p][key].numpy(),
+                carried["state"][name][key].numpy(), rtol=TOL, atol=1e-8)
+        if masters:
+            assert torch.equal(p.detach(), opt.state[p]["master"].to(
+                torch.bfloat16))
+    return opt, model
+
+
+@pytest.mark.parametrize("masters", [False, True])
+@pytest.mark.parametrize("variant", ["momentum", "nesterov",
+                                     "wd_after_momentum", "no_momentum"])
+def test_fused_sgd_three_steps_match_jax(jax_layout, variant, masters):
+    """Momentum with dampening (zero on step 1, from the device step
+    count), Nesterov, decay after the momentum, and the momentum == 0
+    shortcut."""
+    kw = {"momentum": dict(lr=0.05, momentum=0.9, dampening=0.1,
+                           weight_decay=0.01),
+          "nesterov": dict(lr=0.05, momentum=0.9, nesterov=True,
+                           weight_decay=0.01),
+          "wd_after_momentum": dict(lr=0.05, momentum=0.8, dampening=0.2,
+                                    weight_decay=0.05,
+                                    wd_after_momentum=True),
+          "no_momentum": dict(lr=0.05, weight_decay=0.01)}[variant]
+    _run_three_steps(JFusedSGD, FusedSGD, kw, jax_layout, masters,
+                     ("momentum_buffer",), fused_sgd_state_from_jax)
+
+
+@pytest.mark.parametrize("masters", [False, True])
+@pytest.mark.parametrize("adagrad_w_mode", [False, True])
+def test_fused_adagrad_three_steps_match_jax(jax_layout, adagrad_w_mode,
+                                             masters):
+    kw = dict(lr=0.05, eps=1e-8, weight_decay=0.02,
+              adagrad_w_mode=adagrad_w_mode)
+    _run_three_steps(JFusedAdagrad, FusedAdagrad, kw, jax_layout, masters,
+                     ("sum",), fused_adagrad_state_from_jax)
+
+
+@pytest.mark.parametrize("masters", [False, True])
+@pytest.mark.parametrize("variant", ["default", "init_zero",
+                                     "no_bias_correction",
+                                     "no_grad_averaging",
+                                     "reg_inside_moment"])
+def test_fused_novograd_three_steps_match_jax(jax_layout, variant, masters):
+    """v per tensor from the per-tensor sums (kernel #17's plain version),
+    set to the first ||g||^2 unless ``init_zero`` and kept by the noop
+    step; the bias corrections folded into the learning rate."""
+    kw = dict(lr=0.05, betas=(0.9, 0.98), weight_decay=0.01)
+    kw.update({"default": {}, "init_zero": dict(init_zero=True),
+               "no_bias_correction": dict(bias_correction=False),
+               "no_grad_averaging": dict(grad_averaging=False),
+               "reg_inside_moment": dict(reg_inside_moment=True)}[variant])
+    opt, model = _run_three_steps(JFusedNovoGrad, FusedNovoGrad, kw,
+                                  jax_layout, masters,
+                                  ("exp_avg", "exp_avg_sq"),
+                                  fused_novograd_state_from_jax)
+    v = [opt.state[p]["exp_avg_sq"] for p in model.parameters()]
+    assert all(t.dim() == 0 and t.dtype == torch.float32 for t in v)
+
+
+@pytest.mark.parametrize("masters", [False, True])
+@pytest.mark.parametrize("cls,kw", [
+    (FusedSGD, dict(lr=0.05, momentum=0.9, dampening=0.1,
+                    weight_decay=0.01)),
+    (FusedAdagrad, dict(lr=0.05, weight_decay=0.02)),
+    (FusedNovoGrad, dict(lr=0.05, betas=(0.9, 0.98), weight_decay=0.01)),
+    (FusedNovoGrad, dict(lr=0.05, betas=(0.9, 0.98), init_zero=True)),
+    (FusedAdam, dict(lr=0.05, weight_decay=0.01)),
+    (FusedLAMB, dict(lr=0.05, weight_decay=0.01)),
+], ids=["sgd", "adagrad", "novograd", "novograd_init_zero", "adam", "lamb"])
+def test_a_restored_state_resumes_the_run(cls, kw, masters):
+    """Two steps, ``state_dict()``, ``load_state_dict`` into a fresh
+    optimizer over a copy of the model, two more steps: parameters and
+    state equal bit for bit those of four uninterrupted steps, the f32
+    state of bf16 parameters (masters, moments, NovoGrad's per-tensor v)
+    kept f32."""
+    init = _leaves(80, STEP_SHAPES)
+    grads = [_leaves(90 + s, STEP_SHAPES) for s in range(4)]
+
+    def model():
+        m = _Tiny(init[0], init[1:])
+        return m.to(torch.bfloat16) if masters else m
+
+    def steps(m, opt, gs):
+        for g in gs:
+            for p, a in zip(m.parameters(), g):
+                p.grad = torch.from_numpy(a).to(p.dtype)
+            opt.step()
+
+    whole = model()
+    whole_opt = cls(whole.parameters(), master_weights=masters, **kw)
+    steps(whole, whole_opt, grads)
+    first = model()
+    opt = cls(first.parameters(), master_weights=masters, **kw)
+    steps(first, opt, grads[:2])
+    saved = copy.deepcopy(opt.state_dict())
+    resumed = model()
+    resumed.load_state_dict(first.state_dict())
+    resumed_opt = cls(resumed.parameters(), master_weights=masters, **kw)
+    resumed_opt.load_state_dict(saved)
+    steps(resumed, resumed_opt, grads[2:])
+    assert int(resumed_opt.param_groups[0]["step"]) == 4
+    for p, q in zip(resumed.parameters(), whole.parameters()):
+        assert torch.equal(p, q)
+        got, want = resumed_opt.state[p], whole_opt.state[q]
+        assert sorted(got) == sorted(want)
+        for key in want:
+            assert got[key].dtype == want[key].dtype, key
+            assert torch.equal(got[key], want[key]), key
+
+
+def test_fused_sgd_adagrad_novograd_refuse_what_apex_refuses():
+    params = [nn.Parameter(torch.zeros(3))]
+    with pytest.raises(ValueError, match="Nesterov"):
+        FusedSGD(params, momentum=0.0, nesterov=True)
+    with pytest.raises(ValueError, match="Nesterov"):
+        FusedSGD(params, momentum=0.9, dampening=0.1, nesterov=True)
+    with pytest.raises(RuntimeError, match="AMSGrad"):
+        FusedNovoGrad(params, amsgrad=True)
+    with pytest.raises(RuntimeError, match="l2 norm"):
+        FusedNovoGrad(params, norm_type=1)
+    for cls in (FusedSGD, FusedAdagrad, FusedNovoGrad):
+        with pytest.raises(NotImplementedError, match="ZeRO"):
+            cls(params, bucketed=True)
+
+
+def test_fused_sgd_grad_scale_and_zero_grad():
+    """``grad_scale`` multiplies the gradient inside the update; apex's
+    FusedSGD keeps zeroed gradients (``set_grad_none=False``)."""
+    p1, p2 = nn.Parameter(torch.ones(4)), nn.Parameter(torch.ones(4))
+    o1 = FusedSGD([p1], lr=0.1, momentum=0.9)
+    o2 = FusedSGD([p2], lr=0.1, momentum=0.9)
+    p1.grad = torch.full((4,), 2.0)
+    p2.grad = torch.full((4,), 4.0)
+    o1.step()
+    o2.step(grad_scale=0.5)
+    assert torch.equal(p1, p2)
+    o1.zero_grad()
+    assert p1.grad is not None and not p1.grad.any()

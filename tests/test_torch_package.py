@@ -22,12 +22,17 @@ from apex_tpu_torch.ops.flash_attention import (flash_attention_decode,
 from apex_tpu_torch.ops.fused_ffn import ffn_dw, ffn_dx, ffn_fwd
 from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
 from apex_tpu_torch.ops.lm_head import lm_head_dw, lm_head_dx, lm_head_fwd
-from apex_tpu_torch.ops.multi_tensor import (multi_tensor_adam,
+from apex_tpu_torch.ops.multi_tensor import (multi_tensor_adagrad,
+                                             multi_tensor_adam,
+                                             multi_tensor_axpby_,
                                              multi_tensor_lamb_stage1,
                                              multi_tensor_lamb_stage2,
+                                             multi_tensor_novograd,
                                              multi_tensor_scale_,
+                                             multi_tensor_sgd,
                                              multi_tensor_sumsq)
-from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
+from apex_tpu_torch.optimizers import (FusedAdagrad, FusedAdam, FusedLAMB,
+                                       FusedNovoGrad, FusedSGD)
 from apex_tpu_torch.transformer.pipeline_parallel import (
     forward_backward_no_pipelining)
 
@@ -39,7 +44,8 @@ COUNTERS = (layer_norm_fwd, flash_fwd, flash_attention_decode,
             layer_norm_bwd, flash_attention_dq, flash_attention_dkv,
             multi_tensor_adam, multi_tensor_scale_, multi_tensor_sumsq,
             multi_tensor_lamb_stage1, multi_tensor_lamb_stage2, lm_head_fwd,
-            lm_head_dx, lm_head_dw, ffn_fwd, ffn_dx, ffn_dw)
+            lm_head_dx, lm_head_dw, ffn_fwd, ffn_dx, ffn_dw, multi_tensor_axpby_,
+            multi_tensor_sgd, multi_tensor_adagrad, multi_tensor_novograd)
 BERT_TINY = dict(vocab_size=64, hidden_size=64, num_layers=2,
                  num_attention_heads=4, max_seq_len=32, fused_lm_head=False)
 
@@ -170,6 +176,31 @@ def test_cpu_bert_o2_lamb_training_launches_no_kernel():
     assert [c.launches for c in COUNTERS] == [0] * len(COUNTERS)
 
 
+def test_cpu_resnet_training_launches_no_kernel():
+    """CPU ResNet steps under O1 and O2 with FusedSGD, FusedAdagrad and
+    FusedNovoGrad, and the functional axpby, take every wrapper's plain
+    version: no counter moves."""
+    from apex_tpu_torch.models import resnet26
+    from apex_tpu_torch.multi_tensor_apply import multi_tensor_axpby
+    for c in COUNTERS:
+        c.launches = 0
+    x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(0))
+    y = torch.tensor([1, 3])
+    for level, cls in (("O1", FusedSGD), ("O2", FusedAdagrad),
+                       ("O1", FusedNovoGrad)):
+        model = resnet26(device="cpu", width=8, num_classes=10,
+                         dtype=torch.bfloat16 if level == "O2"
+                         else torch.float32).init_params(
+            torch.Generator().manual_seed(0))
+        opt = cls(model.parameters(), lr=1e-2)
+        amp.initialize(model, opt, opt_level=level)
+        model.loss(x, y).backward()
+        opt.step()
+        grads = [p.grad for p in model.parameters()]
+        multi_tensor_axpby(0.5, grads, 0.5, grads)
+    assert [c.launches for c in COUNTERS] == [0] * len(COUNTERS)
+
+
 def test_cuda_wrappers_refuse_what_their_kernels_do_not_take():
     """Argument checks run before any launch, so they hold here too."""
     meta = torch.empty((2, 4, 8, 48), device="meta")
@@ -188,7 +219,9 @@ def test_cuda_wrappers_refuse_what_their_kernels_do_not_take():
                                     "multi_tensor_lamb_stage2",
                                     "lm_head_fwd", "lm_head_dx",
                                     "lm_head_dw", "ffn_fwd", "ffn_dx",
-                                    "ffn_dw"])
+                                    "ffn_dw", "multi_tensor_axpby_",
+                                    "multi_tensor_sgd", "multi_tensor_adagrad",
+                                    "multi_tensor_novograd"])
 def test_training_wrappers_refuse_non_cpu_tensors_they_cannot_launch(kernel):
     """A tensor that is not on the CPU never takes a plain version: the
     new wrappers run their checks and raise before any launch (here on
@@ -220,6 +253,15 @@ def test_training_wrappers_refuse_non_cpu_tensors_they_cannot_launch(kernel):
         "ffn_fwd": lambda: ffn_fwd(x, x.t(), rows.float()[:4], x),
         "ffn_dx": lambda: ffn_dx(x, x, x.t(), x),
         "ffn_dw": lambda: ffn_dw(x, x, x, x.t(), x),
+        "multi_tensor_axpby_": lambda: multi_tensor_axpby_([x], [x], [x],
+                                                           1.0, 2.0),
+        "multi_tensor_sgd": lambda: multi_tensor_sgd(
+            [x], [x], [x], None, torch.empty(5, device="meta")),
+        "multi_tensor_adagrad": lambda: multi_tensor_adagrad(
+            [x], [x], [x], None, torch.empty(4, device="meta")),
+        "multi_tensor_novograd": lambda: multi_tensor_novograd(
+            [x], [x], [x], None, torch.empty(1, device="meta"),
+            torch.empty(6, device="meta")),
     }
     with pytest.raises(ValueError, match="unsupported device|CUDA device"):
         calls[kernel]()
@@ -300,3 +342,101 @@ def test_configs_accept_fused_ffn_and_keep_jax_refusals():
         GPTConfig(**TINY, fused_ffn=True, n_experts=4)
     with pytest.raises(ValueError, match="weight_quant"):
         GPTConfig(**TINY, fused_ffn=True, weight_quant="int8")
+
+
+_TP_CASES = [
+    ("column", dict(gather_output=False)),
+    ("column", dict(gather_output=True)),
+    ("row", dict(input_is_parallel=True)),
+    ("column", dict(init_method="const")),
+    ("row", dict(init_method="const")),
+    ("column", dict(stride=2)),
+    ("column", dict(keep_master_weight_for_test=True)),
+    ("column", dict(skip_bias_add=True)),
+    ("row", dict(skip_bias_add=True)),
+    ("column", dict(no_async_tensor_model_parallel_allreduce=True)),
+    ("row", dict(gradient_accumulation_fusion=True)),
+    ("column", dict(axis_name=None)),
+    ("row", dict(seq_dim=1)),
+    ("column", dict(overlap_chunks=0)),
+    ("embedding", dict(init_method="const")),
+    ("embedding", dict(axis_name=None)),
+]
+
+
+@pytest.mark.parametrize("kind,kw", _TP_CASES,
+                         ids=[f"{k}-{list(kw)[0]}-{list(kw.values())[0]}"
+                              for k, kw in _TP_CASES])
+def test_tp_layers_take_the_reference_keywords_at_world_size_1(kind, kw):
+    """Each keyword of the JAX tensor-parallel layers builds the port's
+    layer (it raised ``TypeError``) and gives the JAX layer's output at
+    world size 1 (the JAX layer called serially, ``axis_name=None``):
+    ``skip_bias_add`` returns ``(x @ W.T, bias)`` unadded, ``init_method``
+    fills the weight (apex's in-place form in the port)."""
+    import jax
+    import jax.numpy as jnp
+    from apex_tpu.transformer.tensor_parallel import layers as jL
+    from apex_tpu_torch.transformer.tensor_parallel import layers as tL
+
+    jkw, tkw = dict(kw), dict(kw)
+    if kw.get("init_method") == "const":
+        jkw["init_method"] = lambda key, shape, dtype: jnp.full(shape, 0.25,
+                                                                dtype)
+        tkw["init_method"] = lambda w: torch.nn.init.constant_(w, 0.25)
+    jkw["axis_name"] = None
+    rng = np.random.RandomState(3)
+    if kind == "embedding":
+        jl = jL.VocabParallelEmbedding(16, 8, **jkw)
+        tl = tL.VocabParallelEmbedding(16, 8, device="cpu", **tkw)
+        params = jl.init_params(jax.random.PRNGKey(0))
+        tl.reset_parameters(torch.Generator().manual_seed(0))
+        ids = rng.randint(0, 16, (2, 5))
+        if kw.get("init_method"):
+            np.testing.assert_array_equal(tl.weight.detach().numpy(),
+                                          np.asarray(params["weight"]))
+        tl.weight.data.copy_(torch.from_numpy(np.array(params["weight"])))
+        np.testing.assert_allclose(
+            tl(torch.from_numpy(ids)).detach().numpy(),
+            np.asarray(jl(params, jnp.asarray(ids))), rtol=1e-6)
+        return
+    jcls, tcls = ((jL.ColumnParallelLinear, tL.ColumnParallelLinear)
+                  if kind == "column" else
+                  (jL.RowParallelLinear, tL.RowParallelLinear))
+    jl = jcls(8, 12, **jkw)
+    tl = tcls(8, 12, device="cpu", **tkw)
+    params = jl.init_params(jax.random.PRNGKey(0))
+    tl.reset_parameters(torch.Generator().manual_seed(0))
+    if kw.get("init_method"):
+        np.testing.assert_array_equal(tl.weight.detach().numpy(),
+                                      np.asarray(params["weight"]))
+    bias = rng.randn(12).astype(np.float32)
+    params = dict(params, bias=jnp.asarray(bias))
+    with torch.no_grad():
+        tl.weight.copy_(torch.from_numpy(np.array(params["weight"])))
+        tl.bias.copy_(torch.from_numpy(bias))
+    x = rng.randn(3, 8).astype(np.float32)
+    jy, jb = jl(params, jnp.asarray(x))
+    ty, tb = tl(torch.from_numpy(x))
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy),
+                               rtol=1e-6, atol=1e-6)
+    if kw.get("skip_bias_add"):
+        np.testing.assert_array_equal(tb.detach().numpy(), np.asarray(jb))
+    else:
+        assert tb is None and jb is None
+
+
+def test_tp_layers_keep_the_reference_refusals():
+    """apex's RuntimeErrors for keyword combinations, then the multi-GPU
+    refusal of sequence parallelism."""
+    from apex_tpu_torch.transformer.tensor_parallel import layers as tL
+    with pytest.raises(RuntimeError, match="gather_output"):
+        tL.ColumnParallelLinear(8, 8, sequence_parallel_enabled=True,
+                                device="cpu")
+    with pytest.raises(RuntimeError, match="input_is_parallel"):
+        tL.RowParallelLinear(8, 8, sequence_parallel_enabled=True,
+                             device="cpu")
+    with pytest.raises(RuntimeError, match="overlap_chunks"):
+        tL.RowParallelLinear(8, 8, overlap_chunks=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        tL.ColumnParallelLinear(8, 8, gather_output=False,
+                                sequence_parallel_enabled=True, device="cpu")
