@@ -38,9 +38,10 @@ SOURCES = ("layer_norm_fwd.cu", "layer_norm_bwd.cu", "flash_fwd.cu",
            "multi_tensor_axpby.cu", "multi_tensor_sgd.cu",
            "multi_tensor_adagrad.cu", "multi_tensor_novograd.cu",
            "lm_head_fwd.cu",
-           "lm_head_bwd.cu", "ffn_fwd.cu", "ffn_bwd.cu")
+           "lm_head_bwd.cu", "ffn_fwd.cu", "ffn_bwd.cu",
+           "flash_decode_paged.cu", "quant_gemm.cu")
 HEADERS = ("common.cuh", "multi_tensor.cuh", "mma.cuh", "lm_head.cuh",
-           "ffn.cuh")
+           "ffn.cuh", "decode.cuh")
 BUILD_DIR = _PKG.parent / "build" / "apex_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -80,6 +81,9 @@ _SIGNATURES = {
     "apex_ffn_fwd": [_P] * 8 + [_I] * 6 + [_P],
     "apex_ffn_dx": [_P] * 6 + [_I] * 6 + [_P],
     "apex_ffn_dw": [_P] * 7 + [_I] * 7 + [_P],
+    "apex_flash_decode_paged": [_P] * 6 + [_I] * 6 + [_L] * 10
+                               + [_F, _I, _P],
+    "apex_quant_gemm": [_P] * 4 + [_I] * 3 + [_L] + [_I] * 3 + [_P],
 }
 
 _lib = None

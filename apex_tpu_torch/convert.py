@@ -8,6 +8,10 @@ imports JAX) and returns a state dict for
 are the tree's paths joined by dots, so the mapping is a flatten; shapes
 are checked against the model the config describes.
 
+:func:`gpt_quant_params_from_jax` carries a tree that the JAX
+``quantize_decode_params`` quantized: int8 weights and their f32 scales
+bit for bit, for a model with ``weight_quant="int8"``.
+
 :func:`bert_params_from_jax` does the same for
 :class:`apex_tpu_torch.models.bert.BertModel`, and
 :func:`mlp_params_from_jax` / :func:`fused_dense_params_from_jax` for the
@@ -36,10 +40,12 @@ import numpy as np
 import torch
 
 from apex_tpu_torch.models.bert import BertConfig, BertModel
-from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+from apex_tpu_torch.models.gpt import (GPTConfig, GPTModel,
+                                       quantize_decode_params)
 from apex_tpu_torch.models.resnet import ResNet, ResNetConfig
 
-__all__ = ["gpt_params_from_jax", "bert_params_from_jax",
+__all__ = ["gpt_params_from_jax", "gpt_quant_params_from_jax",
+           "bert_params_from_jax",
            "mlp_params_from_jax", "fused_dense_params_from_jax",
            "resnet_params_from_jax", "resnet_layout",
            "fused_adam_state_from_jax",
@@ -88,6 +94,44 @@ def gpt_params_from_jax(tree, cfg: GPTConfig) -> dict:
     Load it with ``model.load_state_dict(sd)``.  Raises when the tree's
     names or shapes do not match the model."""
     return _params_from_jax(tree, GPTModel(cfg, device="meta"))
+
+
+def gpt_quant_params_from_jax(tree, cfg: GPTConfig) -> dict:
+    """State dict for a ``GPTModel(cfg)`` with ``cfg.weight_quant ==
+    "int8"`` from a JAX tree that ``apex_tpu.models.gpt.
+    quantize_decode_params`` quantized (numpy leaves): the int8 weights and
+    their f32 ``weight_scale`` rows are carried bit for bit, every other
+    leaf as :func:`gpt_params_from_jax` carries it.  Install it with
+    :meth:`GPTModel.load_quantized_`.  Raises when a name, shape or the
+    dtype of a quantized leaf does not match."""
+    if cfg.weight_quant != "int8":
+        raise ValueError("gpt_quant_params_from_jax needs "
+                         "GPTConfig(weight_quant='int8')")
+    expected = quantize_decode_params(GPTModel(cfg, device="meta")
+                                      .state_dict())
+    sd = {}
+    for name, leaf in _flatten(tree):
+        if name not in expected:
+            raise KeyError(f"JAX parameter {name!r} has no counterpart in "
+                           "apex_tpu_torch's quantized GPTModel")
+        want = expected[name]
+        arr = np.asarray(leaf)
+        if arr.shape != tuple(want.shape):
+            raise ValueError(f"{name}: JAX shape {arr.shape} != port shape "
+                             f"{tuple(want.shape)}")
+        if name.endswith(".weight_scale") or want.dtype == torch.int8:
+            exact = np.int8 if want.dtype == torch.int8 else np.float32
+            if arr.dtype != exact:
+                raise ValueError(f"{name}: JAX dtype {arr.dtype}, want "
+                                 f"{np.dtype(exact)}")
+            sd[name] = torch.from_numpy(arr.copy())
+        else:
+            sd[name] = torch.from_numpy(
+                np.asarray(arr, np.float32).copy()).to(want.dtype)
+    missing = sorted(set(expected) - set(sd))
+    if missing:
+        raise KeyError(f"JAX tree lacks {missing}")
+    return sd
 
 
 def bert_params_from_jax(tree, cfg: BertConfig) -> dict:

@@ -2,26 +2,15 @@
 // KV cache for Hopper.
 //
 // Replaces apex_tpu/ops/flash_attention.py `_decode_kernel` (launched by
-// `flash_attention_decode`).  What bounds it on the H100: bytes.  Each
-// (slot, head) reads cache_lens[b] keys and values once (64 bf16 each) and
-// does two multiply-adds per element read, about one operation per byte.
-// Design: one block of 4 warps per (slot, head); the warps stride over the
-// cache in 32-key chunks up to cache_lens[b] only (the counterpart of the
-// JAX kernel's `ki * block_k < len` block skip), so a short row reads only
-// its own keys.  Lane j scores key j in f32 against the query held in
-// shared memory; each warp keeps its own online-softmax state and f32
-// accumulator, and the four partial results are merged in shared memory at
-// the end.  The cache is read through its strides: the caller passes the
-// strided view `cache[:, layer, 0]` (slot stride layers*2*max_seq*h*d) and
-// nothing is copied.  Split-K across blocks (flash-decoding) and 16-byte
-// vector loads are later work.
+// `flash_attention_decode`).  The body (bound, design) is decode.cuh's,
+// shared with the paged kernel; here a position's address is a stride
+// step along the slot's row.  The cache is read through its strides: the
+// caller passes the strided view `cache[:, layer, 0]` (slot stride
+// layers*2*max_seq*h*d) and nothing is copied.
 
-#include "common.cuh"
+#include "decode.cuh"
 
 namespace apex_tpu_torch {
-
-constexpr int kDecodeThreads = 128;  // 4 warps
-constexpr int kDecodeWarps = kDecodeThreads / 32;
 
 struct DecodeStrides {
   int64_t q_b, q_h;
@@ -30,89 +19,28 @@ struct DecodeStrides {
   int64_t o_b, o_h;
 };
 
+// position pos of one (slot, head) row of the ring
+template <typename T>
+struct RingAddr {
+  const T* k;
+  const T* v;
+  int64_t k_s, v_s;
+  __device__ __forceinline__ const T* key(int pos) const { return k + pos * k_s; }
+  __device__ __forceinline__ const T* value(int pos) const { return v + pos * v_s; }
+};
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kDecodeThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     T* __restrict__ o, const int* __restrict__ cache_lens, int heads,
                     int max_seq, DecodeStrides st, float scale) {
-  constexpr int NC = (D + 31) / 32;
-  __shared__ float qs[D];
-  __shared__ float w_m[kDecodeWarps];
-  __shared__ float w_l[kDecodeWarps];
-  __shared__ float w_acc[kDecodeWarps][D];
-
   const int bi = blockIdx.x / heads;
   const int hi = blockIdx.x % heads;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   const int len = max(0, min(cache_lens[bi], max_seq));
-
-  for (int d = threadIdx.x; d < D; d += kDecodeThreads)
-    qs[d] = to_f32(q[bi * st.q_b + hi * st.q_h + d]);
-  __syncthreads();
-
-  const T* kb = k + bi * st.k_b + hi * st.k_h;
-  const T* vb = v + bi * st.v_b + hi * st.v_h;
-  float m = kMask;
-  float l = 0.f;
-  float acc[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) acc[c] = 0.f;
-
-  for (int c0 = warp * 32; c0 < len; c0 += kDecodeWarps * 32) {
-    const int pos = c0 + lane;
-    const bool valid = pos < len;
-    float s = kMask;
-    if (valid) {
-      const T* kr = kb + pos * st.k_s;
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dot += qs[d] * to_f32(kr[d]);
-      s = dot * scale;
-    }
-    const float m_new = fmaxf(warp_max(s), m);
-    const float alpha = expf(m - m_new);
-    const float p = valid ? expf(s - m_new) : 0.f;
-    l = alpha * l + warp_sum(p);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[c] *= alpha;
-    const int n = min(32, len - c0);  // warp-uniform
-    for (int j = 0; j < n; ++j) {
-      const float pj = __shfl_sync(kFullMask, p, j);
-      const T* vr = vb + (c0 + j) * st.v_s;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = lane + 32 * c;
-        if (col < D) acc[c] += pj * to_f32(vr[col]);
-      }
-    }
-    m = m_new;
-  }
-
-  if (lane == 0) {
-    w_m[warp] = m;
-    w_l[warp] = l;
-  }
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int col = lane + 32 * c;
-    if (col < D) w_acc[warp][col] = acc[c];
-  }
-  __syncthreads();
-
-  float m_all = kMask;
-#pragma unroll
-  for (int w = 0; w < kDecodeWarps; ++w) m_all = fmaxf(m_all, w_m[w]);
-  float l_all = 0.f;
-#pragma unroll
-  for (int w = 0; w < kDecodeWarps; ++w) l_all += w_l[w] * expf(w_m[w] - m_all);
-  const float l_safe = l_all == 0.f ? 1.f : l_all;
-  for (int d = threadIdx.x; d < D; d += kDecodeThreads) {
-    float od = 0.f;
-#pragma unroll
-    for (int w = 0; w < kDecodeWarps; ++w) od += w_acc[w][d] * expf(w_m[w] - m_all);
-    o[bi * st.o_b + hi * st.o_h + d] = from_f32<T>(od / l_safe);
-  }
+  const RingAddr<T> addr{k + bi * st.k_b + hi * st.k_h, v + bi * st.v_b + hi * st.v_h, st.k_s,
+                         st.v_s};
+  decode_attend<T, D>(q + bi * st.q_b + hi * st.q_h, o + bi * st.o_b + hi * st.o_h, len, addr,
+                      scale);
 }
 
 template <typename T, int D>

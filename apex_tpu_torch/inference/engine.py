@@ -20,8 +20,17 @@ finishes with ``reason="error"`` and frees its slot instead of raising out
 of ``step()``.  A failed kernel launch inside a prefill lands there too,
 so a caller that must not tolerate it checks for ``"error"`` responses.
 
-Deadline/timeout eviction, ``preempt``, ``adopt``, ``export_inflight``,
-the injected-fault hooks and the request tracer wait for later slices.
+``preempt`` requeues every in-flight request with its progress stashed:
+the next admission re-prefills ``prompt + generated`` and resumes the
+request's sampling stream at the token index it stopped at.  The storage
+is a backend behind three hooks (``_init_backend``, ``_release``,
+``_cache_advance``): the slot ring here, the paged block pool in
+:class:`apex_tpu_torch.serving.PagedInferenceEngine`.  With
+``cfg.weight_quant == "int8"`` the engine quantizes the model's weights in
+place at init (once; a model already quantized is left as it is).
+
+Deadline/timeout eviction, ``adopt``, ``export_inflight``, the
+injected-fault hooks and the request tracer wait for later slices.
 """
 
 from __future__ import annotations
@@ -74,6 +83,7 @@ class Response:
 @dataclasses.dataclass
 class _Active:
     request: Request
+    prompt_len: int
     next_token: int        # fed to the next decode step
     position: int          # absolute position next_token is written at
     generated: List[int] = dataclasses.field(default_factory=list)
@@ -84,7 +94,8 @@ class InferenceEngine:
 
     ``model`` is an :class:`apex_tpu_torch.models.gpt.GPTModel` on
     ``device`` (default ``"cuda"``; raises when CUDA is absent, and when
-    the model lives on another device type).
+    the model lives on another device type).  ``weight_bytes`` is the
+    device memory of the model's weights as served.
     """
 
     def __init__(self, model, *, max_slots: int = 8,
@@ -100,6 +111,11 @@ class InferenceEngine:
                              f"model on {model_device}")
         cfg = model.cfg
         self.model = model
+        if cfg.weight_quant == "int8" and not model.quantized:
+            from apex_tpu_torch.models.gpt import quantize_decode_params
+            model.load_quantized_(quantize_decode_params(model.state_dict()))
+        self.weight_bytes = sum(t.numel() * t.element_size()
+                                for t in model.state_dict().values())
         self.clock = clock
         self.metrics = metrics or ServingMetrics(clock)
         self._min_bucket = min_prompt_bucket
@@ -109,10 +125,19 @@ class InferenceEngine:
         self._queue: collections.deque = collections.deque()
         self._active: dict = {}          # slot -> _Active
         self._submit_time: dict = {}     # request_id -> submit clock value
+        self._progress: dict = {}        # request_id -> tokens generated
+                                         # before a preemption requeue
         self._done: List[Response] = []
-        self.cache = KVCache(max_slots, cfg.num_layers,
-                             max_seq or cfg.max_seq_len, cfg.local_heads,
-                             cfg.head_dim, cache_dtype or cfg.dtype,
+        self._init_backend(max_slots, max_seq or cfg.max_seq_len,
+                           cache_dtype or cfg.dtype)
+
+    def _init_backend(self, max_slots: int, max_seq: int,
+                      cache_dtype) -> None:
+        """Backend hook: build the KV store (the contiguous slot ring here;
+        the paged engine overrides it with the block pool)."""
+        cfg = self.model.cfg
+        self.cache = KVCache(max_slots, cfg.num_layers, max_seq,
+                             cfg.local_heads, cfg.head_dim, cache_dtype,
                              device=self.device)
         self.max_seq = self.cache.max_seq
 
@@ -158,6 +183,10 @@ class InferenceEngine:
     def queue_depth(self) -> int:
         return len(self._queue)
 
+    @property
+    def active_requests(self) -> int:
+        return len(self._active)
+
     def _bucket(self, n: int) -> int:
         b = self._min_bucket
         while b < n:
@@ -170,9 +199,13 @@ class InferenceEngine:
         gen = stream_generator(req.seed, token_index)
         return int(sample(torch.from_numpy(logits_row), req.sampling, gen))
 
+    def _release(self, slot: int, st: Optional[_Active]) -> None:
+        """Backend hook: return ``slot``'s KV storage."""
+        self.cache.free(slot)
+
     def _finish(self, slot: int, st: _Active, reason: str,
                 error: Optional[str] = None) -> None:
-        self.cache.free(slot)
+        self._release(slot, st)
         del self._active[slot]
         # ticks = decode steps that produced a token (the first token
         # comes from the prefill)
@@ -183,6 +216,7 @@ class InferenceEngine:
     def _finish_response(self, req: Request, generated: List[int],
                          reason: str, error: Optional[str] = None) -> None:
         self._submit_time.pop(req.request_id, None)
+        self._progress.pop(req.request_id, None)
         if reason == "error":
             self.metrics.request_error(req.request_id)
         else:
@@ -202,12 +236,42 @@ class InferenceEngine:
             return False
         return True
 
+    def preempt(self) -> int:
+        """Requeue every in-flight request instead of dropping it: each
+        slot is freed, its generated tokens stashed, and the request goes
+        back to the FRONT of the queue (lowest slot first); the next
+        admission re-prefills ``prompt + generated`` and resumes the
+        sampling stream at the token index it stopped at, so greedy and
+        seeded outputs are unchanged by the interruption.  A request whose
+        context no longer fits finishes with ``reason="preempted"``.
+        Returns the number requeued."""
+        requeued = 0
+        for slot in sorted(self._active, reverse=True):
+            requeued += self._preempt_slot(slot)
+        return requeued
+
+    def _preempt_slot(self, slot: int) -> int:
+        """Requeue one in-flight request (the paged engine also calls it to
+        reclaim blocks under pool pressure).  Returns 1 when requeued, 0
+        when the request had to finish instead."""
+        st = self._active[slot]
+        req = st.request
+        if len(req.prompt) + len(st.generated) >= self.max_seq:
+            self._finish(slot, st, "preempted")
+            return 0
+        self._release(slot, st)
+        del self._active[slot]
+        self._progress[req.request_id] = list(st.generated)
+        self.metrics.request_requeued(req.request_id)
+        self._queue.appendleft(req)
+        return 1
+
     def cancel(self, request_id) -> bool:
         """Withdraw one request with NO Response: frees its slot or queue
         entry.  Returns False when the id is not on this engine."""
         for slot, st in list(self._active.items()):
             if st.request.request_id == request_id:
-                self.cache.free(slot)
+                self._release(slot, st)
                 del self._active[slot]
                 break
         else:
@@ -217,32 +281,52 @@ class InferenceEngine:
                 return False
             self._queue.remove(hit)
         self._submit_time.pop(request_id, None)
+        self._progress.pop(request_id, None)
         self.metrics.request_cancelled(request_id)
         return True
+
+    def _admitted(self, req: Request, resumed: bool) -> None:
+        """Metrics of an admission: the queue wait of a first admission."""
+        if not resumed:
+            self.metrics.request_admitted(
+                req.request_id,
+                self.clock() - self._submit_time[req.request_id])
+
+    def _first_token(self, req: Request, resumed: bool) -> None:
+        """Metrics of the token a prefill samples: a resumed request's
+        TTFT already happened, its token joins the throughput series."""
+        if resumed:
+            self.metrics.token(req.request_id)
+        else:
+            self.metrics.first_token(req.request_id)
+
+    def _prefill_context(self, ctx: List[int]):
+        """One prefill of ``ctx`` padded to its bucket: ``(logits, kv)``."""
+        toks = np.zeros((1, self._bucket(len(ctx))), np.int64)
+        toks[0, :len(ctx)] = ctx
+        return self.model.prefill(torch.from_numpy(toks).to(self.device))
 
     def _admit(self) -> None:
         while self._queue and self.cache.free_slots:
             req = self._queue.popleft()
             slot = self.cache.allocate()
-            self.metrics.request_admitted(
-                req.request_id,
-                self.clock() - self._submit_time[req.request_id])
+            prev = self._progress.pop(req.request_id, None)
+            self._admitted(req, prev is not None)
             try:
-                plen = len(req.prompt)
-                toks = np.zeros((1, self._bucket(plen)), np.int64)
-                toks[0, :plen] = req.prompt
-                logits, kv = self.model.prefill(
-                    torch.from_numpy(toks).to(self.device))
-                self.cache.write_prompt(slot, kv[:, :, 0], plen)
-                nxt = self._sample(req, logits[0, plen - 1].cpu().numpy(), 0)
+                ctx = list(req.prompt) + (prev or [])
+                clen = len(ctx)
+                logits, kv = self._prefill_context(ctx)
+                self.cache.write_prompt(slot, kv[:, :, 0], clen)
+                nxt = self._sample(req, logits[0, clen - 1].cpu().numpy(),
+                                   len(prev or []))
             except Exception as e:          # quarantine: free the slot,
                 self.cache.free(slot)       # fail ONE request, keep going
-                self._finish_response(req, [], "error",
+                self._finish_response(req, list(prev or []), "error",
                                       error=f"{type(e).__name__}: {e}")
                 continue
-            self.metrics.first_token(req.request_id)
-            st = _Active(req, next_token=nxt, position=plen,
-                         generated=[nxt])
+            self._first_token(req, prev is not None)
+            st = _Active(req, len(req.prompt), next_token=nxt, position=clen,
+                         generated=(prev or []) + [nxt])
             self._active[slot] = st
             self._maybe_finish(slot, st)
 
@@ -267,12 +351,16 @@ class InferenceEngine:
         self._advance_slots(sorted(self._active), logits.cpu().numpy())
         return bool(self._active or self._queue)
 
+    def _cache_advance(self, slot: int, st: _Active) -> None:
+        """Backend hook: record that the fed token's K/V is cached."""
+        self.cache.advance(slot)
+
     def _advance_slots(self, slots: Sequence[int], logits_np) -> None:
         """Sample each row at its stream index, append, and run the
         completion checks."""
         for slot in slots:
             st = self._active[slot]
-            self.cache.advance(slot)           # the fed token is cached now
+            self._cache_advance(slot, st)      # the fed token is cached now
             try:
                 tok = self._sample(st.request, logits_np[slot],
                                    len(st.generated))

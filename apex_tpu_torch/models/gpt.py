@@ -20,6 +20,19 @@ kernels of :mod:`apex_tpu_torch.ops.lm_head` on compute-dtype operands), or
 with ``fused_lm_head=False`` the f32 head GEMM and the vocab-parallel cross
 entropy at world size 1.  Serving's logits are the f32 head GEMM.
 
+The decode methods come in two cache layouts: the contiguous slot ring of
+:class:`apex_tpu_torch.inference.KVCache` (:meth:`GPTModel.decode_step`,
+the single-query decode kernel) and the paged block pool of
+:class:`apex_tpu_torch.serving.PagedKVCache` (:meth:`GPTModel.
+decode_step_paged`, the paged decode kernel; :meth:`GPTModel.decode_chunk`
+for chunked prefill and speculative verification), plus the int8 pool's
+``*_quant`` variants, whose attention is plain PyTorch as in JAX.  Pools
+and rings are updated in place.  With ``weight_quant="int8"`` the serving
+engines quantize the weights once (:func:`quantize_decode_params`,
+:meth:`GPTModel.load_quantized_`): every qkv / proj / fc1 / fc2 GEMM and
+the tied head then run the int8 dequant-GEMM kernel of
+:mod:`apex_tpu_torch.ops.quant_gemm`, and training refuses the model.
+
 Parameter names mirror the JAX parameter tree (``layers.3.attention.qkv.
 weight`` is ``params["layers"][3]["attention"]["qkv"]["weight"]``), which
 is what :func:`apex_tpu_torch.convert.gpt_params_from_jax` relies on.
@@ -28,6 +41,7 @@ is what :func:`apex_tpu_torch.convert.gpt_params_from_jax` relies on.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Optional
 
 import torch
@@ -35,22 +49,25 @@ from torch import nn
 import torch.nn.functional as F
 
 from apex_tpu_torch.normalization import MixedFusedLayerNorm
-from apex_tpu_torch.ops.flash_attention import (flash_attention,
-                                                flash_attention_decode)
+from apex_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_chunk_paged, flash_attention_decode,
+    flash_attention_decode_paged, flash_attention_decode_paged_quant,
+    quantize_kv_blocks)
 from apex_tpu_torch.ops.fused_ffn import fused_ffn
 from apex_tpu_torch.ops.lm_head import fused_linear_cross_entropy
+from apex_tpu_torch.ops.quant_gemm import quant_gemm, quantize_weight
 from apex_tpu_torch.ops.rope import (fused_apply_rotary_pos_emb_at_positions,
                                      fused_apply_rotary_pos_emb_cached,
                                      rope_freqs)
 from apex_tpu_torch.transformer import tensor_parallel as tp
-from apex_tpu_torch.transformer.tensor_parallel.layers import INIT_STD
+from apex_tpu_torch.transformer.tensor_parallel.layers import (
+    INIT_STD, install_int8_weight)
 from apex_tpu_torch.utils.device import resolve_device
 
 _f32 = torch.float32
 
 REMAT_SLICE = "a later training slice (activation recompute)"
 MULTI_GPU_SLICE = "the multi-GPU slice"
-QUANT_SERVING_SLICE = "the paged/quantized serving slice"
 
 # layer i's attention-dropout stream is seeded dropout_seed + i * stride
 # (modulo 2**32), as in the JAX model: a caller advancing the base seed by
@@ -117,6 +134,15 @@ class GPTConfig:
                 "fused_ffn fuses the dense ParallelMLP pair; with "
                 "n_experts > 0 every FFN slot is a MoEFFN and the knob "
                 "would be silently dead — enable one or the other")
+        if self.weight_quant not in (None, "int8"):
+            raise ValueError(f"weight_quant must be None or 'int8', got "
+                             f"{self.weight_quant!r}")
+        if self.weight_quant is not None and self.n_experts > 0:
+            raise ValueError(
+                "weight_quant covers the dense qkv/proj/fc1/fc2/lm-head "
+                "GEMMs; MoE expert stacks (n_experts > 0) keep their own "
+                "3D weight layout that quantize_decode_params does not "
+                "produce — disable one or the other")
         if self.weight_quant is not None and self.fused_ffn:
             raise ValueError(
                 "weight_quant routes the FFN through the int8 "
@@ -128,8 +154,6 @@ class GPTConfig:
         unsupported = [
             (self.remat, "remat", REMAT_SLICE),
             (self.remat_policy != "full", "remat_policy", REMAT_SLICE),
-            (self.weight_quant is not None, "weight_quant",
-             QUANT_SERVING_SLICE),
             (self.plan is not None, "plan", MULTI_GPU_SLICE),
             (self.n_experts > 0, "n_experts > 0", MULTI_GPU_SLICE),
             (self.moe_top_k != 1, "moe_top_k", MULTI_GPU_SLICE),
@@ -245,6 +269,124 @@ class ParallelAttention(nn.Module):
         out, _ = self.proj(ctx.reshape(b, 1, q.shape[1] * self.cfg.head_dim))
         return out, cache
 
+    def _qkv_at(self, x, positions, rope_cos, rope_sin):
+        """``(q, k, v)`` of ``x`` ``(b, c, hidden)``, each ``(b, c,
+        local_heads, head_dim)``, with RoPE at ``positions`` ``(b, c)``."""
+        b, c = x.shape[:2]
+        q, k, v = self._qkv(x)
+        if rope_cos is not None:
+            nh, hd = q.shape[2], self.cfg.head_dim
+            flat = positions.reshape(-1)
+            q = fused_apply_rotary_pos_emb_at_positions(
+                q.reshape(b * c, nh, hd), rope_cos, rope_sin, flat
+            ).reshape(b, c, nh, hd)
+            k = fused_apply_rotary_pos_emb_at_positions(
+                k.reshape(b * c, nh, hd), rope_cos, rope_sin, flat
+            ).reshape(b, c, nh, hd)
+        return q, k, v
+
+    def decode_paged(self, x, pool, layer_index, block_tables, positions,
+                     rope_cos=None, rope_sin=None):
+        """One-token decode against a paged block pool: :meth:`decode` with
+        the cache write and read indirected through ``block_tables``
+        ``(b, max_blocks)``; ``pool``: ``(num_blocks, layers, 2,
+        block_size, local_heads, head_dim)``, written IN PLACE.  Returns
+        ``(out (b, 1, hidden), pool)``."""
+        b = x.shape[0]
+        bs = pool.shape[3]
+        q, k, v = self._qkv_at(x, positions[:, None], rope_cos, rope_sin)
+        q, k, v = q[:, 0], k[:, 0], v[:, 0]       # (b, nh, hd)
+        rows = torch.arange(b, device=x.device)
+        bids = block_tables[rows, positions // bs]
+        offs = positions % bs
+        pool[bids, layer_index, 0, offs] = k.to(pool.dtype)
+        pool[bids, layer_index, 1, offs] = v.to(pool.dtype)
+        ctx = flash_attention_decode_paged(
+            q, pool[:, layer_index, 0], pool[:, layer_index, 1],
+            block_tables, positions + 1)
+        out, _ = self.proj(ctx.reshape(b, 1, q.shape[1] * self.cfg.head_dim))
+        return out, pool
+
+    def decode_chunk(self, x, pool, layer_index, block_tables, positions,
+                     write_blocks, write_offsets, rope_cos=None,
+                     rope_sin=None):
+        """Multi-token decode against the pool (chunked prefill /
+        speculative verify): ``x`` ``(b, chunk, hidden)``; ``positions``,
+        ``write_blocks``, ``write_offsets`` ``(b, chunk)``, the latter two
+        the host's pool coordinates of each token's K/V (pad rows point at
+        the garbage block 0).  Attends causally over the cached context up
+        to each query's position."""
+        b, c = x.shape[:2]
+        q, k, v = self._qkv_at(x, positions, rope_cos, rope_sin)
+        nh = q.shape[2]
+        pool[write_blocks, layer_index, 0, write_offsets] = k.to(pool.dtype)
+        pool[write_blocks, layer_index, 1, write_offsets] = v.to(pool.dtype)
+        ctx = flash_attention_chunk_paged(
+            q.transpose(1, 2), pool[:, layer_index, 0],
+            pool[:, layer_index, 1], block_tables, positions)
+        ctx = ctx.transpose(1, 2).reshape(b, c, nh * self.cfg.head_dim)
+        out, _ = self.proj(ctx)
+        return out, pool
+
+    @staticmethod
+    def _quant_insert(pool, scales, layer_index, bids, offs, k, v):
+        """Write one token's K/V per row into an int8 pool: dequantize each
+        row's target block, insert, and requantize the WHOLE block, in
+        place.  Deterministic because quantized blocks are zeroed on
+        allocation and a write target is never shared."""
+        rows = torch.arange(bids.shape[0], device=bids.device)
+        blk = pool[bids, layer_index]             # (b, 2, bs, nh, hd) int8
+        sc = scales[bids, layer_index]            # (b, 2, nh) f32
+        deq = blk.to(_f32) * sc[..., None, :, None]
+        deq[rows, 0, offs] = k.to(_f32)
+        deq[rows, 1, offs] = v.to(_f32)
+        q8, new_sc = quantize_kv_blocks(deq)
+        pool[bids, layer_index] = q8
+        scales[bids, layer_index] = new_sc
+
+    def decode_paged_quant(self, x, pool, scales, layer_index, block_tables,
+                           positions, rope_cos=None, rope_sin=None):
+        """:meth:`decode_paged` against an int8 scale-per-block pool
+        (``scales``: ``(num_blocks, layers, 2, local_heads)`` f32): the
+        written block is dequantized, updated and requantized; attention
+        dequantizes the gathered blocks into its f32 scores.  Returns
+        ``(out, pool, scales)``."""
+        b = x.shape[0]
+        bs = pool.shape[3]
+        q, k, v = self._qkv_at(x, positions[:, None], rope_cos, rope_sin)
+        q, k, v = q[:, 0], k[:, 0], v[:, 0]
+        bids = block_tables[torch.arange(b, device=x.device), positions // bs]
+        self._quant_insert(pool, scales, layer_index, bids, positions % bs,
+                           k, v)
+        ctx = flash_attention_decode_paged_quant(
+            q, pool[:, layer_index, 0], pool[:, layer_index, 1],
+            scales[:, layer_index, 0], scales[:, layer_index, 1],
+            block_tables, positions + 1)
+        out, _ = self.proj(ctx.reshape(b, 1, q.shape[1] * self.cfg.head_dim))
+        return out, pool, scales
+
+    def decode_chunk_quant(self, x, pool, scales, layer_index, block_tables,
+                           positions, write_blocks, write_offsets,
+                           rope_cos=None, rope_sin=None):
+        """:meth:`decode_chunk` against an int8 pool.  The chunk's tokens
+        are inserted (their block requantized) one at a time, each
+        attending right after its own insertion, under one shared QKV
+        projection: the pool state is then a fold over per-token ops,
+        independent of how the scheduler sliced the prompt."""
+        b, c = x.shape[:2]
+        q, k, v = self._qkv_at(x, positions, rope_cos, rope_sin)
+        ctx = []
+        for j in range(c):
+            self._quant_insert(pool, scales, layer_index, write_blocks[:, j],
+                               write_offsets[:, j], k[:, j], v[:, j])
+            ctx.append(flash_attention_decode_paged_quant(
+                q[:, j], pool[:, layer_index, 0], pool[:, layer_index, 1],
+                scales[:, layer_index, 0], scales[:, layer_index, 1],
+                block_tables, positions[:, j] + 1))
+        ctx = torch.stack(ctx, dim=1)             # (b, c, nh, hd)
+        out, _ = self.proj(ctx.reshape(b, c, -1))
+        return out, pool, scales
+
 
 class ParallelMLP(nn.Module):
     """Column → tanh-GELU → Row block (apex ParallelMLP): unfused, or with
@@ -294,13 +436,43 @@ class ParallelTransformerLayer(nn.Module):
         x = x + attn
         return x + self.mlp(self.post_attention_layernorm(x)), kv
 
+    def _around(self, x, attend):
+        """The block's residual / LN / MLP wiring around ``attend(ln(x))``,
+        which returns ``(attn, *cache_state)``."""
+        attn, *state = attend(self.input_layernorm(x))
+        x = x + attn
+        return (x + self.mlp(self.post_attention_layernorm(x)), *state)
+
     def decode(self, x, cache, layer_index, positions, rope_cos=None,
                rope_sin=None):
-        attn, cache = self.attention.decode(
-            self.input_layernorm(x), cache, layer_index, positions, rope_cos,
-            rope_sin)
-        x = x + attn
-        return x + self.mlp(self.post_attention_layernorm(x)), cache
+        return self._around(x, lambda h: self.attention.decode(
+            h, cache, layer_index, positions, rope_cos, rope_sin))
+
+    def decode_paged(self, x, pool, layer_index, block_tables, positions,
+                     rope_cos=None, rope_sin=None):
+        return self._around(x, lambda h: self.attention.decode_paged(
+            h, pool, layer_index, block_tables, positions, rope_cos,
+            rope_sin))
+
+    def decode_chunk(self, x, pool, layer_index, block_tables, positions,
+                     write_blocks, write_offsets, rope_cos=None,
+                     rope_sin=None):
+        return self._around(x, lambda h: self.attention.decode_chunk(
+            h, pool, layer_index, block_tables, positions, write_blocks,
+            write_offsets, rope_cos, rope_sin))
+
+    def decode_paged_quant(self, x, pool, scales, layer_index, block_tables,
+                           positions, rope_cos=None, rope_sin=None):
+        return self._around(x, lambda h: self.attention.decode_paged_quant(
+            h, pool, scales, layer_index, block_tables, positions, rope_cos,
+            rope_sin))
+
+    def decode_chunk_quant(self, x, pool, scales, layer_index, block_tables,
+                           positions, write_blocks, write_offsets,
+                           rope_cos=None, rope_sin=None):
+        return self._around(x, lambda h: self.attention.decode_chunk_quant(
+            h, pool, scales, layer_index, block_tables, positions,
+            write_blocks, write_offsets, rope_cos, rope_sin))
 
 
 class GPTModel(nn.Module):
@@ -378,8 +550,12 @@ class GPTModel(nn.Module):
         return x.to(self.cfg.dtype)
 
     def _head_logits(self, x):
-        """Tied-embedding head GEMM in full f32."""
-        return torch.matmul(x.to(_f32), self.embedding.weight.to(_f32).t())
+        """Tied-embedding head GEMM in full f32; on an int8 embedding the
+        dequant-GEMM on f32 ``x``."""
+        emb = self.embedding
+        if emb.weight_scale is not None:
+            return quant_gemm(x.to(_f32), emb.weight, emb.weight_scale)
+        return torch.matmul(x.to(_f32), emb.weight.to(_f32).t())
 
     def logits(self, x):
         """Final LN + tied head: ``(b, s, vocab)`` f32."""
@@ -412,6 +588,12 @@ class GPTModel(nn.Module):
         card with ``fused_lm_head=False``.  Else the f32 head GEMM, then
         :func:`~apex_tpu_torch.transformer.tensor_parallel.
         vocab_parallel_cross_entropy`."""
+        if self.cfg.weight_quant is not None:
+            raise ValueError(
+                f"weight_quant={self.cfg.weight_quant!r} is a decode/prefill-"
+                "only knob: the loss builds gradients, and int8 weights "
+                "have none — train with weight_quant=None and let the "
+                "inference engine quantize at init (quantize_decode_params)")
         b, s = targets.shape
         if self.cfg.fused_lm_head:
             h = self.final_layernorm(x)
@@ -467,15 +649,155 @@ class GPTModel(nn.Module):
         ``(logits (slots, vocab) f32, cache)``.  Inactive slots compute
         garbage that is never read.
         """
-        x = self.embedding(tokens[:, None])
-        if not self.cfg.rotary:
-            x = x + self.position_embedding[positions][:, None]
-        x = x.to(self.cfg.dtype)
+        x = self._embed_at(tokens[:, None], positions[:, None])
         cos, sin = self.rope_tables(cache.shape[3])
         for li, layer in enumerate(self.layers):
             x, cache = layer.decode(x, cache, li, positions, cos, sin)
         x = self.final_layernorm(x)
         return self._head_logits(x[:, 0]), cache
+
+    def _embed_at(self, tokens, positions):
+        """Embedded ``tokens`` ``(b, c)`` at absolute ``positions`` ``(b,
+        c)``, in the compute dtype."""
+        x = self.embedding(tokens)
+        if not self.cfg.rotary:
+            x = x + self.position_embedding[positions]
+        return x.to(self.cfg.dtype)
+
+    def _pool_rope(self, block_tables, pool):
+        """RoPE tables at the pool's logical depth ``max_blocks *
+        block_size``; their rows are those of any other depth, so paged and
+        contiguous decode rotate identically."""
+        return self.rope_tables(block_tables.shape[1] * pool.shape[3])
+
+    @torch.no_grad()
+    def decode_step_paged(self, tokens, pool, block_tables, positions):
+        """One batched decode step against a paged block pool.
+
+        :meth:`decode_step` op for op (same embed, RoPE rows and f32 head)
+        with the cache access indirected through ``block_tables`` ``(slots,
+        max_blocks)`` int32 (see :class:`apex_tpu_torch.serving.
+        PagedKVCache`); ``pool`` is updated in place.  Rows whose table is
+        all garbage (block 0) compute garbage that is never read.  Returns
+        ``(logits (slots, vocab) f32, pool)``.
+        """
+        x = self._embed_at(tokens[:, None], positions[:, None])
+        cos, sin = self._pool_rope(block_tables, pool)
+        for li, layer in enumerate(self.layers):
+            x, pool = layer.decode_paged(x, pool, li, block_tables,
+                                         positions, cos, sin)
+        x = self.final_layernorm(x)
+        return self._head_logits(x[:, 0]), pool
+
+    @torch.no_grad()
+    def decode_chunk(self, tokens, pool, block_tables, positions,
+                     write_blocks, write_offsets):
+        """``chunk`` tokens per sequence against the paged pool in one
+        forward: chunked prefill and speculative verification.
+
+        ``tokens`` / ``positions`` / ``write_blocks`` / ``write_offsets``:
+        ``(slots, chunk)``.  Returns ``(logits (slots, chunk, vocab),
+        pool)`` through the same head as :meth:`prefill`.
+        """
+        x = self._embed_at(tokens, positions)
+        cos, sin = self._pool_rope(block_tables, pool)
+        for li, layer in enumerate(self.layers):
+            x, pool = layer.decode_chunk(x, pool, li, block_tables,
+                                         positions, write_blocks,
+                                         write_offsets, cos, sin)
+        return self.logits(x), pool
+
+    @torch.no_grad()
+    def decode_step_paged_quant(self, tokens, pool, scales, block_tables,
+                                positions):
+        """:meth:`decode_step_paged` against an int8 scale-per-block pool
+        (``pool`` int8, ``scales`` ``(num_blocks, layers, 2, local_heads)``
+        f32; see :class:`apex_tpu_torch.serving.QuantizedPagedKVCache`).
+        Returns ``(logits, pool, scales)``."""
+        x = self._embed_at(tokens[:, None], positions[:, None])
+        cos, sin = self._pool_rope(block_tables, pool)
+        for li, layer in enumerate(self.layers):
+            x, pool, scales = layer.decode_paged_quant(
+                x, pool, scales, li, block_tables, positions, cos, sin)
+        x = self.final_layernorm(x)
+        return self._head_logits(x[:, 0]), pool, scales
+
+    @torch.no_grad()
+    def decode_chunk_quant(self, tokens, pool, scales, block_tables,
+                           positions, write_blocks, write_offsets):
+        """:meth:`decode_chunk` against an int8 pool, each layer inserting
+        the chunk's tokens one at a time (see
+        :meth:`ParallelAttention.decode_chunk_quant`).  Returns ``(logits,
+        pool, scales)``."""
+        x = self._embed_at(tokens, positions)
+        cos, sin = self._pool_rope(block_tables, pool)
+        for li, layer in enumerate(self.layers):
+            x, pool, scales = layer.decode_chunk_quant(
+                x, pool, scales, li, block_tables, positions, write_blocks,
+                write_offsets, cos, sin)
+        return self.logits(x), pool, scales
+
+    # -- int8 decode weights -------------------------------------------------
+
+    def _quant_modules(self):
+        """``(state-dict prefix, module)`` of every layer whose weight
+        ``weight_quant="int8"`` quantizes."""
+        yield "embedding", self.embedding
+        for i, layer in enumerate(self.layers):
+            for name in ("attention.qkv", "attention.proj", "mlp.fc1",
+                         "mlp.fc2"):
+                yield f"layers.{i}.{name}", layer.get_submodule(name)
+
+    @property
+    def quantized(self) -> bool:
+        """True once :meth:`load_quantized_` installed int8 weights."""
+        return self.embedding.weight_scale is not None
+
+    def load_quantized_(self, state_dict) -> "GPTModel":
+        """Install an int8 state dict (:func:`quantize_decode_params` of
+        this model's, or :func:`apex_tpu_torch.convert.
+        gpt_quant_params_from_jax`) in place: each quantized layer's
+        ``weight`` becomes an int8 buffer beside its f32 ``weight_scale``,
+        and every other entry loads as usual.  Needs
+        ``cfg.weight_quant == "int8"``."""
+        if self.cfg.weight_quant != "int8":
+            raise ValueError("load_quantized_ needs a model built with "
+                             "GPTConfig(weight_quant='int8')")
+        for prefix, module in self._quant_modules():
+            if module.weight_scale is None:
+                install_int8_weight(module, state_dict[prefix + ".weight"],
+                                    state_dict[prefix + ".weight_scale"])
+        self.load_state_dict(state_dict)
+        return self
+
+
+_QUANTIZED = re.compile(
+    r"(embedding|layers\.\d+\.(attention\.(qkv|proj)|mlp\.(fc1|fc2)))"
+    r"\.weight")
+
+
+def quantize_decode_params(state_dict) -> dict:
+    """Quantize a :class:`GPTModel` state dict for the int8 decode path
+    (``GPTConfig(weight_quant="int8")``), once, at engine init.
+
+    ``embedding.weight`` (the gather and the tied head) and each layer's
+    ``qkv`` / ``proj`` / ``fc1`` / ``fc2`` weight become int8 with an f32
+    ``<name>.weight_scale`` per output row (:func:`apex_tpu_torch.ops.
+    quant_gemm.quantize_weight`); biases, LayerNorms and the position
+    embedding stay as they are.  Install the result with
+    :meth:`GPTModel.load_quantized_`.
+    """
+    out = {}
+    for name, t in state_dict.items():
+        if name.endswith(".weight_scale"):
+            raise ValueError(f"{name}: the state dict is already quantized")
+        if _QUANTIZED.fullmatch(name):
+            w8, scale = quantize_weight(t)
+            out[name] = w8
+            out[name + "_scale"] = scale
+        else:
+            out[name] = t
+    return out
 
 
 def _reset_layer_norm(ln) -> None:

@@ -15,6 +15,13 @@ attention — port of ``apex_tpu/ops/flash_attention.py``.
   CUDA tensor launches ``csrc/flash_decode.cu`` (counterpart of the Pallas
   ``_decode_kernel``); a CPU tensor takes
   :func:`flash_attention_decode_reference`.  Forward only.
+* :func:`flash_attention_decode_paged`: the same over a paged block pool
+  through a block table.  A CUDA tensor launches
+  ``csrc/flash_decode_paged.cu`` (counterpart of the Pallas
+  ``_decode_paged_kernel``; the body is ``csrc/decode.cuh``, shared with
+  the contiguous kernel); a CPU tensor takes
+  :func:`flash_attention_decode_paged_reference`.  The chunk (multi-query)
+  and int8-pool variants are plain PyTorch on every device, as in JAX.
 
 All keep the JAX numerics: f32 scores and accumulation whatever the input
 dtype, the finite mask value ``_MASK`` and the ``l == 0`` guard, so a fully
@@ -48,7 +55,13 @@ __all__ = ["flash_attention", "flash_attention_reference", "flash_fwd",
            "flash_fwd_reference", "flash_attention_dq",
            "flash_attention_dq_reference", "flash_attention_dkv",
            "flash_attention_dkv_reference", "dropout_keep_scale",
-           "flash_attention_decode", "flash_attention_decode_reference"]
+           "flash_attention_decode", "flash_attention_decode_reference",
+           "gather_paged_kv", "flash_attention_decode_paged",
+           "flash_attention_decode_paged_reference",
+           "flash_attention_chunk_paged", "quantize_kv_blocks",
+           "dequantize_kv_blocks", "gather_paged_kv_quant",
+           "flash_attention_decode_paged_quant",
+           "flash_attention_chunk_paged_quant"]
 
 
 # ---------------------------------------------------------------------------
@@ -494,8 +507,14 @@ def flash_attention_decode_reference(q, k_cache, v_cache, cache_lens,
     valid lengths.  Scores and the PV reduction run in f32 whatever the
     cache dtype.
     """
-    b, S, h, d = k_cache.shape
-    scale = _softmax_scale(softmax_scale, d)
+    return _decode_math(q, k_cache, v_cache, cache_lens,
+                        _softmax_scale(softmax_scale, q.shape[-1]))
+
+
+def _decode_math(q, k_cache, v_cache, cache_lens, scale):
+    """The masked single-query attention of the decode reference (also the
+    int8 paged path's attention, which owns no kernel)."""
+    S = k_cache.shape[1]
     s = torch.einsum("bhd,bshd->bhs", q.to(_f32), k_cache.to(_f32)) * scale
     valid = (torch.arange(S, device=q.device)[None, :]
              < cache_lens.to(q.device)[:, None])[:, None, :]
@@ -569,3 +588,193 @@ def flash_attention_decode(q, k_cache, v_cache, cache_lens,
 
 
 flash_attention_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# paged decode (the serving tier's block pool)
+# ---------------------------------------------------------------------------
+
+def gather_paged_kv(pool, block_tables):
+    """Materialize a paged cache as the contiguous layout.
+
+    ``pool``: ``(num_blocks, block_size, heads, head_dim)`` (one layer, one
+    of K/V); ``block_tables``: ``(batch, max_blocks)`` int.  Returns
+    ``(batch, max_blocks * block_size, heads, head_dim)``: position ``p``
+    of row ``b`` is ``pool[table[b, p // bs], p % bs]``.
+    """
+    b, nb = block_tables.shape
+    bs, h, d = pool.shape[1:]
+    return pool[block_tables.long()].reshape(b, nb * bs, h, d)
+
+
+def flash_attention_decode_paged_reference(q, k_pool, v_pool, block_tables,
+                                           cache_lens, softmax_scale=None):
+    """Plain version of the paged decode: gather the table, then the
+    contiguous decode reference, exactly the JAX off-TPU path."""
+    return flash_attention_decode_reference(
+        q, gather_paged_kv(k_pool, block_tables),
+        gather_paged_kv(v_pool, block_tables), cache_lens, softmax_scale)
+
+
+def flash_attention_decode_paged(q, k_pool, v_pool, block_tables, cache_lens,
+                                 softmax_scale=None):
+    """Single-token decode attention over a paged KV pool (forward only).
+
+    ``q``: ``(batch, heads, head_dim)``; ``k_pool``/``v_pool``:
+    ``(num_blocks, block_size, heads, head_dim)``, one layer's K (or V)
+    blocks of :class:`apex_tpu_torch.serving.PagedKVCache`;
+    ``block_tables``: ``(batch, max_blocks)`` int physical block per
+    logical block (rows padded with the garbage block 0); ``cache_lens``:
+    ``(batch,)`` valid lengths.  Semantics are
+    :func:`flash_attention_decode` on the gathered contiguous cache.
+
+    A CUDA tensor launches ``csrc/flash_decode_paged.cu`` (counterpart of
+    the Pallas ``_decode_paged_kernel``), which walks the table per key and
+    never gathers; the pools may be strided views (``pool[:, layer, 0]``),
+    only the last axis contiguous.  It shares the contiguous kernel's body,
+    so its output is bitwise the contiguous kernel's on the gathered cache.
+    A CPU tensor takes :func:`flash_attention_decode_paged_reference`.
+    """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_pool, v_pool)):
+        raise NotImplementedError(
+            "flash_attention_decode_paged is a serving op with no backward; "
+            "call it under torch.no_grad()")
+    kernel = "flash_attention_decode_paged"
+    b, h, d = q.shape
+    scale = _softmax_scale(softmax_scale, d)
+    if q.device.type == "cpu":
+        return flash_attention_decode_paged_reference(
+            q, k_pool, v_pool, block_tables, cache_lens, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {q.device}")
+    n_blocks, bs = k_pool.shape[:2]
+    if (k_pool.shape != (n_blocks, bs, h, d)
+            or v_pool.shape != k_pool.shape):
+        raise ValueError(f"{kernel}: q {tuple(q.shape)} and pools "
+                         f"{tuple(k_pool.shape)}, {tuple(v_pool.shape)} "
+                         "disagree")
+    if not (q.dtype == k_pool.dtype == v_pool.dtype):
+        raise TypeError(f"{kernel}: q and the pools must share one dtype on "
+                        f"CUDA, got {q.dtype}, {k_pool.dtype}")
+    if not all(t.device == q.device
+               for t in (k_pool, v_pool, block_tables, cache_lens)):
+        raise ValueError(f"{kernel}: q, the pools, the tables and the "
+                         "lengths must be on one CUDA device")
+    if d not in DECODE_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{kernel}: head_dim {d} (kernel built for {DECODE_HEAD_DIMS})")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        _check_last_dim(f"{kernel} {name}", t)
+    if block_tables.ndim != 2 or block_tables.shape[0] != b:
+        raise ValueError(f"{kernel}: block_tables must be ({b}, max_blocks)")
+    tables = block_tables.to(torch.int32).contiguous()
+    lens = cache_lens.to(torch.int32).contiguous()
+    if lens.shape != (b,):
+        raise ValueError(f"{kernel}: cache_lens must be ({b},)")
+    code = _kernels.dtype_code(q, kernel)
+    o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    rc = _kernels.lib().apex_flash_decode_paged(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), o.data_ptr(),
+        tables.data_ptr(), lens.data_ptr(), b, h, d, n_blocks, bs,
+        tables.shape[1], q.stride(0), q.stride(1),
+        k_pool.stride(0), k_pool.stride(1), k_pool.stride(2),
+        v_pool.stride(0), v_pool.stride(1), v_pool.stride(2),
+        o.stride(0), o.stride(1), scale, code, _kernels.stream())
+    _kernels.check(rc, kernel)
+    flash_attention_decode_paged.launches += 1
+    return o
+
+
+flash_attention_decode_paged.launches = 0
+
+
+def _causal_chunk_math(q, k, v, q_positions, scale):
+    """Masked multi-query attention over gathered ``(b, S, h, d)`` K/V:
+    key ``kp`` is visible to query ``j`` iff ``kp <= q_positions[:, j]``."""
+    S = k.shape[1]
+    s = torch.einsum("bhcd,bshd->bhcs", q.to(_f32), k.to(_f32)) * scale
+    valid = (torch.arange(S, device=q.device)[None, None, None, :]
+             <= q_positions.to(q.device)[:, None, :, None])
+    s = torch.where(valid, s, _MASK)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(valid, p, 0.0)
+    o = torch.einsum("bhcs,bshd->bhcd", p, v.to(_f32))
+    return o.to(q.dtype)
+
+
+def flash_attention_chunk_paged(q, k_pool, v_pool, block_tables,
+                                q_positions, softmax_scale=None):
+    """Multi-query decode attention over a paged pool (chunked prefill and
+    speculative verification).
+
+    ``q``: ``(batch, heads, chunk, head_dim)``; ``q_positions``: ``(batch,
+    chunk)`` each query's absolute position; causality over the whole
+    cached context.  The chunk's own K/V must be in the pool before the
+    call.  Plain PyTorch on every device, as the JAX package's masked
+    gather: no kernel is owed for it.
+    """
+    scale = _softmax_scale(softmax_scale, q.shape[-1])
+    return _causal_chunk_math(q, gather_paged_kv(k_pool, block_tables),
+                              gather_paged_kv(v_pool, block_tables),
+                              q_positions, scale)
+
+
+def quantize_kv_blocks(blocks):
+    """Int8 scale-per-block quantization of KV blocks.
+
+    ``blocks``: ``(..., block_size, heads, head_dim)`` float.  One f32
+    scale per block and head (``amax / 127``; 1.0 for an all-zero block,
+    so it dequantizes to exact zeros).  Returns ``(q8, scales)``: int8 of
+    ``blocks.shape`` and f32 of ``blocks.shape[:-3] + (heads,)``; bitwise
+    the JAX function's output for the same f32 blocks.
+    """
+    x = blocks.to(_f32)
+    amax = x.abs().amax(dim=(-3, -1))
+    scale = amax / 127.0
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q8 = torch.clamp(torch.round(x / scale[..., None, :, None]), -127, 127)
+    return q8.to(torch.int8), scale
+
+
+def dequantize_kv_blocks(q8, scales, dtype=_f32):
+    """Inverse of :func:`quantize_kv_blocks`: ``q8`` ``(..., block_size,
+    heads, head_dim)`` int8, ``scales`` ``(..., heads)`` f32."""
+    return (q8.to(_f32) * scales[..., None, :, None]).to(dtype)
+
+
+def gather_paged_kv_quant(pool, scales, block_tables, dtype=_f32):
+    """:func:`gather_paged_kv` for an int8 pool: gather the table's blocks
+    and their ``(num_blocks, heads)`` scales, dequantize only what was
+    gathered; ``(batch, max_blocks * block_size, heads, head_dim)`` in
+    ``dtype``."""
+    b, nb = block_tables.shape
+    bs, h, d = pool.shape[1:]
+    tbl = block_tables.long()
+    return dequantize_kv_blocks(pool[tbl], scales[tbl], dtype).reshape(
+        b, nb * bs, h, d)
+
+
+def flash_attention_decode_paged_quant(q, k_pool, v_pool, k_scales, v_scales,
+                                       block_tables, cache_lens,
+                                       softmax_scale=None):
+    """Single-token decode attention over an int8 paged pool: the gather
+    dequantizes into f32, then the masked decode math.  Plain PyTorch on
+    every device, as in the JAX package."""
+    scale = _softmax_scale(softmax_scale, q.shape[-1])
+    return _decode_math(
+        q, gather_paged_kv_quant(k_pool, k_scales, block_tables),
+        gather_paged_kv_quant(v_pool, v_scales, block_tables), cache_lens,
+        scale)
+
+
+def flash_attention_chunk_paged_quant(q, k_pool, v_pool, k_scales, v_scales,
+                                      block_tables, q_positions,
+                                      softmax_scale=None):
+    """:func:`flash_attention_chunk_paged` over an int8 pool (chunked
+    prefill on a quantized cache).  Plain PyTorch on every device."""
+    scale = _softmax_scale(softmax_scale, q.shape[-1])
+    return _causal_chunk_math(
+        q, gather_paged_kv_quant(k_pool, k_scales, block_tables),
+        gather_paged_kv_quant(v_pool, v_scales, block_tables), q_positions,
+        scale)

@@ -23,6 +23,15 @@ refusals.  At world size 1 the collectives they steer are identities
 ``no_async_tensor_model_parallel_allreduce`` change nothing, as in JAX.
 Like apex's layers, both linears return ``(output, None)``, or ``(x @ W.T,
 bias)`` with the bias not added under ``skip_bias_add``.
+
+Int8 decode weights (``GPTConfig(weight_quant="int8")``): after
+:func:`install_int8_weight` a layer's ``weight`` is an int8 buffer with an
+f32 per-output-row ``weight_scale`` buffer beside it (they are not
+``Parameter`` objects: nothing trains them).  The linears then run
+``quant_gemm(x, w8, scale).to(x.dtype)`` and add the bias in x's dtype
+(``layers.py:102-111, :278-285`` of the JAX package); the embedding
+dequantizes the gathered rows only, ``rows.float() * scale[ids]``
+(``:349-360``).
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from apex_tpu_torch.ops.quant_gemm import quant_gemm
 from apex_tpu_torch.utils.device import resolve_device
 
 _f32 = torch.float32
@@ -39,7 +49,7 @@ INIT_STD = 0.02
 TENSOR_AXIS = "model"      # the JAX package's tensor-parallel mesh axis
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding"]
+           "VocabParallelEmbedding", "install_int8_weight"]
 
 
 def _serial_only(world_size, sequence_parallel_enabled=False):
@@ -87,6 +97,7 @@ class _Linear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(
             (self.output_size,), dtype=param_dtype, device=dev)) if bias \
             else None
+        self.register_buffer("weight_scale", None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         _normal_(self.weight, generator, init_method=self.init_method)
@@ -95,8 +106,13 @@ class _Linear(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
-        # compute at the ACTIVATION dtype (bf16 activations keep f32 params)
-        y = torch.matmul(x, self.weight.to(x.dtype).t())
+        if self.weight_scale is not None:
+            # int8 weights: the dequant-GEMM, f32 out, then x's dtype
+            y = quant_gemm(x, self.weight, self.weight_scale).to(x.dtype)
+        else:
+            # compute at the ACTIVATION dtype (bf16 activations keep f32
+            # params)
+            y = torch.matmul(x, self.weight.to(x.dtype).t())
         if self.skip_bias_add:
             return y, self.bias
         if self.bias is not None:
@@ -169,9 +185,32 @@ class VocabParallelEmbedding(nn.Module):
         self.weight = nn.Parameter(torch.zeros(
             (self.num_embeddings, self.embedding_dim), dtype=param_dtype,
             device=resolve_device(device)))
+        self.register_buffer("weight_scale", None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         _normal_(self.weight, generator, init_method=self.init_method)
 
     def forward(self, token_ids):
-        return self.weight[token_ids]
+        rows = self.weight[token_ids]
+        if self.weight_scale is None:
+            return rows
+        # per-row dequantization of the gathered rows only: bitwise the
+        # rows of the dequantized table, which is never built
+        return rows.to(_f32) * self.weight_scale[token_ids][..., None]
+
+
+def install_int8_weight(module: nn.Module, w8, scale) -> None:
+    """Make ``module`` (a TP linear or the embedding) an int8 layer in
+    place: its ``weight`` Parameter becomes the int8 buffer ``w8`` and
+    ``weight_scale`` the f32 buffer ``scale``, both on the module's
+    device."""
+    dev = module.weight.device
+    if tuple(w8.shape) != tuple(module.weight.shape):
+        raise ValueError(f"int8 weight {tuple(w8.shape)} does not match "
+                         f"{tuple(module.weight.shape)}")
+    if w8.dtype != torch.int8 or tuple(scale.shape) != (w8.shape[0],):
+        raise ValueError("install_int8_weight takes an int8 (out, in) weight "
+                         "and an (out,) scale")
+    del module.weight
+    module.register_buffer("weight", w8.to(dev))
+    module.weight_scale = scale.to(dev, _f32)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive apex_tpu_torch's serving and training paths (GPT serving, GPT
 training, BERT training under amp O2, each also with the fused FFN,
-ResNet-50 ImageNet training under amp O1 and O2) on one NVIDIA H100 and
-hold every kernel of the paths against its plain PyTorch version.
+ResNet-50 ImageNet training under amp O1 and O2, paged and int8 GPT
+serving) on one NVIDIA H100 and hold every kernel of the paths against its
+plain PyTorch version.
 
     python3 chip_smoke.py [--out results.json] [--profile breakdown.txt]
 
@@ -28,7 +29,13 @@ Phases (any failure exits non-zero; nothing is caught):
    as Adam), on a mixed list of 40 bf16 / f16 / f32 tensors with f32
    masters and model copies, and SGD at ResNet-50's O1 and O2 lists (161
    tensors), their yardsticks ``SGD(fused=True)`` and
-   ``Adagrad(foreach=True)``;
+   ``Adagrad(foreach=True)``; the paged decode (#7) on a 513-block bf16
+   pool through a shuffled table with shared blocks, ragged lengths and an
+   inactive slot, also against #6 on the gathered cache (bitwise), its
+   yardstick the table gather + SDPA; the int8 dequant-GEMM (#14) over a
+   whole GPT-350M decode step's 97 calls (8 rows, 353.6 MB of int8), the
+   prefill's shapes at 512 rows (the f32 head among them) and off-grid
+   cases, its yardstick ``F.linear`` on weights dequantized in advance;
 3. GPT-350M (vocab 50304, hidden 1024, 24 layers, 16 heads, ffn 4096,
    max_seq 1024, bf16 activations, f32 params, random weights from seed 0)
    served by ``InferenceEngine`` (8 slots, bf16 cache): 10 greedy requests,
@@ -83,7 +90,21 @@ Phases (any failure exits non-zero; nothing is caught):
    yardstick) with each of the three optimizers: losses, the first
    step's gradients, the parameters' moves and the running statistics
    within stated bounds; FusedSGD's card run again with the process-wide
-   matmul flags as torch set them before the GPT phases.
+   matmul flags as torch set them before the GPT phases;
+11. GPT-350M with phase 3's weights served by ``PagedInferenceEngine``
+   (8 slots, blocks of 16, bf16 pool, prefix sharing on) over phase 3's
+   prompts stretched into the 512 bucket, half behind a 64-token system
+   prompt, 64 new tokens each (``paged_prompts``): exact launches (#7 in
+   every decode step, #3 per prefill), no plain version called, greedy
+   tokens equal to the contiguous engine's on the same prompts, the
+   prompt tokens served from the prefix trie; (11c) chunked prefill
+   (agreement measured); (11p) a pool of 1 + 3 x 64 blocks that forces
+   preemption, tokens equal to 11's; (11q) ``weight_quant="int8"``
+   through both engines (#14 in every GEMM and the tied head, 4L+1 per
+   prefill and step), weight bytes and peak memory against f32, card
+   against a CPU copy as in phase 4, prefill and paged decode-step
+   times; (11k) the int8 KV pool with chunked prefill on 4 prompts of at
+   most 128 tokens (its plain PyTorch insert loop timed).
 
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -598,6 +619,215 @@ def kernel_decode(gen):
     log_numbers("flash_attention_decode", n, "sdpa + mask")
     del cache, views
     return n
+
+PAGED_BS = 16                  # the paged engine's block size on the path
+PAGED_BLOCKS = MAX_SEQ // PAGED_BS
+PAGED_POOL = 1 + SLOTS * PAGED_BLOCKS   # the engine's default pool
+
+
+def paged_tables(lens, rng):
+    """Block tables ``(slots, max_blocks)`` for these lengths over a pool
+    of ``PAGED_POOL`` blocks, shuffled: each row's blocks are drawn without
+    replacement, rows 2 and 3 share their first 4 blocks (a prefix the
+    trie would share), entries past a row's blocks are the garbage block
+    0, and a row of length 1 is an inactive slot (all zero)."""
+    free = list(rng.permutation(np.arange(1, PAGED_POOL)))
+    tables = np.zeros((len(lens), PAGED_BLOCKS), np.int32)
+    for i, n in enumerate(lens):
+        if n <= 1:
+            continue
+        need = -(-int(n) // PAGED_BS)
+        tables[i, :need] = [free.pop() for _ in range(need)]
+    tables[3, :4] = tables[2, :4]
+    return tables
+
+
+def kernel_decode_paged(gen):
+    """#7 against its plain version (gather + the decode reference) and
+    against #6 on the gathered cache, bit for bit (one body, one order of
+    arithmetic), at the paged engine's shapes: 8 slots, 16 heads of 64,
+    a bf16 pool of 513 blocks of 16 positions x 24 layers, read through
+    its strided per-layer views, with ragged lengths, a shuffled table
+    whose rows share blocks, and an inactive slot (all-zero table, length
+    1).  Timed over the 24 layers' views."""
+    from apex_tpu_torch.ops.flash_attention import (
+        flash_attention_decode, flash_attention_decode_paged,
+        flash_attention_decode_paged_reference, gather_paged_kv)
+    scale = HEAD_DIM ** -0.5
+    layers = GPT350M["num_layers"]
+    pool = torch.randn(PAGED_POOL, layers, 2, PAGED_BS, HEADS, HEAD_DIM,
+                       generator=gen, dtype=torch.float32).to(
+        "cuda", torch.bfloat16)
+    lens_np = np.array([1, 97, 512, 1024, 300, 640, 37, 800], np.int32)
+    tables = torch.from_numpy(paged_tables(
+        lens_np, np.random.RandomState(7))).to("cuda")
+    lens = torch.from_numpy(lens_np).to("cuda")
+    q = torch.randn(SLOTS, HEADS, HEAD_DIM, generator=gen).to(
+        "cuda", torch.bfloat16)
+    k, v = pool[:, 3, 0], pool[:, 3, 1]          # strided views of the pool
+    assert not k.is_contiguous()
+    o = flash_attention_decode_paged(q, k, v, tables, lens, scale)
+    ref = flash_attention_decode_paged_reference(q, k, v, tables, lens,
+                                                 scale)
+    kg, vg = gather_paged_kv(k, tables), gather_paged_kv(v, tables)
+    o6 = flash_attention_decode(q, kg, vg, lens, scale)
+    torch.cuda.synchronize()
+    err = check_close("flash_attention_decode_paged ragged lens, shared "
+                      "blocks, strided pool", o, ref, BF16_ATOL, BF16_RTOL)
+    same = torch.equal(o, o6)
+    log(f"  flash_attention_decode_paged against #6 on the gathered cache: "
+        f"{'bitwise equal' if same else 'DIFFERENT'} (max |d| "
+        f"{max_err(o, o6):.3e})")
+    if not same:
+        raise AssertionError("#7 and #6 disagree on the same cache")
+    views = [(pool[:, li, 0], pool[:, li, 1]) for li in range(layers)]
+    mask = (torch.arange(MAX_SEQ, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    total = int(lens.sum())
+    n_bytes = 2 * total * HEADS * HEAD_DIM * 2 + 2 * q.numel() * 2 \
+        + tables.numel() * 4 + lens.numel() * 4
+
+    def library(k, v):
+        kg, vg = gather_paged_kv(k, tables), gather_paged_kv(v, tables)
+        return F.scaled_dot_product_attention(
+            q[:, :, None], kg.transpose(1, 2), vg.transpose(1, 2),
+            attn_mask=mask, scale=scale)
+    n = numbers(
+        err,
+        time_ms([lambda k=k, v=v: flash_attention_decode_paged(
+            q, k, v, tables, lens, scale) for k, v in views]),
+        time_ms([lambda k=k, v=v: flash_attention_decode_paged_reference(
+            q, k, v, tables, lens, scale) for k, v in views]),
+        time_ms([lambda k=k, v=v: library(k, v) for k, v in views]),
+        bound_ms(n_bytes, 4 * HEAD_DIM * HEADS * total, PEAK_BF16_FLOPS),
+        call_ms(lambda: flash_attention_decode_paged(q, k, v, tables, lens,
+                                                     scale)))
+    log_numbers("flash_attention_decode_paged", n,
+                "pool[tables] gather + sdpa + mask")
+    del pool, views, kg, vg
+    return n
+
+
+def _qgemm_bounds(shapes):
+    """Bound of a set of dequant-GEMM calls ``(m, n, k, x dtype)``: every
+    int8 weight, scale, x and f32 y moved once, against the operations at
+    the peak of x's type (bf16 on the tensor cores, else f32)."""
+    n_bytes = sum(n * k + 4 * n + m * k * (2 if dt == torch.bfloat16 else 4)
+                  + 4 * m * n for m, n, k, dt in shapes)
+    t_ops = sum(2 * m * n * k / (PEAK_BF16_FLOPS if dt == torch.bfloat16
+                                 else PEAK_F32_FLOPS)
+                for m, n, k, dt in shapes)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def gpt350m_gemm_shapes():
+    """``(n, k)`` of the four int8 GEMMs of a GPT-350M layer, in order:
+    qkv, proj, fc1, fc2; and the tied head's."""
+    h, f = HIDDEN, GPT350M["ffn_hidden_size"]
+    return [(3 * h, h), (h, h), (f, h), (h, f)], (GPT350M["vocab_size"], h)
+
+
+# #14 against its plain version, entry by entry: the plain version rounds
+# its product to x's type (bf16: 2**-8 relative, f16: 2**-11) and the
+# kernel returns the f32 sum; in f32 only the order of the sum over k
+# differs
+QGEMM_TOL = {torch.bfloat16: BF16_ATOL, torch.float16: 2e-3,
+             torch.float32: 1e-4}
+
+
+def kernel_quant_gemm(gen_cuda):
+    """#14 against its plain version (dequantize to f32, cast to x's type,
+    ``x @ w.T``, f32), entry by entry within ``QGEMM_TOL`` at the
+    int8 path's shapes: a whole decode step's 97 calls (8 rows; 24 layers
+    of qkv / proj / fc1 / fc2 in bf16, each layer its own weights, and
+    the f32 tied head, 353.6 MB of int8), the prefill's shapes at 512 rows
+    (the f32 head is its slowest call), and off the grids (5 x 130 x 200,
+    33 x 130 x 200, 16 x 512 x 512, bf16 and f32; 17 x 64 x 48 f16).
+    The yardstick is ``F.linear`` on a weight dequantized in advance to
+    x's type."""
+    from apex_tpu_torch.ops.quant_gemm import (
+        dequantize_weight, quant_gemm, quant_gemm_reference)
+    bf, f32 = torch.bfloat16, torch.float32
+    out = {}
+
+    def weight(n, k):
+        w8 = torch.randint(-127, 128, (n, k), generator=gen_cuda,
+                           device="cuda", dtype=torch.int8)
+        scale = torch.rand(n, generator=gen_cuda, device="cuda") * 1e-3 \
+            + 1e-4
+        return w8, scale
+
+    def act(m, k, dt):
+        return torch.randn(m, k, generator=gen_cuda, device="cuda").to(dt)
+
+    def check(name, x, w8, scale):
+        got = quant_gemm(x, w8, scale)
+        ref = quant_gemm_reference(x, w8, scale)
+        torch.cuda.synchronize()
+        tol = QGEMM_TOL[x.dtype]
+        return check_close(name, got, ref, tol, tol)
+
+    for m, n, k in ((5, 130, 200), (33, 130, 200), (16, 512, 512)):
+        for dt in (bf, f32):
+            w8, scale = weight(n, k)
+            check(f"quant_gemm off-grid {m}x{n}x{k} {dt}", act(m, k, dt),
+                  w8, scale)
+    w8, scale = weight(64, 48)
+    check("quant_gemm off-grid 17x64x48 float16", act(17, 48, torch.float16),
+          w8, scale)
+
+    layer_shapes, head = gpt350m_gemm_shapes()
+    layers = GPT350M["num_layers"]
+    weights = [[weight(n, k) for n, k in layer_shapes]
+               for _ in range(layers)]
+    head_w = weight(*head)
+    for tag, m in (("decode", SLOTS), ("prefill", 512)):
+        xs = {k: act(m, k, bf) for _, k in layer_shapes}
+        xh = act(m, head[1], f32)
+        err = 0.0
+        for (n, k), (w8, scale) in zip(layer_shapes, weights[0]):
+            err = max(err, check(f"quant_gemm {tag} {m}x{n}x{k} bf16",
+                                 xs[k], w8, scale))
+        err = max(err, check(f"quant_gemm {tag} head {m}x{head[0]}x{head[1]} "
+                             "f32", xh, *head_w))
+        calls = [(xs[k], w) for ws in weights
+                 for (_, k), w in zip(layer_shapes, ws)] + [(xh, head_w)]
+        shapes = [(m, w[0].shape[0], w[0].shape[1], x.dtype)
+                  for x, w in calls]
+        lib_ws = [(x, dequantize_weight(*w).to(x.dtype)) for x, w in calls]
+        kern = [lambda x=x, w=w: quant_gemm(x, *w) for x, w in calls]
+        plain = [lambda x=x, w=w: quant_gemm_reference(x, *w)
+                 for x, w in calls]
+        library = [lambda x=x, w=w: F.linear(x, w) for x, w in lib_ws]
+        rounds = 5 if tag == "decode" else 3
+        total = len(calls)
+        n = numbers(err, time_ms(kern, rounds) * total,
+                    time_ms(plain, rounds) * total,
+                    time_ms(library, rounds) * total,
+                    _qgemm_bounds(shapes), call_ms(kern[0]))
+        log_numbers(f"quant_gemm, one {tag} step's {total} calls "
+                    f"({m} rows)", n, "F.linear on pre-dequantized weights")
+        out[tag] = n
+        # each shape alone (layer 0's weights; the head)
+        for (nn, k), w in zip(layer_shapes + [head],
+                              weights[0] + [head_w]):
+            x = xh if (nn, k) == head else xs[k]
+            wd = dequantize_weight(*w).to(x.dtype)
+            one = numbers(err, time_ms(lambda: quant_gemm(x, *w), rounds),
+                          time_ms(lambda: quant_gemm_reference(x, *w), 3),
+                          time_ms(lambda: F.linear(x, wd), rounds),
+                          _qgemm_bounds([(m, nn, k, x.dtype)]),
+                          call_ms(lambda: quant_gemm(x, *w)))
+            log_numbers(f"quant_gemm {tag} {m}x{nn}x{k} {x.dtype}", one,
+                        "F.linear")
+            out[f"{tag}_{m}x{nn}x{k}"] = one
+        del xs, xh, calls, lib_ws, kern, plain, library
+        torch.cuda.empty_cache()
+    del weights, head_w
+    return out
+
 
 def _lm_head_inputs(gen, n, h, v, x_dtype, w_dtype, masked=False,
                     w_std=0.02):
@@ -1720,20 +1950,20 @@ def phase_serve(model, rng, tag="[3]"):
     counters = (layer_norm_fwd, flash_fwd, flash_attention_decode, ffn_fwd)
     cfg = model.cfg
     engine = InferenceEngine(model, max_slots=SLOTS, device="cuda")
-    lens = rng.randint(37, 513, size=10)
-    lens[:2] = (37, 512)
-    for i, n in enumerate(lens):
-        engine.submit(Request(request_id=i, max_new_tokens=32,
-                              prompt=rng.randint(0, cfg.vocab_size,
-                                                 int(n)).tolist()))
+    prompts = serving_prompts(rng, cfg.vocab_size)
+    lens = [len(p) for p in prompts]
+    for i, p in enumerate(prompts):
+        engine.submit(Request(request_id=i, max_new_tokens=32, prompt=p))
     for c in counters:
         c.launches = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with counting_plain_versions() as plain_calls:
         responses = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = {c.__name__: c.launches for c in counters}
 
     reasons = {r.request_id: r.finish_reason for r in responses}
@@ -1781,11 +2011,22 @@ def phase_serve(model, rng, tag="[3]"):
                                                   positions))
     log(f"    prefill(512 tokens) {prefill_s * 1e3:.3f} ms, decode_step("
         f"{SLOTS} slots at position 512) {step_s * 1e3:.3f} ms, "
-        f"{SLOTS / step_s:.1f} decode tokens/s")
+        f"{SLOTS / step_s:.1f} decode tokens/s; weights "
+        f"{engine.weight_bytes / 2 ** 30:.3f} GiB, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB")
     return dict(launches=launches, steps=steps, prefills=prefills,
                 wall_s=wall, served_tokens_per_s=summary["tokens_per_s"],
                 prefill_512_ms=prefill_s * 1e3, decode_step_ms=step_s * 1e3,
-                decode_tokens_per_s=SLOTS / step_s, summary=summary)
+                decode_tokens_per_s=SLOTS / step_s, summary=summary,
+                weight_bytes=engine.weight_bytes, peak_memory_bytes=peak)
+
+
+def serving_prompts(rng, vocab):
+    """Phase 3's 10 prompts: 37..512 tokens (the first two 37 and 512),
+    uniform token ids, drawn from ``rng`` in this order."""
+    lens = rng.randint(37, 513, size=10)
+    lens[:2] = (37, 512)
+    return [rng.randint(0, vocab, int(n)).tolist() for n in lens]
 
 
 def _host_time(fn, iters=5, rounds=3):
@@ -1826,8 +2067,13 @@ def _prefill_and_decode(model, prompt, steps, forced=None):
 
 
 def phase_parity(model, rng, tag="[4]"):
-    cpu_model = build_model("cpu", fused_ffn=model.cfg.fused_ffn)
-    cpu_model.load_state_dict(model.state_dict())
+    cpu_model = build_model("cpu", fused_ffn=model.cfg.fused_ffn,
+                            weight_quant=model.cfg.weight_quant)
+    state = model.state_dict()
+    if model.quantized:
+        cpu_model.load_quantized_({k: v.cpu() for k, v in state.items()})
+    else:
+        cpu_model.load_state_dict(state)
     prompt = torch.from_numpy(rng.randint(0, model.cfg.vocab_size, (1, 64)))
     card = _prefill_and_decode(model, prompt, 4)
     tokens = card.argmax(-1).tolist()
@@ -1852,6 +2098,278 @@ def phase_parity(model, rng, tag="[4]"):
                 tokens=tokens, min_top2_margin=margin)
 
 
+# -- phase 11 ----------------------------------------------------------------
+
+SYSTEM_PROMPT = 64             # tokens of the shared system prompt
+PAGED_NEW_TOKENS = 64
+PRESSURE_POOL = 1 + 3 * PAGED_BLOCKS   # 11p: three full-length rows
+
+
+def paged_prompts(vocab):
+    """Phase 11's 10 prompts: phase 3's, each stretched or cut
+    (``np.resize``) into the 512 prefill bucket, the even ones behind one
+    64-token system prompt (64 + 321..448 tokens; the odd ones 385..512).
+    One bucket keeps the shared system prompt's K/V bit for bit what each
+    request's own prefill would write (the same GEMM shapes), so prefix
+    sharing changes no token; with 64 new tokens each, 7 requests fill
+    11p's pool of 192 blocks and their growth forces preemption."""
+    base = serving_prompts(np.random.RandomState(0), vocab)
+    system = np.random.RandomState(11).randint(0, vocab, SYSTEM_PROMPT)
+    out = []
+    for i, p in enumerate(base):
+        if i % 2 == 0:
+            body = np.resize(p, int(np.clip(len(p), 321, 448)))
+            out.append(np.concatenate([system, body]).tolist())
+        else:
+            out.append(np.resize(p, int(np.clip(len(p), 385, 512))).tolist())
+    return out
+
+
+def _serving_counters():
+    from apex_tpu_torch.ops.flash_attention import (
+        flash_attention_decode, flash_attention_decode_paged, flash_fwd)
+    from apex_tpu_torch.ops.layer_norm import layer_norm_fwd
+    from apex_tpu_torch.ops.quant_gemm import quant_gemm
+    return (layer_norm_fwd, flash_fwd, flash_attention_decode,
+            flash_attention_decode_paged, quant_gemm)
+
+
+def serve_counted(engine, prompts, tag, new_tokens=PAGED_NEW_TOKENS):
+    """Serve greedy ``prompts`` on ``engine`` with the serving kernels'
+    counters set to 0 just before and read just after, and plain-version
+    calls counted; returns tokens, launches, the engine's device-program
+    counts (prefills, prefill chunks, decode steps), time, the weights'
+    bytes and the run's working set (peak device memory above what was
+    allocated when it started: the engine's cache and every model already
+    resident are not in it)."""
+    from apex_tpu_torch.inference import Request
+    counters = _serving_counters()
+    chunks = [0]
+    if hasattr(engine, "_chunk_forward"):
+        inner = engine._chunk_forward
+
+        def counted(*args, _inner=inner):
+            chunks[0] += 1
+            return _inner(*args)
+        engine._chunk_forward = counted
+    for i, p in enumerate(prompts):
+        engine.submit(Request(request_id=i, prompt=p,
+                              max_new_tokens=new_tokens))
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with counting_plain_versions() as plain_calls:
+        responses = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    working = torch.cuda.max_memory_allocated() - start
+    launches = {c.__name__: c.launches for c in counters}
+    bad = [(r.request_id, r.finish_reason, r.error) for r in responses
+           if r.finish_reason != "length"
+           or len(r.tokens) != new_tokens]
+    if bad or len(responses) != len(prompts):
+        raise AssertionError(f"{tag} unexpected responses: {bad}")
+    steps = len(engine.metrics.occupancy)
+    requeued = engine.metrics.requeued
+    prefills = (0 if getattr(engine, "chunked_prefill", False)
+                else len(prompts) + requeued)
+    summary = engine.metrics.summary()
+    log(f"{tag} served {len(responses)} requests in {wall:.3f} s: "
+        f"{prefills} prefills, {chunks[0]} prefill chunks, {steps} decode "
+        f"steps, {requeued} requeued; {summary['tokens_per_s']:.1f} "
+        f"tokens/s; weights {engine.weight_bytes / 2 ** 30:.3f} GiB, "
+        f"working set {working / 2 ** 30:.3f} GiB; plain-version calls "
+        f"{dict(plain_calls)}")
+    if sum(plain_calls.values()):
+        raise AssertionError(f"{tag} called plain versions: "
+                             f"{dict(plain_calls)}")
+    return dict(tokens={r.request_id: r.tokens for r in responses},
+                launches=launches, prefills=prefills, chunks=chunks[0],
+                steps=steps, requeued=requeued, wall_s=wall,
+                tokens_per_s=summary["tokens_per_s"],
+                working_set_bytes=working, weight_bytes=engine.weight_bytes,
+                summary=summary)
+
+
+def check_launches(tag, run, layers, paged, int8_weights=False,
+                   int8_kv=False):
+    """The exact launches the run implies: per prefill, prefill chunk and
+    decode step 2L+1 LayerNorms (#1); per monolithic prefill L flash
+    forwards (#3); per decode step L decode attentions (#7 paged, #6 on
+    the ring; none on an int8 pool, whose attention is plain PyTorch as in
+    JAX); with int8 weights 4L+1 dequant-GEMMs (#14) per prefill, chunk
+    and step."""
+    programs = run["prefills"] + run["chunks"] + run["steps"]
+    attn = 0 if int8_kv else layers * run["steps"]
+    expected = {
+        "layer_norm_fwd": (2 * layers + 1) * programs,
+        "flash_fwd": layers * run["prefills"],
+        "flash_attention_decode": 0 if paged else attn,
+        "flash_attention_decode_paged": attn if paged else 0,
+        "quant_gemm": (4 * layers + 1) * programs * int8_weights}
+    log(f"    launches {run['launches']} (expected {expected})")
+    if run["launches"] != expected:
+        raise AssertionError(f"{tag} kernel launch counts do not match the "
+                             "path")
+
+
+def _agreement(a, b):
+    same = sum(x == y for i in a for x, y in zip(a[i], b[i]))
+    total = sum(len(a[i]) for i in a)
+    return same / total
+
+
+def phase_paged(model, rng):
+    """Phase 11 and its variants on GPT-350M (``model``, phase 3's
+    weights): ``PagedInferenceEngine(max_slots=8, block_size=16)`` over
+    ``paged_prompts`` (prefix sharing on) against the contiguous engine on
+    the same prompts; (11c) chunked prefill; (11p) a pool of 1 + 3 x 64
+    blocks that forces preemption; (11q) ``weight_quant="int8"`` through
+    both engines, and its card against a CPU copy; (11k) the int8 KV pool
+    with chunked prefill on 4 prompts of at most 128 tokens.  Exact
+    launches everywhere, no plain version called; 11's and 11p's greedy
+    tokens must equal the contiguous engine's."""
+    from apex_tpu_torch.inference import InferenceEngine
+    from apex_tpu_torch.serving import PagedInferenceEngine
+    cfg = model.cfg
+    layers = cfg.num_layers
+    prompts = paged_prompts(cfg.vocab_size)
+    out = {}
+    log(f"[11] prompts of {[len(p) for p in prompts]} tokens, "
+        f"{PAGED_NEW_TOKENS} new tokens each")
+    contiguous = serve_counted(InferenceEngine(model, max_slots=SLOTS),
+                               prompts, "[11] contiguous engine")
+    check_launches("[11] contiguous", contiguous, layers, paged=False)
+
+    def paged(**kw):
+        return PagedInferenceEngine(model, max_slots=SLOTS,
+                                    block_size=PAGED_BS, **kw)
+    engine = paged()
+    run = serve_counted(engine, prompts, "[11] paged engine")
+    check_launches("[11]", run, layers, paged=True)
+    stats = engine.pool.stats()
+    saved = stats["prefix_hit_tokens"] // PAGED_BS
+    log(f"    pool {stats}: {stats['prefix_hit_tokens']} prompt tokens "
+        f"served from the prefix trie, {saved} blocks not written")
+    if stats["prefix_hit_tokens"] != (len(prompts) // 2 - 1) * SYSTEM_PROMPT:
+        raise AssertionError("[11] the system prompt was not shared")
+    same = run["tokens"] == contiguous["tokens"]
+    log(f"    greedy tokens {'equal to' if same else 'DIFFER from'} the "
+        f"contiguous engine's")
+    if not same:
+        raise AssertionError("[11] paged and contiguous tokens differ")
+    out["paged"] = dict(run, pool=stats, blocks_saved=saved)
+    out["contiguous"] = contiguous
+
+    run = serve_counted(paged(chunked_prefill=True), prompts,
+                        "[11c] paged engine, chunked prefill")
+    check_launches("[11c]", run, layers, paged=True)
+    agree = _agreement(run["tokens"], contiguous["tokens"])
+    log(f"    greedy tokens agree with the contiguous engine's at "
+        f"{agree:.4f} of positions (measured, not required: the chunk "
+        "forward is another schedule than the bucketed prefill)")
+    out["chunked"] = dict(run, agreement=agree)
+
+    engine = paged(num_blocks=PRESSURE_POOL)
+    run = serve_counted(engine, prompts,
+                        f"[11p] paged engine, pool of {PRESSURE_POOL} blocks")
+    check_launches("[11p]", run, layers, paged=True)
+    same = run["tokens"] == out["paged"]["tokens"]
+    log(f"    {run['requeued']} preemptions; greedy tokens "
+        f"{'equal to' if same else 'DIFFER from'} 11's")
+    if not run["requeued"]:
+        raise AssertionError("[11p] the pool forced no preemption")
+    if not same:
+        diff = [i for i in run["tokens"]
+                if run["tokens"][i] != out["paged"]["tokens"][i]]
+        raise AssertionError(f"[11p] requests {diff} resumed with other "
+                             "tokens")
+    out["pressure"] = run
+    del engine
+
+    qmodel = build_model("cuda", weight_quant="int8")
+    qmodel.load_state_dict(model.state_dict())
+    qc = serve_counted(InferenceEngine(qmodel, max_slots=SLOTS), prompts,
+                       "[11q] int8 weights, contiguous engine")
+    check_launches("[11q] contiguous", qc, layers, paged=False,
+                   int8_weights=True)
+    qp = serve_counted(PagedInferenceEngine(qmodel, max_slots=SLOTS,
+                                            block_size=PAGED_BS),
+                       prompts, "[11q] int8 weights, paged engine")
+    check_launches("[11q] paged", qp, layers, paged=True, int8_weights=True)
+    agree = _agreement(qp["tokens"], out["paged"]["tokens"])
+    gib = 2 ** 30
+
+    def held(run):                   # weights + the run's working set
+        return (run["weight_bytes"] + run["working_set_bytes"]) / gib
+    log(f"    int8 weights {qp['weight_bytes'] / gib:.3f} GiB against f32 "
+        f"{contiguous['weight_bytes'] / gib:.3f} GiB "
+        f"({qp['weight_bytes'] / contiguous['weight_bytes']:.3f}x); "
+        f"weights + working set {held(qc):.3f} GiB (contiguous) / "
+        f"{held(qp):.3f} GiB (paged) against f32's {held(contiguous):.3f} "
+        f"/ {held(out['paged']):.3f} GiB (phase 3's whole peak, its cache "
+        "included, is in its own line); paged int8 and contiguous int8 "
+        "tokens "
+        f"{'equal' if qp['tokens'] == qc['tokens'] else 'DIFFER'}; int8 "
+        f"tokens agree with f32's at {agree:.4f} of positions (measured)")
+    if qp["tokens"] != qc["tokens"]:
+        raise AssertionError("[11q] paged and contiguous int8 tokens differ")
+    parity = phase_parity(qmodel, rng, tag="[11q]")
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, 512))).to(
+        "cuda")
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, SLOTS)).to(
+        "cuda")
+    positions = torch.full((SLOTS,), 512, dtype=torch.int32, device="cuda")
+    pool = torch.zeros((PAGED_POOL, layers, 2, PAGED_BS, HEADS, HEAD_DIM),
+                       dtype=cfg.dtype, device="cuda")
+    tables = paged_step_tables()
+    times = {}
+    for name, m in (("f32", model), ("int8", qmodel)):
+        times[name] = (_host_time(lambda: m.prefill(prompt)),
+                       _host_time(lambda: m.decode_step_paged(
+                           tokens, pool, tables, positions)))
+        log(f"    {name} weights: prefill(512) {times[name][0] * 1e3:.3f} "
+            f"ms, paged decode step (8 slots at position 512) "
+            f"{times[name][1] * 1e3:.3f} ms, "
+            f"{SLOTS / times[name][1]:.1f} decode tokens/s")
+    out["int8_weights"] = dict(contiguous=qc, paged=qp, parity=parity,
+                               agreement_with_f32=agree,
+                               prefill_512_ms={k: v[0] * 1e3
+                                               for k, v in times.items()},
+                               paged_decode_step_ms={
+                                   k: v[1] * 1e3 for k, v in times.items()})
+    del pool
+
+    short = [p[:128] for p in prompts[:4]]
+    base = serve_counted(paged(), short, "[11k] reference: bf16 pool",
+                         new_tokens=32)
+    run = serve_counted(paged(chunked_prefill=True, kv_quant="int8"), short,
+                        "[11k] int8 KV pool, chunked prefill",
+                        new_tokens=32)
+    check_launches("[11k]", run, layers, paged=True, int8_kv=True)
+    agree = _agreement(run["tokens"], base["tokens"])
+    log(f"    int8 KV tokens agree with the bf16 pool's at {agree:.4f} of "
+        f"positions (measured); {run['wall_s']:.3f} s for "
+        f"{sum(len(p) for p in short)} prompt and {4 * 32} new tokens, the "
+        "per-token insert loop of the quantized chunk path")
+    out["int8_kv"] = dict(run, agreement=agree, reference=base)
+    return qmodel, out
+
+
+def paged_step_tables():
+    """Tables of 8 slots at position 512 over the default pool (slot s
+    owns blocks 1 + 64 s ..): the paged decode step the profiles and step
+    times take."""
+    tables = np.zeros((SLOTS, PAGED_BLOCKS), np.int32)
+    for s in range(SLOTS):
+        tables[s, :513 // PAGED_BS + 1] = 1 + s * PAGED_BLOCKS + np.arange(
+            513 // PAGED_BS + 1)
+    return torch.from_numpy(tables).to("cuda")
+
+
 # -- phase 5 -----------------------------------------------------------------
 
 def _train_counters():
@@ -1873,7 +2391,9 @@ _PLAIN_VERSIONS = {
     "apex_tpu_torch.ops.flash_attention": (
         "flash_fwd_reference", "flash_attention_reference",
         "flash_attention_dq_reference", "flash_attention_dkv_reference",
-        "flash_attention_decode_reference"),
+        "flash_attention_decode_reference",
+        "flash_attention_decode_paged_reference"),
+    "apex_tpu_torch.ops.quant_gemm": ("quant_gemm_reference",),
     "apex_tpu_torch.ops.multi_tensor": (
         "multi_tensor_adam_reference", "multi_tensor_scale_reference",
         "multi_tensor_sumsq_reference", "multi_tensor_lamb_stage1_reference",
@@ -2724,6 +3244,9 @@ _KERNEL_CLASSES = (("layer_norm_bwd", "layer_norm_bwd"),
                    ("flash_bwd_dq_kernel", "flash_attention_dq"),
                    ("flash_bwd_dkv_kernel", "flash_attention_dkv"),
                    ("flash_decode_kernel", "flash_attention_decode"),
+                   ("flash_decode_paged_kernel",
+                    "flash_attention_decode_paged"),
+                   ("qgemm_", "quant_gemm"),
                    ("multi_tensor_adam_kernel", "multi_tensor_adam"),
                    ("multi_tensor_scale_kernel", "multi_tensor_scale_"),
                    ("multi_tensor_l2norm_kernel", "multi_tensor_sumsq"),
@@ -2816,6 +3339,27 @@ def phase_profile_serving(model, rng, lines, suffix=""):
              tokens, cache, positions)}, lines)
 
 
+def phase_profile_paged(model, qmodel, lines):
+    """torch.profiler over one paged decode step (8 slots at position 512)
+    with f32 weights and with int8 weights, and one int8 prefill(512)."""
+    cfg = model.cfg
+    rng = np.random.RandomState(2)
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, 512))).to(
+        "cuda")
+    pool = torch.zeros((PAGED_POOL, cfg.num_layers, 2, PAGED_BS, HEADS,
+                        HEAD_DIM), dtype=cfg.dtype, device="cuda")
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, SLOTS)).to(
+        "cuda")
+    positions = torch.full((SLOTS,), 512, dtype=torch.int32, device="cuda")
+    tables = paged_step_tables()
+    return _profile_programs(
+        {"decode_step_paged_8_slots": lambda: model.decode_step_paged(
+            tokens, pool, tables, positions),
+         "decode_step_paged_8_slots_int8": lambda: qmodel.decode_step_paged(
+             tokens, pool, tables, positions),
+         "prefill_512_int8": lambda: qmodel.prefill(prompt)}, lines)
+
+
 def phase_profile_train(model, opt, tokens, targets, lines,
                         name="train_step"):
     """torch.profiler over one whole training step (2 micro-batches of
@@ -2851,8 +3395,10 @@ def main(argv=None):
     ap.add_argument("--profile", metavar="PATH",
                     help="also profile one prefill, one decode step and one "
                          "step of each training path, each with and without "
-                         "the fused FFN, and one ResNet-50 step at O1 and "
-                         "O2, and write the kernel breakdown to PATH")
+                         "the fused FFN, one ResNet-50 step at O1 and O2, "
+                         "one paged decode step with f32 and with int8 "
+                         "weights and one int8 prefill, and write the "
+                         "kernel breakdown to PATH")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2873,6 +3419,10 @@ def main(argv=None):
     fl = kernel_flash(gen)
     fl_bwd = kernel_flash_bwd(gen)
     dec = kernel_decode(gen)
+    dec_paged = kernel_decode_paged(gen)
+    torch.cuda.empty_cache()
+    qgemm = kernel_quant_gemm(torch.Generator(device="cuda").manual_seed(3))
+    torch.cuda.empty_cache()
     adam = kernel_adam(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.empty_cache()
     mt = kernel_multi_tensor_lamb(torch.Generator(device="cuda").manual_seed(1))
@@ -2957,6 +3507,15 @@ def main(argv=None):
     resnet_baseline = phase_resnet_baseline()
     torch.cuda.empty_cache()
     resnet_parity = phase_resnet_parity(flags_at_start)
+    torch.cuda.empty_cache()
+
+    # phase 3's weights again (seed 0), for the paged and int8 serving tier
+    model = build_model("cuda").init_params(torch.Generator().manual_seed(0))
+    qmodel, paged = phase_paged(model, np.random.RandomState(1))
+    if args.profile:
+        profiled.update(phase_profile_paged(model, qmodel, profile_lines))
+    del model, qmodel
+    torch.cuda.empty_cache()
     if args.profile:
         with open(args.profile, "w") as f:
             f.write("\n".join(profile_lines) + "\n")
@@ -2967,7 +3526,10 @@ def main(argv=None):
         check=True).stdout.strip().splitlines()[0]
     both = collections.Counter(serve["launches"])
     for run in (serve_f, train, train_f, bert, bert_f, clip, resnet["O1"],
-                resnet["O2"], resnet_baseline, *resnet_opts.values()):
+                resnet["O2"], resnet_baseline, *resnet_opts.values(),
+                paged["contiguous"], paged["paged"], paged["chunked"],
+                paged["pressure"], paged["int8_weights"]["contiguous"],
+                paged["int8_weights"]["paged"], paged["int8_kv"]):
         both.update(run["launches"])
     sources = {
         "layer_norm_fwd": ("apex_tpu_torch/csrc/layer_norm_fwd.cu",
@@ -3022,7 +3584,13 @@ def main(argv=None):
                                  opts["adagrad"]),
         "multi_tensor_novograd": (
             "apex_tpu_torch/csrc/multi_tensor_novograd.cu",
-            "apex_tpu/ops/multi_tensor.py:499", opts["novograd"])}
+            "apex_tpu/ops/multi_tensor.py:499", opts["novograd"]),
+        "flash_attention_decode_paged": (
+            "apex_tpu_torch/csrc/flash_decode_paged.cu",
+            "apex_tpu/ops/flash_attention.py:728", dec_paged),
+        # one whole GPT-350M decode step's 97 dequant-GEMMs
+        "quant_gemm": ("apex_tpu_torch/csrc/quant_gemm.cu",
+                       "apex_tpu/ops/quant_gemm.py:112", qgemm["decode"])}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -3034,7 +3602,9 @@ def main(argv=None):
         with open(args.out, "w") as f:
             json.dump(dict(device=kind, nvidia_smi=smi, layer_norm=ln,
                            layer_norm_bwd=ln_bwd, flash=fl, flash_bwd=fl_bwd,
-                           decode=dec, adam=adam, multi_tensor=mt,
+                           decode=dec, decode_paged=dec_paged,
+                           quant_gemm=qgemm, paged_serving=paged,
+                           adam=adam, multi_tensor=mt,
                            lm_head=lmh, fused_ffn=ffn, optimizers=opts,
                            serve=serve,
                            parity=parity, serve_ffn=serve_f,

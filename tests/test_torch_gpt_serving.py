@@ -204,13 +204,13 @@ def test_sampling_streams_are_deterministic_with_top_k_and_top_p():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(fused_ffn=True, remat=True), dict(weight_quant="int8"),
+    dict(fused_ffn=True, remat=True), dict(weight_quant="int8", remat=True),
     dict(n_experts=2),
     dict(context_axis="ctx"), dict(sequence_parallel=True),
     dict(tensor_parallel_size=2), dict(remat=True)])
 def test_unported_config_knobs_raise(knob):
-    """Knobs of later slices raise, naming their slice (``fused_ffn`` runs
-    now; with remat it still raises for remat)."""
+    """Knobs of later slices raise, naming their slice (``fused_ffn`` and
+    ``weight_quant`` run now; with remat they still raise for remat)."""
     with pytest.raises(NotImplementedError, match="slice"):
         GPTConfig(**TINY, **knob)
 

@@ -17,11 +17,13 @@ from apex_tpu_torch.models.bert import BertConfig, BertModel
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
 from apex_tpu_torch.normalization import MixedFusedLayerNorm
 from apex_tpu_torch.ops.flash_attention import (flash_attention_decode,
+                                                flash_attention_decode_paged,
                                                 flash_attention_dkv,
                                                 flash_attention_dq, flash_fwd)
 from apex_tpu_torch.ops.fused_ffn import ffn_dw, ffn_dx, ffn_fwd
 from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
 from apex_tpu_torch.ops.lm_head import lm_head_dw, lm_head_dx, lm_head_fwd
+from apex_tpu_torch.ops.quant_gemm import quant_gemm
 from apex_tpu_torch.ops.multi_tensor import (multi_tensor_adagrad,
                                              multi_tensor_adam,
                                              multi_tensor_axpby_,
@@ -45,7 +47,8 @@ COUNTERS = (layer_norm_fwd, flash_fwd, flash_attention_decode,
             multi_tensor_adam, multi_tensor_scale_, multi_tensor_sumsq,
             multi_tensor_lamb_stage1, multi_tensor_lamb_stage2, lm_head_fwd,
             lm_head_dx, lm_head_dw, ffn_fwd, ffn_dx, ffn_dw, multi_tensor_axpby_,
-            multi_tensor_sgd, multi_tensor_adagrad, multi_tensor_novograd)
+            multi_tensor_sgd, multi_tensor_adagrad, multi_tensor_novograd,
+            flash_attention_decode_paged, quant_gemm)
 BERT_TINY = dict(vocab_size=64, hidden_size=64, num_layers=2,
                  num_attention_heads=4, max_seq_len=32, fused_lm_head=False)
 
@@ -121,6 +124,43 @@ def test_cpu_serving_launches_no_kernel():
     done = engine.run()
     assert sorted(r.finish_reason for r in done) == ["length"] * 3
     assert [c.launches for c in COUNTERS] == [0] * len(COUNTERS)
+
+
+def test_cpu_paged_and_int8_serving_launch_no_kernel():
+    """The paged engine (monolithic and chunked prefill, the int8 pool)
+    and an int8-weight model on the CPU take every plain version."""
+    from apex_tpu_torch.serving import PagedInferenceEngine
+    for c in COUNTERS:
+        c.launches = 0
+    for cfg_kw, kw in ((dict(), dict()), (dict(),
+                                          dict(chunked_prefill=True)),
+                       (dict(), dict(chunked_prefill=True, kv_quant="int8")),
+                       (dict(weight_quant="int8"), dict())):
+        model = GPTModel(GPTConfig(**TINY, **cfg_kw), device="cpu")
+        model.init_params(torch.Generator().manual_seed(0))
+        engine = PagedInferenceEngine(model, max_slots=2, block_size=4,
+                                      device="cpu", **kw)
+        for i, n in enumerate((3, 9, 5)):
+            engine.submit(Request(request_id=i, prompt=list(range(1, n + 1)),
+                                  max_new_tokens=3))
+        assert sorted(r.finish_reason for r in engine.run()) == \
+            ["length"] * 3
+    assert [c.launches for c in COUNTERS] == [0] * len(COUNTERS)
+
+
+def test_serving_imports_without_a_card_and_defaults_to_it(monkeypatch):
+    """``apex_tpu_torch.serving`` imports on a machine with no card; its
+    engine and pools, like the other entry points, default to CUDA and
+    raise without it."""
+    import importlib
+    serving = importlib.import_module("apex_tpu_torch.serving")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = GPTModel(GPTConfig(**TINY), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving.PagedInferenceEngine(model, block_size=4)
+    for pool in (serving.PagedKVCache, serving.QuantizedPagedKVCache):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pool(4, 4, 1, 1, 8)
 
 
 def test_cpu_training_launches_no_kernel():
@@ -221,7 +261,9 @@ def test_cuda_wrappers_refuse_what_their_kernels_do_not_take():
                                     "lm_head_dw", "ffn_fwd", "ffn_dx",
                                     "ffn_dw", "multi_tensor_axpby_",
                                     "multi_tensor_sgd", "multi_tensor_adagrad",
-                                    "multi_tensor_novograd"])
+                                    "multi_tensor_novograd",
+                                    "flash_attention_decode_paged",
+                                    "quant_gemm"])
 def test_training_wrappers_refuse_non_cpu_tensors_they_cannot_launch(kernel):
     """A tensor that is not on the CPU never takes a plain version: the
     new wrappers run their checks and raise before any launch (here on
@@ -261,6 +303,13 @@ def test_training_wrappers_refuse_non_cpu_tensors_they_cannot_launch(kernel):
             [x], [x], [x], None, torch.empty(4, device="meta")),
         "multi_tensor_novograd": lambda: multi_tensor_novograd(
             [x], [x], [x], None, torch.empty(1, device="meta"),
+            torch.empty(6, device="meta")),
+        "flash_attention_decode_paged": lambda: flash_attention_decode_paged(
+            torch.empty((2, 4, 16), device="meta"), meta, meta,
+            torch.zeros((2, 3), dtype=torch.int32, device="meta"),
+            torch.ones(2, dtype=torch.int32, device="meta")),
+        "quant_gemm": lambda: quant_gemm(
+            x, torch.empty((6, 8), dtype=torch.int8, device="meta"),
             torch.empty(6, device="meta")),
     }
     with pytest.raises(ValueError, match="unsupported device|CUDA device"):
