@@ -1,5 +1,6 @@
-// Pieces shared by the port's tensor-core kernels (lm_head*.cu, ffn*.cu):
-// cp.async copies into shared memory, ldmatrix fragment loads and the
+// Pieces shared by the port's tensor-core kernels (lm_head*.cu, ffn*.cu,
+// the bf16 flash_fwd.cu / flash_bwd_dkv.cu): cp.async copies into shared
+// memory, ldmatrix fragment loads and the
 // mma.sync m16n8k16 bf16 product with f32 accumulation, and the loads and
 // stores of the f32 (FMA) instantiations, which read and write any float
 // dtype through common.cuh's DType codes.
@@ -31,6 +32,26 @@ __device__ __forceinline__ void cp_async_wait(int n) {
     default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
   }
 }
+// Stage rows [r0, r0 + kRows) of a bf16 operand whose rows are kCols
+// contiguous elements ld apart (kCols a multiple of 8; the base and ld*2
+// bytes 16-byte aligned) into a shared tile of row stride ldt with 16-byte
+// cp.async copies shared out over kThreads threads; rows at or past n_rows
+// read zeros (src_bytes 0).  The caller commits.
+template <int kRows, int kCols, int kThreads>
+__device__ __forceinline__ void cp_async_rows(bf16* tile, int ldt, const bf16* src, int64_t ld,
+                                              int r0, int n_rows) {
+  constexpr int kVecs = kCols / 8;
+  static_assert(kCols % 8 == 0, "rows of whole 16-byte vectors");
+#pragma unroll
+  for (int i = threadIdx.x; i < kRows * kVecs; i += kThreads) {
+    const int r = i / kVecs;
+    const int c = (i - r * kVecs) * 8;
+    const bool ok = r0 + r < n_rows;
+    cp_async16(tile + r * ldt + c, ok ? src + static_cast<int64_t>(r0 + r) * ld + c : src,
+               ok ? 16 : 0);
+  }
+}
+
 // Warp-level tensor-core pieces.  A lane's address of an ldmatrix.x4 names
 // one row of one of four 8x8 bf16 blocks (lanes 8i..8i+7: block i); the
 // fragment layouts are those of mma.m16n8k16 (g = lane / 4, t = lane % 4):
@@ -63,6 +84,15 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to bf16 (nearest even, as jnp.astype) in one register,
+// lo in the low half: two adjacent n8 C tiles of a product become one k16 A
+// fragment of the next (a0 = {c0, c1} of tile 2i, a1 = {c2, c3} of tile 2i,
+// a2 / a3 the same of tile 2i + 1)
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 // A fragment (16 x 16) at (row0, k0) of a row-major tile with k contiguous

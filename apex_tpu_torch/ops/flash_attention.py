@@ -9,7 +9,12 @@ attention — port of ``apex_tpu/ops/flash_attention.py``.
   / :func:`flash_attention_dkv` (``csrc/flash_bwd_dq.cu`` /
   ``csrc/flash_bwd_dkv.cu``, the Pallas ``_dq_kernel`` / ``_dkv_kernel``),
   which recompute the probabilities from that logsumexp.  A CPU tensor takes
-  each wrapper's plain version.
+  each wrapper's plain version.  In bf16 the forward and the dk/dv kernel
+  run on the tensor cores (``mma.sync`` over ``cp.async`` tiles); f32, f16
+  and the dq kernel run on the FMA units.  Every CUDA operand (q, k, v, dO)
+  starts on a 16-byte boundary and has batch, head and seq strides that are
+  multiples of 8 elements (the wrappers raise ``ValueError`` otherwise), as
+  the model's split projections do.
 * :func:`flash_attention_decode`: one query token per sequence against a
   ``(batch, max_seq, heads, head_dim)`` cache masked by ``cache_lens``.  A
   CUDA tensor launches ``csrc/flash_decode.cu`` (counterpart of the Pallas
@@ -279,6 +284,24 @@ def _check_last_dim(name, t):
                          "contiguous")
 
 
+def _check_aligned(kernel, **operands):
+    """The bf16 flash kernels stage their operands in shared memory with
+    16-byte ``cp.async`` copies, so each operand must start on a 16-byte
+    boundary and its batch, head and seq strides (of the axes longer than
+    one) must be multiples of 8 elements.  The model's ``(b, s, h, 3*hd)``
+    projection split at hd 16, 32 or 64 qualifies; the rule holds for every
+    dtype."""
+    for name, t in operands.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must start on a 16-byte "
+                             f"boundary (data_ptr % 16 = {t.data_ptr() % 16})")
+        strides = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        if any(st % 8 for st in strides):
+            raise ValueError(f"{kernel}: {name}'s batch, head and seq strides "
+                             f"must be multiples of 8 elements, got "
+                             f"{tuple(t.stride()[:3])}")
+
+
 def _check_operands(kernel, q, k, v, do=None):
     """Shapes, dtype, device and layout a CUDA flash kernel takes."""
     b, h, sq, d = q.shape
@@ -296,8 +319,10 @@ def _check_operands(kernel, q, k, v, do=None):
     if d not in FLASH_HEAD_DIMS:
         raise NotImplementedError(
             f"{kernel}: head_dim {d} (kernel built for {FLASH_HEAD_DIMS})")
-    for name, t in zip(("q", "k", "v", "do"), ops):
+    names = ("q", "k", "v", "do")
+    for name, t in zip(names, ops):
         _check_last_dim(f"{kernel} {name}", t)
+    _check_aligned(kernel, **dict(zip(names, ops)))
     return _kernels.dtype_code(q, kernel)
 
 

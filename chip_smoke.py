@@ -15,7 +15,11 @@ Phases (any failure exits non-zero; nothing is caught):
    kernel's time, the plain version's time, one PyTorch library call
    computing the same function (a yardstick the port never calls) and the
    least time the card could take (bytes / 3.35 TB/s or operations / peak,
-   whichever is larger); the fused LM head (#8-#10) at GPT-350M's and
+   whichever is larger); the flash forward, dq and dk/dv (#3-#5) also at
+   head_dim 16 and 32 on a ragged s = 200 (causal, dropout 0.1,
+   kv_seqlens), in small f32 and f16 cases (the FMA instantiations), #5
+   twice on the same inputs (bitwise equal) and a q one element off its
+   16-byte boundary (refused); the fused LM head (#8-#10) at GPT-350M's and
    BERT-large's head shapes in bf16 and GPT-350M's in f32, a peaked-softmax
    bf16 case off the token and vocab grids, and three small off-grid cases
    (f32, bf16, a mixed pair), its yardstick the two calls matmul +
@@ -139,6 +143,11 @@ HEADS, HEAD_DIM, HIDDEN, MAX_SEQ = 16, 64, 1024, 1024
 MICRO, ACCUM, SEQ, LR, TRAIN_STEPS = 8, 2, 1024, 1e-4, 4
 TRAIN_ROWS = MICRO * SEQ       # rows of every LayerNorm on that path
 BF16_ATOL = BF16_RTOL = 2e-2   # one bf16 ulp at |y| <= 4 is 2**-6 = 0.0156
+# f16 keeps 11 significant bits: one ulp at |y| <= 4 is 2**-9 = 0.002, and
+# the f16 flash forward (FMA units) does not round p where its plain version
+# rounds it to f16 before PV (at most one more ulp)
+F16_ATOL = F16_RTOL = 4e-3
+F32_ATOL = F32_RTOL = 1e-4     # f32 kernels: the same sums in other orders
 # Whole path, card vs CPU, both bf16: the two runs round and reduce in other
 # orders, so the final hidden state drifts by ~1-2% over 24 residual layers
 # (bf16 keeps 8 significant bits): a logit error of ~0.01 on a logit std of
@@ -393,12 +402,63 @@ def _flash_bound(batch, s, causal, n_products, n_io, lens=None):
     return bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
 
 
-def _qkv_views(gen, batch, s):
+def _qkv_views(gen, batch, s, heads=HEADS, hd=HEAD_DIM, dtype=torch.bfloat16):
     """q, k, v as the model gives them: strided (b, h, s, d) views of one
     (b, s, h, 3*hd) projection."""
-    qkv = torch.randn(batch, s, HEADS, 3 * HEAD_DIM, generator=gen).to(
-        "cuda", torch.bfloat16)
-    return [t.transpose(1, 2) for t in qkv.split(HEAD_DIM, dim=-1)]
+    qkv = torch.randn(batch, s, heads, 3 * hd, generator=gen).to("cuda", dtype)
+    return [t.transpose(1, 2) for t in qkv.split(hd, dim=-1)]
+
+
+# Off the 64-row tiles of the tensor-core kernels (ragged s, head_dim 16
+# and 32, dropout, kv_seqlens with a fully masked batch and a block of keys
+# past its length), then the FMA instantiations (f32, f16) at a small shape:
+# (tag, head_dim, seq, causal, dropout, seed, kv_seqlens, dtype, atol / rtol)
+RAGGED_S = 200
+FLASH_EDGE_CASES = (
+    ("causal", 16, RAGGED_S, True, 0.0, None, None, torch.bfloat16, BF16_ATOL),
+    ("causal dropout=0.1", 16, RAGGED_S, True, 0.1, 77, None, torch.bfloat16,
+     BF16_ATOL),
+    ("kv_seqlens", 16, RAGGED_S, False, 0.0, None, [77, 200], torch.bfloat16,
+     BF16_ATOL),
+    ("causal", 32, RAGGED_S, True, 0.0, None, None, torch.bfloat16, BF16_ATOL),
+    ("causal dropout=0.1", 32, RAGGED_S, True, 0.1, 78, None, torch.bfloat16,
+     BF16_ATOL),
+    ("kv_seqlens", 32, RAGGED_S, False, 0.0, None, [0, 133], torch.bfloat16,
+     BF16_ATOL),
+    ("causal f32", 32, 100, True, 0.0, None, None, torch.float32, F32_ATOL),
+    ("causal f16", 32, 100, True, 0.0, None, None, torch.float16, F16_ATOL),
+)
+
+
+def _edge_inputs(gen, hd, s, lens, dtype):
+    q, k, v = _qkv_views(gen, 2, s, 4, hd, dtype)
+    do = torch.randn(2, s, 4, hd, generator=gen).to("cuda", dtype).transpose(1, 2)
+    kl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device="cuda")
+    return q, k, v, do, kl
+
+
+def _check_refuses_misaligned(kernel, fn):
+    """fn passes q one element off a 16-byte boundary: the wrapper must
+    raise ValueError naming q, before any launch."""
+    try:
+        fn()
+    except ValueError as e:
+        if f"{kernel}: q must start on a 16-byte boundary" not in str(e):
+            raise
+        log(f"  {kernel} refuses a misaligned q ({e}) ok")
+        return
+    raise AssertionError(f"{kernel} took a q one element off its 16-byte "
+                         "boundary")
+
+
+def _misaligned_q(gen, hd=32):
+    """(q, k, v) of a (1, 64, 4, 3*hd) projection, q sliced one element
+    late."""
+    qkv = torch.randn(1, 64, 4, 3 * hd, generator=gen).to("cuda",
+                                                          torch.bfloat16)
+    k, v = (qkv[..., i * hd:(i + 1) * hd].transpose(1, 2) for i in (1, 2))
+    return qkv[..., 1:1 + hd].transpose(1, 2), k, v
 
 
 def kernel_flash(gen):
@@ -471,6 +531,18 @@ def kernel_flash(gen):
         call_ms(lambda: flash_fwd(q, k, v, False, scale)))
     log_numbers("flash_fwd bert non-causal", n, "sdpa")
     by_len["bert_noncausal"] = n
+    for tag, hd, s, causal, rate, seed, lens, dt, tol in FLASH_EDGE_CASES:
+        q, k, v, _, kl = _edge_inputs(gen, hd, s, lens, dt)
+        o, lse = flash_fwd(q, k, v, causal, hd ** -0.5, kl, rate, seed)
+        ro, rlse = flash_fwd_reference(q, k, v, causal, hd ** -0.5, kl, rate,
+                                       seed)
+        torch.cuda.synchronize()
+        name = f"flash_fwd (2,4,{s},{hd}) {tag}"
+        check_close(name, o, ro, tol, tol)
+        check_close(name + " lse", lse, rlse, 1e-4, 1e-5)
+    q, k, v = _misaligned_q(gen)
+    _check_refuses_misaligned("flash_fwd",
+                              lambda: flash_fwd(q, k, v, True, scale))
     return by_len
 
 
@@ -525,6 +597,12 @@ def kernel_flash_bwd(gen):
                             BF16_ATOL, BF16_RTOL)
         if tag != "causal":
             continue
+        # no atomics: a second call gives the same bits
+        dk2, dv2 = flash_attention_dkv(*args)
+        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            raise AssertionError("flash_attention_dkv: two calls on the same "
+                                 "inputs differ")
+        log(f"  flash_attention_dkv {name}: two calls bitwise equal ok")
         lib_bwd = _flash_bwd_library_ms(q, k, v, do, True, scale)
         out["dq"] = numbers(
             err_q, time_ms(lambda: flash_attention_dq(*args)),
@@ -575,6 +653,31 @@ def kernel_flash_bwd(gen):
                 "sdpa backward (dq+dk+dv)")
     log_numbers("flash_attention_dkv bert non-causal", out["dkv_bert"],
                 "sdpa backward (dq+dk+dv)")
+    for tag, hd, s, causal, rate, seed, lens, dt, tol in FLASH_EDGE_CASES:
+        q, k, v, do, kl = _edge_inputs(gen, hd, s, lens, dt)
+        o, lse = flash_fwd(q, k, v, causal, hd ** -0.5, kl, rate, seed)
+        delta = (do.float() * o.float()).sum(-1).reshape(2 * 4, s)
+        args = (q, k, v, do, lse, delta, causal, hd ** -0.5, kl, rate, seed)
+        dq = flash_attention_dq(*args)
+        dk, dv = flash_attention_dkv(*args)
+        rdq = flash_attention_dq_reference(*args)
+        rdk, rdv = flash_attention_dkv_reference(*args)
+        torch.cuda.synchronize()
+        name = f"(2,4,{s},{hd}) {tag}"
+        check_close(f"flash_attention_dq {name}", dq, rdq, tol, tol)
+        check_close(f"flash_attention_dkv {name} dk", dk, rdk, tol, tol)
+        check_close(f"flash_attention_dkv {name} dv", dv, rdv, tol, tol)
+        dk2, dv2 = flash_attention_dkv(*args)
+        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            raise AssertionError(f"flash_attention_dkv {name}: two calls on "
+                                 "the same inputs differ")
+    q, k, v = _misaligned_q(gen)
+    o, lse = flash_fwd(q.contiguous(), k, v, True, 32 ** -0.5)
+    delta = torch.zeros_like(lse)
+    for kernel, fn in (("flash_attention_dq", flash_attention_dq),
+                       ("flash_attention_dkv", flash_attention_dkv)):
+        _check_refuses_misaligned(kernel, lambda fn=fn: fn(
+            q, k, v, o, lse, delta, True, 32 ** -0.5))
     return out
 
 
@@ -3240,9 +3343,9 @@ def phase_resnet_parity(flags_at_start):
 
 _KERNEL_CLASSES = (("layer_norm_bwd", "layer_norm_bwd"),
                    ("layer_norm_fwd_kernel", "layer_norm_fwd"),
-                   ("flash_fwd_kernel", "flash_fwd"),
+                   ("flash_fwd_", "flash_fwd"),     # _mma_ (bf16), _fma_
                    ("flash_bwd_dq_kernel", "flash_attention_dq"),
-                   ("flash_bwd_dkv_kernel", "flash_attention_dkv"),
+                   ("flash_bwd_dkv_", "flash_attention_dkv"),
                    ("flash_decode_kernel", "flash_attention_decode"),
                    ("flash_decode_paged_kernel",
                     "flash_attention_decode_paged"),

@@ -33,16 +33,31 @@ def jax_path(request):
     set_force_pallas(None)
 
 
-def _qkv(seed):
+def _qkv(seed, seq=S, dim=D):
     rng = np.random.RandomState(seed)
-    return [rng.randn(B, H, S, D).astype(np.float32) for _ in range(3)]
+    return [rng.randn(B, H, seq, dim).astype(np.float32) for _ in range(3)]
 
 
-@pytest.mark.parametrize("case", ["causal", "non_causal", "kv_seqlens"])
+# s = 72 is one whole 64-row tile of the card's tensor-core kernels and a
+# partial one: the ragged edges chip_smoke.py holds the kernels to, against
+# these plain versions, at head_dim 16 and 32
+_FWD_CASES = {
+    "causal": dict(causal=True),
+    "non_causal": dict(causal=False),
+    "kv_seqlens": dict(causal=False, lens=[S, 13]),
+    "causal_s72_d16": dict(causal=True, seq=72, dim=16),
+    "causal_s72_d32": dict(causal=True, seq=72, dim=32),
+    "non_causal_s72_d32": dict(causal=False, seq=72, dim=32),
+    "kv_seqlens_s72_d32": dict(causal=False, seq=72, dim=32, lens=[50, 0]),
+}
+
+
+@pytest.mark.parametrize("case", list(_FWD_CASES))
 def test_flash_attention_matches_jax(jax_path, case):
-    q, k, v = _qkv(0)
-    lens = np.array([S, 13], np.int32) if case == "kv_seqlens" else None
-    causal = case == "causal"
+    c = _FWD_CASES[case]
+    q, k, v = _qkv(0, c.get("seq", S), c.get("dim", D))
+    lens = None if "lens" not in c else np.array(c["lens"], np.int32)
+    causal = c["causal"]
     ref = jfa.flash_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
         kv_seqlens=None if lens is None else jnp.asarray(lens))
@@ -139,9 +154,13 @@ def test_flash_grads_match_jax(jax_path, case):
                                    rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("dropout", [0.0, 0.1])
-def test_flash_grads_bf16_match_jax(jax_path, dropout):
-    q, k, v = _qkv(7)
+@pytest.mark.parametrize(
+    "dropout,seq,dim",
+    [(0.0, S, D), (0.1, S, D), (0.0, 72, 16), (0.1, 72, 16), (0.0, 72, 32),
+     (0.1, 72, 32)],
+    ids=["0.0", "0.1", "s72_d16", "s72_d16-0.1", "s72_d32", "s72_d32-0.1"])
+def test_flash_grads_bf16_match_jax(jax_path, dropout, seq, dim):
+    q, k, v = _qkv(7, seq, dim)
     g = np.random.RandomState(8).randn(*q.shape).astype(np.float32)
     kw = dict(causal=True, dropout=dropout,
               dropout_seed=21 if dropout else None)
@@ -180,6 +199,52 @@ def test_dq_dkv_plain_versions_take_the_saved_stats():
     for got, want in ((dq, q.grad), (dk, k.grad), (dv, v.grad)):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
                                    atol=1e-5)
+
+
+def _split_views(hd, last=None):
+    """q, k, v as the models pass them: (b, h, s, hd) views of one
+    (b, s, h, 3*hd) projection (``last`` widens its last axis), and a dO
+    laid out as autograd returns it."""
+    qkv = torch.zeros(2, 9, 3, last or 3 * hd, dtype=torch.bfloat16)
+    q, k, v = (qkv[..., i * hd:(i + 1) * hd].transpose(1, 2)
+               for i in range(3))
+    do = torch.zeros(2, 9, 3, hd, dtype=torch.bfloat16).transpose(1, 2)
+    return qkv, dict(q=q, k=k, v=v, do=do)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_alignment_check_takes_the_models_split_views(hd):
+    """The bf16 kernels stage q, k, v and dO with 16-byte cp.async copies;
+    the model's split projection meets their alignment rule."""
+    _, ops = _split_views(hd)
+    assert not ops["q"].is_contiguous()
+    tfa._check_aligned("flash_fwd", **ops)
+    tfa._check_aligned("flash_attention_dkv", **ops)
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v", "do"])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_alignment_check_refuses_a_one_element_offset(hd, name):
+    qkv, ops = _split_views(hd)
+    ops[name] = qkv[..., 1:1 + hd].transpose(1, 2)
+    with pytest.raises(ValueError,
+                       match=rf"^flash_attention_dq: {name} must start on a "
+                             "16-byte boundary"):
+        tfa._check_aligned("flash_attention_dq", **ops)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_alignment_check_refuses_strides_off_8_elements(hd):
+    """A projection one element wider keeps the base aligned but puts the
+    seq and head strides off a multiple of 8 elements."""
+    _, ops = _split_views(hd, last=3 * hd + 1)
+    with pytest.raises(ValueError, match=r"^flash_fwd: q's batch, head and "
+                                         r"seq strides must be multiples"):
+        tfa._check_aligned("flash_fwd", **ops)
+    # an axis of length one takes any stride: it is never stepped
+    one = torch.zeros(8 * hd, dtype=torch.bfloat16).as_strided(
+        (1, 1, 8, hd), (5, 3, hd, 1))
+    tfa._check_aligned("flash_fwd", q=one)
 
 
 @pytest.mark.parametrize("cache_dtype", ["f32", "bf16"])
