@@ -41,7 +41,7 @@ SOURCES = ("layer_norm_fwd.cu", "layer_norm_bwd.cu", "flash_fwd.cu",
            "lm_head_bwd.cu", "ffn_fwd.cu", "ffn_bwd.cu",
            "flash_decode_paged.cu", "quant_gemm.cu")
 HEADERS = ("common.cuh", "multi_tensor.cuh", "mma.cuh", "lm_head.cuh",
-           "ffn.cuh", "decode.cuh")
+           "ffn.cuh", "gemm.cuh", "decode.cuh")
 BUILD_DIR = _PKG.parent / "build" / "apex_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -78,7 +78,7 @@ _SIGNATURES = {
     "apex_lm_head_dx": [_P] * 6 + [_I] * 5 + [_P],
     "apex_lm_head_dw": [_P] * 6 + [_I] * 5 + [_P],
     "apex_ffn_splits": [_I] * 4,
-    "apex_ffn_fwd": [_P] * 8 + [_I] * 6 + [_P],
+    "apex_ffn_fwd": [_P] * 8 + [_I] * 5 + [_P],
     "apex_ffn_dx": [_P] * 6 + [_I] * 6 + [_P],
     "apex_ffn_dw": [_P] * 7 + [_I] * 7 + [_P],
     "apex_flash_decode_paged": [_P] * 6 + [_I] * 6 + [_L] * 10

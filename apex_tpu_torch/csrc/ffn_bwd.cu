@@ -12,12 +12,13 @@
 // for dW1, then dW1 and dW2: 206.2 GFLOP, 0.208 ms).  Neither the (tokens,
 // ffn) dz nor gelu(z1) reaches device memory.
 //
-// dX (ffn.cuh, the row kernel, as the forward): a block owns 32 token rows
+// dX (ffn.cuh, the row kernel): a block owns 32 token rows
 // and up to 1024 columns of dX in registers and walks its ffn range in steps
 // of 64: dh = dy W2 for 32 x 64 on the tensor cores, dz = dh gelu'(z1)
 // rounded to bf16 into shared memory, then dz times the step's 64 rows of W1
-// into the accumulator.  Ranges of the ffn axis across blocks and the
-// fixed-order combine of their partials as in the forward (two launches).
+// into the accumulator.  The ffn axis is split into ranges across blocks
+// when the row blocks alone would not fill the card, and a second launch
+// sums their partials in a fixed order (two launches, no float atomics).
 //
 // dW: the TPU kernel carries (block_f, k) and (n, block_f) f32 scratch
 // across a sequential token axis; the two together would not fit one block's
@@ -92,9 +93,9 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_dw_kernel(const DwArgs p) {
       // dh (64 tokens x 32 ffn) = dy W2 over n in chunks, two stages
       auto stage1 = [&](int c) {
         const int kc0 = c * L::kKc1;
-        load_tile<T, false>(sA1 + (c & 1) * L::szA1, L::ldA1, p.dy, p.code, m0, p.m, kWBM, kc0,
+        load_tile<T>(sA1 + (c & 1) * L::szA1, L::ldA1, p.dy, p.code, m0, p.m, kWBM, kc0,
                             p.n, L::kKc1, vec);
-        load_tile<T, false>(sB1 + (c & 1) * L::szB1, L::ldB1, p.w2, p.code, kc0, p.n, L::kKc1,
+        load_tile<T>(sB1 + (c & 1) * L::szB1, L::ldB1, p.w2, p.code, kc0, p.n, L::kKc1,
                             f0, p.f, kWBF, vec);
         cp_async_commit();
       };
@@ -108,7 +109,7 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_dw_kernel(const DwArgs p) {
           cp_async_wait(0);
         }
         __syncthreads();
-        tile_product<T, kWBM, kWBF, true>(t1, sA1 + (c & 1) * L::szA1, L::ldA1,
+        tile_product<T, kWBM, kWBF>(t1, sA1 + (c & 1) * L::szA1, L::ldA1,
                                           sB1 + (c & 1) * L::szB1, L::ldB1, L::kKc1);
         __syncthreads();
       }
@@ -139,7 +140,7 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_dw_kernel(const DwArgs p) {
     }
     // ACC (32 ffn rows x width) += A2^T (32 x 64 tokens) times x or dy
     auto stage2 = [&](int c) {
-      load_tile<T, false>(sB2 + (c & 1) * L::szB2, L::ldB2, b_src, p.code, m0 + c * L::kKc2, p.m,
+      load_tile<T>(sB2 + (c & 1) * L::szB2, L::ldB2, b_src, p.code, m0 + c * L::kKc2, p.m,
                           L::kKc2, g0, n_cols, width, vec);
       cp_async_commit();
     };
@@ -153,7 +154,7 @@ __global__ void __launch_bounds__(kThreads, 1) ffn_dw_kernel(const DwArgs p) {
         cp_async_wait(0);
       }
       __syncthreads();  // also orders A2's stores before its first use
-      acc_product<T, true, true>(acc, sA2 + c * L::kKc2 * L::ldA2, L::ldA2,
+      acc_product<T, true>(acc, sA2 + c * L::kKc2 * L::ldA2, L::ldA2,
                                  sB2 + (c & 1) * L::szB2, L::ldB2, L::kKc2, width);
       __syncthreads();
     }
@@ -217,6 +218,11 @@ int launch_dw(const DwArgs& p, cudaStream_t s) {
 using namespace apex_tpu_torch;
 using namespace apex_tpu_torch::ffn;
 
+// Ranges of the ffn axis per row block of dX for m token rows, f ffn
+// columns, k columns of dX and a card of sms multiprocessors: the `splits`
+// of apex_ffn_dx, whose partials scratch is (splits, m, k) f32.
+extern "C" int apex_ffn_splits(int m, int f, int k, int sms) { return row_splits(m, f, k, sms); }
+
 // dy: (m, n); z1: (m, f); w1: (f, k); w2: (n, f), all row-major in the
 // activation dtype `dtype`; dx: (m, k) in `dtype`; partial: (splits, m, k)
 // f32 scratch (splits from apex_ffn_splits(m, f, k, sms)).  Two launches:
@@ -227,12 +233,10 @@ extern "C" int apex_ffn_dx(const void* dy, const void* z1, const void* w1, const
   if (m <= 0 || k <= 0) return 0;
   if (splits <= 0 || f <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   RowsArgs p;
-  p.a = dy;
+  p.dy = dy;
   p.w1 = w1;
   p.w2 = w2;
-  p.b1 = nullptr;
-  p.z1_in = z1;
-  p.z1_out = nullptr;
+  p.z1 = z1;
   p.partial = static_cast<float*>(partial);
   p.m = m;
   p.k = k;
@@ -243,8 +247,8 @@ extern "C" int apex_ffn_dx(const void* dy, const void* z1, const void* w1, const
   p.vec = k % 8 == 0 && f % 8 == 0 && n % 8 == 0 && aligned16(dy) && aligned16(w1) &&
           aligned16(w2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) return launch_rows<bf16, true>(p, nullptr, dx, s);
-  return launch_rows<float, true>(p, nullptr, dx, s);
+  if (dtype == kBF16) return launch_rows<bf16>(p, dx, s);
+  return launch_rows<float>(p, dx, s);
 }
 
 // x: (m, k); dy: (m, n); z1: (m, f); w2: (n, f), row-major in `dtype`;

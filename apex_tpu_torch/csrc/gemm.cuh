@@ -1,0 +1,601 @@
+// A tiled "NT" GEMM for Hopper, C (M x N) = A B^T with A (M x K) and B
+// (N x K) both row-major (the contraction contiguous in both), f32
+// accumulation, and a caller's epilogue that receives each output pair
+// (row, col), (row, col + 1) in f32 (col even).  W x^T products of the
+// linear layers take this form with W in its (out, in) layout.  The FFN
+// forward (ffn_fwd.cu) runs both of its products on it; dX, dW and the LM
+// head can take the same mainloop.
+//
+// What bounds such a product on the H100 at training width: operations
+// (989 TFLOP/s of bf16), as long as the operand tiles reach shared memory
+// fast enough.  Tiles copied by the threads themselves (16-byte cp.async)
+// top out near 3 TB/s of L2-to-shared traffic, which holds a 128 x 256 tile
+// (85 flops per byte) to about 280 TFLOP/s; the Tensor Memory Accelerator
+// (TMA) moves the same tiles at twice that rate.  So bf16 operands at
+// training and prefill width run the Hopper shape:
+//
+// * a block of three warpgroups over a 128 x BN tile of C (BN 256 or 128):
+//   one thread of the first issues a TMA copy of each 128 x 64 tile of A
+//   and BN x 64 tile of B into a ring of kTmaStages stages, 128-byte
+//   swizzled as wgmma reads them, announced to an mbarrier per stage ("full");
+// * the other two warpgroups each own 64 rows, wait on a stage's full
+//   barrier, run wgmma m64n128k16 on it (A and B straight from shared
+//   memory through 64-bit descriptors, f32 accumulators in registers), wait
+//   for their products and hand the stage back through its "empty"
+//   mbarrier, which the producer waits on before it refills the stage;
+// * TMA zero-fills rows and contraction columns outside the matrices;
+// * the two consumers stage their C tile through the drained ring and write
+//   it row by row (coalesced stores through the epilogue).
+//
+// A few token rows (decode), and operands whose rows are not 16-byte
+// multiples or bases not 16-byte aligned, take mma.sync m16n8k16 on narrow
+// 16 x 16 or 16 x 8 column tiles instead: the card is covered by column
+// tiles, each stage's 256 or 512 contraction columns split over 8 warps
+// whose pieces are summed through shared memory in a fixed warp order, and
+// 16-byte cp.async copies (element-wise loads off the 16-byte grid) over a
+// ring of 4 stages.
+//
+// Each output entry is summed by one block in a fixed order (no split of
+// the contraction across blocks, no atomics): a repeat gives the same bits.
+//
+// f32 and f16 operands run a register-blocked FMA tile (128 x 128 per
+// block, 8 x 8 per thread, f32 arithmetic), staged through registers into
+// double-buffered k-major shared tiles (any dtype: common.cuh's codes).
+#pragma once
+
+#include <cuda.h>
+
+#include "mma.cuh"
+
+namespace apex_tpu_torch {
+namespace gemm {
+
+// ---------------------------------------------------------------------------
+// TMA + wgmma (bf16, most rows)
+
+constexpr int kTmaBM = 128;      // rows of C per block: two consumer warpgroups of 64
+constexpr int kTmaBK = 64;       // contraction columns per stage: one 128-byte swizzle row
+constexpr int kTmaStages = 4;
+constexpr int kTmaThreads = 384;  // producer warpgroup + two consumers
+
+// the wgmma descriptor of a 128-byte-swizzled K-major tile at shared address
+// `addr`: rows of 128 bytes, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// wait until the phase of parity `parity` completes; a phase that never
+// completes (a lost arrival) traps after about two seconds rather than hang
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const long long start = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > 4000000000LL) __trap();
+  }
+}
+
+// TMA: the box at (column c0, row c1) of `map` into shared memory, counted
+// on `bar`
+__device__ __forceinline__ void tma_load(bf16* dst, const CUtensorMap* map, int c0, int c1,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// D (64 x 128 f32) += A B^T on the tensor cores for one warpgroup, A (64 x
+// 16) and B (128 x 16) read from shared memory through their descriptors.
+// d holds, per warp of the group, the C fragments of mma.sync m16n8 for its
+// 16 rows and the 16 n8 tiles in order.
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// the ring of stages, its mbarriers and the 1024-byte alignment; the ring
+// later holds the f32 C tile (128 x (BN + 4))
+template <int BN>
+constexpr int tma_smem_bytes() {
+  static_assert(kTmaBM * (BN + 4) * 4 <= kTmaStages * (kTmaBM + BN) * kTmaBK * 2, "C fits");
+  return kTmaStages * (kTmaBM + BN) * kTmaBK * 2 + 2 * kTmaStages * 8 + 1024;
+}
+
+template <int BN, class Epi>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+gemm_nt_tma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                   int k, const Epi epi) {
+  constexpr int kStageA = kTmaBM * kTmaBK, kStageB = BN * kTmaBK;  // bf16 elements
+  constexpr int NH = BN / 128;  // wgmma n128 products per k16 step
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // the swizzle pattern repeats every 1024 bytes: stages start on that grid
+  const uint32_t raw = smem_u32(smem_raw);
+  bf16* sa = reinterpret_cast<bf16*>(smem_raw + (((raw + 1023u) & ~1023u) - raw));
+  bf16* sb = sa + kTmaStages * kStageA;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sb + kTmaStages * kStageB);
+  uint64_t* empty = full + kTmaStages;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int m0 = blockIdx.y * kTmaBM, n0 = blockIdx.x * BN;
+  const int nk = (k + kTmaBK - 1) / kTmaBK;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kTmaStages; ++i) {
+      mbar_init(&full[i], 1);   // the producer's arrival, plus the TMA bytes
+      mbar_init(&empty[i], 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer
+    if (tid == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kTmaStages;
+        if (kt >= kTmaStages) mbar_wait(&empty[s], (kt / kTmaStages - 1) & 1);
+        mbar_expect_tx(&full[s], (kStageA + kStageB) * 2);
+        tma_load(sa + s * kStageA, &ta, kt * kTmaBK, m0, &full[s]);
+        tma_load(sb + s * kStageB, &tb, kt * kTmaBK, n0, &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int cw = wg - 1;  // this consumer's 64 rows of the tile
+  float acc[NH][64];
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+  }
+#pragma unroll 1
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kTmaStages;
+    mbar_wait(&full[s], (kt / kTmaStages) & 1);
+    const uint32_t a_addr = smem_u32(sa + s * kStageA + cw * 64 * kTmaBK);
+    const uint32_t b_addr = smem_u32(sb + s * kStageB);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int k16 = 0; k16 < kTmaBK / 16; ++k16) {  // 32 bytes along the swizzled row
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        wgmma_n128(acc[h], desc_sw128(a_addr + 32 * k16),
+                   desc_sw128(b_addr + h * 128 * kTmaBK * 2 + 32 * k16));
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    if (tid == 0) mbar_arrive(&empty[s]);  // the stage may be refilled
+  }
+
+  // the epilogue: both consumers' tiles go through the drained ring as f32
+  // (row stride BN + 4), then the 256 consumer threads hand out row-major
+  // pairs, so a warp's 32 stores cover contiguous columns
+  constexpr int LDC = BN + 4;
+  float* sc = reinterpret_cast<float*>(sa);
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both consumers are done with the ring
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = cw * 64 + warp * 16 + g;
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = h * 128 + j * 8 + 2 * t4;
+      *reinterpret_cast<float2*>(sc + r0 * LDC + c) = make_float2(acc[h][j * 4], acc[h][j * 4 + 1]);
+      *reinterpret_cast<float2*>(sc + (r0 + 8) * LDC + c) =
+          make_float2(acc[h][j * 4 + 2], acc[h][j * 4 + 3]);
+    }
+  }
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  for (int i = threadIdx.x - 128; i < kTmaBM * BN / 2; i += 256) {
+    const int r = i / (BN / 2), c = 2 * (i - r * (BN / 2));
+    const float2 v = *reinterpret_cast<const float2*>(sc + r * LDC + c);
+    epi(m0 + r, n0 + c, v.x, v.y);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's tensor-map encoder, through the runtime (no link to libcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// The TMA map of a row-major (rows, cols) bf16 matrix copied in boxes of
+// box_rows x 64, 128-byte swizzled, zeros outside; returns a cudaError_t.
+inline int tma_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {kTmaBK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                        strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync (bf16, a few rows or operands off the 16-byte grid)
+
+// ldmatrix.x2: one B fragment (k16 x n8) of B = T^T, T stored n-major (row
+// n, k contiguous), at (n0, k0) of T (lanes 16..31 repeat 0..15's addresses)
+__device__ __forceinline__ void load_b8(unsigned (&r)[2], const bf16* tile, int ld, int n0,
+                                        int k0) {
+  const int lane = threadIdx.x & 15;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(tile + (n0 + (lane & 7)) * ld + k0 + (lane >> 3) * 8))
+               : "memory");
+}
+
+// A mma.sync block configuration: a BM x BN tile of C per block, BK
+// contraction columns per stage, warps of WM x WN (a multiple of 16 x 8),
+// kWK warps splitting each stage's contraction, kStages stages in flight,
+// kMinBlocks resident blocks per SM asked of the compiler.
+template <int BM_, int BN_, int BK_, int WM_, int WN_, int WK_, int STAGES_, int MIN_BLOCKS_>
+struct Cfg {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_, WM = WM_, WN = WN_;
+  static constexpr int kWK = WK_, kStages = STAGES_, kMinBlocks = MIN_BLOCKS_;
+  static constexpr int kWarpsMN = (BM / WM) * (BN / WN);
+  static constexpr int kThreads = 32 * kWarpsMN * kWK;
+  static constexpr int MT = WM / 16, NT = WN / 8;  // m16 / n8 tiles per warp
+  static constexpr int LD = BK + 8;                // bf16 row stride in shared memory
+  static constexpr int kStage = (BM + BN) * LD;    // bf16 elements per stage
+  static constexpr int kPipeBytes = kStages * kStage * 2;
+  static constexpr int kRedBytes = (kWK - 1) * kWarpsMN * 32 * MT * NT * 4 * 4;
+  static constexpr int kSmemBytes = kPipeBytes > kRedBytes ? kPipeBytes : kRedBytes;
+  static_assert(BM % WM == 0 && BN % WN == 0 && WM % 16 == 0 && WN % 8 == 0, "warp tiling");
+  static_assert(BK % (16 * kWK) == 0, "whole k16 steps per warp");
+};
+
+// For a few rows (decode) the card is covered by narrow column tiles, each
+// stage's contraction split over 8 warps: 16 x 16 where they give every SM
+// a block, else 16 x 8 with 512 contraction columns a stage (more bytes in
+// flight per block)
+using Narrow16 = Cfg<16, 16, 256, 16, 16, 8, 4, 3>;
+using Narrow8 = Cfg<16, 8, 512, 16, 8, 8, 4, 2>;
+constexpr int kNarrowRows = 64;  // at most this many rows of C take them
+
+// Copy rows [r0, r0 + kRows) x columns [c0, c0 + kCols) of a row-major
+// (n_rows, n_cols) bf16 matrix into a shared tile of row stride ld; entries
+// outside read zero.  16-byte cp.async copies when vec (the caller commits),
+// element-wise otherwise.
+template <int kRows, int kCols, int kThreads>
+__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src, int r0, int n_rows,
+                                          int c0, int n_cols, bool vec) {
+  if (vec) {
+    constexpr int kVecs = kCols / 8;
+#pragma unroll
+    for (int i = threadIdx.x; i < kRows * kVecs; i += kThreads) {
+      const int r = i / kVecs;
+      const int c = (i - r * kVecs) * 8;
+      const bool ok = r0 + r < n_rows && c0 + c < n_cols;
+      cp_async16(dst + r * ld + c, ok ? src + static_cast<int64_t>(r0 + r) * n_cols + c0 + c : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * kCols; i += kThreads) {
+      const int r = i / kCols;
+      const int c = i - r * kCols;
+      const bool ok = r0 + r < n_rows && c0 + c < n_cols;
+      dst[r * ld + c] = ok ? src[static_cast<int64_t>(r0 + r) * n_cols + c0 + c]
+                           : __float2bfloat16(0.f);
+    }
+  }
+}
+
+template <class C, class Epi>
+__global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
+gemm_nt_mma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b, int m, int n, int k,
+                   int vec, const Epi epi) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wk = warp / C::kWarpsMN, wmn = warp - wk * C::kWarpsMN;
+  const int wm = wmn / (C::BN / C::WN), wn = wmn - wm * (C::BN / C::WN);
+  const int nk = (k + C::BK - 1) / C::BK;
+
+  float acc[C::MT][C::NT][4];
+#pragma unroll
+  for (int i = 0; i < C::MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < C::NT; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+    }
+  }
+
+  auto stage = [&](int s) {
+    bf16* sa = smem + (s % C::kStages) * C::kStage;
+    load_rows<C::BM, C::BK, C::kThreads>(sa, C::LD, a, m0, m, s * C::BK, k, vec);
+    load_rows<C::BN, C::BK, C::kThreads>(sa + C::BM * C::LD, C::LD, b, n0, n, s * C::BK, k, vec);
+  };
+#pragma unroll
+  for (int s = 0; s < C::kStages - 1; ++s) {
+    if (s < nk) stage(s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait(C::kStages - 2);
+    __syncthreads();  // stage kt has landed; stage kt - 1 is consumed by every warp
+    if (kt + C::kStages - 1 < nk) stage(kt + C::kStages - 1);
+    cp_async_commit();
+    const bf16* sa = smem + (kt % C::kStages) * C::kStage;
+    const bf16* sb = sa + C::BM * C::LD;
+#pragma unroll
+    for (int kk = wk * 16; kk < C::BK; kk += 16 * C::kWK) {
+      unsigned fa[C::MT][4];
+#pragma unroll
+      for (int i = 0; i < C::MT; ++i) load_a(fa[i], sa, C::LD, wm * C::WM + i * 16, kk);
+#pragma unroll
+      for (int j = 0; j + 1 < C::NT; j += 2) {
+        unsigned fb[4];
+        load_b(fb, sb, C::LD, wn * C::WN + j * 8, kk);
+#pragma unroll
+        for (int i = 0; i < C::MT; ++i) {
+          mma_bf16(acc[i][j], fa[i], fb[0], fb[1]);
+          mma_bf16(acc[i][j + 1], fa[i], fb[2], fb[3]);
+        }
+      }
+      if constexpr (C::NT % 2 == 1) {
+        unsigned fb[2];
+        load_b8(fb, sb, C::LD, wn * C::WN + (C::NT - 1) * 8, kk);
+#pragma unroll
+        for (int i = 0; i < C::MT; ++i) mma_bf16(acc[i][C::NT - 1], fa[i], fb[0], fb[1]);
+      }
+    }
+  }
+
+  if constexpr (C::kWK > 1) {
+    // the contraction was split over warps: warps wk > 0 hand their pieces
+    // to warp wk = 0 of the same tile, which adds them in ascending wk
+    cp_async_wait(0);
+    __syncthreads();
+    float* red = reinterpret_cast<float*>(smem_raw);
+    constexpr int kPiece = C::MT * C::NT * 4;
+    if (wk > 0) {
+      float* dst = red + (((wk - 1) * C::kWarpsMN + wmn) * 32 + lane) * kPiece;
+#pragma unroll
+      for (int i = 0; i < C::MT; ++i) {
+#pragma unroll
+        for (int j = 0; j < C::NT; ++j) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dst[(i * C::NT + j) * 4 + c] = acc[i][j][c];
+        }
+      }
+    }
+    __syncthreads();
+    if (wk > 0) return;
+    for (int w = 1; w < C::kWK; ++w) {
+      const float* src = red + (((w - 1) * C::kWarpsMN + wmn) * 32 + lane) * kPiece;
+#pragma unroll
+      for (int i = 0; i < C::MT; ++i) {
+#pragma unroll
+        for (int j = 0; j < C::NT; ++j) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[i][j][c] += src[(i * C::NT + j) * 4 + c];
+        }
+      }
+    }
+  }
+
+  // C fragments: c0, c1 at (row g, cols 2t, 2t + 1), c2, c3 at row g + 8
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int i = 0; i < C::MT; ++i) {
+    const int row = m0 + wm * C::WM + i * 16 + g;
+#pragma unroll
+    for (int j = 0; j < C::NT; ++j) {
+      const int col = n0 + wn * C::WN + j * 8 + 2 * t4;
+      epi(row, col, acc[i][j][0], acc[i][j][1]);
+      epi(row + 8, col, acc[i][j][2], acc[i][j][3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// FMA (f32, f16)
+
+// the FMA tile: 128 x 128 per block of 256 threads, 8 contraction columns
+// per stage; thread (ty, tx) = (tid / 16, tid % 16) owns rows ty * 4 + {0..3}
+// and 64 + ty * 4 + {0..3}, columns tx * 4 + {0..3} and 64 + tx * 4 + {0..3}
+constexpr int kFmaBM = 128, kFmaBN = 128, kFmaBK = 8, kFmaThreads = 256;
+constexpr int kFmaLD = kFmaBM + 4;  // float4 reads stay aligned
+
+template <class Epi>
+__global__ void __launch_bounds__(kFmaThreads)
+gemm_nt_fma_kernel(const void* __restrict__ a, const void* __restrict__ b, int m, int n, int k,
+                   int code, const Epi epi) {
+  __shared__ __align__(16) float as[2][kFmaBK][kFmaLD];
+  __shared__ __align__(16) float bs[2][kFmaBK][kFmaLD];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * kFmaBM, n0 = blockIdx.x * kFmaBN;
+  // the loader: row lr of the A and B tiles, contraction columns lk .. lk + 3
+  const int lr = tid >> 1, lk = (tid & 1) * 4;
+  const int nk = (k + kFmaBK - 1) / kFmaBK;
+  float ra[4], rb[4];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kc = k0 + lk + j;
+      ra[j] = m0 + lr < m && kc < k ? load_f(a, code, static_cast<int64_t>(m0 + lr) * k + kc) : 0.f;
+      rb[j] = n0 + lr < n && kc < k ? load_f(b, code, static_cast<int64_t>(n0 + lr) * k + kc) : 0.f;
+    }
+  };
+  auto put = [&](int buf) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      as[buf][lk + j][lr] = ra[j];
+      bs[buf][lk + j][lr] = rb[j];
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+  fetch(0);
+  put(0);
+  __syncthreads();
+#pragma unroll 1
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < nk) fetch((kt + 1) * kFmaBK);  // the next stage's loads fly during the FMAs
+#pragma unroll
+    for (int kk = 0; kk < kFmaBK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&as[buf][kk][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&as[buf][kk][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&bs[buf][kk][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&bs[buf][kk][64 + tx * 4]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+    if (kt + 1 < nk) put(buf ^ 1);  // buf ^ 1 was consumed before the last barrier
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      const int col = n0 + (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
+      epi(row, col, acc[i][j], acc[i][j + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+
+template <class C, class Epi>
+int launch_mma(const bf16* a, const bf16* b, int m, int n, int k, bool vec, const Epi& epi,
+               cudaStream_t s) {
+  static bool attr_set = false;
+  const int rc = set_smem(gemm_nt_mma_kernel<C, Epi>, C::kSmemBytes, attr_set);
+  if (rc != 0) return rc;
+  const dim3 grid(static_cast<unsigned>((n + C::BN - 1) / C::BN),
+                  static_cast<unsigned>((m + C::BM - 1) / C::BM));
+  gemm_nt_mma_kernel<C, Epi><<<grid, C::kThreads, C::kSmemBytes, s>>>(a, b, m, n, k, vec ? 1 : 0,
+                                                                       epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN, class Epi>
+int launch_tma(const void* a, const void* b, int m, int n, int k, const Epi& epi,
+               cudaStream_t s) {
+  constexpr int kBytes = tma_smem_bytes<BN>();
+  static bool attr_set = false;
+  int rc = set_smem(gemm_nt_tma_kernel<BN, Epi>, kBytes, attr_set);
+  if (rc != 0) return rc;
+  CUtensorMap ta, tb;
+  if ((rc = tma_map(&ta, a, m, k, kTmaBM)) != 0) return rc;
+  if ((rc = tma_map(&tb, b, n, k, BN)) != 0) return rc;
+  const dim3 grid(static_cast<unsigned>((n + BN - 1) / BN),
+                  static_cast<unsigned>((m + kTmaBM - 1) / kTmaBM));
+  gemm_nt_tma_kernel<BN, Epi><<<grid, kTmaThreads, kBytes, s>>>(ta, tb, k, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C = A B^T through epi, one launch; returns a cudaError_t.  bf16 (code):
+// TMA + wgmma on 128 x 256 tiles where they give every SM a block, else on
+// 128 x 128 tiles; the narrow mma.sync tiles for at most kNarrowRows rows
+// or operands off the 16-byte grid.  f32 and f16 take the FMA tile.
+template <class Epi>
+int gemm_nt(const void* a, const void* b, int m, int n, int k, int code, const Epi& epi,
+            cudaStream_t s) {
+  if (m <= 0 || n <= 0) return 0;
+  if (code != kBF16) {
+    const dim3 grid(static_cast<unsigned>((n + kFmaBN - 1) / kFmaBN),
+                    static_cast<unsigned>((m + kFmaBM - 1) / kFmaBM));
+    gemm_nt_fma_kernel<Epi><<<grid, kFmaThreads, 0, s>>>(a, b, m, n, k, code, epi);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const bool vec = k % 8 == 0 && aligned16(a) && aligned16(b);
+  if (!vec || m <= kNarrowRows) {
+    const bf16* ab = static_cast<const bf16*>(a);
+    const bf16* bb = static_cast<const bf16*>(b);
+    if (static_cast<int64_t>((m + 15) / 16) * ((n + 15) / 16) >= sms) {
+      return launch_mma<Narrow16>(ab, bb, m, n, k, vec, epi, s);
+    }
+    return launch_mma<Narrow8>(ab, bb, m, n, k, vec, epi, s);
+  }
+  const int64_t wide = static_cast<int64_t>((m + kTmaBM - 1) / kTmaBM) * ((n + 255) / 256);
+  if (wide >= sms) return launch_tma<256>(a, b, m, n, k, epi, s);
+  return launch_tma<128>(a, b, m, n, k, epi, s);
+}
+
+}  // namespace gemm
+}  // namespace apex_tpu_torch

@@ -1,9 +1,10 @@
 // Pieces shared by the port's tensor-core kernels (lm_head*.cu, ffn*.cu,
-// the bf16 flash_fwd.cu / flash_bwd_dkv.cu): cp.async copies into shared
-// memory, ldmatrix fragment loads and the
-// mma.sync m16n8k16 bf16 product with f32 accumulation, and the loads and
-// stores of the f32 (FMA) instantiations, which read and write any float
-// dtype through common.cuh's DType codes.
+// gemm.cuh, the bf16 flash_fwd.cu / flash_bwd_dq.cu / flash_bwd_dkv.cu):
+// cp.async copies into shared memory, ldmatrix fragment loads and the
+// mma.sync m16n8k16 bf16 product with f32 accumulation, the dynamic
+// shared-memory opt-in, and the loads and stores of the f32 (FMA)
+// instantiations, which read and write any float dtype through common.cuh's
+// DType codes.
 #pragma once
 
 #include "common.cuh"
@@ -124,6 +125,20 @@ __device__ __forceinline__ void load_b_t(unsigned (&r)[4], const bf16* tile, int
                                          int n0) {
   const int lane = threadIdx.x & 31, blk = lane >> 3;
   ldsm_x4<true>(r, tile + (k0 + (lane & 7) + (blk & 1) * 8) * ld + n0 + (blk >> 1) * 8);
+}
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Allow a kernel `bytes` of dynamic shared memory (once per kernel: `done`
+// is the caller's flag); returns a cudaError_t.
+template <typename Kernel>
+int set_smem(Kernel kernel, int bytes, bool& done) {
+  if (done) return 0;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  done = true;
+  return 0;
 }
 
 // the f32 (FMA) instantiations read and write any float dtype through these

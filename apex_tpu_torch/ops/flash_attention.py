@@ -9,9 +9,9 @@ attention — port of ``apex_tpu/ops/flash_attention.py``.
   / :func:`flash_attention_dkv` (``csrc/flash_bwd_dq.cu`` /
   ``csrc/flash_bwd_dkv.cu``, the Pallas ``_dq_kernel`` / ``_dkv_kernel``),
   which recompute the probabilities from that logsumexp.  A CPU tensor takes
-  each wrapper's plain version.  In bf16 the forward and the dk/dv kernel
-  run on the tensor cores (``mma.sync`` over ``cp.async`` tiles); f32, f16
-  and the dq kernel run on the FMA units.  Every CUDA operand (q, k, v, dO)
+  each wrapper's plain version.  In bf16 the three kernels run on the
+  tensor cores (``mma.sync`` over ``cp.async`` tiles); f32 and f16 run on
+  the FMA units.  Every CUDA operand (q, k, v, dO)
   starts on a 16-byte boundary and has batch, head and seq strides that are
   multiples of 8 elements (the wrappers raise ``ValueError`` otherwise), as
   the model's split projections do.

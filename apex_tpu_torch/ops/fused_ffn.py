@@ -3,13 +3,16 @@
 ``y = gelu_tanh(x @ W1^T + b1) @ W2^T + b2`` as one op whose forward saves
 only the pre-activation ``z1`` (in the activation dtype) and whose backward
 recomputes the GELU terms from it, so the ``(tokens, ffn)`` activation
-never reaches device memory.  ``W1`` is ``(ffn, k)`` and ``W2`` ``(n, ffn)``,
+is never kept for the backward.  ``W1`` is ``(ffn, k)`` and ``W2`` ``(n, ffn)``,
 the ``(out, in)`` layout of the linear layers.
 
 Three kernel wrappers, each with its plain PyTorch version beside it:
 
 * :func:`ffn_fwd` (``csrc/ffn_fwd.cu``, the Pallas ``_ffn_fwd_kernel``)
-  returns ``(y, z1)``; a CPU tensor takes :func:`ffn_fwd_reference`;
+  returns ``(y, z1)``; a CPU tensor takes :func:`ffn_fwd_reference`.  On
+  the card it is two launches of one tiled GEMM (``csrc/gemm.cuh``): the
+  activation makes one round trip through device memory in x's dtype, a
+  scratch freed when the call returns;
 * :func:`ffn_dx` (``csrc/ffn_bwd.cu``, ``_ffn_dx_kernel``); a CPU tensor
   takes :func:`ffn_dx_reference`;
 * :func:`ffn_dw` (``csrc/ffn_bwd.cu``, ``_ffn_dw_kernel``) returns
@@ -156,8 +159,9 @@ def _splits(m, f, n_out, device):
 
 def ffn_fwd(x, w1, b1, w2, b2=None):
     """Forward kernel wrapper on ``(m, k)`` x: ``(y (m, n), z1 (m, f))`` in
-    x's dtype.  Two launches (the split row kernel, then the fixed-order
-    combine of its partials with b2), both counted.  A CPU tensor takes
+    x's dtype.  Two launches of one tiled GEMM, both counted: ``x W1^T``
+    into z1 and the activation ``h = gelu(z)`` (an ``(m, f)`` scratch in
+    x's dtype), then ``h W2^T`` into y.  A CPU tensor takes
     :func:`ffn_fwd_reference`."""
     if x.device.type == "cpu":
         return ffn_fwd_reference(x, w1, b1, w2, b2)
@@ -177,13 +181,11 @@ def ffn_fwd(x, w1, b1, w2, b2=None):
     z1 = torch.empty((m, f), dtype=dt, device=x.device)
     if m == 0:
         return y, z1
-    splits = _splits(m, f, n, x.device)
-    partial = torch.empty((splits, m, n), dtype=_f32, device=x.device)
+    h = torch.empty((m, f), dtype=dt, device=x.device)
     rc = _kernels.lib().apex_ffn_fwd(
         x.data_ptr(), w1c.data_ptr(), b1f.data_ptr(), w2c.data_ptr(),
         None if b2f is None else b2f.data_ptr(), y.data_ptr(),
-        z1.data_ptr(), partial.data_ptr(), m, k, f, n, splits, code,
-        _kernels.stream())
+        z1.data_ptr(), h.data_ptr(), m, k, f, n, code, _kernels.stream())
     _kernels.check(rc, kernel)
     ffn_fwd.launches += 2
     return y, z1

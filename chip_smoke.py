@@ -9,7 +9,9 @@ plain PyTorch version.
 
 Phases (any failure exits non-zero; nothing is caught):
 
-1. build the CUDA kernels from ``apex_tpu_torch/csrc`` (nvcc, sm_90a);
+1. build the CUDA kernels from ``apex_tpu_torch/csrc`` (nvcc, sm_90a) and
+   log nvcc's registers and spills (by kernel name for the tensor-core dq
+   and the FFN forward's GEMM mainloop);
 2. for each kernel, at the shapes the paths give it: the kernel against its
    plain version on the same card inputs (max abs error and tolerance), the
    kernel's time, the plain version's time, one PyTorch library call
@@ -17,9 +19,9 @@ Phases (any failure exits non-zero; nothing is caught):
    least time the card could take (bytes / 3.35 TB/s or operations / peak,
    whichever is larger); the flash forward, dq and dk/dv (#3-#5) also at
    head_dim 16 and 32 on a ragged s = 200 (causal, dropout 0.1,
-   kv_seqlens), in small f32 and f16 cases (the FMA instantiations), #5
-   twice on the same inputs (bitwise equal) and a q one element off its
-   16-byte boundary (refused); the fused LM head (#8-#10) at GPT-350M's and
+   kv_seqlens), in small f32 and f16 cases (the FMA instantiations), #4
+   and #5 twice on the same inputs (bitwise equal) and a q one element off
+   its 16-byte boundary (refused); the fused LM head (#8-#10) at GPT-350M's and
    BERT-large's head shapes in bf16 and GPT-350M's in f32, a peaked-softmax
    bf16 case off the token and vocab grids, and three small off-grid cases
    (f32, bf16, a mixed pair), its yardstick the two calls matmul +
@@ -27,7 +29,8 @@ Phases (any failure exits non-zero; nothing is caught):
    micro-batch (bf16 x with f32 W, bf16/bf16), the serving shapes (512
    and 8 rows), GPT-2 XL's widths off the grids (1000 x 1600 -> 6400 ->
    1600), GPT-350M's shape in f32 and small cases, every output held
-   entry by entry (``ffn_bounds``), its yardstick the unfused
+   entry by entry (``ffn_bounds``), the forward's y and z1 bitwise equal
+   on a repeat, its yardstick the unfused
    F.linear + gelu + F.linear chain; the multi-tensor axpby, SGD, Adagrad
    and NovoGrad (#16, #19, #22, #23) at GPT-350M's f32 list (291 tensors,
    as Adam), on a mixed list of 40 bf16 / f16 / f32 tensors with f32
@@ -267,6 +270,38 @@ def log_numbers(name, n, lib_name):
 
 # -- phase 1 -----------------------------------------------------------------
 
+# kernels whose registers and spills phase_build names one by one (the
+# tensor-core dq and the FFN forward's GEMM mainloop)
+NAMED_REPORT = ("flash_bwd_dq_mma_kernel", "gemm_nt_tma_kernel",
+                "gemm_nt_mma_kernel", "gemm_nt_fma_kernel")
+
+
+def _ptxas_by_kernel(text, wanted):
+    """(demangled name, 'N registers, S bytes spill stores, L bytes spill
+    loads') for each kernel of nvcc's ``-Xptxas -v`` report whose mangled
+    name contains one of ``wanted``."""
+    rows, name, spill = [], None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], ""
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            if any(w in name for w in wanted):
+                used = line.split("Used", 1)[1].split(",")[0].strip()
+                rows.append((name, f"{used}; {spill}"))
+            name = None
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(n for n, _ in rows),
+                             capture_output=True, text=True, timeout=30)
+        names = out.stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = []
+    if len(names) != len(rows):
+        names = [n for n, _ in rows]
+    return [(n, r) for n, (_, r) in zip(names, rows)]
+
+
 def phase_build():
     from apex_tpu_torch import _kernels
     t0 = time.perf_counter()
@@ -275,9 +310,12 @@ def phase_build():
     log(f"[1] built {path.name} in {time.perf_counter() - t0:.1f} s")
     report = path.with_suffix(".log")
     if report.exists():
-        for line in report.read_text().splitlines():
+        text = report.read_text()
+        for line in text.splitlines():
             if "registers" in line or "spill" in line or line.startswith("=="):
                 log("    " + line.strip())
+        for name, regs in _ptxas_by_kernel(text, NAMED_REPORT):
+            log(f"    {name}: {regs}")
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -603,6 +641,10 @@ def kernel_flash_bwd(gen):
             raise AssertionError("flash_attention_dkv: two calls on the same "
                                  "inputs differ")
         log(f"  flash_attention_dkv {name}: two calls bitwise equal ok")
+        if not torch.equal(dq, flash_attention_dq(*args)):
+            raise AssertionError("flash_attention_dq: two calls on the same "
+                                 "inputs differ")
+        log(f"  flash_attention_dq {name}: two calls bitwise equal ok")
         lib_bwd = _flash_bwd_library_ms(q, k, v, do, True, scale)
         out["dq"] = numbers(
             err_q, time_ms(lambda: flash_attention_dq(*args)),
@@ -670,6 +712,9 @@ def kernel_flash_bwd(gen):
         dk2, dv2 = flash_attention_dkv(*args)
         if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
             raise AssertionError(f"flash_attention_dkv {name}: two calls on "
+                                 "the same inputs differ")
+        if not torch.equal(dq, flash_attention_dq(*args)):
+            raise AssertionError(f"flash_attention_dq {name}: two calls on "
                                  "the same inputs differ")
     q, k, v = _misaligned_q(gen)
     o, lse = flash_fwd(q.contiguous(), k, v, True, 32 ** -0.5)
@@ -1258,6 +1303,13 @@ def kernel_fused_ffn(gen):
         y, z1 = ffn_fwd(x, w1, b1, w2, b2)
         if ffn_fwd.launches - before != 2:
             raise AssertionError("ffn_fwd: expected 2 launches per call")
+        # every entry is summed by one block in a fixed order
+        y2, z12 = ffn_fwd(x, w1, b1, w2, b2)
+        if not (torch.equal(y, y2) and torch.equal(z1, z12)):
+            raise AssertionError(f"ffn_fwd {tag}: two calls on the same "
+                                 "inputs differ")
+        log(f"  ffn_fwd {tag}: y and z1 bitwise equal on a repeat ok")
+        del y2, z12
         ry, rz1 = ffn_fwd_reference(x, w1, b1, w2, b2)
         dx = ffn_dx(dy, z1, w1, w2)
         dw1, db1, dw2 = ffn_dw(x, dy, z1, w1, w2)
@@ -2090,7 +2142,7 @@ def phase_serve(model, rng, tag="[3]"):
     expected = {"layer_norm_fwd": (2 * layers + 1) * (prefills + steps),
                 "flash_fwd": layers * prefills,
                 "flash_attention_decode": layers * steps,
-                # the row kernel and its combine per layer and program
+                # the forward's two GEMM launches per layer and program
                 "ffn_fwd": 2 * layers * (prefills + steps) * cfg.fused_ffn}
     log(f"    launches {launches} (expected {expected}: {prefills} "
         f"prefills, {steps} decode steps); plain-version calls "
@@ -3344,7 +3396,7 @@ def phase_resnet_parity(flags_at_start):
 _KERNEL_CLASSES = (("layer_norm_bwd", "layer_norm_bwd"),
                    ("layer_norm_fwd_kernel", "layer_norm_fwd"),
                    ("flash_fwd_", "flash_fwd"),     # _mma_ (bf16), _fma_
-                   ("flash_bwd_dq_kernel", "flash_attention_dq"),
+                   ("flash_bwd_dq_", "flash_attention_dq"),   # _mma_, _fma_
                    ("flash_bwd_dkv_", "flash_attention_dkv"),
                    ("flash_decode_kernel", "flash_attention_decode"),
                    ("flash_decode_paged_kernel",
@@ -3363,11 +3415,9 @@ _KERNEL_CLASSES = (("layer_norm_bwd", "layer_norm_bwd"),
                    ("lm_head_fwd", "lm_head_fwd"),
                    ("lm_head_dx", "lm_head_dx"),
                    ("lm_head_dw", "lm_head_dw"),
-                   ("ffn_rows_kernel<__nv_bfloat16, false>", "ffn_fwd"),
-                   ("ffn_rows_kernel<float, false>", "ffn_fwd"),
-                   ("ffn_rows_kernel<__nv_bfloat16, true>", "ffn_dx"),
-                   ("ffn_rows_kernel<float, true>", "ffn_dx"),
-                   ("ffn_combine_kernel", "ffn_fwd / ffn_dx combine"),
+                   ("gemm_nt_", "ffn_fwd"),   # csrc/gemm.cuh: tma, mma, fma
+                   ("ffn_rows_kernel", "ffn_dx"),
+                   ("ffn_combine_kernel", "ffn_dx combine"),
                    ("ffn_dw_kernel", "ffn_dw"))
 
 

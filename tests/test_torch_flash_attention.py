@@ -201,6 +201,74 @@ def test_dq_dkv_plain_versions_take_the_saved_stats():
                                    atol=1e-5)
 
 
+# The card's tensor-core dq kernel works on 64-row query tiles and 64-key
+# tiles: one row, one short of and one past a tile, and a ragged 200; head
+# dims 16 / 32 / 64; kv_seqlens holding 0 and a length past one key tile;
+# dropout 0.1.  JAX's ``_dq_kernel`` runs in interpret mode with 64-row
+# blocks (its tiles then fall where the card's do) and its forward's own lse
+# and output; the port's plain dq version takes the same lse and delta.
+# (seq, head_dim, causal, kv_seqlens, dropout, dtype)
+_DQ_EDGE_CASES = {
+    **{f"causal_s{s}_d{d}": (s, d, True, None, 0.0, "f32")
+       for s in (1, 63, 65, 200) for d in (16, 32, 64)},
+    "non_causal_s1_d64": (1, 64, False, None, 0.0, "f32"),
+    "non_causal_s63_d16": (63, 16, False, None, 0.0, "f32"),
+    "non_causal_s65_d32": (65, 32, False, None, 0.0, "f32"),
+    "non_causal_s200_d64": (200, 64, False, None, 0.0, "f32"),
+    "kv_seqlens_s65_d32": (65, 32, False, [0, 65], 0.0, "f32"),
+    "kv_seqlens_causal_s200_d16": (200, 16, True, [130, 0], 0.0, "f32"),
+    "dropout_causal_s63_d64": (63, 64, True, None, 0.1, "f32"),
+    "dropout_causal_s200_d32": (200, 32, True, None, 0.1, "f32"),
+    "dropout_kv_seqlens_s65_d16": (65, 16, False, [70, 0], 0.1, "f32"),
+    "bf16_causal_s200_d64": (200, 64, True, None, 0.0, "bf16"),
+    "bf16_dropout_causal_s65_d64": (65, 64, True, None, 0.1, "bf16"),
+    "bf16_kv_seqlens_s200_d32": (200, 32, False, [0, 77], 0.0, "bf16"),
+}
+
+
+@pytest.mark.parametrize("case", list(_DQ_EDGE_CASES))
+def test_dq_plain_version_matches_the_jax_kernel_at_tile_edges(case):
+    """f32: 1e-5 of the largest |dq| (the same f32 products summed in
+    another order, head_dim zero-padded to 128 on the JAX side), or 1e-5
+    where dq is below 1 (one key under the causal mask: dS = p (dP - delta)
+    cancels to rounding noise, ~5e-7).  bf16: 1e-2 of it (both round dS to
+    bf16 at the same place and dq to bf16 at the end; an entry near a
+    rounding midpoint may round the other way after its f32 sum moved by
+    the order of summation, and one bf16 ulp is 2**-8 relative)."""
+    seq, dim, causal, lens, rate, dt = _DQ_EDGE_CASES[case]
+    jdt, tdt = ((jnp.float32, torch.float32) if dt == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    rng = np.random.RandomState(31)
+    q, k, v, do = (rng.randn(B, H, seq, dim).astype(np.float32)
+                   for _ in range(4))
+    scale = dim ** -0.5
+    seed = 5 if rate else None
+    jlens = jnp.asarray(np.array(lens if lens else [seq] * B, np.int32))
+    masked = bool(causal or lens or seq % 64)
+    set_force_pallas(True)
+    try:
+        out, res = jfa._flash_vjp_fwd(
+            *(jnp.asarray(a, jdt) for a in (q, k, v)), jlens,
+            jnp.full((1,), 0 if seed is None else seed, jnp.int32), causal,
+            scale, 64, 64, rate, masked)
+        ref = jfa._flash_vjp_bwd(causal, scale, 64, 64, rate, masked, res,
+                                 jnp.asarray(do, jdt))[0]
+    finally:
+        set_force_pallas(None)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(tdt) for a in (q, k, v, do))
+    o = torch.from_numpy(np.array(out, np.float32))
+    lse = torch.from_numpy(np.array(res[6][:, :seq, 0]))
+    delta = (tdo.float() * o).sum(-1).reshape(B * H, seq)
+    got = tfa.flash_attention_dq(
+        tq, tk, tv, tdo, lse, delta, causal, scale,
+        None if lens is None else torch.tensor(lens), rate, seed)
+    assert got.dtype == tdt
+    want = np.asarray(ref, np.float32)
+    err = np.abs(got.float().numpy() - want).max()
+    tol = 1e-5 if dt == "f32" else 1e-2
+    assert err <= tol * max(np.abs(want).max(), 1.0), err
+
+
 def _split_views(hd, last=None):
     """q, k, v as the models pass them: (b, h, s, hd) views of one
     (b, s, h, 3*hd) projection (``last`` widens its last axis), and a dO

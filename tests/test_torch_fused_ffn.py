@@ -149,6 +149,47 @@ def test_backward_plain_versions_match_the_jax_kernels(pair):
     _close("dw2", dw2, jdw2, _tol(pair, "f32_weight"))
 
 
+# The card's forward runs two tiled GEMMs whose row tiles are 16 (decode),
+# 64 and 128 rows: one row, a decode batch, and one short of and one past a
+# 128-row tile (JAX's block_m), on narrow widths (k 48, f 136: two ffn
+# blocks of 128, n 24), for the GPT models' bf16 activations with f32
+# weights and for f16.  Tolerances against the largest entry: bf16 1e-2 as
+# above; f16 2e-3 (f16 keeps 11 significant bits: one ulp is 2**-11
+# relative, and an entry near a rounding midpoint may round the other way).
+EDGE_PAIRS = {"bf16_x_f32_w": ("bfloat16", "float32"),
+              "f16": ("float16", "float16")}
+EDGE_K, EDGE_F, EDGE_N = 48, 136, 24
+
+
+@pytest.mark.parametrize("m", [1, 8, 127, 129])
+@pytest.mark.parametrize("pair", list(EDGE_PAIRS))
+def test_forward_plain_version_matches_the_jax_kernel_at_row_edges(pair, m):
+    xd, wd = EDGE_PAIRS[pair]
+    rng = np.random.RandomState(m)
+    a = dict(x=rng.randn(m, EDGE_K), w1=rng.randn(EDGE_F, EDGE_K) / 7,
+             b1=0.1 * rng.randn(EDGE_F), w2=rng.randn(EDGE_N, EDGE_F) / 12,
+             b2=0.1 * rng.randn(EDGE_N))
+    dts = dict(x=xd, w1=wd, b1=wd, w2=wd, b2=wd)
+    set_force_pallas(True)
+    try:
+        jy, res = jffn._ffn_vjp_fwd(*(jnp.asarray(a[n], dts[n]) for n in
+                                      ("x", "w1", "b1", "w2", "b2")),
+                                    *BLOCKS)
+    finally:
+        set_force_pallas(None)
+    jz1 = res[5][:m, :EDGE_F]
+    torch_dt = dict(TORCH, float16=torch.float16)
+    y, z1 = tffn.ffn_fwd_reference(*(
+        torch.from_numpy(np.array(jnp.asarray(a[n], dts[n]).astype(
+            jnp.float32))).to(torch_dt[dts[n]])
+        for n in ("x", "w1", "b1", "w2", "b2")))
+    assert y.dtype == z1.dtype == torch_dt[xd]
+    assert y.shape == (m, EDGE_N) and z1.shape == (m, EDGE_F)
+    tol = 2e-3 if xd == "float16" else 1e-2
+    _close("y", y, jy, tol)
+    _close("z1", z1, jz1, tol)
+
+
 def _jax_grads(pair, force, lead, with_b2):
     """JAX fused_ffn's output and its gradients w.r.t. every operand under
     the cotangent dy."""
