@@ -77,10 +77,8 @@ _SIGNATURES = {
     "apex_lm_head_fwd": [_P] * 6 + [_I] * 6 + [_P],
     "apex_lm_head_dx": [_P] * 6 + [_I] * 5 + [_P],
     "apex_lm_head_dw": [_P] * 6 + [_I] * 5 + [_P],
-    "apex_ffn_splits": [_I] * 4,
     "apex_ffn_fwd": [_P] * 8 + [_I] * 5 + [_P],
-    "apex_ffn_dx": [_P] * 6 + [_I] * 6 + [_P],
-    "apex_ffn_dw": [_P] * 7 + [_I] * 7 + [_P],
+    "apex_ffn_bwd": [_P] * 12 + [_I] * 7 + [_P],
     "apex_flash_decode_paged": [_P] * 6 + [_I] * 6 + [_L] * 10
                                + [_F, _I, _P],
     "apex_quant_gemm": [_P] * 4 + [_I] * 3 + [_L] + [_I] * 3 + [_P],

@@ -2,214 +2,96 @@
 // the saved pre-activation z1 (in the activation dtype):
 //   dX  = dz W1 with dz = (dy W2) gelu'(z1) rounded to dy's dtype;
 //   dW1 = dz^T x (dz rounded), db1 = column sums of the f32 dz, dW2 = dy^T
-//   gelu(z1), each accumulated in f32 over all tokens and written once in
-//   the weight's dtype.
+//   gelu(z1) (gelu(z1) rounded), each accumulated in f32 over all tokens
+//   and written once in the weight's dtype.
 //
 // Replaces apex_tpu/ops/fused_ffn.py `_ffn_dx_kernel` and `_ffn_dw_kernel`
 // (launched by `_ffn_bwd_impl`).  What bounds them on the H100: operations.
-// dX is 2 m f (n + k) flops (137.4 GFLOP at 8192 x 1024 -> 4096 -> 1024,
-// 0.139 ms of bf16 tensor-core time); dW is 2 m f (n + k + n) (dh recomputed
-// for dW1, then dW1 and dW2: 206.2 GFLOP, 0.208 ms).  Neither the (tokens,
-// ffn) dz nor gelu(z1) reaches device memory.
+// The whole backward is four products of 2 m f n or 2 m f k flops (274.9
+// GFLOP at 8192 x 1024 -> 4096 -> 1024, 0.278 ms of bf16 tensor-core
+// time); dX alone is two of them (137.4 GFLOP, 0.139 ms), dW alone three
+// (206.2 GFLOP, 0.208 ms).
 //
-// dX (ffn.cuh, the row kernel): a block owns 32 token rows
-// and up to 1024 columns of dX in registers and walks its ffn range in steps
-// of 64: dh = dy W2 for 32 x 64 on the tensor cores, dz = dh gelu'(z1)
-// rounded to bf16 into shared memory, then dz times the step's 64 rows of W1
-// into the accumulator.  The ffn axis is split into ranges across blocks
-// when the row blocks alone would not fill the card, and a second launch
-// sums their partials in a fixed order (two launches, no float atomics).
+// Design: launches of csrc/gemm.cuh's tiled GEMM, with the operands in the
+// layouts they already have (an MN-major operand is read along M or N,
+// wgmma's transpose flag):
+//   1. dh = dy W2 (W2 MN-major).  The epilogue reads z1 at each entry and
+//      forms dz = dh gelu'(z1) in f32; it writes dz rounded to the
+//      activation dtype into an (m, f) scratch, and for dW also h =
+//      gelu(z1) rounded into an (m, f) scratch and the column sums of the
+//      f32 dz over each block's 128 rows, in a fixed order, into a (ceil(m
+//      / 128), f) f32 partial;
+//   2. dX = dz W1 (W1 MN-major), rounded to the activation dtype;
+//   3. dW1 = dz^T x, 4. dW2 = dy^T h (both operands MN-major, the
+//      contraction over tokens), each in its weight's dtype;
+//   5. db1: the partials summed per column in row-block order.
+// ffn_dx alone runs 1 (dz only) and 2, ffn_dw alone 1, 3, 4 and 5, the
+// whole backward all five: dh = dy W2 is computed once.  The TPU kernels
+// keep dz out of device memory by recomputing dh in both kernels; here its
+// round trip (64 MB of dz and 64 MB of h at 8192 x 4096 bf16, 0.08 ms at
+// 3.35 TB/s) costs less than a fifth product (0.07 ms at the bound).
+// Each output entry is summed by one block in a fixed order: no atomics,
+// no split of the contraction, and a repeat gives the same bits.
 //
-// dW: the TPU kernel carries (block_f, k) and (n, block_f) f32 scratch
-// across a sequential token axis; the two together would not fit one block's
-// registers at block_f = 32 (256 KB), so they are split across blocks.  A
-// block owns 32 ffn rows and one group of at most 1024 columns of either dW1
-// (grid y < the k groups) or dW2^T, in registers, and walks all tokens in
-// steps of 64: a dW1 block computes dh = dy W2 for 64 x 32 (the TPU kernel
-// recomputes it too), dz = dh gelu'(z1), adds the f32 dz into its db1 sums
-// and stores dz rounded into shared memory; a dW2 block stores gelu(z1)
-// rounded.  Then ACC += tile^T (x or dy) over the step's 64 tokens (x or dy
-// streamed in 16-row chunks).  Each entry of dW1, db1 and dW2 is written by
-// one block, its sum over tokens in a fixed order: no atomics.  db1 sums
-// each thread's columns, then the threads' partials in a fixed order.
-//
-// f32 and f16 activations take the FMA instantiation of the same tiles.
+// Dispatch by shape (gemm::gemm, per launch, decided before it and never
+// on an error): bf16 operands that TMA maps (rows of 16-byte multiples,
+// 16-byte aligned bases, z1 too) run TMA + wgmma at any number of token
+// rows, a 128-row tile zero-filled past m; f32, f16 and bf16 off that grid
+// run the FMA tile, which reads any dtype with element-wise loads.
 
 #include "ffn.cuh"
+#include "gemm.cuh"
 
 namespace apex_tpu_torch {
 namespace ffn {
 
-struct DwArgs {
-  const void* x;   // (m, k)
-  const void* dy;  // (m, n)
+// Launch 1's epilogue: dz = dh gelu'(z1) in f32 (z1 the aux tile); dz
+// rounded (and, for dW, h = gelu(z1) rounded) stored; returns the f32 dz,
+// whose column sums over each block's rows go to `partial` (null: dX
+// alone)
+struct DzFromDh {
   const void* z1;  // (m, f)
-  const void* w2;  // (n, f)
-  void* dw1;       // (f, k) in code_w1
-  float* db1;      // (f,)
-  void* dw2;       // (n, f) in code_w2
-  int m, k, f, n, groups_k, code, code_w1, code_w2, vec;
+  void* dz;        // (m, f)
+  void* h;         // (m, f) or null
+  float* partial;  // (ceil(m / 128), f) or null
+  int m, f, code;
+  __host__ __device__ gemm::AuxTile aux_tile() const { return {z1, m, f, code}; }
+  __device__ __forceinline__ float2 operator()(int row, int col, float v0, float v1,
+                                               float2 z) const {
+    if (row >= m || col >= f) return make_float2(0.f, 0.f);
+    const bool two = col + 1 < f;
+    const int64_t at = static_cast<int64_t>(row) * f + col;
+    const float da = v0 * gelu_grad(z.x), db = two ? v1 * gelu_grad(z.y) : 0.f;
+    store_pair(dz, code, at, da, db, two);
+    if (h != nullptr) store_pair(h, code, at, gelu(z.x), gelu(z.y), two);
+    return make_float2(da, db);
+  }
+  __device__ __forceinline__ void col_sum(int row_block, int col, float sum) const {
+    if (partial != nullptr && col < f) partial[static_cast<int64_t>(row_block) * f + col] = sum;
+  }
 };
 
-template <typename T>
-struct DwLayout {
-  static constexpr int kKc1 = Tiles<T>::kKc1, kKc2 = Tiles<T>::kKc2, kPad = Tiles<T>::kPad;
-  static constexpr int ldA1 = kKc1 + kPad, szA1 = kWBM * ldA1;  // dy: tokens x n chunk
-  static constexpr int ldB1 = kWBF + kPad, szB1 = kKc1 * ldB1;  // W2: n chunk x ffn (k-major)
-  static constexpr int ldA2 = kWBF + kPad, szA2 = kWBM * ldA2;  // dz or gelu(z1): tokens x ffn
-  static constexpr int ldB2 = kNG + kPad, szB2 = kKc2 * ldB2;   // x or dy: token chunk x columns
-  static constexpr int kBytes =
-      static_cast<int>((2 * szA1 + 2 * szB1 + szA2 + 2 * szB2) * sizeof(T));
+// C stored row-major (rows, cols) in the dtype `code`: dX (DxOut), dW1 and
+// dW2 (DwOut; two types so that a profile tells the launches apart)
+struct Out {
+  void* out;
+  int rows, cols, code;
+  __device__ __forceinline__ void operator()(int row, int col, float v0, float v1) const {
+    if (row >= rows || col >= cols) return;
+    store_pair(out, code, static_cast<int64_t>(row) * cols + col, v0, v1, col + 1 < cols);
+  }
 };
+struct DxOut : Out {};
+struct DwOut : Out {};
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1) ffn_dw_kernel(const DwArgs p) {
-  using L = DwLayout<T>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* sA1 = reinterpret_cast<T*>(smem_raw);  // 2 stages
-  T* sB1 = sA1 + 2 * L::szA1;               // 2 stages
-  T* sA2 = sB1 + 2 * L::szB1;
-  T* sB2 = sA2 + L::szA2;                   // 2 stages
-  const int f0 = blockIdx.x * kWBF;
-  const bool dw1 = static_cast<int>(blockIdx.y) < p.groups_k;
-  const int g0 = (dw1 ? blockIdx.y : blockIdx.y - p.groups_k) * kNG;
-  const int n_cols = dw1 ? p.k : p.n;
-  const int width = round16(min(kNG, n_cols - g0));
-  const void* b_src = dw1 ? p.x : p.dy;
-  const bool vec = p.vec != 0;
-  const int n_c1 = (p.n + L::kKc1 - 1) / L::kKc1;
-  constexpr int n_c2 = kWBM / L::kKc2;
-
-  Acc acc;
-#pragma unroll
-  for (int e = 0; e < 32; ++e) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[e][q] = 0.f;
-  }
-  float db[4] = {};  // this thread's f32 dz column sums (dW1 blocks)
-
-  for (int m0 = 0; m0 < p.m; m0 += kWBM) {
-    if (dw1) {
-      // dh (64 tokens x 32 ffn) = dy W2 over n in chunks, two stages
-      auto stage1 = [&](int c) {
-        const int kc0 = c * L::kKc1;
-        load_tile<T>(sA1 + (c & 1) * L::szA1, L::ldA1, p.dy, p.code, m0, p.m, kWBM, kc0,
-                            p.n, L::kKc1, vec);
-        load_tile<T>(sB1 + (c & 1) * L::szB1, L::ldB1, p.w2, p.code, kc0, p.n, L::kKc1,
-                            f0, p.f, kWBF, vec);
-        cp_async_commit();
-      };
-      float t1[2][4] = {};
-      stage1(0);
-      for (int c = 0; c < n_c1; ++c) {
-        if (c + 1 < n_c1) {
-          stage1(c + 1);
-          cp_async_wait(1);
-        } else {
-          cp_async_wait(0);
-        }
-        __syncthreads();
-        tile_product<T, kWBM, kWBF>(t1, sA1 + (c & 1) * L::szA1, L::ldA1,
-                                          sB1 + (c & 1) * L::szB1, L::ldB1, L::kKc1);
-        __syncthreads();
-      }
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          int r, c;
-          t1_rc<T, kWBM, kWBF>(threadIdx.x, a, q, r, c);
-          const int row = m0 + r, col = f0 + c;
-          const float z = row < p.m && col < p.f
-                              ? load_f(p.z1, p.code, static_cast<int64_t>(row) * p.f + col)
-                              : 0.f;
-          const float dz = t1[a][q] * gelu_grad(z);  // rows past m: dy = 0, dz = 0
-          db[kMma<T> ? a * 2 + (q & 1) : q] += dz;
-          sA2[r * L::ldA2 + c] = to_smem<T>(round_code(dz, p.code));
-        }
-      }
-    } else {
-      for (int i = threadIdx.x; i < kWBM * kWBF; i += kThreads) {
-        const int r = i / kWBF, c = i - r * kWBF;
-        const int row = m0 + r, col = f0 + c;
-        const float z = row < p.m && col < p.f
-                            ? load_f(p.z1, p.code, static_cast<int64_t>(row) * p.f + col)
-                            : 0.f;
-        sA2[r * L::ldA2 + c] = to_smem<T>(round_code(gelu(z), p.code));
-      }
-    }
-    // ACC (32 ffn rows x width) += A2^T (32 x 64 tokens) times x or dy
-    auto stage2 = [&](int c) {
-      load_tile<T>(sB2 + (c & 1) * L::szB2, L::ldB2, b_src, p.code, m0 + c * L::kKc2, p.m,
-                          L::kKc2, g0, n_cols, width, vec);
-      cp_async_commit();
-    };
-    stage2(0);
-#pragma unroll 1
-    for (int c = 0; c < n_c2; ++c) {
-      if (c + 1 < n_c2) {
-        stage2(c + 1);
-        cp_async_wait(1);
-      } else {
-        cp_async_wait(0);
-      }
-      __syncthreads();  // also orders A2's stores before its first use
-      acc_product<T, true>(acc, sA2 + c * L::kKc2 * L::ldA2, L::ldA2,
-                                 sB2 + (c & 1) * L::szB2, L::ldB2, L::kKc2, width);
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int e = 0; e < 32; ++e) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      int r, c;
-      acc_rc<T>(e, q, r, c);
-      const int frow = f0 + r, col = g0 + c;
-      if (frow >= p.f || col >= n_cols) continue;
-      if (dw1) {
-        store_f(p.dw1, p.code_w1, static_cast<int64_t>(frow) * p.k + col, acc[e][q]);
-      } else {
-        store_f(p.dw2, p.code_w2, static_cast<int64_t>(col) * p.f + frow, acc[e][q]);
-      }
-    }
-  }
-  if (dw1 && blockIdx.y == 0) {
-    // db1: the threads' column partials summed per column in thread order
-    float* red = reinterpret_cast<float*>(sB2);
-    __syncthreads();
-#pragma unroll
-    for (int s = 0; s < 4; ++s) red[threadIdx.x * 4 + s] = db[s];
-    __syncthreads();
-    if (threadIdx.x < kWBF && f0 + static_cast<int>(threadIdx.x) < p.f) {
-      float sum = 0.f;
-      for (int t = 0; t < kThreads; ++t) {
-        for (int s = 0; s < 4; ++s) {
-          int r, c;
-          if (kMma<T>) {
-            t1_rc<T, kWBM, kWBF>(t, s >> 1, s & 1, r, c);
-          } else {
-            t1_rc<T, kWBM, kWBF>(t, 0, s, r, c);
-          }
-          if (c == static_cast<int>(threadIdx.x)) sum += red[t * 4 + s];
-        }
-      }
-      p.db1[f0 + threadIdx.x] = sum;
-    }
-  }
-}
-
-template <typename T>
-int launch_dw(const DwArgs& p, cudaStream_t s) {
-  using L = DwLayout<T>;
-  static bool attr_set = false;
-  const int rc = set_smem(ffn_dw_kernel<T>, L::kBytes, attr_set);
-  if (rc != 0) return rc;
-  const dim3 grid(static_cast<unsigned>((p.f + kWBF - 1) / kWBF),
-                  static_cast<unsigned>(p.groups_k + (p.n + kNG - 1) / kNG));
-  ffn_dw_kernel<T><<<grid, kThreads, L::kBytes, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+// db1[c] = the partials' column c summed in row-block order
+static __global__ void ffn_db1_kernel(const float* __restrict__ partial, float* __restrict__ db1,
+                                      int blocks, int f) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= f) return;
+  float sum = 0.f;
+  for (int b = 0; b < blocks; ++b) sum += partial[static_cast<int64_t>(b) * f + c];
+  db1[c] = sum;
 }
 
 }  // namespace ffn
@@ -218,66 +100,39 @@ int launch_dw(const DwArgs& p, cudaStream_t s) {
 using namespace apex_tpu_torch;
 using namespace apex_tpu_torch::ffn;
 
-// Ranges of the ffn axis per row block of dX for m token rows, f ffn
-// columns, k columns of dX and a card of sms multiprocessors: the `splits`
-// of apex_ffn_dx, whose partials scratch is (splits, m, k) f32.
-extern "C" int apex_ffn_splits(int m, int f, int k, int sms) { return row_splits(m, f, k, sms); }
-
-// dy: (m, n); z1: (m, f); w1: (f, k); w2: (n, f), all row-major in the
-// activation dtype `dtype`; dx: (m, k) in `dtype`; partial: (splits, m, k)
-// f32 scratch (splits from apex_ffn_splits(m, f, k, sms)).  Two launches:
-// the row kernel, then the combine.
-extern "C" int apex_ffn_dx(const void* dy, const void* z1, const void* w1, const void* w2,
-                           void* dx, void* partial, int m, int k, int f, int n, int splits,
-                           int dtype, void* stream) {
-  if (m <= 0 || k <= 0) return 0;
-  if (splits <= 0 || f <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  RowsArgs p;
-  p.dy = dy;
-  p.w1 = w1;
-  p.w2 = w2;
-  p.z1 = z1;
-  p.partial = static_cast<float*>(partial);
-  p.m = m;
-  p.k = k;
-  p.f = f;
-  p.n = n;
-  p.splits = splits;
-  p.code = dtype;
-  p.vec = k % 8 == 0 && f % 8 == 0 && n % 8 == 0 && aligned16(dy) && aligned16(w1) &&
-          aligned16(w2);
+// x: (m, k); dy: (m, n); z1: (m, f); w1: (f, k); w2: (n, f), all row-major
+// in the activation dtype `dtype`; dx: (m, k) in `dtype`, or null (no dX);
+// dw1: (f, k) in w1_dtype, db1: (f,) f32 and dw2: (n, f) in w2_dtype, or
+// dw1 null (no weight gradients: x, db1, dw2, h and partial unused); the
+// scratch dz and h: (m, f) in `dtype`, partial: (ceil(m / 128), f) f32;
+// w1 may be null without dX.
+// Launches: dh (dz, h, partials), dX, dW1, dW2, db1 — those asked for.
+extern "C" int apex_ffn_bwd(const void* x, const void* dy, const void* z1, const void* w1,
+                            const void* w2, void* dx, void* dw1, void* db1, void* dw2, void* dz,
+                            void* h, void* partial, int m, int k, int f, int n, int dtype,
+                            int w1_dtype, int w2_dtype, void* stream) {
+  if (m <= 0 || k <= 0 || f <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool dw = dw1 != nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) return launch_rows<bf16>(p, dx, s);
-  return launch_rows<float>(p, dx, s);
-}
-
-// x: (m, k); dy: (m, n); z1: (m, f); w2: (n, f), row-major in `dtype`;
-// dw1: (f, k) in w1_dtype; db1: (f,) f32; dw2: (n, f) in w2_dtype.  One
-// launch; m = 0 writes zeros.
-extern "C" int apex_ffn_dw(const void* x, const void* dy, const void* z1, const void* w2,
-                           void* dw1, void* db1, void* dw2, int m, int k, int f, int n, int dtype,
-                           int w1_dtype, int w2_dtype, void* stream) {
-  if (f <= 0) return 0;
-  if (m < 0 || k <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  DwArgs p;
-  p.x = x;
-  p.dy = dy;
-  p.z1 = z1;
-  p.w2 = w2;
-  p.dw1 = dw1;
-  p.db1 = static_cast<float*>(db1);
-  p.dw2 = dw2;
-  p.m = m;
-  p.k = k;
-  p.f = f;
-  p.n = n;
-  p.groups_k = (k + kNG - 1) / kNG;
-  p.code = dtype;
-  p.code_w1 = w1_dtype;
-  p.code_w2 = w2_dtype;
-  p.vec = k % 8 == 0 && f % 8 == 0 && n % 8 == 0 && aligned16(x) && aligned16(dy) &&
-          aligned16(w2);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) return launch_dw<bf16>(p, s);
-  return launch_dw<float>(p, s);
+  // 1. dh (m x f) = dy (m x n) W2 (n x f, MN-major)
+  const DzFromDh first{z1, dz, dw ? h : nullptr, dw ? static_cast<float*>(partial) : nullptr, m,
+                       f, dtype};
+  int rc = gemm::gemm<false, true>({dy, w2, m, f, n}, first, dtype, s);
+  if (rc != 0) return rc;
+  if (dx != nullptr) {
+    // 2. dX (m x k) = dz (m x f) W1 (f x k, MN-major)
+    rc = gemm::gemm<false, true>({dz, w1, m, k, f}, DxOut{{dx, m, k, dtype}}, dtype, s);
+    if (rc != 0) return rc;
+  }
+  if (!dw) return 0;
+  // 3. dW1 (f x k) = dz^T x, 4. dW2 (n x f) = dy^T h, over the m tokens
+  rc = gemm::gemm<true, true>({dz, x, f, k, m}, DwOut{{dw1, f, k, w1_dtype}}, dtype, s);
+  if (rc != 0) return rc;
+  rc = gemm::gemm<true, true>({dy, h, n, f, m}, DwOut{{dw2, n, f, w2_dtype}}, dtype, s);
+  if (rc != 0) return rc;
+  // 5. db1
+  ffn_db1_kernel<<<(f + 255) / 256, 256, 0, s>>>(static_cast<const float*>(partial),
+                                                 static_cast<float*>(db1),
+                                                 (m + gemm::kTmaBM - 1) / gemm::kTmaBM, f);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -37,20 +37,6 @@ using namespace apex_tpu_torch;
 namespace apex_tpu_torch {
 namespace ffn {
 
-// v0 at p[i], v1 at p[i + 1] when two, rounded to the dtype `code`; a pair
-// at an even index of a 16-bit dtype goes as one 4-byte store
-__device__ __forceinline__ void store_pair(void* p, int code, int64_t i, float v0, float v1,
-                                           bool two) {
-  if (two && (i & 1) == 0 && code == kBF16) {
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p) + i) = __floats2bfloat162_rn(v0, v1);
-  } else if (two && (i & 1) == 0 && code == kF16) {
-    *reinterpret_cast<__half2*>(static_cast<__half*>(p) + i) = __floats2half2_rn(v0, v1);
-  } else {
-    store_f(p, code, i, v0);
-    if (two) store_f(p, code, i + 1, v1);
-  }
-}
-
 // GEMM 1's epilogue: z = acc + b1, z1 = z and h = gelu(z), both rounded
 struct BiasGelu {
   const float* b1;

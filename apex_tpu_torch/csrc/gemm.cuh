@@ -1,10 +1,13 @@
-// A tiled "NT" GEMM for Hopper, C (M x N) = A B^T with A (M x K) and B
-// (N x K) both row-major (the contraction contiguous in both), f32
-// accumulation, and a caller's epilogue that receives each output pair
-// (row, col), (row, col + 1) in f32 (col even).  W x^T products of the
-// linear layers take this form with W in its (out, in) layout.  The FFN
-// forward (ffn_fwd.cu) runs both of its products on it; dX, dW and the LM
-// head can take the same mainloop.
+// A tiled GEMM for Hopper, C (M x N) = A B with f32 accumulation and a
+// caller's epilogue that receives each output pair (row, col), (row, col +
+// 1) in f32 (col even).  Each operand is row-major in one of two layouts,
+// a template flag of the TMA and FMA kernels:
+//   K-major (flag false): the contraction contiguous, A stored (M x K), B
+//     stored (N x K): "NT", W x^T with W in its (out, in) layout;
+//   MN-major (flag true): A stored (K x M), B stored (K x N).
+// The FFN forward (ffn_fwd.cu) runs its two NT products on it; the FFN
+// backward (ffn_bwd.cu) its four: dy W2 and dz W1 (B MN-major), dz^T x and
+// dy^T h (both MN-major, the contraction over tokens).
 //
 // What bounds such a product on the H100 at training width: operations
 // (989 TFLOP/s of bf16), as long as the operand tiles reach shared memory
@@ -15,20 +18,33 @@
 // training and prefill width run the Hopper shape:
 //
 // * a block of three warpgroups over a 128 x BN tile of C (BN 256 or 128):
-//   one thread of the first issues a TMA copy of each 128 x 64 tile of A
-//   and BN x 64 tile of B into a ring of kTmaStages stages, 128-byte
-//   swizzled as wgmma reads them, announced to an mbarrier per stage ("full");
+//   one thread of the first issues TMA copies of each stage's 128 x 64
+//   tile of A and BN x 64 tile of B into a ring of kTmaStages stages,
+//   128-byte swizzled as wgmma reads them, announced to an mbarrier per
+//   stage ("full").  A K-major tile is one box of 64 contraction columns
+//   by 128 (or BN) rows; an MN-major tile is 64-wide boxes along M (or N),
+//   each 64 contraction rows deep: one 128-byte swizzle atom wide, so the
+//   boxes sit 8 KB apart;
 // * the other two warpgroups each own 64 rows, wait on a stage's full
 //   barrier, run wgmma m64n128k16 on it (A and B straight from shared
-//   memory through 64-bit descriptors, f32 accumulators in registers), wait
+//   memory through 64-bit descriptors; an MN-major operand sets wgmma's
+//   transpose immediate and its descriptor's leading offset to the 8 KB
+//   between swizzle atoms, and steps 16 contraction rows as 2 KB), wait
 //   for their products and hand the stage back through its "empty"
 //   mbarrier, which the producer waits on before it refills the stage;
 // * TMA zero-fills rows and contraction columns outside the matrices;
 // * the two consumers stage their C tile through the drained ring and write
-//   it row by row (coalesced stores through the epilogue).
+//   it row by row (coalesced stores through the epilogue).  An epilogue
+//   that reads a second matrix of C's shape at each entry (aux_tile: the
+//   FFN backward's z1) gets its tile copied into the drained ring with
+//   16-byte cp.async copies, in flight while C is staged, and takes each
+//   pair of it from shared memory; one with a col_sum member returns a
+//   value per entry, and the block sums those down its 128 rows in row
+//   order (the FFN backward's db1 partials).
 //
-// A few token rows (decode), and operands whose rows are not 16-byte
-// multiples or bases not 16-byte aligned, take mma.sync m16n8k16 on narrow
+// In gemm_nt (the forward) a few token rows (decode), and operands whose
+// rows are not 16-byte multiples or bases not 16-byte aligned, take
+// mma.sync m16n8k16 on narrow
 // 16 x 16 or 16 x 8 column tiles instead: the card is covered by column
 // tiles, each stage's 256 or 512 contraction columns split over 8 warps
 // whose pieces are summed through shared memory in a fixed warp order, and
@@ -38,12 +54,16 @@
 // Each output entry is summed by one block in a fixed order (no split of
 // the contraction across blocks, no atomics): a repeat gives the same bits.
 //
-// f32 and f16 operands run a register-blocked FMA tile (128 x 128 per
+// f32 and f16 operands, and in gemm() (the backward) bf16 operands off
+// TMA's 16-byte grid, run a register-blocked FMA tile (128 x 128 per
 // block, 8 x 8 per thread, f32 arithmetic), staged through registers into
-// double-buffered k-major shared tiles (any dtype: common.cuh's codes).
+// double-buffered k-major shared tiles (any dtype: common.cuh's codes); an
+// MN-major operand is read along M (or N) and stored transposed.
 #pragma once
 
 #include <cuda.h>
+
+#include <type_traits>
 
 #include "mma.cuh"
 
@@ -63,6 +83,26 @@ constexpr int kTmaThreads = 384;  // producer warpgroup + two consumers
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// An MN-major tile is 64-wide swizzle atoms along M (or N), each kTmaBK
+// contraction rows of 128 bytes (one TMA box): its descriptor's leading
+// offset is the distance between atoms, its stride the 1024 bytes between
+// 8-row groups along the contraction
+constexpr int kAtomBytes = 64 * 64 * 2;
+
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(kAtomBytes >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// the descriptor of k16 step `k16` of a stage's tile at `addr`: 32 bytes
+// along a K-major row, 16 rows (2 KB) down an MN-major atom
+template <bool kMN>
+__device__ __forceinline__ uint64_t desc_k16(uint32_t addr, int k16) {
+  if constexpr (kMN) return desc_sw128_mn(addr + 2048 * k16);
+  return desc_sw128(addr + 32 * k16);
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -107,10 +147,12 @@ __device__ __forceinline__ void tma_load(bf16* dst, const CUtensorMap* map, int 
       : "memory");
 }
 
-// D (64 x 128 f32) += A B^T on the tensor cores for one warpgroup, A (64 x
-// 16) and B (128 x 16) read from shared memory through their descriptors.
+// D (64 x 128 f32) += A B on the tensor cores for one warpgroup, A (64 x
+// 16) and B (16 x 128) read from shared memory through their descriptors,
+// each K-major or, with its transpose immediate (kTA, kTB) set, MN-major.
 // d holds, per warp of the group, the C fragments of mma.sync m16n8 for its
 // 16 rows and the 16 n8 tiles in order.
+template <bool kTA, bool kTB>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n"
@@ -121,7 +163,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -134,21 +176,61 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(kTA ? 1 : 0), "n"(kTB ? 1 : 0));
 }
 
-// the ring of stages, its mbarriers and the 1024-byte alignment; the ring
-// later holds the f32 C tile (128 x (BN + 4))
-template <int BN>
+// The ring of stages, which later holds the f32 C tile (128 x (BN + 4))
+// and, for an epilogue with an aux tile, that tile (128 x BN bf16) after
+// it; then the mbarriers and the 1024-byte alignment.
+template <int BN, bool kAux>
+__host__ __device__ constexpr int tma_region_bytes() {
+  constexpr int ring = kTmaStages * (kTmaBM + BN) * kTmaBK * 2;
+  constexpr int epilogue = kTmaBM * (BN + 4) * 4 + (kAux ? kTmaBM * BN * 2 : 0);
+  return ring > epilogue ? ring : epilogue;
+}
+
+template <int BN, bool kAux>
 constexpr int tma_smem_bytes() {
-  static_assert(kTmaBM * (BN + 4) * 4 <= kTmaStages * (kTmaBM + BN) * kTmaBK * 2, "C fits");
-  return kTmaStages * (kTmaBM + BN) * kTmaBK * 2 + 2 * kTmaStages * 8 + 1024;
+  return tma_region_bytes<BN, kAux>() + 2 * kTmaStages * 8 + 1024;
 }
 
-template <int BN, class Epi>
+// An epilogue whose col_sum member takes (row block, col, sum) returns a
+// float2 per pair; the kernels sum those down each block's 128 rows.
+template <class Epi, class = void>
+struct HasColSum : std::false_type {};
+template <class Epi>
+struct HasColSum<Epi, std::void_t<decltype(&Epi::col_sum)>> : std::true_type {};
+
+// A row-major (rows, cols) matrix of C's shape in dtype `code` that an
+// epilogue reads at each entry: an epilogue whose aux_tile() returns one
+// takes its pair (row, col), (row, col + 1) in f32 as a fifth argument.
+// The TMA kernel (bf16) copies it in 16-byte pieces: cols a multiple of 8,
+// the base 16-byte aligned, which gemm() checks on the host (aux_tile() is
+// __host__ __device__).
+struct AuxTile {
+  const void* p;
+  int rows, cols, code;
+};
+
+template <class Epi, class = void>
+struct HasAux : std::false_type {};
+template <class Epi>
+struct HasAux<Epi, std::void_t<decltype(&Epi::aux_tile)>> : std::true_type {};
+
+template <class Epi>
+__device__ __forceinline__ auto call_epi(const Epi& epi, int row, int col, float v0, float v1,
+                                         float2 aux) {
+  if constexpr (HasAux<Epi>::value) {
+    return epi(row, col, v0, v1, aux);
+  } else {
+    return epi(row, col, v0, v1);
+  }
+}
+
+template <int BN, bool kTA, bool kTB, class Epi>
 __global__ void __launch_bounds__(kTmaThreads, 1)
-gemm_nt_tma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
-                   int k, const Epi epi) {
+gemm_tma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                int k, const Epi epi) {
   constexpr int kStageA = kTmaBM * kTmaBK, kStageB = BN * kTmaBK;  // bf16 elements
   constexpr int NH = BN / 128;  // wgmma n128 products per k16 step
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -156,7 +238,8 @@ gemm_nt_tma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant
   const uint32_t raw = smem_u32(smem_raw);
   bf16* sa = reinterpret_cast<bf16*>(smem_raw + (((raw + 1023u) & ~1023u) - raw));
   bf16* sb = sa + kTmaStages * kStageA;
-  uint64_t* full = reinterpret_cast<uint64_t*>(sb + kTmaStages * kStageB);
+  uint64_t* full = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(sa) +
+                                               tma_region_bytes<BN, HasAux<Epi>::value>());
   uint64_t* empty = full + kTmaStages;
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
   const int m0 = blockIdx.y * kTmaBM, n0 = blockIdx.x * BN;
@@ -176,8 +259,22 @@ gemm_nt_tma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant
         const int s = kt % kTmaStages;
         if (kt >= kTmaStages) mbar_wait(&empty[s], (kt / kTmaStages - 1) & 1);
         mbar_expect_tx(&full[s], (kStageA + kStageB) * 2);
-        tma_load(sa + s * kStageA, &ta, kt * kTmaBK, m0, &full[s]);
-        tma_load(sb + s * kStageB, &tb, kt * kTmaBK, n0, &full[s]);
+        if constexpr (kTA) {
+#pragma unroll
+          for (int a = 0; a < kTmaBM / 64; ++a) {
+            tma_load(sa + s * kStageA + a * 64 * kTmaBK, &ta, m0 + 64 * a, kt * kTmaBK, &full[s]);
+          }
+        } else {
+          tma_load(sa + s * kStageA, &ta, kt * kTmaBK, m0, &full[s]);
+        }
+        if constexpr (kTB) {
+#pragma unroll
+          for (int b = 0; b < BN / 64; ++b) {
+            tma_load(sb + s * kStageB + b * 64 * kTmaBK, &tb, n0 + 64 * b, kt * kTmaBK, &full[s]);
+          }
+        } else {
+          tma_load(sb + s * kStageB, &tb, kt * kTmaBK, n0, &full[s]);
+        }
       }
     }
     return;
@@ -194,15 +291,16 @@ gemm_nt_tma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant
   for (int kt = 0; kt < nk; ++kt) {
     const int s = kt % kTmaStages;
     mbar_wait(&full[s], (kt / kTmaStages) & 1);
+    // 64 rows of A and 128 columns of B are 8 KB and 16 KB in either layout
     const uint32_t a_addr = smem_u32(sa + s * kStageA + cw * 64 * kTmaBK);
     const uint32_t b_addr = smem_u32(sb + s * kStageB);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int k16 = 0; k16 < kTmaBK / 16; ++k16) {  // 32 bytes along the swizzled row
+    for (int k16 = 0; k16 < kTmaBK / 16; ++k16) {
 #pragma unroll
       for (int h = 0; h < NH; ++h) {
-        wgmma_n128(acc[h], desc_sw128(a_addr + 32 * k16),
-                   desc_sw128(b_addr + h * 128 * kTmaBK * 2 + 32 * k16));
+        wgmma_n128<kTA, kTB>(acc[h], desc_k16<kTA>(a_addr, k16),
+                             desc_k16<kTB>(b_addr + h * 128 * kTmaBK * 2, k16));
       }
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -215,8 +313,20 @@ gemm_nt_tma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant
   // pairs, so a warp's 32 stores cover contiguous columns
   constexpr int LDC = BN + 4;
   float* sc = reinterpret_cast<float*>(sa);
+  bf16* saux = reinterpret_cast<bf16*>(sc + kTmaBM * LDC);  // the aux tile, row stride BN
   asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both consumers are done with the ring
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if constexpr (HasAux<Epi>::value) {
+    const AuxTile x = epi.aux_tile();
+    const bf16* src = static_cast<const bf16*>(x.p);
+    for (int i = threadIdx.x - 128; i < kTmaBM * BN / 8; i += 256) {
+      const int r = i / (BN / 8), c = (i - r * (BN / 8)) * 8;
+      const bool ok = m0 + r < x.rows && n0 + c < x.cols;
+      cp_async16(saux + r * BN + c, ok ? src + static_cast<int64_t>(m0 + r) * x.cols + n0 + c : src,
+                 ok ? 16 : 0);
+    }
+    cp_async_commit();
+  }
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = cw * 64 + warp * 16 + g;
@@ -230,11 +340,28 @@ gemm_nt_tma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant
           make_float2(acc[h][j * 4 + 2], acc[h][j * 4 + 3]);
     }
   }
+  if constexpr (HasAux<Epi>::value) cp_async_wait(0);
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
   for (int i = threadIdx.x - 128; i < kTmaBM * BN / 2; i += 256) {
     const int r = i / (BN / 2), c = 2 * (i - r * (BN / 2));
     const float2 v = *reinterpret_cast<const float2*>(sc + r * LDC + c);
-    epi(m0 + r, n0 + c, v.x, v.y);
+    float2 aux = make_float2(0.f, 0.f);
+    if constexpr (HasAux<Epi>::value) {
+      aux = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(saux + r * BN + c));
+    }
+    if constexpr (HasColSum<Epi>::value) {  // the value to sum replaces the entry
+      *reinterpret_cast<float2*>(sc + r * LDC + c) = call_epi(epi, m0 + r, n0 + c, v.x, v.y, aux);
+    } else {
+      call_epi(epi, m0 + r, n0 + c, v.x, v.y, aux);
+    }
+  }
+  if constexpr (HasColSum<Epi>::value) {
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    for (int c = threadIdx.x - 128; c < BN; c += 256) {
+      float sum = 0.f;
+      for (int r = 0; r < kTmaBM; ++r) sum += sc[r * LDC + c];
+      epi.col_sum(m0 / kTmaBM, n0 + c, sum);
+    }
   }
 }
 
@@ -456,7 +583,7 @@ gemm_nt_mma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b, int m
 }
 
 // ---------------------------------------------------------------------------
-// FMA (f32, f16)
+// FMA (f32, f16; bf16 off TMA's grid)
 
 // the FMA tile: 128 x 128 per block of 256 threads, 8 contraction columns
 // per stage; thread (ty, tx) = (tid / 16, tid % 16) owns rows ty * 4 + {0..3}
@@ -464,31 +591,44 @@ gemm_nt_mma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b, int m
 constexpr int kFmaBM = 128, kFmaBN = 128, kFmaBK = 8, kFmaThreads = 256;
 constexpr int kFmaLD = kFmaBM + 4;  // float4 reads stay aligned
 
-template <class Epi>
-__global__ void __launch_bounds__(kFmaThreads)
-gemm_nt_fma_kernel(const void* __restrict__ a, const void* __restrict__ b, int m, int n, int k,
-                   int code, const Epi epi) {
+// blocks a multiprocessor asked of the compiler: two for MN-major operands
+// (the backward), whose loaders' index arithmetic would otherwise take the
+// tile past 128 registers a thread; the NT tile (the forward) as it was
+template <bool kTA, bool kTB>
+constexpr int kFmaMinBlocks = kTA || kTB ? 2 : 1;
+
+template <bool kTA, bool kTB, class Epi>
+__global__ void __launch_bounds__(kFmaThreads, (kFmaMinBlocks<kTA, kTB>))
+gemm_fma_kernel(const void* __restrict__ a, const void* __restrict__ b, int m, int n, int k,
+                int code, const Epi epi) {
   __shared__ __align__(16) float as[2][kFmaBK][kFmaLD];
   __shared__ __align__(16) float bs[2][kFmaBK][kFmaLD];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.y * kFmaBM, n0 = blockIdx.x * kFmaBN;
-  // the loader: row lr of the A and B tiles, contraction columns lk .. lk + 3
-  const int lr = tid >> 1, lk = (tid & 1) * 4;
+  // the loaders: row lr of the A or B tile, contraction columns lk .. lk + 3;
+  // a K-major operand gives a thread pair one row (4 + 4 contiguous
+  // columns), an MN-major one gives a warp 32 contiguous rows
+  const int lra = kTA ? tid & 127 : tid >> 1, lka = kTA ? (tid >> 7) * 4 : (tid & 1) * 4;
+  const int lrb = kTB ? tid & 127 : tid >> 1, lkb = kTB ? (tid >> 7) * 4 : (tid & 1) * 4;
   const int nk = (k + kFmaBK - 1) / kFmaBK;
   float ra[4], rb[4];
   auto fetch = [&](int k0) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kc = k0 + lk + j;
-      ra[j] = m0 + lr < m && kc < k ? load_f(a, code, static_cast<int64_t>(m0 + lr) * k + kc) : 0.f;
-      rb[j] = n0 + lr < n && kc < k ? load_f(b, code, static_cast<int64_t>(n0 + lr) * k + kc) : 0.f;
+    for (int q = 0; q < 4; ++q) {
+      const int ka = k0 + lka + q, kb = k0 + lkb + q;
+      const int64_t ia = kTA ? static_cast<int64_t>(ka) * m + m0 + lra
+                             : static_cast<int64_t>(m0 + lra) * k + ka;
+      const int64_t ib = kTB ? static_cast<int64_t>(kb) * n + n0 + lrb
+                             : static_cast<int64_t>(n0 + lrb) * k + kb;
+      ra[q] = m0 + lra < m && ka < k ? load_f(a, code, ia) : 0.f;
+      rb[q] = n0 + lrb < n && kb < k ? load_f(b, code, ib) : 0.f;
     }
   };
   auto put = [&](int buf) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      as[buf][lk + j][lr] = ra[j];
-      bs[buf][lk + j][lr] = rb[j];
+    for (int q = 0; q < 4; ++q) {
+      as[buf][lka + q][lra] = ra[q];
+      bs[buf][lkb + q][lrb] = rb[q];
     }
   };
 
@@ -496,7 +636,7 @@ gemm_nt_fma_kernel(const void* __restrict__ a, const void* __restrict__ b, int m
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
   }
   fetch(0);
   put(0);
@@ -516,26 +656,62 @@ gemm_nt_fma_kernel(const void* __restrict__ a, const void* __restrict__ b, int m
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(av[i], bv[c], acc[i][c]);
       }
     }
     if (kt + 1 < nk) put(buf ^ 1);  // buf ^ 1 was consumed before the last barrier
     __syncthreads();
   }
 
+  float cs[8] = {};  // column sums over this thread's 8 rows (col_sum epilogues)
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int row = m0 + (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
 #pragma unroll
-    for (int j = 0; j < 8; j += 2) {
-      const int col = n0 + (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
-      epi(row, col, acc[i][j], acc[i][j + 1]);
+    for (int c = 0; c < 8; c += 2) {
+      const int col = n0 + (c < 4 ? 0 : 64) + tx * 4 + (c & 3);
+      float2 aux = make_float2(0.f, 0.f);
+      if constexpr (HasAux<Epi>::value) {
+        const AuxTile x = epi.aux_tile();
+        const int64_t at = static_cast<int64_t>(row) * x.cols + col;
+        if (row < x.rows && col < x.cols) aux.x = load_f(x.p, x.code, at);
+        if (row < x.rows && col + 1 < x.cols) aux.y = load_f(x.p, x.code, at + 1);
+      }
+      if constexpr (HasColSum<Epi>::value) {
+        const float2 v = call_epi(epi, row, col, acc[i][c], acc[i][c + 1], aux);
+        cs[c] += v.x;
+        cs[c + 1] += v.y;
+      } else {
+        call_epi(epi, row, col, acc[i][c], acc[i][c + 1], aux);
+      }
+    }
+  }
+  if constexpr (HasColSum<Epi>::value) {
+    // the 16 row groups' sums of each column, added in row-group order (the
+    // main loop's last barrier freed the A tiles)
+    float* red = &as[0][0][0];
+    static_assert(16 * kFmaBN <= 2 * kFmaBK * kFmaLD, "the partials fit the A tiles");
+#pragma unroll
+    for (int c = 0; c < 8; ++c) red[ty * kFmaBN + (c < 4 ? 0 : 64) + tx * 4 + (c & 3)] = cs[c];
+    __syncthreads();
+    if (tid < kFmaBN) {
+      float sum = 0.f;
+      for (int r = 0; r < 16; ++r) sum += red[r * kFmaBN + tid];
+      epi.col_sum(m0 / kFmaBM, n0 + tid, sum);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
 // launchers
+
+// One product of a launch: C (m x n) = A B over k; A stored (m x k), or
+// (k x m) when MN-major, B (n x k), or (k x n) when MN-major.
+struct Product {
+  const void* a;
+  const void* b;
+  int m, n, k;
+};
 
 template <class C, class Epi>
 int launch_mma(const bf16* a, const bf16* b, int m, int n, int k, bool vec, const Epi& epi,
@@ -550,51 +726,84 @@ int launch_mma(const bf16* a, const bf16* b, int m, int n, int k, bool vec, cons
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BN, class Epi>
-int launch_tma(const void* a, const void* b, int m, int n, int k, const Epi& epi,
-               cudaStream_t s) {
-  constexpr int kBytes = tma_smem_bytes<BN>();
+template <int BN, bool kTA, bool kTB, class Epi>
+int launch_tma(const Product& q, const Epi& epi, cudaStream_t s) {
+  constexpr int kBytes = tma_smem_bytes<BN, HasAux<Epi>::value>();
   static bool attr_set = false;
-  int rc = set_smem(gemm_nt_tma_kernel<BN, Epi>, kBytes, attr_set);
+  int rc = set_smem(gemm_tma_kernel<BN, kTA, kTB, Epi>, kBytes, attr_set);
   if (rc != 0) return rc;
+  // a K-major operand is boxed 64 contraction columns by the tile's rows,
+  // an MN-major one 64 along M (or N) by 64 contraction rows
   CUtensorMap ta, tb;
-  if ((rc = tma_map(&ta, a, m, k, kTmaBM)) != 0) return rc;
-  if ((rc = tma_map(&tb, b, n, k, BN)) != 0) return rc;
-  const dim3 grid(static_cast<unsigned>((n + BN - 1) / BN),
-                  static_cast<unsigned>((m + kTmaBM - 1) / kTmaBM));
-  gemm_nt_tma_kernel<BN, Epi><<<grid, kTmaThreads, kBytes, s>>>(ta, tb, k, epi);
+  rc = kTA ? tma_map(&ta, q.a, q.k, q.m, kTmaBK) : tma_map(&ta, q.a, q.m, q.k, kTmaBM);
+  if (rc != 0) return rc;
+  rc = kTB ? tma_map(&tb, q.b, q.k, q.n, kTmaBK) : tma_map(&tb, q.b, q.n, q.k, BN);
+  if (rc != 0) return rc;
+  const dim3 grid(static_cast<unsigned>((q.n + BN - 1) / BN),
+                  static_cast<unsigned>((q.m + kTmaBM - 1) / kTmaBM));
+  gemm_tma_kernel<BN, kTA, kTB, Epi><<<grid, kTmaThreads, kBytes, s>>>(ta, tb, q.k, epi);
   return static_cast<int>(cudaGetLastError());
 }
 
+// dtype `code` (any) on the FMA tile
+template <bool kTA, bool kTB, class Epi>
+int launch_fma(const Product& q, const Epi& epi, int code, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>((q.n + kFmaBN - 1) / kFmaBN),
+                  static_cast<unsigned>((q.m + kFmaBM - 1) / kFmaBM));
+  gemm_fma_kernel<kTA, kTB, Epi><<<grid, kFmaThreads, 0, s>>>(q.a, q.b, q.m, q.n, q.k, code, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// whether TMA maps a bf16 operand whose rows hold `cols` elements: the
+// rows 16-byte multiples, the base 16-byte aligned
+inline bool tma_maps(const void* p, int cols) { return cols % 8 == 0 && aligned16(p); }
+
+// C = A B of one layout through epi, one launch; returns a cudaError_t.
+// bf16 (code) operands that TMA maps (and the epilogue's aux tile) take
+// TMA + wgmma, on 128 x 128 tiles where those fit the card in one wave
+// (at most one block an SM), else on 128 x 256 tiles: between half the
+// SMs and all of them, the wide tiles run one wave where the narrow ones
+// would take two; f32, f16 and bf16 off TMA's 16-byte grid take the FMA
+// tile.
+template <bool kTA, bool kTB, class Epi>
+int gemm(const Product& q, const Epi& epi, int code, cudaStream_t s) {
+  bool tma = code == kBF16 && tma_maps(q.a, kTA ? q.m : q.k) && tma_maps(q.b, kTB ? q.n : q.k);
+  if constexpr (HasAux<Epi>::value) {
+    const AuxTile x = epi.aux_tile();
+    tma = tma && tma_maps(x.p, x.cols);
+  }
+  if (!tma) return launch_fma<kTA, kTB>(q, epi, code, s);
+  if (2 * static_cast<int64_t>((q.m + kTmaBM - 1) / kTmaBM) * ((q.n + 255) / 256) > sm_count()) {
+    return launch_tma<256, kTA, kTB>(q, epi, s);
+  }
+  return launch_tma<128, kTA, kTB>(q, epi, s);
+}
+
 // C = A B^T through epi, one launch; returns a cudaError_t.  bf16 (code):
-// TMA + wgmma on 128 x 256 tiles where they give every SM a block, else on
-// 128 x 128 tiles; the narrow mma.sync tiles for at most kNarrowRows rows
-// or operands off the 16-byte grid.  f32 and f16 take the FMA tile.
+// the TMA + wgmma tiles of gemm(); the narrow mma.sync tiles for at most
+// kNarrowRows rows or operands off the 16-byte grid.  f32 and f16 take the
+// FMA tile.
 template <class Epi>
 int gemm_nt(const void* a, const void* b, int m, int n, int k, int code, const Epi& epi,
             cudaStream_t s) {
   if (m <= 0 || n <= 0) return 0;
-  if (code != kBF16) {
-    const dim3 grid(static_cast<unsigned>((n + kFmaBN - 1) / kFmaBN),
-                    static_cast<unsigned>((m + kFmaBM - 1) / kFmaBM));
-    gemm_nt_fma_kernel<Epi><<<grid, kFmaThreads, 0, s>>>(a, b, m, n, k, code, epi);
-    return static_cast<int>(cudaGetLastError());
-  }
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const bool vec = k % 8 == 0 && aligned16(a) && aligned16(b);
-  if (!vec || m <= kNarrowRows) {
+  if (code == kBF16 && (m <= kNarrowRows || k % 8 != 0 || !aligned16(a) || !aligned16(b))) {
+    const bool vec = k % 8 == 0 && aligned16(a) && aligned16(b);
     const bf16* ab = static_cast<const bf16*>(a);
     const bf16* bb = static_cast<const bf16*>(b);
-    if (static_cast<int64_t>((m + 15) / 16) * ((n + 15) / 16) >= sms) {
+    if (static_cast<int64_t>((m + 15) / 16) * ((n + 15) / 16) >= sm_count()) {
       return launch_mma<Narrow16>(ab, bb, m, n, k, vec, epi, s);
     }
     return launch_mma<Narrow8>(ab, bb, m, n, k, vec, epi, s);
   }
-  const int64_t wide = static_cast<int64_t>((m + kTmaBM - 1) / kTmaBM) * ((n + 255) / 256);
-  if (wide >= sms) return launch_tma<256>(a, b, m, n, k, epi, s);
-  return launch_tma<128>(a, b, m, n, k, epi, s);
+  return gemm<false, false>(Product{a, b, m, n, k}, epi, code, s);
 }
 
 }  // namespace gemm

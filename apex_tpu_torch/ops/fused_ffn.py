@@ -6,7 +6,7 @@ recomputes the GELU terms from it, so the ``(tokens, ffn)`` activation
 is never kept for the backward.  ``W1`` is ``(ffn, k)`` and ``W2`` ``(n, ffn)``,
 the ``(out, in)`` layout of the linear layers.
 
-Three kernel wrappers, each with its plain PyTorch version beside it:
+Four kernel wrappers, each with its plain PyTorch version beside it:
 
 * :func:`ffn_fwd` (``csrc/ffn_fwd.cu``, the Pallas ``_ffn_fwd_kernel``)
   returns ``(y, z1)``; a CPU tensor takes :func:`ffn_fwd_reference`.  On
@@ -16,7 +16,14 @@ Three kernel wrappers, each with its plain PyTorch version beside it:
 * :func:`ffn_dx` (``csrc/ffn_bwd.cu``, ``_ffn_dx_kernel``); a CPU tensor
   takes :func:`ffn_dx_reference`;
 * :func:`ffn_dw` (``csrc/ffn_bwd.cu``, ``_ffn_dw_kernel``) returns
-  ``(dW1, db1, dW2)``; a CPU tensor takes :func:`ffn_dw_reference`.
+  ``(dW1, db1, dW2)``; a CPU tensor takes :func:`ffn_dw_reference`;
+* :func:`ffn_bwd`, both backward kernels in one call (``(dX, dW1, db1,
+  dW2)``, the JAX ``_ffn_bwd_impl``); a CPU tensor takes
+  :func:`ffn_bwd_reference`.  On the card the backward is launches of
+  the tiled GEMM: ``dh = dy W2`` once, its epilogue writing the ``(m,
+  f)`` dz (and for dW gelu(z1) and db1's partial sums) as scratch in the
+  activation dtype, then dX, dW1 and dW2, then db1 (``csrc/ffn_bwd.cu``'s
+  header).
 
 The plain versions take the kernels' own casts: both products of every
 kernel run on operands in the activation dtype (the weights cast to it, as
@@ -48,7 +55,7 @@ _GELU_A = 0.044715
 
 __all__ = ["fused_ffn", "fused_ffn_reference", "fused_ffn_tp", "ffn_fwd",
            "ffn_fwd_reference", "ffn_dx", "ffn_dx_reference", "ffn_dw",
-           "ffn_dw_reference"]
+           "ffn_dw_reference", "ffn_bwd", "ffn_bwd_reference"]
 
 
 def _gelu(z):
@@ -124,6 +131,20 @@ def ffn_dw_reference(x, dy, z1, w1, w2):
     return dw1, dz.sum(0), dw2
 
 
+def ffn_bwd_reference(x, dy, z1, w1, w2):
+    """Plain version of the whole backward: ``(dX, dW1, db1, dW2)`` with
+    ``dy @ W2`` computed once, bit for bit :func:`ffn_dx_reference`'s dX
+    and :func:`ffn_dw_reference`'s weight gradients."""
+    dt = x.dtype
+    dh, z = _dh(dy, z1, w2)
+    dz = dh * _gelu_grad(z)
+    dzc = dz.to(dt)
+    dx = _mm(dzc, w1, dt).to(dt)
+    dw1 = _mm(dzc.t(), x, dt).to(w1.dtype)
+    dw2 = _mm(dy.t(), _gelu(z).to(dt), dt).to(w2.dtype)
+    return dx, dw1, dz.sum(0), dw2
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -149,12 +170,6 @@ def _operand(t, dt):
     """``t`` in the activation dtype, contiguous (a weight's cast is JAX's
     ``astype``)."""
     return t.to(dt).contiguous()
-
-
-def _splits(m, f, n_out, device):
-    lib = _kernels.lib()
-    return lib.apex_ffn_splits(m, f, n_out,
-                               _kernels.sm_count(device.index or 0))
 
 
 def ffn_fwd(x, w1, b1, w2, b2=None):
@@ -194,35 +209,81 @@ def ffn_fwd(x, w1, b1, w2, b2=None):
 ffn_fwd.launches = 0
 
 
-def ffn_dx(dy, z1, w1, w2):
-    """dX kernel wrapper: ``dy`` ``(m, n)`` and ``z1`` ``(m, f)`` in the
-    activation dtype; returns ``(m, k)`` in it.  Two launches (the split
-    row kernel, then the fixed-order combine), both counted.  A CPU tensor
-    takes :func:`ffn_dx_reference`."""
-    if dy.device.type == "cpu":
-        return ffn_dx_reference(dy, z1, w1, w2)
-    kernel = "ffn_dx"
-    _on_card(kernel, dy, z1, w1, w2)
+def _bwd_operands(kernel, x, dy, z1, w1, w2):
+    """Check the backward's operands (x may be None: dX alone); returns
+    the shape ``(m, k, f, n)`` and x, dy, z1 contiguous."""
+    _on_card(kernel, *(t for t in (x, dy, z1, w1, w2) if t is not None))
     m, n = dy.shape
     f, k = w1.shape
     _check_shapes(kernel, m, k, f, n, dy=dy.shape, z1=z1.shape, w1=w1.shape,
-                  w2=w2.shape)
+                  w2=w2.shape, **({} if x is None else dict(x=x.shape)))
     dt = dy.dtype
-    code = _kernels.dtype_code(dy, kernel)
-    if z1.dtype != dt:
-        raise TypeError(f"{kernel}: z1 is {z1.dtype}, dy {dt}")
-    dy, z1 = dy.contiguous(), z1.contiguous()
-    w1c, w2c = _operand(w1, dt), _operand(w2, dt)
-    dx = torch.empty((m, k), dtype=dt, device=dy.device)
+    _kernels.dtype_code(dy, kernel)
+    if z1.dtype != dt or (x is not None and x.dtype != dt):
+        raise TypeError(f"{kernel}: x, dy and z1 must share a dtype, got "
+                        f"{None if x is None else x.dtype}, {dt}, "
+                        f"{z1.dtype}")
+    x = None if x is None else x.contiguous()
+    return (m, k, f, n), x, dy.contiguous(), z1.contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _bwd_kernels(kernel, x, dy, z1, w1c, w2c, shape, want_dx, w_dtypes):
+    """One ``apex_ffn_bwd`` call: the dh launch, then dX if ``want_dx``,
+    then dW1, dW2 and db1 if ``w_dtypes`` (W1's and W2's dtypes) is
+    given.  Returns ``(dx, dw1, db1, dw2)``, None where not asked; no
+    launch at zero rows (dX empty, the weight gradients zero)."""
+    m, k, f, n = shape
+    dt, dev = dy.dtype, dy.device
     if m == 0:
-        return dx
-    splits = _splits(m, f, k, dy.device)
-    partial = torch.empty((splits, m, k), dtype=_f32, device=dy.device)
-    rc = _kernels.lib().apex_ffn_dx(
-        dy.data_ptr(), z1.data_ptr(), w1c.data_ptr(), w2c.data_ptr(),
-        dx.data_ptr(), partial.data_ptr(), m, k, f, n, splits, code,
-        _kernels.stream())
+        dx = torch.empty((0, k), dtype=dt, device=dev) if want_dx else None
+        if w_dtypes is None:
+            return dx, None, None, None
+        return (dx, torch.zeros((f, k), dtype=w_dtypes[0], device=dev),
+                torch.zeros((f,), dtype=_f32, device=dev),
+                torch.zeros((n, f), dtype=w_dtypes[1], device=dev))
+    dz = torch.empty((m, f), dtype=dt, device=dev)
+    dx = torch.empty((m, k), dtype=dt, device=dev) if want_dx else None
+    dw1 = db1 = dw2 = h = partial = None
+    codes = (0, 0)
+    if w_dtypes is not None:
+        dw1 = torch.empty((f, k), dtype=w_dtypes[0], device=dev)
+        db1 = torch.empty((f,), dtype=_f32, device=dev)
+        dw2 = torch.empty((n, f), dtype=w_dtypes[1], device=dev)
+        h = torch.empty((m, f), dtype=dt, device=dev)
+        partial = torch.empty(((m + 127) // 128, f), dtype=_f32, device=dev)
+        codes = tuple(_kernels.DTYPE_CODES[d] for d in w_dtypes)
+    rc = _kernels.lib().apex_ffn_bwd(
+        _ptr(x), dy.data_ptr(), z1.data_ptr(), _ptr(w1c),
+        w2c.data_ptr(), _ptr(dx), _ptr(dw1), _ptr(db1), _ptr(dw2),
+        dz.data_ptr(), _ptr(h), _ptr(partial), m, k, f, n,
+        _kernels.DTYPE_CODES[dt], *codes, _kernels.stream())
     _kernels.check(rc, kernel)
+    return dx, dw1, db1, dw2
+
+
+def _w_dtypes(kernel, w1, w2):
+    for w in (w1, w2):
+        _kernels.dtype_code(w, kernel)
+    return w1.dtype, w2.dtype
+
+
+def ffn_dx(dy, z1, w1, w2):
+    """dX kernel wrapper: ``dy`` ``(m, n)`` and ``z1`` ``(m, f)`` in the
+    activation dtype; returns ``(m, k)`` in it.  Two launches, both
+    counted: dh = dy W2 into the ``(m, f)`` dz scratch, then dz W1.  A CPU
+    tensor takes :func:`ffn_dx_reference`."""
+    if dy.device.type == "cpu":
+        return ffn_dx_reference(dy, z1, w1, w2)
+    kernel = "ffn_dx"
+    shape, _, dy, z1 = _bwd_operands(kernel, None, dy, z1, w1, w2)
+    if shape[0] == 0:
+        return torch.empty(shape[:2], dtype=dy.dtype, device=dy.device)
+    w1c, w2c = _operand(w1, dy.dtype), _operand(w2, dy.dtype)
+    dx = _bwd_kernels(kernel, None, dy, z1, w1c, w2c, shape, True, None)[0]
     ffn_dx.launches += 2
     return dx
 
@@ -233,42 +294,47 @@ ffn_dx.launches = 0
 def ffn_dw(x, dy, z1, w1, w2):
     """dW kernel wrapper: ``(dW1 (f, k) in w1's dtype, db1 (f,) f32, dW2
     (n, f) in w2's dtype)``, each entry summed over all tokens by one block
-    in a fixed order (no atomics).  One launch.  A CPU tensor takes
-    :func:`ffn_dw_reference`."""
+    in a fixed order (no atomics).  Four launches, all counted: dh = dy W2
+    (dz, gelu(z1) and db1's partial sums into scratch), dW1, dW2, db1.  A
+    CPU tensor takes :func:`ffn_dw_reference`."""
     if x.device.type == "cpu":
         return ffn_dw_reference(x, dy, z1, w1, w2)
     kernel = "ffn_dw"
-    _on_card(kernel, x, dy, z1, w1, w2)
-    m, k = x.shape
-    f, n = w1.shape[0], w2.shape[0]
-    _check_shapes(kernel, m, k, f, n, x=x.shape, dy=dy.shape, z1=z1.shape,
-                  w1=w1.shape, w2=w2.shape)
-    dt = x.dtype
-    code = _kernels.dtype_code(x, kernel)
-    if dy.dtype != dt or z1.dtype != dt:
-        raise TypeError(f"{kernel}: x, dy and z1 must share a dtype, got "
-                        f"{x.dtype}, {dy.dtype}, {z1.dtype}")
-    c1, c2 = _kernels.dtype_code(w1, kernel), _kernels.dtype_code(w2, kernel)
-    x, dy, z1 = x.contiguous(), dy.contiguous(), z1.contiguous()
-    w2c = _operand(w2, dt)
-    dw1 = torch.empty((f, k), dtype=w1.dtype, device=x.device)
-    db1 = torch.empty((f,), dtype=_f32, device=x.device)
-    dw2 = torch.empty((n, f), dtype=w2.dtype, device=x.device)
-    rc = _kernels.lib().apex_ffn_dw(
-        x.data_ptr(), dy.data_ptr(), z1.data_ptr(), w2c.data_ptr(),
-        dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), m, k, f, n, code,
-        c1, c2, _kernels.stream())
-    _kernels.check(rc, kernel)
-    ffn_dw.launches += 1
-    return dw1, db1, dw2
+    w_dtypes = _w_dtypes(kernel, w1, w2)
+    shape, x, dy, z1 = _bwd_operands(kernel, x, dy, z1, w1, w2)
+    w2c = _operand(w2, dy.dtype)     # dW does not read W1
+    out = _bwd_kernels(kernel, x, dy, z1, None, w2c, shape, False,
+                       w_dtypes)[1:]
+    ffn_dw.launches += 4 if shape[0] else 0
+    return out
 
 
 ffn_dw.launches = 0
 
 
+def ffn_bwd(x, dy, z1, w1, w2):
+    """The whole backward in one call: ``(dX, dW1, db1, dW2)``, each as
+    :func:`ffn_dx` and :func:`ffn_dw` give it (the same bits), with dh =
+    dy W2 run once: dh and dX count on ``ffn_dx.launches`` (2), dW1, dW2
+    and db1 on ``ffn_dw.launches`` (3).  A CPU tensor takes
+    :func:`ffn_bwd_reference`."""
+    if x.device.type == "cpu":
+        return ffn_bwd_reference(x, dy, z1, w1, w2)
+    kernel = "ffn_bwd"
+    w_dtypes = _w_dtypes(kernel, w1, w2)
+    shape, x, dy, z1 = _bwd_operands(kernel, x, dy, z1, w1, w2)
+    w1c, w2c = _operand(w1, dy.dtype), _operand(w2, dy.dtype)
+    out = _bwd_kernels(kernel, x, dy, z1, w1c, w2c, shape, True, w_dtypes)
+    if shape[0]:
+        ffn_dx.launches += 2
+        ffn_dw.launches += 3
+    return out
+
+
 class _FusedFFN(torch.autograd.Function):
-    """Forward kernel, then the dX and dW kernels (the JAX ``_ffn`` custom
-    VJP).  Saves ``(x, w1, b1, w2, b2, z1)``."""
+    """Forward kernel, then the backward kernels, both in one
+    :func:`ffn_bwd` call where dX and a weight gradient are needed (the
+    JAX ``_ffn`` custom VJP).  Saves ``(x, w1, b1, w2, b2, z1)``."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2):
@@ -282,10 +348,14 @@ class _FusedFFN(torch.autograd.Function):
         need = ctx.needs_input_grad
         dy = dy.to(x.dtype).contiguous()
         dx = dw1 = db1 = dw2 = db2 = None
-        if need[0]:
+        weights = need[1] or need[2] or need[3]
+        if need[0] and weights:
+            dx, dw1, db1, dw2 = ffn_bwd(x, dy, z1, w1, w2)
+        elif need[0]:
             dx = ffn_dx(dy, z1, w1, w2)
-        if need[1] or need[2] or need[3]:
+        elif weights:
             dw1, db1, dw2 = ffn_dw(x, dy, z1, w1, w2)
+        if weights:
             dw1 = dw1 if need[1] else None
             db1 = db1.to(b1.dtype) if need[2] else None
             dw2 = dw2 if need[3] else None

@@ -11,7 +11,7 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. build the CUDA kernels from ``apex_tpu_torch/csrc`` (nvcc, sm_90a) and
    log nvcc's registers and spills (by kernel name for the tensor-core dq
-   and the FFN forward's GEMM mainloop);
+   and the FFN's GEMM mainloop);
 2. for each kernel, at the shapes the paths give it: the kernel against its
    plain version on the same card inputs (max abs error and tolerance), the
    kernel's time, the plain version's time, one PyTorch library call
@@ -29,8 +29,9 @@ Phases (any failure exits non-zero; nothing is caught):
    micro-batch (bf16 x with f32 W, bf16/bf16), the serving shapes (512
    and 8 rows), GPT-2 XL's widths off the grids (1000 x 1600 -> 6400 ->
    1600), GPT-350M's shape in f32 and small cases, every output held
-   entry by entry (``ffn_bounds``), the forward's y and z1 bitwise equal
-   on a repeat, its yardstick the unfused
+   entry by entry (``ffn_bounds``), also the whole backward's
+   (``ffn_bwd``, dh once), every output bitwise equal on a repeat, each
+   call's launches those of its path, its yardstick the unfused
    F.linear + gelu + F.linear chain; the multi-tensor axpby, SGD, Adagrad
    and NovoGrad (#16, #19, #22, #23) at GPT-350M's f32 list (291 tensors,
    as Adam), on a mixed list of 40 bf16 / f16 / f32 tensors with f32
@@ -271,9 +272,9 @@ def log_numbers(name, n, lib_name):
 # -- phase 1 -----------------------------------------------------------------
 
 # kernels whose registers and spills phase_build names one by one (the
-# tensor-core dq and the FFN forward's GEMM mainloop)
-NAMED_REPORT = ("flash_bwd_dq_mma_kernel", "gemm_nt_tma_kernel",
-                "gemm_nt_mma_kernel", "gemm_nt_fma_kernel")
+# tensor-core dq and the FFN's GEMM mainloop)
+NAMED_REPORT = ("flash_bwd_dq_mma_kernel", "gemm_tma_kernel",
+                "gemm_nt_mma_kernel", "gemm_fma_kernel")
 
 
 def _ptxas_by_kernel(text, wanted):
@@ -1276,10 +1277,15 @@ def kernel_fused_ffn(gen):
     1600, bf16), GPT-350M's shape in f32 (the FMA instantiation); small
     off-grid cases (200 x 96 -> 320 -> 80: f32, bf16, bf16 x f32 W, f16)
     and one off the 16-byte loads (77 x 100 -> 200 -> 36, bf16, no b2).
-    The backward kernels read the forward kernel's z1 on both sides."""
+    The backward kernels read the forward kernel's z1 on both sides.  The
+    whole backward (``ffn_bwd``) is held to ffn_dx_reference's and
+    ffn_dw_reference's outputs by the same rule, and must give ffn_dx's
+    and ffn_dw's bits; every output is bitwise equal on a repeat, and each
+    call makes ``ffn_bwd_launches`` launches (the off-grid and f32 / f16
+    cases run the FMA tile, the others TMA + wgmma)."""
     from apex_tpu_torch.ops.fused_ffn import (
-        ffn_dw, ffn_dw_reference, ffn_dx, ffn_dx_reference, ffn_fwd,
-        ffn_fwd_reference)
+        ffn_bwd, ffn_bwd_reference, ffn_dw, ffn_dw_reference, ffn_dx,
+        ffn_dx_reference, ffn_fwd, ffn_fwd_reference)
     out = {}
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     k, f, n = HIDDEN, GPT350M["ffn_hidden_size"], HIDDEN
@@ -1311,20 +1317,44 @@ def kernel_fused_ffn(gen):
         log(f"  ffn_fwd {tag}: y and z1 bitwise equal on a repeat ok")
         del y2, z12
         ry, rz1 = ffn_fwd_reference(x, w1, b1, w2, b2)
+        before = (ffn_dx.launches, ffn_dw.launches)
         dx = ffn_dx(dy, z1, w1, w2)
-        dw1, db1, dw2 = ffn_dw(x, dy, z1, w1, w2)
+        dws = ffn_dw(x, dy, z1, w1, w2)
+        bwd = ffn_bwd(x, dy, z1, w1, w2)
+        got = (ffn_dx.launches - before[0], ffn_dw.launches - before[1])
+        want = tuple(map(sum, zip(*(ffn_bwd_launches(call)
+                                    for call in ("dx", "dw", "bwd")))))
+        if got != want:
+            raise AssertionError(f"ffn backward {tag}: launches (dx, dw) "
+                                 f"{got}, want {want}")
         rdx = ffn_dx_reference(dy, z1, w1, w2)
         rdw1, rdb1, rdw2 = ffn_dw_reference(x, dy, z1, w1, w2)
+        # every entry is summed by one block in a fixed order, and the
+        # whole backward runs ffn_dx's and ffn_dw's launches
+        again = (ffn_dx(dy, z1, w1, w2),) + ffn_dw(x, dy, z1, w1, w2)
+        bwd2 = ffn_bwd(x, dy, z1, w1, w2)
+        for label, out_a, out_b in (("ffn_dx / ffn_dw", (dx,) + dws, again),
+                                    ("ffn_bwd", bwd, bwd2),
+                                    ("ffn_bwd against ffn_dx / ffn_dw", bwd,
+                                     (dx,) + dws)):
+            if not all(torch.equal(a, b) for a, b in zip(out_a, out_b)):
+                raise AssertionError(f"{label} {tag}: outputs differ")
+        log(f"  ffn backward {tag}: dx, dw1, db1, dw2 bitwise "
+            f"equal on a repeat and between ffn_bwd and ffn_dx / ffn_dw ok")
+        del again, bwd2
         torch.cuda.synchronize()
         name = f"fused_ffn {tag} ({m}x{k}->{f}->{n})"
         slack = ffn_bounds(x, w1, b1, w2, dy, z1)
-        errs = {part: check_entrywise(f"{name} {part}", got, ref,
-                                      slack[part])
-                for part, got, ref in (("z1", z1, rz1), ("y", y, ry),
-                                       ("dx", dx, rdx), ("dw1", dw1, rdw1),
-                                       ("db1", db1, rdb1),
-                                       ("dw2", dw2, rdw2))}
-        del slack, ry, rz1, rdx, rdw1, rdb1, rdw2, dx, dw1, db1, dw2
+        refs = dict(dx=rdx, dw1=rdw1, db1=rdb1, dw2=rdw2)
+        pairs = [("z1", z1, rz1), ("y", y, ry)] + [
+            (part, g, refs[part]) for part, g in zip(refs, (dx,) + dws)]
+        errs = {part: check_entrywise(f"{name} {part}", g, ref, slack[part])
+                for part, g, ref in pairs}
+        errs["bwd"] = max(
+            check_entrywise(f"{name} ffn_bwd {part}", g, refs[part],
+                            slack[part])
+            for part, g in zip(refs, bwd))
+        del slack, ry, rz1, refs, pairs, rdx, rdw1, rdb1, rdw2, dx, dws, bwd
         if not timed:
             continue
         isz, wsz = x.element_size(), w1.element_size()
@@ -1333,9 +1363,10 @@ def kernel_fused_ffn(gen):
                   + (m * n + m * f) * isz,
                   dx=(m * n + m * f + m * k) * isz + w_bytes,
                   dw=(m * k + m * n + m * f) * isz + n * f * wsz + w_bytes
-                  + f * 4)
+                  + f * 4,
+                  bwd=(2 * m * k + m * n + m * f) * isz + 2 * w_bytes + f * 4)
         work = dict(fwd=2 * m * f * (k + n), dx=2 * m * f * (n + k),
-                    dw=2 * m * f * (2 * n + k))
+                    dw=2 * m * f * (2 * n + k), bwd=4 * m * f * (n + k))
         peak = PEAK_BF16_FLOPS if xdt == bf else PEAK_F32_FLOPS
         f32_case = xdt == f32
         reps, rounds = (3, 3) if f32_case else (20, 5)
@@ -1354,14 +1385,17 @@ def kernel_fused_ffn(gen):
         kern = dict(
             fwd=cycle(lambda a, b, c, d: ffn_fwd(x, a, b, c, d)),
             dx=cycle(lambda a, b, c, d: ffn_dx(dy, z1, a, c)),
-            dw=cycle(lambda a, b, c, d: ffn_dw(x, dy, z1, a, c)))
+            dw=cycle(lambda a, b, c, d: ffn_dw(x, dy, z1, a, c)),
+            bwd=cycle(lambda a, b, c, d: ffn_bwd(x, dy, z1, a, c)))
         plain = dict(
             fwd=cycle(lambda a, b, c, d: ffn_fwd_reference(x, a, b, c, d)),
             dx=cycle(lambda a, b, c, d: ffn_dx_reference(dy, z1, a, c)),
-            dw=cycle(lambda a, b, c, d: ffn_dw_reference(x, dy, z1, a, c)))
+            dw=cycle(lambda a, b, c, d: ffn_dw_reference(x, dy, z1, a, c)),
+            bwd=cycle(lambda a, b, c, d: ffn_bwd_reference(x, dy, z1, a, c)))
         err = dict(fwd=max(errs["y"], errs["z1"]), dx=errs["dx"],
-                   dw=max(errs["dw1"], errs["db1"], errs["dw2"]))
-        for part in ("fwd", "dx", "dw"):
+                   dw=max(errs["dw1"], errs["db1"], errs["dw2"]),
+                   bwd=errs["bwd"])
+        for part in ("fwd", "dx", "dw", "bwd"):
             key = f"{part}_{tag.replace(' ', '_')}"
             out[key] = numbers(
                 err[part], time_ms(kern[part], rounds),
@@ -2560,7 +2594,7 @@ _PLAIN_VERSIONS = {
                                    "lm_head_dx_reference",
                                    "lm_head_dw_reference"),
     "apex_tpu_torch.ops.fused_ffn": ("ffn_fwd_reference", "ffn_dx_reference",
-                                     "ffn_dw_reference",
+                                     "ffn_dw_reference", "ffn_bwd_reference",
                                      "fused_ffn_reference"),
 }
 
@@ -2601,11 +2635,20 @@ def train_step(model, opt, tokens, targets, dropout_seed=None):
     return loss
 
 
+def ffn_bwd_launches(call):
+    """(#12, #13) launches of one ``ffn_dx``, ``ffn_dw`` or ``ffn_bwd``
+    call: dh + dX, dh + dW1 + dW2 + db1, or dh + dX and dW1 + dW2 + db1
+    (dh once)."""
+    return dict(dx=(2, 0), dw=(0, 4), bwd=(2, 3))[call]
+
+
 def ffn_launches(steps, micro, layers, fused):
-    """#11-#13 launches of ``steps`` training steps: per micro-batch and
-    layer, the forward and dX (two launches each) and dW (one)."""
+    """#11-#13 launches of ``steps`` training steps at 8192 rows a
+    micro-batch: per micro-batch and layer the forward (two GEMM
+    launches) and one ``ffn_bwd`` on its GEMM launches."""
     n = steps * micro * layers * fused
-    return {"ffn_fwd": 2 * n, "ffn_dx": 2 * n, "ffn_dw": n}
+    dx, dw = ffn_bwd_launches("bwd")
+    return {"ffn_fwd": 2 * n, "ffn_dx": dx * n, "ffn_dw": dw * n}
 
 
 def phase_train(fused_ffn=False, tag="[5]"):
@@ -3415,10 +3458,15 @@ _KERNEL_CLASSES = (("layer_norm_bwd", "layer_norm_bwd"),
                    ("lm_head_fwd", "lm_head_fwd"),
                    ("lm_head_dx", "lm_head_dx"),
                    ("lm_head_dw", "lm_head_dw"),
-                   ("gemm_nt_", "ffn_fwd"),   # csrc/gemm.cuh: tma, mma, fma
-                   ("ffn_rows_kernel", "ffn_dx"),
-                   ("ffn_combine_kernel", "ffn_dx combine"),
-                   ("ffn_dw_kernel", "ffn_dw"))
+                   # csrc/gemm.cuh's launches by their epilogue type:
+                   # the forward's (BiasGelu, Bias); the backward's dh =
+                   # dy W2 (DzFromDh, once a backward, filed under dX as
+                   # its launch counts) and dX (DxOut); dW1, dW2 (DwOut)
+                   ("ffn::Bias", "ffn_fwd"),
+                   ("ffn::DzFromDh", "ffn_dx"),
+                   ("ffn::DxOut", "ffn_dx"),
+                   ("ffn::DwOut", "ffn_dw"),
+                   ("ffn_db1_kernel", "ffn_dw"))
 
 
 def _kernel_class(name):

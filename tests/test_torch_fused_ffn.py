@@ -9,9 +9,12 @@ f32 W (the GPT models' bf16 activations with f32 parameters).  Then the
 autograd op against ``jax.grad`` of the JAX op, forced through its kernels
 and on its default (unfused) path, with a 3-D input and without b2; the
 ``mlp`` and ``fused_dense`` modules on and off the fused path; the JAX
-refusals.  Last, the rule by which ``chip_smoke.py`` holds the card's
-kernels to their plain versions is checked against an emulation of the
-kernels, exact and with three likely faults.
+refusals.  The plain version of the whole backward (``ffn_bwd_reference``,
+dh computed once) gives the two split plain versions' bits and agrees with
+the JAX backward in interpret mode, at the pairs above and at the row
+edges.  Last, the rule by which ``chip_smoke.py`` holds the card's kernels
+to their plain versions is checked against an emulation of the kernels,
+exact and with five likely faults.
 
 Tolerances, each against the largest entry of the JAX output: f32 1e-5
 (the same f32 products summed in another order); bf16 outputs and the
@@ -190,6 +193,66 @@ def test_forward_plain_version_matches_the_jax_kernel_at_row_edges(pair, m):
     _close("z1", z1, jz1, tol)
 
 
+@pytest.mark.parametrize("pair", list(PAIRS))
+def test_whole_backward_plain_version_gives_the_split_ones_bits(pair):
+    """``ffn_bwd_reference`` (dh = dy W2 once, as the card's whole
+    backward) against ``ffn_dx_reference`` / ``ffn_dw_reference`` bit for
+    bit, and against the JAX kernels' backward (interpret mode) at the
+    tolerances above, from the JAX kernel's own z1."""
+    xd, wd = PAIRS[pair]
+    a = _inputs(pair)
+    _, jz1, jdx, jdw1, jdb1, jdw2 = _jax_kernels(pair)
+    z1 = _t(jz1, xd)
+    dy, x = _t(a["dy"], xd), _t(a["x"], xd)
+    w1, w2 = _t(a["w1"], wd), _t(a["w2"], wd)
+    got = tffn.ffn_bwd_reference(x, dy, z1, w1, w2)
+    split = ((tffn.ffn_dx_reference(dy, z1, w1, w2),)
+             + tffn.ffn_dw_reference(x, dy, z1, w1, w2))
+    for name, g, r in zip(("dx", "dw1", "db1", "dw2"), got, split):
+        assert g.dtype == r.dtype and torch.equal(g, r), name
+    _close("dx", got[0], jdx, _tol(pair))
+    for name, g, want in zip(("dw1", "db1", "dw2"), got[1:],
+                             (jdw1, jdb1, jdw2)):
+        _close(name, g, want, _tol(pair, "f32_weight"))
+
+
+@pytest.mark.parametrize("m", [1, 8, 64, 65, 127, 129])
+@pytest.mark.parametrize("pair", list(EDGE_PAIRS))
+def test_whole_backward_plain_version_at_row_edges(pair, m):
+    """The same at the forward's row edges (one row, a decode batch, one
+    short of and one past a 128-row tile) and at the card's dW token
+    stages (64 tokens: one stage, one past it), against JAX's
+    ``_ffn_vjp_bwd`` with its kernels forced (interpret mode) on JAX's own
+    z1."""
+    xd, wd = EDGE_PAIRS[pair]
+    rng = np.random.RandomState(100 + m)
+    a = dict(x=rng.randn(m, EDGE_K), w1=rng.randn(EDGE_F, EDGE_K) / 7,
+             b1=0.1 * rng.randn(EDGE_F), w2=rng.randn(EDGE_N, EDGE_F) / 12,
+             b2=0.1 * rng.randn(EDGE_N), dy=rng.randn(m, EDGE_N))
+    dts = dict(x=xd, w1=wd, b1=wd, w2=wd, b2=wd, dy=xd)
+    j = {n: jnp.asarray(a[n], dts[n]) for n in a}
+    set_force_pallas(True)
+    try:
+        _, res = jffn._ffn_vjp_fwd(*(j[n] for n in
+                                     ("x", "w1", "b1", "w2", "b2")), *BLOCKS)
+        jgrads = jffn._ffn_vjp_bwd(*BLOCKS, res, j["dy"])[:4]
+    finally:
+        set_force_pallas(None)
+    torch_dt = dict(TORCH, float16=torch.float16)
+    t = {n: torch.from_numpy(np.array(j[n].astype(jnp.float32))).to(
+        torch_dt[dts[n]]) for n in a}
+    z1 = torch.from_numpy(np.array(res[5][:m, :EDGE_F].astype(
+        jnp.float32))).to(torch_dt[xd])
+    got = tffn.ffn_bwd_reference(t["x"], t["dy"], z1, t["w1"], t["w2"])
+    split = ((tffn.ffn_dx_reference(t["dy"], z1, t["w1"], t["w2"]),)
+             + tffn.ffn_dw_reference(t["x"], t["dy"], z1, t["w1"], t["w2"]))
+    for name, g, r in zip(("dx", "dw1", "db1", "dw2"), got, split):
+        assert g.dtype == r.dtype and torch.equal(g, r), name
+    tol = 2e-3 if xd == "float16" else 1e-2
+    for name, g, want in zip(("dx", "dw1", "db1", "dw2"), got, jgrads):
+        _close(name, g, want, tol)
+
+
 def _jax_grads(pair, force, lead, with_b2):
     """JAX fused_ffn's output and its gradients w.r.t. every operand under
     the cotangent dy."""
@@ -349,8 +412,11 @@ def _emulated_kernels(x, w1, b1, w2, b2, dy, fault):
     summation than the plain versions') and their roundings: z to f32,
     z1, h, dz and the outputs to the activation dtype.  ``fault`` breaks
     one piece: the forward without b1, GELU' without its tanh-derivative
-    term, or dW2 taken from z1 instead of gelu(z1).  Returns (y, z1, dx,
-    dw1, db1, dw2) with the backward on the emulated z1."""
+    term, dW2 taken from z1 instead of gelu(z1), db1 summed from the
+    rounded dz scratch instead of the f32 dz, or dW1 and dW2 summed over
+    the whole 64-token stages only (the token tail lost, as a mis-set TMA
+    box would lose it).  Returns (y, z1, dx, dw1, db1, dw2) with the
+    backward on the emulated z1."""
     dt = x.dtype
     X, DY = x.double(), dy.double()
     W1, W2 = w1.to(dt).double(), w2.to(dt).double()
@@ -368,15 +434,16 @@ def _emulated_kernels(x, w1, b1, w2, b2, dy, fault):
     dz = (DY @ W2).float() * grad
     dzc = dz.to(dt).double()
     dx = (dzc @ W1).to(dt)
-    dw1 = (dzc.t() @ X).to(w1.dtype)
-    db1 = dz.double().sum(0).float()
+    t = (len(x) // 64) * 64 if fault == "dw_drops_token_tail" else len(x)
+    dw1 = (dzc[:t].t() @ X[:t]).to(w1.dtype)
+    db1 = (dzc if fault == "db1_from_rounded_dz" else dz.double()).sum(0)
     h1 = zf if fault == "dw2_from_z" else tffn._gelu(zf)
-    dw2 = (DY.t() @ h1.to(dt).double()).to(w2.dtype)
-    return y, z1, dx, dw1, db1, dw2
+    dw2 = (DY[:t].t() @ h1[:t].to(dt).double()).to(w2.dtype)
+    return y, z1, dx, dw1, db1.float(), dw2
 
 
 _FAULTS = [None, "forward_drops_b1", "gelu_grad_drops_tanh_term",
-           "dw2_from_z"]
+           "dw2_from_z", "db1_from_rounded_dz", "dw_drops_token_tail"]
 
 
 @pytest.mark.parametrize("fault", _FAULTS,
@@ -388,11 +455,15 @@ def test_card_rule_rejects_likely_kernel_faults(w_dtype, fault):
     entry by entry (one ulp, plus summation-order and rounding-midpoint
     slack).  A stand-in for the kernels that sums in another order passes
     it; one whose forward drops b1, whose GELU' lacks its tanh-derivative
-    term or whose dW2 takes z instead of gelu(z) fails it, at bf16
-    activations with bf16 (BERT O2) and f32 (GPT) weights."""
+    term, whose dW2 takes z instead of gelu(z), whose db1 sums the rounded
+    dz (rejected by a factor of 1.8-1.9 here) or whose dW drops the last
+    8 of 200 tokens fails it, at bf16 activations with bf16 (BERT O2) and
+    f32 (GPT) weights."""
     card = _chip_smoke()
     gen = torch.Generator().manual_seed(0)
-    m, k, f, n = 128, 256, 1024, 256
+    # the token tail needs m off the 64-token stages
+    m = 200 if fault == "dw_drops_token_tail" else 128
+    k, f, n = 256, 1024, 256
     x = torch.randn(m, k, generator=gen).bfloat16()
     w1 = (0.02 * torch.randn(f, k, generator=gen)).to(w_dtype)
     b1 = (0.1 * torch.randn(f, generator=gen)).to(w_dtype)

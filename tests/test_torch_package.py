@@ -20,7 +20,7 @@ from apex_tpu_torch.ops.flash_attention import (flash_attention_decode,
                                                 flash_attention_decode_paged,
                                                 flash_attention_dkv,
                                                 flash_attention_dq, flash_fwd)
-from apex_tpu_torch.ops.fused_ffn import ffn_dw, ffn_dx, ffn_fwd
+from apex_tpu_torch.ops.fused_ffn import ffn_bwd, ffn_dw, ffn_dx, ffn_fwd
 from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
 from apex_tpu_torch.ops.lm_head import lm_head_dw, lm_head_dx, lm_head_fwd
 from apex_tpu_torch.ops.quant_gemm import quant_gemm
@@ -259,7 +259,7 @@ def test_cuda_wrappers_refuse_what_their_kernels_do_not_take():
                                     "multi_tensor_lamb_stage2",
                                     "lm_head_fwd", "lm_head_dx",
                                     "lm_head_dw", "ffn_fwd", "ffn_dx",
-                                    "ffn_dw", "multi_tensor_axpby_",
+                                    "ffn_dw", "ffn_bwd", "multi_tensor_axpby_",
                                     "multi_tensor_sgd", "multi_tensor_adagrad",
                                     "multi_tensor_novograd",
                                     "flash_attention_decode_paged",
@@ -295,6 +295,7 @@ def test_training_wrappers_refuse_non_cpu_tensors_they_cannot_launch(kernel):
         "ffn_fwd": lambda: ffn_fwd(x, x.t(), rows.float()[:4], x),
         "ffn_dx": lambda: ffn_dx(x, x, x.t(), x),
         "ffn_dw": lambda: ffn_dw(x, x, x, x.t(), x),
+        "ffn_bwd": lambda: ffn_bwd(x, x, x, x.t(), x),
         "multi_tensor_axpby_": lambda: multi_tensor_axpby_([x], [x], [x],
                                                            1.0, 2.0),
         "multi_tensor_sgd": lambda: multi_tensor_sgd(

@@ -1,8 +1,10 @@
-// Tile configurations of apex_tpu_torch's tiled NT GEMM (the FFN forward's
-// mainloop, apex_tpu_torch/csrc/gemm.cuh) against two designs its bf16 path
-// replaced: mma.sync on 128 x 128 tiles, and the same wgmma products as the
-// TMA kernel with the operand tiles copied by the threads (16-byte cp.async
-// into the 128-byte-swizzled layout wgmma reads).  Built and timed by
+// Tile configurations of apex_tpu_torch's tiled GEMM (the FFN's mainloop,
+// apex_tpu_torch/csrc/gemm.cuh): on the forward's NT products against two
+// designs its bf16 path replaced (mma.sync on 128 x 128 tiles, and the same
+// wgmma products as the TMA kernel with the operand tiles copied by the
+// threads: 16-byte cp.async into the 128-byte-swizzled layout wgmma reads),
+// and on the backward's products with MN-major operands (TMA 128 x 256 and
+// 128 x 128 tiles).  Built and timed by
 // tools/sweep_gemm_torch.py; C is stored in bf16.
 #include "../apex_tpu_torch/csrc/gemm.cuh"
 
@@ -77,7 +79,8 @@ gemm_nt_cpasync_wgmma_kernel(const bf16* __restrict__ a, const bf16* __restrict_
     for (int s = 0; s < 4; ++s) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        wgmma_n128(acc[h], desc_sw128(a_addr + 32 * s), desc_sw128(b_addr + h * 128 * 128 + 32 * s));
+        wgmma_n128<false, false>(acc[h], desc_sw128(a_addr + 32 * s),
+                                 desc_sw128(b_addr + h * 128 * 128 + 32 * s));
       }
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -116,15 +119,31 @@ extern "C" int sweep_gemm(int cfg, const void* a, const void* b, void* c, int m,
   const bf16* ab = static_cast<const bf16*>(a);
   const bf16* bb = static_cast<const bf16*>(b);
   const StoreBf16 epi{static_cast<bf16*>(c), m, n};
+  const Product q{a, b, m, n, k};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cfg) {
     case 0: return gemm_nt(a, b, m, n, k, kBF16, epi, s);
-    case 1: return launch_tma<256>(a, b, m, n, k, epi, s);
-    case 2: return launch_tma<128>(a, b, m, n, k, epi, s);
+    case 1: return launch_tma<256, false, false>(q, epi, s);
+    case 2: return launch_tma<128, false, false>(q, epi, s);
     case 3: return launch_mma<Narrow16>(ab, bb, m, n, k, true, epi, s);
     case 4: return launch_mma<Narrow8>(ab, bb, m, n, k, true, epi, s);
     case 5: return launch_mma<Cfg<128, 128, 32, 64, 32, 1, 4, 2>>(ab, bb, m, n, k, true, epi, s);
     case 6: return launch_cpasync_wgmma(ab, bb, m, n, k, epi, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The backward's layouts on TMA tiles: B MN-major (a_mn 0: A (m x k), B (k
+// x n): dy W2, dz W1) or both (a_mn 1: A (k x m), B (k x n): dz^T x, dy^T
+// h); cfg 1: 128 x 256 tiles, 2: 128 x 128.
+extern "C" int sweep_gemm_mn(int cfg, int a_mn, const void* a, const void* b, void* c, int m,
+                             int n, int k, void* stream) {
+  const StoreBf16 e{static_cast<bf16*>(c), m, n};
+  const Product q{a, b, m, n, k};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cfg != 1 && cfg != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (a_mn) {
+    return cfg == 1 ? launch_tma<256, true, true>(q, e, s) : launch_tma<128, true, true>(q, e, s);
+  }
+  return cfg == 1 ? launch_tma<256, false, true>(q, e, s) : launch_tma<128, false, true>(q, e, s);
 }
