@@ -75,8 +75,7 @@ _SIGNATURES = {
     "apex_multi_tensor_novograd": [_I] + [_P] * 11 + [_I, _P, _P],
     "apex_lm_head_fwd_splits": [_I, _I, _I],
     "apex_lm_head_fwd": [_P] * 6 + [_I] * 6 + [_P],
-    "apex_lm_head_dx": [_P] * 6 + [_I] * 5 + [_P],
-    "apex_lm_head_dw": [_P] * 6 + [_I] * 5 + [_P],
+    "apex_lm_head_bwd": [_P] * 9 + [_I] * 7 + [_P],
     "apex_ffn_fwd": [_P] * 8 + [_I] * 5 + [_P],
     "apex_ffn_bwd": [_P] * 12 + [_I] * 7 + [_P],
     "apex_flash_decode_paged": [_P] * 6 + [_I] * 6 + [_L] * 10

@@ -1,6 +1,5 @@
 // Shared pieces of the fused bias-GELU FFN kernels (ffn_fwd.cu, ffn_bwd.cu,
-// both launches of csrc/gemm.cuh): the tanh GELU and its derivative, and
-// the epilogues' paired store.
+// both launches of csrc/gemm.cuh): the tanh GELU and its derivative.
 #pragma once
 
 #include "mma.cuh"
@@ -26,21 +25,6 @@ __device__ __forceinline__ float gelu_grad(float z) {
   const float z2 = z * z;
   const float t = tanhf(kGeluC * z * (1.f + kGeluA * z2));
   return 0.5f * (1.f + t) + 0.5f * z * (1.f - t * t) * kGeluC * (1.f + 3.f * kGeluA * z2);
-}
-
-// v0 at p[i], v1 at p[i + 1] when two, rounded to the dtype `code`; a pair
-// at an even index of a 16-bit dtype goes as one 4-byte store (the GEMM
-// epilogues' outputs are allocated by the wrappers, so it is aligned)
-__device__ __forceinline__ void store_pair(void* p, int code, int64_t i, float v0, float v1,
-                                           bool two) {
-  if (two && (i & 1) == 0 && code == kBF16) {
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p) + i) = __floats2bfloat162_rn(v0, v1);
-  } else if (two && (i & 1) == 0 && code == kF16) {
-    *reinterpret_cast<__half2*>(static_cast<__half*>(p) + i) = __floats2half2_rn(v0, v1);
-  } else {
-    store_f(p, code, i, v0);
-    if (two) store_f(p, code, i + 1, v1);
-  }
 }
 
 }  // namespace ffn

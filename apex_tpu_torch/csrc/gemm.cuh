@@ -7,7 +7,10 @@
 //   MN-major (flag true): A stored (K x M), B stored (K x N).
 // The FFN forward (ffn_fwd.cu) runs its two NT products on it; the FFN
 // backward (ffn_bwd.cu) its four: dy W2 and dz W1 (B MN-major), dz^T x and
-// dy^T h (both MN-major, the contraction over tokens).
+// dy^T h (both MN-major, the contraction over tokens); the LM-head backward
+// (lm_head_bwd.cu) three per vocab chunk: x W_c^T (NT), dS_c W_c (B
+// MN-major, the sum carried across chunks in the accumulator's seed) and
+// dS_c^T x (both MN-major).
 //
 // What bounds such a product on the H100 at training width: operations
 // (989 TFLOP/s of bf16), as long as the operand tiles reach shared memory
@@ -40,7 +43,17 @@
 //   16-byte cp.async copies, in flight while C is staged, and takes each
 //   pair of it from shared memory; one with a col_sum member returns a
 //   value per entry, and the block sums those down its 128 rows in row
-//   order (the FFN backward's db1 partials).
+//   order (the FFN backward's db1 partials).  An epilogue with a seed (an
+//   f32 matrix of C's shape) starts the accumulators from it instead of
+//   zero, so that a sum over several launches stays in f32 (the LM head's
+//   dX over vocab chunks);
+// * an epilogue with per-row values (row_values: the LM head's lse,
+//   cotangent and target) and a bf16 output of its own takes a persistent
+//   form of the NT block (gemm_tma_rows_kernel): the epilogue of one tile
+//   runs while the producer loads the next, and the tile goes out through
+//   a swizzled shared tile and a TMA store that runs on under the next
+//   mainloop.  A short contraction (the LM head's H) makes each tile's
+//   prologue and epilogue a large share of its time.
 //
 // In gemm_nt (the forward) a few token rows (decode), and operands whose
 // rows are not 16-byte multiples or bases not 16-byte aligned, take
@@ -64,6 +77,7 @@
 #include <cuda.h>
 
 #include <type_traits>
+#include <utility>
 
 #include "mma.cuh"
 
@@ -217,14 +231,43 @@ struct HasAux : std::false_type {};
 template <class Epi>
 struct HasAux<Epi, std::void_t<decltype(&Epi::aux_tile)>> : std::true_type {};
 
+// An epilogue whose row_values(row) returns a value per row of C (any
+// trivially copyable type) takes that row's value as a fifth argument
+// instead of an aux pair.
+template <class Epi, class = void>
+struct HasRows : std::false_type {
+  using type = float;
+};
 template <class Epi>
+struct HasRows<Epi, std::void_t<decltype(&Epi::row_values)>> : std::true_type {
+  using type = decltype(std::declval<const Epi&>().row_values(0));
+};
+
+// An epilogue whose seed() returns an AuxTile of f32 (p null: none) has
+// its accumulators start from that matrix's entries (zero outside it).
+template <class Epi, class = void>
+struct HasSeed : std::false_type {};
+template <class Epi>
+struct HasSeed<Epi, std::void_t<decltype(&Epi::seed)>> : std::true_type {};
+
+// `extra` is the pair's aux values or its row's value, whichever the
+// epilogue takes
+template <class Epi, class Extra>
 __device__ __forceinline__ auto call_epi(const Epi& epi, int row, int col, float v0, float v1,
-                                         float2 aux) {
-  if constexpr (HasAux<Epi>::value) {
-    return epi(row, col, v0, v1, aux);
+                                         const Extra& extra) {
+  static_assert(!(HasAux<Epi>::value && HasRows<Epi>::value), "aux tile or row values");
+  if constexpr (HasAux<Epi>::value || HasRows<Epi>::value) {
+    return epi(row, col, v0, v1, extra);
   } else {
     return epi(row, col, v0, v1);
   }
+}
+
+// the seed's entry at (row, col), 0 outside it
+__device__ __forceinline__ float seed_at(const AuxTile& sd, int row, int col) {
+  return row < sd.rows && col < sd.cols
+             ? static_cast<const float*>(sd.p)[static_cast<int64_t>(row) * sd.cols + col]
+             : 0.f;
 }
 
 template <int BN, bool kTA, bool kTB, class Epi>
@@ -286,6 +329,25 @@ gemm_tma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ 
   for (int h = 0; h < NH; ++h) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+  }
+  if constexpr (HasSeed<Epi>::value) {
+    // C fragment j of product h: (r0, c), (r0, c + 1), (r0 + 8, c), (r0 + 8, c + 1)
+    const int lane = tid & 31, t4 = lane & 3;
+    const int r0 = cw * 64 + (tid >> 5) * 16 + (lane >> 2);
+    const AuxTile sd = epi.seed();
+    if (sd.p != nullptr) {
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = n0 + h * 128 + j * 8 + 2 * t4;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[h][j * 4 + e] = seed_at(sd, m0 + r0 + (e >> 1) * 8, c + (e & 1));
+          }
+        }
+      }
+    }
   }
 #pragma unroll 1
   for (int kt = 0; kt < nk; ++kt) {
@@ -363,6 +425,153 @@ gemm_tma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ 
       epi.col_sum(m0 / kTmaBM, n0 + c, sum);
     }
   }
+}
+
+// TMA store: the box at (column c0, row c1) of `map` from shared memory,
+// in the calling thread's bulk group
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const bf16* src, int c0,
+                                          int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The bf16 output tile of gemm_tma_rows_kernel: 128 x 256, four boxes of
+// 128 rows x 64 columns, 128-byte swizzled as the output map stores them
+constexpr int kRowsStages = 3;
+constexpr int kRowsBN = 256;
+constexpr int kRowsOutBytes = kTmaBM * kRowsBN * 2;
+constexpr int kRowsSmemBytes =
+    kRowsStages * (kTmaBM + kRowsBN) * kTmaBK * 2 + kRowsOutBytes + 2 * kRowsStages * 8 + 1024;
+
+// The NT product (A and B K-major) for an epilogue with row values and a
+// bf16 output (the LM head's dS: a contraction of H = 1024, an exponential
+// per entry), persistent: one block per SM walks the 128 x 256 output
+// tiles (down each tile column, so that the blocks in flight share B's
+// tiles); its producer runs on into the next tile's stages (a ring of 3)
+// while the consumers finish the last one.  The consumers apply the
+// epilogue's value(col, s, row value) to their accumulator registers (each
+// thread's entries lie in two rows, whose values it loads before the
+// tile's mainloop), write the results as bf16 into a swizzled output tile
+// in shared memory, and one thread stores that tile with TMA, which
+// clips rows and columns outside C; the store runs on under the next
+// tile's mainloop and is waited for before the tile is written again.
+template <class Epi>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+gemm_tma_rows_kernel(const __grid_constant__ CUtensorMap ta,
+                     const __grid_constant__ CUtensorMap tb,
+                     const __grid_constant__ CUtensorMap tc, int m, int n, int k, const Epi epi) {
+  constexpr int BN = kRowsBN, NH = BN / 128;
+  constexpr int kStageA = kTmaBM * kTmaBK, kStageB = BN * kTmaBK;  // bf16 elements
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  bf16* sa = reinterpret_cast<bf16*>(smem_raw + (((raw + 1023u) & ~1023u) - raw));
+  bf16* sb = sa + kRowsStages * kStageA;
+  bf16* so = sb + kRowsStages * kStageB;  // the output tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(so + kTmaBM * BN);
+  uint64_t* empty = full + kRowsStages;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int tiles_m = (m + kTmaBM - 1) / kTmaBM;
+  const int tiles = tiles_m * ((n + BN - 1) / BN);
+  const int nk = (k + kTmaBK - 1) / kTmaBK;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRowsStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // `it` counts the block's stages over all its tiles: stage it % kRowsStages
+  // in its (it / kRowsStages)-th use
+  if (wg == 0) {  // the producer
+    if (tid == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile % tiles_m * kTmaBM, n0 = tile / tiles_m * BN;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % kRowsStages;
+          if (it >= kRowsStages) mbar_wait(&empty[s], (it / kRowsStages - 1) & 1);
+          mbar_expect_tx(&full[s], (kStageA + kStageB) * 2);
+          tma_load(sa + s * kStageA, &ta, kt * kTmaBK, m0, &full[s]);
+          tma_load(sb + s * kStageB, &tb, kt * kTmaBK, n0, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  const int cw = wg - 1;
+  const int lane = tid & 31, t4 = lane & 3;
+  const int r0 = cw * 64 + (tid >> 5) * 16 + (lane >> 2);  // rows r0 and r0 + 8 of the tile
+  const bool storer = threadIdx.x == 128;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile % tiles_m * kTmaBM, n0 = tile / tiles_m * BN;
+    const auto rv0 = epi.row_values(m0 + r0);  // in flight during the mainloop
+    const auto rv1 = epi.row_values(m0 + r0 + 8);
+    float acc[NH][64];
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+    }
+#pragma unroll 1
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % kRowsStages;
+      mbar_wait(&full[s], (it / kRowsStages) & 1);
+      const uint32_t a_addr = smem_u32(sa + s * kStageA + cw * 64 * kTmaBK);
+      const uint32_t b_addr = smem_u32(sb + s * kStageB);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int k16 = 0; k16 < kTmaBK / 16; ++k16) {
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          wgmma_n128<false, false>(acc[h], desc_k16<false>(a_addr, k16),
+                                   desc_k16<false>(b_addr + h * 128 * kTmaBK * 2, k16));
+        }
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      if (tid == 0) mbar_arrive(&empty[s]);
+    }
+    // the last tile's store has read the output tile
+    if (storer) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    // C fragment j of product h: (r0, c), (r0, c + 1), (r0 + 8, c), (r0 + 8,
+    // c + 1), c = 128 h + 8 j + 2 t4: box 2 h + j / 8, 16-byte chunk j % 8 of
+    // its 128-byte row, swizzled by the row's index mod 8
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = n0 + h * 128 + j * 8 + 2 * t4;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = r0 + 8 * half;
+          const auto& rv = half ? rv1 : rv0;
+          const __nv_bfloat162 v =
+              __floats2bfloat162_rn(epi.value(c, acc[h][j * 4 + 2 * half], rv),
+                                    epi.value(c + 1, acc[h][j * 4 + 2 * half + 1], rv));
+          unsigned char* box =
+              reinterpret_cast<unsigned char*>(so) + (2 * h + j / 8) * kTmaBM * 128;
+          *reinterpret_cast<__nv_bfloat162*>(box + r * 128 + ((j % 8) ^ (r & 7)) * 16 + 4 * t4) =
+              v;
+        }
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    if (storer) {
+#pragma unroll
+      for (int b = 0; b < BN / 64; ++b) tma_store(&tc, so + b * kTmaBM * 64, n0 + 64 * b, m0);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+  }
+  if (storer) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -573,11 +782,16 @@ gemm_nt_mma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b, int m
 #pragma unroll
   for (int i = 0; i < C::MT; ++i) {
     const int row = m0 + wm * C::WM + i * 16 + g;
+    typename HasRows<Epi>::type rv[2] = {};
+    if constexpr (HasRows<Epi>::value) {
+      rv[0] = epi.row_values(row);
+      rv[1] = epi.row_values(row + 8);
+    }
 #pragma unroll
     for (int j = 0; j < C::NT; ++j) {
       const int col = n0 + wn * C::WN + j * 8 + 2 * t4;
-      epi(row, col, acc[i][j][0], acc[i][j][1]);
-      epi(row + 8, col, acc[i][j][2], acc[i][j][3]);
+      call_epi(epi, row, col, acc[i][j][0], acc[i][j][1], rv[0]);
+      call_epi(epi, row + 8, col, acc[i][j][2], acc[i][j][3], rv[1]);
     }
   }
 }
@@ -597,10 +811,12 @@ constexpr int kFmaLD = kFmaBM + 4;  // float4 reads stay aligned
 template <bool kTA, bool kTB>
 constexpr int kFmaMinBlocks = kTA || kTB ? 2 : 1;
 
+// b_rows: the rows of B's storage (n K-major, k MN-major), past which B
+// reads zero
 template <bool kTA, bool kTB, class Epi>
 __global__ void __launch_bounds__(kFmaThreads, (kFmaMinBlocks<kTA, kTB>))
 gemm_fma_kernel(const void* __restrict__ a, const void* __restrict__ b, int m, int n, int k,
-                int code, const Epi epi) {
+                int b_rows, int code, const Epi epi) {
   __shared__ __align__(16) float as[2][kFmaBK][kFmaLD];
   __shared__ __align__(16) float bs[2][kFmaBK][kFmaLD];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -611,6 +827,8 @@ gemm_fma_kernel(const void* __restrict__ a, const void* __restrict__ b, int m, i
   const int lra = kTA ? tid & 127 : tid >> 1, lka = kTA ? (tid >> 7) * 4 : (tid & 1) * 4;
   const int lrb = kTB ? tid & 127 : tid >> 1, lkb = kTB ? (tid >> 7) * 4 : (tid & 1) * 4;
   const int nk = (k + kFmaBK - 1) / kFmaBK;
+  // B's loads stop at its stored rows: along n K-major, along k MN-major
+  const int nb = kTB ? n : min(n, b_rows), kb_end = kTB ? min(k, b_rows) : k;
   float ra[4], rb[4];
   auto fetch = [&](int k0) {
 #pragma unroll
@@ -621,7 +839,7 @@ gemm_fma_kernel(const void* __restrict__ a, const void* __restrict__ b, int m, i
       const int64_t ib = kTB ? static_cast<int64_t>(kb) * n + n0 + lrb
                              : static_cast<int64_t>(n0 + lrb) * k + kb;
       ra[q] = m0 + lra < m && ka < k ? load_f(a, code, ia) : 0.f;
-      rb[q] = n0 + lrb < n && kb < k ? load_f(b, code, ib) : 0.f;
+      rb[q] = n0 + lrb < nb && kb < kb_end ? load_f(b, code, ib) : 0.f;
     }
   };
   auto put = [&](int buf) {
@@ -632,11 +850,24 @@ gemm_fma_kernel(const void* __restrict__ a, const void* __restrict__ b, int m, i
     }
   };
 
+  // this thread's C entries: rows fma_row(i), columns fma_col(c)
+  auto fma_row = [&](int i) { return m0 + (i < 4 ? 0 : 64) + ty * 4 + (i & 3); };
+  auto fma_col = [&](int c) { return n0 + (c < 4 ? 0 : 64) + tx * 4 + (c & 3); };
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
 #pragma unroll
     for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+  }
+  if constexpr (HasSeed<Epi>::value) {
+    const AuxTile sd = epi.seed();
+    if (sd.p != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[i][c] = seed_at(sd, fma_row(i), fma_col(c));
+      }
+    }
   }
   fetch(0);
   put(0);
@@ -666,10 +897,12 @@ gemm_fma_kernel(const void* __restrict__ a, const void* __restrict__ b, int m, i
   float cs[8] = {};  // column sums over this thread's 8 rows (col_sum epilogues)
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
+    const int row = fma_row(i);
+    typename HasRows<Epi>::type rv = {};
+    if constexpr (HasRows<Epi>::value) rv = epi.row_values(row);
 #pragma unroll
     for (int c = 0; c < 8; c += 2) {
-      const int col = n0 + (c < 4 ? 0 : 64) + tx * 4 + (c & 3);
+      const int col = fma_col(c);
       float2 aux = make_float2(0.f, 0.f);
       if constexpr (HasAux<Epi>::value) {
         const AuxTile x = epi.aux_tile();
@@ -677,7 +910,9 @@ gemm_fma_kernel(const void* __restrict__ a, const void* __restrict__ b, int m, i
         if (row < x.rows && col < x.cols) aux.x = load_f(x.p, x.code, at);
         if (row < x.rows && col + 1 < x.cols) aux.y = load_f(x.p, x.code, at + 1);
       }
-      if constexpr (HasColSum<Epi>::value) {
+      if constexpr (HasRows<Epi>::value) {
+        call_epi(epi, row, col, acc[i][c], acc[i][c + 1], rv);
+      } else if constexpr (HasColSum<Epi>::value) {
         const float2 v = call_epi(epi, row, col, acc[i][c], acc[i][c + 1], aux);
         cs[c] += v.x;
         cs[c + 1] += v.y;
@@ -706,22 +941,37 @@ gemm_fma_kernel(const void* __restrict__ a, const void* __restrict__ b, int m, i
 // launchers
 
 // One product of a launch: C (m x n) = A B over k; A stored (m x k), or
-// (k x m) when MN-major, B (n x k), or (k x n) when MN-major.
+// (k x m) when MN-major, B (n x k), or (k x n) when MN-major.  b_rows > 0:
+// only the first b_rows rows of B's storage exist (along n K-major, along
+// k MN-major), and B reads zero past them (TMA zero-fills, the other tiles
+// test): a product may then run past the end of B, as the LM head's last
+// vocab chunk does to keep dS's rows on the 16-byte grid.
 struct Product {
   const void* a;
   const void* b;
   int m, n, k;
+  int b_rows = 0;
 };
 
+// the rows of B's storage that exist
+template <bool kTB>
+inline int stored_b_rows(const Product& q) {
+  const int full = kTB ? q.k : q.n;
+  return q.b_rows > 0 && q.b_rows < full ? q.b_rows : full;
+}
+
+// the kernel reads n only to bound B's rows: it is given b_rows (all n
+// when 0)
 template <class C, class Epi>
 int launch_mma(const bf16* a, const bf16* b, int m, int n, int k, bool vec, const Epi& epi,
-               cudaStream_t s) {
+               cudaStream_t s, int b_rows = 0) {
   static bool attr_set = false;
   const int rc = set_smem(gemm_nt_mma_kernel<C, Epi>, C::kSmemBytes, attr_set);
   if (rc != 0) return rc;
   const dim3 grid(static_cast<unsigned>((n + C::BN - 1) / C::BN),
                   static_cast<unsigned>((m + C::BM - 1) / C::BM));
-  gemm_nt_mma_kernel<C, Epi><<<grid, C::kThreads, C::kSmemBytes, s>>>(a, b, m, n, k, vec ? 1 : 0,
+  const int nb = b_rows > 0 && b_rows < n ? b_rows : n;
+  gemm_nt_mma_kernel<C, Epi><<<grid, C::kThreads, C::kSmemBytes, s>>>(a, b, m, nb, k, vec ? 1 : 0,
                                                                        epi);
   return static_cast<int>(cudaGetLastError());
 }
@@ -737,7 +987,8 @@ int launch_tma(const Product& q, const Epi& epi, cudaStream_t s) {
   CUtensorMap ta, tb;
   rc = kTA ? tma_map(&ta, q.a, q.k, q.m, kTmaBK) : tma_map(&ta, q.a, q.m, q.k, kTmaBM);
   if (rc != 0) return rc;
-  rc = kTB ? tma_map(&tb, q.b, q.k, q.n, kTmaBK) : tma_map(&tb, q.b, q.n, q.k, BN);
+  rc = kTB ? tma_map(&tb, q.b, stored_b_rows<kTB>(q), q.n, kTmaBK)
+           : tma_map(&tb, q.b, stored_b_rows<kTB>(q), q.k, BN);
   if (rc != 0) return rc;
   const dim3 grid(static_cast<unsigned>((q.n + BN - 1) / BN),
                   static_cast<unsigned>((q.m + kTmaBM - 1) / kTmaBM));
@@ -750,7 +1001,8 @@ template <bool kTA, bool kTB, class Epi>
 int launch_fma(const Product& q, const Epi& epi, int code, cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>((q.n + kFmaBN - 1) / kFmaBN),
                   static_cast<unsigned>((q.m + kFmaBM - 1) / kFmaBM));
-  gemm_fma_kernel<kTA, kTB, Epi><<<grid, kFmaThreads, 0, s>>>(q.a, q.b, q.m, q.n, q.k, code, epi);
+  gemm_fma_kernel<kTA, kTB, Epi><<<grid, kFmaThreads, 0, s>>>(q.a, q.b, q.m, q.n, q.k,
+                                                               stored_b_rows<kTB>(q), code, epi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -765,13 +1017,37 @@ inline int sm_count() {
 // rows 16-byte multiples, the base 16-byte aligned
 inline bool tma_maps(const void* p, int cols) { return cols % 8 == 0 && aligned16(p); }
 
+// The persistent NT product with a row-value epilogue into its bf16
+// output (epi.out_tile()), a grid of at most one block per SM
+template <class Epi>
+int launch_tma_rows(const Product& q, const Epi& epi, cudaStream_t s) {
+  static bool attr_set = false;
+  int rc = set_smem(gemm_tma_rows_kernel<Epi>, kRowsSmemBytes, attr_set);
+  if (rc != 0) return rc;
+  const AuxTile out = epi.out_tile();
+  CUtensorMap ta, tb, tc;
+  rc = tma_map(&ta, q.a, q.m, q.k, kTmaBM);
+  if (rc != 0) return rc;
+  rc = tma_map(&tb, q.b, stored_b_rows<false>(q), q.k, kRowsBN);
+  if (rc != 0) return rc;
+  rc = tma_map(&tc, out.p, out.rows, out.cols, kTmaBM);
+  if (rc != 0) return rc;
+  const int64_t tiles =
+      static_cast<int64_t>((q.m + kTmaBM - 1) / kTmaBM) * ((q.n + kRowsBN - 1) / kRowsBN);
+  const int blocks = static_cast<int>(tiles < sm_count() ? tiles : sm_count());
+  gemm_tma_rows_kernel<Epi><<<blocks, kTmaThreads, kRowsSmemBytes, s>>>(ta, tb, tc, q.m, q.n,
+                                                                        q.k, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // C = A B of one layout through epi, one launch; returns a cudaError_t.
 // bf16 (code) operands that TMA maps (and the epilogue's aux tile) take
 // TMA + wgmma, on 128 x 128 tiles where those fit the card in one wave
 // (at most one block an SM), else on 128 x 256 tiles: between half the
 // SMs and all of them, the wide tiles run one wave where the narrow ones
-// would take two; f32, f16 and bf16 off TMA's 16-byte grid take the FMA
-// tile.
+// would take two; an epilogue with row values takes the persistent
+// kernel (its bf16 output on TMA's grid too).  f32, f16 and bf16 off
+// TMA's 16-byte grid take the FMA tile.
 template <bool kTA, bool kTB, class Epi>
 int gemm(const Product& q, const Epi& epi, int code, cudaStream_t s) {
   bool tma = code == kBF16 && tma_maps(q.a, kTA ? q.m : q.k) && tma_maps(q.b, kTB ? q.n : q.k);
@@ -780,10 +1056,18 @@ int gemm(const Product& q, const Epi& epi, int code, cudaStream_t s) {
     tma = tma && tma_maps(x.p, x.cols);
   }
   if (!tma) return launch_fma<kTA, kTB>(q, epi, code, s);
-  if (2 * static_cast<int64_t>((q.m + kTmaBM - 1) / kTmaBM) * ((q.n + 255) / 256) > sm_count()) {
-    return launch_tma<256, kTA, kTB>(q, epi, s);
+  if constexpr (HasRows<Epi>::value) {
+    static_assert(!kTA && !kTB, "row-value epilogues take NT products");
+    const AuxTile out = epi.out_tile();
+    if (tma_maps(out.p, out.cols)) return launch_tma_rows(q, epi, s);
+    return launch_fma<kTA, kTB>(q, epi, code, s);
+  } else {
+    if (2 * static_cast<int64_t>((q.m + kTmaBM - 1) / kTmaBM) * ((q.n + 255) / 256) >
+        sm_count()) {
+      return launch_tma<256, kTA, kTB>(q, epi, s);
+    }
+    return launch_tma<128, kTA, kTB>(q, epi, s);
   }
-  return launch_tma<128, kTA, kTB>(q, epi, s);
 }
 
 // C = A B^T through epi, one launch; returns a cudaError_t.  bf16 (code):
@@ -792,18 +1076,18 @@ int gemm(const Product& q, const Epi& epi, int code, cudaStream_t s) {
 // FMA tile.
 template <class Epi>
 int gemm_nt(const void* a, const void* b, int m, int n, int k, int code, const Epi& epi,
-            cudaStream_t s) {
+            cudaStream_t s, int b_rows = 0) {
   if (m <= 0 || n <= 0) return 0;
   if (code == kBF16 && (m <= kNarrowRows || k % 8 != 0 || !aligned16(a) || !aligned16(b))) {
     const bool vec = k % 8 == 0 && aligned16(a) && aligned16(b);
     const bf16* ab = static_cast<const bf16*>(a);
     const bf16* bb = static_cast<const bf16*>(b);
     if (static_cast<int64_t>((m + 15) / 16) * ((n + 15) / 16) >= sm_count()) {
-      return launch_mma<Narrow16>(ab, bb, m, n, k, vec, epi, s);
+      return launch_mma<Narrow16>(ab, bb, m, n, k, vec, epi, s, b_rows);
     }
-    return launch_mma<Narrow8>(ab, bb, m, n, k, vec, epi, s);
+    return launch_mma<Narrow8>(ab, bb, m, n, k, vec, epi, s, b_rows);
   }
-  return gemm<false, false>(Product{a, b, m, n, k}, epi, code, s);
+  return gemm<false, false>(Product{a, b, m, n, k, b_rows}, epi, code, s);
 }
 
 }  // namespace gemm

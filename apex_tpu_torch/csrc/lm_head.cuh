@@ -1,12 +1,12 @@
-// Shared pieces of the fused LM-head kernels (lm_head_fwd.cu, lm_head_bwd.cu):
-// tiles staged with cp.async, fragments loaded with ldmatrix, the bf16 score
-// tile S = X W^T on the tensor cores (mma.sync m16n8k16, f32 accumulation),
-// the same score tile on the FMA units for the f32 instantiation, the
-// forward's online row state and its split of the vocab.
+// Pieces of the fused LM-head forward (lm_head_fwd.cu; the backward,
+// lm_head_bwd.cu, runs on csrc/gemm.cuh): tiles staged with cp.async,
+// fragments loaded with ldmatrix, the bf16 score tile S = X W^T on the
+// tensor cores (mma.sync m16n8k16, f32 accumulation), the same score tile
+// on the FMA units for the f32 instantiation, the online row state and the
+// split of the vocab.
 //
 // Layout of the bf16 path.  A block of 8 warps keeps a resident operand of
-// kRes = 32 rows (token rows of X for the forward and dX, vocab rows of W
-// for dW) and streams tiles of kStr = 64 rows of the other operand, each
+// kRes = 32 token rows of X and streams tiles of kStr = 64 rows of W, each
 // row the whole hidden axis (at most kHMax = 1024) in shared memory with a
 // pad of 8 elements (row stride ld = round_up(H, 16) + 8: the eight 16-byte
 // rows of an ldmatrix fall in eight different bank groups).  A
@@ -27,24 +27,16 @@ constexpr int kStr = 64;             // rows of a streamed tile
 constexpr int kHMax = 1024;          // hidden sizes the bf16 kernels take
 constexpr int kChunk = 256;          // columns per cp.async group
 constexpr int kChunks = kHMax / kChunk;
-constexpr int kColsPerWarp = kHMax / kWarps;  // accumulator columns of a warp
-constexpr int kAccTiles = kColsPerWarp / 8;   // 16 mma n8 tiles per 16 rows
 constexpr int kLdS = kStr + 4;       // f32 scores (32 x 64) row stride
-constexpr int kLdSt = kRes + 4;      // f32 scores (64 x 32) row stride
-constexpr int kLdD = kStr + 8;       // bf16 dS (32 x 64) row stride
-constexpr int kLdDt = kRes + 8;      // bf16 dS (64 x 32) row stride
-constexpr int kScoreBytes = kStr * kLdSt * 4;   // >= kRes * kLdS * 4
-constexpr int kDsBytes = kStr * kLdDt * 2;      // >= kRes * kLdD * 2
-constexpr int kRowBytes = 3 * kStr * 4;         // lse, g, target per row
+constexpr int kScoreBytes = kRes * kLdS * 4;
 
 __host__ __device__ inline int padded_h(int h) { return (h + 15) / 16 * 16; }
 __host__ __device__ inline int tile_ld(int h) { return padded_h(h) + 8; }
 
-// dynamic shared memory of a bf16 block: resident + streamed operand, the
-// f32 scores, the bf16 dS and the per-row statistics
+// dynamic shared memory of a bf16 block: resident + streamed operand and
+// the f32 scores
 inline size_t smem_bytes(int h) {
-  return static_cast<size_t>(kRes + kStr) * tile_ld(h) * sizeof(bf16) + kScoreBytes +
-         kDsBytes + kRowBytes;
+  return static_cast<size_t>(kRes + kStr) * tile_ld(h) * sizeof(bf16) + kScoreBytes;
 }
 
 // Allow a bf16 kernel the dynamic shared memory of the largest hidden size
@@ -63,10 +55,6 @@ struct Smem {
   bf16* res;     // kRes x ld
   bf16* str;     // kStr x ld
   float* score;  // f32 scores
-  bf16* ds;      // bf16 dS
-  float* lse;    // per streamed/resident row
-  float* g;
-  int* tgt;
 };
 
 __device__ inline Smem carve(unsigned char* base, int ld) {
@@ -74,10 +62,6 @@ __device__ inline Smem carve(unsigned char* base, int ld) {
   s.res = reinterpret_cast<bf16*>(base);
   s.str = s.res + kRes * ld;
   s.score = reinterpret_cast<float*>(s.str + kStr * ld);
-  s.ds = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(s.score) + kScoreBytes);
-  s.lse = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(s.ds) + kDsBytes);
-  s.g = s.lse + kStr;
-  s.tgt = reinterpret_cast<int*>(s.g + kStr);
   return s;
 }
 
@@ -158,30 +142,17 @@ __device__ __forceinline__ void score_tile(const bf16* a, const bf16* b, int ld,
 // The f32 instantiation (f32, f16 or a mixed pair: the reference's own math,
 // f32 products on the FMA units) takes the same tiles as the bf16 path: a
 // score tile of kRes resident rows x kStr streamed rows, but the hidden
-// axis staged through shared memory in chunks of kKc columns (any H), and
-// the gradient product's streamed rows in slabs of kKr rows x kHc columns.
-// dX and dW blocks own kHc columns of their kRes output rows, so a hidden
-// size above kHc splits over a second grid axis (the scores recomputed per
-// column block).
+// axis staged through shared memory in chunks of kKc columns (any H).
 constexpr int kKc = 32;          // hidden columns per staged chunk of the scores
 constexpr int kLdRf = kRes + 1;  // k-major chunk of the resident rows (conflict-free stores)
 constexpr int kLdSf = kStr + 4;  // k-major chunk of the streamed rows (float4 reads)
-constexpr int kHc = 1024;        // output columns of an f32 dX / dW block
-constexpr int kKr = 8;           // streamed rows per slab of the gradient product
-constexpr int kHcLane = kHc / 32 / 4;  // float4 accumulator columns of a lane: 8
 
 struct SmemF {
-  union {
-    struct {
-      float res[kKc * kLdRf];
-      float str[kKc * kLdSf];
-    } chunk;
-    float slab[kKr * kHc];
-  } u;
-  float score[kRes * kLdS];  // scores, then dS in place (kRes x kStr)
-  float lse[kStr];           // per token row of the tile
-  float g[kStr];
-  int tgt[kStr];
+  struct {
+    float res[kKc * kLdRf];
+    float str[kKc * kLdSf];
+  } chunk;
+  float score[kRes * kLdS];  // scores (kRes x kStr)
 };
 
 // S = A B^T over the hidden axis into sm.score (row stride kLdS): A is kRes
@@ -200,19 +171,19 @@ __device__ __forceinline__ void score_tile_f32(SmemF& sm, const void* a, int ca,
     __syncthreads();  // the previous chunk (or the caller's scores) consumed
     for (int r = warp; r < kRes; r += kWarps) {
       const bool ok = k < h && a0 + r < na;
-      sm.u.chunk.res[lane * kLdRf + r] =
+      sm.chunk.res[lane * kLdRf + r] =
           ok ? load_f(a, ca, static_cast<int64_t>(a0 + r) * h + k) : 0.f;
     }
     for (int r = warp; r < kStr; r += kWarps) {
       const bool ok = k < h && b0 + r < nb;
-      sm.u.chunk.str[lane * kLdSf + r] =
+      sm.chunk.str[lane * kLdSf + r] =
           ok ? load_f(b, cb, static_cast<int64_t>(b0 + r) * h + k) : 0.f;
     }
     __syncthreads();
 #pragma unroll 8
     for (int kk = 0; kk < kKc; ++kk) {
-      const float av[2] = {sm.u.chunk.res[kk * kLdRf + r0], sm.u.chunk.res[kk * kLdRf + r0 + 1]};
-      const float4 bv = *reinterpret_cast<const float4*>(&sm.u.chunk.str[kk * kLdSf + c0]);
+      const float av[2] = {sm.chunk.res[kk * kLdRf + r0], sm.chunk.res[kk * kLdRf + r0 + 1]};
+      const float4 bv = *reinterpret_cast<const float4*>(&sm.chunk.str[kk * kLdSf + c0]);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         acc[i][0] = fmaf(av[i], bv.x, acc[i][0]);

@@ -1,322 +1,113 @@
-// Fused LM-head backward for Hopper: dX = dS W and dW = dS^T X with
-// dS = (exp(x W^T - lse) - onehot(target)) g recomputed tile by tile, so
-// neither the logits nor their gradient reach device memory.
+// Fused LM-head backward for Hopper: with dS = (exp(x W^T - lse) -
+// onehot(target)) g,
+//   dX = dS W, summed over the vocab in f32 and rounded once to x's dtype;
+//   dW = dS^T x, summed over all tokens in f32 and written in W's dtype.
+// dS is rounded to the operand dtype before both products (bf16 for a bf16
+// pair; f32 pairs, which every other pair becomes in the wrapper, keep it
+// in f32), as the TPU kernels cast it for their dots.
 //
 // Replaces apex_tpu/ops/lm_head.py `_dx_kernel` and `_dw_kernel` (launched
-// by `_bwd_impl`).  What bounds them on the H100: operations.  Each is
-// 4 N V H flops (the score product again, then the gradient product): 1.69
-// TFLOP per call at GPT-350M.  Design (lm_head.cuh): both run their two
-// products on the tensor cores (ldmatrix fragments, mma.sync m16n8k16 bf16 x
-// bf16 with f32 accumulation).
-// dS is computed in f32 from the f32 scores and rounded to bf16 before the
-// second product, where the TPU kernel casts it to the operand dtype for
-// its MXU dot.
+// by `_bwd_impl`).  What bounds them on the H100: operations.  The TPU
+// kernels recompute the scores S = x W^T in each of the two, four products
+// of 2 N V H flops; here the whole backward is three (x W^T, dS W, dS^T x:
+// 2.56 TFLOP at GPT-350M's 8192 x 1024 x 50304, 2.59 ms of bf16
+// tensor-core time).
 //
-// dX: a block owns 32 token rows (X resident) and walks the vocab in tiles
-// of 64 rows of W; each W tile serves both products (scores, then dS W), and
-// the block's (32, H) f32 dX accumulator lives in registers (each warp 32
-// rows x 128 columns, 32 mma tiles) in a fixed order over the vocab — the
-// TPU kernel keeps a (256, H) f32 accumulator in VMEM, 1 MB, which no SM
-// has.  The cost of the small token tile: each of the 256 blocks (at 8192
-// tokens) reads all of W, 256 x 103 MB = 26 GB at GPT-350M, 7.9 ms if it all
-// came from device memory, above the 1.7 ms bound; the blocks in flight walk
-// the same W tiles in the same order, so most of it hits in L2.
+// Design: the vocabulary is cut into chunks of `width` columns (a multiple
+// of 64, chosen by the wrapper's plan so that one dS chunk stays within 128
+// MiB: 7 chunks at GPT-350M's head, 4 at BERT-large's), and each chunk is
+// launches of csrc/gemm.cuh's tiled GEMM:
+//   1. dS_c = epilogue(x W_c^T), an NT product (gemm_nt) whose epilogue
+//      takes each row's lse, g and target and writes dS_c into an (N,
+//      chunk) scratch; columns at or past V are written as 0 (their scores
+//      are 0, TMA having zero-filled W's missing rows, but exp(0 - lse) is
+//      not).  bf16 runs the GEMM's persistent kernel: H = 1024 is only 16
+//      contraction steps a tile, so each tile's epilogue (an exponential
+//      per entry) overlaps the next tile's loads, and dS goes out by TMA;
+//   2. dX += dS_c W_c (W_c MN-major).  The accumulators start from the f32
+//      partial of the chunks before (the GEMM's seed), so dX is summed in
+//      f32 across chunks in a fixed order and rounded to x's dtype once, by
+//      the last chunk's epilogue; the others write the (N, H) f32 partial;
+//   3. dW_c = dS_c^T x (both operands MN-major, the contraction over the
+//      tokens), written straight into rows [v0, v0 + valid) of dW.
+// dX alone runs 1 and 2 per chunk, dW alone 1 and 3, the whole backward
+// all three: dS is computed once per chunk.  The last chunk is padded to
+// the 64-column grid so that dS's rows stay 16-byte multiples for TMA; W
+// is not: its products are told how many of W's rows exist (Product::
+// b_rows), and read zeros past them.  Every output entry is summed by one
+// block in a fixed order (no atomics, no split of the contraction across
+// blocks), so a repeat gives the same bits, and dX / dW alone give the
+// whole backward's bits.
 //
-// dW: a block owns 32 vocab rows (W resident) and walks the tokens in tiles
-// of 64 rows of X, accumulating its (32, H) f32 rows of dW in registers.
-// Each row of dW is written by one block: no atomics, deterministic.  X
-// (16.8 MB bf16 at GPT-350M) stays in L2 for the 1572 blocks.  Token rows
-// past N carry dS = 0, as the TPU kernel zeroes its padded rows.
-//
-// Other dtypes take the f32 instantiation on the FMA units, one kernel for
-// dX and dW on the same 32-row resident / 64-row streamed tiles, with f32
-// operands staged in shared memory in hidden chunks and slabs
-// (lm_head_bwd_fma_kernel below).
+// Dispatch by shape (gemm::gemm per launch): bf16 operands that TMA maps
+// run TMA + wgmma (launch 1 with at most 64 tokens the narrow mma.sync
+// tiles); f32 (any pair but bf16 / bf16, cast by the wrapper) and bf16 off
+// TMA's grid run the FMA tile.
 
-#include "lm_head.cuh"
+#include "gemm.cuh"
 
 namespace apex_tpu_torch {
 namespace lm_head {
 
-using Acc = float[2][kAccTiles][4];
+constexpr int kChunkGrid = 64;  // chunk widths are multiples of this
 
-// acc (32 x kHMax, warp w owning columns [128 w, 128 w + 128)) += A B over
-// one streamed tile: A is 32 x 64 bf16 dS, stored row-major (dX: token rows,
-// vocab contiguous) or, with kATrans, as its transpose (dW: dS^T read from
-// the token-major dS); B is the streamed tile, 64 rows (the k axis) of h
-// columns (row stride ld).
-template <bool kATrans>
-__device__ __forceinline__ void accumulate_product(Acc& acc, const bf16* a, int lda,
-                                                   const bf16* b, int ld, int hp) {
-  const int col0 = (threadIdx.x >> 5) * kColsPerWarp;
-  if (col0 >= hp) return;
-#pragma unroll
-  for (int kk = 0; kk < kStr / 16; ++kk) {
-    unsigned fa[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (kATrans) {
-        load_a_t(fa[i], a, lda, kk * 16, i * 16);
-      } else {
-        load_a(fa[i], a, lda, i * 16, kk * 16);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kAccTiles / 2; ++j) {
-      const int col = col0 + j * 16;
-      if (col < hp) {
-        unsigned fb[4];
-        load_b_t(fb, b, ld, kk * 16, col);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][2 * j], fa[i], fb[0], fb[1]);
-          mma_bf16(acc[i][2 * j + 1], fa[i], fb[2], fb[3]);
-        }
-      }
-    }
+// a token row's lse, cotangent and target
+struct RowStats {
+  float lse, g;
+  int target;
+};
+
+// Launch 1's epilogue: dS at (row, v0 + col) from the f32 score s
+struct DsFromScores {
+  const float* lse;
+  const float* g;
+  const int* targets;
+  void* ds;   // (rows, cols) in `code`
+  int rows;   // tokens
+  int cols;   // the chunk's padded width
+  int valid;  // the chunk's columns below V
+  int v0;
+  int code;
+  __device__ __forceinline__ RowStats row_values(int row) const {
+    if (row >= rows) return {0.f, 0.f, -1};
+    return {lse[row], g[row], targets[row]};
   }
-}
-
-// write the (32, h) accumulator as rows [row0, row0 + 32) of out (rows past
-// n_rows dropped), two bf16 per store, straight from the registers
-__device__ __forceinline__ void store_acc(const Acc& acc, int h, bf16* out, int row0,
-                                          int n_rows) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int col0 = (threadIdx.x >> 5) * kColsPerWarp;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < kAccTiles; ++j) {
-      const int col = col0 + j * 8 + 2 * t;  // h is a multiple of 8: col + 1 < h too
-      if (col >= h) continue;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = row0 + i * 16 + g + 8 * half;
-        if (row < n_rows) {
-          *reinterpret_cast<__nv_bfloat162*>(out + static_cast<int64_t>(row) * h + col) =
-              __floats2bfloat162_rn(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
-        }
-      }
-    }
+  // dS at column col of the chunk from its score s
+  __device__ __forceinline__ float value(int col, float s, const RowStats& r) const {
+    if (col >= valid) return 0.f;
+    return (expf(s - r.lse) - (v0 + col == r.target ? 1.f : 0.f)) * r.g;
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-lm_head_dx_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                      const int* __restrict__ targets, const float* __restrict__ lse,
-                      const float* __restrict__ g, bf16* __restrict__ dx, int n, int v, int h) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ld = tile_ld(h);
-  const int hp = padded_h(h);
-  const Smem sm = carve(smem_raw, ld);
-  const int t0 = blockIdx.x * kRes;
-
-  load_rows(sm.res, ld, x, t0, n, kRes, h, 0, hp);
-  cp_async_commit();
-  if (threadIdx.x < kRes) {
-    const int tok = t0 + threadIdx.x;
-    const bool in = tok < n;
-    sm.lse[threadIdx.x] = in ? lse[tok] : 0.f;
-    sm.g[threadIdx.x] = in ? g[tok] : 0.f;
-    sm.tgt[threadIdx.x] = in ? targets[tok] : -1;
+  // the output the persistent TMA kernel stores (bf16)
+  __host__ __device__ gemm::AuxTile out_tile() const { return {ds, rows, cols, code}; }
+  // the narrow and FMA tiles' pairs
+  __device__ __forceinline__ void operator()(int row, int col, float s0, float s1,
+                                             const RowStats& r) const {
+    if (row >= rows || col >= cols) return;  // cols is even: col + 1 < cols too
+    store_pair(ds, code, static_cast<int64_t>(row) * cols + col, value(col, s0, r),
+               value(col + 1, s1, r), true);
   }
+};
 
-  Acc acc = {};
-  const int n_tiles = (v + kStr - 1) / kStr;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int v0 = tile * kStr;
-    __syncthreads();  // the previous tile's W and dS are consumed
-    load_tile_chunked(sm.str, ld, w, v0, v, h);
-    score_tile<kRes, kStr>(sm.res, sm.str, ld, h, sm.score, kLdS);
-    __syncthreads();
-    // dS (32 tokens x 64 vocab): 8 entries per thread, f32, rounded to bf16
-    {
-      const int r = threadIdx.x >> 3;
-      const int c0 = (threadIdx.x & 7) * 8;
-      const float row_lse = sm.lse[r], row_g = sm.g[r];
-      const int row_t = sm.tgt[r];
-#pragma unroll
-      for (int c = c0; c < c0 + 8; ++c) {
-        const int col = v0 + c;
-        float ds = 0.f;
-        if (col < v) {
-          const float p = expf(sm.score[r * kLdS + c] - row_lse);
-          ds = (p - (col == row_t ? 1.f : 0.f)) * row_g;
-        }
-        sm.ds[r * kLdD + c] = __float2bfloat16(ds);
-      }
-    }
-    __syncthreads();
-    accumulate_product<false>(acc, sm.ds, kLdD, sm.str, ld, hp);
+// C stored row-major (rows, cols) in the dtype `code`
+struct Out {
+  void* out;
+  int rows, cols, code;
+  __device__ __forceinline__ void operator()(int row, int col, float v0, float v1) const {
+    if (row >= rows || col >= cols) return;
+    store_pair(out, code, static_cast<int64_t>(row) * cols + col, v0, v1, col + 1 < cols);
   }
-  store_acc(acc, h, dx, t0, n);
-}
+};
 
-__global__ void __launch_bounds__(kThreads)
-lm_head_dw_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                      const int* __restrict__ targets, const float* __restrict__ lse,
-                      const float* __restrict__ g, bf16* __restrict__ dw, int n, int v, int h) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ld = tile_ld(h);
-  const int hp = padded_h(h);
-  const Smem sm = carve(smem_raw, ld);
-  const int v0 = blockIdx.x * kRes;
+// Launch 2's epilogue: dX (the last chunk) or the f32 partial, the
+// accumulators seeded from the partial (null for the first chunk)
+struct DxOut : Out {
+  const float* partial;
+  __host__ __device__ gemm::AuxTile seed() const { return {partial, rows, cols, kF32}; }
+};
 
-  load_rows(sm.res, ld, w, v0, v, kRes, h, 0, hp);
-  cp_async_commit();
-
-  Acc acc = {};
-  const int n_tiles = (n + kStr - 1) / kStr;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int t0 = tile * kStr;
-    __syncthreads();  // the previous tile's X, dS and row statistics are consumed
-    load_tile_chunked(sm.str, ld, x, t0, n, h);
-    if (threadIdx.x < kStr) {
-      const int tok = t0 + threadIdx.x;
-      const bool in = tok < n;
-      sm.lse[threadIdx.x] = in ? lse[tok] : 0.f;
-      sm.g[threadIdx.x] = in ? g[tok] : 0.f;
-      sm.tgt[threadIdx.x] = in ? targets[tok] : -1;
-    }
-    score_tile<kStr, kRes>(sm.str, sm.res, ld, h, sm.score, kLdSt);
-    __syncthreads();
-    // dS (64 tokens x 32 vocab): 8 entries per thread; token rows past n are 0
-    {
-      const int r = threadIdx.x >> 2;
-      const int c0 = (threadIdx.x & 3) * 8;
-      const float row_lse = sm.lse[r], row_g = sm.g[r];
-      const int row_t = sm.tgt[r];
-      const bool row_in = t0 + r < n;
-#pragma unroll
-      for (int c = c0; c < c0 + 8; ++c) {
-        const int col = v0 + c;
-        float ds = 0.f;
-        if (row_in && col < v) {
-          const float p = expf(sm.score[r * kLdSt + c] - row_lse);
-          ds = (p - (col == row_t ? 1.f : 0.f)) * row_g;
-        }
-        sm.ds[r * kLdDt + c] = __float2bfloat16(ds);
-      }
-    }
-    __syncthreads();
-    // dW rows (32 vocab) += dS^T (32 x 64 tokens) X (64 x h): dS^T is dS
-    // read column-major
-    accumulate_product<true>(acc, sm.ds, kLdDt, sm.str, ld, hp);
-  }
-  store_acc(acc, h, dw, v0, v);
-}
-
-// f32 instantiation, dX (kDW false) and dW (kDW true) in one kernel: the
-// block's resident rows R (kRes token rows for dX, vocab rows for dW) and
-// the streamed tiles T (kStr vocab rows of W for dX, token rows of X for
-// dW).  Per tile: S = R T^T (score_tile_f32), dS in f32 in place (not
-// rounded: the reference's math), then out[R, cols] += dS T[:, cols] for
-// the block's kHc output columns, T staged in slabs of kKr rows.  Warp w
-// owns output rows 4 w .. 4 w + 3, lane l the float4 columns 4 l + 128 j,
-// j < 8: 128 f32 accumulators per thread, summed over the streamed rows in
-// ascending order.
-template <bool kDW>
-__global__ void __launch_bounds__(kThreads)
-lm_head_bwd_fma_kernel(const void* __restrict__ x, int cx, const void* __restrict__ w, int cw,
-                       const int* __restrict__ targets, const float* __restrict__ lse,
-                       const float* __restrict__ g, void* __restrict__ out, int n, int v,
-                       int h) {
-  __shared__ __align__(16) SmemF sm;
-  const void* res = kDW ? w : x;
-  const void* str = kDW ? x : w;
-  const int cres = kDW ? cw : cx, cstr = kDW ? cx : cw;
-  const int n_res = kDW ? v : n, n_str = kDW ? n : v;
-  const int r0 = blockIdx.x * kRes;
-  const int hc0 = blockIdx.y * kHc;
-  const int hcn = min(kHc, h - hc0);
-  const int width = (hcn + 3) / 4 * 4;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (!kDW && threadIdx.x < kRes) {  // dX: the resident token rows' statistics
-    const int tok = r0 + threadIdx.x;
-    sm.lse[threadIdx.x] = tok < n ? lse[tok] : 0.f;
-    sm.g[threadIdx.x] = tok < n ? g[tok] : 0.f;
-    sm.tgt[threadIdx.x] = tok < n ? targets[tok] : -1;
-  }
-  float acc[kFwdRowsPerWarp][kHcLane][4] = {};
-  const int n_tiles = (n_str + kStr - 1) / kStr;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int s0 = tile * kStr;
-    if (kDW && threadIdx.x < kStr) {  // dW: the streamed token rows' statistics
-      const int tok = s0 + threadIdx.x;
-      sm.lse[threadIdx.x] = tok < n ? lse[tok] : 0.f;
-      sm.g[threadIdx.x] = tok < n ? g[tok] : 0.f;
-      sm.tgt[threadIdx.x] = tok < n ? targets[tok] : -1;
-    }
-    score_tile_f32(sm, res, cres, r0, n_res, str, cstr, s0, n_str, h);
-    __syncthreads();
-    {  // dS (kRes x kStr), 8 entries per thread; a row or column past its
-       // operand is 0 (and so is a token row of g = 0)
-      const int r = threadIdx.x >> 3;
-      const int c0 = (threadIdx.x & 7) * 8;
-#pragma unroll
-      for (int c = c0; c < c0 + 8; ++c) {
-        const int tr = kDW ? c : r;                  // token index in the tile's stats
-        const int tok = kDW ? s0 + c : r0 + r;
-        const int col = kDW ? r0 + r : s0 + c;       // vocab row
-        float ds = 0.f;
-        if (tok < n && col < v) {
-          const float p = expf(sm.score[r * kLdS + c] - sm.lse[tr]);
-          ds = (p - (col == sm.tgt[tr] ? 1.f : 0.f)) * sm.g[tr];
-        }
-        sm.score[r * kLdS + c] = ds;
-      }
-    }
-    for (int k0 = 0; k0 < kStr; k0 += kKr) {
-      __syncthreads();  // dS written; the previous slab (or score chunk) consumed
-      for (int i = threadIdx.x; i < kKr * width; i += kThreads) {
-        const int kr = i / width, c = i - kr * width;
-        const int row = s0 + k0 + kr;
-        sm.u.slab[kr * kHc + c] =
-            row < n_str && c < hcn
-                ? load_f(str, cstr, static_cast<int64_t>(row) * h + hc0 + c)
-                : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kr = 0; kr < kKr; ++kr) {
-        float d[kFwdRowsPerWarp];
-#pragma unroll
-        for (int i = 0; i < kFwdRowsPerWarp; ++i) {
-          d[i] = sm.score[(warp * kFwdRowsPerWarp + i) * kLdS + k0 + kr];
-        }
-#pragma unroll
-        for (int j = 0; j < kHcLane; ++j) {
-          const int c = 4 * lane + 128 * j;
-          if (c < width) {
-            const float4 t = *reinterpret_cast<const float4*>(&sm.u.slab[kr * kHc + c]);
-#pragma unroll
-            for (int i = 0; i < kFwdRowsPerWarp; ++i) {
-              acc[i][j][0] = fmaf(d[i], t.x, acc[i][j][0]);
-              acc[i][j][1] = fmaf(d[i], t.y, acc[i][j][1]);
-              acc[i][j][2] = fmaf(d[i], t.z, acc[i][j][2]);
-              acc[i][j][3] = fmaf(d[i], t.w, acc[i][j][3]);
-            }
-          }
-        }
-      }
-    }
-  }
-  const int cout = kDW ? cw : cx;
-#pragma unroll
-  for (int i = 0; i < kFwdRowsPerWarp; ++i) {
-    const int row = r0 + warp * kFwdRowsPerWarp + i;
-    if (row >= n_res) continue;
-#pragma unroll
-    for (int j = 0; j < kHcLane; ++j) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = 4 * lane + 128 * j + q;
-        if (c < hcn) store_f(out, cout, static_cast<int64_t>(row) * h + hc0 + c, acc[i][j][q]);
-      }
-    }
-  }
-}
+// Launch 3's epilogue: the chunk's rows of dW (a distinct type, so that a
+// profile tells the launches apart)
+struct DwOut : Out {};
 
 }  // namespace lm_head
 }  // namespace apex_tpu_torch
@@ -324,55 +115,50 @@ lm_head_bwd_fma_kernel(const void* __restrict__ x, int cx, const void* __restric
 using namespace apex_tpu_torch;
 using namespace apex_tpu_torch::lm_head;
 
-// x: (n, h), w: (v, h) row-major in their dtypes; targets: (n,) int32;
-// lse, g: (n,) f32; dx: (n, h) in x's dtype.  A bf16 pair takes the
-// tensor-core kernel (h a multiple of 8, at most 1024), any other pair the
-// f32 kernel.
-extern "C" int apex_lm_head_dx(const void* x, const void* w, const void* targets,
-                               const void* lse, const void* g, void* dx, int n, int v, int h,
-                               int x_dtype, int w_dtype, void* stream) {
-  if (n <= 0 || h <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == kBF16 && w_dtype == kBF16) {
-    if (h % 8 != 0 || h > kHMax) return static_cast<int>(cudaErrorInvalidValue);
-    static bool attr_set = false;
-    const int rc = set_smem(lm_head_dx_mma_kernel, attr_set);
-    if (rc != 0) return rc;
-    lm_head_dx_mma_kernel<<<(n + kRes - 1) / kRes, kThreads, smem_bytes(h), s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-        static_cast<const int*>(targets), static_cast<const float*>(lse),
-        static_cast<const float*>(g), static_cast<bf16*>(dx), n, v, h);
-  } else {
-    const dim3 grid(static_cast<unsigned>((n + kRes - 1) / kRes),
-                    static_cast<unsigned>((h + kHc - 1) / kHc));
-    lm_head_bwd_fma_kernel<false><<<grid, kThreads, 0, s>>>(
-        x, x_dtype, w, w_dtype, static_cast<const int*>(targets),
-        static_cast<const float*>(lse), static_cast<const float*>(g), dx, n, v, h);
+// x: (n, h) and w: (v, h) row-major, both in the operand dtype `code` (bf16
+// for a bf16 pair, else f32); targets: (n,) int32; lse, g: (n,) f32; dx:
+// (n, h) in dx_dtype, or null (no dX); dw: (v, h) in dw_dtype, or null (no
+// dW); the scratch ds: (n, width) in `code`; partial: (n, h) f32, used when
+// dX is asked for and the vocab takes more than one chunk.  width: a
+// multiple of 64.  Per chunk of the vocab: the dS launch, then dX's and
+// dW's, those asked for.
+extern "C" int apex_lm_head_bwd(const void* x, const void* w, const void* targets,
+                                const void* lse, const void* g, void* dx, void* dw, void* ds,
+                                void* partial, int n, int v, int h, int width, int code,
+                                int dx_dtype, int dw_dtype, void* stream) {
+  if (n <= 0 || v <= 0 || h <= 0 || width <= 0 || width % kChunkGrid != 0 ||
+      (code != kBF16 && code != kF32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// as apex_lm_head_dx; dw: (v, h) in w's dtype
-extern "C" int apex_lm_head_dw(const void* x, const void* w, const void* targets,
-                               const void* lse, const void* g, void* dw, int n, int v, int h,
-                               int x_dtype, int w_dtype, void* stream) {
-  if (v <= 0 || h <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == kBF16 && w_dtype == kBF16) {
-    if (h % 8 != 0 || h > kHMax) return static_cast<int>(cudaErrorInvalidValue);
-    static bool attr_set = false;
-    const int rc = set_smem(lm_head_dw_mma_kernel, attr_set);
-    if (rc != 0) return rc;
-    lm_head_dw_mma_kernel<<<(v + kRes - 1) / kRes, kThreads, smem_bytes(h), s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-        static_cast<const int*>(targets), static_cast<const float*>(lse),
-        static_cast<const float*>(g), static_cast<bf16*>(dw), n, v, h);
-  } else {
-    const dim3 grid(static_cast<unsigned>((v + kRes - 1) / kRes),
-                    static_cast<unsigned>((h + kHc - 1) / kHc));
-    lm_head_bwd_fma_kernel<true><<<grid, kThreads, 0, s>>>(
-        x, x_dtype, w, w_dtype, static_cast<const int*>(targets),
-        static_cast<const float*>(lse), static_cast<const float*>(g), dw, n, v, h);
+  if (dx != nullptr && v > width && partial == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t esize = code == kBF16 ? 2 : 4;
+  const int64_t dw_esize = dw_dtype == kF32 ? 4 : 2;
+  for (int v0 = 0; v0 < v; v0 += width) {
+    const int valid = v - v0 < width ? v - v0 : width;
+    const int cols = (valid + kChunkGrid - 1) / kChunkGrid * kChunkGrid;
+    const void* wc = static_cast<const char*>(w) + static_cast<int64_t>(v0) * h * esize;
+    // 1. dS_c (n x cols) from x (n x h) W_c^T, W_c's rows past `valid` zero
+    const DsFromScores first{static_cast<const float*>(lse), static_cast<const float*>(g),
+                             static_cast<const int*>(targets), ds, n, cols, valid, v0, code};
+    int rc = gemm::gemm_nt(x, wc, n, cols, h, code, first, s, valid);
+    if (rc != 0) return rc;
+    if (dx != nullptr) {
+      // 2. dX (n x h) = partial + dS_c (n x cols) W_c (cols x h, MN-major)
+      const bool last = v0 + width >= v;
+      const DxOut out{{last ? dx : partial, n, h, last ? dx_dtype : static_cast<int>(kF32)},
+                      v0 == 0 ? nullptr : static_cast<const float*>(partial)};
+      rc = gemm::gemm<false, true>({ds, wc, n, h, cols, valid}, out, code, s);
+      if (rc != 0) return rc;
+    }
+    if (dw != nullptr) {
+      // 3. dW_c (cols x h, rows past `valid` dropped) = dS_c^T x over the n tokens
+      void* dwc = static_cast<char*>(dw) + static_cast<int64_t>(v0) * h * dw_esize;
+      rc = gemm::gemm<true, true>({ds, x, cols, h, n}, DwOut{{dwc, valid, h, dw_dtype}}, code, s);
+      if (rc != 0) return rc;
+    }
+  }
+  return 0;
 }

@@ -103,14 +103,6 @@ __device__ __forceinline__ void load_a(unsigned (&r)[4], const bf16* tile, int l
   ldsm_x4<false>(r, tile + (row0 + (lane & 7) + (blk & 1) * 8) * ld + k0 + (blk >> 1) * 8);
 }
 
-// A fragment (16 x 16) of A = T^T, T stored k-major (row k, m contiguous),
-// at (k0, m0) of T
-__device__ __forceinline__ void load_a_t(unsigned (&r)[4], const bf16* tile, int ld, int k0,
-                                         int m0) {
-  const int lane = threadIdx.x & 31, blk = lane >> 3;
-  ldsm_x4<true>(r, tile + (k0 + (lane & 7) + (blk >> 1) * 8) * ld + m0 + (blk & 1) * 8);
-}
-
 // two B fragments (k 16 x n 16: r0, r1 for n0..n0+7; r2, r3 for n0+8..) of
 // B = T^T, T stored n-major (row n, k contiguous), at (n0, k0) of T
 __device__ __forceinline__ void load_b(unsigned (&r)[4], const bf16* tile, int ld, int n0,
@@ -155,6 +147,23 @@ __device__ __forceinline__ void store_f(void* p, int code, int64_t i, float v) {
     case kBF16: static_cast<bf16*>(p)[i] = __float2bfloat16(v); break;
     case kF16: static_cast<__half*>(p)[i] = __float2half(v); break;
     default: static_cast<float*>(p)[i] = v;
+  }
+}
+
+// v0 at p[i], v1 at p[i + 1] when two, rounded to the dtype `code`; a pair
+// at an even index goes as one store (the GEMM epilogues' outputs are
+// allocated by the wrappers, so it is aligned)
+__device__ __forceinline__ void store_pair(void* p, int code, int64_t i, float v0, float v1,
+                                           bool two) {
+  if (two && (i & 1) == 0 && code == kF32) {
+    *reinterpret_cast<float2*>(static_cast<float*>(p) + i) = make_float2(v0, v1);
+  } else if (two && (i & 1) == 0 && code == kBF16) {
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p) + i) = __floats2bfloat162_rn(v0, v1);
+  } else if (two && (i & 1) == 0 && code == kF16) {
+    *reinterpret_cast<__half2*>(static_cast<__half*>(p) + i) = __floats2half2_rn(v0, v1);
+  } else {
+    store_f(p, code, i, v0);
+    if (two) store_f(p, code, i + 1, v1);
   }
 }
 

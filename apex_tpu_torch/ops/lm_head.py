@@ -4,42 +4,57 @@
 Per token ``i`` with target ``y``: ``loss_i = lse_i - x_i . W_y`` with
 ``lse_i = logsumexp_v(x_i . W_v)``.  The ``(N, V)`` logits never reach
 device memory: the forward keeps an online logsumexp over vocab tiles, and
-the backward recomputes ``p = exp(x . W_v - lse)`` tile by tile from the
-saved per-token ``lse``.  With upstream cotangent ``g``:
-``dS = (p - onehot(y)) g``, ``dX = dS W`` and ``dW = dS^T X``.
+the backward recomputes ``p = exp(x . W_v - lse)`` from the saved
+per-token ``lse``, one vocab chunk at a time.  With upstream cotangent
+``g``: ``dS = (p - onehot(y)) g``, ``dX = dS W`` and ``dW = dS^T X``.
 
-Three kernel wrappers, each with its plain PyTorch version beside it:
+Kernel wrappers, each with its plain PyTorch version beside it:
 
 * :func:`lm_head_fwd` (``csrc/lm_head_fwd.cu``, the Pallas ``_fwd_kernel``)
   returns ``(loss, lse)``; a CPU tensor takes :func:`lm_head_fwd_reference`;
 * :func:`lm_head_dx` (``csrc/lm_head_bwd.cu``, ``_dx_kernel``); a CPU tensor
   takes :func:`lm_head_dx_reference`;
 * :func:`lm_head_dw` (``csrc/lm_head_bwd.cu``, ``_dw_kernel``); a CPU tensor
-  takes :func:`lm_head_dw_reference`.
+  takes :func:`lm_head_dw_reference`;
+* :func:`lm_head_bwd`, both backward kernels in one call (``(dX, dW)``,
+  the JAX ``_bwd_impl``); a CPU tensor takes :func:`lm_head_bwd_reference`.
+
+On the card the backward is launches of the tiled GEMM of
+``csrc/gemm.cuh`` over the chunks of :func:`bwd_chunk_plan`: per chunk
+``dS_c`` from ``x W_c^T`` (its epilogue takes the softmax and the target),
+then ``dX += dS_c W_c`` (summed in f32 across chunks, rounded to x's dtype
+once) and ``dW_c = dS_c^T x``.  :func:`lm_head_bwd` computes ``dS_c``
+once for both; :func:`lm_head_dx` and :func:`lm_head_dw` alone each run
+their own (``csrc/lm_head_bwd.cu``'s header).
 
 :func:`fused_linear_cross_entropy` is the public op, a
-:class:`torch.autograd.Function` over the three.  The plain versions take
-the kernels' own casts (operands in :func:`_dot_dtype`, ``dS`` rounded to
-it before the two backward products); the materialized reference the tests
-hold everything to is :func:`fused_linear_cross_entropy_reference`.
+:class:`torch.autograd.Function` over the kernels.  The plain versions
+take the kernels' own casts (operands in :func:`_dot_dtype`, ``dS``
+rounded to it before the two backward products); the materialized
+reference the tests hold everything to is
+:func:`fused_linear_cross_entropy_reference`.
 
 The JAX signature's ``block_t`` / ``block_v`` are TPU tile sizes that only
-change the order of f32 sums; the port drops them.  The CUDA kernels fix
-their own tiles (32 rows of the resident operand, 64 of the streamed one)
-and the forward's split of the vocab (``apex_lm_head_fwd_splits``).
+change the order of f32 sums; the port drops them.  The forward kernel
+fixes its own tiles (32 rows of x, 64 of W) and its split of the vocab
+(``apex_lm_head_fwd_splits``).
 
 A bf16 pair runs on the tensor cores.  Any other pair (f32, f16, or a
-mixed pair, for which :func:`_dot_dtype` gives f32) runs the kernels' f32
-instantiation, the reference's own math (f32 products, no rounding of
-``dS``), on the same tiles with the products on the FMA units: on an H100
-its bound is 15x the bf16 one (67 against 989 TFLOPS), and at GPT-350M's
-head it takes about ten times the f32 head GEMMs and cross entropy of
-``fused_lm_head=False`` (PERF.md), so an f32 model trains faster on the
-card without the fused head.  The JAX package routes f16 to its
-materialized reference (Mosaic has no f16).
+mixed pair, for which :func:`_dot_dtype` gives f32) runs the reference's
+own math (f32 products, no rounding of ``dS``) on the FMA units: the
+forward's f32 instantiation, and the backward's GEMMs on operands the
+wrapper casts to f32 (exact), on the GEMM's FMA tile.  On an H100 that
+bound is 15x the bf16 one (67 against 989 TFLOPS), and a logit-free f32
+backward (three products) cannot beat the two of ``fused_lm_head=False``
+(PERF.md).  The JAX package routes f16 to its materialized reference
+(Mosaic has no f16).  The forward's bf16 kernel keeps whole rows of its
+operand tiles in shared memory and takes a hidden size up to
+:data:`MMA_MAX_HIDDEN`; the backward takes any.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -47,14 +62,23 @@ from apex_tpu_torch import _kernels
 
 _f32 = torch.float32
 
-# the bf16 tensor-core kernels keep whole rows of their operand tiles in
-# shared memory (csrc/lm_head.cuh kHMax; the C entry points refuse more too)
+# the forward's bf16 tensor-core kernel keeps whole rows of its operand
+# tiles in shared memory (csrc/lm_head.cuh kHMax; its C entry refuses more)
 MMA_MAX_HIDDEN = 1024
+
+# the backward's dS scratch: one vocab chunk of at most this many bytes
+DS_CHUNK_BYTES = 128 * 2 ** 20
+# chunk widths are multiples of CHUNK_GRID (csrc/lm_head_bwd.cu kChunkGrid:
+# dS's rows stay 16-byte multiples), and of the GEMM's wide tile where that
+# fits the byte cap
+CHUNK_GRID = 64
+CHUNK_TILE = 256
 
 __all__ = ["fused_linear_cross_entropy",
            "fused_linear_cross_entropy_reference", "lm_head_fwd",
            "lm_head_fwd_reference", "lm_head_dx", "lm_head_dx_reference",
-           "lm_head_dw", "lm_head_dw_reference"]
+           "lm_head_dw", "lm_head_dw_reference", "lm_head_bwd",
+           "lm_head_bwd_reference", "bwd_chunk_plan"]
 
 
 def _dot_dtype(x_dtype, w_dtype):
@@ -123,13 +147,61 @@ def lm_head_dw_reference(x, w, targets, lse, g):
     return (ds.t() @ x.to(dt).to(_f32)).to(w.dtype)
 
 
+def lm_head_bwd_reference(x, w, targets, lse, g):
+    """Plain version of the whole backward: ``(dX, dW)`` as
+    :func:`lm_head_dx_reference` and :func:`lm_head_dw_reference` give
+    them, from one ``dS``."""
+    ds, dt = _ds(x, w, targets, lse, g)
+    return ((ds @ w.to(dt).to(_f32)).to(x.dtype),
+            (ds.t() @ x.to(dt).to(_f32)).to(w.dtype))
+
+
+# ---------------------------------------------------------------------------
+# the backward's vocab chunks
+# ---------------------------------------------------------------------------
+
+def _round_up(a, b):
+    return -(-a // b) * b
+
+
+class ChunkPlan(NamedTuple):
+    """The backward's vocab chunks: ``width`` columns each (the dS
+    scratch is ``(N, width)``), ``chunks`` as ``(v0, valid, padded)``:
+    columns ``[v0, v0 + valid)`` of the vocab, ``padded`` (``valid``
+    rounded up to :data:`CHUNK_GRID`) columns of dS."""
+    width: int
+    chunks: tuple
+
+    def launches(self, call):
+        """(``lm_head_dx``, ``lm_head_dw``) launches of one ``"dx"``,
+        ``"dw"`` or ``"bwd"`` call: per chunk dS and dX, dS and dW, or dS
+        and dX on the first with dW on the second."""
+        per = dict(dx=(2, 0), dw=(0, 2), bwd=(2, 1))[call]
+        return tuple(len(self.chunks) * k for k in per)
+
+
+def bwd_chunk_plan(n, v, ds_itemsize):
+    """Chunks of a vocab of ``v`` columns for ``n`` tokens whose dS takes
+    ``ds_itemsize`` bytes an entry: ``width`` the largest multiple of
+    :data:`CHUNK_TILE` (of :data:`CHUNK_GRID` where the cap is narrower,
+    at least one grid) with ``n * width * ds_itemsize <=``
+    :data:`DS_CHUNK_BYTES`, then evened out over the chunks that many
+    columns need.  8192 bf16 tokens: 8192 columns at most, 7 chunks of
+    GPT-350M's 50304 and 4 of BERT-large's 30528."""
+    cap = DS_CHUNK_BYTES // (max(n, 1) * ds_itemsize)
+    unit = CHUNK_TILE if cap >= CHUNK_TILE else CHUNK_GRID
+    cap = max(CHUNK_GRID, cap // unit * unit)
+    count = max(1, -(-v // cap))
+    width = min(cap, _round_up(-(-max(v, 1) // count), unit))
+    chunks = tuple((v0, min(width, v - v0),
+                    _round_up(min(width, v - v0), CHUNK_GRID))
+                   for v0 in range(0, v, width))
+    return ChunkPlan(width, chunks)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
-
-def _use_mma(x, w):
-    return _dot_dtype(x.dtype, w.dtype) == torch.bfloat16
-
 
 def _check_operands(kernel, x, w, targets):
     """Shapes, dtypes, device and layout the CUDA kernels take; returns
@@ -150,14 +222,6 @@ def _check_operands(kernel, x, w, targets):
     if targets.dtype.is_floating_point or targets.dtype == torch.bool:
         raise TypeError(f"{kernel}: targets must be integers")
     codes = (_kernels.dtype_code(x, kernel), _kernels.dtype_code(w, kernel))
-    if _use_mma(x, w):
-        h = x.shape[1]
-        if h % 8 or h > MMA_MAX_HIDDEN:
-            raise NotImplementedError(
-                f"{kernel}: the bf16 kernels take a hidden size that is a "
-                f"multiple of 8 and at most {MMA_MAX_HIDDEN}, got {h}")
-        if x.data_ptr() % 16 or w.data_ptr() % 16:
-            raise ValueError(f"{kernel}: x and w must be 16-byte aligned")
     return targets.to(torch.int32).contiguous(), codes
 
 
@@ -179,6 +243,13 @@ def lm_head_fwd(x, w, targets):
         return lm_head_fwd_reference(x, w, targets)
     tgt, (cx, cw) = _check_operands("lm_head_fwd", x, w, targets)
     n, h = x.shape
+    if _dot_dtype(x.dtype, w.dtype) == torch.bfloat16:
+        if h % 8 or h > MMA_MAX_HIDDEN:
+            raise NotImplementedError(
+                f"lm_head_fwd: the bf16 kernel takes a hidden size that is "
+                f"a multiple of 8 and at most {MMA_MAX_HIDDEN}, got {h}")
+        if x.data_ptr() % 16 or w.data_ptr() % 16:
+            raise ValueError("lm_head_fwd: x and w must be 16-byte aligned")
     v = w.shape[0]
     loss = torch.empty(n, dtype=_f32, device=x.device)
     lse = torch.empty(n, dtype=_f32, device=x.device)
@@ -199,57 +270,98 @@ def lm_head_fwd(x, w, targets):
 lm_head_fwd.launches = 0
 
 
-def _bwd(kernel, entry, x, w, targets, lse, g, out):
-    tgt, (cx, cw) = _check_operands(kernel, x, w, targets)
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _bwd(kernel, x, w, targets, lse, g, want_dx, want_dw):
+    """One ``apex_lm_head_bwd`` call: per chunk of :func:`bwd_chunk_plan`
+    the dS launch, then dX's if ``want_dx`` and dW's if ``want_dw``.
+    Returns ``(dx, dw, plan)``, None where not asked (plan None: nothing
+    launched, at zero tokens, vocab or hidden size)."""
+    tgt, _ = _check_operands(kernel, x, w, targets)
     n, h = x.shape
+    v = w.shape[0]
     _check_rows(kernel, n, x.device, lse=lse, g=g)
-    if out.numel() == 0:
-        return out
-    rc = getattr(_kernels.lib(), entry)(
-        x.data_ptr(), w.data_ptr(), tgt.data_ptr(), lse.data_ptr(),
-        g.data_ptr(), out.data_ptr(), n, w.shape[0], h, cx, cw,
+    dx = torch.empty_like(x) if want_dx else None
+    dw = torch.empty_like(w) if want_dw else None
+    if n == 0 or v == 0 or h == 0:
+        return (None if dx is None else dx.zero_(),
+                None if dw is None else dw.zero_(), None)
+    dt = _dot_dtype(x.dtype, w.dtype)
+    # every pair but bf16 / bf16 runs on f32 operands (exact casts: JAX
+    # casts inside its kernels), and keeps dS in f32
+    xo, wo = x.to(dt), w.to(dt)
+    plan = bwd_chunk_plan(n, v, dt.itemsize)
+    ds = torch.empty(n * plan.width, dtype=dt, device=x.device)
+    partial = None
+    if want_dx and len(plan.chunks) > 1:
+        partial = torch.empty((n, h), dtype=_f32, device=x.device)
+    codes = _kernels.DTYPE_CODES
+    rc = _kernels.lib().apex_lm_head_bwd(
+        xo.data_ptr(), wo.data_ptr(), tgt.data_ptr(), lse.data_ptr(),
+        g.data_ptr(), _ptr(dx), _ptr(dw), ds.data_ptr(), _ptr(partial), n,
+        v, h, plan.width, codes[dt], codes[x.dtype], codes[w.dtype],
         _kernels.stream())
     _kernels.check(rc, kernel)
-    return out
+    return dx, dw, plan
+
+
+def _count(plan, call):
+    if plan is not None:
+        dx, dw = plan.launches(call)
+        lm_head_dx.launches += dx
+        lm_head_dw.launches += dw
 
 
 def lm_head_dx(x, w, targets, lse, g):
     """dX kernel wrapper: ``dS W`` with ``dS`` recomputed from ``lse``
     (``(N,)`` f32) and scaled by the per-token cotangent ``g`` (``(N,)``
-    f32).  Returns ``(N, H)`` in x's dtype.  A CPU tensor takes
+    f32).  Returns ``(N, H)`` in x's dtype.  Two launches a vocab chunk,
+    both counted: dS, then dX.  A CPU tensor takes
     :func:`lm_head_dx_reference`."""
     if x.device.type == "cpu":
         return lm_head_dx_reference(x, w, targets, lse, g)
-    out = _bwd("lm_head_dx", "apex_lm_head_dx", x, w, targets, lse, g,
-               torch.empty_like(x))
-    lm_head_dx.launches += out.numel() > 0
-    return out
+    dx, _, plan = _bwd("lm_head_dx", x, w, targets, lse, g, True, False)
+    _count(plan, "dx")
+    return dx
 
 
 lm_head_dx.launches = 0
 
 
 def lm_head_dw(x, w, targets, lse, g):
-    """dW kernel wrapper: ``dS^T X``, each row of W's gradient summed over
-    all tokens by one block in a fixed order (no atomics).  Returns
-    ``(V, H)`` in w's dtype.  A CPU tensor takes
-    :func:`lm_head_dw_reference`."""
+    """dW kernel wrapper: ``dS^T X``, each entry summed over all tokens by
+    one block in a fixed order (no atomics).  Returns ``(V, H)`` in w's
+    dtype.  Two launches a vocab chunk, both counted: dS, then dW.  A CPU
+    tensor takes :func:`lm_head_dw_reference`."""
     if x.device.type == "cpu":
         return lm_head_dw_reference(x, w, targets, lse, g)
-    out = torch.empty_like(w)
-    if x.shape[0] == 0:
-        return out.zero_()
-    out = _bwd("lm_head_dw", "apex_lm_head_dw", x, w, targets, lse, g, out)
-    lm_head_dw.launches += out.numel() > 0
-    return out
+    _, dw, plan = _bwd("lm_head_dw", x, w, targets, lse, g, False, True)
+    _count(plan, "dw")
+    return dw
 
 
 lm_head_dw.launches = 0
 
 
+def lm_head_bwd(x, w, targets, lse, g):
+    """The whole backward in one call: ``(dX, dW)``, each as
+    :func:`lm_head_dx` and :func:`lm_head_dw` give it (the same bits),
+    with dS computed once a vocab chunk: dS and dX count on
+    ``lm_head_dx.launches``, dW on ``lm_head_dw.launches``.  A CPU tensor
+    takes :func:`lm_head_bwd_reference`."""
+    if x.device.type == "cpu":
+        return lm_head_bwd_reference(x, w, targets, lse, g)
+    dx, dw, plan = _bwd("lm_head_bwd", x, w, targets, lse, g, True, True)
+    _count(plan, "bwd")
+    return dx, dw
+
+
 class _FusedLinearCrossEntropy(torch.autograd.Function):
-    """Forward kernel, then the dX and dW kernels (the JAX ``_fused``
-    custom VJP).  Saves ``(x, w, targets, lse)``."""
+    """Forward kernel, then the backward kernels, in one
+    :func:`lm_head_bwd` call where both gradients are needed (the JAX
+    ``_fused`` custom VJP).  Saves ``(x, w, targets, lse)``."""
 
     @staticmethod
     def forward(ctx, x, w, targets):
@@ -261,10 +373,13 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
     def backward(ctx, g):
         x, w, targets, lse = ctx.saved_tensors
         g = g.to(_f32).contiguous()
+        need_dx, need_dw = ctx.needs_input_grad[:2]
         dx = dw = None
-        if ctx.needs_input_grad[0]:
+        if need_dx and need_dw:
+            dx, dw = lm_head_bwd(x, w, targets, lse, g)
+        elif need_dx:
             dx = lm_head_dx(x, w, targets, lse, g)
-        if ctx.needs_input_grad[1]:
+        elif need_dw:
             dw = lm_head_dw(x, w, targets, lse, g)
         return dx, dw, None
 

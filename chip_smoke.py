@@ -23,15 +23,18 @@ Phases (any failure exits non-zero; nothing is caught):
    and #5 twice on the same inputs (bitwise equal) and a q one element off
    its 16-byte boundary (refused); the fused LM head (#8-#10) at GPT-350M's and
    BERT-large's head shapes in bf16 and GPT-350M's in f32, a peaked-softmax
-   bf16 case off the token and vocab grids, and three small off-grid cases
-   (f32, bf16, a mixed pair), its yardstick the two calls matmul +
-   F.cross_entropy; the fused FFN (#11-#13) at GPT-350M's and BERT-large's
-   micro-batch (bf16 x with f32 W, bf16/bf16), the serving shapes (512
-   and 8 rows), GPT-2 XL's widths off the grids (1000 x 1600 -> 6400 ->
-   1600), GPT-350M's shape in f32 and small cases, every output held
-   entry by entry (``ffn_bounds``), also the whole backward's
-   (``ffn_bwd``, dh once), every output bitwise equal on a repeat, each
-   call's launches those of its path, its yardstick the unfused
+   bf16 case off the token and vocab grids, a vocab off the 64-column grid
+   over four chunks of the backward, 48 tokens, a hidden size off the
+   16-byte grid, and three small off-grid cases (f32, bf16, a mixed pair),
+   the whole backward (``lm_head_bwd``) bitwise the dX and dW calls, its
+   yardstick the two calls matmul + F.cross_entropy; the fused FFN
+   (#11-#13) at GPT-350M's and BERT-large's micro-batch (bf16 x with f32
+   W, bf16/bf16), the serving shapes (512 and 8 rows), GPT-2 XL's widths
+   off the grids (1000 x 1600 -> 6400 -> 1600), GPT-350M's shape in f32
+   and small cases, every output held entry by entry (``ffn_bounds``),
+   also the whole backward's (``ffn_bwd``, dh once), every output bitwise
+   equal on a repeat, each call's launches those of its path, its
+   yardstick the unfused
    F.linear + gelu + F.linear chain; the multi-tensor axpby, SGD, Adagrad
    and NovoGrad (#16, #19, #22, #23) at GPT-350M's f32 list (291 tensors,
    as Adam), on a mixed list of 40 bf16 / f16 / f32 tensors with f32
@@ -272,9 +275,10 @@ def log_numbers(name, n, lib_name):
 # -- phase 1 -----------------------------------------------------------------
 
 # kernels whose registers and spills phase_build names one by one (the
-# tensor-core dq and the FFN's GEMM mainloop)
+# tensor-core dq and the GEMM mainloops of the FFN and the LM head)
 NAMED_REPORT = ("flash_bwd_dq_mma_kernel", "gemm_tma_kernel",
-                "gemm_nt_mma_kernel", "gemm_fma_kernel")
+                "gemm_tma_rows_kernel", "gemm_nt_mma_kernel",
+                "gemm_fma_kernel")
 
 
 def _ptxas_by_kernel(text, wanted):
@@ -1093,19 +1097,69 @@ def _no_target_rows(v, t, g):
     return free
 
 
+def _launch_tflops(fn, flops):
+    """torch.profiler over one call of ``fn``: each of its kernel launches
+    in order as (kernel name, device ms, TFLOP/s), ``flops`` the launches'
+    operation counts in the same order."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "gemm_" in e.name]
+    if len(events) != len(flops):
+        raise AssertionError(f"profiled {len(events)} GEMM launches, want "
+                             f"{len(flops)}")
+    return [(e.name, e.device_time_total / 1e3,
+             f / (e.device_time_total * 1e-6) / 1e12)
+            for e, f in zip(events, flops)]
+
+
+def _log_bwd_launches(name, x, w, t, lse, g, plan):
+    """lm_head_bwd's launches one by one: per chunk dS, dX, dW, each with
+    2 N (padded chunk) H flops; logs the chunk count and each launch
+    type's TFLOP/s over the chunks."""
+    from apex_tpu_torch.ops.lm_head import lm_head_bwd
+    n, h = x.shape
+    flops = [2 * n * padded * h for _, _, padded in plan.chunks
+             for _ in range(3)]
+    rows = _launch_tflops(lambda: lm_head_bwd(x, w, t, lse, g), flops)
+    for k, part in enumerate(("dS", "dX", "dW")):
+        mine = rows[k::3]
+        rates = [r for _, _, r in mine]
+        log(f"    {name} {part}: {len(mine)} launches, "
+            f"{sum(ms for _, ms, _ in mine):.4f} ms, TFLOP/s per chunk "
+            f"{[round(r, 1) for r in rates]} ({mine[0][0][:90]})")
+    return [dict(part=("dS", "dX", "dW")[k % 3], ms=ms, tflops=r)
+            for k, (_, ms, r) in enumerate(rows)]
+
+
 def kernel_lm_head(gen):
     """#8, #9 and #10 against their plain versions: bf16 at GPT-350M's head
     (8192 x 1024 x 50304) and BERT-large's (8192 x 1024 x 30528, 85% of
     rows with g = 0), both timed; f32 at GPT-350M's head, timed (the f32
     instantiation an f32 model runs); bf16 with a peaked softmax off the
-    token and vocab grids (1000 x 1024 x 30522); small off-grid cases
-    (200 x 96 x 1000: bf16, f32, bf16 x with f32 W).  The off-grid cases
-    carry a target of -1.  loss and lse within f32 tolerances, dX and dW
-    entry by entry (``_check_lm_head_grad``), dW's rows with no target also
-    reported on their own."""
+    token and vocab grids (1000 x 1024 x 30522); the vocab off the
+    64-column grid over four backward chunks (8192 x 1024 x 30522, peaked,
+    masked); 48 tokens (the backward's dS launch on its narrow tiles);
+    small off-grid cases (200 x 96 x 1000: bf16, f32, bf16 x with f32 W)
+    and a hidden size off the 16-byte grid (77 x 100 x 1000 bf16: the
+    forward kernel refuses it, the backward runs the FMA tile; lse from
+    the plain forward).  The off-grid cases carry a target of -1.  loss
+    and lse within f32 tolerances; dX and dW of ``lm_head_dx``,
+    ``lm_head_dw`` and ``lm_head_bwd`` entry by entry
+    (``_lm_head_grad_bounds``), dW's rows with no target also reported on
+    their own; ``lm_head_bwd`` bitwise the two calls and a repeat; each
+    call's launches those of its chunk plan.  Timed cases also time the
+    whole backward against the library's, and log each launch's TFLOP/s
+    and the chunk count."""
     from apex_tpu_torch.ops.lm_head import (
-        lm_head_dw, lm_head_dw_reference, lm_head_dx, lm_head_dx_reference,
-        lm_head_fwd, lm_head_fwd_reference)
+        bwd_chunk_plan, lm_head_bwd, lm_head_bwd_reference, lm_head_dw,
+        lm_head_dw_reference, lm_head_dx, lm_head_dx_reference, lm_head_fwd,
+        lm_head_fwd_reference)
     out = {}
     bf, f32 = torch.bfloat16, torch.float32
     vg, vb = GPT350M["vocab_size"], BERT_LARGE["vocab_size"]
@@ -1114,41 +1168,81 @@ def kernel_lm_head(gen):
              ("bert", BERT_ROWS, HIDDEN, vb, bf, bf, True, 0.02, True),
              ("gpt f32", TRAIN_ROWS, HIDDEN, vg, f32, f32, False, 0.02, True),
              ("peaked", 1000, HIDDEN, 30522, bf, bf, False, 0.1, False),
+             ("chunked off-grid", TRAIN_ROWS, HIDDEN, 30522, bf, bf, True,
+              0.1, False),
+             ("48 tokens", 48, HIDDEN, vg, bf, bf, False, 0.02, False),
              ("small bf16", 200, 96, 1000, bf, bf, True, 0.02, False),
              ("small f32", 200, 96, 1000, f32, f32, True, 0.02, False),
              ("small bf16 x f32 w", 200, 96, 1000, bf, f32, True, 0.02,
-              False)]
+              False),
+             ("unaligned bf16", 77, 100, 1000, bf, bf, True, 0.02, False)]
     for tag, n, h, v, xdt, wdt, masked, w_std, timed in cases:
         x, w, t, g = _lm_head_inputs(gen, n, h, v, xdt, wdt, masked, w_std)
         off_grid = not timed
         if off_grid:
             t[3] = -1                        # matches no column: loss = lse
-        before = lm_head_fwd.launches
-        loss, lse = lm_head_fwd(x, w, t)
-        if lm_head_fwd.launches - before != 2:
-            raise AssertionError("lm_head_fwd: expected 2 launches per call")
+        name = f"lm_head {tag} ({n}x{h}x{v})"
         rloss, rlse = lm_head_fwd_reference(x, w, t)
+        if h % 8 == 0:
+            before = lm_head_fwd.launches
+            loss, lse = lm_head_fwd(x, w, t)
+            if lm_head_fwd.launches - before != 2:
+                raise AssertionError("lm_head_fwd: expected 2 launches per "
+                                     "call")
+            torch.cuda.synchronize()
+            # f32 scores summed in another order over H, then a logsumexp
+            # over V in another order
+            err_f = max(check_close(f"{name} loss", loss, rloss, 1e-4, 1e-5),
+                        check_close(f"{name} lse", lse, rlse, 1e-4, 1e-5))
+        else:                                # the forward kernel refuses it
+            loss, lse = rloss, rlse
+        dt = torch.bfloat16 if xdt == wdt == bf else f32
+        plan = bwd_chunk_plan(n, v, dt.itemsize)
+        before = (lm_head_dx.launches, lm_head_dw.launches)
         dx = lm_head_dx(x, w, t, lse, g)
         dw = lm_head_dw(x, w, t, lse, g)
+        bdx, bdw = lm_head_bwd(x, w, t, lse, g)
+        got = (lm_head_dx.launches - before[0],
+               lm_head_dw.launches - before[1])
+        want = tuple(map(sum, zip(*(plan.launches(c)
+                                    for c in ("dx", "dw", "bwd")))))
+        if got != want:
+            raise AssertionError(f"{name}: launches (dx, dw) {got}, want "
+                                 f"{want} ({len(plan.chunks)} chunks)")
+        # every entry is summed by one block in a fixed order, and the
+        # whole backward runs the two calls' launches
+        rdx2, rdw2 = lm_head_bwd(x, w, t, lse, g)
+        for label, a, b in (("lm_head_bwd against lm_head_dx", bdx, dx),
+                            ("lm_head_bwd against lm_head_dw", bdw, dw),
+                            ("lm_head_bwd dx on a repeat", rdx2, bdx),
+                            ("lm_head_bwd dw on a repeat", rdw2, bdw)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: {label} differ")
+        del rdx2, rdw2
+        log(f"  {name}: {len(plan.chunks)} chunks of {plan.width} columns; "
+            f"launches (dx, dw) {got} as planned; lm_head_bwd bitwise "
+            f"lm_head_dx / lm_head_dw and a repeat ok")
         rdx = lm_head_dx_reference(x, w, t, lse, g)
         rdw = lm_head_dw_reference(x, w, t, lse, g)
         torch.cuda.synchronize()
-        name = f"lm_head {tag} ({n}x{h}x{v})"
-        # f32 scores summed in another order over H, then a logsumexp over
-        # V in another order
-        err_f = max(check_close(f"{name} loss", loss, rloss, 1e-4, 1e-5),
-                    check_close(f"{name} lse", lse, rlse, 1e-4, 1e-5))
         # the kernels round dS to bf16 for a bf16 pair only
         slx, slw = _lm_head_grad_bounds(x, w, t, lse, g, xdt == wdt == bf)
+        free = _no_target_rows(v, t, g)
         errs = dict(dx=check_entrywise(f"{name} dx", dx, rdx, slx),
-                    dw=check_entrywise(f"{name} dw", dw, rdw, slw,
-                                           _no_target_rows(v, t, g)))
-        del slx, slw
+                    dw=check_entrywise(f"{name} dw", dw, rdw, slw, free))
+        errs["bwd"] = max(
+            check_entrywise(f"{name} lm_head_bwd dx", bdx, rdx, slx),
+            check_entrywise(f"{name} lm_head_bwd dw", bdw, rdw, slw, free))
+        del slx, slw, bdx, bdw
         if off_grid:
             if float(loss[3]) != float(lse[3]):
                 raise AssertionError(f"{name}: target -1 must give loss "
                                      f"= lse")
             continue
+        out[f"chunks_{tag.replace(' ', '_')}"] = dict(
+            width=plan.width, count=len(plan.chunks),
+            launches=_log_bwd_launches(f"lm_head_bwd {tag}", x, w, t, lse, g,
+                                       plan))
         ops = 2 * n * v * h
         isz = x.element_size()
         io = n * h * isz + v * h * w.element_size() + n * 8
@@ -1160,20 +1254,24 @@ def kernel_lm_head(gen):
         lib_grad = time_ms([lib_bwd] * reps, rounds) - t_fwd
         plain = dict(fwd=lambda: lm_head_fwd_reference(x, w, t),
                      dx=lambda: lm_head_dx_reference(x, w, t, lse, g),
-                     dw=lambda: lm_head_dw_reference(x, w, t, lse, g))
+                     dw=lambda: lm_head_dw_reference(x, w, t, lse, g),
+                     bwd=lambda: lm_head_bwd_reference(x, w, t, lse, g))
         kern = dict(fwd=lambda: lm_head_fwd(x, w, t),
                     dx=lambda: lm_head_dx(x, w, t, lse, g),
-                    dw=lambda: lm_head_dw(x, w, t, lse, g))
+                    dw=lambda: lm_head_dw(x, w, t, lse, g),
+                    bwd=lambda: lm_head_bwd(x, w, t, lse, g))
         io_part = dict(fwd=io + n * 8, dx=io + n * 8 + n * h * isz,
-                       dw=io + n * 8 + v * h * w.element_size())
-        for part, work in (("fwd", ops), ("dx", 2 * ops), ("dw", 2 * ops)):
+                       dw=io + n * 8 + v * h * w.element_size(),
+                       bwd=io + n * 8 + n * h * isz + v * h * w.element_size())
+        work = dict(fwd=ops, dx=2 * ops, dw=2 * ops, bwd=3 * ops)
+        for part in ("fwd", "dx", "dw", "bwd"):
             key = f"{part}_{tag.replace(' ', '_')}"
             out[key] = numbers(
                 err_f if part == "fwd" else errs[part],
                 time_ms([kern[part]] * reps, rounds),
                 time_ms([plain[part]] * 3, rounds=3),
                 t_fwd if part == "fwd" else lib_grad,
-                bound_ms(io_part[part], work, peak),
+                bound_ms(io_part[part], work[part], peak),
                 call_ms(kern[part], iters=5 if f32_case else 50))
             log_numbers(f"lm_head_{part} {tag}", out[key],
                         "matmul + F.cross_entropy (two calls; "
@@ -2592,7 +2690,8 @@ _PLAIN_VERSIONS = {
         "multi_tensor_novograd_reference"),
     "apex_tpu_torch.ops.lm_head": ("lm_head_fwd_reference",
                                    "lm_head_dx_reference",
-                                   "lm_head_dw_reference"),
+                                   "lm_head_dw_reference",
+                                   "lm_head_bwd_reference"),
     "apex_tpu_torch.ops.fused_ffn": ("ffn_fwd_reference", "ffn_dx_reference",
                                      "ffn_dw_reference", "ffn_bwd_reference",
                                      "fused_ffn_reference"),
@@ -2642,6 +2741,15 @@ def ffn_bwd_launches(call):
     return dict(dx=(2, 0), dw=(0, 4), bwd=(2, 3))[call]
 
 
+def lm_head_bwd_launches(calls, tokens, vocab):
+    """#9 and #10 launches of ``calls`` backward passes of the fused head
+    (one ``lm_head_bwd`` each: bf16 operands, dS once per vocab chunk) at
+    ``tokens`` rows a micro-batch, from the wrappers' chunk plan."""
+    from apex_tpu_torch.ops.lm_head import bwd_chunk_plan
+    dx, dw = bwd_chunk_plan(tokens, vocab, 2).launches("bwd")
+    return {"lm_head_dx": calls * dx, "lm_head_dw": calls * dw}
+
+
 def ffn_launches(steps, micro, layers, fused):
     """#11-#13 launches of ``steps`` training steps at 8192 rows a
     micro-batch: per micro-batch and layer the forward (two GEMM
@@ -2687,10 +2795,11 @@ def phase_train(fused_ffn=False, tag="[5]"):
                 "flash_attention_dq": n_steps * ACCUM * layers,
                 "flash_attention_dkv": n_steps * ACCUM * layers,
                 "multi_tensor_adam": n_steps * table_launches(numels),
-                # the forward's split pass and its combine, then dX, dW
+                # the forward's split pass and its combine, then the
+                # backward's chunks
                 "lm_head_fwd": n_steps * ACCUM * 2,
-                "lm_head_dx": n_steps * ACCUM,
-                "lm_head_dw": n_steps * ACCUM,
+                **lm_head_bwd_launches(n_steps * ACCUM, MICRO * SEQ,
+                                       GPT350M["vocab_size"]),
                 **ffn_launches(n_steps, ACCUM, layers, fused_ffn)}
     step_s = statistics.median(times[1:])
     tokens_per_step = ACCUM * MICRO * SEQ
@@ -2888,8 +2997,8 @@ def phase_bert_train(fused_ffn=False, tag="[7]"):
                 "multi_tensor_lamb_stage1": n * table,
                 "multi_tensor_lamb_stage2": n * table,
                 "lm_head_fwd": n * BERT_ACCUM * 2,
-                "lm_head_dx": n * BERT_ACCUM,
-                "lm_head_dw": n * BERT_ACCUM,
+                **lm_head_bwd_launches(n * BERT_ACCUM, BERT_ROWS,
+                                       BERT_LARGE["vocab_size"]),
                 **ffn_launches(n, BERT_ACCUM, layers, fused_ffn)}
     step_s = statistics.median(times[1:])
     tokens_per_step = BERT_ACCUM * BERT_MICRO * BERT_SEQ
@@ -3456,9 +3565,9 @@ _KERNEL_CLASSES = (("layer_norm_bwd", "layer_norm_bwd"),
                    ("multi_tensor_adagrad_kernel", "multi_tensor_adagrad"),
                    ("multi_tensor_novograd_kernel", "multi_tensor_novograd"),
                    ("lm_head_fwd", "lm_head_fwd"),
-                   ("lm_head_dx", "lm_head_dx"),
-                   ("lm_head_dw", "lm_head_dw"),
-                   # csrc/gemm.cuh's launches by their epilogue type:
+                   # csrc/gemm.cuh's launches by their epilogue type: the
+                   # LM head's dS (once a backward, filed under dX as its
+                   # launches count), dX and dW;
                    # the forward's (BiasGelu, Bias); the backward's dh =
                    # dy W2 (DzFromDh, once a backward, filed under dX as
                    # its launch counts) and dX (DxOut); dW1, dW2 (DwOut)
@@ -3466,6 +3575,9 @@ _KERNEL_CLASSES = (("layer_norm_bwd", "layer_norm_bwd"),
                    ("ffn::DzFromDh", "ffn_dx"),
                    ("ffn::DxOut", "ffn_dx"),
                    ("ffn::DwOut", "ffn_dw"),
+                   ("lm_head::DsFromScores", "lm_head_dx"),
+                   ("lm_head::DxOut", "lm_head_dx"),
+                   ("lm_head::DwOut", "lm_head_dw"),
                    ("ffn_db1_kernel", "ffn_dw"))
 
 

@@ -221,12 +221,198 @@ def test_wrappers_refuse_tensors_their_kernels_do_not_take():
     rows = torch.empty(4, device="meta")
     for call in (lambda: tlm.lm_head_fwd(meta, wm, tm),
                  lambda: tlm.lm_head_dx(meta, wm, tm, rows, rows),
-                 lambda: tlm.lm_head_dw(meta, wm, tm, rows, rows)):
+                 lambda: tlm.lm_head_dw(meta, wm, tm, rows, rows),
+                 lambda: tlm.lm_head_bwd(meta, wm, tm, rows, rows)):
         with pytest.raises(ValueError, match="CUDA device"):
             call()
     with pytest.raises(ValueError, match=r"\(N, H\) and \(V, H\)"):
         tlm.fused_linear_cross_entropy(torch.zeros(4, 16), torch.zeros(10, 8),
                                        torch.zeros(4, dtype=torch.long))
+
+
+# -- the backward's vocab chunks ---------------------------------------------
+
+@pytest.mark.parametrize("v", [50304, 30528, 30522, 1000])
+@pytest.mark.parametrize("n", [8192, 1000, 1])
+def test_chunk_plan_covers_the_vocab_on_the_grid(n, v):
+    """The chunks cover [0, V) exactly, in order; each dS chunk is on the
+    64-column grid (the last padded by less than 64) and within 128 MiB,
+    for bf16 and f32 dS."""
+    for itemsize in (2, 4):
+        plan = tlm.bwd_chunk_plan(n, v, itemsize)
+        assert plan.width % tlm.CHUNK_GRID == 0
+        assert n * plan.width * itemsize <= tlm.DS_CHUNK_BYTES
+        v0s = [c[0] for c in plan.chunks]
+        assert v0s == list(range(0, v, plan.width))
+        assert sum(c[1] for c in plan.chunks) == v
+        for v0, valid, padded in plan.chunks:
+            assert 0 < valid <= plan.width and padded <= plan.width
+            assert padded % tlm.CHUNK_GRID == 0
+            assert 0 <= padded - valid < tlm.CHUNK_GRID
+        assert all(c[1] == plan.width for c in plan.chunks[:-1])
+
+
+def test_chunk_plan_at_the_model_heads():
+    """8192 bf16 tokens: at most 8192 columns (128 MiB), 7 chunks of
+    GPT-350M's vocab and 4 of BERT-large's; f32 dS halves the width."""
+    gpt, bert = tlm.bwd_chunk_plan(8192, 50304, 2), \
+        tlm.bwd_chunk_plan(8192, 30528, 2)
+    assert (len(gpt.chunks), len(bert.chunks)) == (7, 4)
+    assert gpt.width <= 8192 and bert.width <= 8192
+    assert tlm.bwd_chunk_plan(8192, 50304, 4).width <= 4096
+    assert len(tlm.bwd_chunk_plan(1, 50304, 2).chunks) == 1
+    assert gpt.launches("dx") == (14, 0)
+    assert gpt.launches("dw") == (0, 14)
+    assert gpt.launches("bwd") == (14, 7)
+
+
+class _FakeLib:
+    """Stands in for the kernel library: records apex_lm_head_bwd's
+    arguments and launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def apex_lm_head_bwd(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("call", ["dx", "dw", "bwd"])
+@pytest.mark.parametrize("shape", [(8192, 64, 50304), (200, 96, 1000)],
+                         ids=["gpt_vocab", "small"])
+def test_wrappers_count_the_plans_launches(monkeypatch, call, shape):
+    """What a wrapper adds to the counters is its chunk plan's launch
+    count, and the C entry gets the plan's width and the outputs asked
+    for (meta tensors past the device check; the library a stand-in)."""
+    n, h, v = shape
+    fake = _FakeLib()
+    monkeypatch.setattr(tlm._kernels, "lib", lambda: fake)
+    monkeypatch.setattr(tlm._kernels, "stream", lambda: 0)
+    monkeypatch.setattr(tlm, "_check_operands",
+                        lambda kernel, x, w, t: (t.to(torch.int32), (1, 1)))
+    x = torch.empty((n, h), dtype=torch.bfloat16, device="meta")
+    w = torch.empty((v, h), dtype=torch.bfloat16, device="meta")
+    t = torch.zeros(n, dtype=torch.long, device="meta")
+    rows = torch.empty(n, device="meta")
+    before = (tlm.lm_head_dx.launches, tlm.lm_head_dw.launches)
+    fn = dict(dx=tlm.lm_head_dx, dw=tlm.lm_head_dw, bwd=tlm.lm_head_bwd)
+    out = fn[call](x, w, t, rows, rows)
+    got = (tlm.lm_head_dx.launches - before[0],
+           tlm.lm_head_dw.launches - before[1])
+    plan = tlm.bwd_chunk_plan(n, v, 2)
+    assert got == plan.launches(call)
+    (args,) = fake.calls
+    assert args[9:13] == (n, v, h, plan.width)
+    want_dx, want_dw = call != "dw", call != "dx"
+    assert (args[5] is not None, args[6] is not None) == (want_dx, want_dw)
+    assert (args[8] is not None) == (want_dx and len(plan.chunks) > 1)
+    shapes = [tuple(o.shape) for o in (out if call == "bwd" else (out,))]
+    assert shapes == [(n, h)] * want_dx + [(v, h)] * want_dw
+
+
+@pytest.mark.parametrize("pair", list(PAIRS))
+def test_bwd_reference_is_the_dx_and_dw_pair(pair):
+    x, w, t, g = _torch(pair)
+    _, lse = tlm.lm_head_fwd_reference(x, w, t)
+    dx, dw = tlm.lm_head_bwd_reference(x, w, t, lse, g)
+    assert torch.equal(dx, tlm.lm_head_dx_reference(x, w, t, lse, g))
+    assert torch.equal(dw, tlm.lm_head_dw_reference(x, w, t, lse, g))
+
+
+@pytest.mark.parametrize("pair", ["bf16", "f32", "bf16_x_f32_w"])
+def test_bwd_reference_matches_jax_bwd_impl(pair):
+    """lm_head_bwd_reference against the JAX ``_bwd_impl`` run through its
+    Pallas kernels in interpret mode (V = 1000, off the 64-column grid,
+    row 5 targeting -1), with the tolerances above."""
+    j = _jax_cached(pair)
+    x, w, t, g = _torch(pair)
+    assert int(t[5]) == -1 and V % 64
+    _, lse = tlm.lm_head_fwd_reference(x, w, t)
+    dx, dw = tlm.lm_head_bwd_reference(x, w, t, lse, g)
+    assert (dx.dtype, dw.dtype) == (x.dtype, w.dtype)
+    _assert_grad(dx, j["dx"], _grad_tol(dx.dtype))
+    _assert_grad(dw, j["dw"], _grad_tol(dw.dtype))
+
+
+def _chunked_bwd(x, w, t, lse, g, plan, round_each_chunk):
+    """The kernels' chunked backward in plain torch: per chunk dS from the
+    chunk's scores (W's rows past V zero, dS's columns past V zero), dX
+    summed in f32 across chunks (or, ``round_each_chunk``, rounded to x's
+    dtype after each chunk), dW's rows of the chunk.  Returns (dX in x's
+    dtype, its f32 sum, dW)."""
+    dt = tlm._dot_dtype(x.dtype, w.dtype)
+    xo = x.to(dt).float()
+    acc = torch.zeros(x.shape, dtype=torch.float32)
+    dw = torch.empty_like(w)
+    for v0, valid, padded in plan.chunks:
+        wc = torch.zeros((padded, w.shape[1]))
+        wc[:valid] = w[v0:v0 + valid].to(dt).float()
+        p = torch.exp(xo @ wc.t() - lse[:, None])
+        cols = v0 + torch.arange(padded)
+        hit = (cols[None, :] == t[:, None]).float()
+        ds = torch.where(cols[None, :] < v0 + valid, (p - hit) * g[:, None],
+                         0.0).to(dt).float()
+        acc = acc + ds @ wc
+        if round_each_chunk:
+            acc = acc.to(x.dtype).float()
+        dw[v0:v0 + valid] = (ds.t() @ xo)[:valid].to(w.dtype)
+    return acc.to(x.dtype), acc, dw
+
+
+def test_chunked_backward_sums_dx_in_f32(monkeypatch):
+    """A chunked emulation of the plain version over 4 chunks (a 256-column
+    width; the last chunk padded from 232 columns) equals the unchunked
+    one: dX's f32 sum within 1e-5 of its largest entry (the order of f32
+    sums), dX within one bf16 ulp of each entry plus that, dW within 1e-2
+    of its largest entry (dS rounded to bf16 from scores summed in another
+    order, as ``_grad_tol``).  One that rounds dX to bf16 after each chunk
+    misses the f32 bound by orders of magnitude."""
+    x, w, t, g = _torch("bf16")
+    _, lse = tlm.lm_head_fwd_reference(x, w, t)
+    monkeypatch.setattr(tlm, "DS_CHUNK_BYTES", N * 256 * 2)
+    plan = tlm.bwd_chunk_plan(N, V, 2)
+    assert plan.width == 256 and len(plan.chunks) == 4
+    assert plan.chunks[-1][1:] == (232, 256)
+    ds, _ = tlm._ds(x, w, t, lse, g)
+    want32 = ds @ w.float()
+    want_dx, want_dw = tlm.lm_head_bwd_reference(x, w, t, lse, g)
+    top = float(want32.abs().max())
+    dx, acc, dw = _chunked_bwd(x, w, t, lse, g, plan, False)
+    assert float((acc - want32).abs().max()) <= 1e-5 * top
+    ulp = 2.0 ** -7
+    assert bool(((dx.float() - want_dx.float()).abs()
+                 <= ulp * want_dx.float().abs() + 1e-5 * top).all())
+    _assert_grad(dw, want_dw.float().numpy(), 1e-2)
+    rounded, _, _ = _chunked_bwd(x, w, t, lse, g, plan, True)
+    assert float((rounded.float() - want32).abs().max()) > 1e-5 * top * 30
+
+
+@pytest.mark.parametrize("need", [(True, True), (True, False), (False, True)],
+                         ids=["both", "dx", "dw"])
+def test_autograd_takes_one_backward_call(monkeypatch, need):
+    """Both gradients come from one lm_head_bwd (dS once); one alone from
+    lm_head_dx or lm_head_dw (on the CPU: their plain versions)."""
+    calls = []
+    for name in ("lm_head_bwd_reference", "lm_head_dx_reference",
+                 "lm_head_dw_reference"):
+        fn = getattr(tlm, name)
+        monkeypatch.setattr(tlm, name, lambda *a, _fn=fn, _name=name: (
+            calls.append(_name), _fn(*a))[1])
+    x, w, t, g = _torch("f32")
+    x.requires_grad_(need[0])
+    w.requires_grad_(need[1])
+    tlm.fused_linear_cross_entropy(x, w, t).backward(g)
+    want = {(True, True): ["lm_head_bwd_reference"],
+            (True, False): ["lm_head_dx_reference"],
+            (False, True): ["lm_head_dw_reference"]}[need]
+    assert calls == want
+    _, lse = tlm.lm_head_fwd_reference(x.detach(), w.detach(), t)
+    ref = tlm.lm_head_bwd_reference(x.detach(), w.detach(), t, lse, g)
+    for leaf, r, needed in zip((x, w), ref, need):
+        assert (leaf.grad is not None) == needed
+        if needed:
+            assert torch.equal(leaf.grad, r)
 
 
 @functools.lru_cache(maxsize=None)
@@ -294,3 +480,28 @@ def test_card_gradient_rule_rejects_a_wrong_softmax_term(w_std, fault):
         assert verdicts == [True, True]
     else:
         assert not all(verdicts), fault
+
+
+def test_card_expected_launches_come_from_the_chunk_plan():
+    """Phases 5 / 5f and 7 / 7f expect, per micro-batch, one lm_head_bwd
+    on bf16 operands: 14 dS + dX and 7 dW launches at GPT-350M's head
+    (7 chunks), 8 and 4 at BERT-large's (4 chunks)."""
+    card = _chip_smoke()
+    assert card.lm_head_bwd_launches(8, 8192, 50304) == {
+        "lm_head_dx": 8 * 14, "lm_head_dw": 8 * 7}
+    assert card.lm_head_bwd_launches(8, 8192, 30528) == {
+        "lm_head_dx": 8 * 8, "lm_head_dw": 8 * 4}
+
+
+@pytest.mark.parametrize("epilogue,cls", [("DsFromScores", "lm_head_dx"),
+                                          ("DxOut", "lm_head_dx"),
+                                          ("DwOut", "lm_head_dw")])
+def test_card_profile_files_the_backward_gemm_launches(epilogue, cls):
+    """The profiler files the backward's GEMM launches under #9 and #10 by
+    their epilogue type, apart from the FFN's of the same names."""
+    card = _chip_smoke()
+    name = ("void apex_tpu_torch::gemm::gemm_tma_kernel<256, false, true, "
+            f"apex_tpu_torch::lm_head::{epilogue}>(CUtensorMap, CUtensorMap, "
+            f"int, apex_tpu_torch::lm_head::{epilogue})")
+    assert card._kernel_class(name) == cls
+    assert card._kernel_class(name.replace("lm_head::", "ffn::")) != cls

@@ -22,7 +22,8 @@ from apex_tpu_torch.ops.flash_attention import (flash_attention_decode,
                                                 flash_attention_dq, flash_fwd)
 from apex_tpu_torch.ops.fused_ffn import ffn_bwd, ffn_dw, ffn_dx, ffn_fwd
 from apex_tpu_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
-from apex_tpu_torch.ops.lm_head import lm_head_dw, lm_head_dx, lm_head_fwd
+from apex_tpu_torch.ops.lm_head import (lm_head_bwd, lm_head_dw, lm_head_dx,
+                                        lm_head_fwd)
 from apex_tpu_torch.ops.quant_gemm import quant_gemm
 from apex_tpu_torch.ops.multi_tensor import (multi_tensor_adagrad,
                                              multi_tensor_adam,
@@ -258,7 +259,8 @@ def test_cuda_wrappers_refuse_what_their_kernels_do_not_take():
                                     "multi_tensor_lamb_stage1",
                                     "multi_tensor_lamb_stage2",
                                     "lm_head_fwd", "lm_head_dx",
-                                    "lm_head_dw", "ffn_fwd", "ffn_dx",
+                                    "lm_head_dw", "lm_head_bwd", "ffn_fwd",
+                                    "ffn_dx",
                                     "ffn_dw", "ffn_bwd", "multi_tensor_axpby_",
                                     "multi_tensor_sgd", "multi_tensor_adagrad",
                                     "multi_tensor_novograd",
@@ -292,6 +294,8 @@ def test_training_wrappers_refuse_non_cpu_tensors_they_cannot_launch(kernel):
                                          rows.float()),
         "lm_head_dw": lambda: lm_head_dw(x, x, rows, rows.float(),
                                          rows.float()),
+        "lm_head_bwd": lambda: lm_head_bwd(x, x, rows, rows.float(),
+                                           rows.float()),
         "ffn_fwd": lambda: ffn_fwd(x, x.t(), rows.float()[:4], x),
         "ffn_dx": lambda: ffn_dx(x, x, x.t(), x),
         "ffn_dw": lambda: ffn_dw(x, x, x, x.t(), x),
