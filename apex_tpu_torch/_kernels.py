@@ -62,8 +62,7 @@ _SIGNATURES = {
     "apex_flash_fwd": [_P] * 6 + [_I] * 5 + [_L] * 12 + _FLASH_TAIL,
     "apex_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_L] * 15 + _FLASH_TAIL,
     "apex_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_L] * 18 + _FLASH_TAIL,
-    "apex_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I]
-                         + [_L] * 10 + [_F, _I, _P],
+    "apex_flash_decode": [_P] * 6 + [_I] * 5 + [_L] * 10 + [_F, _I, _P],
     "apex_multi_tensor_adam": [_I] + [_P] * 9 + [_I, _P, _P],
     "apex_multi_tensor_scale": [_I] + [_P] * 9,
     "apex_multi_tensor_l2norm": [_I] + [_P] * 9,
@@ -78,7 +77,7 @@ _SIGNATURES = {
     "apex_lm_head_bwd": [_P] * 9 + [_I] * 7 + [_P],
     "apex_ffn_fwd": [_P] * 8 + [_I] * 5 + [_P],
     "apex_ffn_bwd": [_P] * 12 + [_I] * 7 + [_P],
-    "apex_flash_decode_paged": [_P] * 6 + [_I] * 6 + [_L] * 10
+    "apex_flash_decode_paged": [_P] * 7 + [_I] * 7 + [_L] * 10
                                + [_F, _I, _P],
     "apex_quant_gemm": [_P] * 4 + [_I] * 3 + [_L] + [_I] * 3 + [_P],
 }

@@ -55,6 +55,9 @@ _U32 = 0xFFFFFFFF
 # head dims the CUDA kernels are instantiated for
 FLASH_HEAD_DIMS = (16, 32, 64)
 DECODE_HEAD_DIMS = (16, 32, 64, 128)
+# keys per chunk of the decode kernels' split-K pass (csrc/decode.cuh
+# kDecodeSplit): a row is cut at 0, DECODE_SPLIT, ... whatever the cache
+DECODE_SPLIT = 128
 
 __all__ = ["flash_attention", "flash_attention_reference", "flash_fwd",
            "flash_fwd_reference", "flash_attention_dq",
@@ -300,6 +303,33 @@ def _check_aligned(kernel, **operands):
             raise ValueError(f"{kernel}: {name}'s batch, head and seq strides "
                              f"must be multiples of 8 elements, got "
                              f"{tuple(t.stride()[:3])}")
+
+
+def _check_decode_aligned(kernel, **operands):
+    """The decode kernels read q, K and V 16 bytes a lane, so each operand
+    must start on a 16-byte boundary and the stride of each axis longer
+    than one, but the last, must be a multiple of 16 bytes.  The model's
+    q (a split of the qkv projection) and the ring's and the pool's
+    per-layer views qualify at every dtype and head dim of
+    ``DECODE_HEAD_DIMS``."""
+    for name, t in operands.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must start on a 16-byte "
+                             f"boundary (data_ptr % 16 = {t.data_ptr() % 16})")
+        size = t.element_size()
+        if any(st * size % 16 for st, n in zip(t.stride()[:-1], t.shape[:-1])
+               if n > 1):
+            raise ValueError(f"{kernel}: {name}'s strides must be multiples "
+                             f"of 16 bytes, got {tuple(t.stride())} in "
+                             f"{size}-byte elements")
+
+
+def _decode_workspace(b, h, d, positions, device):
+    """The f32 chunk partials (acc[D], m, l) of the split pass:
+    ``(n_split, workspace)`` for rows of up to ``positions`` keys."""
+    n_split = -(-positions // DECODE_SPLIT)
+    return n_split, torch.empty(b * h * n_split * (d + 2), dtype=_f32,
+                                device=device)
 
 
 def _check_operands(kernel, q, k, v, do=None):
@@ -561,8 +591,11 @@ def flash_attention_decode(q, k_cache, v_cache, cache_lens,
 
     On CUDA the caches may be strided views (``cache[:, layer, 0]`` of the
     engine's slot ring): the kernel reads them through their strides and
-    nothing is copied; only the last axis must be contiguous, and q and
-    the caches must share a dtype.
+    nothing is copied; only the last axis must be contiguous, q and the
+    caches must share a dtype and be 16-byte aligned
+    (:func:`_check_decode_aligned`).  One call is one counted launch of
+    ``csrc/flash_decode.cu``: its split-K pass over chunks of
+    ``DECODE_SPLIT`` keys into an f32 workspace, then the combine.
     """
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k_cache, v_cache)):
@@ -595,14 +628,17 @@ def flash_attention_decode(q, k_cache, v_cache, cache_lens,
             f"{DECODE_HEAD_DIMS})")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         _check_last_dim(f"flash_attention_decode {name}", t)
+    _check_decode_aligned("flash_attention_decode", q=q, k_cache=k_cache,
+                          v_cache=v_cache)
     lens = cache_lens.to(device=q.device, dtype=torch.int32).contiguous()
     if lens.shape != (b,):
         raise ValueError(f"flash_attention_decode: cache_lens must be ({b},)")
     code = _kernels.dtype_code(q, "flash_attention_decode")
     o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    n_split, work = _decode_workspace(b, h, d, S, q.device)
     rc = _kernels.lib().apex_flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
-        lens.data_ptr(), b, h, S, d,
+        lens.data_ptr(), work.data_ptr(), b, h, S, d, n_split,
         q.stride(0), q.stride(1),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
@@ -654,11 +690,13 @@ def flash_attention_decode_paged(q, k_pool, v_pool, block_tables, cache_lens,
     :func:`flash_attention_decode` on the gathered contiguous cache.
 
     A CUDA tensor launches ``csrc/flash_decode_paged.cu`` (counterpart of
-    the Pallas ``_decode_paged_kernel``), which walks the table per key and
-    never gathers; the pools may be strided views (``pool[:, layer, 0]``),
-    only the last axis contiguous.  It shares the contiguous kernel's body,
-    so its output is bitwise the contiguous kernel's on the gathered cache.
-    A CPU tensor takes :func:`flash_attention_decode_paged_reference`.
+    the Pallas ``_decode_paged_kernel``), which reads each chunk's table
+    entries once and never gathers; the pools may be strided views
+    (``pool[:, layer, 0]``), only the last axis contiguous, 16-byte
+    aligned, and the block size a power of two.  It shares the contiguous
+    kernel's split-K body, so its output is bitwise the contiguous
+    kernel's on the gathered cache.  A CPU tensor takes
+    :func:`flash_attention_decode_paged_reference`.
     """
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k_pool, v_pool)):
@@ -691,6 +729,11 @@ def flash_attention_decode_paged(q, k_pool, v_pool, block_tables, cache_lens,
             f"{kernel}: head_dim {d} (kernel built for {DECODE_HEAD_DIMS})")
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
         _check_last_dim(f"{kernel} {name}", t)
+    _check_decode_aligned(kernel, q=q, k_pool=k_pool, v_pool=v_pool)
+    if bs & (bs - 1):
+        raise ValueError(f"{kernel}: block_size {bs} is not a power of two "
+                         "(a chunk of the kernel covers DECODE_SPLIT / "
+                         "block_size table entries)")
     if block_tables.ndim != 2 or block_tables.shape[0] != b:
         raise ValueError(f"{kernel}: block_tables must be ({b}, max_blocks)")
     tables = block_tables.to(torch.int32).contiguous()
@@ -699,10 +742,12 @@ def flash_attention_decode_paged(q, k_pool, v_pool, block_tables, cache_lens,
         raise ValueError(f"{kernel}: cache_lens must be ({b},)")
     code = _kernels.dtype_code(q, kernel)
     o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    max_blocks = tables.shape[1]
+    n_split, work = _decode_workspace(b, h, d, max_blocks * bs, q.device)
     rc = _kernels.lib().apex_flash_decode_paged(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), o.data_ptr(),
-        tables.data_ptr(), lens.data_ptr(), b, h, d, n_blocks, bs,
-        tables.shape[1], q.stride(0), q.stride(1),
+        tables.data_ptr(), lens.data_ptr(), work.data_ptr(), b, h, d,
+        n_blocks, bs, max_blocks, n_split, q.stride(0), q.stride(1),
         k_pool.stride(0), k_pool.stride(1), k_pool.stride(2),
         v_pool.stride(0), v_pool.stride(1), v_pool.stride(2),
         o.stride(0), o.stride(1), scale, code, _kernels.stream())

@@ -40,10 +40,14 @@ Phases (any failure exits non-zero; nothing is caught):
    as Adam), on a mixed list of 40 bf16 / f16 / f32 tensors with f32
    masters and model copies, and SGD at ResNet-50's O1 and O2 lists (161
    tensors), their yardsticks ``SGD(fused=True)`` and
-   ``Adagrad(foreach=True)``; the paged decode (#7) on a 513-block bf16
-   pool through a shuffled table with shared blocks, ragged lengths and an
-   inactive slot, also against #6 on the gathered cache (bitwise), its
-   yardstick the table gather + SDPA; the int8 dequant-GEMM (#14) over a
+   ``Adagrad(foreach=True)``; the decode (#6) on a strided bf16 ring with
+   ragged lengths, its yardstick SDPA + mask, and the paged decode (#7) on
+   a 513-block bf16 pool through a shuffled table with shared blocks,
+   ragged lengths and an inactive slot, also against #6 on the gathered
+   cache (bitwise), its yardstick the table gather + SDPA, both with GB/s
+   and the share of the bound, bitwise on a repeat, and in every dtype
+   and head dim at the split pass's chunk edges (#7 at block sizes 8 and
+   16, bitwise #6); the int8 dequant-GEMM (#14) over a
    whole GPT-350M decode step's 97 calls (8 rows, 353.6 MB of int8), the
    prefill's shapes at 512 rows (the f32 head among them) and off-grid
    cases, its yardstick ``F.linear`` on weights dequantized in advance;
@@ -732,8 +736,14 @@ def kernel_flash_bwd(gen):
 
 
 def kernel_decode(gen):
+    """#6 against its plain version at the serving shape (8 slots, 16 heads
+    of 64, a bf16 ring of 1024 positions x 24 layers read through its
+    strided per-layer views, ragged lengths; timed over the 24 layers),
+    bitwise on a repeat, then at the chunk edges in every dtype and head
+    dim."""
     from apex_tpu_torch.ops.flash_attention import (
-        flash_attention_decode, flash_attention_decode_reference)
+        DECODE_HEAD_DIMS, flash_attention_decode,
+        flash_attention_decode_reference)
     scale = HEAD_DIM ** -0.5
     layers = GPT350M["num_layers"]
     cache = torch.randn(SLOTS, layers, 2, MAX_SEQ, HEADS, HEAD_DIM,
@@ -770,8 +780,63 @@ def kernel_decode(gen):
         bound_ms(n_bytes, 4 * HEAD_DIM * HEADS * total, PEAK_BF16_FLOPS),
         call_ms(lambda: flash_attention_decode(q, k, v, lens, scale)))
     log_numbers("flash_attention_decode", n, "sdpa + mask")
+    log_rate("flash_attention_decode", n, n_bytes)
+    if not torch.equal(o, flash_attention_decode(q, k, v, lens, scale)):
+        raise AssertionError("flash_attention_decode: two calls on the same "
+                             "inputs differ")
+    log("  flash_attention_decode: two calls bitwise equal ok")
     del cache, views
+    for dt in DECODE_EDGE_TOL:
+        for hd in DECODE_HEAD_DIMS:
+            _decode_edge_check(gen, dt, hd)
     return n
+
+
+# the split-K decode kernels cut a row at 0, DECODE_SPLIT, ...: a row with
+# no key, lengths on each side of the first chunk edge, the whole cache and
+# a length past it, over a cache of 3 chunks
+DECODE_EDGE_S = 3 * 128
+DECODE_EDGE_TOL = {torch.bfloat16: BF16_ATOL, torch.float16: F16_ATOL,
+                   torch.float32: F32_ATOL}
+
+
+def decode_edge_lens(s):
+    from apex_tpu_torch.ops.flash_attention import DECODE_SPLIT
+    k = DECODE_SPLIT
+    return [0, 1, k - 1, k, k + 1, s, s + 100]
+
+
+def log_rate(name, n, n_bytes):
+    """GB/s and the share of the bound beside a decode kernel's time."""
+    n["gb_per_s"] = n_bytes / (n["ms"] * 1e-3) / 1e9
+    n["bound_share"] = n["bound_ms"] / n["ms"]
+    log(f"  {name}: {n['gb_per_s']:.1f} GB/s, {n['bound_share']:.1%} of the "
+        "bound")
+
+
+def _decode_edge_check(gen, dtype, hd):
+    """#6 on a strided ring at ``decode_edge_lens``: against its plain
+    version, bitwise on a repeat, the row of length 0 exactly 0."""
+    from apex_tpu_torch.ops.flash_attention import (
+        flash_attention_decode, flash_attention_decode_reference)
+    lens_l = decode_edge_lens(DECODE_EDGE_S)
+    b, h = len(lens_l), 2
+    ring = torch.randn(b, 2, 2, DECODE_EDGE_S, h, hd, generator=gen).to(
+        "cuda", dtype)
+    q = torch.randn(b, h, hd, generator=gen).to("cuda", dtype)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    k, v = ring[:, 1, 0], ring[:, 1, 1]
+    o = flash_attention_decode(q, k, v, lens)
+    ref = flash_attention_decode_reference(q, k, v, lens)
+    torch.cuda.synchronize()
+    tol = DECODE_EDGE_TOL[dtype]
+    check_close(f"flash_attention_decode {str(dtype)[6:]} hd {hd} lens "
+                f"{lens_l}", o, ref, tol, tol)
+    if not torch.equal(o, flash_attention_decode(q, k, v, lens)):
+        raise AssertionError("flash_attention_decode: a repeat differs")
+    if o[0].any():
+        raise AssertionError("flash_attention_decode: a row of length 0 is "
+                             "not 0")
 
 PAGED_BS = 16                  # the paged engine's block size on the path
 PAGED_BLOCKS = MAX_SEQ // PAGED_BS
@@ -802,9 +867,11 @@ def kernel_decode_paged(gen):
     a bf16 pool of 513 blocks of 16 positions x 24 layers, read through
     its strided per-layer views, with ragged lengths, a shuffled table
     whose rows share blocks, and an inactive slot (all-zero table, length
-    1).  Timed over the 24 layers' views."""
+    1).  Timed over the 24 layers' views; bitwise on a repeat; then at the
+    chunk edges, at block sizes 8 and 16, in every dtype and head dim, each
+    case also bitwise #6 on the gathered cache."""
     from apex_tpu_torch.ops.flash_attention import (
-        flash_attention_decode, flash_attention_decode_paged,
+        DECODE_HEAD_DIMS, flash_attention_decode, flash_attention_decode_paged,
         flash_attention_decode_paged_reference, gather_paged_kv)
     scale = HEAD_DIM ** -0.5
     layers = GPT350M["num_layers"]
@@ -857,8 +924,56 @@ def kernel_decode_paged(gen):
                                                      scale)))
     log_numbers("flash_attention_decode_paged", n,
                 "pool[tables] gather + sdpa + mask")
+    log_rate("flash_attention_decode_paged", n, n_bytes)
+    if not torch.equal(o, flash_attention_decode_paged(q, k, v, tables, lens,
+                                                       scale)):
+        raise AssertionError("flash_attention_decode_paged: two calls on the "
+                             "same inputs differ")
+    log("  flash_attention_decode_paged: two calls bitwise equal ok")
     del pool, views, kg, vg
+    for bs in (8, 16):
+        for dt in DECODE_EDGE_TOL:
+            for hd in DECODE_HEAD_DIMS:
+                _decode_paged_edge_check(gen, dt, hd, bs)
     return n
+
+
+def _decode_paged_edge_check(gen, dtype, hd, bs):
+    """#7 at ``decode_edge_lens`` through a shuffled table of blocks of
+    ``bs``: against its plain version, bitwise #6 on the gathered cache,
+    bitwise on a repeat."""
+    from apex_tpu_torch.ops.flash_attention import (
+        flash_attention_decode, flash_attention_decode_paged,
+        flash_attention_decode_paged_reference, gather_paged_kv)
+    nb = DECODE_EDGE_S // bs
+    lens_l = decode_edge_lens(DECODE_EDGE_S)
+    b, h = len(lens_l), 2
+    need = [min(-(-n // bs), nb) for n in lens_l]
+    pool = torch.randn(1 + sum(need), 2, 2, bs, h, hd, generator=gen).to(
+        "cuda", dtype)
+    ids = list(np.random.RandomState(bs + hd).permutation(
+        np.arange(1, 1 + sum(need))))
+    tables_np = np.zeros((b, nb), np.int32)
+    for i, n in enumerate(need):
+        tables_np[i, :n] = [ids.pop() for _ in range(n)]
+    tables = torch.from_numpy(tables_np).to("cuda")
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    q = torch.randn(b, h, hd, generator=gen).to("cuda", dtype)
+    k, v = pool[:, 1, 0], pool[:, 1, 1]
+    o = flash_attention_decode_paged(q, k, v, tables, lens)
+    ref = flash_attention_decode_paged_reference(q, k, v, tables, lens)
+    o6 = flash_attention_decode(q, gather_paged_kv(k, tables),
+                                gather_paged_kv(v, tables), lens)
+    torch.cuda.synchronize()
+    tol = DECODE_EDGE_TOL[dtype]
+    name = f"flash_attention_decode_paged bs {bs} {str(dtype)[6:]} hd {hd}"
+    check_close(f"{name} lens {lens_l}", o, ref, tol, tol)
+    if not torch.equal(o, o6):
+        raise AssertionError(f"{name}: #7 and #6 disagree on the same cache "
+                             f"(max |d| {max_err(o, o6):.3e})")
+    if not torch.equal(o, flash_attention_decode_paged(q, k, v, tables,
+                                                       lens)):
+        raise AssertionError(f"{name}: a repeat differs")
 
 
 def _qgemm_bounds(shapes):
@@ -3550,9 +3665,9 @@ _KERNEL_CLASSES = (("layer_norm_bwd", "layer_norm_bwd"),
                    ("flash_fwd_", "flash_fwd"),     # _mma_ (bf16), _fma_
                    ("flash_bwd_dq_", "flash_attention_dq"),   # _mma_, _fma_
                    ("flash_bwd_dkv_", "flash_attention_dkv"),
-                   ("flash_decode_kernel", "flash_attention_decode"),
-                   ("flash_decode_paged_kernel",
-                    "flash_attention_decode_paged"),
+                   # the split-K pass and the combine of #7, then of #6
+                   ("flash_decode_paged_", "flash_attention_decode_paged"),
+                   ("flash_decode_", "flash_attention_decode"),
                    ("qgemm_", "quant_gemm"),
                    ("multi_tensor_adam_kernel", "multi_tensor_adam"),
                    ("multi_tensor_scale_kernel", "multi_tensor_scale_"),

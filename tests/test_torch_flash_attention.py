@@ -340,6 +340,38 @@ def test_decode_matches_jax_on_strided_cache(jax_path, cache_dtype):
                                rtol=tol, atol=tol)
 
 
+# The card's decode kernels cut a row at 0, DECODE_SPLIT, 2 DECODE_SPLIT,
+# ...: lengths on each side of a chunk edge, a row with no key, the whole
+# cache and a length past it.  S is a multiple of 128, where the JAX
+# kernel pads no position (a padded one would count as a key below len).
+_EDGE_S = 3 * tfa.DECODE_SPLIT
+_EDGE_LENS = [0, 1, tfa.DECODE_SPLIT - 1, tfa.DECODE_SPLIT,
+              tfa.DECODE_SPLIT + 1, _EDGE_S, _EDGE_S + 100]
+
+
+@pytest.mark.parametrize("cache_dtype", ["f32", "bf16"])
+def test_decode_matches_jax_at_the_chunk_edges(jax_path, cache_dtype):
+    """The lengths of ``_EDGE_LENS`` over a strided ring view: f32 within
+    2e-5, a bf16 cache within 2e-2 (as above); a row of length 0 is 0."""
+    b, h, d, layers = len(_EDGE_LENS), 2, 32, 2
+    rng = np.random.RandomState(5)
+    q = rng.randn(b, h, d).astype(np.float32)
+    ring = rng.randn(b, layers, 2, _EDGE_S, h, d).astype(np.float32)
+    lens = np.array(_EDGE_LENS, np.int32)
+    jdt = jnp.bfloat16 if cache_dtype == "bf16" else jnp.float32
+    tdt = torch.bfloat16 if cache_dtype == "bf16" else torch.float32
+    ref = jfa.flash_attention_decode(
+        jnp.asarray(q), jnp.asarray(ring[:, 0, 0], jdt),
+        jnp.asarray(ring[:, 0, 1], jdt), jnp.asarray(lens))
+    tring = torch.from_numpy(ring).to(tdt)
+    out = tfa.flash_attention_decode(torch.from_numpy(q), tring[:, 0, 0],
+                                     tring[:, 0, 1], torch.from_numpy(lens))
+    tol = 2e-5 if cache_dtype == "f32" else 2e-2
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref, np.float32),
+                               rtol=tol, atol=tol)
+    assert not out[0].any()
+
+
 def test_decode_equals_last_row_of_causal_flash():
     q, k, v = (torch.from_numpy(a) for a in _qkv(4))
     full = tfa.flash_attention(q, k, v, causal=True)

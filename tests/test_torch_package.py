@@ -264,6 +264,7 @@ def test_cuda_wrappers_refuse_what_their_kernels_do_not_take():
                                     "ffn_dw", "ffn_bwd", "multi_tensor_axpby_",
                                     "multi_tensor_sgd", "multi_tensor_adagrad",
                                     "multi_tensor_novograd",
+                                    "flash_attention_decode",
                                     "flash_attention_decode_paged",
                                     "quant_gemm"])
 def test_training_wrappers_refuse_non_cpu_tensors_they_cannot_launch(kernel):
@@ -309,6 +310,9 @@ def test_training_wrappers_refuse_non_cpu_tensors_they_cannot_launch(kernel):
         "multi_tensor_novograd": lambda: multi_tensor_novograd(
             [x], [x], [x], None, torch.empty(1, device="meta"),
             torch.empty(6, device="meta")),
+        "flash_attention_decode": lambda: flash_attention_decode(
+            torch.empty((2, 8, 16), device="meta"), meta, meta,
+            torch.ones(2, dtype=torch.int32, device="meta")),
         "flash_attention_decode_paged": lambda: flash_attention_decode_paged(
             torch.empty((2, 4, 16), device="meta"), meta, meta,
             torch.zeros((2, 3), dtype=torch.int32, device="meta"),
@@ -382,6 +386,59 @@ def test_ctypes_signatures_match_the_c_entry_points(name):
     reverse) without any error on the host: the kernel then reads a bad
     address on the card."""
     assert _c_signatures()[name] == _kernels._SIGNATURES[name]
+
+
+def _decode_operands(dtype, hd, slots=2, heads=4, seq=32, layers=2):
+    """The decode kernels' operands as the model passes them, on the meta
+    device (no memory, no card): q split from the ``(b, 1, nh, 3*hd)`` qkv
+    projection, a ring's per-layer K view and a pool's."""
+    q = torch.empty((slots, 1, heads, 3 * hd), dtype=dtype,
+                    device="meta").split(hd, dim=-1)[0][:, 0]
+    ring = torch.empty((slots, layers, 2, seq, heads, hd), dtype=dtype,
+                       device="meta")
+    pool = torch.empty((9, layers, 2, 16, heads, hd), dtype=dtype,
+                       device="meta")
+    return dict(q=q, k_cache=ring[:, 1, 0], k_pool=pool[:, 1, 0])
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_decode_alignment_check_raises_before_any_launch(monkeypatch, dtype,
+                                                         hd):
+    """The decode kernels read 16 bytes a lane: the model's layouts pass
+    the wrappers' check, and an operand whose strides or base are off 16
+    bytes is refused, with nothing launched."""
+    from apex_tpu_torch.ops import flash_attention as fa
+    monkeypatch.setattr(_kernels, "lib",
+                        lambda: pytest.fail("a kernel was launched"))
+    ops = _decode_operands(dtype, hd)
+    fa._check_decode_aligned("flash_attention_decode", **ops)
+    # a projection one element wider: q's slot and head strides are off
+    wide = torch.empty((2, 1, 4, 3 * hd + 1), dtype=dtype,
+                       device="meta").split(hd, dim=-1)[0][:, 0]
+    with pytest.raises(ValueError, match=r"^flash_attention_decode: q's "
+                                         r"strides must be multiples of 16"):
+        fa._check_decode_aligned("flash_attention_decode", q=wide,
+                                 k_cache=ops["k_cache"])
+    # a cache one element off its 16-byte boundary (CPU memory: a real base)
+    cache = torch.zeros((2, 8, 4, hd + 1), dtype=dtype)[..., 1:]
+    with pytest.raises(ValueError, match=r"^flash_attention_decode_paged: "
+                                         r"k_pool must start on a 16-byte"):
+        fa._check_decode_aligned("flash_attention_decode_paged",
+                                 q=ops["q"], k_pool=cache)
+
+
+def test_decode_split_is_the_kernels_and_fits_the_pool_block_sizes():
+    """The wrappers size the split pass's workspace with ``DECODE_SPLIT``,
+    which the C entry points check against ``kDecodeSplit``; it is a
+    multiple of the paged engine's block sizes (8, the default, and 16)."""
+    import re
+    from apex_tpu_torch.ops.flash_attention import DECODE_SPLIT
+    src = (_kernels.CSRC / "decode.cuh").read_text()
+    assert int(re.search(r"kDecodeSplit = (\d+);", src).group(1)) \
+        == DECODE_SPLIT
+    assert DECODE_SPLIT % 8 == 0 and DECODE_SPLIT % 16 == 0
 
 
 def test_configs_accept_fused_ffn_and_keep_jax_refusals():

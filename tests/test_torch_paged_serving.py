@@ -266,6 +266,40 @@ def test_decode_paged_plain_version_matches_jax(pallas):
             tfa.gather_paged_kv(pv, tables), lens).numpy())
 
 
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("pallas", [True, False],
+                         ids=["jax_interpret_kernel", "jax_default_path"])
+def test_decode_paged_matches_jax_at_the_chunk_edges(pallas, bs):
+    """#7's plain version against JAX at the lengths where the card's
+    split-K kernel cuts a row (0, 1, DECODE_SPLIT - 1, DECODE_SPLIT,
+    DECODE_SPLIT + 1, the whole table and past it), at both of the
+    engine's block sizes, through a shuffled table; f32 within 1e-5."""
+    split = tfa.DECODE_SPLIT
+    nb = 3 * split // bs
+    lens = np.array([0, 1, split - 1, split, split + 1, nb * bs,
+                     nb * bs + 100], np.int32)
+    b, h, d = len(lens), 1, 16
+    rng = np.random.RandomState(6)
+    pool_blocks = 1 + int(sum(min(-(-n // bs), nb) for n in lens))
+    pk = rng.randn(pool_blocks, bs, h, d).astype(np.float32)
+    pv = rng.randn(pool_blocks, bs, h, d).astype(np.float32)
+    ids = list(rng.permutation(np.arange(1, pool_blocks)))
+    tables = np.zeros((b, nb), np.int32)
+    for i, n in enumerate(lens):
+        need = min(-(-int(n) // bs), nb)
+        tables[i, :need] = [ids.pop() for _ in range(need)]
+    q = rng.randn(b, h, d).astype(np.float32)
+    args = (q, pk, pv, tables, lens)
+    set_force_pallas(True if pallas else None)
+    try:
+        want = np.asarray(jfa.flash_attention_decode_paged(*_to_jax(*args)))
+    finally:
+        set_force_pallas(None)
+    got = tfa.flash_attention_decode_paged(*_to_torch(*args))
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+    assert not got[0].any()
+
+
 def test_chunk_paged_matches_jax():
     q1, pk, pv, tables, _ = _paged_inputs(2)
     rng = np.random.RandomState(3)
