@@ -79,7 +79,8 @@ _SIGNATURES = {
     "apex_ffn_bwd": [_P] * 12 + [_I] * 7 + [_P],
     "apex_flash_decode_paged": [_P] * 7 + [_I] * 7 + [_L] * 10
                                + [_F, _I, _P],
-    "apex_quant_gemm": [_P] * 4 + [_I] * 3 + [_L] + [_I] * 3 + [_P],
+    "apex_quant_gemm": [_P] * 5 + [_I] * 3 + [_L] + [_I] * 4 + [_P],
+    "apex_quant_gemm_slots": [_I] * 3,
 }
 
 _lib = None

@@ -49,8 +49,12 @@ Phases (any failure exits non-zero; nothing is caught):
    and head dim at the split pass's chunk edges (#7 at block sizes 8 and
    16, bitwise #6); the int8 dequant-GEMM (#14) over a
    whole GPT-350M decode step's 97 calls (8 rows, 353.6 MB of int8), the
-   prefill's shapes at 512 rows (the f32 head among them) and off-grid
-   cases, its yardstick ``F.linear`` on weights dequantized in advance;
+   prefill's shapes at 512 rows (the f32 head among them), every token
+   count at the TMA kernel's tile and split edges (k 1024 and 4096, n
+   1030, bf16 and f32), f32 x spread over 1e-3 .. 1e3 (also against the
+   f64 product) and with inf / nan entries, and off-grid cases, bitwise
+   on a repeat, its yardstick ``F.linear`` on weights dequantized in
+   advance;
 3. GPT-350M (vocab 50304, hidden 1024, 24 layers, 16 heads, ffn 4096,
    max_seq 1024, bf16 activations, f32 params, random weights from seed 0)
    served by ``InferenceEngine`` (8 slots, bf16 cache): 10 greedy requests,
@@ -321,7 +325,8 @@ def phase_build():
     if report.exists():
         text = report.read_text()
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or line.startswith("=="):
+            if ("registers" in line or "spill" in line or "wgmma" in line
+                    or line.startswith("==")):
                 log("    " + line.strip())
         for name, regs in _ptxas_by_kernel(text, NAMED_REPORT):
             log(f"    {name}: {regs}")
@@ -976,15 +981,22 @@ def _decode_paged_edge_check(gen, dtype, hd, bs):
         raise AssertionError(f"{name}: a repeat differs")
 
 
-def _qgemm_bounds(shapes):
+def _qgemm_bounds(shapes, f32_peak=False):
     """Bound of a set of dequant-GEMM calls ``(m, n, k, x dtype)``: every
     int8 weight, scale, x and f32 y moved once, against the operations at
-    the peak of x's type (bf16 on the tensor cores, else f32)."""
+    the bf16 tensor cores' peak: f32 x as the three bf16 passes its kernel
+    runs (``f32_peak``: f32 x's 2 m n k at the f32 peak instead, the
+    figure kept beside it)."""
     n_bytes = sum(n * k + 4 * n + m * k * (2 if dt == torch.bfloat16 else 4)
                   + 4 * m * n for m, n, k, dt in shapes)
-    t_ops = sum(2 * m * n * k / (PEAK_BF16_FLOPS if dt == torch.bfloat16
-                                 else PEAK_F32_FLOPS)
-                for m, n, k, dt in shapes)
+    t_ops = 0.0
+    for m, n, k, dt in shapes:
+        if dt == torch.bfloat16:
+            t_ops += 2 * m * n * k / PEAK_BF16_FLOPS
+        elif f32_peak:
+            t_ops += 2 * m * n * k / PEAK_F32_FLOPS
+        else:
+            t_ops += 3 * 2 * m * n * k / PEAK_BF16_FLOPS
     t_bytes = n_bytes / HBM_BYTES_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -999,22 +1011,144 @@ def gpt350m_gemm_shapes():
 
 # #14 against its plain version, entry by entry: the plain version rounds
 # its product to x's type (bf16: 2**-8 relative, f16: 2**-11) and the
-# kernel returns the f32 sum; in f32 only the order of the sum over k
-# differs
+# kernel returns the f32 sum; in f32 (three bf16 parts of x, each product
+# exact) only f32 rounding and the order of the sum over k differ
 QGEMM_TOL = {torch.bfloat16: BF16_ATOL, torch.float16: 2e-3,
              torch.float32: 1e-4}
+# token counts at every edge of the TMA kernel's BN (8 ... 128) and k split
+QGEMM_EDGE_M = (1, 7, 8, 9, 16, 17, 63, 64, 65, 255, 256, 257, 512)
+QGEMM_EDGE_N = 1030            # not a multiple of 128 (nor of 4)
+# f32 x spread over 1e-3 .. 1e3: the kernel's f32 sum of exact bf16
+# products may be at most this many times further from the f64 product
+# than the plain version's f32 product (a two-part split of x, whose
+# distance is logged beside, is 4.5-15x further at the checked shapes)
+QGEMM_SPLIT_VS_PLAIN = 2.0
+
+
+def _plan_tag(x, w8):
+    from apex_tpu_torch.ops.quant_gemm import qgemm_plan_for
+    p = qgemm_plan_for(x.reshape(-1, x.shape[-1]), w8)
+    return (p.kernel if p.kernel != "qgemm_tma"
+            else f"qgemm_tma bn {p.bn} ks {p.ks} parts {p.parts}")
+
+
+def _qgemm_check(name, x, w8, scale):
+    """#14 on (x, w8, scale) against its plain version within QGEMM_TOL,
+    and bitwise on a repeat; returns the max abs error.  The plain version
+    runs as the models run it (``GPTModel`` turns these flags off): no
+    TF32, and bf16 products reduced in f32 as the JAX dots are (with
+    torch's default bf16 reduction in cuBLAS's split-K partial sums an
+    entry of |ref| < 1.8 at 65 x 1030 x 4096 lay 0.055 off the f32 sum of
+    the same operands, where the kernel lay 1e-5).  bf16 x is also held
+    within 1e-4 of the f32 product of the same bf16 operands, the
+    kernel's arithmetic less its order of summation."""
+    from apex_tpu_torch.ops.quant_gemm import (
+        dequantize_weight, quant_gemm, quant_gemm_reference)
+    got = quant_gemm(x, w8, scale)
+    again = quant_gemm(x, w8, scale)
+    flags = _matmul_flags()
+    _set_matmul_flags((False, False, False))
+    try:
+        ref = quant_gemm_reference(x, w8, scale)
+        f32 = (x.float() @ dequantize_weight(w8, scale).to(x.dtype).float()
+               .t()) if x.dtype == torch.bfloat16 else None
+    finally:
+        _set_matmul_flags(flags)
+    torch.cuda.synchronize()
+    tol = QGEMM_TOL[x.dtype]
+    tag = f"{name} [{_plan_tag(x, w8)}]"
+    err = check_close(tag, got, ref, tol, tol)
+    if f32 is not None:
+        check_close(f"{tag} against the f32 product of its bf16 operands",
+                    got, f32, F32_ATOL, F32_RTOL)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: a repeat differs")
+    return err
+
+
+def _qgemm_split_checks(gen_cuda, weight):
+    """f32 x through the three-part split: entries spread over 1e-3 ..
+    1e3 (both signs) against the plain version within QGEMM_TOL and, next
+    to the f64 product, within QGEMM_SPLIT_VS_PLAIN of the plain
+    version's own error (a two-part split, emulated in f64, beside);
+    then inf and nan entries, whose rows must match the plain version's
+    inf / nan pattern.  The weights' scales are a hundredth of the path's, so
+    |y| stays near 40: at the path's scales (|y| ~ 1e3 on such x) the
+    plain version's own f32 rounding exceeds 1e-4."""
+    from apex_tpu_torch.ops.quant_gemm import (
+        quant_gemm, quant_gemm_reference, split_bf16x3_reference)
+    out = {}
+    for m, k in ((8, 1024), (64, 4096), (512, 1024)):
+        n = QGEMM_EDGE_N
+        w8, scale = weight(n, k)
+        scale = scale * 1e-2
+        mag = 10.0 ** (torch.rand(m, k, generator=gen_cuda, device="cuda")
+                       * 6 - 3)
+        x = torch.where(torch.rand(m, k, generator=gen_cuda, device="cuda")
+                        < 0.5, -mag, mag)
+        name = f"quant_gemm f32 spread 1e-3..1e3 {m}x{n}x{k}"
+        err = _qgemm_check(name, x, w8, scale)
+        wq = w8.double() * scale.double()[:, None]
+        exact = x.double() @ wq.t()
+        got = quant_gemm(x, w8, scale).double()
+        plain = quant_gemm_reference(x, w8, scale).double()
+        parts = split_bf16x3_reference(x).double()
+        two = (parts[0] + parts[1]) @ wq.t()
+        e_k, e_p, e_2 = (float((a - exact).abs().max())
+                         for a in (got, plain, two))
+        ok = e_k <= QGEMM_SPLIT_VS_PLAIN * e_p
+        log(f"  {name} against the f64 product: kernel {e_k:.3e}, plain "
+            f"version {e_p:.3e}, two-part split {e_2:.3e} (max |y| "
+            f"{float(exact.abs().max()):.1f}; kernel <= "
+            f"{QGEMM_SPLIT_VS_PLAIN} x plain) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: less accurate than its plain "
+                                 f"version")
+        out[f"{m}x{n}x{k}"] = dict(max_abs_err=err, vs_f64=e_k,
+                                   plain_vs_f64=e_p, two_part_vs_f64=e_2)
+        del wq, exact, got, plain, parts, two
+    # one inf and one nan entry (rows 1 and 5 of 8; -inf in row 6 of 64)
+    for m, bad in ((8, ((1, 3, float("inf")), (5, 700, float("nan")))),
+                   (64, ((6, 0, float("-inf")),))):
+        k = 1024
+        w8, scale = weight(QGEMM_EDGE_N, k)
+        x = torch.randn(m, k, generator=gen_cuda, device="cuda")
+        for r, col, v in bad:
+            x[r, col] = v
+        got = quant_gemm(x, w8, scale)
+        ref = quant_gemm_reference(x, w8, scale)
+        torch.cuda.synchronize()
+        same = (torch.equal(torch.isnan(got), torch.isnan(ref))
+                and torch.equal(torch.isposinf(got), torch.isposinf(ref))
+                and torch.equal(torch.isneginf(got), torch.isneginf(ref)))
+        fin = torch.isfinite(ref)
+        err = max_err(got[fin], ref[fin])
+        ok = same and bool(torch.allclose(got[fin], ref[fin], atol=1e-4,
+                                          rtol=1e-4))
+        log(f"  quant_gemm f32 {m}x{QGEMM_EDGE_N}x{k} with {len(bad)} "
+            f"non-finite x: nan {int(torch.isnan(ref).sum())}, inf "
+            f"{int(torch.isinf(ref).sum())} entries as the plain version's "
+            f"{'(same)' if same else '(DIFFERENT)'}, finite max_abs_err="
+            f"{err:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("quant_gemm disagrees with its plain "
+                                 "version on non-finite x")
+    return out
 
 
 def kernel_quant_gemm(gen_cuda):
     """#14 against its plain version (dequantize to f32, cast to x's type,
-    ``x @ w.T``, f32), entry by entry within ``QGEMM_TOL`` at the
-    int8 path's shapes: a whole decode step's 97 calls (8 rows; 24 layers
-    of qkv / proj / fc1 / fc2 in bf16, each layer its own weights, and
-    the f32 tied head, 353.6 MB of int8), the prefill's shapes at 512 rows
-    (the f32 head is its slowest call), and off the grids (5 x 130 x 200,
-    33 x 130 x 200, 16 x 512 x 512, bf16 and f32; 17 x 64 x 48 f16).
-    The yardstick is ``F.linear`` on a weight dequantized in advance to
-    x's type."""
+    ``x @ w.T``, f32), entry by entry within ``QGEMM_TOL`` and bitwise on a
+    repeat, with the kernel each call's plan names: at the int8 path's
+    shapes (a whole decode step's 97 calls: 8 rows; 24 layers of qkv /
+    proj / fc1 / fc2 in bf16, each layer its own weights, and the f32 tied
+    head, 353.6 MB of int8; the prefill's shapes at 512 rows), at every
+    token count of ``QGEMM_EDGE_M`` with k 1024 and 4096 and n 1030 in
+    bf16 and f32, f32 x spread over 1e-3 .. 1e3 and with non-finite
+    entries (``_qgemm_split_checks``), and off the TMA grid (5 x 130 x
+    200, 33 x 130 x 200, bf16 and f32; 17 x 64 x 48 f16; x rows off 16
+    bytes).  The yardstick is ``F.linear`` on a weight dequantized in
+    advance to x's type."""
     from apex_tpu_torch.ops.quant_gemm import (
         dequantize_weight, quant_gemm, quant_gemm_reference)
     bf, f32 = torch.bfloat16, torch.float32
@@ -1030,21 +1164,22 @@ def kernel_quant_gemm(gen_cuda):
     def act(m, k, dt):
         return torch.randn(m, k, generator=gen_cuda, device="cuda").to(dt)
 
-    def check(name, x, w8, scale):
-        got = quant_gemm(x, w8, scale)
-        ref = quant_gemm_reference(x, w8, scale)
-        torch.cuda.synchronize()
-        tol = QGEMM_TOL[x.dtype]
-        return check_close(name, got, ref, tol, tol)
-
-    for m, n, k in ((5, 130, 200), (33, 130, 200), (16, 512, 512)):
+    for m, n, k in ((5, 130, 200), (33, 130, 200)):
         for dt in (bf, f32):
-            w8, scale = weight(n, k)
-            check(f"quant_gemm off-grid {m}x{n}x{k} {dt}", act(m, k, dt),
-                  w8, scale)
-    w8, scale = weight(64, 48)
-    check("quant_gemm off-grid 17x64x48 float16", act(17, 48, torch.float16),
-          w8, scale)
+            _qgemm_check(f"quant_gemm off-grid {m}x{n}x{k} {dt}",
+                         act(m, k, dt), *weight(n, k))
+    _qgemm_check("quant_gemm off-grid 17x64x48 float16",
+                 act(17, 48, torch.float16), *weight(64, 48))
+    # x rows 8 bytes off the 16-byte grid (a column slice)
+    _qgemm_check("quant_gemm x rows off 16 bytes 16x512x512 bf16",
+                 act(16, 516, bf)[:, 4:], *weight(512, 512))
+    for k in (1024, 4096):
+        w = weight(QGEMM_EDGE_N, k)
+        for dt in (bf, f32):
+            for m in QGEMM_EDGE_M:
+                _qgemm_check(f"quant_gemm edge {m}x{QGEMM_EDGE_N}x{k} {dt}",
+                             act(m, k, dt), *w)
+    out["split"] = _qgemm_split_checks(gen_cuda, weight)
 
     layer_shapes, head = gpt350m_gemm_shapes()
     layers = GPT350M["num_layers"]
@@ -1056,10 +1191,11 @@ def kernel_quant_gemm(gen_cuda):
         xh = act(m, head[1], f32)
         err = 0.0
         for (n, k), (w8, scale) in zip(layer_shapes, weights[0]):
-            err = max(err, check(f"quant_gemm {tag} {m}x{n}x{k} bf16",
-                                 xs[k], w8, scale))
-        err = max(err, check(f"quant_gemm {tag} head {m}x{head[0]}x{head[1]} "
-                             "f32", xh, *head_w))
+            err = max(err, _qgemm_check(f"quant_gemm {tag} {m}x{n}x{k} bf16",
+                                        xs[k], w8, scale))
+        err = max(err, _qgemm_check(
+            f"quant_gemm {tag} head {m}x{head[0]}x{head[1]} f32", xh,
+            *head_w))
         calls = [(xs[k], w) for ws in weights
                  for (_, k), w in zip(layer_shapes, ws)] + [(xh, head_w)]
         shapes = [(m, w[0].shape[0], w[0].shape[1], x.dtype)
@@ -1075,8 +1211,11 @@ def kernel_quant_gemm(gen_cuda):
                     time_ms(plain, rounds) * total,
                     time_ms(library, rounds) * total,
                     _qgemm_bounds(shapes), call_ms(kern[0]))
+        n["bound_f32_peak_ms"] = _qgemm_bounds(shapes, f32_peak=True)[0]
         log_numbers(f"quant_gemm, one {tag} step's {total} calls "
                     f"({m} rows)", n, "F.linear on pre-dequantized weights")
+        log(f"    bound with the f32 head at the f32 peak "
+            f"{n['bound_f32_peak_ms']:.5f} ms")
         out[tag] = n
         # each shape alone (layer 0's weights; the head)
         for (nn, k), w in zip(layer_shapes + [head],
@@ -1088,8 +1227,17 @@ def kernel_quant_gemm(gen_cuda):
                           time_ms(lambda: F.linear(x, wd), rounds),
                           _qgemm_bounds([(m, nn, k, x.dtype)]),
                           call_ms(lambda: quant_gemm(x, *w)))
-            log_numbers(f"quant_gemm {tag} {m}x{nn}x{k} {x.dtype}", one,
-                        "F.linear")
+            one["bound_f32_peak_ms"] = _qgemm_bounds(
+                [(m, nn, k, x.dtype)], f32_peak=True)[0]
+            ms = one["ms"]
+            one["tflops"] = 2 * m * nn * k / (ms * 1e-3) / 1e12
+            one["gb_s"] = (nn * k + 4 * nn + m * k * x.element_size()
+                           + 4 * m * nn) / (ms * 1e-3) / 1e9
+            log_numbers(f"quant_gemm {tag} {m}x{nn}x{k} {x.dtype} "
+                        f"[{_plan_tag(x, w[0])}]", one, "F.linear")
+            log(f"    {one['tflops']:.1f} TFLOP/s (2 m n k), "
+                f"{one['gb_s']:.0f} GB/s; bound at the f32 peak "
+                f"{one['bound_f32_peak_ms']:.5f} ms")
             out[f"{tag}_{m}x{nn}x{k}"] = one
         del xs, xh, calls, lib_ws, kern, plain, library
         torch.cuda.empty_cache()

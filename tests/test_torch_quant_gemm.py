@@ -11,7 +11,14 @@
   (carried bit for bit by ``gpt_quant_params_from_jax``), within
   ``WEIGHT_QUANT_LOGITS_TOL`` of the f32 model, greedy streams of both
   engines equal to JAX's, and ``weight_bytes`` under 0.30x f32;
-* the config and training refusals of the JAX package.
+* the config and training refusals of the JAX package;
+* the f32 path of the TMA kernel in plain PyTorch: the split of f32 x
+  into three bf16 parts (``split_bf16x3_reference``) gives x back to
+  2^-24 relative, and the split-and-factored-scale sum
+  (``quant_gemm_split_reference``) is within 1e-4 of the JAX reference
+  and of the Pallas kernel in interpret mode;
+* ``qgemm_plan`` routes GPT-350M's decode and prefill shapes to the TMA
+  kernel and the shapes off its grid to the ``mma.sync`` / FMA kernels.
 """
 
 import dataclasses
@@ -275,3 +282,154 @@ def test_load_quantized_needs_the_int8_config(ci):
     with pytest.raises(ValueError, match="weight_quant"):
         GPTModel(GPTConfig(**CI_KW), device="cpu").load_quantized_(
             quantize_decode_params(f32.state_dict()))
+
+
+# bf16 keeps 8 significant bits, so three parts carry f32's 24: the split
+# gives x back to 2^-24 relative; below bf16's normal range its subnormal
+# step 2^-133 rounds the parts (half a step)
+SPLIT_REL = 2.0 ** -24
+SPLIT_ABS = 2.0 ** -134
+
+
+def _split_case(case):
+    rng = np.random.RandomState(11)
+    if case == "zeros":
+        return np.zeros(64, np.float32)
+    if case == "spread":    # 1e-3 .. 1e3, both signs
+        return (np.sign(rng.randn(256)) * 10.0 ** rng.uniform(-3, 3, 256)
+                ).astype(np.float32)
+    if case == "subnormal":  # f32 subnormals and bf16's smallest normals
+        return np.concatenate([
+            rng.uniform(-1, 1, 64) * np.float32(1.1754944e-38),
+            rng.uniform(-4, 4, 64) * np.float32(1e-37)]).astype(np.float32)
+    if case == "large":      # up to f32's largest, past bf16's largest
+        return np.concatenate([
+            np.array([3.4028235e38, -3.4028235e38, 3.39e38, 1e38],
+                     np.float32),
+            (rng.randn(60) * 1e30).astype(np.float32)])
+    return np.array([np.inf, -np.inf, np.nan, 1.5, -2.25], np.float32)
+
+
+@pytest.mark.parametrize("case", ["zeros", "spread", "subnormal", "large",
+                                  "non_finite"])
+def test_split_bf16x3_reconstructs_x(case):
+    x = _split_case(case)
+    parts = tq.split_bf16x3_reference(torch.from_numpy(x))
+    assert parts.dtype == torch.bfloat16 and tuple(parts.shape) == (
+        3,) + x.shape
+    hi, mid, lo = (p.to(torch.float64).numpy() for p in parts)
+    fin = np.isfinite(x)
+    assert np.isfinite(hi[fin]).all()
+    np.testing.assert_array_equal(mid[~fin], 0.0)
+    np.testing.assert_array_equal(lo[~fin], 0.0)
+    np.testing.assert_array_equal(hi[~fin], x[~fin].astype(np.float64))
+    err = np.abs((hi + mid + lo)[fin] - x[fin].astype(np.float64))
+    lim = SPLIT_REL * np.abs(x[fin].astype(np.float64)) + SPLIT_ABS
+    assert (err <= lim).all(), float((err / lim).max())
+
+
+@pytest.mark.parametrize("m", [8, 64])
+@pytest.mark.parametrize("pallas", [True, False],
+                         ids=["jax_interpret_kernel", "jax_reference"])
+def test_split_sum_matches_jax(pallas, m):
+    """s * (lo q^T + mid q^T + hi q^T) in f32, the f32 head's arithmetic on
+    the TMA kernel, against the JAX f32 dequant-GEMM, within 1e-4."""
+    n, k = 512, 1024
+    rng = np.random.RandomState(13)
+    x = rng.randn(m, k).astype(np.float32)
+    w8, scale = (np.array(a) for a in jq.quantize_weight(
+        jnp.asarray(_weights(14, n, k))))
+    set_force_pallas(True if pallas else None)
+    try:
+        want = jq.quant_gemm(jnp.asarray(x), jnp.asarray(w8),
+                             jnp.asarray(scale), block_n=128, block_k=512)
+    finally:
+        set_force_pallas(None)
+    got = tq.quant_gemm_split_reference(
+        torch.from_numpy(x), torch.from_numpy(w8), torch.from_numpy(scale))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jq.quant_gemm_reference(
+            jnp.asarray(x), jnp.asarray(w8), jnp.asarray(scale))),
+        rtol=1e-4, atol=1e-4)
+
+
+_BF, _F32, _F16 = torch.bfloat16, torch.float32, torch.float16
+_PLANS = [
+    # GPT-350M decode, 8 slots: qkv, proj, fc1 (the register-fed kernel),
+    # fc2 (bf16), the f32 head
+    ((8, 3072, 1024, _BF, True), ("qgemm_bf16_rows16", 0, 1, 1)),
+    ((8, 1024, 1024, _BF, True), ("qgemm_bf16_rows16", 0, 1, 1)),
+    ((8, 4096, 1024, _BF, True), ("qgemm_bf16_rows16", 0, 1, 1)),
+    ((8, 1024, 4096, _BF, True), ("qgemm_tma", 8, 8, 1)),
+    ((8, 50304, 1024, _F32, True), ("qgemm_tma", 8, 1, 3)),
+    # the 512-token prefill
+    ((512, 3072, 1024, _BF, True), ("qgemm_tma", 128, 1, 1)),
+    ((512, 1024, 1024, _BF, True), ("qgemm_tma", 128, 4, 1)),
+    ((512, 4096, 1024, _BF, True), ("qgemm_tma", 128, 1, 1)),
+    ((512, 1024, 4096, _BF, True), ("qgemm_tma", 128, 4, 1)),
+    ((512, 50304, 1024, _F32, True), ("qgemm_tma", 128, 1, 3)),
+    # off the TMA grid: the mma.sync / FMA kernels
+    ((5, 130, 200, _BF, True), ("qgemm_bf16_rows16", 0, 1, 1)),
+    ((33, 130, 200, _BF, True), ("qgemm_bf16_tiles", 0, 1, 1)),
+    ((5, 130, 200, _F32, True), ("qgemm_fma", 0, 1, 1)),
+    ((17, 64, 48, _F16, True), ("qgemm_fma", 0, 1, 1)),
+    ((8, 1024, 4096, _BF, False), ("qgemm_bf16_rows16", 0, 1, 1)),
+    ((64, 1024, 1024, _F32, False), ("qgemm_fma", 0, 1, 1)),
+    ((8, 1024, 4004, _BF, True), ("qgemm_bf16_rows16", 0, 1, 1)),
+    ((32, 1024, 1000, _BF, True), ("qgemm_bf16_tiles", 0, 1, 1)),
+]
+
+
+@pytest.mark.parametrize("shape,want", _PLANS,
+                         ids=[f"{m}x{n}x{k}-{str(dt)[6:]}-"
+                              f"{'al' if a else 'mis'}"
+                              for (m, n, k, dt, a), _ in _PLANS])
+def test_qgemm_plan_routes_by_shape(shape, want):
+    m, n, k, dtype, aligned = shape
+    plan = tq.qgemm_plan(m, n, k, dtype, aligned, sms=132)
+    assert tuple(plan) == want
+    assert plan.kernel in tq.QGEMM_KERNELS
+    if plan.kernel == "qgemm_tma":
+        # the blocks fit one wave; each rank of a split keeps two k steps
+        tiles = -(-m // plan.bn) * -(-n // tq.QGEMM_TMA_ROWS)
+        assert plan.bn >= min(m, 128) and plan.ks <= tq.QGEMM_MAX_SPLIT
+        assert plan.ks == 1 or (tiles * plan.ks <= 132
+                                and -(-k // 64) >= 2 * plan.ks)
+
+
+@pytest.mark.parametrize("held,short_from,want_ks",
+                         [(132, 2, 4), (120, 4, 2), (63, 2, 1)],
+                         ids=["all_sms", "clusters_of_4_short", "none"])
+def test_qgemm_plan_keeps_a_split_within_the_cards_clusters(
+        held, short_from, want_ks):
+    """32 weight tiles of 8 tokens: clusters of ks that the card cannot
+    hold all at once would run a second wave, so the split stops below
+    them."""
+    asked = []
+
+    def slots(bn, parts, ks):
+        asked.append((bn, parts, ks))
+        return held if ks >= short_from else 132
+
+    plan = tq.qgemm_plan(8, 4096, 2048, _BF, True, sms=132, slots=slots)
+    assert (plan.kernel, plan.bn, plan.ks) == ("qgemm_tma", 8, want_ks)
+    assert all(a[:2] == (8, 1) for a in asked)
+
+
+@pytest.mark.parametrize("m,n,k,want", [
+    (512, 1024, 1024, (64, 2)), (512, 1024, 4096, (64, 2)),
+    (512, 3072, 1024, (128, 1)), (512, 4096, 1024, (128, 1))],
+    ids=["proj", "fc2", "qkv", "fc1"])
+def test_qgemm_plan_halves_the_tile_where_the_card_sits_half_idle(
+        m, n, k, want):
+    """A prefill's proj and fc2 (8 weight tiles x 4 token tiles): clusters
+    of 4 that do not all fit leave 64 blocks; tiles of 64 tokens give 128.
+    qkv and fc1 fill the card with 128-token tiles and keep them."""
+    def slots(bn, parts, ks):
+        return 120 if ks >= 4 else 132
+
+    plan = tq.qgemm_plan(m, n, k, _BF, True, sms=132, slots=slots)
+    assert (plan.kernel, (plan.bn, plan.ks)) == ("qgemm_tma", want)
