@@ -40,8 +40,8 @@ SOURCES = ("layer_norm_fwd.cu", "layer_norm_bwd.cu", "flash_fwd.cu",
            "lm_head_fwd.cu",
            "lm_head_bwd.cu", "ffn_fwd.cu", "ffn_bwd.cu",
            "flash_decode_paged.cu", "quant_gemm.cu")
-HEADERS = ("common.cuh", "multi_tensor.cuh", "mma.cuh", "lm_head.cuh",
-           "ffn.cuh", "gemm.cuh", "decode.cuh")
+HEADERS = ("common.cuh", "multi_tensor.cuh", "mma.cuh", "ffn.cuh",
+           "gemm.cuh", "decode.cuh")
 BUILD_DIR = _PKG.parent / "build" / "apex_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -72,8 +72,8 @@ _SIGNATURES = {
     "apex_multi_tensor_sgd": [_I] + [_P] * 10 + [_I] * 4 + [_P, _P],
     "apex_multi_tensor_adagrad": [_I] + [_P] * 10 + [_I, _P, _P],
     "apex_multi_tensor_novograd": [_I] + [_P] * 11 + [_I, _P, _P],
-    "apex_lm_head_fwd_splits": [_I, _I, _I],
-    "apex_lm_head_fwd": [_P] * 6 + [_I] * 6 + [_P],
+    "apex_lm_head_fwd_tiles": [_P, _P, _I, _I, _I],
+    "apex_lm_head_fwd": [_P] * 6 + [_I] * 5 + [_P],
     "apex_lm_head_bwd": [_P] * 9 + [_I] * 7 + [_P],
     "apex_ffn_fwd": [_P] * 8 + [_I] * 5 + [_P],
     "apex_ffn_bwd": [_P] * 12 + [_I] * 7 + [_P],

@@ -40,6 +40,23 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// The sum and the max over each aligned group of kLanes lanes (a power of
+// two), exchanged with lane ^ 1, ^ 2, ... ^ kLanes / 2 in that order, so
+// every lane of a group gets the same bits; all 32 lanes call it.
+template <int kLanes>
+__device__ __forceinline__ float lanes_sum(float v) {
+#pragma unroll
+  for (int o = 1; o < kLanes; o <<= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+template <int kLanes>
+__device__ __forceinline__ float lanes_max(float v) {
+#pragma unroll
+  for (int o = 1; o < kLanes; o <<= 1) v = fmaxf(v, __shfl_xor_sync(kFullMask, v, o));
+  return v;
+}
+
 // v rounded to T and back: where the JAX kernels cast an operand to the
 // input dtype before a product (p before PV, dS before dQ/dK)
 template <typename T>

@@ -10,7 +10,8 @@
 // dy^T h (both MN-major, the contraction over tokens); the LM-head backward
 // (lm_head_bwd.cu) three per vocab chunk: x W_c^T (NT), dS_c W_c (B
 // MN-major, the sum carried across chunks in the accumulator's seed) and
-// dS_c^T x (both MN-major).
+// dS_c^T x (both MN-major); the LM-head forward (lm_head_fwd.cu) one, x W^T
+// (NT) reduced to per-row logsumexp partials.
 //
 // What bounds such a product on the H100 at training width: operations
 // (989 TFLOP/s of bf16), as long as the operand tiles reach shared memory
@@ -53,7 +54,12 @@
 //   runs while the producer loads the next, and the tile goes out through
 //   a swizzled shared tile and a TMA store that runs on under the next
 //   mainloop.  A short contraction (the LM head's H) makes each tile's
-//   prologue and epilogue a large share of its time.
+//   prologue and epilogue a large share of its time.  An epilogue with
+//   row partials instead (row_partial: the LM head forward's logsumexp)
+//   stores no tile: per row of C and column tile it gets the scores of
+//   that row the thread holds, reduces them across the lanes that share
+//   the row and writes one partial, all in registers; the ring takes the
+//   output tile's shared memory as a fourth stage.
 //
 // In gemm_nt (the forward) a few token rows (decode), and operands whose
 // rows are not 16-byte multiples or bases not 16-byte aligned, take
@@ -67,11 +73,12 @@
 // Each output entry is summed by one block in a fixed order (no split of
 // the contraction across blocks, no atomics): a repeat gives the same bits.
 //
-// f32 and f16 operands, and in gemm() (the backward) bf16 operands off
-// TMA's 16-byte grid, run a register-blocked FMA tile (128 x 128 per
-// block, 8 x 8 per thread, f32 arithmetic), staged through registers into
-// double-buffered k-major shared tiles (any dtype: common.cuh's codes); an
-// MN-major operand is read along M (or N) and stored transposed.
+// f32 and f16 operands, and in gemm() (the backwards, the LM-head forward)
+// bf16 operands off TMA's 16-byte grid, run a register-blocked FMA tile
+// (128 x 128 per block, 8 x 8 per thread, f32 arithmetic), staged through
+// registers into double-buffered k-major shared tiles (any dtype:
+// common.cuh's codes); an MN-major operand is read along M (or N) and
+// stored transposed.
 #pragma once
 
 #include <cuda.h>
@@ -193,6 +200,14 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(1), "n"(kTA ? 1 : 0), "n"(kTB ? 1 : 0));
 }
 
+// Keeps the compiler from moving reads of registers that an asynchronous
+// wgmma writes above the wgmma.wait_group that completes it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
 // The ring of stages, which later holds the f32 C tile (128 x (BN + 4))
 // and, for an epilogue with an aux tile, that tile (128 x BN bf16) after
 // it; then the mbarriers and the 1024-byte alignment.
@@ -249,6 +264,20 @@ template <class Epi, class = void>
 struct HasSeed : std::false_type {};
 template <class Epi>
 struct HasSeed<Epi, std::void_t<decltype(&Epi::seed)>> : std::true_type {};
+
+// An epilogue with row values whose is_row_partial member is true reduces
+// each row of a column tile to one partial instead of storing C: the
+// kernels call epi.row_partial<kLanes, K>(row, tile, val, col, row value)
+// where val(i), i < K, are the entries of that row the thread holds, at
+// columns col(i), increasing in i; the kLanes lanes (aligned, a power of
+// two) that share the row call it together, with the other lanes of the
+// warp.  NT products only, through gemm(); the column tiles are
+// row_partial_cols() wide.
+template <class Epi, class = void>
+struct HasRowPartials : std::false_type {};
+template <class Epi>
+struct HasRowPartials<Epi, std::void_t<decltype(Epi::is_row_partial)>>
+    : std::bool_constant<Epi::is_row_partial> {};
 
 // `extra` is the pair's aux values or its row's value, whichever the
 // epilogue takes
@@ -439,12 +468,17 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, const bf16* sr
 }
 
 // The bf16 output tile of gemm_tma_rows_kernel: 128 x 256, four boxes of
-// 128 rows x 64 columns, 128-byte swizzled as the output map stores them
-constexpr int kRowsStages = 3;
+// 128 rows x 64 columns, 128-byte swizzled as the output map stores them.
+// An epilogue with row partials has no output tile: its ring takes that
+// room as a fourth stage.
 constexpr int kRowsBN = 256;
 constexpr int kRowsOutBytes = kTmaBM * kRowsBN * 2;
-constexpr int kRowsSmemBytes =
-    kRowsStages * (kTmaBM + kRowsBN) * kTmaBK * 2 + kRowsOutBytes + 2 * kRowsStages * 8 + 1024;
+template <class Epi>
+constexpr int kRowsStages = HasRowPartials<Epi>::value ? 4 : 3;
+template <class Epi>
+constexpr int kRowsSmemBytes = kRowsStages<Epi> * (kTmaBM + kRowsBN) * kTmaBK * 2 +
+                               (HasRowPartials<Epi>::value ? 0 : kRowsOutBytes) +
+                               2 * kRowsStages<Epi> * 8 + 1024;
 
 // The NT product (A and B K-major) for an epilogue with row values and a
 // bf16 output (the LM head's dS: a contraction of H = 1024, an exponential
@@ -458,26 +492,35 @@ constexpr int kRowsSmemBytes =
 // in shared memory, and one thread stores that tile with TMA, which
 // clips rows and columns outside C; the store runs on under the next
 // tile's mainloop and is waited for before the tile is written again.
+// With row partials (the LM head's forward) each consumer thread hands
+// its 64 scores of each of its two rows to the epilogue, the four lanes
+// of a quad holding the rest of the row's 256; no shared tile, no store,
+// no barrier between the consumers (tc is not read), and a ring of 4 in
+// which a consumer keeps one stage's products in flight while it hands
+// the stage before back (with the ring of 3 beside the output tile that
+// slowed the dS launch by 5% on an H100).
 template <class Epi>
 __global__ void __launch_bounds__(kTmaThreads, 1)
 gemm_tma_rows_kernel(const __grid_constant__ CUtensorMap ta,
                      const __grid_constant__ CUtensorMap tb,
                      const __grid_constant__ CUtensorMap tc, int m, int n, int k, const Epi epi) {
+  constexpr bool kPartials = HasRowPartials<Epi>::value;
+  constexpr int kStages = kRowsStages<Epi>;
   constexpr int BN = kRowsBN, NH = BN / 128;
   constexpr int kStageA = kTmaBM * kTmaBK, kStageB = BN * kTmaBK;  // bf16 elements
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   bf16* sa = reinterpret_cast<bf16*>(smem_raw + (((raw + 1023u) & ~1023u) - raw));
-  bf16* sb = sa + kRowsStages * kStageA;
-  bf16* so = sb + kRowsStages * kStageB;  // the output tile
-  uint64_t* full = reinterpret_cast<uint64_t*>(so + kTmaBM * BN);
-  uint64_t* empty = full + kRowsStages;
+  bf16* sb = sa + kStages * kStageA;
+  bf16* so = sb + kStages * kStageB;  // the output tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(so + (kPartials ? 0 : kTmaBM * BN));
+  uint64_t* empty = full + kStages;
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
   const int tiles_m = (m + kTmaBM - 1) / kTmaBM;
   const int tiles = tiles_m * ((n + BN - 1) / BN);
   const int nk = (k + kTmaBK - 1) / kTmaBK;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kRowsStages; ++i) {
+    for (int i = 0; i < kStages; ++i) {
       mbar_init(&full[i], 1);
       mbar_init(&empty[i], 2);
     }
@@ -485,16 +528,16 @@ gemm_tma_rows_kernel(const __grid_constant__ CUtensorMap ta,
   }
   __syncthreads();
 
-  // `it` counts the block's stages over all its tiles: stage it % kRowsStages
-  // in its (it / kRowsStages)-th use
+  // `it` counts the block's stages over all its tiles: stage it % kStages
+  // in its (it / kStages)-th use
   if (wg == 0) {  // the producer
     if (tid == 0) {
       int it = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         const int m0 = tile % tiles_m * kTmaBM, n0 = tile / tiles_m * BN;
         for (int kt = 0; kt < nk; ++kt, ++it) {
-          const int s = it % kRowsStages;
-          if (it >= kRowsStages) mbar_wait(&empty[s], (it / kRowsStages - 1) & 1);
+          const int s = it % kStages;
+          if (it >= kStages) mbar_wait(&empty[s], (it / kStages - 1) & 1);
           mbar_expect_tx(&full[s], (kStageA + kStageB) * 2);
           tma_load(sa + s * kStageA, &ta, kt * kTmaBK, m0, &full[s]);
           tma_load(sb + s * kStageB, &tb, kt * kTmaBK, n0, &full[s]);
@@ -521,8 +564,8 @@ gemm_tma_rows_kernel(const __grid_constant__ CUtensorMap ta,
     }
 #pragma unroll 1
     for (int kt = 0; kt < nk; ++kt, ++it) {
-      const int s = it % kRowsStages;
-      mbar_wait(&full[s], (it / kRowsStages) & 1);
+      const int s = it % kStages;
+      mbar_wait(&full[s], (it / kStages) & 1);
       const uint32_t a_addr = smem_u32(sa + s * kStageA + cw * 64 * kTmaBK);
       const uint32_t b_addr = smem_u32(sb + s * kStageB);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -535,43 +578,73 @@ gemm_tma_rows_kernel(const __grid_constant__ CUtensorMap ta,
         }
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-      if (tid == 0) mbar_arrive(&empty[s]);
-    }
-    // the last tile's store has read the output tile
-    if (storer) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-    asm volatile("bar.sync 1, 256;\n" ::: "memory");
-    // C fragment j of product h: (r0, c), (r0, c + 1), (r0 + 8, c), (r0 + 8,
-    // c + 1), c = 128 h + 8 j + 2 t4: box 2 h + j / 8, 16-byte chunk j % 8 of
-    // its 128-byte row, swizzled by the row's index mod 8
-#pragma unroll
-    for (int h = 0; h < NH; ++h) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int c = n0 + h * 128 + j * 8 + 2 * t4;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = r0 + 8 * half;
-          const auto& rv = half ? rv1 : rv0;
-          const __nv_bfloat162 v =
-              __floats2bfloat162_rn(epi.value(c, acc[h][j * 4 + 2 * half], rv),
-                                    epi.value(c + 1, acc[h][j * 4 + 2 * half + 1], rv));
-          unsigned char* box =
-              reinterpret_cast<unsigned char*>(so) + (2 * h + j / 8) * kTmaBM * 128;
-          *reinterpret_cast<__nv_bfloat162*>(box + r * 128 + ((j % 8) ^ (r & 7)) * 16 + 4 * t4) =
-              v;
-        }
+      if constexpr (kPartials) {
+        // this stage's products run on while the one before is handed back
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        if (kt > 0 && tid == 0) mbar_arrive(&empty[(it - 1) % kStages]);
+      } else {
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        if (tid == 0) mbar_arrive(&empty[s]);
       }
     }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("bar.sync 1, 256;\n" ::: "memory");
-    if (storer) {
+    if constexpr (kPartials) {
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      if (nk > 0 && tid == 0) mbar_arrive(&empty[(it - 1) % kStages]);
 #pragma unroll
-      for (int b = 0; b < BN / 64; ++b) tma_store(&tc, so + b * kTmaBM * 64, n0 + 64 * b, m0);
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      for (int h = 0; h < NH; ++h) fence_regs(acc[h]);
+    }
+    // C fragment j of product h: (r0, c), (r0, c + 1), (r0 + 8, c), (r0 + 8,
+    // c + 1), c = 128 h + 8 j + 2 t4
+    if constexpr (kPartials) {
+      // row r0 + 8 half's entry i = 32 h + 2 j + e at column c + e
+      const auto col = [&](int i) {
+        return n0 + (i >> 5) * 128 + ((i & 31) >> 1) * 8 + 2 * t4 + (i & 1);
+      };
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const auto val = [&](int i) {
+          return acc[i >> 5][((i & 31) >> 1) * 4 + 2 * half + (i & 1)];
+        };
+        epi.template row_partial<4, NH * 32>(m0 + r0 + 8 * half, tile / tiles_m, val, col,
+                                             half ? rv1 : rv0);
+      }
+    } else {
+      // the last tile's store has read the output tile
+      if (storer) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      // pair (row, c) goes to box 2 h + j / 8, 16-byte chunk j % 8 of its
+      // 128-byte row, swizzled by the row's index mod 8
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = n0 + h * 128 + j * 8 + 2 * t4;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = r0 + 8 * half;
+            const auto& rv = half ? rv1 : rv0;
+            const __nv_bfloat162 v =
+                __floats2bfloat162_rn(epi.value(c, acc[h][j * 4 + 2 * half], rv),
+                                      epi.value(c + 1, acc[h][j * 4 + 2 * half + 1], rv));
+            unsigned char* box =
+                reinterpret_cast<unsigned char*>(so) + (2 * h + j / 8) * kTmaBM * 128;
+            *reinterpret_cast<__nv_bfloat162*>(box + r * 128 + ((j % 8) ^ (r & 7)) * 16 +
+                                                4 * t4) = v;
+          }
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      if (storer) {
+#pragma unroll
+        for (int b = 0; b < BN / 64; ++b) tma_store(&tc, so + b * kTmaBM * 64, n0 + 64 * b, m0);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
     }
   }
-  if (storer) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  if constexpr (!kPartials) {
+    if (storer) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -894,45 +967,55 @@ gemm_fma_kernel(const void* __restrict__ a, const void* __restrict__ b, int m, i
     __syncthreads();
   }
 
-  float cs[8] = {};  // column sums over this thread's 8 rows (col_sum epilogues)
+  if constexpr (HasRowPartials<Epi>::value) {
+    // a row's 128 columns lie in the 16 lanes that share ty
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = fma_row(i);
-    typename HasRows<Epi>::type rv = {};
-    if constexpr (HasRows<Epi>::value) rv = epi.row_values(row);
+    for (int i = 0; i < 8; ++i) {
+      const int row = fma_row(i);
+      const auto val = [&](int c) { return acc[i][c]; };
+      epi.template row_partial<16, 8>(row, blockIdx.x, val, fma_col, epi.row_values(row));
+    }
+  } else {
+    float cs[8] = {};  // column sums over this thread's 8 rows (col_sum epilogues)
 #pragma unroll
-    for (int c = 0; c < 8; c += 2) {
-      const int col = fma_col(c);
-      float2 aux = make_float2(0.f, 0.f);
-      if constexpr (HasAux<Epi>::value) {
-        const AuxTile x = epi.aux_tile();
-        const int64_t at = static_cast<int64_t>(row) * x.cols + col;
-        if (row < x.rows && col < x.cols) aux.x = load_f(x.p, x.code, at);
-        if (row < x.rows && col + 1 < x.cols) aux.y = load_f(x.p, x.code, at + 1);
-      }
-      if constexpr (HasRows<Epi>::value) {
-        call_epi(epi, row, col, acc[i][c], acc[i][c + 1], rv);
-      } else if constexpr (HasColSum<Epi>::value) {
-        const float2 v = call_epi(epi, row, col, acc[i][c], acc[i][c + 1], aux);
-        cs[c] += v.x;
-        cs[c + 1] += v.y;
-      } else {
-        call_epi(epi, row, col, acc[i][c], acc[i][c + 1], aux);
+    for (int i = 0; i < 8; ++i) {
+      const int row = fma_row(i);
+      typename HasRows<Epi>::type rv = {};
+      if constexpr (HasRows<Epi>::value) rv = epi.row_values(row);
+#pragma unroll
+      for (int c = 0; c < 8; c += 2) {
+        const int col = fma_col(c);
+        float2 aux = make_float2(0.f, 0.f);
+        if constexpr (HasAux<Epi>::value) {
+          const AuxTile x = epi.aux_tile();
+          const int64_t at = static_cast<int64_t>(row) * x.cols + col;
+          if (row < x.rows && col < x.cols) aux.x = load_f(x.p, x.code, at);
+          if (row < x.rows && col + 1 < x.cols) aux.y = load_f(x.p, x.code, at + 1);
+        }
+        if constexpr (HasRows<Epi>::value) {
+          call_epi(epi, row, col, acc[i][c], acc[i][c + 1], rv);
+        } else if constexpr (HasColSum<Epi>::value) {
+          const float2 v = call_epi(epi, row, col, acc[i][c], acc[i][c + 1], aux);
+          cs[c] += v.x;
+          cs[c + 1] += v.y;
+        } else {
+          call_epi(epi, row, col, acc[i][c], acc[i][c + 1], aux);
+        }
       }
     }
-  }
-  if constexpr (HasColSum<Epi>::value) {
-    // the 16 row groups' sums of each column, added in row-group order (the
-    // main loop's last barrier freed the A tiles)
-    float* red = &as[0][0][0];
-    static_assert(16 * kFmaBN <= 2 * kFmaBK * kFmaLD, "the partials fit the A tiles");
+    if constexpr (HasColSum<Epi>::value) {
+      // the 16 row groups' sums of each column, added in row-group order (the
+      // main loop's last barrier freed the A tiles)
+      float* red = &as[0][0][0];
+      static_assert(16 * kFmaBN <= 2 * kFmaBK * kFmaLD, "the partials fit the A tiles");
 #pragma unroll
-    for (int c = 0; c < 8; ++c) red[ty * kFmaBN + (c < 4 ? 0 : 64) + tx * 4 + (c & 3)] = cs[c];
-    __syncthreads();
-    if (tid < kFmaBN) {
-      float sum = 0.f;
-      for (int r = 0; r < 16; ++r) sum += red[r * kFmaBN + tid];
-      epi.col_sum(m0 / kFmaBM, n0 + tid, sum);
+      for (int c = 0; c < 8; ++c) red[ty * kFmaBN + (c < 4 ? 0 : 64) + tx * 4 + (c & 3)] = cs[c];
+      __syncthreads();
+      if (tid < kFmaBN) {
+        float sum = 0.f;
+        for (int r = 0; r < 16; ++r) sum += red[r * kFmaBN + tid];
+        epi.col_sum(m0 / kFmaBM, n0 + tid, sum);
+      }
     }
   }
 }
@@ -1014,29 +1097,47 @@ inline int sm_count() {
 }
 
 // whether TMA maps a bf16 operand whose rows hold `cols` elements: the
-// rows 16-byte multiples, the base 16-byte aligned
-inline bool tma_maps(const void* p, int cols) { return cols % 8 == 0 && aligned16(p); }
+// rows 16-byte multiples (and not empty), the base 16-byte aligned
+inline bool tma_maps(const void* p, int cols) {
+  return cols > 0 && cols % 8 == 0 && aligned16(p);
+}
+
+// whether gemm() runs product q of dtype `code` on TMA + wgmma (given an
+// aux tile and an output that TMA maps too)
+template <bool kTA, bool kTB>
+inline bool tma_operands(const Product& q, int code) {
+  return code == kBF16 && tma_maps(q.a, kTA ? q.m : q.k) && tma_maps(q.b, kTB ? q.n : q.k);
+}
+
+// The columns of C per row partial of an NT product q in dtype `code`
+// (epilogues with row partials): the tile width of the route gemm() takes
+inline int row_partial_cols(const Product& q, int code) {
+  return tma_operands<false, false>(q, code) ? kRowsBN : kFmaBN;
+}
 
 // The persistent NT product with a row-value epilogue into its bf16
-// output (epi.out_tile()), a grid of at most one block per SM
+// output (epi.out_tile()), or with row partials, a grid of at most one
+// block per SM
 template <class Epi>
 int launch_tma_rows(const Product& q, const Epi& epi, cudaStream_t s) {
+  constexpr int kBytes = kRowsSmemBytes<Epi>;
   static bool attr_set = false;
-  int rc = set_smem(gemm_tma_rows_kernel<Epi>, kRowsSmemBytes, attr_set);
+  int rc = set_smem(gemm_tma_rows_kernel<Epi>, kBytes, attr_set);
   if (rc != 0) return rc;
-  const AuxTile out = epi.out_tile();
-  CUtensorMap ta, tb, tc;
+  CUtensorMap ta, tb, tc{};
   rc = tma_map(&ta, q.a, q.m, q.k, kTmaBM);
   if (rc != 0) return rc;
   rc = tma_map(&tb, q.b, stored_b_rows<false>(q), q.k, kRowsBN);
   if (rc != 0) return rc;
-  rc = tma_map(&tc, out.p, out.rows, out.cols, kTmaBM);
-  if (rc != 0) return rc;
+  if constexpr (!HasRowPartials<Epi>::value) {
+    const AuxTile out = epi.out_tile();
+    rc = tma_map(&tc, out.p, out.rows, out.cols, kTmaBM);
+    if (rc != 0) return rc;
+  }
   const int64_t tiles =
       static_cast<int64_t>((q.m + kTmaBM - 1) / kTmaBM) * ((q.n + kRowsBN - 1) / kRowsBN);
   const int blocks = static_cast<int>(tiles < sm_count() ? tiles : sm_count());
-  gemm_tma_rows_kernel<Epi><<<blocks, kTmaThreads, kRowsSmemBytes, s>>>(ta, tb, tc, q.m, q.n,
-                                                                        q.k, epi);
+  gemm_tma_rows_kernel<Epi><<<blocks, kTmaThreads, kBytes, s>>>(ta, tb, tc, q.m, q.n, q.k, epi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1046,11 +1147,11 @@ int launch_tma_rows(const Product& q, const Epi& epi, cudaStream_t s) {
 // (at most one block an SM), else on 128 x 256 tiles: between half the
 // SMs and all of them, the wide tiles run one wave where the narrow ones
 // would take two; an epilogue with row values takes the persistent
-// kernel (its bf16 output on TMA's grid too).  f32, f16 and bf16 off
-// TMA's 16-byte grid take the FMA tile.
+// kernel (its bf16 output on TMA's grid too; row partials have none).
+// f32, f16 and bf16 off TMA's 16-byte grid take the FMA tile.
 template <bool kTA, bool kTB, class Epi>
 int gemm(const Product& q, const Epi& epi, int code, cudaStream_t s) {
-  bool tma = code == kBF16 && tma_maps(q.a, kTA ? q.m : q.k) && tma_maps(q.b, kTB ? q.n : q.k);
+  bool tma = tma_operands<kTA, kTB>(q, code);
   if constexpr (HasAux<Epi>::value) {
     const AuxTile x = epi.aux_tile();
     tma = tma && tma_maps(x.p, x.cols);
@@ -1058,9 +1159,11 @@ int gemm(const Product& q, const Epi& epi, int code, cudaStream_t s) {
   if (!tma) return launch_fma<kTA, kTB>(q, epi, code, s);
   if constexpr (HasRows<Epi>::value) {
     static_assert(!kTA && !kTB, "row-value epilogues take NT products");
-    const AuxTile out = epi.out_tile();
-    if (tma_maps(out.p, out.cols)) return launch_tma_rows(q, epi, s);
-    return launch_fma<kTA, kTB>(q, epi, code, s);
+    if constexpr (!HasRowPartials<Epi>::value) {
+      const AuxTile out = epi.out_tile();
+      if (!tma_maps(out.p, out.cols)) return launch_fma<kTA, kTB>(q, epi, code, s);
+    }
+    return launch_tma_rows(q, epi, s);
   } else {
     if (2 * static_cast<int64_t>((q.m + kTmaBM - 1) / kTmaBM) * ((q.n + 255) / 256) >
         sm_count()) {

@@ -1,5 +1,6 @@
-// Pieces shared by the port's tensor-core kernels (lm_head*.cu, ffn*.cu,
-// gemm.cuh, the bf16 flash_fwd.cu / flash_bwd_dq.cu / flash_bwd_dkv.cu):
+// Pieces shared by the port's tensor-core kernels (gemm.cuh and through it
+// lm_head*.cu, ffn*.cu and quant_gemm.cu; ffn.cuh; the bf16 flash_fwd.cu /
+// flash_bwd_dq.cu / flash_bwd_dkv.cu):
 // cp.async copies into shared memory, ldmatrix fragment loads and the
 // mma.sync m16n8k16 bf16 product with f32 accumulation, the dynamic
 // shared-memory opt-in, and the loads and stores of the f32 (FMA)

@@ -583,7 +583,7 @@ class GPTModel(nn.Module):
         The ``.to`` of the f32 tied weight is differentiable, so the
         kernel's bf16 dW flows into the f32 embedding's gradient.  At an f32
         ``cfg.dtype`` (the config's default) the kernels run on the FMA
-        units, about three times the time of the f32 head GEMMs and cross
+        units, about twice the time of the f32 head GEMMs and cross
         entropy on an H100 (PERF.md): an f32 model trains faster on the
         card with ``fused_lm_head=False``.  Else the f32 head GEMM, then
         :func:`~apex_tpu_torch.transformer.tensor_parallel.

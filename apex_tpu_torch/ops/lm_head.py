@@ -3,9 +3,10 @@
 
 Per token ``i`` with target ``y``: ``loss_i = lse_i - x_i . W_y`` with
 ``lse_i = logsumexp_v(x_i . W_v)``.  The ``(N, V)`` logits never reach
-device memory: the forward keeps an online logsumexp over vocab tiles, and
-the backward recomputes ``p = exp(x . W_v - lse)`` from the saved
-per-token ``lse``, one vocab chunk at a time.  With upstream cotangent
+device memory: the forward reduces each vocab tile's scores to per-row
+partials of the logsumexp and combines them, and the backward recomputes
+``p = exp(x . W_v - lse)`` from the saved per-token ``lse``, one vocab
+chunk at a time.  With upstream cotangent
 ``g``: ``dS = (p - onehot(y)) g``, ``dX = dS W`` and ``dW = dS^T X``.
 
 Kernel wrappers, each with its plain PyTorch version beside it:
@@ -19,8 +20,12 @@ Kernel wrappers, each with its plain PyTorch version beside it:
 * :func:`lm_head_bwd`, both backward kernels in one call (``(dX, dW)``,
   the JAX ``_bwd_impl``); a CPU tensor takes :func:`lm_head_bwd_reference`.
 
-On the card the backward is launches of the tiled GEMM of
-``csrc/gemm.cuh`` over the chunks of :func:`bwd_chunk_plan`: per chunk
+On the card the forward is one launch of the tiled GEMM of
+``csrc/gemm.cuh``, ``x W^T``, whose epilogue reduces each row of each
+column tile of the scores to a partial (max, sum of exponentials, target
+score), then a launch that combines each row's partials in tile order.
+The backward is launches of the same GEMM over the chunks of
+:func:`bwd_chunk_plan`: per chunk
 ``dS_c`` from ``x W_c^T`` (its epilogue takes the softmax and the target),
 then ``dX += dS_c W_c`` (summed in f32 across chunks, rounded to x's dtype
 once) and ``dW_c = dS_c^T x``.  :func:`lm_head_bwd` computes ``dS_c``
@@ -35,21 +40,19 @@ reference the tests hold everything to is
 :func:`fused_linear_cross_entropy_reference`.
 
 The JAX signature's ``block_t`` / ``block_v`` are TPU tile sizes that only
-change the order of f32 sums; the port drops them.  The forward kernel
-fixes its own tiles (32 rows of x, 64 of W) and its split of the vocab
-(``apex_lm_head_fwd_splits``).
+change the order of f32 sums; the port drops them.  The forward's column
+tiles are the GEMM's (``apex_lm_head_fwd_tiles``).
 
-A bf16 pair runs on the tensor cores.  Any other pair (f32, f16, or a
-mixed pair, for which :func:`_dot_dtype` gives f32) runs the reference's
-own math (f32 products, no rounding of ``dS``) on the FMA units: the
-forward's f32 instantiation, and the backward's GEMMs on operands the
-wrapper casts to f32 (exact), on the GEMM's FMA tile.  On an H100 that
+A bf16 pair runs on the tensor cores (TMA + ``wgmma``), or off TMA's
+16-byte grid (a hidden size that is not a multiple of 8, an unaligned
+operand) on the GEMM's FMA tile in f32 arithmetic.  Any other pair (f32,
+f16, or a mixed pair, for which :func:`_dot_dtype` gives f32) runs the
+reference's own math (f32 products, no rounding of ``dS``) on operands the
+wrappers cast to f32 (exact), on the GEMM's FMA tile.  On an H100 that
 bound is 15x the bf16 one (67 against 989 TFLOPS), and a logit-free f32
 backward (three products) cannot beat the two of ``fused_lm_head=False``
 (PERF.md).  The JAX package routes f16 to its materialized reference
-(Mosaic has no f16).  The forward's bf16 kernel keeps whole rows of its
-operand tiles in shared memory and takes a hidden size up to
-:data:`MMA_MAX_HIDDEN`; the backward takes any.
+(Mosaic has no f16).  Both directions take any hidden size and alignment.
 """
 
 from __future__ import annotations
@@ -61,10 +64,6 @@ import torch
 from apex_tpu_torch import _kernels
 
 _f32 = torch.float32
-
-# the forward's bf16 tensor-core kernel keeps whole rows of its operand
-# tiles in shared memory (csrc/lm_head.cuh kHMax; its C entry refuses more)
-MMA_MAX_HIDDEN = 1024
 
 # the backward's dS scratch: one vocab chunk of at most this many bytes
 DS_CHUNK_BYTES = 128 * 2 ** 20
@@ -236,31 +235,30 @@ def _check_rows(kernel, n, device, **rows):
 def lm_head_fwd(x, w, targets):
     """Forward kernel wrapper: ``x`` ``(N, H)``, ``w`` ``(V, H)``,
     ``targets`` ``(N,)`` int.  Returns ``(loss, lse)``, both ``(N,)`` f32.
-    Two launches: the split online logsumexp, then the fixed-order combine
-    of its per-split partials (both counted).  A CPU tensor takes
+    Two launches: the product with its per-tile row partials, then the
+    fixed-order combine (both counted).  A CPU tensor takes
     :func:`lm_head_fwd_reference`."""
     if x.device.type == "cpu":
         return lm_head_fwd_reference(x, w, targets)
-    tgt, (cx, cw) = _check_operands("lm_head_fwd", x, w, targets)
+    tgt, _ = _check_operands("lm_head_fwd", x, w, targets)
     n, h = x.shape
-    if _dot_dtype(x.dtype, w.dtype) == torch.bfloat16:
-        if h % 8 or h > MMA_MAX_HIDDEN:
-            raise NotImplementedError(
-                f"lm_head_fwd: the bf16 kernel takes a hidden size that is "
-                f"a multiple of 8 and at most {MMA_MAX_HIDDEN}, got {h}")
-        if x.data_ptr() % 16 or w.data_ptr() % 16:
-            raise ValueError("lm_head_fwd: x and w must be 16-byte aligned")
     v = w.shape[0]
     loss = torch.empty(n, dtype=_f32, device=x.device)
     lse = torch.empty(n, dtype=_f32, device=x.device)
     if n == 0:
         return loss, lse
+    dt = _dot_dtype(x.dtype, w.dtype)
+    # every pair but bf16 / bf16 runs on f32 operands (exact casts: JAX
+    # casts inside its kernel)
+    xo, wo = x.to(dt), w.to(dt)
+    code = _kernels.DTYPE_CODES[dt]
     lib = _kernels.lib()
-    splits = lib.apex_lm_head_fwd_splits(n, v, _kernels.sm_count(x.device.index or 0))
-    partials = torch.empty((3, splits, n), dtype=_f32, device=x.device)
+    tiles = lib.apex_lm_head_fwd_tiles(xo.data_ptr(), wo.data_ptr(), v, h,
+                                       code)
+    partials = torch.empty((3, tiles, n), dtype=_f32, device=x.device)
     rc = lib.apex_lm_head_fwd(
-        x.data_ptr(), w.data_ptr(), tgt.data_ptr(), loss.data_ptr(),
-        lse.data_ptr(), partials.data_ptr(), n, v, h, splits, cx, cw,
+        xo.data_ptr(), wo.data_ptr(), tgt.data_ptr(), loss.data_ptr(),
+        lse.data_ptr(), partials.data_ptr(), n, v, h, tiles, code,
         _kernels.stream())
     _kernels.check(rc, "lm_head_fwd")
     lm_head_fwd.launches += 2

@@ -24,9 +24,11 @@ Phases (any failure exits non-zero; nothing is caught):
    its 16-byte boundary (refused); the fused LM head (#8-#10) at GPT-350M's and
    BERT-large's head shapes in bf16 and GPT-350M's in f32, a peaked-softmax
    bf16 case off the token and vocab grids, a vocab off the 64-column grid
-   over four chunks of the backward, 48 tokens, a hidden size off the
-   16-byte grid, and three small off-grid cases (f32, bf16, a mixed pair),
-   the whole backward (``lm_head_bwd``) bitwise the dX and dW calls, its
+   over four chunks of the backward, 48 tokens, GPT-2 XL's head (H 1600),
+   a hidden size off the 16-byte grid, and four small off-grid cases (f32,
+   bf16, a mixed pair, an x off 16 bytes), the forward bitwise on a repeat
+   with its product's route checked, the whole backward (``lm_head_bwd``)
+   bitwise the dX and dW calls, its
    yardstick the two calls matmul + F.cross_entropy; the fused FFN
    (#11-#13) at GPT-350M's and BERT-large's micro-batch (bf16 x with f32
    W, bf16/bf16), the serving shapes (512 and 8 rows), GPT-2 XL's widths
@@ -1246,14 +1248,17 @@ def kernel_quant_gemm(gen_cuda):
 
 
 def _lm_head_inputs(gen, n, h, v, x_dtype, w_dtype, masked=False,
-                    w_std=0.02):
+                    w_std=0.02, offset=False):
     """x as a LayerNorm output, W as the N(0, 0.02) tied embedding (or
     N(0, w_std): at 0.1 and H 1024 the scores have a std of 3.2 and the
     softmax is peaked, so p carries most of the gradient), random targets;
     g = 1 per token (so the gradients are O(1e-2) and their check means
     something), 0 at 85% of the rows when ``masked`` (BERT's unmasked
-    positions carry a zero cotangent)."""
+    positions carry a zero cotangent).  ``offset``: x starts one element
+    into its storage (contiguous, off the 16-byte grid)."""
     x = torch.randn(n, h, generator=gen).to("cuda", x_dtype)
+    if offset:
+        x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(n, h)
     w = (w_std * torch.randn(v, h, generator=gen)).to("cuda", w_dtype)
     t = torch.randint(0, v, (n,), generator=gen).to("cuda")
     g = torch.ones(n)
@@ -1360,19 +1365,33 @@ def _no_target_rows(v, t, g):
     return free
 
 
+def _cuda_events(fn, ok):
+    """The CUDA kernel events of a torch.profiler session over ``fn`` (after
+    a warm-up call) for which ``ok(events)`` holds.  A session on the card
+    has been seen to record none or only some of a run's launches, so up
+    to three sessions; returns the last one's events."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ok(events):
+            break
+    return events
+
+
 def _launch_tflops(fn, flops):
     """torch.profiler over one call of ``fn``: each of its kernel launches
     in order as (kernel name, device ms, TFLOP/s), ``flops`` the launches'
     operation counts in the same order."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and "gemm_" in e.name]
+    def gemms(events):
+        return [e for e in events if "gemm_" in e.name]
+
+    events = gemms(_cuda_events(fn, lambda ev: len(gemms(ev)) == len(flops)))
     if len(events) != len(flops):
         raise AssertionError(f"profiled {len(events)} GEMM launches, want "
                              f"{len(flops)}")
@@ -1400,19 +1419,60 @@ def _log_bwd_launches(name, x, w, t, lse, g, plan):
             for k, (_, ms, r) in enumerate(rows)]
 
 
+def _log_fwd_launches(name, x, w, t):
+    """lm_head_fwd's two launches under torch.profiler over three calls:
+    the product's route (the persistent TMA + wgmma kernel or the FMA
+    tile), median ms and TFLOP/s (2 N V H flops), and the combine's median
+    ms."""
+    from apex_tpu_torch.ops.lm_head import lm_head_fwd
+    calls = 3
+
+    def split(events):
+        return ([e for e in events if "gemm_" in e.name],
+                [e for e in events if "lm_head_fwd_combine" in e.name])
+
+    def run():
+        for _ in range(calls):
+            lm_head_fwd(x, w, t)
+
+    events = _cuda_events(run, lambda ev: all(
+        len(k) == calls for k in split(ev)))
+    product, combine = split(events)
+    if len(product) != calls or len(combine) != calls:
+        raise AssertionError(
+            f"{name}: profiled {len(product)} products and {len(combine)} "
+            f"combines over {calls} calls: "
+            f"{sorted({e.name[:60] for e in events})}")
+    routes = {"TMA" if "gemm_tma_rows_kernel" in e.name else
+              "FMA" if "gemm_fma_kernel" in e.name else e.name[:90]
+              for e in product}
+    if len(routes) != 1:
+        raise AssertionError(f"{name}: the products ran on {routes}")
+    (route,) = routes
+    ms = statistics.median(e.device_time_total / 1e3 for e in product)
+    tflops = 2 * x.shape[0] * w.shape[0] * x.shape[1] / (ms * 1e-3) / 1e12
+    combine_ms = statistics.median(e.device_time_total / 1e3
+                                   for e in combine)
+    log(f"    {name} forward: product on {route}, {ms:.4f} ms, "
+        f"{tflops:.1f} TFLOP/s; combine {combine_ms:.4f} ms")
+    return dict(route=route, ms=ms, tflops=tflops, combine_ms=combine_ms)
+
+
 def kernel_lm_head(gen):
     """#8, #9 and #10 against their plain versions: bf16 at GPT-350M's head
     (8192 x 1024 x 50304) and BERT-large's (8192 x 1024 x 30528, 85% of
     rows with g = 0), both timed; f32 at GPT-350M's head, timed (the f32
-    instantiation an f32 model runs); bf16 with a peaked softmax off the
-    token and vocab grids (1000 x 1024 x 30522); the vocab off the
-    64-column grid over four backward chunks (8192 x 1024 x 30522, peaked,
-    masked); 48 tokens (the backward's dS launch on its narrow tiles);
-    small off-grid cases (200 x 96 x 1000: bf16, f32, bf16 x with f32 W)
-    and a hidden size off the 16-byte grid (77 x 100 x 1000 bf16: the
-    forward kernel refuses it, the backward runs the FMA tile; lse from
-    the plain forward).  The off-grid cases carry a target of -1.  loss
-    and lse within f32 tolerances; dX and dW of ``lm_head_dx``,
+    instantiation an f32 model runs); bf16 at GPT-2 XL's head (1000 x 1600
+    x 50257), timed; bf16 with a peaked softmax off the token and vocab
+    grids (1000 x 1024 x 30522); the vocab off the 64-column grid over
+    four backward chunks (8192 x 1024 x 30522, peaked, masked); 48 tokens
+    (the backward's dS launch on its narrow tiles); small off-grid cases
+    (200 x 96 x 1000: bf16, f32, bf16 x with f32 W, bf16 with x off the
+    16-byte grid) and a hidden size off it (77 x 100 x 1000 bf16); the
+    forward's product runs the GEMM's FMA tile off that grid and for
+    non-bf16 pairs.  The off-grid cases carry a target of -1.  loss and lse
+    within f32 tolerances and bitwise on a repeat, the product's route
+    checked and its TFLOP/s logged; dX and dW of ``lm_head_dx``,
     ``lm_head_dw`` and ``lm_head_bwd`` entry by entry
     (``_lm_head_grad_bounds``), dW's rows with no target also reported on
     their own; ``lm_head_bwd`` bitwise the two calls and a repeat; each
@@ -1426,7 +1486,8 @@ def kernel_lm_head(gen):
     out = {}
     bf, f32 = torch.bfloat16, torch.float32
     vg, vb = GPT350M["vocab_size"], BERT_LARGE["vocab_size"]
-    # tag, n, h, v, x dtype, w dtype, masked, w std, timed
+    # tag, n, h, v, x dtype, w dtype, masked, w std, timed (else off the
+    # grids: a target of -1)
     cases = [("gpt", TRAIN_ROWS, HIDDEN, vg, bf, bf, False, 0.02, True),
              ("bert", BERT_ROWS, HIDDEN, vb, bf, bf, True, 0.02, True),
              ("gpt f32", TRAIN_ROWS, HIDDEN, vg, f32, f32, False, 0.02, True),
@@ -1434,31 +1495,43 @@ def kernel_lm_head(gen):
              ("chunked off-grid", TRAIN_ROWS, HIDDEN, 30522, bf, bf, True,
               0.1, False),
              ("48 tokens", 48, HIDDEN, vg, bf, bf, False, 0.02, False),
+             ("gpt2-xl", 1000, 1600, 50257, bf, bf, False, 0.02, True),
              ("small bf16", 200, 96, 1000, bf, bf, True, 0.02, False),
              ("small f32", 200, 96, 1000, f32, f32, True, 0.02, False),
              ("small bf16 x f32 w", 200, 96, 1000, bf, f32, True, 0.02,
               False),
+             ("small bf16 x off 16 bytes", 200, 96, 1000, bf, bf, True, 0.02,
+              False),
              ("unaligned bf16", 77, 100, 1000, bf, bf, True, 0.02, False)]
     for tag, n, h, v, xdt, wdt, masked, w_std, timed in cases:
-        x, w, t, g = _lm_head_inputs(gen, n, h, v, xdt, wdt, masked, w_std)
+        offset = "off 16 bytes" in tag
+        x, w, t, g = _lm_head_inputs(gen, n, h, v, xdt, wdt, masked, w_std,
+                                     offset)
         off_grid = not timed
         if off_grid:
             t[3] = -1                        # matches no column: loss = lse
         name = f"lm_head {tag} ({n}x{h}x{v})"
         rloss, rlse = lm_head_fwd_reference(x, w, t)
-        if h % 8 == 0:
-            before = lm_head_fwd.launches
-            loss, lse = lm_head_fwd(x, w, t)
-            if lm_head_fwd.launches - before != 2:
-                raise AssertionError("lm_head_fwd: expected 2 launches per "
-                                     "call")
-            torch.cuda.synchronize()
-            # f32 scores summed in another order over H, then a logsumexp
-            # over V in another order
-            err_f = max(check_close(f"{name} loss", loss, rloss, 1e-4, 1e-5),
-                        check_close(f"{name} lse", lse, rlse, 1e-4, 1e-5))
-        else:                                # the forward kernel refuses it
-            loss, lse = rloss, rlse
+        before = lm_head_fwd.launches
+        loss, lse = lm_head_fwd(x, w, t)
+        if lm_head_fwd.launches - before != 2:
+            raise AssertionError("lm_head_fwd: expected 2 launches per call")
+        torch.cuda.synchronize()
+        # f32 scores summed in another order over H, then a logsumexp over V
+        # in another order
+        err_f = max(check_close(f"{name} loss", loss, rloss, 1e-4, 1e-5),
+                    check_close(f"{name} lse", lse, rlse, 1e-4, 1e-5))
+        # each (row, tile) partial comes from one block in a fixed order
+        loss2, lse2 = lm_head_fwd(x, w, t)
+        if not (torch.equal(loss2, loss) and torch.equal(lse2, lse)):
+            raise AssertionError(f"{name}: lm_head_fwd differs on a repeat")
+        fwd = _log_fwd_launches(name, x, w, t)
+        # bf16 pairs on TMA's 16-byte grid take TMA + wgmma
+        tma = xdt == wdt == bf and h % 8 == 0 and not offset
+        if fwd["route"] != ("TMA" if tma else "FMA"):
+            raise AssertionError(f"{name}: the product ran on {fwd['route']}")
+        out[f"fwd_launch_{tag.replace(' ', '_')}"] = fwd
+        del loss2, lse2
         dt = torch.bfloat16 if xdt == wdt == bf else f32
         plan = bwd_chunk_plan(n, v, dt.itemsize)
         before = (lm_head_dx.launches, lm_head_dw.launches)
@@ -3829,8 +3902,9 @@ _KERNEL_CLASSES = (("layer_norm_bwd", "layer_norm_bwd"),
                    ("multi_tensor_novograd_kernel", "multi_tensor_novograd"),
                    ("lm_head_fwd", "lm_head_fwd"),
                    # csrc/gemm.cuh's launches by their epilogue type: the
-                   # LM head's dS (once a backward, filed under dX as its
-                   # launches count), dX and dW;
+                   # LM head's forward product (its row partials), dS (once
+                   # a backward, filed under dX as its launches count), dX
+                   # and dW;
                    # the forward's (BiasGelu, Bias); the backward's dh =
                    # dy W2 (DzFromDh, once a backward, filed under dX as
                    # its launch counts) and dX (DxOut); dW1, dW2 (DwOut)
@@ -3838,6 +3912,7 @@ _KERNEL_CLASSES = (("layer_norm_bwd", "layer_norm_bwd"),
                    ("ffn::DzFromDh", "ffn_dx"),
                    ("ffn::DxOut", "ffn_dx"),
                    ("ffn::DwOut", "ffn_dw"),
+                   ("lm_head::LseFromScores", "lm_head_fwd"),
                    ("lm_head::DsFromScores", "lm_head_dx"),
                    ("lm_head::DxOut", "lm_head_dx"),
                    ("lm_head::DwOut", "lm_head_dw"),

@@ -505,3 +505,204 @@ def test_card_profile_files_the_backward_gemm_launches(epilogue, cls):
             f"int, apex_tpu_torch::lm_head::{epilogue})")
     assert card._kernel_class(name) == cls
     assert card._kernel_class(name.replace("lm_head::", "ffn::")) != cls
+
+
+# -- the forward at any hidden size, and its row partials -------------------
+
+@pytest.mark.parametrize("h", [1600, 100], ids=["gpt2_xl_width", "h100"])
+@pytest.mark.parametrize("pair", ["bf16", "f32"])
+def test_fwd_reference_matches_jax_kernel_at_any_hidden_size(pair, h):
+    """lm_head_fwd_reference against the JAX ``_fwd_kernel`` in Pallas
+    interpret mode at GPT-2 XL's hidden size and at one off the 8-element
+    grid (the card's forward takes both since its product runs on the
+    GEMM), V = 300 off the 128-column vocab blocks, row 5 targeting -1."""
+    xd, wd = PAIRS[pair]
+    n, v = 40, 300
+    rng = np.random.RandomState(1)
+    x = jnp.asarray(rng.randn(n, h), xd)
+    w = jnp.asarray(0.1 * rng.randn(v, h), wd)
+    t = rng.randint(0, v, n)
+    t[5] = -1
+    set_force_pallas(True)
+    try:
+        _, jlse = jlm._fwd_impl(x, w, jnp.asarray(t), BLOCKS["block_t"],
+                                BLOCKS["block_v"])
+        jloss = jlm.fused_linear_cross_entropy(x, w, jnp.asarray(t),
+                                               **BLOCKS)
+    finally:
+        set_force_pallas(None)
+    tx = torch.from_numpy(np.array(x.astype(jnp.float32))).to(
+        getattr(torch, xd))
+    tw = torch.from_numpy(np.array(w.astype(jnp.float32))).to(
+        getattr(torch, wd))
+    loss, lse = tlm.lm_head_fwd_reference(tx, tw, torch.from_numpy(t))
+    np.testing.assert_allclose(loss.numpy(), np.asarray(jloss), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:n, 0],
+                               rtol=1e-5, atol=1e-5)
+    assert float(loss[5]) == float(lse[5])
+
+
+LOG2E = 1.4426950408889634
+
+
+def _tile_partials_fwd(x, w, t, cols, mask=True):
+    """The card's forward in plain torch: the product's scores in column
+    tiles of ``cols`` (W's rows past V read as zeros, as TMA and the FMA
+    tile read them), per (row, tile) the partial (m, l, t) over the tile's
+    columns below V (all its columns when ``mask`` is False) with l from
+    exp2 of log2(e)-scaled scores, then the combine in ascending tile
+    order.  Returns (loss, lse)."""
+    s, _ = tlm._scores(x, w)
+    n, v = s.shape
+    tiles = -(-v // cols)
+    padded = torch.zeros((n, tiles * cols))
+    padded[:, :v] = s
+    col = torch.arange(tiles * cols)
+    valid = col < v if mask else torch.ones(tiles * cols, dtype=torch.bool)
+    hit = (col[None, :] == t[:, None]) & (col < v)[None, :]
+    m = torch.full((n,), -1e30)
+    parts = []
+    for k in range(tiles):
+        sl = slice(k * cols, (k + 1) * cols)
+        sk = padded[:, sl]
+        ok = valid[sl][None, :]
+        mk = torch.where(ok, sk, -1e30).max(dim=1).values
+        e = torch.exp2(sk * LOG2E - (mk * LOG2E)[:, None])
+        lk = torch.where(ok, e, 0.0).sum(dim=1)
+        tk = torch.where(hit[:, sl] & ok, sk, 0.0).sum(dim=1)
+        parts.append((mk, lk, tk))
+        m = torch.maximum(m, mk)
+    l = torch.zeros(n)
+    tgt = torch.zeros(n)
+    for mk, lk, tk in parts:
+        l = l + lk * torch.exp(mk - m)
+        tgt = tgt + tk
+    l = torch.where(l == 0, 1.0, l)
+    lse = m + torch.log(l)
+    return lse - tgt, lse
+
+
+def _fwd_inputs(v, seed=0, n=24, h=64):
+    """bf16 x and W (W as the tied embedding's N(0, 0.02) rows), random
+    targets with row 1 in the last vocab column (the last, partly valid
+    tile where V is off the tile grid) and row 2 at -1."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, h, generator=gen).bfloat16()
+    w = (0.02 * torch.randn(v, h, generator=gen)).bfloat16()
+    t = torch.randint(0, v, (n,), generator=gen)
+    t[1], t[2] = v - 1, -1
+    return x, w, t
+
+
+@pytest.mark.parametrize("cols", [256, 128], ids=["tma_tiles", "fma_tiles"])
+@pytest.mark.parametrize("v", [1000, 30522, 50304])
+def test_tile_partials_combine_to_the_plain_forward(v, cols):
+    """The forward's design (per-tile row partials of 256 columns on the
+    TMA route, 128 on the FMA tile, masked past V, combined in tile
+    order) gives the plain version's loss and lse within 1e-6 relative,
+    with a target in the last tile and one at -1 (loss = lse)."""
+    x, w, t = _fwd_inputs(v)
+    loss, lse = _tile_partials_fwd(x, w, t, cols)
+    rloss, rlse = tlm.lm_head_fwd_reference(x, w, t)
+    torch.testing.assert_close(loss, rloss, rtol=1e-6, atol=0)
+    torch.testing.assert_close(lse, rlse, rtol=1e-6, atol=0)
+    assert float(loss[2]) == float(lse[2])
+
+
+@pytest.mark.parametrize("v,cols", [(1000, 256), (1000, 128), (30522, 256),
+                                    (30522, 128), (50304, 256)])
+def test_tile_partials_without_the_column_mask_miss(v, cols):
+    """Left unmasked, the zero scores of the last tile's columns past V
+    (TMA zero-fills W's missing rows) add to l: loss and lse then miss the
+    plain version by more than 100x the 1e-6 the masked partials keep (V
+    off the tile grid; 50304 is a multiple of 128)."""
+    x, w, t = _fwd_inputs(v)
+    loss, lse = _tile_partials_fwd(x, w, t, cols, mask=False)
+    rloss, rlse = tlm.lm_head_fwd_reference(x, w, t)
+    for got, ref in ((loss, rloss), (lse, rlse)):
+        assert float(((got - ref).abs() / ref.abs()).max()) > 100 * 1e-6
+
+
+def _gemm_constant(name):
+    """An ``int`` constant of csrc/gemm.cuh."""
+    import re
+    src = (ROOT / "apex_tpu_torch" / "csrc" / "gemm.cuh").read_text()
+    return int(re.search(rf"\b{name} = (\d+)", src).group(1))
+
+
+class _FakeFwdLib:
+    """Stands in for the kernel library: answers apex_lm_head_fwd_tiles as
+    gemm() routes the product (TMA tiles for bf16 operands with rows of
+    16-byte multiples on aligned bases, else the FMA tile's; widths read
+    from csrc/gemm.cuh) and records apex_lm_head_fwd's arguments."""
+
+    def __init__(self):
+        self.queries, self.calls = [], []
+
+    def apex_lm_head_fwd_tiles(self, x, w, v, h, code):
+        self.queries.append((v, h, code))
+        tma = code == 1 and h > 0 and h % 8 == 0 and x % 16 == 0 \
+            and w % 16 == 0
+        cols = _gemm_constant("kRowsBN") if tma else _gemm_constant("kFmaBN")
+        return -(-v // cols)
+
+    def apex_lm_head_fwd(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("v,tma_tiles,fma_tiles",
+                         [(50304, 197, 393), (30528, 120, 239),
+                          (1000, 4, 8)])
+@pytest.mark.parametrize("route", ["bf16", "f32", "bf16_x_f32_w", "f16",
+                                   "bf16_h100"])
+def test_fwd_wrapper_asks_the_tile_count_of_its_route(monkeypatch, route, v,
+                                                      tma_tiles, fma_tiles):
+    """The forward's partials scratch is (3, tiles, N) for the tile count
+    the C side gives for the operands the wrapper passes: bf16 for a bf16
+    pair (the TMA route's 256-column tiles at H 64, the FMA tile's 128 at
+    H 100), f32 for every other pair (the FMA tile); two launches counted
+    (meta tensors past the device check; the library a stand-in)."""
+    n = 8
+    pair = "bf16" if route == "bf16_h100" else route
+    h = 100 if route == "bf16_h100" else 64
+    xd, wd = PAIRS[pair]
+    fake = _FakeFwdLib()
+    monkeypatch.setattr(tlm._kernels, "lib", lambda: fake)
+    monkeypatch.setattr(tlm._kernels, "stream", lambda: 0)
+    monkeypatch.setattr(tlm, "_check_operands",
+                        lambda kernel, x, w, t: (t.to(torch.int32), (1, 1)))
+    shapes = []
+    empty = torch.empty
+    monkeypatch.setattr(tlm.torch, "empty", lambda *a, **k: (
+        shapes.append(tuple(a[0]) if isinstance(a[0], tuple) else a),
+        empty(*a, **k))[1])
+    x = torch.empty((n, h), dtype=getattr(torch, xd), device="meta")
+    w = torch.empty((v, h), dtype=getattr(torch, wd), device="meta")
+    t = torch.zeros(n, dtype=torch.long, device="meta")
+    before = tlm.lm_head_fwd.launches
+    loss, lse = tlm.lm_head_fwd(x, w, t)
+    assert tlm.lm_head_fwd.launches - before == 2
+    code = 1 if pair == "bf16" else 0
+    want = tma_tiles if route == "bf16" else fma_tiles
+    assert fake.queries == [(v, h, code)]
+    (args,) = fake.calls
+    assert args[6:11] == (n, v, h, want, code)
+    assert (3, want, n) in shapes
+    assert loss.shape == lse.shape == (n,)
+
+
+@pytest.mark.parametrize("name", [
+    "void apex_tpu_torch::gemm::gemm_tma_rows_kernel<apex_tpu_torch::"
+    "lm_head::LseFromScores>(CUtensorMap, CUtensorMap, CUtensorMap, int, "
+    "int, int, apex_tpu_torch::lm_head::LseFromScores)",
+    "void apex_tpu_torch::gemm::gemm_fma_kernel<false, false, "
+    "apex_tpu_torch::lm_head::LseFromScores>(void const*, void const*, int, "
+    "int, int, int, int, apex_tpu_torch::lm_head::LseFromScores)",
+    "apex_tpu_torch::lm_head::lm_head_fwd_combine_kernel(float const*, "
+    "float*, float*, int, int)"], ids=["tma", "fma", "combine"])
+def test_card_profile_files_the_forward_launches(name):
+    """The profiler files the forward's product (by its epilogue type, on
+    either route) and its combine under #8."""
+    assert _chip_smoke()._kernel_class(name) == "lm_head_fwd"

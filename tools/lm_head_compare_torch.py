@@ -1,6 +1,7 @@
 """One checkout's fused LM head (#8-#10: device time per call of the
 forward, dX and dW kernels and of the autograd op's backward at
-GPT-350M's and BERT-large's head shapes in bf16) and its phases 5 and 7
+GPT-350M's and BERT-large's head shapes in bf16, and of the forward at
+GPT-350M's in f32) and its phases 5 and 7
 (GPT-350M and BERT-large O2 training with the fused head: median step,
 peak memory, LM-head launches), for comparing two checkouts on one card
 in one call:
@@ -47,6 +48,11 @@ for tag, v, masked in (("gpt", 50304, False), ("bert", 30528, True)):
     out[tag] = ms
     del x, w, t, g, lse, xl, wl
     torch.cuda.empty_cache()
+f32 = torch.float32
+x, w, t, _ = c._lm_head_inputs(gen, 8192, 1024, 50304, f32, f32)
+out["gpt_f32"] = {"fwd": c.time_ms([lambda: lm_head_fwd(x, w, t)] * 3, 3)}
+del x, w, t
+torch.cuda.empty_cache()
 for phase, run in (("5", c.phase_train), ("7", c.phase_bert_train)):
     model, opt, _, _, res = run()
     out[phase] = dict(median_step_s=res["median_step_s"],
