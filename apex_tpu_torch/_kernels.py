@@ -57,7 +57,7 @@ _U = ctypes.c_uint32
 # scale, causal, then dropout (on, threshold, keep scale, seed), dtype, stream
 _FLASH_TAIL = [_F, _I, _I, _U, _F, _U, _I, _P]
 _SIGNATURES = {
-    "apex_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _P],
+    "apex_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _I, _P],
     "apex_layer_norm_bwd": [_P] * 9 + [_L, _I, _I, _I, _I, _I, _P],
     "apex_flash_fwd": [_P] * 6 + [_I] * 5 + [_L] * 12 + _FLASH_TAIL,
     "apex_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_L] * 15 + _FLASH_TAIL,

@@ -1,6 +1,6 @@
 // Shared helpers for the port's Hopper kernels: dtype codes that match
-// apex_tpu_torch/_kernels.py, f32 conversions, warp reductions and the
-// attention-dropout counter hash.
+// apex_tpu_torch/_kernels.py, f32 conversions, 16-byte vector loads and
+// stores, warp reductions and the attention-dropout counter hash.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,6 +27,62 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);  // round to nearest even, as jnp.astype
 }
 template <> __device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half(v); }
+
+// One 16-byte load or store (the address a multiple of 16 bytes): the
+// kVec16<T> elements at that address, as f32.  Stores round to nearest
+// even, as from_f32 rounds one element.
+template <typename T>
+constexpr int kVec16 = 16 / static_cast<int>(sizeof(T));
+
+__device__ __forceinline__ void load16(const float* src, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* v) {
+  const uint4 w = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(h[k]);
+    v[2 * k] = f.x;
+    v[2 * k + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load16(const __half* src, float* v) {
+  const uint4 w = *reinterpret_cast<const uint4*>(src);
+  const __half2* h = reinterpret_cast<const __half2*>(&w);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __half22float2(h[k]);
+    v[2 * k] = f.x;
+    v[2 * k + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store16(float* dst, const float* v) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store16(__nv_bfloat16* dst, const float* v) {
+  uint4 w;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&w);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+  *reinterpret_cast<uint4*>(dst) = w;
+}
+
+__device__ __forceinline__ void store16(__half* dst, const float* v) {
+  uint4 w;
+  __half2* h = reinterpret_cast<__half2*>(&w);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) h[k] = __floats2half2_rn(v[2 * k], v[2 * k + 1]);
+  *reinterpret_cast<uint4*>(dst) = w;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

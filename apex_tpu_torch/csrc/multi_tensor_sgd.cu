@@ -6,51 +6,234 @@
 // reads g, p and the f32 momentum buffer and writes p and the buffer (and,
 // under master weights, the model's bf16 copy), ~10 f32 operations: 20
 // bytes per element with f32 g and p, ~2.1 ms for GPT-350M's 354M elements
-// at 3.35 TB/s, ~0.15 ms for ResNet-50's 25.6M.  Design: the by-value
-// table of multi_tensor.cuh (lists g, p, buf, copy), as #18.  The five
-// scalars [lr, wd, momentum, dampening, grad_scale] and the noop flag are
-// read from device memory: the optimizer zeroes the dampening on step 1
-// with a device select from its step count (JAX `fused_sgd.py:47`), and a
-// dynamic-loss-scale skip makes every block return before it writes.  The
-// JAX kernel's static flags are launch arguments: nesterov, first_run (the
-// buffer seeded with g), wd_after_momentum, momentum_zero (apex's
-// `momentum_mode`: the buffer is neither read nor written).
-// p, buf and copy are updated in place (the JAX kernel aliases p and buf).
+// at 3.35 TB/s, ~0.15 ms for ResNet-50's 25.6M.
+//
+// Design: one launch for a whole list.  The table below is passed by value
+// and holds up to kSgdMaxTensors tensors (about 29 KB, under the 32,764
+// bytes of kernel parameters that CUDA 12.1 allows on sm_70 and later), so
+// ResNet-50's 161 parameters and GPT-350M's 291 take one launch; a longer
+// list takes ceil(tensors / kSgdMaxTensors) launches, each full but the
+// last.  The grid is one block per kSgdChunk-element chunk of every tensor
+// (several full waves on ResNet-50's list; a tensor of 64 elements holds a
+// block for one short pass, not an SM); a block finds its tensor by a
+// binary search over the tensors' first-chunk indices.  Each thread moves
+// 8 elements a step with 16-byte loads and stores (g: one in bf16 / f16,
+// two in f32; p and the buffer two each; the copy one in bf16), kSgdUnroll
+// steps in flight.  A tensor whose lists are not all on the 16-byte grid
+// at its start (a view) takes a scalar head of up to 7 elements per chunk,
+// found on the host (`vector_head`); lists that no head can align run
+// scalar.  The (g, p, copy) dtype signature is a template of the body,
+// selected once per block: all 36 combinations the wrapper takes.
+//
+// The five scalars [lr, wd, momentum, dampening, grad_scale] and the noop
+// flag are read from device memory: the optimizer zeroes the dampening on
+// step 1 with a device select from its step count (JAX `fused_sgd.py:47`),
+// and a dynamic-loss-scale skip makes every block return before it writes.
+// The JAX kernel's static flags are launch arguments: nesterov, first_run
+// (the buffer seeded with g), wd_after_momentum, momentum_zero (apex's
+// `momentum_mode`: the buffer is neither read nor written).  Each element's
+// f32 statements are those of the JAX `_sgd_math`, in its order, rounded
+// as the first port of this kernel rounded them (`sgd_update`).  p, buf
+// and copy are updated in place (the JAX kernel aliases p and buf).
 
-#include "multi_tensor.cuh"
+#include <type_traits>
+
+#include "common.cuh"
+
+#if CUDART_VERSION < 12010
+#error "multi_tensor_sgd.cu passes a ~29 KB table: kernel parameters above 4 KB need CUDA 12.1"
+#endif
 
 namespace apex_tpu_torch {
 
-// scal: [lr, wd, momentum, dampening, grad_scale]
-__global__ void __launch_bounds__(kMTThreads)
-multi_tensor_sgd_kernel(TensorListTable<4> tab, const float* __restrict__ scal,
-                        const int* __restrict__ noop, int nesterov, int first_run,
-                        int wd_after_momentum, int momentum_zero) {
-  if (noop != nullptr && *noop != 0) return;
-  int t;
-  int64_t start, end;
-  chunk_range(tab, t, start, end);
-  const float lr = scal[0], wd = scal[1], mom = scal[2], damp = scal[3], gscale = scal[4];
-  const void* gp = tab.ptr[0][t];
-  void* pp = tab.ptr[1][t];
-  float* bp = static_cast<float*>(tab.ptr[2][t]);
-  void* cp = tab.ptr[3][t];
-  const int gt = tab.dtype[0][t], pt = tab.dtype[1][t], ct = tab.dtype[3][t];
-  for (int64_t i = start + threadIdx.x; i < end; i += kMTThreads) {
-    float g = load_any(gp, gt, i) * gscale;
-    float p = load_any(pp, pt, i);
-    if (!wd_after_momentum) g = g + wd * p;
-    float upd = g;
-    if (!momentum_zero) {
-      const float buf = first_run ? g : mom * bp[i] + (1.f - damp) * g;
-      bp[i] = buf;
-      upd = nesterov ? g + mom * buf : buf;
-    }
-    if (wd_after_momentum) upd = upd + wd * p;
-    p = p - lr * upd;
-    store_any(pp, pt, i, p);
-    if (cp != nullptr) store_any(cp, ct, i, p);
+constexpr int kSgdMaxTensors = 640;
+constexpr int kSgdThreads = 256;
+constexpr int kSgdUnroll = 2;                        // 8-element steps in flight
+constexpr int64_t kSgdChunk = 8192;                  // elements per block
+constexpr int kSgdNoVector = 8;                      // head code: scalar only
+constexpr int kSgdParamLimit = 32764;                // CUDA 12.1, sm_70+
+
+// One launch's tensors.  sig = g * 12 + p * 4 + copy (dtype codes; copy 0
+// for none, else 1 + its code); head = elements before every list of the
+// tensor is on the 16-byte grid, or kSgdNoVector.  chunk_start[t] is the
+// launch's index of tensor t's first chunk; chunk_start[n] is the grid.
+struct SgdTable {
+  void* ptr[4][kSgdMaxTensors];  // g, p, buf (f32), copy (null: none)
+  int64_t numel[kSgdMaxTensors];
+  int chunk_start[kSgdMaxTensors + 1];
+  unsigned char sig[kSgdMaxTensors];
+  unsigned char head[kSgdMaxTensors];
+};
+// the table, two pointers and five ints
+static_assert(sizeof(SgdTable) + 2 * 8 + 5 * 4 <= kSgdParamLimit,
+              "kernel parameters exceed the 32,764-byte limit");
+
+struct SgdArgs {
+  float lr, wd, mom, damp, gscale;
+  int nesterov, first_run, wd_after_momentum, momentum_zero;
+};
+
+// one element: the statements of `_sgd_math`, in its order, with each
+// rounding pinned by an intrinsic (the compiler contracts nothing) where
+// the compiler put them in the first port of this kernel (a scalar loop
+// over the shared multi-tensor table), so the same inputs give the same
+// bits as that kernel gave: g * grad_scale and wd * p
+// rounded apart and added, the buffer as fma(1 - dampening, g, round(mom *
+// buf)), Nesterov's g + mom * buf and p - lr * update as FMAs; without
+// momentum, g * grad_scale + wd * p as one FMA (over g before the
+// momentum, over wd * p after it).
+__device__ __forceinline__ float sgd_update(float g, float p, float& buf, const SgdArgs& a) {
+  const float wdp = __fmul_rn(a.wd, p);
+  float upd;
+  if (a.momentum_zero) {
+    upd = a.wd_after_momentum ? __fmaf_rn(a.wd, p, __fmul_rn(g, a.gscale))
+                              : __fmaf_rn(g, a.gscale, wdp);
+  } else {
+    g = __fmul_rn(g, a.gscale);
+    if (!a.wd_after_momentum) g = __fadd_rn(g, wdp);
+    buf = a.first_run ? g : __fmaf_rn(1.f - a.damp, g, __fmul_rn(a.mom, buf));
+    upd = a.nesterov ? __fmaf_rn(a.mom, buf, g) : buf;
+    if (a.wd_after_momentum) upd = __fadd_rn(upd, wdp);
   }
+  return __fmaf_rn(-a.lr, upd, p);
+}
+
+// 8 consecutive elements, 16-byte aligned, to f32 and back (one or two
+// 16-byte words)
+template <typename T>
+__device__ __forceinline__ void load8(const T* src, float (&v)[8]) {
+#pragma unroll
+  for (int k = 0; k < 8; k += kVec16<T>) load16(src + k, v + k);
+}
+
+template <typename T>
+__device__ __forceinline__ void store8(T* dst, const float (&v)[8]) {
+#pragma unroll
+  for (int k = 0; k < 8; k += kVec16<T>) store16(dst + k, v + k);
+}
+
+// elements [s, e) of tensor t, with g, p, copy of types G, P, C (C void:
+// no copy): the scalar head, the 16-byte steps, the scalar tail
+template <typename G, typename P, typename C>
+__device__ __forceinline__ void sgd_chunk(const SgdTable& tab, int t, int64_t s, int64_t e,
+                                          const SgdArgs& a) {
+  constexpr bool kCopy = !std::is_void<C>::value;
+  const G* g = static_cast<const G*>(tab.ptr[0][t]);
+  P* p = static_cast<P*>(tab.ptr[1][t]);
+  float* buf = static_cast<float*>(tab.ptr[2][t]);
+  C* c = static_cast<C*>(tab.ptr[3][t]);
+  const int head = tab.head[t];
+  const int64_t vs = head == kSgdNoVector ? e : min(e, s + head);
+  const int64_t n_vec = (e - vs) / 8;
+  const int64_t ve = vs + 8 * n_vec;
+  const bool read_buf = !a.momentum_zero && !a.first_run;
+
+  auto scalar = [&](int64_t i) {
+    float b = read_buf ? buf[i] : 0.f;
+    const float pn = sgd_update(to_f32(g[i]), to_f32(p[i]), b, a);
+    if (!a.momentum_zero) buf[i] = b;
+    p[i] = from_f32<P>(pn);
+    if constexpr (kCopy) c[i] = from_f32<C>(pn);
+  };
+  for (int64_t i = s + threadIdx.x; i < vs; i += kSgdThreads) scalar(i);
+  for (int64_t i = ve + threadIdx.x; i < e; i += kSgdThreads) scalar(i);
+
+  for (int64_t v0 = threadIdx.x; v0 < n_vec; v0 += kSgdThreads * kSgdUnroll) {
+    float gv[kSgdUnroll][8], pv[kSgdUnroll][8], bv[kSgdUnroll][8];
+#pragma unroll
+    for (int u = 0; u < kSgdUnroll; ++u) {
+      const int64_t i = vs + 8 * (v0 + u * kSgdThreads);
+      if (v0 + u * kSgdThreads < n_vec) {
+        load8(g + i, gv[u]);
+        load8(p + i, pv[u]);
+        if (read_buf) {
+          load8(buf + i, bv[u]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) bv[u][k] = 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSgdUnroll; ++u) {
+      const int64_t i = vs + 8 * (v0 + u * kSgdThreads);
+      if (v0 + u * kSgdThreads < n_vec) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) pv[u][k] = sgd_update(gv[u][k], pv[u][k], bv[u][k], a);
+        store8(p + i, pv[u]);
+        if (!a.momentum_zero) store8(buf + i, bv[u]);
+        if constexpr (kCopy) store8(c + i, pv[u]);
+      }
+    }
+  }
+}
+
+// the body of one (g, p, copy) signature
+template <typename G, typename P>
+__device__ __forceinline__ void sgd_copy_type(int copy, const SgdTable& tab, int t, int64_t s,
+                                              int64_t e, const SgdArgs& a) {
+  switch (copy) {
+    case 0: sgd_chunk<G, P, void>(tab, t, s, e, a); break;
+    case 1 + kF32: sgd_chunk<G, P, float>(tab, t, s, e, a); break;
+    case 1 + kBF16: sgd_chunk<G, P, __nv_bfloat16>(tab, t, s, e, a); break;
+    default: sgd_chunk<G, P, __half>(tab, t, s, e, a);
+  }
+}
+
+template <typename G>
+__device__ __forceinline__ void sgd_param_type(int sig, const SgdTable& tab, int t, int64_t s,
+                                               int64_t e, const SgdArgs& a) {
+  switch ((sig / 4) % 3) {
+    case kF32: sgd_copy_type<G, float>(sig % 4, tab, t, s, e, a); break;
+    case kBF16: sgd_copy_type<G, __nv_bfloat16>(sig % 4, tab, t, s, e, a); break;
+    default: sgd_copy_type<G, __half>(sig % 4, tab, t, s, e, a);
+  }
+}
+
+// scal: [lr, wd, momentum, dampening, grad_scale]
+__global__ void __launch_bounds__(kSgdThreads)
+multi_tensor_sgd_kernel(const __grid_constant__ SgdTable tab, const float* __restrict__ scal,
+                        const int* __restrict__ noop, int n_tensors, int nesterov,
+                        int first_run, int wd_after_momentum, int momentum_zero) {
+  if (noop != nullptr && *noop != 0) return;
+  // the tensor owning this block: the last t with chunk_start[t] <= block
+  const int block = static_cast<int>(blockIdx.x);
+  int lo = 0, hi = n_tensors - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (tab.chunk_start[mid] <= block) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  const int t = lo;
+  const int64_t s = static_cast<int64_t>(block - tab.chunk_start[t]) * kSgdChunk;
+  const int64_t e = min(tab.numel[t], s + kSgdChunk);
+  const SgdArgs a{scal[0], scal[1], scal[2], scal[3], scal[4],
+                  nesterov, first_run, wd_after_momentum, momentum_zero};
+  const int sig = tab.sig[t];
+  switch (sig / 12) {
+    case kF32: sgd_param_type<float>(sig, tab, t, s, e, a); break;
+    case kBF16: sgd_param_type<__nv_bfloat16>(sig, tab, t, s, e, a); break;
+    default: sgd_param_type<__half>(sig, tab, t, s, e, a);
+  }
+}
+
+constexpr int dtype_size(int code) { return code == kF32 ? 4 : 2; }
+
+// The fewest leading elements (0-7) after which each list's address is a
+// multiple of 16 bytes, or kSgdNoVector when no count aligns them all.
+// addr[l] == 0: list l is absent.
+static int vector_head(const uint64_t (&addr)[4], const int (&size)[4]) {
+  for (int h = 0; h < 8; ++h) {
+    bool ok = true;
+    for (int l = 0; l < 4; ++l) {
+      if (addr[l] != 0 && (addr[l] + static_cast<uint64_t>(h * size[l])) % 16 != 0) ok = false;
+    }
+    if (ok) return h;
+  }
+  return kSgdNoVector;
 }
 
 }  // namespace apex_tpu_torch
@@ -60,7 +243,8 @@ using namespace apex_tpu_torch;
 // n tensors: g/p/buf/copy host arrays of device addresses (buf f32; copy 0
 // where a tensor has none), numels, g/p/copy dtype codes; scal: device
 // f32[5]; noop: device int32 or null; then the four static flags.
-// *launches receives the number of launches made.
+// *launches receives the number of launches made: one per kSgdMaxTensors
+// non-empty tensors.
 extern "C" int apex_multi_tensor_sgd(int n, const uint64_t* g_ptrs, const uint64_t* p_ptrs,
                                      const uint64_t* buf_ptrs, const uint64_t* copy_ptrs,
                                      const int64_t* numels, const int* g_dtypes,
@@ -69,13 +253,46 @@ extern "C" int apex_multi_tensor_sgd(int n, const uint64_t* g_ptrs, const uint64
                                      int first_run, int wd_after_momentum, int momentum_zero,
                                      int* launches, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint64_t* ptrs[4] = {g_ptrs, p_ptrs, buf_ptrs, copy_ptrs};
-  const int* dtypes[4] = {g_dtypes, p_dtypes, nullptr, copy_dtypes};
-  return for_each_table<4>(n, ptrs, dtypes, numels, launches,
-                           [&](const TensorListTable<4>& tab, int nb) {
-    multi_tensor_sgd_kernel<<<nb, kMTThreads, 0, st>>>(
-        tab, static_cast<const float*>(scal), static_cast<const int*>(noop), nesterov, first_run,
-        wd_after_momentum, momentum_zero);
+  *launches = 0;
+  SgdTable tab;
+  int nt = 0;
+  int64_t chunks = 0;
+  auto launch = [&]() {
+    tab.chunk_start[nt] = static_cast<int>(chunks);
+    multi_tensor_sgd_kernel<<<static_cast<unsigned>(chunks), kSgdThreads, 0, st>>>(
+        tab, static_cast<const float*>(scal), static_cast<const int*>(noop), nt, nesterov,
+        first_run, wd_after_momentum, momentum_zero);
+    ++*launches;
+    nt = 0;
+    chunks = 0;
     return static_cast<int>(cudaGetLastError());
-  });
+  };
+  for (int t = 0; t < n; ++t) {
+    if (numels[t] <= 0) continue;
+    const int codes[4] = {g_dtypes[t], p_dtypes[t], kF32,
+                          copy_ptrs[t] != 0 ? copy_dtypes[t] : kF32};
+    for (int code : codes) {
+      if (code < kF32 || code > kF16) return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const uint64_t addr[4] = {g_ptrs[t], p_ptrs[t], buf_ptrs[t], copy_ptrs[t]};
+    const int size[4] = {dtype_size(codes[0]), dtype_size(codes[1]), 4, dtype_size(codes[3])};
+    const int64_t n_chunks = (numels[t] + kSgdChunk - 1) / kSgdChunk;
+    if (chunks + n_chunks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    tab.ptr[0][nt] = reinterpret_cast<void*>(addr[0]);
+    tab.ptr[1][nt] = reinterpret_cast<void*>(addr[1]);
+    tab.ptr[2][nt] = reinterpret_cast<void*>(addr[2]);
+    tab.ptr[3][nt] = reinterpret_cast<void*>(addr[3]);
+    tab.numel[nt] = numels[t];
+    tab.chunk_start[nt] = static_cast<int>(chunks);
+    tab.sig[nt] = static_cast<unsigned char>(codes[0] * 12 + codes[1] * 4 +
+                                             (addr[3] != 0 ? 1 + codes[3] : 0));
+    tab.head[nt] = static_cast<unsigned char>(vector_head(addr, size));
+    chunks += n_chunks;
+    if (++nt == kSgdMaxTensors) {
+      const int rc = launch();
+      if (rc != 0) return rc;
+    }
+  }
+  if (nt > 0) return launch();
+  return 0;
 }

@@ -5,7 +5,9 @@ variance form in f32, exactly as the JAX kernels and their jnp fallback do.
 
 * :func:`layer_norm_fwd` is the forward kernel wrapper: a CPU tensor takes
   :func:`layer_norm_fwd_reference`, a CUDA tensor launches
-  ``csrc/layer_norm_fwd.cu`` (the counterpart of the Pallas ``_fwd_kernel``).
+  ``csrc/layer_norm_fwd.cu`` (the counterpart of the Pallas ``_fwd_kernel``)
+  with the body :func:`layer_norm_fwd_path` picks: a row per warp held in
+  registers, or a block per row for any other shape.
 * :func:`layer_norm_bwd` is the backward kernel wrapper: a CPU tensor takes
   :func:`layer_norm_bwd_reference`, a CUDA tensor launches
   ``csrc/layer_norm_bwd.cu`` (the counterpart of ``_bwd_kernel``): dx plus
@@ -28,8 +30,12 @@ _f32 = torch.float32
 # rows of dy/x each block of the backward kernel reduces into one partial
 # dgamma/dbeta row (csrc/layer_norm_bwd.cu)
 LN_BWD_ROWS_PER_BLOCK = 16
+# row elements a lane of the forward's row-per-warp body holds in registers
+# (csrc/layer_norm_fwd.cu kLnMaxLaneElems)
+LN_FWD_LANE_ELEMS = 32
 
-__all__ = ["layer_norm_fwd", "layer_norm_fwd_reference", "layer_norm_bwd",
+__all__ = ["layer_norm_fwd", "layer_norm_fwd_reference",
+           "layer_norm_fwd_path", "layer_norm_bwd",
            "layer_norm_bwd_reference", "fused_layer_norm_affine",
            "fused_rms_norm_affine", "fused_layer_norm", "fused_rms_norm"]
 
@@ -77,6 +83,21 @@ def _check_rows(kernel, x, **others):
                              f"{x.device}")
 
 
+def layer_norm_fwd_path(hidden: int, dtype: torch.dtype, aligned: bool) -> int:
+    """The forward kernel's body for rows of ``hidden`` elements of
+    ``dtype``: the 16-byte vectors each lane holds in the row-per-warp body
+    (a row split into ``16 / itemsize``-element vectors, vector ``v`` on
+    lane ``v % 32``), or 0 for the block-per-row body.  The row-per-warp
+    body needs ``aligned`` (x, weight and bias on the 16-byte grid), hidden
+    a whole number of vectors and at most :data:`LN_FWD_LANE_ELEMS`
+    elements a lane (hidden <= 1024 in every dtype)."""
+    per_vec = 16 // dtype.itemsize
+    if not aligned or hidden % per_vec:
+        return 0
+    nv = -(-hidden // (32 * per_vec))
+    return nv if nv * per_vec <= LN_FWD_LANE_ELEMS else 0
+
+
 def layer_norm_fwd(x, weight, bias, eps: float, rms: bool):
     """LayerNorm (``rms=False``) or RMSNorm forward over the rows of ``x``.
 
@@ -94,6 +115,8 @@ def layer_norm_fwd(x, weight, bias, eps: float, rms: bool):
     _check_vectors("layer_norm_fwd", hidden, x.device, weight=weight,
                    bias=bias)
     code = _kernels.dtype_code(x, "layer_norm_fwd")
+    nv = layer_norm_fwd_path(hidden, x.dtype, all(
+        t.data_ptr() % 16 == 0 for t in (x, weight, bias) if t is not None))
     y = torch.empty_like(x)
     mean = torch.empty((rows, 1), dtype=_f32, device=x.device)
     rstd = torch.empty((rows, 1), dtype=_f32, device=x.device)
@@ -101,7 +124,7 @@ def layer_norm_fwd(x, weight, bias, eps: float, rms: bool):
         x.data_ptr(), weight.data_ptr(),
         None if bias is None else bias.data_ptr(), y.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), rows, hidden, float(eps), int(rms),
-        code, _kernels.stream())
+        code, nv, _kernels.stream())
     _kernels.check(rc, "layer_norm_fwd")
     layer_norm_fwd.launches += 1
     return y, mean, rstd

@@ -3,7 +3,8 @@ axpby, L2 norm, Adam, SGD, the two LAMB stages, Adagrad, NovoGrad).
 
 Each function updates or reads lists of tensors with one multi-tensor
 launch set (apex's ``multi_tensor_apply`` design, the by-value table of
-``csrc/multi_tensor.cuh``): a CUDA tensor launches its kernel, a CPU tensor
+``csrc/multi_tensor.cuh``; SGD's own table holds a whole list, see
+:func:`sgd_plan`): a CUDA tensor launches its kernel, a CPU tensor
 takes the function's plain version (``*_reference``), which applies the JAX
 single-source math (:func:`_adam_math`, :func:`_sgd_math`,
 :func:`_lamb_stage1_math`, :func:`_adagrad_math`, :func:`_novograd_math`)
@@ -55,6 +56,10 @@ _f32 = torch.float32
 
 # elements per block of the multi-tensor kernels (csrc/multi_tensor.cuh)
 CHUNK = 65536
+# multi_tensor_sgd's launch table (csrc/multi_tensor_sgd.cu): tensors a
+# launch holds, elements per block
+SGD_TABLE_TENSORS = 640
+SGD_CHUNK = 8192
 
 __all__ = ["multi_tensor_scale_", "multi_tensor_scale_reference",
            "multi_tensor_sumsq", "multi_tensor_sumsq_reference",
@@ -65,13 +70,41 @@ __all__ = ["multi_tensor_scale_", "multi_tensor_scale_reference",
            "multi_tensor_sgd", "multi_tensor_sgd_reference",
            "multi_tensor_adagrad", "multi_tensor_adagrad_reference",
            "multi_tensor_novograd", "multi_tensor_novograd_reference",
-           "chunk_counts", "device_scalars", "_adam_math", "_sgd_math",
+           "chunk_counts", "device_scalars", "sgd_plan", "sgd_launches", "_adam_math", "_sgd_math",
            "_lamb_stage1_math", "_adagrad_math", "_novograd_math"]
 
 
 def chunk_counts(numels):
     """Chunks (one block, one partial each) of tensors of these sizes."""
     return [-(-int(n) // CHUNK) if n > 0 else 0 for n in numels]
+
+
+def sgd_plan(numels):
+    """The launches of :func:`multi_tensor_sgd` over tensors of these
+    sizes, as its C entry walks them: per launch, the ``(tensor index,
+    first chunk, chunks)`` of each non-empty tensor, at most
+    :data:`SGD_TABLE_TENSORS` a launch; chunk ``c`` of a tensor is its
+    elements ``[c * SGD_CHUNK, (c + 1) * SGD_CHUNK)``, and block ``b`` of a
+    launch runs it when ``b = first + c``."""
+    launches, table, chunks = [], [], 0
+    for i, n in enumerate(numels):
+        if n <= 0:
+            continue
+        c = -(-int(n) // SGD_CHUNK)
+        table.append((i, chunks, c))
+        chunks += c
+        if len(table) == SGD_TABLE_TENSORS:
+            launches.append(table)
+            table, chunks = [], 0
+    if table:
+        launches.append(table)
+    return launches
+
+
+def sgd_launches(numels):
+    """Launches of one :func:`multi_tensor_sgd` call over tensors of these
+    sizes: one per :data:`SGD_TABLE_TENSORS` non-empty tensors."""
+    return len(sgd_plan(numels))
 
 
 def device_scalars(values, device):
@@ -675,8 +708,9 @@ def multi_tensor_sgd(grads, params, momentum_buffers, copies, scal,
     values).  The flags are static, as in JAX: ``first_run`` seeds the
     buffer with the gradient, ``momentum_zero`` skips the buffer.  CPU
     tensors take :func:`multi_tensor_sgd_reference`; CUDA tensors launch
-    ``csrc/multi_tensor_sgd.cu`` (launches added to
-    ``multi_tensor_sgd.launches``) or raise."""
+    ``csrc/multi_tensor_sgd.cu``, one launch per :data:`SGD_TABLE_TENSORS`
+    tensors (:func:`sgd_launches`; added to ``multi_tensor_sgd.launches``),
+    or raise."""
     copies = _copies(copies, len(params))
     lists = (grads, params, momentum_buffers, copies)
     if any(len(x) != len(params) for x in lists) or not params:

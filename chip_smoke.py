@@ -17,7 +17,11 @@ Phases (any failure exits non-zero; nothing is caught):
    kernel's time, the plain version's time, one PyTorch library call
    computing the same function (a yardstick the port never calls) and the
    least time the card could take (bytes / 3.35 TB/s or operations / peak,
-   whichever is larger); the flash forward, dq and dk/dv (#3-#5) also at
+   whichever is larger); the LayerNorm forward (#1) also at hidden 48,
+   1000, 1600, 4096 and 8192, one row, f16, f32, RMS and an x off the
+   16-byte grid (each naming the body it took), and at 8192 rows with six
+   inputs in turn (read from device memory, not L2); the flash forward,
+   dq and dk/dv (#3-#5) also at
    head_dim 16 and 32 on a ragged s = 200 (causal, dropout 0.1,
    kv_seqlens), in small f32 and f16 cases (the FMA instantiations), #4
    and #5 twice on the same inputs (bitwise equal) and a q one element off
@@ -41,7 +45,10 @@ Phases (any failure exits non-zero; nothing is caught):
    and NovoGrad (#16, #19, #22, #23) at GPT-350M's f32 list (291 tensors,
    as Adam), on a mixed list of 40 bf16 / f16 / f32 tensors with f32
    masters and model copies, and SGD at ResNet-50's O1 and O2 lists (161
-   tensors), their yardsticks ``SGD(fused=True)`` and
+   tensors; SGD also at 1, 7, 64 and 65,537 elements in five dtype
+   signatures, at storage offset 1, under momentum_zero and noop, bitwise
+   on a repeat, and over 2000 tensors, its launches ``sgd_launches``'s),
+   their yardsticks ``SGD(fused=True)`` and
    ``Adagrad(foreach=True)``; the decode (#6) on a strided bf16 ring with
    ragged lengths, its yardstick SDPA + mask, and the paged decode (#7) on
    a 513-block bf16 pool through a shuffled table with shared blocks,
@@ -365,6 +372,22 @@ def kernel_layer_norm(gen):
             bound_ms(n_bytes, 8 * rows * HIDDEN, PEAK_F32_FLOPS),
             call_ms(lambda: layer_norm_fwd(x, w, b, 1e-5, False)))
         log_numbers(f"layer_norm_fwd rows={rows}", n, "F.layer_norm")
+        if rows == TRAIN_ROWS:
+            # 20 replays of one 16 MB input read it from the 50 MB L2; six
+            # inputs (96 MB) taken in turn are read from device memory
+            xs = [torch.randn(rows, HIDDEN, generator=gen).to(
+                dev, torch.bfloat16) for _ in range(6)]
+            n["ms_l2_cold"] = time_ms(
+                [lambda x=x: layer_norm_fwd(x, w, b, 1e-5, False)
+                 for x in xs] * 4)
+            n["library_ms_l2_cold"] = time_ms(
+                [lambda x=x: F.layer_norm(x, (HIDDEN,), w16, b16, 1e-5)
+                 for x in xs] * 4)
+            log(f"  layer_norm_fwd rows={rows}, six inputs in turn (read "
+                f"from device memory): {n['ms_l2_cold']:.4f} ms, "
+                f"F.layer_norm {n['library_ms_l2_cold']:.4f} ms, bound "
+                f"{n['bound_ms']:.5f} ms")
+            del xs
         rows_main[rows] = n
     # BERT's MLM LayerNorm takes the f32 output of its transform (f32 in,
     # f32 out): the same math without the bf16 rounding of y, so the
@@ -379,7 +402,50 @@ def kernel_layer_norm(gen):
     check_close(tag + " y", y, ry, 1e-5, 1e-5)
     check_close(tag + " mean", mean, rmean, 1e-5, 1e-5)
     check_close(tag + " rstd", rstd, rrstd, 1e-5, 1e-4)
+    for hidden in (48, 1000, 1024, 1600, 4096, 8192):
+        for rows in (1, 300):
+            _ln_edge_case(gen, rows, hidden, torch.bfloat16, False)
+        _ln_edge_case(gen, 300, hidden, torch.bfloat16, True)
+    for dtype in (torch.float16, torch.float32):
+        for hidden in (1000, 1024):
+            for rms in (False, True):
+                _ln_edge_case(gen, 300, hidden, dtype, rms)
+    for dtype in (torch.bfloat16, torch.float32):
+        _ln_edge_case(gen, 300, HIDDEN, dtype, False, offset=1)
     return rows_main
+
+
+# phase-2 tolerances of #1's y by dtype (mean 1e-5 + 1e-5 |ref|, rstd 1e-5 +
+# 1e-4 |ref| in every dtype)
+LN_Y_TOL = {torch.bfloat16: (BF16_ATOL, BF16_RTOL),
+            torch.float16: (F16_ATOL, F16_RTOL), torch.float32: (1e-5, 1e-5)}
+
+
+def _ln_edge_case(gen, rows, hidden, dtype, rms, offset=0):
+    """#1 against its plain version at one shape; ``offset`` puts x that
+    many elements into its storage (off the 16-byte grid: the
+    block-per-row body).  Logs the body ``layer_norm_fwd_path`` picked."""
+    from apex_tpu_torch.ops.layer_norm import (layer_norm_fwd,
+                                               layer_norm_fwd_path,
+                                               layer_norm_fwd_reference)
+    w = (1 + 0.1 * torch.randn(hidden, generator=gen)).to("cuda")
+    b = None if rms else (0.1 * torch.randn(hidden, generator=gen)).to("cuda")
+    x = _at_offset(torch.randn(rows, hidden, generator=gen).to("cuda", dtype),
+                   offset)
+    nv = layer_norm_fwd_path(hidden, dtype, x.data_ptr() % 16 == 0)
+    y, mean, rstd = layer_norm_fwd(x, w, b, 1e-5, rms)
+    ry, rmean, rrstd = layer_norm_fwd_reference(x, w, b, 1e-5, rms)
+    torch.cuda.synchronize()
+    tag = (f"layer_norm_fwd {rows}x{hidden} {str(dtype)[6:]} "
+           f"{'rms' if rms else 'ln'}"
+           + (f", x at storage offset {offset}" if offset else "")
+           + (f" (row per warp, {nv} vectors a lane)" if nv
+              else " (block per row)"))
+    if y.dtype != dtype or y.shape != x.shape:
+        raise AssertionError(f"{tag}: y is {y.dtype} {tuple(y.shape)}")
+    check_close(tag + " y", y, ry, *LN_Y_TOL[dtype])
+    check_close(tag + " mean", mean, rmean, 1e-5, 1e-5)
+    check_close(tag + " rstd", rstd, rrstd, 1e-5, 1e-4)
 
 
 def kernel_layer_norm_bwd(gen):
@@ -2225,21 +2291,34 @@ def resnet50_specs(opt_level):
     return [(tuple(p.shape), p.dtype) for p in model.parameters()]
 
 
+def opt_launches(kernel, numels):
+    """Launches of one call of a multi-tensor optimizer kernel over tensors
+    of these sizes: #19 by its own table (``sgd_launches``), the others by
+    ``csrc/multi_tensor.cuh``'s."""
+    from apex_tpu_torch.ops import multi_tensor as K
+    return (K.sgd_launches(numels) if kernel is K.multi_tensor_sgd
+            else table_launches(numels))
+
+
 def _opt_kernel_check(tag, kernel, plain, run, params, state, copies,
                       numels):
     """``run(f, params, state, copies, noop)`` with ``f`` the kernel's
     wrapper against the same with its plain version, on clones of the same
-    tensors, noop 1 then 0: exact table launches; f32
+    tensors, noop 1 then 0 (#19: and the kernel again, which must repeat
+    its first run bit for bit): exact launches (``opt_launches``); f32
     params and state within 1e-6 relative plus 1e-6 of each tensor's
     largest entry (FMA contraction on the card rounds a product-sum once
     where the plain version rounds twice); each side's model copies equal
     its params rounded to nearest even (unchanged under noop); under noop
     nothing moves.  Returns the largest error."""
+    from apex_tpu_torch.ops import multi_tensor as K
     err = 0.0
+    want_launches = opt_launches(kernel, numels)
+    repeat = kernel is K.multi_tensor_sgd
     for noop_v in (1, 0):
         noop = torch.tensor(noop_v, dtype=torch.int32, device="cuda")
         sides = []
-        for f in (kernel, plain):
+        for f in (kernel, plain) + ((kernel,) if repeat else ()):
             kp = [t.clone() for t in params]
             ks = [t.clone() for t in state]
             kc = [None if c is None else torch.zeros_like(c) for c in copies]
@@ -2247,11 +2326,13 @@ def _opt_kernel_check(tag, kernel, plain, run, params, state, copies,
             run(f, kp, ks, kc, noop)
             sides.append((kp, ks, kc, kernel.launches - before))
         torch.cuda.synchronize()
-        (kp, ks, kc, n_launch), (rp, rs, rc, n_plain) = sides
-        if n_launch != table_launches(numels) or n_plain:
+        (kp, ks, kc, n_launch), (rp, rs, rc, n_plain) = sides[:2]
+        if n_launch != want_launches or n_plain:
             raise AssertionError(f"{tag} made {n_launch} launches (plain "
                                  f"{n_plain}), the table rule says "
-                                 f"{table_launches(numels)}")
+                                 f"{want_launches}")
+        if repeat and not _bitwise(sides[0][:3], sides[2][:3]):
+            raise AssertionError(f"{tag} noop={noop_v}: a repeat differs")
         t = f"{tag} noop={noop_v}"
         err = max(err, _check_lists(f"{t} params", kp, rp, 1e-6, 0.0,
                                     scale_rtol=1e-6))
@@ -2272,6 +2353,13 @@ def _opt_kernel_check(tag, kernel, plain, run, params, state, copies,
     return err
 
 
+def _bitwise(a, b):
+    """Lists of lists of tensors (or None) equal bit for bit."""
+    return all(x is y or (x is not None and y is not None and x.dtype
+                          == y.dtype and torch.equal(x, y))
+               for la, lb in zip(a, b) for x, y in zip(la, lb))
+
+
 def _mixed_opt_lists(rand):
     """40 tensors crossing the 36-tensor table limit and the chunk
     carry-over: bf16 / f16 grads of f32 masters with bf16 / f16 model
@@ -2287,6 +2375,126 @@ def _mixed_opt_lists(rand):
         out.append((rand(n, 1e-2).to(gdt), master,
                     None if cdt is None else master.to(cdt)))
     return out
+
+
+# #19's dtype signatures (g, p, copy) as the optimizers pass them
+SGD_SIGNATURES = ((torch.float32, torch.float32, None),
+                  (torch.bfloat16, torch.float32, torch.bfloat16),
+                  (torch.float16, torch.float32, torch.float16),
+                  (torch.bfloat16, torch.bfloat16, None),
+                  (torch.float16, torch.float16, None))
+SGD_EDGE_SIZES = (1, 7, 64, 65537)
+# a 16-bit parameter updated in place: the kernel's f32 value may differ
+# from the plain version's in its last bit (FMA contraction), and a value
+# next to a rounding midpoint then rounds to the neighbour: one ulp of the
+# parameter's type, at most 2**-7 (bf16) or 2**-10 (f16) of the value
+SGD_P_RTOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7,
+              torch.float16: 2.0 ** -10}
+
+
+def _at_offset(t, off):
+    """A copy of ``t`` that starts ``off`` elements into its own storage
+    (off the 16-byte grid for ``off`` = 1)."""
+    if t is None:
+        return None
+    v = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)[off:]
+    return v.view(t.shape).copy_(t)
+
+
+def _sgd_edge_check(tag, lists, offsets=(0, 0, 0, 0), **flags):
+    """#19 on copies of ``lists`` (g, p, buf, copies; each list at its
+    storage offset) against its plain version, noop 1 then 0, and the
+    kernel again: launches as ``sgd_launches`` says, one per call when the
+    C entry counts them; under noop nothing moves, bit for bit; p within
+    ``SGD_P_RTOL`` of its type + 1e-6 of the tensor's largest entry, buf
+    within 1e-6 relative + 1e-6 of its largest entry; each side's copies
+    its p rounded to nearest even; with ``momentum_zero`` buf untouched,
+    bit for bit; the repeat bitwise the first run."""
+    from apex_tpu_torch.ops import multi_tensor as K
+    scal = torch.tensor([0.1, 1e-4, 0.9, 0.1, 0.5], device="cuda")
+    numels = [p.numel() for p in lists[1]]
+    err = 0.0
+    for noop_v in (1, 0):
+        noop = torch.tensor(noop_v, dtype=torch.int32, device="cuda")
+        sides = []
+        for f in (K.multi_tensor_sgd, K.multi_tensor_sgd_reference,
+                  K.multi_tensor_sgd):
+            side = [[_at_offset(t, o) for t in lst]
+                    for lst, o in zip(lists, offsets)]
+            before = K.multi_tensor_sgd.launches
+            f(*side, scal, noop, **flags)
+            sides.append((side, K.multi_tensor_sgd.launches - before))
+        torch.cuda.synchronize()
+        (k, n_k), (r, n_r), (k2, n_k2) = sides
+        t = f"{tag} noop={noop_v}"
+        want = K.sgd_launches(numels)
+        if (n_k, n_r, n_k2) != (want, 0, want):
+            raise AssertionError(f"{t}: launches {n_k} / {n_k2} (plain "
+                                 f"{n_r}), sgd_launches says {want}")
+        if not _bitwise(k, k2):
+            raise AssertionError(f"{t}: a repeat differs")
+        if noop_v or flags.get("momentum_zero"):
+            moved = [j for j in ((0, 1, 2, 3) if noop_v else (2,))
+                     if not _bitwise([k[j]], [lists[j]])]
+            if moved:
+                raise AssertionError(f"{t}: lists {moved} changed")
+        if noop_v:
+            continue
+        for dt in {p.dtype for p in lists[1]}:
+            pick = [i for i, p in enumerate(lists[1]) if p.dtype == dt]
+            err = max(err, _check_lists(
+                f"{t} {str(dt)[6:]} params", [k[1][i] for i in pick],
+                [r[1][i] for i in pick], SGD_P_RTOL[dt], 0.0,
+                scale_rtol=1e-6))
+        _check_lists(f"{t} buffers", k[2], r[2], 1e-6, 0.0, scale_rtol=1e-6)
+        for side, (ps, cs) in (("kernel", k[1::2]), ("plain", r[1::2])):
+            if any(c is not None for c in cs):
+                _check_lists(f"{t} {side} copies vs its params", cs,
+                             [None if c is None else p.to(c.dtype)
+                              for p, c in zip(ps, cs)], 0.0, 0.0)
+        del sides, k, r, k2
+    return err
+
+
+def kernel_sgd_edges(rand):
+    """#19 beyond the paths' lists: tensors of 1, 7, 64 and 65,537
+    elements in every signature of ``SGD_SIGNATURES`` in one list, at
+    offset 0, with every list at storage offset 1 (a scalar head of 7 or
+    3), with only g off the grid (no head aligns g and p: scalar), under
+    ``momentum_zero`` and under nesterov + first_run + wd_after_momentum;
+    then 2000 f32 tensors of 1-70,000 elements, whose launch count (the C
+    entry's) must be ``sgd_launches``'s (more than one table)."""
+    from apex_tpu_torch.ops import multi_tensor as K
+    gs, ps, bs, cs = [], [], [], []
+    for gdt, pdt, cdt in SGD_SIGNATURES:
+        for n in SGD_EDGE_SIZES:
+            p = rand(n, 0.02)
+            if cdt is not None:
+                p = p.to(cdt).float()
+            gs.append(rand(n, 1e-2).to(gdt))
+            ps.append(p.to(pdt))
+            bs.append(rand(n, 1e-2))
+            cs.append(None if cdt is None else p.to(cdt))
+    lists = (gs, ps, bs, cs)
+    tag = f"multi_tensor_sgd {len(ps)} tensors of {SGD_EDGE_SIZES}"
+    err = _sgd_edge_check(tag, lists)
+    err = max(err, _sgd_edge_check(tag + " at storage offset 1", lists,
+                                   offsets=(1, 1, 1, 1)))
+    err = max(err, _sgd_edge_check(tag + ", g at storage offset 1", lists,
+                                   offsets=(1, 0, 0, 0)))
+    err = max(err, _sgd_edge_check(tag + " momentum_zero", lists,
+                                   momentum_zero=True))
+    err = max(err, _sgd_edge_check(
+        tag + " nesterov first_run wd_after_momentum", lists,
+        nesterov=True, first_run=True, wd_after_momentum=True))
+    sizes = np.random.RandomState(5).randint(1, 70001, 2000)
+    long = ([rand(int(n), 1e-2) for n in sizes],
+            [rand(int(n), 0.02) for n in sizes],
+            [rand(int(n), 1e-2) for n in sizes], [None] * len(sizes))
+    err = max(err, _sgd_edge_check(
+        f"multi_tensor_sgd 2000 tensors of 1-70000 elements "
+        f"({K.sgd_launches(sizes)} launches)", long))
+    return err
 
 
 def kernel_optimizers(gen_cuda):
@@ -2348,6 +2556,8 @@ def kernel_optimizers(gen_cuda):
         lambda f, p, s, c, n: f(mg, p, s, c, v_mixed, nv_scal, n, True),
         mp, ms, mc, m_numels)
     del mixed, mg, mp, mc, ms
+    out["sgd_edges_max_abs_err"] = kernel_sgd_edges(rand)
+    torch.cuda.empty_cache()
 
     # #16 axpby over the GPT list (f32), then a bf16 output
     xs = [rand(s, 1e-2) for s in shapes]
@@ -2425,7 +2635,7 @@ def kernel_optimizers(gen_cuda):
             lib_name = ("SGD(fused=True).step (eager)" if name == "sgd"
                         else "Adagrad(foreach=True).step (eager)")
             log_numbers(f"{kern.__name__} {len(shapes)} tensors, {n_el} "
-                        f"elements, {table_launches(numels)} launches",
+                        f"elements, {opt_launches(kern, numels)} launches",
                         out[name], lib_name)
             del lib, lib_ps
         del ss
@@ -2456,6 +2666,7 @@ def kernel_optimizers(gen_cuda):
     for n in (out["axpby"], out["sgd"], out["adagrad"], out["novograd"]):
         n["tensors"], n["elements"] = len(shapes), n_el
         n["launches_per_call"] = table_launches(numels)
+    out["sgd"]["launches_per_call"] = K.sgd_launches(numels)
 
     # #19 over ResNet-50's lists, as phase 9 steps them
     for level in ("O1", "O2"):
@@ -2490,11 +2701,11 @@ def kernel_optimizers(gen_cuda):
             call_ms(lambda: K.multi_tensor_sgd(gs, masters, bufs, copies,
                                                sgd_scal, noop0), iters=10))
         log_numbers(f"multi_tensor_sgd ResNet-50 {level} {len(specs)} "
-                    f"tensors, {r_el} elements, {table_launches(r_numels)} "
+                    f"tensors, {r_el} elements, {K.sgd_launches(r_numels)} "
                     f"launches", out[key],
                     "SGD(fused=True).step on f32 copies (eager)")
         out[key].update(tensors=len(specs), elements=r_el,
-                        launches_per_call=table_launches(r_numels))
+                        launches_per_call=K.sgd_launches(r_numels))
         if level == "O1":
             # the hand-written SGD's update: #16 in place on the
             # parameters (outs = xs), a and b as f32 device scalars
@@ -3620,7 +3831,7 @@ def _launches_of(counters):
 def phase_resnet(opt_level, tag):
     """The ported ImageNet example's ``main()`` at ``opt_level``: losses,
     step times, img/s and peak memory; every kernel counter read around
-    the run (only #19, exactly its table launches per step) and no plain
+    the run (only #19, exactly ``sgd_launches`` per step) and no plain
     version called.  Returns the trainer and the numbers."""
     from apex_tpu_torch.examples.imagenet import main_amp
     numels = [int(np.prod(s)) for s, _ in resnet50_specs(opt_level)]
@@ -3634,7 +3845,8 @@ def phase_resnet(opt_level, tag):
     launches = _launches_of(counters)
     trainer = res.pop("trainer")
     batch = res.pop("batch")
-    per_step = table_launches(numels)
+    from apex_tpu_torch.ops.multi_tensor import sgd_launches
+    per_step = sgd_launches(numels)
     expected = {"multi_tensor_sgd": RESNET_STEPS * per_step}
     step_s = statistics.median(res["step_times_s"])
     peak = res["peak_memory_bytes"]
@@ -3882,7 +4094,8 @@ def phase_resnet_parity(flags_at_start):
 # -- optional: where the time goes ------------------------------------------
 
 _KERNEL_CLASSES = (("layer_norm_bwd", "layer_norm_bwd"),
-                   ("layer_norm_fwd_kernel", "layer_norm_fwd"),
+                   # the row-per-warp body and the block-per-row one
+                   ("layer_norm_fwd_", "layer_norm_fwd"),
                    ("flash_fwd_", "flash_fwd"),     # _mma_ (bf16), _fma_
                    ("flash_bwd_dq_", "flash_attention_dq"),   # _mma_, _fma_
                    ("flash_bwd_dkv_", "flash_attention_dkv"),

@@ -223,3 +223,199 @@ def test_from_y_guards_zero_gamma():
     dx, dw, db = tln.layer_norm_bwd_reference(torch.ones_like(x), y, w, b,
                                               mean, rstd, False, True)
     assert torch.isfinite(dx).all() and torch.isfinite(dw).all()
+
+
+# ---------------------------------------------------------------------------
+# the card kernel's body choice and its summation orders (csrc/layer_norm_fwd.cu)
+# ---------------------------------------------------------------------------
+
+_WIDTHS = [8, 48, 1000, 1024, 1600, 4096, 8192]
+# 16-byte vectors a lane of the row-per-warp body holds, by dtype and
+# hidden, on the 16-byte grid (0: the block-per-row body)
+_PATHS = {"bf16": {8: 1, 48: 1, 1000: 4, 1024: 4, 1600: 0, 4096: 0, 8192: 0,
+                   12: 0, 1001: 0},
+          "f16": {8: 1, 48: 1, 1000: 4, 1024: 4, 1600: 0, 4096: 0, 8192: 0,
+                  12: 0, 1001: 0},
+          "f32": {8: 1, 48: 1, 1000: 8, 1024: 8, 1600: 0, 4096: 0, 8192: 0,
+                  12: 1, 1001: 0}}
+_DT = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
+
+
+@pytest.mark.parametrize("hidden", _WIDTHS + [12, 1001])
+@pytest.mark.parametrize("dtype", sorted(_PATHS))
+def test_fwd_path_choice(dtype, hidden):
+    """The row-per-warp body takes a row of whole 16-byte vectors, at most
+    LN_FWD_LANE_ELEMS elements a lane (hidden <= 1024), with x, w and b on
+    the 16-byte grid; every other row takes the block-per-row body."""
+    want = _PATHS[dtype][hidden]
+    assert tln.layer_norm_fwd_path(hidden, _DT[dtype], True) == want
+    assert tln.layer_norm_fwd_path(hidden, _DT[dtype], False) == 0
+    if want:
+        per_vec = 16 // _DT[dtype].itemsize
+        assert hidden % per_vec == 0
+        assert (want - 1) * 32 * per_vec < hidden <= want * 32 * per_vec
+        assert want * per_vec <= tln.LN_FWD_LANE_ELEMS
+
+
+def test_fwd_lane_elements_are_the_kernels():
+    import re
+    from apex_tpu_torch import _kernels
+    src = (_kernels.CSRC / "layer_norm_fwd.cu").read_text()
+    assert int(re.search(r"kLnMaxLaneElems = (\d+);", src).group(1)) \
+        == tln.LN_FWD_LANE_ELEMS
+
+
+def _xor_tree(partials):
+    """``warp_sum`` over the last axis (32 lanes): lane ^ 16, ^ 8, ... ^ 1,
+    in f32; every lane ends with the same value."""
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        partials = partials + partials[..., lanes ^ o]
+    return partials[..., 0]
+
+
+def _fma32(acc, a, b):
+    """fma(a, b, acc) in f32: the exact product, one rounding (the kernel's
+    ``ss += v * v`` contracts)."""
+    return (acc.astype(np.float64) + a.astype(np.float64) * b).astype(
+        np.float32)
+
+
+def _kernel_order_sums(xf, itemsize):
+    """sum x and sum x*x of each row in the order of the body
+    ``layer_norm_fwd_path`` picks: the row-per-warp body's lane partials
+    (lane l takes vectors l, l + 32, ..., element by element) combined by
+    ``warp_sum``; or the block-per-row body's 256 thread partials (stride
+    256), ``warp_sum`` in each of the 8 warps, then over the 8 warp sums.
+    Returns (s, ss, chain): chain is the longest run of f32 additions from
+    an element to the row's sum."""
+    rows, hidden = xf.shape
+    dtype = {2: torch.bfloat16, 4: torch.float32}[itemsize]
+    nv = tln.layer_norm_fwd_path(hidden, dtype, True)
+    if nv:
+        per_vec = 16 // itemsize
+        s = np.zeros((rows, 32), np.float32)
+        ss = np.zeros((rows, 32), np.float32)
+        lanes = np.arange(32)
+        for j in range(nv):
+            v = j * 32 + lanes
+            ok = v < hidden // per_vec
+            for k in range(per_vec):
+                e = xf[:, v[ok] * per_vec + k]
+                s[:, ok] = s[:, ok] + e
+                ss[:, ok] = _fma32(ss[:, ok], e, e)
+        return _xor_tree(s), _xor_tree(ss), nv * per_vec + 5
+    s = np.zeros((rows, 256), np.float32)
+    ss = np.zeros((rows, 256), np.float32)
+    for i in range(hidden):
+        e = xf[:, i]
+        s[:, i % 256] = s[:, i % 256] + e
+        ss[:, i % 256] = _fma32(ss[:, i % 256], e, e)
+    pad = np.zeros((rows, 24), np.float32)
+    s = np.concatenate([_xor_tree(s.reshape(rows, 8, 32)), pad], 1)
+    ss = np.concatenate([_xor_tree(ss.reshape(rows, 8, 32)), pad], 1)
+    return _xor_tree(s), _xor_tree(ss), -(-hidden // 256) + 10
+
+
+def _kernel_order_fwd(x, w, b, eps, rms, itemsize):
+    """f32 emulation of the card kernel's forward: its sums
+    (``_kernel_order_sums``), then the JAX math (mean, E[x^2] - mean^2,
+    1 / sqrt in place of rsqrtf)."""
+    xf = np.asarray(x, np.float32)
+    s, ss, chain = _kernel_order_sums(xf, itemsize)
+    inv_h = np.float32(1.0 / xf.shape[1])
+    mean = np.zeros_like(s) if rms else s * inv_h
+    ms = ss * inv_h
+    var = ms if rms else ms - mean * mean
+    rstd = (np.float32(1.0) / np.sqrt(var + np.float32(eps))).astype(
+        np.float32)
+    y = (xf - mean[:, None]) * rstd[:, None] * w
+    if b is not None:
+        y = y + b
+    return y, mean[:, None], rstd[:, None], chain
+
+
+def _ln_rows(seed, hidden, ratio):
+    """12 rows of 2 N(0, 1) + 0.5 and 4 rows of N(0, 1) + ratio (|mean| /
+    std = ratio: E[x^2] - mean^2 cancels), and f32 w, b."""
+    rng = np.random.RandomState(seed)
+    x = np.concatenate([rng.randn(12, hidden) * 2 + 0.5,
+                        rng.randn(4, hidden) + ratio]).astype(np.float32)
+    w = (1 + 0.1 * rng.randn(hidden)).astype(np.float32)
+    b = (0.1 * rng.randn(hidden)).astype(np.float32)
+    return x, w, b
+
+
+# phase-2 tolerances of chip_smoke.py (y by dtype; mean, rstd)
+_Y_TOL = {"bf16": (2e-2, 2e-2), "f32": (1e-5, 1e-5)}
+_MEAN_TOL, _RSTD_TOL = (1e-5, 1e-5), (1e-5, 1e-4)
+
+
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("hidden", _WIDTHS)
+def test_kernel_order_matches_jax_kernel_and_reference(hidden, dtype, rms):
+    """The card kernel's summation order, emulated in f32, against the JAX
+    ``_fwd_kernel`` (Pallas, interpret mode) and the plain version, at the
+    phase-2 tolerances: normal rows and rows whose mean is 16 standard
+    deviations (where E[x^2] - mean^2 loses about 8 bits in f32; there y
+    is held at its tolerance plus the mean and rstd tolerances carried
+    through y = (x - mean) rstd w + b: (1e-5 + 1e-5 |mean|) rstd max|w|
+    more absolute, 1e-4 relative)."""
+    x, w, b = _ln_rows(7, hidden, 16.0)
+    bias = None if rms else b
+    tx = torch.from_numpy(x).to(_DT[dtype])
+    xq = tx.float().numpy()
+    ey, emean, erstd, _ = _kernel_order_fwd(xq, w, bias, 1e-5, rms,
+                                            tx.element_size())
+    ey = torch.from_numpy(ey).to(_DT[dtype]).float().numpy()
+    set_force_pallas(True)
+    try:
+        (jy, jmean, jrstd), _ = jln._norm_fwd(
+            jnp.asarray(x, jnp.bfloat16 if dtype == "bf16" else jnp.float32),
+            jnp.asarray(w), None if bias is None else jnp.asarray(bias),
+            hidden, 1e-5, rms, False)
+    finally:
+        set_force_pallas(None)
+    ry, rmean, rrstd = tln.layer_norm_fwd_reference(
+        tx, torch.from_numpy(w), None if bias is None else
+        torch.from_numpy(bias), 1e-5, rms)
+    for ref_y, ref_mean, ref_rstd in ((_f32(jy), _f32(jmean), _f32(jrstd)),
+                                      (_f32(ry), _f32(rmean), _f32(rrstd))):
+        atol, rtol = _Y_TOL[dtype]
+        np.testing.assert_allclose(ey[:12], ref_y[:12], atol=atol, rtol=rtol)
+        carried = ((_MEAN_TOL[0] + _MEAN_TOL[1] * np.abs(ref_mean[12:]))
+                   * ref_rstd[12:] * np.abs(w).max())
+        assert (np.abs(ey[12:] - ref_y[12:])
+                <= atol + carried + max(rtol, _RSTD_TOL[1])
+                * np.abs(ref_y[12:])).all()
+        np.testing.assert_allclose(emean, ref_mean, atol=_MEAN_TOL[0],
+                                   rtol=_MEAN_TOL[1])
+        np.testing.assert_allclose(erstd, ref_rstd, atol=_RSTD_TOL[0],
+                                   rtol=_RSTD_TOL[1])
+
+
+@pytest.mark.parametrize("hidden", _WIDTHS)
+def test_kernel_order_error_is_within_its_bound_where_the_form_cancels(
+        hidden):
+    """At |mean| = 100 std the E[x^2] - mean^2 form in f32 keeps few bits
+    in any order (the plain version's rstd is ~1e-3 off the f64 value at
+    hidden 1024; f32 rows, the f32 body's order):
+    the kernel order's rstd stays within the a-priori bound of its
+    summation tree (chain c of additions: |d sum| <= gamma_c sum|.|, gamma_c
+    = c u / (1 - c u), u = 2**-24), carried through var and rsqrt."""
+    x, w, _ = _ln_rows(8, hidden, 100.0)
+    _, _, erstd, chain = _kernel_order_fwd(x, w, None, 1e-5, False, 4)
+    x64 = x.astype(np.float64)
+    var = x64.var(1)
+    truth = 1 / np.sqrt(var + 1e-5)
+    u = 2.0 ** -24
+    gamma = (chain + 2) * u / (1 - (chain + 2) * u)
+    ms, amean = (x64 ** 2).mean(1), np.abs(x64).mean(1)
+    d_var = gamma * ms + 2 * np.abs(x64.mean(1)) * gamma * amean \
+        + (gamma * amean) ** 2 + 2 * u * ms
+    bound = 0.5 * d_var / (var + 1e-5) + 4 * u
+    err = np.abs(erstd[:, 0] - truth) / truth
+    assert (err <= bound).all(), (err.max(), bound.min())
+    if hidden >= 48:
+        assert err[12:].max() > 1e-5      # the rows do cancel

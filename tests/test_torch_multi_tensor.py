@@ -20,6 +20,11 @@ within one ulp of its dtype (the f32 value before rounding may differ in
 its last bit, by the order of the partial sums).
 """
 
+import functools
+import importlib.util
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -556,3 +561,180 @@ def test_novograd_math_matches_jax(reg_inside_moment):
                                    torch.tensor(v))
         _assert_close(tp.numpy(), jp, "f32")
         _assert_close(tm.numpy(), jm, "f32")
+
+
+# ---------------------------------------------------------------------------
+# #19's launch table: the Python statement of the C entry's walk
+# ---------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parents[1]
+# csrc/multi_tensor_sgd.cu: the head code of lists no scalar head aligns,
+# and the bytes of kernel parameters CUDA 12.1 allows on sm_70 and later
+SGD_NO_VECTOR = 8
+KERNEL_PARAM_LIMIT = 32764
+
+
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    """The card script (it imports torch and numpy only), for the lists its
+    phases 2 and 9 step."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _sgd_lists():
+    """Named lists of tensor sizes: ResNet-50's at O1 and O2 and GPT-350M's
+    as the card script builds them (meta devices), 2000 tensors of 1-70,000
+    elements, and a list with empty tensors around a table's worth."""
+    cs = _chip_smoke()
+    rng = np.random.RandomState(5)
+    return {
+        "resnet50_O1": [int(np.prod(s)) for s, _ in cs.resnet50_specs("O1")],
+        "resnet50_O2": [int(np.prod(s)) for s, _ in cs.resnet50_specs("O2")],
+        "gpt350m": [int(np.prod(s)) for s in cs.gpt350m_shapes()],
+        "2000_tensors": [int(n) for n in rng.randint(1, 70001, 2000)],
+        "empties": [0, 5, 0] + [1] * (tK.SGD_TABLE_TENSORS - 1) + [0, 0, 9,
+                                                                   0]}
+
+
+_SGD_LAUNCHES = {"resnet50_O1": 1, "resnet50_O2": 1, "gpt350m": 1,
+                 "2000_tensors": 4, "empties": 2}
+
+
+def _sgd_block_owner(chunk_start, block):
+    """The kernel's binary search: the last tensor of the launch whose
+    first chunk is at or before ``block``."""
+    lo, hi = 0, len(chunk_start) - 1
+    while lo < hi:
+        mid = (lo + hi + 1) >> 1
+        if chunk_start[mid] <= block:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+@pytest.mark.parametrize("name", sorted(_SGD_LAUNCHES))
+def test_sgd_walk_covers_every_element_once(name):
+    """Each block of each launch of ``sgd_plan`` finds its tensor by the
+    kernel's search, and the blocks' element ranges tile every non-empty
+    tensor exactly once; empty tensors get no block; each launch holds at
+    most a table's tensors, and the launches are those stated (one for
+    ResNet-50's and GPT-350M's lists, ceil(2000 / 640) for 2000)."""
+    numels = _sgd_lists()[name]
+    plan = tK.sgd_plan(numels)
+    assert len(plan) == tK.sgd_launches(numels) == _SGD_LAUNCHES[name]
+    ranges = {}
+    for table in plan:
+        assert 0 < len(table) <= tK.SGD_TABLE_TENSORS
+        starts = [first for _, first, _ in table]
+        assert starts[0] == 0
+        n_blocks = sum(chunks for _, _, chunks in table)
+        for block in range(n_blocks):
+            t = _sgd_block_owner(starts, block)
+            i, first, _ = table[t]
+            s = (block - first) * tK.SGD_CHUNK
+            e = min(numels[i], s + tK.SGD_CHUNK)
+            assert s < e
+            ranges.setdefault(i, []).append((s, e))
+    assert sorted(ranges) == [i for i, n in enumerate(numels) if n > 0]
+    for i, rs in ranges.items():
+        ends = [0] + [e for _, e in sorted(rs)]
+        assert [s for s, _ in sorted(rs)] == ends[:-1]
+        assert ends[-1] == numels[i]
+
+
+def _sgd_vector_head(addresses, itemsizes):
+    """The kernel's ``vector_head``: the fewest leading elements (0-7)
+    after which every list of one tensor is on the 16-byte grid (address
+    0: the list is absent), or SGD_NO_VECTOR when no count aligns them."""
+    for h in range(8):
+        if all(a == 0 or (a + h * s) % 16 == 0
+               for a, s in zip(addresses, itemsizes)):
+            return h
+    return SGD_NO_VECTOR
+
+
+def _sgd_param_bytes(tensors):
+    """Bytes of ``multi_tensor_sgd_kernel``'s parameters with a table of
+    ``tensors`` entries (the C ``SgdTable``: four pointers, an element
+    count, a first-chunk index and two bytes per tensor, one more chunk
+    index, padded to 8 bytes; then two pointers and five ints)."""
+    table = 8 * 4 * tensors + 8 * tensors + 4 * (tensors + 1) + 2 * tensors
+    return -(-table // 8) * 8 + 2 * 8 + 5 * 4
+
+
+def _sgd_chunk_split(s, e, head):
+    """The kernel's split of chunk [s, e) (``sgd_chunk``): elements one by
+    one, then 8-element steps, then one by one."""
+    vs = e if head == SGD_NO_VECTOR else min(e, s + head)
+    ve = vs + 8 * ((e - vs) // 8)
+    return list(range(s, vs)), list(range(vs, ve)), list(range(ve, e))
+
+
+@pytest.mark.parametrize("head", list(range(8)) + [SGD_NO_VECTOR])
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 64, 65537, 3 * tK.SGD_CHUNK])
+def test_sgd_chunk_split_takes_each_element_once(n, head):
+    """Over a tensor's chunks, the scalar head, the 16-byte steps and the
+    tail take each element once; every step starts ``head`` elements past
+    a chunk start plus a multiple of 8 (on the 16-byte grid when the lists'
+    phases are those ``_sgd_vector_head`` returned ``head`` for)."""
+    seen = np.zeros(n, np.int32)
+    for s in range(0, n, tK.SGD_CHUNK):
+        one, vec, tail = _sgd_chunk_split(s, min(n, s + tK.SGD_CHUNK), head)
+        assert len(vec) % 8 == 0 and len(tail) < 8
+        if head == SGD_NO_VECTOR:
+            assert not vec and not tail
+        else:
+            assert len(one) <= head
+            assert not vec or (vec[0] - s - head) % 8 == 0
+        seen[one + vec + tail] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("offsets,itemsizes,head", [
+    ((0, 0, 0, 0), (4, 4, 4, 0), 0),
+    ((0, 0, 0, 0), (2, 4, 4, 2), 0),
+    ((1, 1, 1, 1), (2, 4, 4, 2), 7),     # every list one element in
+    ((1, 1, 1, 0), (4, 4, 4, 0), 3),
+    ((1, 0, 0, 0), (2, 4, 4, 0), SGD_NO_VECTOR),   # g alone off
+    ((1, 0, 0, 0), (4, 4, 4, 0), SGD_NO_VECTOR),
+    ((2, 1, 1, 2), (2, 4, 4, 2), SGD_NO_VECTOR),
+    ((4, 0, 0, 0), (2, 4, 4, 0), 4),
+    ((4, 2, 2, 0), (2, 4, 4, 0), SGD_NO_VECTOR),
+    ((3, 3, 3, 3), (2, 2, 4, 2), 5)])
+def test_sgd_vector_head(offsets, itemsizes, head):
+    """The kernel's rule for the scalar head that puts every list on the
+    16-byte grid, for lists that start ``offsets`` elements into
+    16-byte-aligned storage (a list of item size 0 is absent: address 0);
+    the card script runs the kernel on such views."""
+    base = 1 << 20
+    addresses = [0 if size == 0 else base + 4096 * k + off * size
+                 for k, (off, size) in enumerate(zip(offsets, itemsizes))]
+    assert _sgd_vector_head(addresses, itemsizes) == head
+    if head != SGD_NO_VECTOR:
+        assert all(a == 0 or (a + head * s) % 16 == 0
+                   for a, s in zip(addresses, itemsizes))
+
+
+def test_sgd_table_is_the_kernels_and_fits_the_parameter_limit():
+    """The Python walk's constants are the C source's, and the kernel's
+    parameters (its table and the rest) stay under CUDA 12.1's 32,764
+    bytes, as the source's static_assert says."""
+    src = (ROOT / "apex_tpu_torch" / "csrc" / "multi_tensor_sgd.cu"
+           ).read_text()
+
+    def const(name):
+        return int(re.search(rf"{name} = (\d+);", src).group(1))
+
+    assert const("kSgdMaxTensors") == tK.SGD_TABLE_TENSORS
+    assert const("kSgdChunk") == tK.SGD_CHUNK
+    assert const("kSgdNoVector") == SGD_NO_VECTOR
+    assert const("kSgdParamLimit") == KERNEL_PARAM_LIMIT == 32764
+    assert _sgd_param_bytes(tK.SGD_TABLE_TENSORS) <= KERNEL_PARAM_LIMIT
+    assert _sgd_param_bytes(tK.SGD_TABLE_TENSORS + 80) \
+        > KERNEL_PARAM_LIMIT
+    assert tK.SGD_CHUNK % 8 == 0
