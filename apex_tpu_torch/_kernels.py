@@ -40,8 +40,8 @@ SOURCES = ("layer_norm_fwd.cu", "layer_norm_bwd.cu", "flash_fwd.cu",
            "lm_head_fwd.cu",
            "lm_head_bwd.cu", "ffn_fwd.cu", "ffn_bwd.cu",
            "flash_decode_paged.cu", "quant_gemm.cu")
-HEADERS = ("common.cuh", "multi_tensor.cuh", "mma.cuh", "ffn.cuh",
-           "gemm.cuh", "decode.cuh")
+HEADERS = ("common.cuh", "multi_tensor.cuh", "multi_tensor_list.cuh",
+           "mma.cuh", "ffn.cuh", "gemm.cuh", "decode.cuh")
 BUILD_DIR = _PKG.parent / "build" / "apex_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -58,7 +58,7 @@ _U = ctypes.c_uint32
 _FLASH_TAIL = [_F, _I, _I, _U, _F, _U, _I, _P]
 _SIGNATURES = {
     "apex_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _I, _P],
-    "apex_layer_norm_bwd": [_P] * 9 + [_L, _I, _I, _I, _I, _I, _P],
+    "apex_layer_norm_bwd": [_P] * 9 + [_L, _I, _I, _I, _I, _I, _I, _P],
     "apex_flash_fwd": [_P] * 6 + [_I] * 5 + [_L] * 12 + _FLASH_TAIL,
     "apex_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_L] * 15 + _FLASH_TAIL,
     "apex_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_L] * 18 + _FLASH_TAIL,

@@ -8,20 +8,16 @@
 // bytes per element with f32 g and p, ~2.1 ms for GPT-350M's 354M elements
 // at 3.35 TB/s, ~0.15 ms for ResNet-50's 25.6M.
 //
-// Design: one launch for a whole list.  The table below is passed by value
-// and holds up to kSgdMaxTensors tensors (about 29 KB, under the 32,764
-// bytes of kernel parameters that CUDA 12.1 allows on sm_70 and later), so
+// Design: one launch for a whole list, on the by-value table of
+// multi_tensor_list.cuh (kSgdMaxTensors tensors, about 29 KB), so
 // ResNet-50's 161 parameters and GPT-350M's 291 take one launch; a longer
-// list takes ceil(tensors / kSgdMaxTensors) launches, each full but the
-// last.  The grid is one block per kSgdChunk-element chunk of every tensor
-// (several full waves on ResNet-50's list; a tensor of 64 elements holds a
-// block for one short pass, not an SM); a block finds its tensor by a
-// binary search over the tensors' first-chunk indices.  Each thread moves
-// 8 elements a step with 16-byte loads and stores (g: one in bf16 / f16,
-// two in f32; p and the buffer two each; the copy one in bf16), kSgdUnroll
-// steps in flight.  A tensor whose lists are not all on the 16-byte grid
-// at its start (a view) takes a scalar head of up to 7 elements per chunk,
-// found on the host (`vector_head`); lists that no head can align run
+// list takes ceil(tensors / kSgdMaxTensors) launches.  The grid is one
+// block per kSgdChunk-element chunk of every tensor (several full waves on
+// ResNet-50's list; a tensor of 64 elements holds a block for one short
+// pass, not an SM).  Each thread moves 8 elements a step with 16-byte
+// loads and stores (g: one in bf16 / f16, two in f32; p and the buffer two
+// each; the copy one in bf16), kSgdUnroll steps in flight, after the
+// tensor's scalar head (`vector_head`); lists that no head can align run
 // scalar.  The (g, p, copy) dtype signature is a template of the body,
 // selected once per block: all 36 combinations the wrapper takes.
 //
@@ -38,11 +34,7 @@
 
 #include <type_traits>
 
-#include "common.cuh"
-
-#if CUDART_VERSION < 12010
-#error "multi_tensor_sgd.cu passes a ~29 KB table: kernel parameters above 4 KB need CUDA 12.1"
-#endif
+#include "multi_tensor_list.cuh"
 
 namespace apex_tpu_torch {
 
@@ -50,22 +42,12 @@ constexpr int kSgdMaxTensors = 640;
 constexpr int kSgdThreads = 256;
 constexpr int kSgdUnroll = 2;                        // 8-element steps in flight
 constexpr int64_t kSgdChunk = 8192;                  // elements per block
-constexpr int kSgdNoVector = 8;                      // head code: scalar only
-constexpr int kSgdParamLimit = 32764;                // CUDA 12.1, sm_70+
 
-// One launch's tensors.  sig = g * 12 + p * 4 + copy (dtype codes; copy 0
-// for none, else 1 + its code); head = elements before every list of the
-// tensor is on the 16-byte grid, or kSgdNoVector.  chunk_start[t] is the
-// launch's index of tensor t's first chunk; chunk_start[n] is the grid.
-struct SgdTable {
-  void* ptr[4][kSgdMaxTensors];  // g, p, buf (f32), copy (null: none)
-  int64_t numel[kSgdMaxTensors];
-  int chunk_start[kSgdMaxTensors + 1];
-  unsigned char sig[kSgdMaxTensors];
-  unsigned char head[kSgdMaxTensors];
-};
+// lists g, p, buf (f32), copy (null: none); sig = g * 12 + p * 4 + copy
+// (dtype codes; copy 0 for none, else 1 + its code)
+using SgdTable = ListTable<4, kSgdMaxTensors>;
 // the table, two pointers and five ints
-static_assert(sizeof(SgdTable) + 2 * 8 + 5 * 4 <= kSgdParamLimit,
+static_assert(sizeof(SgdTable) + 2 * 8 + 5 * 4 <= kListParamLimit,
               "kernel parameters exceed the 32,764-byte limit");
 
 struct SgdArgs {
@@ -98,20 +80,6 @@ __device__ __forceinline__ float sgd_update(float g, float p, float& buf, const 
   return __fmaf_rn(-a.lr, upd, p);
 }
 
-// 8 consecutive elements, 16-byte aligned, to f32 and back (one or two
-// 16-byte words)
-template <typename T>
-__device__ __forceinline__ void load8(const T* src, float (&v)[8]) {
-#pragma unroll
-  for (int k = 0; k < 8; k += kVec16<T>) load16(src + k, v + k);
-}
-
-template <typename T>
-__device__ __forceinline__ void store8(T* dst, const float (&v)[8]) {
-#pragma unroll
-  for (int k = 0; k < 8; k += kVec16<T>) store16(dst + k, v + k);
-}
-
 // elements [s, e) of tensor t, with g, p, copy of types G, P, C (C void:
 // no copy): the scalar head, the 16-byte steps, the scalar tail
 template <typename G, typename P, typename C>
@@ -123,7 +91,7 @@ __device__ __forceinline__ void sgd_chunk(const SgdTable& tab, int t, int64_t s,
   float* buf = static_cast<float*>(tab.ptr[2][t]);
   C* c = static_cast<C*>(tab.ptr[3][t]);
   const int head = tab.head[t];
-  const int64_t vs = head == kSgdNoVector ? e : min(e, s + head);
+  const int64_t vs = head == kListNoVector ? e : min(e, s + head);
   const int64_t n_vec = (e - vs) / 8;
   const int64_t ve = vs + 8 * n_vec;
   const bool read_buf = !a.momentum_zero && !a.first_run;
@@ -196,18 +164,8 @@ multi_tensor_sgd_kernel(const __grid_constant__ SgdTable tab, const float* __res
                         const int* __restrict__ noop, int n_tensors, int nesterov,
                         int first_run, int wd_after_momentum, int momentum_zero) {
   if (noop != nullptr && *noop != 0) return;
-  // the tensor owning this block: the last t with chunk_start[t] <= block
   const int block = static_cast<int>(blockIdx.x);
-  int lo = 0, hi = n_tensors - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (tab.chunk_start[mid] <= block) {
-      lo = mid;
-    } else {
-      hi = mid - 1;
-    }
-  }
-  const int t = lo;
+  const int t = list_tensor(tab, n_tensors, block);
   const int64_t s = static_cast<int64_t>(block - tab.chunk_start[t]) * kSgdChunk;
   const int64_t e = min(tab.numel[t], s + kSgdChunk);
   const SgdArgs a{scal[0], scal[1], scal[2], scal[3], scal[4],
@@ -218,22 +176,6 @@ multi_tensor_sgd_kernel(const __grid_constant__ SgdTable tab, const float* __res
     case kBF16: sgd_param_type<__nv_bfloat16>(sig, tab, t, s, e, a); break;
     default: sgd_param_type<__half>(sig, tab, t, s, e, a);
   }
-}
-
-constexpr int dtype_size(int code) { return code == kF32 ? 4 : 2; }
-
-// The fewest leading elements (0-7) after which each list's address is a
-// multiple of 16 bytes, or kSgdNoVector when no count aligns them all.
-// addr[l] == 0: list l is absent.
-static int vector_head(const uint64_t (&addr)[4], const int (&size)[4]) {
-  for (int h = 0; h < 8; ++h) {
-    bool ok = true;
-    for (int l = 0; l < 4; ++l) {
-      if (addr[l] != 0 && (addr[l] + static_cast<uint64_t>(h * size[l])) % 16 != 0) ok = false;
-    }
-    if (ok) return h;
-  }
-  return kSgdNoVector;
 }
 
 }  // namespace apex_tpu_torch
@@ -253,46 +195,17 @@ extern "C" int apex_multi_tensor_sgd(int n, const uint64_t* g_ptrs, const uint64
                                      int first_run, int wd_after_momentum, int momentum_zero,
                                      int* launches, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  *launches = 0;
-  SgdTable tab;
-  int nt = 0;
-  int64_t chunks = 0;
-  auto launch = [&]() {
-    tab.chunk_start[nt] = static_cast<int>(chunks);
-    multi_tensor_sgd_kernel<<<static_cast<unsigned>(chunks), kSgdThreads, 0, st>>>(
-        tab, static_cast<const float*>(scal), static_cast<const int*>(noop), nt, nesterov,
-        first_run, wd_after_momentum, momentum_zero);
-    ++*launches;
-    nt = 0;
-    chunks = 0;
-    return static_cast<int>(cudaGetLastError());
-  };
-  for (int t = 0; t < n; ++t) {
-    if (numels[t] <= 0) continue;
-    const int codes[4] = {g_dtypes[t], p_dtypes[t], kF32,
-                          copy_ptrs[t] != 0 ? copy_dtypes[t] : kF32};
-    for (int code : codes) {
-      if (code < kF32 || code > kF16) return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const uint64_t addr[4] = {g_ptrs[t], p_ptrs[t], buf_ptrs[t], copy_ptrs[t]};
-    const int size[4] = {dtype_size(codes[0]), dtype_size(codes[1]), 4, dtype_size(codes[3])};
-    const int64_t n_chunks = (numels[t] + kSgdChunk - 1) / kSgdChunk;
-    if (chunks + n_chunks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-    tab.ptr[0][nt] = reinterpret_cast<void*>(addr[0]);
-    tab.ptr[1][nt] = reinterpret_cast<void*>(addr[1]);
-    tab.ptr[2][nt] = reinterpret_cast<void*>(addr[2]);
-    tab.ptr[3][nt] = reinterpret_cast<void*>(addr[3]);
-    tab.numel[nt] = numels[t];
-    tab.chunk_start[nt] = static_cast<int>(chunks);
-    tab.sig[nt] = static_cast<unsigned char>(codes[0] * 12 + codes[1] * 4 +
-                                             (addr[3] != 0 ? 1 + codes[3] : 0));
-    tab.head[nt] = static_cast<unsigned char>(vector_head(addr, size));
-    chunks += n_chunks;
-    if (++nt == kSgdMaxTensors) {
-      const int rc = launch();
-      if (rc != 0) return rc;
-    }
-  }
-  if (nt > 0) return launch();
-  return 0;
+  const uint64_t* ptrs[4] = {g_ptrs, p_ptrs, buf_ptrs, copy_ptrs};
+  const int* codes[4] = {g_dtypes, p_dtypes, nullptr, copy_dtypes};
+  return walk_lists<4, kSgdMaxTensors>(
+      n, ptrs, codes, numels, kSgdChunk, launches,
+      [](const int (&code)[4], const uint64_t (&addr)[4]) {
+        return code[0] * 12 + code[1] * 4 + (addr[3] != 0 ? 1 + code[3] : 0);
+      },
+      [&](const SgdTable& tab, int nt, int64_t chunks, int64_t) {
+        multi_tensor_sgd_kernel<<<static_cast<unsigned>(chunks), kSgdThreads, 0, st>>>(
+            tab, static_cast<const float*>(scal), static_cast<const int*>(noop), nt, nesterov,
+            first_run, wd_after_momentum, momentum_zero);
+        return static_cast<int>(cudaGetLastError());
+      });
 }

@@ -10,8 +10,11 @@ variance form in f32, exactly as the JAX kernels and their jnp fallback do.
   registers, or a block per row for any other shape.
 * :func:`layer_norm_bwd` is the backward kernel wrapper: a CPU tensor takes
   :func:`layer_norm_bwd_reference`, a CUDA tensor launches
-  ``csrc/layer_norm_bwd.cu`` (the counterpart of ``_bwd_kernel``): dx plus
-  per-block dgamma/dbeta partials, reduced across blocks in a second pass.
+  ``csrc/layer_norm_bwd.cu`` (the counterpart of ``_bwd_kernel``) with the
+  body :func:`layer_norm_bwd_path` picks (a row per warp held in
+  registers, or a block per tile of rows): dx plus per-block dgamma/dbeta
+  partials (:func:`layer_norm_bwd_parts`), reduced across blocks in a
+  second pass.
 
 The affine ops are a :class:`torch.autograd.Function` over the two.  Like
 the JAX custom VJP it saves the input, or with ``memory_efficient=True``
@@ -27,16 +30,24 @@ from apex_tpu_torch import _kernels
 
 _f32 = torch.float32
 
-# rows of dy/x each block of the backward kernel reduces into one partial
-# dgamma/dbeta row (csrc/layer_norm_bwd.cu)
+# rows of dy/x each block of the backward's block body reduces into one
+# partial dgamma/dbeta row (csrc/layer_norm_bwd.cu)
 LN_BWD_ROWS_PER_BLOCK = 16
+# warps of a block of the backward's row-per-warp body, the row elements a
+# lane holds in registers and the blocks resident on an SM
+# (csrc/layer_norm_bwd.cu kLnBwdWarps, kLnBwdMaxLaneElems,
+# kLnBwdBlocksPerSm)
+LN_BWD_WARPS = 8
+LN_BWD_LANE_ELEMS = 32
+LN_BWD_BLOCKS_PER_SM = 2
 # row elements a lane of the forward's row-per-warp body holds in registers
 # (csrc/layer_norm_fwd.cu kLnMaxLaneElems)
 LN_FWD_LANE_ELEMS = 32
 
 __all__ = ["layer_norm_fwd", "layer_norm_fwd_reference",
            "layer_norm_fwd_path", "layer_norm_bwd",
-           "layer_norm_bwd_reference", "fused_layer_norm_affine",
+           "layer_norm_bwd_reference", "layer_norm_bwd_path",
+           "layer_norm_bwd_parts", "fused_layer_norm_affine",
            "fused_rms_norm_affine", "fused_layer_norm", "fused_rms_norm"]
 
 
@@ -83,6 +94,14 @@ def _check_rows(kernel, x, **others):
                              f"{x.device}")
 
 
+def _warp_path(hidden, dtype, aligned, lane_elems):
+    per_vec = 16 // dtype.itemsize
+    if not aligned or hidden % per_vec:
+        return 0
+    nv = -(-hidden // (32 * per_vec))
+    return nv if nv * per_vec <= lane_elems else 0
+
+
 def layer_norm_fwd_path(hidden: int, dtype: torch.dtype, aligned: bool) -> int:
     """The forward kernel's body for rows of ``hidden`` elements of
     ``dtype``: the 16-byte vectors each lane holds in the row-per-warp body
@@ -91,11 +110,30 @@ def layer_norm_fwd_path(hidden: int, dtype: torch.dtype, aligned: bool) -> int:
     body needs ``aligned`` (x, weight and bias on the 16-byte grid), hidden
     a whole number of vectors and at most :data:`LN_FWD_LANE_ELEMS`
     elements a lane (hidden <= 1024 in every dtype)."""
-    per_vec = 16 // dtype.itemsize
-    if not aligned or hidden % per_vec:
-        return 0
-    nv = -(-hidden // (32 * per_vec))
-    return nv if nv * per_vec <= LN_FWD_LANE_ELEMS else 0
+    return _warp_path(hidden, dtype, aligned, LN_FWD_LANE_ELEMS)
+
+
+def layer_norm_bwd_path(hidden: int, dtype: torch.dtype, aligned: bool) -> int:
+    """The backward kernel's body, by the forward's rule
+    (:func:`layer_norm_fwd_path`) with :data:`LN_BWD_LANE_ELEMS`: the
+    16-byte vectors each lane holds in the row-per-warp body, or 0 for the
+    block body.  ``aligned``: dy, the residual, dx, weight and (read under
+    ``from_y``) bias on the 16-byte grid."""
+    return _warp_path(hidden, dtype, aligned, LN_BWD_LANE_ELEMS)
+
+
+def layer_norm_bwd_parts(rows: int, nv: int, sms: int) -> int:
+    """Blocks of the backward kernel, one f32 dgamma/dbeta partial row
+    each: for the row-per-warp body (``nv`` > 0) one wave of at most
+    :data:`LN_BWD_BLOCKS_PER_SM` blocks an SM (``sms`` SMs), their
+    :data:`LN_BWD_WARPS` warps striding over the rows (warp ``k`` of block
+    ``b`` takes rows ``b * LN_BWD_WARPS + k``, then every ``parts *
+    LN_BWD_WARPS`` rows); for the block body one block per
+    :data:`LN_BWD_ROWS_PER_BLOCK` rows."""
+    if nv:
+        return max(1, min(-(-rows // LN_BWD_WARPS),
+                          sms * LN_BWD_BLOCKS_PER_SM))
+    return max(1, -(-rows // LN_BWD_ROWS_PER_BLOCK))
 
 
 def layer_norm_fwd(x, weight, bias, eps: float, rms: bool):
@@ -175,8 +213,9 @@ def layer_norm_bwd(dy, res, weight, bias, mean, rstd, rms: bool,
     Same contract as :func:`layer_norm_bwd_reference`.  On a CUDA tensor
     the kernel runs: ``dy`` and ``res`` contiguous and of one dtype
     (f32/bf16/f16), the vectors contiguous f32, ``mean``/``rstd``
-    contiguous ``(rows, 1)`` f32.  Each block of
-    ``LN_BWD_ROWS_PER_BLOCK`` rows writes one f32 dgamma/dbeta partial
+    contiguous ``(rows, 1)`` f32, with the body
+    :func:`layer_norm_bwd_path` picks.  Each block
+    (:func:`layer_norm_bwd_parts`) writes one f32 dgamma/dbeta partial
     row, and a second kernel sums the partials over blocks in a fixed
     order: no atomics, so a run repeats bit for bit.
     """
@@ -195,16 +234,21 @@ def layer_norm_bwd(dy, res, weight, bias, mean, rstd, rms: bool,
             raise ValueError(f"layer_norm_bwd: {name} must be a contiguous "
                              f"({rows}, 1) f32 tensor on {dy.device}")
     code = _kernels.dtype_code(dy, "layer_norm_bwd")
-    n_parts = max(1, -(-rows // LN_BWD_ROWS_PER_BLOCK))
     dx = torch.empty_like(dy)
+    nv = layer_norm_bwd_path(hidden, dy.dtype, all(
+        t.data_ptr() % 16 == 0 for t in (dy, res, dx, weight,
+                                         bias if from_y else None)
+        if t is not None))
+    n_parts = layer_norm_bwd_parts(rows, nv,
+                                   _kernels.sm_count(dy.device.index))
     parts = torch.empty((2, n_parts, hidden), dtype=_f32, device=dy.device)
     sums = torch.empty((2, hidden), dtype=_f32, device=dy.device)
     rc = _kernels.lib().apex_layer_norm_bwd(
         dy.data_ptr(), res.data_ptr(), weight.data_ptr(),
         None if bias is None or not from_y else bias.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), parts.data_ptr(),
-        sums.data_ptr(), rows, hidden, LN_BWD_ROWS_PER_BLOCK, int(rms),
-        int(from_y), code, _kernels.stream())
+        sums.data_ptr(), rows, hidden, n_parts, int(rms), int(from_y), code,
+        nv, _kernels.stream())
     _kernels.check(rc, "layer_norm_bwd")
     layer_norm_bwd.launches += 1
     return dx, sums[0], sums[1]

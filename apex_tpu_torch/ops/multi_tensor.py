@@ -3,12 +3,12 @@ axpby, L2 norm, Adam, SGD, the two LAMB stages, Adagrad, NovoGrad).
 
 Each function updates or reads lists of tensors with one multi-tensor
 launch set (apex's ``multi_tensor_apply`` design, the by-value table of
-``csrc/multi_tensor.cuh``; SGD's own table holds a whole list, see
-:func:`sgd_plan`): a CUDA tensor launches its kernel, a CPU tensor
-takes the function's plain version (``*_reference``), which applies the JAX
-single-source math (:func:`_adam_math`, :func:`_sgd_math`,
-:func:`_lamb_stage1_math`, :func:`_adagrad_math`, :func:`_novograd_math`)
-tensor by tensor.
+``csrc/multi_tensor.cuh``; SGD and LAMB stage 1 take a whole list a launch
+on the table of ``csrc/multi_tensor_list.cuh``, see :func:`list_plan`): a
+CUDA tensor launches its kernel, a CPU tensor takes the function's plain
+version (``*_reference``), which applies the JAX single-source math
+(:func:`_adam_math`, :func:`_sgd_math`, :func:`_lamb_stage1_math`,
+:func:`_adagrad_math`, :func:`_novograd_math`) tensor by tensor.
 
 * :func:`multi_tensor_scale_` — ``out = x * s`` with found-inf
   (``csrc/multi_tensor_scale.cu``, the Pallas ``_scale_kernel``);
@@ -60,6 +60,9 @@ CHUNK = 65536
 # launch holds, elements per block
 SGD_TABLE_TENSORS = 640
 SGD_CHUNK = 8192
+# multi_tensor_lamb_stage1's (csrc/multi_tensor_lamb.cu): tensors a launch
+# holds; a block per CHUNK elements
+LAMB_TABLE_TENSORS = 605
 
 __all__ = ["multi_tensor_scale_", "multi_tensor_scale_reference",
            "multi_tensor_sumsq", "multi_tensor_sumsq_reference",
@@ -70,7 +73,9 @@ __all__ = ["multi_tensor_scale_", "multi_tensor_scale_reference",
            "multi_tensor_sgd", "multi_tensor_sgd_reference",
            "multi_tensor_adagrad", "multi_tensor_adagrad_reference",
            "multi_tensor_novograd", "multi_tensor_novograd_reference",
-           "chunk_counts", "device_scalars", "sgd_plan", "sgd_launches", "_adam_math", "_sgd_math",
+           "chunk_counts", "device_scalars", "list_plan", "sgd_plan",
+           "sgd_launches", "lamb_stage1_plan", "lamb_stage1_launches",
+           "_adam_math", "_sgd_math",
            "_lamb_stage1_math", "_adagrad_math", "_novograd_math"]
 
 
@@ -79,21 +84,21 @@ def chunk_counts(numels):
     return [-(-int(n) // CHUNK) if n > 0 else 0 for n in numels]
 
 
-def sgd_plan(numels):
-    """The launches of :func:`multi_tensor_sgd` over tensors of these
-    sizes, as its C entry walks them: per launch, the ``(tensor index,
-    first chunk, chunks)`` of each non-empty tensor, at most
-    :data:`SGD_TABLE_TENSORS` a launch; chunk ``c`` of a tensor is its
-    elements ``[c * SGD_CHUNK, (c + 1) * SGD_CHUNK)``, and block ``b`` of a
-    launch runs it when ``b = first + c``."""
+def list_plan(numels, tensors, chunk):
+    """The launches of a whole-list multi-tensor kernel
+    (``csrc/multi_tensor_list.cuh``: #19, #20) over tensors of these sizes,
+    as its C entry walks them: per launch, the ``(tensor index, first
+    chunk, chunks)`` of each non-empty tensor, at most ``tensors`` a
+    launch; chunk ``c`` of a tensor is its elements ``[c * chunk, (c + 1) *
+    chunk)``, and block ``b`` of a launch runs it when ``b = first + c``."""
     launches, table, chunks = [], [], 0
     for i, n in enumerate(numels):
         if n <= 0:
             continue
-        c = -(-int(n) // SGD_CHUNK)
+        c = -(-int(n) // chunk)
         table.append((i, chunks, c))
         chunks += c
-        if len(table) == SGD_TABLE_TENSORS:
+        if len(table) == tensors:
             launches.append(table)
             table, chunks = [], 0
     if table:
@@ -101,10 +106,33 @@ def sgd_plan(numels):
     return launches
 
 
+def sgd_plan(numels):
+    """:func:`list_plan` of :func:`multi_tensor_sgd`:
+    :data:`SGD_TABLE_TENSORS` tensors a launch, a block per
+    :data:`SGD_CHUNK` elements."""
+    return list_plan(numels, SGD_TABLE_TENSORS, SGD_CHUNK)
+
+
 def sgd_launches(numels):
     """Launches of one :func:`multi_tensor_sgd` call over tensors of these
     sizes: one per :data:`SGD_TABLE_TENSORS` non-empty tensors."""
     return len(sgd_plan(numels))
+
+
+def lamb_stage1_plan(numels):
+    """:func:`list_plan` of :func:`multi_tensor_lamb_stage1`:
+    :data:`LAMB_TABLE_TENSORS` tensors a launch, a block per :data:`CHUNK`
+    elements; block ``b`` of a launch writes the chunk partial numbered
+    ``b`` plus the chunks of the launches before it, as
+    :func:`chunk_counts` numbers them."""
+    return list_plan(numels, LAMB_TABLE_TENSORS, CHUNK)
+
+
+def lamb_stage1_launches(numels):
+    """Launches of one :func:`multi_tensor_lamb_stage1` call over tensors
+    of these sizes: one per :data:`LAMB_TABLE_TENSORS` non-empty
+    tensors."""
+    return len(lamb_stage1_plan(numels))
 
 
 def device_scalars(values, device):
@@ -443,8 +471,9 @@ def multi_tensor_lamb_stage1(grads, params, exp_avgs, exp_avg_sqs, updates,
     after tensor (:func:`chunk_counts`), for
     :func:`multi_tensor_lamb_stage2`.  CPU tensors take
     :func:`multi_tensor_lamb_stage1_reference`; CUDA tensors launch
-    ``csrc/multi_tensor_lamb.cu`` (launches added to
-    ``multi_tensor_lamb_stage1.launches``) or raise."""
+    ``csrc/multi_tensor_lamb.cu``, one launch per
+    :data:`LAMB_TABLE_TENSORS` tensors (:func:`lamb_stage1_launches`;
+    added to ``multi_tensor_lamb_stage1.launches``), or raise."""
     lists = (grads, params, exp_avgs, exp_avg_sqs, updates)
     if any(len(x) != len(params) for x in lists) or not params:
         raise ValueError("multi_tensor_lamb_stage1: the five lists must have "

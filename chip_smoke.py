@@ -20,8 +20,13 @@ Phases (any failure exits non-zero; nothing is caught):
    whichever is larger); the LayerNorm forward (#1) also at hidden 48,
    1000, 1600, 4096 and 8192, one row, f16, f32, RMS and an x off the
    16-byte grid (each naming the body it took), and at 8192 rows with six
-   inputs in turn (read from device memory, not L2); the flash forward,
-   dq and dk/dv (#3-#5) also at
+   inputs in turn (read from device memory, not L2); the LayerNorm
+   backward (#2) likewise (both bodies, LN, RMS and from_y in bf16, f16
+   and f32, dy off the 16-byte grid, each bitwise on a repeat), also with
+   six input pairs in turn beside ``native_layer_norm_backward``'s; the
+   flash forward, dq and dk/dv (#3-#5) at the training shape also with
+   several input sets in turn (read from device memory) beside SDPA's, and
+   at
    head_dim 16 and 32 on a ragged s = 200 (causal, dropout 0.1,
    kv_seqlens), in small f32 and f16 cases (the FMA instantiations), #4
    and #5 twice on the same inputs (bitwise equal) and a q one element off
@@ -48,7 +53,12 @@ Phases (any failure exits non-zero; nothing is caught):
    tensors; SGD also at 1, 7, 64 and 65,537 elements in five dtype
    signatures, at storage offset 1, under momentum_zero and noop, bitwise
    on a repeat, and over 2000 tensors, its launches ``sgd_launches``'s),
-   their yardsticks ``SGD(fused=True)`` and
+   LAMB stage 1 (#20) at BERT-large's O2 list (one launch) and at 1, 7,
+   8, 9 and 65,537 elements in all nine (g, p) signatures, at storage
+   offset 1 in every list and in each list alone, noop 1 and 0, bitwise on
+   a repeat, and over GPT-350M's list (one launch) and 2000 tensors (its
+   launches ``lamb_stage1_launches``'s), their yardsticks
+   ``SGD(fused=True)`` and
    ``Adagrad(foreach=True)``; the decode (#6) on a strided bf16 ring with
    ragged lengths, its yardstick SDPA + mask, and the paged decode (#7) on
    a 513-block bf16 pool through a shuffled table with shared blocks,
@@ -292,10 +302,12 @@ def log_numbers(name, n, lib_name):
 # -- phase 1 -----------------------------------------------------------------
 
 # kernels whose registers and spills phase_build names one by one (the
-# tensor-core dq and the GEMM mainloops of the FFN and the LM head)
+# tensor-core dq, the GEMM mainloops of the FFN and the LM head, the
+# LayerNorm backward's row-per-warp body and LAMB stage 1)
 NAMED_REPORT = ("flash_bwd_dq_mma_kernel", "gemm_tma_kernel",
                 "gemm_tma_rows_kernel", "gemm_nt_mma_kernel",
-                "gemm_fma_kernel")
+                "gemm_fma_kernel", "layer_norm_bwd_warp_kernel",
+                "multi_tensor_lamb_stage1_kernel")
 
 
 def _ptxas_by_kernel(text, wanted):
@@ -449,9 +461,10 @@ def _ln_edge_case(gen, rows, hidden, dtype, rms, offset=0):
 
 
 def kernel_layer_norm_bwd(gen):
-    """#2 at the training shape (8192 x 1024 bf16, LN from x), the same
-    shape in f32 (BERT's MLM LayerNorm), plus small from_y / RMS / f32
-    cases."""
+    """#2 at the training shape (8192 x 1024 bf16, LN from x; also with six
+    inputs in turn, read from device memory), the same shape in f32 (BERT's
+    MLM LayerNorm), small from_y / RMS / f32 cases, then both bodies at the
+    edges of ``_ln_bwd_edges``."""
     from apex_tpu_torch.ops.layer_norm import (layer_norm_bwd,
                                                layer_norm_bwd_reference,
                                                layer_norm_fwd)
@@ -476,12 +489,7 @@ def kernel_layer_norm_bwd(gen):
         torch.cuda.synchronize()
         tag = (f"layer_norm_bwd rows={rows} {str(dt)[6:]} "
                f"{'rms' if rms else 'ln'}{' from_y' if from_y else ''}")
-        tol = BF16_ATOL if dt == torch.bfloat16 else 1e-4
-        err = check_close(tag + " dx", dx, rdx, tol, tol)
-        # f32 sums over `rows` products in another order
-        check_close(tag + " dgamma", dw, rdw, 1e-3, 1e-4)
-        if not rms:
-            check_close(tag + " dbeta", db, rdb, 1e-3, 1e-4)
+        err = _ln_bwd_check(tag, (dx, dw, db), (rdx, rdw, rdb), dt, rms)
         if (rows, dt, rms, from_y) != (TRAIN_ROWS, torch.bfloat16, False,
                                        False):
             continue
@@ -503,8 +511,103 @@ def kernel_layer_norm_bwd(gen):
                                            False)))
         log_numbers(f"layer_norm_bwd rows={rows}", n,
                     "aten native_layer_norm_backward")
+        # 20 replays of one (dy, x) pair (32 MB) read it from the 50 MB L2;
+        # six pairs (192 MB) taken in turn are read from device memory
+        sets = []
+        for _ in range(6):
+            xi = torch.randn(rows, HIDDEN, generator=gen).to(dev, dt)
+            dyi = torch.randn(rows, HIDDEN, generator=gen).to(dev, dt)
+            _, mi, ri = layer_norm_fwd(xi, w, b, 1e-5, False)
+            _, lmi, lri = torch.ops.aten.native_layer_norm(xi, [HIDDEN], w16,
+                                                           b16, 1e-5)
+            sets.append((dyi, xi, mi, ri, lmi, lri))
+        n["ms_l2_cold"] = time_ms(
+            [lambda t=t: layer_norm_bwd(t[0], t[1], w, b, t[2], t[3], False,
+                                        False) for t in sets] * 4)
+        n["library_ms_l2_cold"] = time_ms(
+            [lambda t=t: torch.ops.aten.native_layer_norm_backward(
+                t[0], t[1], [HIDDEN], t[4], t[5], w16, b16,
+                [True, True, True]) for t in sets] * 4)
+        log(f"  layer_norm_bwd rows={rows}, six inputs in turn (read from "
+            f"device memory): {n['ms_l2_cold']:.5f} ms, "
+            f"native_layer_norm_backward {n['library_ms_l2_cold']:.5f} ms, "
+            f"bound {n['bound_ms']:.5f} ms")
+        del sets
         out = n
+    _ln_bwd_edges(gen)
     return out
+
+
+# phase-2 tolerances of #2's dx by dtype (dgamma / dbeta 1e-3 + 1e-4 |ref|
+# in every dtype: f32 sums over the rows in another order)
+LN_DX_TOL = {torch.bfloat16: (BF16_ATOL, BF16_RTOL),
+             torch.float16: (F16_ATOL, F16_RTOL), torch.float32: (1e-4, 1e-4)}
+
+
+def _ln_bwd_check(tag, got, ref, dtype, rms):
+    """dx, dgamma and (not under RMS) dbeta of #2 against its plain
+    version; returns dx's max error."""
+    err = check_close(tag + " dx", got[0], ref[0], *LN_DX_TOL[dtype])
+    check_close(tag + " dgamma", got[1], ref[1], 1e-3, 1e-4)
+    if not rms:
+        check_close(tag + " dbeta", got[2], ref[2], 1e-3, 1e-4)
+    return err
+
+
+def _ln_bwd_edge_case(gen, rows, hidden, dtype, rms, from_y, offset=0):
+    """#2 against its plain version at one shape, and again on the same
+    inputs (bitwise the first call); ``offset`` puts dy that many elements
+    into its storage (off the 16-byte grid: the block body).  Logs the
+    body ``layer_norm_bwd_path`` picked."""
+    from apex_tpu_torch import _kernels
+    from apex_tpu_torch.ops.layer_norm import (layer_norm_bwd,
+                                               layer_norm_bwd_parts,
+                                               layer_norm_bwd_path,
+                                               layer_norm_bwd_reference,
+                                               layer_norm_fwd)
+    w = (1 + 0.1 * torch.randn(hidden, generator=gen)).to("cuda")
+    b = None if rms else (0.1 * torch.randn(hidden, generator=gen)).to("cuda")
+    x = torch.randn(rows, hidden, generator=gen).to("cuda", dtype)
+    dy = _at_offset(torch.randn(rows, hidden, generator=gen).to(
+        "cuda", dtype), offset)
+    y, mean, rstd = layer_norm_fwd(x, w, b, 1e-5, rms)
+    res = y if from_y else x
+    nv = layer_norm_bwd_path(hidden, dtype, dy.data_ptr() % 16 == 0)
+    parts = layer_norm_bwd_parts(rows, nv, _kernels.sm_count(0))
+    got = layer_norm_bwd(dy, res, w, b, mean, rstd, rms, from_y)
+    again = layer_norm_bwd(dy, res, w, b, mean, rstd, rms, from_y)
+    ref = layer_norm_bwd_reference(dy, res, w, b, mean, rstd, rms, from_y)
+    torch.cuda.synchronize()
+    tag = (f"layer_norm_bwd {rows}x{hidden} {str(dtype)[6:]} "
+           f"{'rms' if rms else 'ln'}{' from_y' if from_y else ''}"
+           + (f", dy at storage offset {offset}" if offset else "")
+           + (f" (row per warp, {nv} vectors a lane" if nv
+              else " (block body") + f", {parts} blocks)")
+    if got[0].dtype != dtype or got[0].shape != x.shape:
+        raise AssertionError(f"{tag}: dx is {got[0].dtype} "
+                             f"{tuple(got[0].shape)}")
+    _ln_bwd_check(tag, got, ref, dtype, rms)
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"{tag}: a repeat differs")
+
+
+def _ln_bwd_edges(gen):
+    """#2's bodies at the edges #1 is held at: hidden 48, 1000, 1024, 1600,
+    4096 and 8192 (the row per warp up to 1024, the block body above and
+    off the 16-byte vectors), 1 and 300 rows, bf16, f16 and f32, LN, RMS
+    and from_y, dy off the 16-byte grid."""
+    for hidden in (48, 1000, 1024, 1600, 4096, 8192):
+        for rows in (1, 300):
+            _ln_bwd_edge_case(gen, rows, hidden, torch.bfloat16, False, False)
+        _ln_bwd_edge_case(gen, 300, hidden, torch.bfloat16, True, False)
+        _ln_bwd_edge_case(gen, 300, hidden, torch.bfloat16, False, True)
+    for dtype in (torch.float16, torch.float32):
+        for hidden in (1000, 1024):
+            for rms, from_y in ((False, False), (True, False), (False, True),
+                                (True, True)):
+                _ln_bwd_edge_case(gen, 300, hidden, dtype, rms, from_y)
+    for dtype in (torch.bfloat16, torch.float32):
+        _ln_bwd_edge_case(gen, 300, HIDDEN, dtype, False, False, offset=1)
 
 
 def _flash_bound(batch, s, causal, n_products, n_io, lens=None):
@@ -633,6 +736,19 @@ def kernel_flash(gen):
                                       seed)))
         log_numbers(f"flash_fwd train dropout={rate}", n,
                     "sdpa (no dropout)")
+        if not rate:
+            # one input set (q, k, v: 48 MB) replayed stays in the 50 MB
+            # L2; four sets taken in turn are read from device memory
+            sets = [_qkv_views(gen, MICRO, SEQ) for _ in range(4)]
+            n["ms_l2_cold"] = time_ms(
+                [lambda t=t: flash_fwd(*t, True, scale) for t in sets] * 5)
+            n["library_ms_l2_cold"] = time_ms(
+                [lambda t=t: F.scaled_dot_product_attention(
+                    *t, is_causal=True, scale=scale) for t in sets] * 5)
+            log(f"  flash_fwd train, four inputs in turn (read from device "
+                f"memory): {n['ms_l2_cold']:.5f} ms, sdpa "
+                f"{n['library_ms_l2_cold']:.5f} ms")
+            del sets
         by_len[f"train_dropout_{rate}"] = n
     # the BERT training shape: bidirectional (no mask)
     q, k, v = _qkv_views(gen, BERT_MICRO, BERT_SEQ)
@@ -666,19 +782,25 @@ def kernel_flash(gen):
     return by_len
 
 
-def _flash_bwd_library_ms(q, k, v, do, causal, scale):
+def _flash_bwd_library_ms(sets, causal, scale):
     """SDPA computes dq, dk and dv in one backward: its time is the graph
-    of forward + backward less the forward alone."""
-    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    of forward + backward less the forward alone, over the ``(q, k, v,
+    do)`` input sets taken in turn."""
+    leaves = [[t.detach().clone().requires_grad_() for t in qkv]
+              for *qkv, _ in sets]
 
-    def sdpa_fwd():
+    def sdpa_fwd(ql, kl, vl):
         return F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
                                               scale=scale)
 
-    def sdpa_fwd_bwd():
-        return torch.autograd.grad(sdpa_fwd(), (ql, kl, vl), do)
+    def sdpa_fwd_bwd(ls, do):
+        return torch.autograd.grad(sdpa_fwd(*ls), ls, do)
 
-    return time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd)
+    rounds = -(-20 // len(sets))
+    return (time_ms([lambda ls=ls, st=st: sdpa_fwd_bwd(ls, st[3])
+                     for ls, st in zip(leaves, sets)] * rounds)
+            - time_ms([lambda ls=ls: sdpa_fwd(*ls) for ls in leaves]
+                      * rounds))
 
 
 def kernel_flash_bwd(gen):
@@ -727,7 +849,7 @@ def kernel_flash_bwd(gen):
             raise AssertionError("flash_attention_dq: two calls on the same "
                                  "inputs differ")
         log(f"  flash_attention_dq {name}: two calls bitwise equal ok")
-        lib_bwd = _flash_bwd_library_ms(q, k, v, do, True, scale)
+        lib_bwd = _flash_bwd_library_ms([(q, k, v, do)], True, scale)
         out["dq"] = numbers(
             err_q, time_ms(lambda: flash_attention_dq(*args)),
             time_ms(lambda: flash_attention_dq_reference(*args)), lib_bwd,
@@ -742,6 +864,28 @@ def kernel_flash_bwd(gen):
                     "sdpa backward (dq+dk+dv)")
         log_numbers("flash_attention_dkv causal", out["dkv"],
                     "sdpa backward (dq+dk+dv)")
+        # one input set (q, k, v, dO: 64 MB) replayed sits largely in the
+        # 50 MB L2; three sets taken in turn are read from device memory
+        sets = []
+        for _ in range(3):
+            qi, ki, vi = _qkv_views(gen, MICRO, SEQ)
+            doi = torch.randn(MICRO, SEQ, HEADS, HEAD_DIM, generator=gen).to(
+                "cuda", torch.bfloat16).transpose(1, 2)
+            oi, lsei = flash_fwd(qi, ki, vi, True, scale)
+            deltai = (doi.float() * oi.float()).sum(-1).reshape(MICRO * HEADS,
+                                                                SEQ)
+            sets.append((qi, ki, vi, doi, lsei, deltai, True, scale))
+            del oi
+        lib_cold = _flash_bwd_library_ms([a[:4] for a in sets], True, scale)
+        for key, fn in (("dq", flash_attention_dq),
+                        ("dkv", flash_attention_dkv)):
+            out[key]["ms_l2_cold"] = time_ms(
+                [lambda a=a, fn=fn: fn(*a) for a in sets] * 7)
+            out[key]["library_ms_l2_cold"] = lib_cold
+            log(f"  flash_attention_{key} causal, three inputs in turn (read "
+                f"from device memory): {out[key]['ms_l2_cold']:.5f} ms, sdpa "
+                f"backward {lib_cold:.5f} ms")
+        del sets
     # BERT: (16, 16, 512, 64), no mask
     q, k, v = _qkv_views(gen, BERT_MICRO, BERT_SEQ)
     do = torch.randn(BERT_MICRO, BERT_SEQ, HEADS, HEAD_DIM, generator=gen).to(
@@ -762,7 +906,7 @@ def kernel_flash_bwd(gen):
                         BF16_RTOL)
     err_v = check_close(f"flash_attention_dkv {name} dv", dv, rdv, BF16_ATOL,
                         BF16_RTOL)
-    lib_bwd = _flash_bwd_library_ms(q, k, v, do, False, scale)
+    lib_bwd = _flash_bwd_library_ms([(q, k, v, do)], False, scale)
     out["dq_bert"] = numbers(
         err_q, time_ms(lambda: flash_attention_dq(*args)),
         time_ms(lambda: flash_attention_dq_reference(*args)), lib_bwd,
@@ -1434,13 +1578,18 @@ def _no_target_rows(v, t, g):
 def _cuda_events(fn, ok):
     """The CUDA kernel events of a torch.profiler session over ``fn`` (after
     a warm-up call) for which ``ok(events)`` holds.  A session on the card
-    has been seen to record none or only some of a run's launches, so up
-    to three sessions; returns the last one's events."""
+    has been seen to record none or only some of a run's launches (three
+    sessions in a row once each dropped one of three launches), so up to
+    six sessions, each opened with a small kernel of its own before ``fn``;
+    returns the last one's events."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    opener = torch.zeros(1, device="cuda")
+    for _ in range(6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            opener.add_(1)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events()
@@ -2096,6 +2245,123 @@ def _check_found_inf(name, kernel_fn, plain_fn, tensors):
         raise AssertionError(f"{name}: wrong found-inf flag")
 
 
+def lamb_stage1_scal():
+    """#20's scalars at step 3, clip 0.5: [beta1, beta2, eps, wd, bc1,
+    bc2, grad_scale, clip, beta3]."""
+    b1, b2 = LAMB_BETAS
+    return torch.tensor([b1, b2, 1e-6, LAMB_WD, 1 - b1 ** 3, 1 - b2 ** 3,
+                         1.0, 0.5, 1 - b1], dtype=torch.float32,
+                        device="cuda")
+
+
+def _lamb_stage1_check(tag, lists, scal, noop, offsets=(0,) * 5):
+    """#20 on copies of ``lists`` (g, p, m, v; each list, and u, at its
+    storage offset in ``offsets``) against its plain version, and the
+    kernel again on fresh copies: launches as ``lamb_stage1_launches``
+    says; u, m and v within 1e-6 relative + 1e-6 of each tensor's largest
+    entry, the chunk partials within 1e-5 relative; under noop m and v
+    untouched and u = 0, bit for bit; the repeat bitwise the first run.
+    Returns (u's, m's and v's max error, the kernel's (u, m, v, u_sq,
+    p_sq))."""
+    from apex_tpu_torch.ops import multi_tensor as K
+    grads, params, ms, vs = lists
+    numels = [p.numel() for p in params]
+    want = K.lamb_stage1_launches(numels)
+    sides = []
+    for f in (K.multi_tensor_lamb_stage1, K.multi_tensor_lamb_stage1_reference,
+              K.multi_tensor_lamb_stage1):
+        g, p, m, v = ([_at_offset(t, o) for t in lst]
+                      for lst, o in zip(lists, offsets))
+        u = [_at_offset(torch.empty_like(t, dtype=torch.float32), offsets[4])
+             for t in params]
+        before = K.multi_tensor_lamb_stage1.launches
+        usq, psq = f(g, p, m, v, u, scal, noop)
+        sides.append(((u, m, v, usq, psq),
+                      K.multi_tensor_lamb_stage1.launches - before))
+    torch.cuda.synchronize()
+    (k, n_k), (r, n_r), (k2, n_k2) = sides
+    if (n_k, n_r, n_k2) != (want, 0, want):
+        raise AssertionError(f"{tag}: launches {n_k} / {n_k2} (plain {n_r}), "
+                             f"lamb_stage1_launches says {want}")
+    if not _bitwise([k[0], k[1], k[2], [k[3], k[4]]],
+                    [k2[0], k2[1], k2[2], [k2[3], k2[4]]]):
+        raise AssertionError(f"{tag}: a repeat differs")
+    # f32 on both sides; the kernel rounds b1*m + b3*g once (an FMA) where
+    # the plain version rounds twice, which moves an entry where the two
+    # terms cancel by an ulp of the terms (not of the result), and u
+    # divides it by sqrt(v): 1e-6 of each tensor's largest entry; the
+    # chunk partials sum 64K terms in another order (1e-5 relative)
+    err = 0.0
+    for name, a, b in zip("umv", k, r):
+        err = max(err, _check_lists(f"{tag} {name}", a, b, 1e-6, 0.0,
+                                    scale_rtol=1e-6))
+    check_close(f"{tag} chunk sums of u^2", k[3], r[3], 1e-30, 1e-5)
+    check_close(f"{tag} chunk sums of p^2", k[4], r[4], 1e-30, 1e-5)
+    if int(noop) and not (_bitwise([k[1], k[2]], [ms, vs])
+                          and not any(bool(u.any()) for u in k[0])):
+        raise AssertionError(f"{tag}: noop=1 changed the moments or wrote a "
+                             f"nonzero u")
+    return err, k
+
+
+# #20's dtype signatures (g, p): all nine
+LAMB_SIGNATURES = tuple((g, p) for g in (torch.float32, torch.bfloat16,
+                                         torch.float16)
+                        for p in (torch.float32, torch.bfloat16,
+                                  torch.float16))
+LAMB_EDGE_SIZES = (1, 7, 8, 9, 65537)
+
+
+def kernel_lamb_edges(rand):
+    """#20 beyond BERT-large's list: tensors of 1, 7, 8, 9 and 65,537
+    elements in each (g, p) signature in one list, at offset 0, with every
+    list at storage offset 1 (a scalar head of 7), and with each list
+    alone at storage offset 1 (no head aligns them: scalar), noop 1 and 0;
+    then GPT-350M's 291 f32 tensors (one launch) and 2000 f32 tensors of
+    1-70,000 elements, whose launch counts (the C entry's) must be
+    ``lamb_stage1_launches``'s (more than one table for 2000)."""
+    from apex_tpu_torch.ops import multi_tensor as K
+    scal = lamb_stage1_scal()
+    lists = ([], [], [], [])
+    for gdt, pdt in LAMB_SIGNATURES:
+        for n in LAMB_EDGE_SIZES:
+            for lst, t in zip(lists, (rand(n, 1e-2).to(gdt),
+                                      rand(n, 0.02).to(pdt), rand(n, 1e-4),
+                                      rand(n, 1e-8).abs())):
+                lst.append(t)
+    tag = f"multi_tensor_lamb_stage1 {len(lists[0])} tensors of " \
+          f"{LAMB_EDGE_SIZES}"
+    err = 0.0
+    for offsets in [(0,) * 5, (1,) * 5] + [
+            tuple(int(i == j) for i in range(5)) for j in range(5)]:
+        where = ("" if not any(offsets) else " at storage offset 1" if all(
+            offsets) else f", {'gpmvu'[offsets.index(1)]} at storage offset 1")
+        for noop_v in (1, 0):
+            noop = torch.tensor(noop_v, dtype=torch.int32, device="cuda")
+            err = max(err, _lamb_stage1_check(
+                f"{tag}{where} noop={noop_v}", lists, scal, noop,
+                offsets)[0])
+    noop = torch.tensor(0, dtype=torch.int32, device="cuda")
+    shapes = gpt350m_shapes()
+    gpt = ([rand(s, 1e-3) for s in shapes], [rand(s, 0.02) for s in shapes],
+           [rand(s, 1e-4) for s in shapes],
+           [rand(s, 1e-8).abs() for s in shapes])
+    err = max(err, _lamb_stage1_check(
+        f"multi_tensor_lamb_stage1 GPT-350M's {len(shapes)} f32 tensors "
+        f"({K.lamb_stage1_launches([s.numel() for s in shapes])} launch)",
+        gpt, scal, noop)[0])
+    del gpt
+    sizes = np.random.RandomState(5).randint(1, 70001, 2000)
+    long = ([rand(int(n), 1e-2) for n in sizes],
+            [rand(int(n), 0.02) for n in sizes],
+            [rand(int(n), 1e-4) for n in sizes],
+            [rand(int(n), 1e-8).abs() for n in sizes])
+    err = max(err, _lamb_stage1_check(
+        f"multi_tensor_lamb_stage1 2000 tensors of 1-70000 elements "
+        f"({K.lamb_stage1_launches(sizes)} launches)", long, scal, noop)[0])
+    return err
+
+
 def kernel_multi_tensor_lamb(gen_cuda):
     """#17, #15, #20 and #21 over BERT-large's O2 tensor list (299
     tensors: bf16 gradients for bf16 parameters, f32 for the LayerNorms;
@@ -2171,46 +2437,16 @@ def kernel_multi_tensor_lamb(gen_cuda):
     del kout, rout
 
     # #20: stage 1 at step 3, clip 0.5, noop 0 and 1
-    b1, b2 = LAMB_BETAS
-    scal = torch.tensor([b1, b2, 1e-6, LAMB_WD, 1 - b1 ** 3, 1 - b2 ** 3,
-                         1.0, 0.5, 1 - b1], dtype=torch.float32,
-                        device="cuda")
+    scal = lamb_stage1_scal()
     ms = [rand(s, 1e-4) for s, _ in specs]
     vs = [rand(s, 1e-8, positive=True) for s, _ in specs]
     err = 0.0
     for noop_v in (1, 0):
         noop = torch.tensor(noop_v, dtype=torch.int32, device="cuda")
-        km, kv, rm, rv = ([t.clone() for t in ts] for ts in (ms, vs, ms, vs))
-        ku = [torch.empty_like(t) for t in masters]
-        ru = [torch.empty_like(t) for t in masters]
-        before = K.multi_tensor_lamb_stage1.launches
-        kusq, kpsq = K.multi_tensor_lamb_stage1(grads, masters, km, kv, ku,
-                                                scal, noop)
-        n_launch = K.multi_tensor_lamb_stage1.launches - before
-        rusq, rpsq = K.multi_tensor_lamb_stage1_reference(
-            grads, masters, rm, rv, ru, scal, noop)
-        torch.cuda.synchronize()
-        if n_launch != launches:
-            raise AssertionError(f"multi_tensor_lamb_stage1 made {n_launch} "
-                                 f"launches, the table rule says {launches}")
-        tag = f"multi_tensor_lamb_stage1 noop={noop_v}"
-        # f32 on both sides; FMA contraction on the card rounds
-        # b1*m + b3*g once where the plain version rounds twice, which
-        # moves an entry where the two terms cancel by an ulp of the terms
-        # (not of the result), and u divides it by sqrt(v): 1e-6 of each
-        # tensor's largest entry; the chunk partials sum 64K terms in
-        # another order (1e-5 relative)
-        for name, a, b in (("u", ku, ru), ("m", km, rm), ("v", kv, rv)):
-            err = max(err, _check_lists(f"{tag} {name}", a, b, 1e-6, 0.0,
-                                        scale_rtol=1e-6))
-        check_close(f"{tag} chunk sums of u^2", kusq, rusq, 1e-30, 1e-5)
-        check_close(f"{tag} chunk sums of p^2", kpsq, rpsq, 1e-30, 1e-5)
-        if noop_v and not (all(torch.equal(a, b) for a, b in zip(km, ms))
-                           and all(torch.equal(a, b) for a, b in zip(kv, vs))
-                           and not any(bool(u.any()) for u in ku)):
-            raise AssertionError("multi_tensor_lamb_stage1 noop=1 changed "
-                                 "the moments or wrote a nonzero u")
-        del rm, rv, ru
+        e, (ku, km, kv, kusq, kpsq) = _lamb_stage1_check(
+            f"multi_tensor_lamb_stage1 noop={noop_v}",
+            (grads, masters, ms, vs), scal, noop)
+        err = max(err, e)
     s1_bytes = _nbytes(grads) + 6 * 4 * n_el
     out["stage1"] = numbers(
         err, time_ms([lambda: K.multi_tensor_lamb_stage1(
@@ -2271,6 +2507,8 @@ def kernel_multi_tensor_lamb(gen_cuda):
         n["tensors"], n["elements"], n["launches_per_call"] = (
             len(specs), n_el, launches)
     out["sumsq"]["launches_per_call"] = sumsq_launches(numels)
+    out["stage1"]["launches_per_call"] = K.lamb_stage1_launches(numels)
+    out["stage1"]["edges_max_abs_err"] = kernel_lamb_edges(rand)
     return out
 
 
@@ -3511,6 +3749,7 @@ def phase_bert_train(fused_ffn=False, tag="[7]"):
     """4 steps of BERT-large O2 + FusedLAMB (``tag`` [7f]: with
     ``fused_ffn=True``); losses, times, memory, exact launch counts, and no
     plain version called."""
+    from apex_tpu_torch.ops import multi_tensor as K
     model, opt, _ = build_bert("cuda", dict(BERT_LARGE, fused_ffn=fused_ffn),
                                BERT_LR, 0)
     numels = [p.numel() for p in model.parameters()]
@@ -3541,7 +3780,7 @@ def phase_bert_train(fused_ffn=False, tag="[7]"):
                 "flash_attention_dq": n * BERT_ACCUM * layers,
                 "flash_attention_dkv": n * BERT_ACCUM * layers,
                 "multi_tensor_sumsq": n * sumsq_launches(numels),
-                "multi_tensor_lamb_stage1": n * table,
+                "multi_tensor_lamb_stage1": n * K.lamb_stage1_launches(numels),
                 "multi_tensor_lamb_stage2": n * table,
                 "lm_head_fwd": n * BERT_ACCUM * 2,
                 **lm_head_bwd_launches(n * BERT_ACCUM, BERT_ROWS,

@@ -419,3 +419,189 @@ def test_kernel_order_error_is_within_its_bound_where_the_form_cancels(
     assert (err <= bound).all(), (err.max(), bound.min())
     if hidden >= 48:
         assert err[12:].max() > 1e-5      # the rows do cancel
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel's body choice, row walk and summation orders
+# (csrc/layer_norm_bwd.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hidden", _WIDTHS + [12, 1001])
+@pytest.mark.parametrize("dtype", sorted(_PATHS))
+def test_bwd_path_choice(dtype, hidden):
+    """The backward's row-per-warp body takes the rows the forward's does
+    (whole 16-byte vectors, at most LN_BWD_LANE_ELEMS elements a lane,
+    hidden <= 1024, every operand on the 16-byte grid); every other row
+    takes the block body."""
+    want = _PATHS[dtype][hidden]
+    assert tln.layer_norm_bwd_path(hidden, _DT[dtype], True) == want
+    assert tln.layer_norm_bwd_path(hidden, _DT[dtype], False) == 0
+    if want:
+        assert want * (16 // _DT[dtype].itemsize) <= tln.LN_BWD_LANE_ELEMS
+
+
+def test_bwd_constants_are_the_kernels():
+    """The Python mirror's warps a block, row elements a lane and the
+    cross-block sum's groups are the C source's."""
+    import re
+    from apex_tpu_torch import _kernels
+    src = (_kernels.CSRC / "layer_norm_bwd.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"{name} = (\d+);", src).group(1))
+
+    assert const("kLnBwdMaxLaneElems") == tln.LN_BWD_LANE_ELEMS
+    assert const("kLnBwdBlocksPerSm") == tln.LN_BWD_BLOCKS_PER_SM
+    assert const("kLnBwdThreads") // 32 == tln.LN_BWD_WARPS
+    assert "kLnBwdWarps = kLnBwdThreads / 32;" in src
+    assert const("kLnReduceGroups") == _REDUCE_GROUPS
+
+
+# csrc/layer_norm_bwd.cu kLnReduceGroups: the cross-block sum's groups
+_REDUCE_GROUPS = 32
+
+
+def _warp_rows(rows, parts):
+    """Rows of each (block, warp) of the row-per-warp body: warp k of
+    block b takes b * W + k, then every parts * W rows."""
+    w = tln.LN_BWD_WARPS
+    return {(b, k): list(range(b * w + k, rows, parts * w))
+            for b in range(parts) for k in range(w)}
+
+
+@pytest.mark.parametrize("sms", [3, 132])
+@pytest.mark.parametrize("rows", [1, 7, 8, 40, 300, 8192])
+def test_bwd_row_walk_takes_each_row_once(rows, sms):
+    """The row-per-warp body's grid is at most one wave of resident blocks
+    and its warps' walks take every row exactly once; the block body's
+    tiles of ceil(rows / blocks) rows do too."""
+    parts = tln.layer_norm_bwd_parts(rows, 4, sms)
+    assert 1 <= parts <= sms * tln.LN_BWD_BLOCKS_PER_SM
+    assert parts <= -(-rows // tln.LN_BWD_WARPS)
+    seen = np.zeros(rows, np.int32)
+    for walk in _warp_rows(rows, parts).values():
+        seen[walk] += 1
+    assert (seen == 1).all()
+    parts = tln.layer_norm_bwd_parts(rows, 0, sms)
+    assert parts == -(-rows // tln.LN_BWD_ROWS_PER_BLOCK)
+    tile = -(-rows // parts)
+    seen = np.zeros(rows, np.int32)
+    for b in range(parts):
+        seen[b * tile:min(rows, (b + 1) * tile)] += 1
+    assert (seen == 1).all()
+
+
+def _fms32(acc, a, b):
+    """fma(-a, b, acc) in f32: acc - a*b rounded once."""
+    return (acc.astype(np.float64) - a.astype(np.float64) * b).astype(
+        np.float32)
+
+
+def _kernel_order_bwd(dy, res, w, b, mean, rstd, rms, from_y, itemsize,
+                      sms):
+    """f32 emulation of the backward's row-per-warp body (every rounding
+    as the kernel pins it): xhat and dy*w per element; lane l's partials of
+    dy*w*xhat (an FMA) and dy*w over its vectors l, l + 32, ... element by
+    element, combined by ``warp_sum``; dx = (fma(-xhat, c1, dy*w) - c2) *
+    rstd; each warp's dgamma (FMAs) and dbeta over its rows in walk order,
+    the block's warps added in warp order, then the blocks' rows summed by
+    the reduce kernel's groups (rows q, q + 32, ... in order), the groups
+    in order.  Returns (dx f32, dgamma, dbeta)."""
+    rows, hidden = dy.shape
+    dtype = {2: torch.bfloat16, 4: torch.float32}[itemsize]
+    nv = tln.layer_norm_bwd_path(hidden, dtype, True)
+    assert nv
+    per_vec = 16 // itemsize
+    n_vec = hidden // per_vec
+    if from_y:
+        y = res - b if b is not None else res
+        xh = (y / np.where(w == 0, np.float32(1), w)).astype(np.float32)
+    else:
+        xh = (res * rstd if rms else (res - mean) * rstd).astype(np.float32)
+    wdy = (dy * w).astype(np.float32)
+    a = np.zeros((rows, 32), np.float32)
+    c = np.zeros((rows, 32), np.float32)
+    lanes = np.arange(32)
+    for j in range(nv):
+        v = j * 32 + lanes
+        ok = v < n_vec
+        for k in range(per_vec):
+            e = v[ok] * per_vec + k
+            a[:, ok] = _fma32(a[:, ok], wdy[:, e], xh[:, e])
+            c[:, ok] = c[:, ok] + wdy[:, e]
+    inv_h = np.float32(1.0 / hidden)
+    c1 = (_xor_tree(a) * inv_h)[:, None]
+    c2 = np.zeros_like(c1) if rms else (_xor_tree(c) * inv_h)[:, None]
+    dx = ((_fms32(wdy, xh, c1) - c2) * rstd).astype(np.float32)
+    parts = tln.layer_norm_bwd_parts(rows, nv, sms)
+    part = np.zeros((2, parts, hidden), np.float32)
+    for (blk, _), walk in sorted(_warp_rows(rows, parts).items()):
+        dw = np.zeros(hidden, np.float32)
+        db = np.zeros(hidden, np.float32)
+        for r in walk:
+            dw = _fma32(dw, dy[r], xh[r])
+            db = db + dy[r]
+        part[0, blk] = part[0, blk] + dw
+        part[1, blk] = part[1, blk] + db
+    groups = np.zeros((_REDUCE_GROUPS, 2, hidden), np.float32)
+    for p in range(parts):
+        groups[p % _REDUCE_GROUPS] = groups[p % _REDUCE_GROUPS] + part[:, p]
+    total = np.zeros((2, hidden), np.float32)
+    for q in range(_REDUCE_GROUPS):
+        total = total + groups[q]
+    return dx, total[0], total[1]
+
+
+# dx: one bf16 ulp (phase 2 of chip_smoke.py) / f32 sums of `hidden`
+# terms in other orders; dgamma / dbeta: f32 sums of 40 rows in other
+# orders (phase 2 allows 1e-3 + 1e-4 |ref|)
+_DX_TOL = {"bf16": (2e-2, 2e-2), "f32": (1e-5, 1e-5)}
+_DWB_TOL = (2e-5, 1e-5)
+
+
+@pytest.mark.parametrize("mode", ["ln", "rms", "from_y"])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("hidden", [8, 48, 1000, 1024])
+def test_bwd_kernel_order_matches_jax_kernel_and_reference(hidden, dtype,
+                                                           mode):
+    """The backward kernel's row-per-warp body, emulated in f32 in its
+    summation order over the grid of 2 SMs (4 blocks of 8 warps for 40
+    rows: a warp takes one or two rows), against the JAX ``_bwd_kernel`` (Pallas, interpret mode,
+    through ``jax.vjp``) and the plain version: dx within 0.02 + 0.02
+    |ref| (bf16, phase 2's tolerance) / 1e-5 + 1e-5 |ref| (f32), dgamma and
+    dbeta within 2e-5 + 1e-5 |ref| (phase 2 allows 1e-3 + 1e-4 |ref|)."""
+    rng = np.random.RandomState(11)
+    x = (rng.randn(40, hidden) * 2 + 0.5).astype(np.float32)
+    dy = rng.randn(40, hidden).astype(np.float32)
+    w = (1 + 0.1 * rng.randn(hidden)).astype(np.float32)
+    b = None if mode == "rms" else (0.1 * rng.randn(hidden)).astype(
+        np.float32)
+    rms, from_y = mode == "rms", mode == "from_y"
+    tx = torch.from_numpy(x).to(_DT[dtype])
+    tdy = torch.from_numpy(dy).to(_DT[dtype])
+    tw = torch.from_numpy(w)
+    tb = None if b is None else torch.from_numpy(b)
+    y, mean, rstd = tln.layer_norm_fwd_reference(tx, tw, tb, 1e-5, rms)
+    res = y if from_y else tx
+    edx, edw, edb = _kernel_order_bwd(
+        tdy.float().numpy(), res.float().numpy(), w, b, mean.numpy(),
+        rstd.numpy(), rms, from_y, tx.element_size(), sms=2)
+    edx = torch.from_numpy(edx).to(_DT[dtype]).float().numpy()
+    rdx, rdw, rdb = tln.layer_norm_bwd_reference(tdy, res, tw, tb, mean,
+                                                 rstd, rms, from_y)
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    set_force_pallas(True)
+    try:
+        jdx, jdw, jdb = _jax_grads(jnp.asarray(x, jdt), w, b,
+                                   jnp.asarray(dy, jdt), rms, from_y)
+    finally:
+        set_force_pallas(None)
+    for ref in ((_f32(jdx), _f32(jdw), None if rms else _f32(jdb)),
+                (_f32(rdx), _f32(rdw), None if rms else _f32(rdb))):
+        np.testing.assert_allclose(edx, ref[0], atol=_DX_TOL[dtype][0],
+                                   rtol=_DX_TOL[dtype][1])
+        np.testing.assert_allclose(edw, ref[1], atol=_DWB_TOL[0],
+                                   rtol=_DWB_TOL[1])
+        if ref[2] is not None:
+            np.testing.assert_allclose(edb, ref[2], atol=_DWB_TOL[0],
+                                       rtol=_DWB_TOL[1])

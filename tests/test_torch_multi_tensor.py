@@ -568,7 +568,8 @@ def test_novograd_math_matches_jax(reg_inside_moment):
 # ---------------------------------------------------------------------------
 
 ROOT = Path(__file__).resolve().parents[1]
-# csrc/multi_tensor_sgd.cu: the head code of lists no scalar head aligns,
+CSRC = ROOT / "apex_tpu_torch" / "csrc"
+# csrc/multi_tensor_list.cuh: the head code of lists no scalar head aligns,
 # and the bytes of kernel parameters CUDA 12.1 allows on sm_70 and later
 SGD_NO_VECTOR = 8
 KERNEL_PARAM_LIMIT = 32764
@@ -658,13 +659,21 @@ def _sgd_vector_head(addresses, itemsizes):
     return SGD_NO_VECTOR
 
 
+def _list_param_bytes(tensors, lists, pointers, ints):
+    """Bytes of a whole-list kernel's parameters with a table of
+    ``tensors`` entries (the C ``ListTable``: a pointer per list, an
+    element count, a first-chunk index and two bytes per tensor, one more
+    chunk index, padded to 8 bytes), then ``pointers`` pointers and
+    ``ints`` ints."""
+    table = (8 * lists * tensors + 8 * tensors + 4 * (tensors + 1)
+             + 2 * tensors)
+    return -(-table // 8) * 8 + 8 * pointers + 4 * ints
+
+
 def _sgd_param_bytes(tensors):
-    """Bytes of ``multi_tensor_sgd_kernel``'s parameters with a table of
-    ``tensors`` entries (the C ``SgdTable``: four pointers, an element
-    count, a first-chunk index and two bytes per tensor, one more chunk
-    index, padded to 8 bytes; then two pointers and five ints)."""
-    table = 8 * 4 * tensors + 8 * tensors + 4 * (tensors + 1) + 2 * tensors
-    return -(-table // 8) * 8 + 2 * 8 + 5 * 4
+    """``multi_tensor_sgd_kernel``'s: four lists, then two pointers and
+    five ints."""
+    return _list_param_bytes(tensors, 4, 2, 5)
 
 
 def _sgd_chunk_split(s, e, head):
@@ -724,17 +733,96 @@ def test_sgd_table_is_the_kernels_and_fits_the_parameter_limit():
     """The Python walk's constants are the C source's, and the kernel's
     parameters (its table and the rest) stay under CUDA 12.1's 32,764
     bytes, as the source's static_assert says."""
-    src = (ROOT / "apex_tpu_torch" / "csrc" / "multi_tensor_sgd.cu"
-           ).read_text()
+    src = ((CSRC / "multi_tensor_sgd.cu").read_text()
+           + (CSRC / "multi_tensor_list.cuh").read_text())
 
     def const(name):
         return int(re.search(rf"{name} = (\d+);", src).group(1))
 
     assert const("kSgdMaxTensors") == tK.SGD_TABLE_TENSORS
     assert const("kSgdChunk") == tK.SGD_CHUNK
-    assert const("kSgdNoVector") == SGD_NO_VECTOR
-    assert const("kSgdParamLimit") == KERNEL_PARAM_LIMIT == 32764
+    assert const("kListNoVector") == SGD_NO_VECTOR
+    assert const("kListParamLimit") == KERNEL_PARAM_LIMIT == 32764
+    assert "using SgdTable = ListTable<4, kSgdMaxTensors>;" in src
     assert _sgd_param_bytes(tK.SGD_TABLE_TENSORS) <= KERNEL_PARAM_LIMIT
     assert _sgd_param_bytes(tK.SGD_TABLE_TENSORS + 80) \
         > KERNEL_PARAM_LIMIT
     assert tK.SGD_CHUNK % 8 == 0
+
+
+# ---------------------------------------------------------------------------
+# LAMB stage 1's whole-list table (csrc/multi_tensor_lamb.cu on
+# csrc/multi_tensor_list.cuh)
+# ---------------------------------------------------------------------------
+
+def _lamb_lists():
+    """Named lists of tensor sizes: BERT-large's O2 parameters and
+    GPT-350M's as the card script builds them (meta devices), 2000 tensors
+    of 1-70,000 elements, and a list with empty tensors around a table's
+    worth."""
+    cs = _chip_smoke()
+    rng = np.random.RandomState(5)
+    return {
+        "bert_large_O2": [int(np.prod(s)) for s, _ in cs.bert_param_specs()],
+        "gpt350m": [int(np.prod(s)) for s in cs.gpt350m_shapes()],
+        "2000_tensors": [int(n) for n in rng.randint(1, 70001, 2000)],
+        "empties": [0, 5, 0] + [1] * (tK.LAMB_TABLE_TENSORS - 1) + [0, 0,
+                                                                    70000,
+                                                                    0]}
+
+
+_LAMB_LAUNCHES = {"bert_large_O2": 1, "gpt350m": 1, "2000_tensors": 4,
+                  "empties": 2}
+
+
+@pytest.mark.parametrize("name", sorted(_LAMB_LAUNCHES))
+def test_lamb_stage1_walk_covers_every_element_once(name):
+    """Each block of each launch of ``lamb_stage1_plan`` finds its tensor
+    by the kernel's search; the blocks' 64K-element ranges tile every
+    non-empty tensor exactly once; block ``b`` of a launch writes partial
+    ``b`` plus the chunks of the launches before it, which is the number
+    ``chunk_counts`` gives that chunk (tensor after tensor), so stage 2 and
+    the plain versions read the partials as before; one launch for
+    BERT-large's and GPT-350M's lists, ceil(2000 / 605) for 2000."""
+    numels = _lamb_lists()[name]
+    plan = tK.lamb_stage1_plan(numels)
+    assert len(plan) == tK.lamb_stage1_launches(numels) \
+        == _LAMB_LAUNCHES[name]
+    first_chunk = np.concatenate([[0], np.cumsum(tK.chunk_counts(numels))])
+    ranges, slots, base = {}, [], 0
+    for table in plan:
+        assert 0 < len(table) <= tK.LAMB_TABLE_TENSORS
+        starts = [first for _, first, _ in table]
+        assert starts[0] == 0
+        n_blocks = sum(chunks for _, _, chunks in table)
+        for block in range(n_blocks):
+            t = _sgd_block_owner(starts, block)
+            i, first, _ = table[t]
+            c = block - first
+            s = c * tK.CHUNK
+            e = min(numels[i], s + tK.CHUNK)
+            assert s < e
+            ranges.setdefault(i, []).append((s, e))
+            assert base + block == first_chunk[i] + c
+            slots.append(base + block)
+        base += n_blocks
+    assert slots == list(range(sum(tK.chunk_counts(numels))))
+    assert sorted(ranges) == [i for i, n in enumerate(numels) if n > 0]
+    for i, rs in ranges.items():
+        ends = [0] + [e for _, e in sorted(rs)]
+        assert [s for s, _ in sorted(rs)] == ends[:-1]
+        assert ends[-1] == numels[i]
+
+
+def test_lamb_table_is_the_kernels_and_fits_the_parameter_limit():
+    """The Python walk's constants are the C source's; the five-list table
+    at its cap, with the kernel's four pointers and two ints, fits CUDA
+    12.1's 32,764 bytes of parameters, and one more tensor does not (the
+    source's two static_asserts); the partials keep the 64K chunk."""
+    src = (CSRC / "multi_tensor_lamb.cu").read_text()
+    cap = int(re.search(r"kLambMaxTensors = (\d+);", src).group(1))
+    assert cap == tK.LAMB_TABLE_TENSORS
+    assert "using LambTable = ListTable<5, kLambMaxTensors>;" in src
+    assert "kMTChunk" in src and tK.CHUNK == 65536
+    assert _list_param_bytes(cap, 5, 4, 2) <= KERNEL_PARAM_LIMIT
+    assert _list_param_bytes(cap + 1, 5, 4, 2) > KERNEL_PARAM_LIMIT
