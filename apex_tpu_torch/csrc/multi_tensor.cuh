@@ -1,5 +1,6 @@
-// The launch table shared by the port's multi-tensor kernels (Adam, scale,
-// L2 norm, the two LAMB stages): apex's multi_tensor_apply design.
+// The launch table shared by the port's multi-tensor kernels (#16 axpby,
+// #17 L2 norm, #18 Adam, #21 LAMB stage 2, #22 Adagrad, #23 NovoGrad):
+// apex's multi_tensor_apply design.
 //
 // The host walks a list of tensors and fills a table that is passed by
 // value as the kernel's argument (under the 4 KB parameter limit): per

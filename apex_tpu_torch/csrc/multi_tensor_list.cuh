@@ -1,6 +1,6 @@
 // The by-value launch table of the port's whole-list multi-tensor kernels
-// (#19 SGD, csrc/multi_tensor_sgd.cu; #20 LAMB stage 1,
-// csrc/multi_tensor_lamb.cu).
+// (#15 scale, csrc/multi_tensor_scale.cu; #19 SGD, csrc/multi_tensor_sgd.cu;
+// #20 LAMB stage 1, csrc/multi_tensor_lamb.cu).
 //
 // One table holds up to kMax tensors of N lists and is passed by value as a
 // `__grid_constant__` kernel parameter (up to 32,764 bytes of parameters

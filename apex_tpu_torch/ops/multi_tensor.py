@@ -3,12 +3,13 @@ axpby, L2 norm, Adam, SGD, the two LAMB stages, Adagrad, NovoGrad).
 
 Each function updates or reads lists of tensors with one multi-tensor
 launch set (apex's ``multi_tensor_apply`` design, the by-value table of
-``csrc/multi_tensor.cuh``; SGD and LAMB stage 1 take a whole list a launch
-on the table of ``csrc/multi_tensor_list.cuh``, see :func:`list_plan`): a
-CUDA tensor launches its kernel, a CPU tensor takes the function's plain
-version (``*_reference``), which applies the JAX single-source math
-(:func:`_adam_math`, :func:`_sgd_math`, :func:`_lamb_stage1_math`,
-:func:`_adagrad_math`, :func:`_novograd_math`) tensor by tensor.
+``csrc/multi_tensor.cuh``; scale, SGD and LAMB stage 1 take a whole list a
+launch on the table of ``csrc/multi_tensor_list.cuh``, see
+:func:`list_plan`): a CUDA tensor launches its kernel, a CPU tensor takes
+the function's plain version (``*_reference``), which applies the JAX
+single-source math (:func:`_adam_math`, :func:`_sgd_math`,
+:func:`_lamb_stage1_math`, :func:`_adagrad_math`, :func:`_novograd_math`)
+tensor by tensor.
 
 * :func:`multi_tensor_scale_` — ``out = x * s`` with found-inf
   (``csrc/multi_tensor_scale.cu``, the Pallas ``_scale_kernel``);
@@ -56,8 +57,11 @@ _f32 = torch.float32
 
 # elements per block of the multi-tensor kernels (csrc/multi_tensor.cuh)
 CHUNK = 65536
-# multi_tensor_sgd's launch table (csrc/multi_tensor_sgd.cu): tensors a
-# launch holds, elements per block
+# multi_tensor_scale_'s launch table (csrc/multi_tensor_scale.cu): tensors
+# a launch holds, elements per block
+SCALE_TABLE_TENSORS = 1024
+SCALE_CHUNK = 8192
+# multi_tensor_sgd's (csrc/multi_tensor_sgd.cu)
 SGD_TABLE_TENSORS = 640
 SGD_CHUNK = 8192
 # multi_tensor_lamb_stage1's (csrc/multi_tensor_lamb.cu): tensors a launch
@@ -73,9 +77,9 @@ __all__ = ["multi_tensor_scale_", "multi_tensor_scale_reference",
            "multi_tensor_sgd", "multi_tensor_sgd_reference",
            "multi_tensor_adagrad", "multi_tensor_adagrad_reference",
            "multi_tensor_novograd", "multi_tensor_novograd_reference",
-           "chunk_counts", "device_scalars", "list_plan", "sgd_plan",
-           "sgd_launches", "lamb_stage1_plan", "lamb_stage1_launches",
-           "_adam_math", "_sgd_math",
+           "chunk_counts", "device_scalars", "list_plan", "scale_plan",
+           "scale_launches", "sgd_plan", "sgd_launches", "lamb_stage1_plan",
+           "lamb_stage1_launches", "_adam_math", "_sgd_math",
            "_lamb_stage1_math", "_adagrad_math", "_novograd_math"]
 
 
@@ -86,8 +90,8 @@ def chunk_counts(numels):
 
 def list_plan(numels, tensors, chunk):
     """The launches of a whole-list multi-tensor kernel
-    (``csrc/multi_tensor_list.cuh``: #19, #20) over tensors of these sizes,
-    as its C entry walks them: per launch, the ``(tensor index, first
+    (``csrc/multi_tensor_list.cuh``: #15, #19, #20) over tensors of these
+    sizes, as its C entry walks them: per launch, the ``(tensor index, first
     chunk, chunks)`` of each non-empty tensor, at most ``tensors`` a
     launch; chunk ``c`` of a tensor is its elements ``[c * chunk, (c + 1) *
     chunk)``, and block ``b`` of a launch runs it when ``b = first + c``."""
@@ -104,6 +108,19 @@ def list_plan(numels, tensors, chunk):
     if table:
         launches.append(table)
     return launches
+
+
+def scale_plan(numels):
+    """:func:`list_plan` of :func:`multi_tensor_scale_`:
+    :data:`SCALE_TABLE_TENSORS` tensors a launch, a block per
+    :data:`SCALE_CHUNK` elements."""
+    return list_plan(numels, SCALE_TABLE_TENSORS, SCALE_CHUNK)
+
+
+def scale_launches(numels):
+    """Launches of one :func:`multi_tensor_scale_` call over tensors of
+    these sizes: one per :data:`SCALE_TABLE_TENSORS` non-empty tensors."""
+    return len(scale_plan(numels))
 
 
 def sgd_plan(numels):
@@ -315,9 +332,11 @@ def multi_tensor_scale_(inputs, outputs, scale):
     ``outputs`` (same shapes; dtypes f32, bf16 or f16 each, and an output
     may be its input).  ``scale``: a float or an f32 device scalar.
     Returns the found-inf flag (f32 scalar tensor, 1.0 where a scaled value
-    is not finite).  CPU tensors take :func:`multi_tensor_scale_reference`;
-    CUDA tensors launch ``csrc/multi_tensor_scale.cu`` (launches added to
-    ``multi_tensor_scale_.launches``) or raise."""
+    is not finite, taken on the f32 product before it is rounded to the
+    output's dtype).  CPU tensors take :func:`multi_tensor_scale_reference`;
+    CUDA tensors launch ``csrc/multi_tensor_scale.cu`` (one launch per
+    :data:`SCALE_TABLE_TENSORS` non-empty tensors, :func:`scale_launches`;
+    added to ``multi_tensor_scale_.launches``) or raise."""
     if len(outputs) != len(inputs):
         raise ValueError("multi_tensor_scale_: the lists differ in length")
     if not inputs:

@@ -57,7 +57,14 @@ Phases (any failure exits non-zero; nothing is caught):
    8, 9 and 65,537 elements in all nine (g, p) signatures, at storage
    offset 1 in every list and in each list alone, noop 1 and 0, bitwise on
    a repeat, and over GPT-350M's list (one launch) and 2000 tensors (its
-   launches ``lamb_stage1_launches``'s), their yardsticks
+   launches ``lamb_stage1_launches``'s), the multi-tensor scale (#15) at
+   BERT-large's O2 list (one launch), GPT-350M's f32 masters into bf16
+   copies and f16 gradients into f32 at BERT-large's sizes, and at 0, 1,
+   7, 8, 9, 33 and 65,537 elements in all nine (in, out) dtype pairs, at
+   storage offsets that give every scalar head 0-7 and none, in place,
+   with inf / NaN in a head, a 16-byte step and a tail (the flag set), an
+   f16-only overflow (no flag), bitwise on a repeat, and over 2000 tensors
+   (its launches ``scale_launches``'s), their yardsticks
    ``SGD(fused=True)`` and
    ``Adagrad(foreach=True)``; the decode (#6) on a strided bf16 ring with
    ragged lengths, its yardstick SDPA + mask, and the paged decode (#7) on
@@ -2415,9 +2422,15 @@ def kernel_multi_tensor_lamb(gen_cuda):
     scale = torch.full((), 2.0 ** -10, device="cuda")
     kout = [torch.empty_like(g) for g in grads]
     rout = [torch.empty_like(g) for g in grads]
+    before = K.multi_tensor_scale_.launches
     K.multi_tensor_scale_(grads, kout, scale)
+    n_scale = K.multi_tensor_scale_.launches - before
     K.multi_tensor_scale_reference(grads, rout, scale)
     torch.cuda.synchronize()
+    if n_scale != K.scale_launches(numels):
+        raise AssertionError(f"multi_tensor_scale_ made {n_scale} launches, "
+                             f"scale_launches says "
+                             f"{K.scale_launches(numels)}")
     # the same f32 product rounded once: one ulp of bf16 at most
     err = _check_lists("multi_tensor_scale_ bf16/f32 outputs", kout, rout,
                        2.0 ** -8, 0.0)
@@ -2432,7 +2445,8 @@ def kernel_multi_tensor_lamb(gen_cuda):
         time_ms([lambda: torch._foreach_mul(grads, scale)] * 5),
         bound_ms(2 * g_bytes, n_el, PEAK_F32_FLOPS),
         call_ms(lambda: K.multi_tensor_scale_(grads, kout, scale), iters=10))
-    log_numbers(f"multi_tensor_scale_ {len(specs)} tensors", out["scale"],
+    log_numbers(f"multi_tensor_scale_ {len(specs)} tensors, {n_el} "
+                f"elements, {n_scale} launch", out["scale"],
                 "torch._foreach_mul")
     del kout, rout
 
@@ -2507,9 +2521,228 @@ def kernel_multi_tensor_lamb(gen_cuda):
         n["tensors"], n["elements"], n["launches_per_call"] = (
             len(specs), n_el, launches)
     out["sumsq"]["launches_per_call"] = sumsq_launches(numels)
+    out["scale"]["launches_per_call"] = K.scale_launches(numels)
     out["stage1"]["launches_per_call"] = K.lamb_stage1_launches(numels)
     out["stage1"]["edges_max_abs_err"] = kernel_lamb_edges(rand)
+    del grads, masters, copies, ku, kp, kc
+    torch.cuda.empty_cache()
+    out["scale"].update(kernel_scale_shapes(rand, specs))
+    out["scale"]["edges_max_abs_err"] = kernel_scale_edges(rand)
     return out
+
+
+# #15's (in, out) dtype pairs: all nine
+SCALE_PAIRS = LAMB_SIGNATURES
+SCALE_EDGE_SIZES = (1, 7, 8, 9, 33, 65537)
+# csrc/multi_tensor_list.cuh's head code of lists that no scalar head aligns
+LIST_NO_VECTOR = 8
+
+
+def list_vector_head(tensors):
+    """csrc/multi_tensor_list.cuh's ``vector_head`` of one position of a
+    whole-list kernel's lists: the fewest leading elements (0-7) after
+    which every tensor's address is a multiple of 16 bytes, or
+    ``LIST_NO_VECTOR`` when no count aligns them all."""
+    for h in range(8):
+        if all((t.data_ptr() + h * t.element_size()) % 16 == 0
+               for t in tensors):
+            return h
+    return LIST_NO_VECTOR
+
+
+def scale_region(i, n, head):
+    """Where #15 takes element ``i`` of an ``n``-element tensor whose
+    scalar head is ``head``: "head", "vector" (the 16-byte steps) or
+    "tail", as ``scale_chunk`` splits each chunk."""
+    from apex_tpu_torch.ops.multi_tensor import SCALE_CHUNK
+    s = i // SCALE_CHUNK * SCALE_CHUNK
+    e = min(n, s + SCALE_CHUNK)
+    vs = e if head == LIST_NO_VECTOR else min(e, s + head)
+    ve = vs + 8 * ((e - vs) // 8)
+    return "head" if i < vs else "vector" if i < ve else "tail"
+
+
+def _same_nonfinite(a, b):
+    """The non-finite entries of a and b at the same places: NaN for NaN,
+    each inf of the same sign."""
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.isposinf(), b.isposinf())
+            and torch.equal(a.isneginf(), b.isneginf()))
+
+
+def _scale_check(tag, xs, out_dtypes, scale, offsets=(0, 0), in_place=False,
+                 want_flag=0.0):
+    """#15 on copies of ``xs`` (at storage offset ``offsets[0]``) into new
+    tensors of ``out_dtypes`` (at ``offsets[1]``), or in place, against its
+    plain version, and the kernel again: launches as ``scale_launches``
+    says; the found-inf flags ``want_flag`` on every side; non-finite
+    outputs at the same places on both sides; the finite ones within 2**-8
+    relative (the same f32 product rounded once to the output's dtype: one
+    ulp of bf16 at most); the repeat bitwise the first run, NaNs included.
+    Returns (the max error, each tensor's scalar head, None for an empty
+    one)."""
+    from apex_tpu_torch.ops import multi_tensor as K
+    want = K.scale_launches([x.numel() for x in xs])
+    sides = []
+    for f in (K.multi_tensor_scale_, K.multi_tensor_scale_reference,
+              K.multi_tensor_scale_):
+        ins = [_at_offset(x, offsets[0]) for x in xs]
+        outs = ins if in_place else [
+            _at_offset(torch.empty_like(x, dtype=dt), offsets[1])
+            for x, dt in zip(xs, out_dtypes)]
+        before = K.multi_tensor_scale_.launches
+        flag = float(f(ins, outs, scale))
+        sides.append((outs, flag, K.multi_tensor_scale_.launches - before))
+        if len(sides) == 1:
+            heads = [list_vector_head((i, o)) if i.numel() else None
+                     for i, o in zip(ins, outs)]
+    torch.cuda.synchronize()
+    (k, fk, nk), (r, fr, nr), (k2, fk2, nk2) = sides
+    if (nk, nr, nk2) != (want, 0, want):
+        raise AssertionError(f"{tag}: launches {nk} / {nk2} (plain {nr}), "
+                             f"scale_launches says {want}")
+    if (fk, fr, fk2) != (want_flag,) * 3:
+        raise AssertionError(f"{tag}: found-inf kernel {fk} / {fk2}, plain "
+                             f"{fr}, expected {want_flag}")
+    if not _bitwise([k], [k2]):
+        raise AssertionError(f"{tag}: a repeat differs")
+    if not all(_same_nonfinite(a, b) for a, b in zip(k, r)):
+        raise AssertionError(f"{tag}: non-finite outputs differ from the "
+                             f"plain version's")
+    finite = [[t.masked_fill(~torch.isfinite(t), 0) for t in side
+               if t.numel()] for side in (k, r)]
+    return _check_lists(tag, *finite, 2.0 ** -8, 0.0), heads
+
+
+def kernel_scale_edges(rand):
+    """#15 beyond the paths' lists: tensors of 1, 7, 8, 9, 33 and 65,537
+    elements (and an empty one) in all nine (in, out) dtype pairs in one
+    list, with both lists at storage offsets 0-7 (every scalar head 0-7)
+    and with one list alone at offset 1 (no head aligns them: scalar); in
+    place for the three pairs of one dtype; inf, -inf and NaN in a head, a
+    16-byte step and a tail, and in a scalar-only tensor, each setting the
+    flag; an f32 product that overflows f16 only (no flag) and one that
+    overflows f32 (flag); then 2000 tensors of 1-70,000 elements, whose
+    launches (the C entry's) must be ``scale_launches``'s (two tables),
+    clean and with an inf in the last tensor.  Returns the largest
+    error."""
+    from apex_tpu_torch.ops import multi_tensor as K
+    s37 = torch.full((), 0.37, device="cuda")
+    xs, odts = [], []
+    for idt, odt in SCALE_PAIRS:
+        for n in SCALE_EDGE_SIZES:
+            xs.append(rand(n, 1.0).to(idt))
+            odts.append(odt)
+    xs.insert(3, rand(0, 1.0))
+    odts.insert(3, torch.float32)
+    tag = f"multi_tensor_scale_ {len(xs)} tensors of {SCALE_EDGE_SIZES} " \
+          f"and 0, nine (in, out) pairs"
+    err, heads = 0.0, set()
+    for offsets in [(o, o) for o in range(8)] + [(1, 0), (0, 1)]:
+        e, h = _scale_check(f"{tag}, storage offsets {offsets}", xs, odts,
+                            s37, offsets)
+        err, heads = max(err, e), heads | set(h) - {None}
+    log(f"  multi_tensor_scale_ scalar heads taken: {sorted(heads)} "
+        f"({LIST_NO_VECTOR}: none aligns, scalar)")
+    if heads != set(range(LIST_NO_VECTOR + 1)):
+        raise AssertionError("multi_tensor_scale_: a scalar head was not "
+                             "exercised")
+    same = [x for x, dt in zip(xs, odts) if x.dtype == dt]
+    for o in (0, 3):
+        err = max(err, _scale_check(
+            f"multi_tensor_scale_ in place, {len(same)} tensors of one "
+            f"dtype each, storage offset {o}", same, [x.dtype for x in same],
+            s37, (o, o), in_place=True)[0])
+    n = SCALE_EDGE_SIZES[-1]
+    for idt, odt in ((torch.bfloat16, torch.bfloat16),
+                     (torch.float32, torch.float16)):
+        x0 = rand(n, 1.0).to(idt)
+        for offsets, i, where in (((3, 3), 2, "head"), ((3, 3), 100, "vector"),
+                                  ((3, 3), n - 3, "tail"),
+                                  ((1, 0), 40000, "head")):
+            for v in (float("inf"), float("-inf"), float("nan")):
+                x = x0.clone()
+                x[i] = v
+                t = (f"multi_tensor_scale_ {str(idt)[6:]} -> {str(odt)[6:]} "
+                     f"{v} at {i} of {n}, storage offsets {offsets}")
+                e, (_, h, _) = _scale_check(
+                    t, [xs[0], x, xs[-1]], [odts[0], odt, odts[-1]], s37,
+                    offsets, want_flag=1.0)
+                if scale_region(i, n, h) != where:
+                    raise AssertionError(f"{t}: element {i} is in the "
+                                         f"{scale_region(i, n, h)}, not the "
+                                         f"{where} (head {h})")
+                err = max(err, e)
+    log("  multi_tensor_scale_ inf / -inf / NaN in a head, a 16-byte step, "
+        "a tail and a scalar-only tensor: flag 1.0 on both sides ok")
+    two = torch.full((), 2.0, device="cuda")
+    big = torch.full((9,), 6e4, device="cuda")
+    _scale_check("multi_tensor_scale_ 6e4 * 2 into f16 (finite in f32)",
+                 [big], [torch.float16], two)
+    _scale_check("multi_tensor_scale_ 3e38 * 2 into bf16 (inf in f32)",
+                 [big * 5e33], [torch.bfloat16], two, want_flag=1.0)
+    sizes = np.random.RandomState(5).randint(1, 70001, 2000)
+    long = [rand(int(m), 1.0) for m in sizes]
+    t = f"multi_tensor_scale_ 2000 tensors of 1-70000 elements " \
+        f"({K.scale_launches(sizes)} launches)"
+    err = max(err, _scale_check(t, long, [torch.bfloat16] * len(long),
+                                s37)[0])
+    long[-1][-1] = float("inf")
+    err = max(err, _scale_check(t + ", an inf in the last", long,
+                                [torch.bfloat16] * len(long), s37,
+                                want_flag=1.0)[0])
+    return err
+
+
+def kernel_scale_shapes(rand, bert_specs):
+    """#15 at two more shapes its callers give it, each against its plain
+    version with its launches (``scale_launches``): FusedAdam's copy of
+    GPT-350M's 291 f32 masters into bf16 model copies
+    (``master_weights=True``), and apex's fp16 O2 unscale, f16 gradients
+    into f32 at BERT-large's sizes.  No single PyTorch call scales with a
+    cast: no library time."""
+    from apex_tpu_torch.ops import multi_tensor as K
+    cases = (
+        ("master_copy_gpt350m", "GPT-350M's f32 masters into bf16 copies",
+         lambda: [rand(s, 0.02) for s in gpt350m_shapes()], torch.bfloat16,
+         1.0),
+        ("f16_unscale_bert_large", "BERT-large's gradients f16 into f32",
+         lambda: [rand(s, 1.0).half() for s, _ in bert_specs],
+         torch.float32, 2.0 ** -10))
+    res = {}
+    for key, name, make, odt, sv in cases:
+        s = torch.full((), sv, device="cuda")
+        xs = make()
+        kout = [torch.empty_like(x, dtype=odt) for x in xs]
+        rout = [torch.empty_like(x, dtype=odt) for x in xs]
+        numels = [x.numel() for x in xs]
+        before = K.multi_tensor_scale_.launches
+        flag = float(K.multi_tensor_scale_(xs, kout, s))
+        n_launch = K.multi_tensor_scale_.launches - before
+        rflag = float(K.multi_tensor_scale_reference(xs, rout, s))
+        torch.cuda.synchronize()
+        if n_launch != K.scale_launches(numels) or (flag, rflag) != (0, 0):
+            raise AssertionError(f"multi_tensor_scale_ {name}: launches "
+                                 f"{n_launch} (scale_launches says "
+                                 f"{K.scale_launches(numels)}), found-inf "
+                                 f"{flag} / plain {rflag}")
+        err = _check_lists(f"multi_tensor_scale_ {name}", kout, rout,
+                           2.0 ** -8, 0.0)
+        n_el = sum(numels)
+        res[key] = numbers(
+            err, time_ms([lambda: K.multi_tensor_scale_(xs, kout, s)] * 5),
+            time_ms([lambda: K.multi_tensor_scale_reference(xs, rout, s)]
+                    * 2, rounds=3), None,
+            bound_ms(_nbytes(xs) + _nbytes(kout), n_el, PEAK_F32_FLOPS),
+            call_ms(lambda: K.multi_tensor_scale_(xs, kout, s), iters=10))
+        res[key].update(tensors=len(xs), elements=n_el,
+                        launches_per_call=n_launch)
+        log_numbers(f"multi_tensor_scale_ {name}: {len(xs)} tensors, {n_el} "
+                    f"elements, {n_launch} launch", res[key],
+                    "no library call")
+        del xs, kout, rout
+        torch.cuda.empty_cache()
+    return res
 
 
 def gpt350m_shapes():
@@ -2592,9 +2825,12 @@ def _opt_kernel_check(tag, kernel, plain, run, params, state, copies,
 
 
 def _bitwise(a, b):
-    """Lists of lists of tensors (or None) equal bit for bit."""
+    """Lists of lists of tensors (or None) equal bit for bit (NaNs
+    included, which ``torch.equal`` tells apart)."""
     return all(x is y or (x is not None and y is not None and x.dtype
-                          == y.dtype and torch.equal(x, y))
+                          == y.dtype and x.shape == y.shape and torch.equal(
+                              x.reshape(-1).view(torch.uint8),
+                              y.reshape(-1).view(torch.uint8)))
                for la, lb in zip(a, b) for x, y in zip(la, lb))
 
 
@@ -3848,7 +4084,7 @@ def phase_unscale_clip(model):
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
     numels = [g.numel() for g in grads]
-    expected = {"multi_tensor_scale_": 2 * table_launches(numels),
+    expected = {"multi_tensor_scale_": 2 * K.scale_launches(numels),
                 "multi_tensor_sumsq": sumsq_launches(numels)}
     log(f"[7b] LossScaler.unscale and clip_grad_norm_(max_norm={max_norm:.4g})"
         f" on the last step's {len(grads)} gradients: launches {launches} "

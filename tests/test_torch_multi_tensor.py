@@ -99,10 +99,13 @@ def _specials(leaves, special):
     return leaves
 
 
+# the (in, out) dtype pairs #15 specialises: all nine
+SCALE_PAIRS = [(i, o) for i in ("f32", "bf16", "f16")
+               for o in ("f32", "bf16", "f16")]
+
+
 @pytest.mark.parametrize("special", [None, "inf", "nan"])
-@pytest.mark.parametrize("in_dt,out_dt", [("f32", "f32"), ("bf16", "f32"),
-                                          ("f32", "bf16"), ("f16", "f32"),
-                                          ("bf16", "bf16")])
+@pytest.mark.parametrize("in_dt,out_dt", SCALE_PAIRS)
 def test_scale_matches_scale_packed(jax_path, in_dt, out_dt, special):
     x = _specials(_rounded(_leaves(0), in_dt), special)
     scale = 0.37
@@ -118,6 +121,43 @@ def test_scale_matches_scale_packed(jax_path, in_dt, out_dt, special):
         ok = np.isfinite(w)
         np.testing.assert_array_equal(np.isfinite(g), ok)
         _assert_close(g[ok], w[ok], out_dt)
+
+
+@pytest.mark.parametrize("special", [None, "inf", "nan"])
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+def test_scale_in_place_matches_scale_packed(jax_path, dt, special):
+    """``out is x`` (the unscale in place): the outputs are JAX's, within
+    one ulp of the dtype, and the flag is JAX's."""
+    x = _specials(_rounded(_leaves(18), dt), special)
+    packed, meta = _pack(x, dt, SHAPES)
+    out, finf = jK.scale_packed(packed, 0.37, block_rows=8)
+    want = jB.unflatten_bucket(out, meta)
+    tx = _torch(x, dt)
+    tfinf = tK.multi_tensor_scale_(tx, tx, 0.37)
+    assert float(tfinf) == float(finf) == (0.0 if special is None else 1.0)
+    for got, w in zip(tx, want):
+        g, w = got.float().numpy(), np.asarray(w, np.float32)
+        ok = np.isfinite(w)
+        np.testing.assert_array_equal(np.isfinite(g), ok)
+        _assert_close(g[ok], w[ok], dt)
+
+
+@pytest.mark.parametrize("out_dt", ["f16", "bf16", "f32"])
+def test_scale_flag_is_taken_on_the_f32_product(jax_path, out_dt):
+    """6e4 * 2 is finite in f32 and overflows f16: the output is inf and
+    the flag stays 0, as JAX takes it on the f32 product; 3e38 * 2
+    overflows f32 and sets it."""
+    for value, want in ((6e4, 0.0), (3e38, 1.0)):
+        x = np.full((3, 5), value, np.float32)
+        packed, meta = _pack([x], "f32", [(3, 5)])
+        out, finf = jK.scale_packed(packed, 2.0, _J[out_dt], block_rows=8)
+        jout = np.asarray(jB.unflatten_bucket(
+            out, meta._replace(dtype=_J[out_dt]))[0], np.float32)
+        tout = torch.empty((3, 5), dtype=_T[out_dt])
+        tfinf = tK.multi_tensor_scale_([torch.from_numpy(x)], [tout], 2.0)
+        assert float(tfinf) == float(finf) == want
+        np.testing.assert_array_equal(tout.float().numpy(), jout)
+        assert np.isinf(jout).all() == (want == 1.0 or out_dt == "f16")
 
 
 @pytest.mark.parametrize("special", [None, "inf", "nan"])
@@ -826,3 +866,115 @@ def test_lamb_table_is_the_kernels_and_fits_the_parameter_limit():
     assert "kMTChunk" in src and tK.CHUNK == 65536
     assert _list_param_bytes(cap, 5, 4, 2) <= KERNEL_PARAM_LIMIT
     assert _list_param_bytes(cap + 1, 5, 4, 2) > KERNEL_PARAM_LIMIT
+
+
+# ---------------------------------------------------------------------------
+# the multi-tensor scale's whole-list table (csrc/multi_tensor_scale.cu on
+# csrc/multi_tensor_list.cuh)
+# ---------------------------------------------------------------------------
+
+def _scale_lists():
+    """Named lists of tensor sizes: BERT-large's O2 gradients and
+    GPT-350M's parameters as the card script builds them (meta devices),
+    2000 tensors of 1-70,000 elements, and a list with empty tensors around
+    a table's worth."""
+    lists = _lamb_lists()
+    lists["empties"] = ([0, 5, 0] + [1] * (tK.SCALE_TABLE_TENSORS - 1)
+                        + [0, 0, 70000, 0])
+    return lists
+
+
+_SCALE_LAUNCHES = {"bert_large_O2": 1, "gpt350m": 1, "2000_tensors": 2,
+                   "empties": 2}
+
+
+@pytest.mark.parametrize("name", sorted(_SCALE_LAUNCHES))
+def test_scale_walk_covers_every_element_once(name):
+    """Each block of each launch of ``scale_plan`` finds its tensor by the
+    kernel's search, and the blocks' element ranges tile every non-empty
+    tensor exactly once; empty tensors get no block; each launch holds at
+    most a table's tensors, and the launches are those stated (one for
+    BERT-large's and GPT-350M's lists, ceil(2000 / 1024) for 2000)."""
+    numels = _scale_lists()[name]
+    plan = tK.scale_plan(numels)
+    assert len(plan) == tK.scale_launches(numels) == _SCALE_LAUNCHES[name]
+    ranges = {}
+    for table in plan:
+        assert 0 < len(table) <= tK.SCALE_TABLE_TENSORS
+        starts = [first for _, first, _ in table]
+        assert starts[0] == 0
+        n_blocks = sum(chunks for _, _, chunks in table)
+        for block in range(n_blocks):
+            t = _sgd_block_owner(starts, block)
+            i, first, _ = table[t]
+            s = (block - first) * tK.SCALE_CHUNK
+            e = min(numels[i], s + tK.SCALE_CHUNK)
+            assert s < e
+            ranges.setdefault(i, []).append((s, e))
+    assert sorted(ranges) == [i for i, n in enumerate(numels) if n > 0]
+    for i, rs in ranges.items():
+        ends = [0] + [e for _, e in sorted(rs)]
+        assert [s for s, _ in sorted(rs)] == ends[:-1]
+        assert ends[-1] == numels[i]
+
+
+def test_scale_table_is_the_kernels_and_fits_the_parameter_limit():
+    """The Python walk's constants are the C source's; the two-list table
+    at its cap, with the kernel's two pointers and one int, fits CUDA
+    12.1's 32,764 bytes of parameters (the source's static_assert); a
+    chunk keeps a tensor's 16-byte phase (a multiple of 8 elements)."""
+    src = ((CSRC / "multi_tensor_scale.cu").read_text()
+           + (CSRC / "multi_tensor_list.cuh").read_text())
+
+    def const(name):
+        return int(re.search(rf"{name} = (\d+);", src).group(1))
+
+    assert const("kScaleMaxTensors") == tK.SCALE_TABLE_TENSORS
+    assert const("kScaleChunk") == tK.SCALE_CHUNK
+    assert const("kListNoVector") == SGD_NO_VECTOR
+    assert const("kListParamLimit") == KERNEL_PARAM_LIMIT
+    assert "using ScaleTable = ListTable<2, kScaleMaxTensors>;" in src
+    assert "sizeof(ScaleTable) + 2 * 8 + 4 <= kListParamLimit" in src
+    assert _list_param_bytes(tK.SCALE_TABLE_TENSORS, 2, 2, 1) \
+        <= KERNEL_PARAM_LIMIT
+    assert tK.SCALE_CHUNK % 8 == 0
+
+
+@pytest.mark.parametrize("head", list(range(8)) + [SGD_NO_VECTOR])
+@pytest.mark.parametrize("n", [1, 7, 9, 33, 65537, 2 * tK.SCALE_CHUNK + 5])
+def test_scale_region_is_the_kernels_split(n, head):
+    """The card script's ``scale_region``, which places the inf / NaN of
+    its edge checks in a head, a 16-byte step or a tail, splits each
+    chunk as ``scale_chunk`` does (the split of ``_sgd_chunk_split`` at
+    ``SCALE_CHUNK``), and each element lands in one part."""
+    cs = _chip_smoke()
+    seen = np.zeros(n, np.int32)
+    for s in range(0, n, tK.SCALE_CHUNK):
+        parts = _sgd_chunk_split(s, min(n, s + tK.SCALE_CHUNK), head)
+        for where, idx in zip(("head", "vector", "tail"), parts):
+            assert all(cs.scale_region(i, n, head) == where for i in idx)
+            seen[idx] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("offsets,dtypes,head", [
+    ((0, 0), ("bfloat16", "bfloat16"), 0),
+    ((3, 3), ("bfloat16", "bfloat16"), 5),
+    ((3, 3), ("float32", "float16"), 5),
+    ((1, 1), ("float32", "float32"), 3),
+    ((7, 7), ("float16", "float32"), 1),
+    ((1, 0), ("bfloat16", "bfloat16"), SGD_NO_VECTOR),
+    ((1, 0), ("float32", "float16"), SGD_NO_VECTOR),
+    ((0, 1), ("float32", "float32"), SGD_NO_VECTOR)])
+def test_list_vector_head_is_the_kernels(offsets, dtypes, head):
+    """The card script's ``list_vector_head`` on views at storage offsets
+    (as its edge checks make them) is the kernel's rule
+    (``_sgd_vector_head`` over the two lists' addresses)."""
+    cs = _chip_smoke()
+    views = []
+    for off, dt in zip(offsets, dtypes):
+        base = torch.empty(64 + off, dtype=getattr(torch, dt))
+        assert base.data_ptr() % 16 == 0
+        views.append(base[off:])
+    assert cs.list_vector_head(views) == head == _sgd_vector_head(
+        [v.data_ptr() for v in views], [v.element_size() for v in views])
