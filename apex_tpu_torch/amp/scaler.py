@@ -93,6 +93,16 @@ class LossScaler:
                                          unskipped))
         self.overflows += overflow.to(_i32)
 
+    def stats(self) -> dict:
+        """Observability tap (JAX ``LossScaler.stats``): the scaler's series
+        as host numbers — four device-to-host reads, so call it at report
+        time, not every step."""
+        return {"loss_scale": float(self.loss_scale),
+                "overflows": int(self.overflows),
+                "skipped_steps": int(self.skipped),
+                "steps_since_backoff": int(self.unskipped),
+                "dynamic": self.dynamic}
+
     # apex checkpoint surface (tests/L0/run_amp/test_checkpointing.py)
     def state_dict(self) -> dict:
         return {"loss_scale": float(self.loss_scale),

@@ -1,1 +1,1 @@
-"""Contrib modules of apex_tpu_torch: ``clip_grad`` in this slice."""
+"""Contrib modules of apex_tpu_torch: ``clip_grad`` and ``xentropy``."""

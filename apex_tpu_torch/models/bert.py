@@ -15,6 +15,8 @@ or with ``fused_lm_head=False`` the f32 decoder GEMM and the vocab-parallel
 cross entropy.  Training runs the LayerNorm forward and backward and the
 non-causal flash forward, dq and dk/dv kernels through
 :mod:`apex_tpu_torch.normalization` and :mod:`apex_tpu_torch.ops`.
+``remat=True`` recomputes each layer in the backward as the GPT model
+does (:func:`apex_tpu_torch.models.gpt.remat_call`, both policies).
 
 Parameter names and shapes mirror the JAX tree (``layers.3.attention.qkv.
 weight`` is ``params["layers"][3]["attention"]["qkv"]["weight"]``), so the
@@ -33,8 +35,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from apex_tpu_torch.models.gpt import (MULTI_GPU_SLICE, REMAT_SLICE,
-                                       _reset_layer_norm)
+from apex_tpu_torch.models.gpt import (MULTI_GPU_SLICE, _reset_layer_norm,
+                                       remat_call)
 from apex_tpu_torch.normalization import MixedFusedLayerNorm
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.fused_ffn import fused_ffn
@@ -79,7 +81,6 @@ class BertConfig:
             raise ValueError(
                 "hidden_size must be divisible by num_attention_heads")
         unsupported = [
-            (self.remat, "remat", REMAT_SLICE),
             (self.plan is not None, "plan", MULTI_GPU_SLICE),
             (self.tensor_parallel_size > 1, "tensor_parallel_size > 1",
              MULTI_GPU_SLICE),
@@ -251,7 +252,7 @@ class BertModel(nn.Module):
             x = x + self.token_type_embedding[token_type_ids]
         x = self.embedding_layernorm(x).to(self.cfg.dtype)
         for layer in self.layers:
-            x = layer(x, seqlens)
+            x = remat_call(self.cfg, layer, x, seqlens)
         return x
 
     forward = apply

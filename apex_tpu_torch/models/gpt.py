@@ -19,6 +19,13 @@ LM head (``fused_lm_head=True``, the JAX default: the forward, dX and dW
 kernels of :mod:`apex_tpu_torch.ops.lm_head` on compute-dtype operands), or
 with ``fused_lm_head=False`` the f32 head GEMM and the vocab-parallel cross
 entropy at world size 1.  Serving's logits are the f32 head GEMM.
+With ``remat=True`` each layer of the training path runs under
+``torch.utils.checkpoint`` (:func:`remat_call`): ``remat_policy="full"``
+keeps only the layer's input and recomputes the whole layer in the
+backward, "dots" also keeps the four linear products (qkv, proj, fc1,
+fc2) and recomputes the rest, LayerNorm and flash forward kernels
+included.  The recompute draws the same attention-dropout mask: the flash
+kernels' mask is a hash of the seed and the position.
 
 The decode methods come in two cache layouts: the contiguous slot ring of
 :class:`apex_tpu_torch.inference.KVCache` (:meth:`GPTModel.decode_step`,
@@ -41,12 +48,14 @@ is what :func:`apex_tpu_torch.convert.gpt_params_from_jax` relies on.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 from typing import Optional
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from apex_tpu_torch.normalization import MixedFusedLayerNorm
 from apex_tpu_torch.ops.flash_attention import (
@@ -66,13 +75,51 @@ from apex_tpu_torch.utils.device import resolve_device
 
 _f32 = torch.float32
 
-REMAT_SLICE = "a later training slice (activation recompute)"
 MULTI_GPU_SLICE = "the multi-GPU slice"
 
 # layer i's attention-dropout stream is seeded dropout_seed + i * stride
 # (modulo 2**32), as in the JAX model: a caller advancing the base seed by
 # +1 per step never replays another layer's mask
 _SEED_LAYER_STRIDE = 0x3C6EF35F
+
+
+def _remat_policy(name: str):
+    """``torch.utils.checkpoint`` ``context_fn`` for a ``remat_policy``
+    name (the JAX ``_remat_policy``): None for "full" (save nothing),
+    and for "dots" selective checkpointing that saves the outputs of the
+    2-D products ``aten.mm`` / ``aten.addmm`` — what JAX's
+    ``dots_with_no_batch_dims_saveable`` keeps — and recomputes everything
+    else: ``aten.bmm`` (it has a batch dim) and the kernels, whose
+    launches dispatch cannot see into, as JAX recomputes a ``pallas_call``
+    under that policy."""
+    if name != "dots":
+        return None
+    try:
+        from torch.utils.checkpoint import (
+            CheckpointPolicy, create_selective_checkpoint_contexts)
+    except ImportError as e:
+        raise RuntimeError(
+            "remat_policy='dots' needs torch.utils.checkpoint."
+            "create_selective_checkpoint_contexts and CheckpointPolicy, "
+            f"which PyTorch {torch.__version__} lacks") from e
+    saved = (torch.ops.aten.mm, torch.ops.aten.addmm)
+
+    def dots(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(create_selective_checkpoint_contexts, dots)
+
+
+def remat_call(cfg, layer, *args):
+    """``layer(*args)``, through ``torch.utils.checkpoint`` under
+    ``cfg.remat`` while autograd records (JAX ``jax.checkpoint`` with
+    ``_remat_policy``): the layer's activations are recomputed in the
+    backward instead of kept."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return layer(*args)
+    context_fn = _remat_policy(cfg.remat_policy)
+    kwargs = {} if context_fn is None else {"context_fn": context_fn}
+    return checkpoint(layer, *args, use_reentrant=False, **kwargs)
 
 
 @dataclasses.dataclass
@@ -152,8 +199,6 @@ class GPTConfig:
         # every field of the JAX config is accepted at its default; a
         # value that needs a part not ported yet raises naming its slice
         unsupported = [
-            (self.remat, "remat", REMAT_SLICE),
-            (self.remat_policy != "full", "remat_policy", REMAT_SLICE),
             (self.plan is not None, "plan", MULTI_GPU_SLICE),
             (self.n_experts > 0, "n_experts > 0", MULTI_GPU_SLICE),
             (self.moe_top_k != 1, "moe_top_k", MULTI_GPU_SLICE),
@@ -569,7 +614,7 @@ class GPTModel(nn.Module):
         for li, layer in enumerate(self.layers):
             seed = (None if dropout_seed is None
                     else int(dropout_seed) + li * _SEED_LAYER_STRIDE)
-            x = layer(x, cos, sin, seed)
+            x = remat_call(self.cfg, layer, x, cos, sin, seed)
         return x
 
     def head_loss(self, x, targets):

@@ -4,6 +4,13 @@ from apex_tpu_torch.normalization.fused_layer_norm import (
     MixedFusedLayerNorm,
     MixedFusedRMSNorm,
 )
+from apex_tpu_torch.ops.layer_norm import (
+    fused_layer_norm,
+    fused_layer_norm_affine,
+    fused_rms_norm,
+    fused_rms_norm_affine,
+)
 
 __all__ = ["FusedLayerNorm", "FusedRMSNorm", "MixedFusedLayerNorm",
-           "MixedFusedRMSNorm"]
+           "MixedFusedRMSNorm", "fused_layer_norm_affine", "fused_layer_norm",
+           "fused_rms_norm_affine", "fused_rms_norm"]

@@ -13,7 +13,9 @@ import torch
 
 _f32 = torch.float32
 
-__all__ = ["rope_freqs", "fused_apply_rotary_pos_emb_cached",
+__all__ = ["rope_freqs", "fused_apply_rotary_pos_emb",
+           "fused_apply_rotary_pos_emb_cached",
+           "fused_apply_rotary_pos_emb_thd",
            "fused_apply_rotary_pos_emb_at_positions"]
 
 
@@ -32,10 +34,37 @@ def _apply(t, cos, sin):
     return out
 
 
+def fused_apply_rotary_pos_emb(t, freqs, transpose_output_memory=False):
+    """RoPE on ``t`` of layout ``(seq, batch, head, dim)`` with ``freqs``
+    ``(seq, 1, 1, rot_dim)`` (apex ``fused_apply_rotary_pos_emb``).  With
+    ``transpose_output_memory`` the result keeps the same shape but is laid
+    out batch-major in memory, as apex's kernel writes it."""
+    f = freqs.to(_f32)
+    out = _apply(t, torch.cos(f), torch.sin(f))
+    if transpose_output_memory:
+        out = out.transpose(0, 1).contiguous().transpose(0, 1)
+    return out
+
+
 def fused_apply_rotary_pos_emb_cached(t, cos_cached, sin_cached):
     """RoPE on ``t`` of layout ``(seq, batch, head, dim)`` with precomputed
     ``(seq, 1, 1, rot_dim)`` cos/sin tables (apex ``..._cached``)."""
     return _apply(t, cos_cached.to(_f32), sin_cached.to(_f32))
+
+
+def fused_apply_rotary_pos_emb_thd(t, cu_seqlens, freqs):
+    """RoPE on packed variable-length input ``(total_tokens, head, dim)``
+    whose sequence ``i`` spans ``cu_seqlens[i]:cu_seqlens[i+1]``; positions
+    restart at each sequence's start (apex
+    ``fused_apply_rotary_pos_emb_thd``).  ``freqs``: ``(max_seq, ...,
+    rot_dim)``."""
+    total = t.shape[0]
+    index = torch.arange(total, dtype=cu_seqlens.dtype, device=t.device)
+    seq_id = torch.searchsorted(cu_seqlens, index, right=True) - 1
+    local = index - cu_seqlens[seq_id]
+    f = freqs.to(_f32).reshape(freqs.shape[0], -1)[local]
+    f = f.reshape(total, *([1] * (t.dim() - 2)), f.shape[-1])
+    return _apply(t, torch.cos(f), torch.sin(f))
 
 
 def fused_apply_rotary_pos_emb_at_positions(t, cos_cached, sin_cached,

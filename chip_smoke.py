@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive apex_tpu_torch's serving and training paths (GPT serving, GPT
-training, BERT training under amp O2, each also with the fused FFN,
-ResNet-50 ImageNet training under amp O1 and O2, paged and int8 GPT
+training, BERT training under amp O2, each also with the fused FFN and
+under activation recompute, ResNet-50 ImageNet training under amp O1 and O2, paged and int8 GPT
 serving) on one NVIDIA H100 and hold every kernel of the paths against its
 plain PyTorch version.
 
@@ -99,12 +99,19 @@ Phases (any failure exits non-zero; nothing is caught):
    and ``FusedAdam.step``: losses finite and falling, step time, tokens/s,
    peak memory, exact launch counts per kernel, and no call of a plain
    version; (5f) the same with ``fused_ffn=True`` (#11-#13 in every layer),
-   its step time, tokens/s and peak memory beside phase 5's;
+   its step time, tokens/s and peak memory beside phase 5's; (5r) the
+   same as phase 5 under activation recompute, ``remat_policy="full"``
+   and ``"dots"``: exact launches (each layer's two LayerNorm forwards
+   and flash forward run again in the backward), no plain version, each
+   step's loss within 1e-6 relative of phase 5's (bit-equality printed),
+   and the peak memory above each run's start ordered full < dots < no
+   remat;
 6. a small GPT (4 layers, hidden 256, vocab 50304, seq 256, attention
    dropout 0.1) trained 2 steps on the card and on a CPU copy, with the
    fused LM head, again with the f32-logits head (``fused_lm_head=False``)
    and again with ``fused_ffn=True``: loss, every gradient and the
-   parameters within stated tolerances;
+   parameters within stated tolerances; (6r) the same under each remat
+   policy;
 7. BERT-large (vocab 30528, hidden 1024, 24 layers, 16 heads, ffn 4096,
    seq 512, the fused LM head) under ``amp.initialize(...,
    opt_level="O2")`` with ``FusedLAMB(lr=1e-3)``: micro-batch 16 x
@@ -112,7 +119,9 @@ Phases (any failure exits non-zero; nothing is caught):
    recipe), 4 steps through ``forward_backward_no_pipelining`` over
    ``BertModel.loss`` and ``FusedLAMB.step``: losses, step time, tokens/s,
    peak memory, exact launch counts per kernel, no plain version called;
-   (7f) the same with ``fused_ffn=True``; then (7b)
+   (7f) the same with ``fused_ffn=True``; (7r) the same under
+   ``remat_policy="dots"`` (bench.py's pairing), its losses and peak
+   memory against phase 7's as in 5r; then (7b)
    ``LossScaler.unscale`` and ``clip_grad_norm_`` on phase 7's last step's
    gradients against their plain versions, their launches counted alone;
 8. a small BERT (4 layers, hidden 256, seq 128, vocab 30528, the fused LM
@@ -149,7 +158,16 @@ Phases (any failure exits non-zero; nothing is caught):
    prefill and step), weight bytes and peak memory against f32, card
    against a CPU copy as in phase 4, prefill and paged decode-step
    times; (11k) the int8 KV pool with chunked prefill on 4 prompts of at
-   most 128 tokens (its plain PyTorch insert loop timed).
+   most 128 tokens (its plain PyTorch insert loop timed);
+12. the ops without a kernel at full width, card against a CPU copy of a
+   slice: ``FusedScaleMaskSoftmax`` with a padding mask at BERT-large's
+   scores (16, 16, 512, 512) and causal at GPT-350M's (8, 16, 1024, 1024),
+   bf16, forward and backward; ``SoftmaxCrossEntropyLoss`` at GPT-350M's
+   logits (8192 x 50304 bf16, ``half_to_float``, smoothing 0.1, padded
+   rows); and on phase 6's small GPT the legacy ``amp.init()`` +
+   ``wrap_optimizer(FusedAdam)`` and ``FP16_Optimizer`` (dynamic scale)
+   over ``network_to_half``, each skipping an injected overflow step bit
+   for bit, no plain version called.  (Phase 12 runs after 8b.)
 
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -3780,10 +3798,30 @@ def ffn_launches(steps, micro, layers, fused):
     return {"ffn_fwd": 2 * n, "ffn_dx": dx * n, "ffn_dw": dw * n}
 
 
-def phase_train(fused_ffn=False, tag="[5]"):
-    """Phase 5 (``tag`` [5f]: with ``fused_ffn=True``)."""
+def remat_launches(steps, micro, layers, remat_policy, fused_ffn):
+    """Extra launches of each layer's recompute under ``remat_policy``
+    (None: none).  Both policies rerun a layer's forward up to its last
+    saved tensor: both LayerNorms (#1) and the flash forward (#3), and
+    with the fused FFN its forward (#11, two launches); "dots" keeps only
+    the 2-D products, which dispatch cannot see inside the kernels."""
+    n = steps * micro * layers * (remat_policy is not None)
+    return {"layer_norm_fwd": 2 * n, "flash_fwd": n,
+            "ffn_fwd": 2 * n * fused_ffn}
+
+
+def _remat_kw(remat_policy):
+    return ({} if remat_policy is None
+            else dict(remat=True, remat_policy=remat_policy))
+
+
+def phase_train(fused_ffn=False, tag="[5]", remat_policy=None):
+    """Phase 5 (``tag`` [5f]: with ``fused_ffn=True``; [5r]: with
+    ``remat_policy``)."""
     from apex_tpu_torch.optimizers import FusedAdam
-    model = build_model("cuda", fused_ffn=fused_ffn).init_params(
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()
+    model = build_model("cuda", fused_ffn=fused_ffn,
+                        **_remat_kw(remat_policy)).init_params(
         torch.Generator().manual_seed(0))
     opt = FusedAdam(model.parameters(), lr=LR)
     numels = [p.numel() for p in model.parameters()]
@@ -3822,16 +3860,21 @@ def phase_train(fused_ffn=False, tag="[5]"):
                 **lm_head_bwd_launches(n_steps * ACCUM, MICRO * SEQ,
                                        GPT350M["vocab_size"]),
                 **ffn_launches(n_steps, ACCUM, layers, fused_ffn)}
+    for name, extra in remat_launches(n_steps, ACCUM, layers, remat_policy,
+                                      fused_ffn).items():
+        expected[name] += extra
     step_s = statistics.median(times[1:])
     tokens_per_step = ACCUM * MICRO * SEQ
     ffn = "fused FFN" if fused_ffn else "unfused FFN"
+    remat = "" if remat_policy is None else f", remat {remat_policy!r}"
     log(f"{tag} trained GPT-350M {n_steps} steps ({ACCUM} x {MICRO} x {SEQ} "
-        f"tokens, fused LM head, {ffn}, FusedAdam lr={LR}): losses "
+        f"tokens, fused LM head, {ffn}{remat}, FusedAdam lr={LR}): losses "
         f"{[round(x, 5) for x in losses]} (ln vocab = "
         f"{np.log(GPT350M['vocab_size']):.3f}); step times (s) "
         f"{[round(t, 4) for t in times]}, median of steps 2-{n_steps} "
         f"{step_s:.4f} s, {tokens_per_step / step_s:.1f} tokens/s; peak "
-        f"memory {peak / 2 ** 30:.2f} GiB")
+        f"memory {peak / 2 ** 30:.3f} GiB, "
+        f"{(peak - start_bytes) / 2 ** 30:.3f} GiB above the phase's start")
     log(f"    launches {launches} (expected {expected}); per step "
         f"{ {k: v // n_steps for k, v in launches.items()} }; plain-version "
         f"calls {dict(plain_calls)}")
@@ -3847,9 +3890,54 @@ def phase_train(fused_ffn=False, tag="[5]"):
     return model, opt, tokens, targets, dict(
         losses=losses, step_times_s=times, median_step_s=step_s,
         tokens_per_s=tokens_per_step / step_s, peak_memory_bytes=peak,
+        peak_above_start_bytes=peak - start_bytes, remat=remat_policy,
         launches=launches, launches_per_step={
             k: v // n_steps for k, v in launches.items()},
         adam_tensors=len(numels), adam_elements=sum(numels))
+
+
+REMAT_POLICIES = ("full", "dots")
+
+
+def log_remat_support():
+    """Whether this PyTorch has selective checkpointing ("dots" raises
+    naming it when it does not)."""
+    import torch.utils.checkpoint as ckpt
+    log(f"[5r] torch {torch.__version__}: torch.utils.checkpoint."
+        f"create_selective_checkpoint_contexts "
+        f"{hasattr(ckpt, 'create_selective_checkpoint_contexts')}, "
+        f"CheckpointPolicy {hasattr(ckpt, 'CheckpointPolicy')}")
+
+
+def check_remat(tag, base, runs):
+    """``runs`` ({policy: result}) against the run without remat
+    (``base``): each step's loss within 1e-6 relative (bit-equality
+    printed), and the peak memory above each phase's start strictly
+    ordered full < dots < none."""
+    ordered = [runs[p] for p in ("full", "dots") if p in runs] + [base]
+    for policy, run in runs.items():
+        rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                      base["losses"]))
+        bitwise = run["losses"] == base["losses"]
+        run.update(loss_rel_diff=rel, losses_bit_equal=bitwise)
+        log(f"{tag} remat {policy!r}: losses {run['losses']} against "
+            f"{base['losses']}: max relative diff {rel:.3e} (tolerance "
+            f"1e-6), bit-equal {bitwise}; median step "
+            f"{run['median_step_s']:.4f} s against "
+            f"{base['median_step_s']:.4f} s "
+            f"({run['median_step_s'] / base['median_step_s']:.3f}x)")
+        if not rel <= 1e-6:
+            raise AssertionError(f"{tag} remat {policy!r} changed the "
+                                 "losses")
+    peaks = [r["peak_above_start_bytes"] for r in ordered]
+    names = [r["remat"] or "none" for r in ordered]
+    log(f"{tag} peak memory above each phase's start: "
+        + ", ".join(f"{n} {b / 2 ** 30:.3f} GiB ({b} bytes)"
+                    for n, b in zip(names, peaks)))
+    if not all(a < b for a, b in zip(peaks, peaks[1:])):
+        raise AssertionError(f"{tag} peak memory not ordered "
+                             f"{' < '.join(names)}: {peaks}")
+    return dict(runs, peaks_above_start=dict(zip(names, peaks)))
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -3860,13 +3948,15 @@ PARITY_TRAIN = dict(vocab_size=50304, hidden_size=256, num_layers=4,
                     dtype=torch.bfloat16)
 
 
-def phase_train_parity(fused_lm_head=True, fused_ffn=False):
+def phase_train_parity(fused_lm_head=True, fused_ffn=False,
+                       remat_policy=None, tag="[6]"):
     """2 training steps of a small GPT with attention dropout on the card
-    and on a CPU copy (the plain versions): loss, grads, params."""
+    and on a CPU copy (the plain versions): loss, grads, params (``tag``
+    [6r]: under ``remat_policy``)."""
     from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
     from apex_tpu_torch.optimizers import FusedAdam
     cfg = GPTConfig(**PARITY_TRAIN, fused_lm_head=fused_lm_head,
-                    fused_ffn=fused_ffn)
+                    fused_ffn=fused_ffn, **_remat_kw(remat_policy))
     card = GPTModel(cfg, device="cuda").init_params(
         torch.Generator().manual_seed(1))
     cpu = GPTModel(cfg, device="cpu")
@@ -3900,7 +3990,8 @@ def phase_train_parity(fused_lm_head=True, fused_ffn=False):
     p_q99 = float(diffs[int(0.99 * (diffs.numel() - 1))])
     head = "fused LM head" if fused_lm_head else "f32-logits head"
     head += ", fused FFN" if fused_ffn else ""
-    log(f"[6] training card vs CPU (4 layers, hidden 256, dropout 0.1, "
+    head += "" if remat_policy is None else f", remat {remat_policy!r}"
+    log(f"{tag} training card vs CPU (4 layers, hidden 256, dropout 0.1, "
         f"{head}, 2 steps): losses card {cl} cpu {rl}, max relative loss diff "
         f"{loss_err:.3e} (tolerance {TRAIN_LOSS_RTOL}); step-1 grads max "
         f"|diff| / max|grad| {grad_err:.3e} at {worst} (tolerance "
@@ -3981,12 +4072,15 @@ def bert_step(model, opt, tokens, labels, scaler=None):
     return loss / scaler.loss_scale
 
 
-def phase_bert_train(fused_ffn=False, tag="[7]"):
+def phase_bert_train(fused_ffn=False, tag="[7]", remat_policy=None):
     """4 steps of BERT-large O2 + FusedLAMB (``tag`` [7f]: with
-    ``fused_ffn=True``); losses, times, memory, exact launch counts, and no
-    plain version called."""
+    ``fused_ffn=True``; [7r]: with ``remat_policy``); losses, times,
+    memory, exact launch counts, and no plain version called."""
     from apex_tpu_torch.ops import multi_tensor as K
-    model, opt, _ = build_bert("cuda", dict(BERT_LARGE, fused_ffn=fused_ffn),
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()
+    model, opt, _ = build_bert("cuda", dict(BERT_LARGE, fused_ffn=fused_ffn,
+                                            **_remat_kw(remat_policy)),
                                BERT_LR, 0)
     numels = [p.numel() for p in model.parameters()]
     shape = (BERT_ACCUM, BERT_MICRO, BERT_SEQ)
@@ -4022,11 +4116,15 @@ def phase_bert_train(fused_ffn=False, tag="[7]"):
                 **lm_head_bwd_launches(n * BERT_ACCUM, BERT_ROWS,
                                        BERT_LARGE["vocab_size"]),
                 **ffn_launches(n, BERT_ACCUM, layers, fused_ffn)}
+    for name, extra in remat_launches(n, BERT_ACCUM, layers, remat_policy,
+                                      fused_ffn).items():
+        expected[name] += extra
     step_s = statistics.median(times[1:])
     tokens_per_step = BERT_ACCUM * BERT_MICRO * BERT_SEQ
     ffn = "fused FFN" if fused_ffn else "unfused FFN"
+    remat = "" if remat_policy is None else f", remat {remat_policy!r}"
     log(f"{tag} trained BERT-large O2 + FusedLAMB {n} steps ({BERT_ACCUM} x "
-        f"{BERT_MICRO} x {BERT_SEQ} tokens, fused LM head, {ffn}, "
+        f"{BERT_MICRO} x {BERT_SEQ} tokens, fused LM head, {ffn}{remat}, "
         f"lr={BERT_LR}, "
         f"{len(numels)} "
         f"parameters, {sum(numels)} elements): losses "
@@ -4034,7 +4132,8 @@ def phase_bert_train(fused_ffn=False, tag="[7]"):
         f"{np.log(BERT_LARGE['vocab_size']):.3f}); step times (s) "
         f"{[round(t, 4) for t in times]}, median of steps 2-{n} "
         f"{step_s:.4f} s, {tokens_per_step / step_s:.1f} tokens/s; peak "
-        f"memory {peak / 2 ** 30:.2f} GiB")
+        f"memory {peak / 2 ** 30:.3f} GiB, "
+        f"{(peak - start_bytes) / 2 ** 30:.3f} GiB above the phase's start")
     log(f"    launches {launches} (expected {expected}); per step "
         f"{ {k: v // n for k, v in launches.items()} }; plain-version "
         f"calls {dict(plain_calls)}")
@@ -4052,6 +4151,7 @@ def phase_bert_train(fused_ffn=False, tag="[7]"):
     return model, opt, tokens, labels, dict(
         losses=losses, step_times_s=times, median_step_s=step_s,
         tokens_per_s=tokens_per_step / step_s, peak_memory_bytes=peak,
+        peak_above_start_bytes=peak - start_bytes, remat=remat_policy,
         launches=launches, launches_per_step={
             k: v // n for k, v in launches.items()},
         lamb_tensors=len(numels), lamb_elements=sum(numels))
@@ -4278,6 +4378,231 @@ def phase_dynamic_skip():
     return dict(found_inf=float(found_inf), step_before=step0,
                 step_after=step1, scale_before=scale0, scale_after=scale1,
                 unchanged=same)
+
+
+# -- phase 12 ----------------------------------------------------------------
+
+# BERT-large's attention scores (micro-batch 16, 16 heads, seq 512) and
+# GPT-350M's (micro-batch 8, 16 heads, seq 1024); GPT-350M's head logits
+SOFTMAX_PADDED = (16, 16, 512, 512)
+SOFTMAX_CAUSAL = (8, 16, 1024, 1024)
+XENT_ROWS, XENT_PAD = MICRO * SEQ, 0
+# CPU copies take the first batch entry's first two heads, and the first
+# 64 rows of the logits
+SLICE_HEADS, XENT_SLICE = 2, 64
+
+
+def _softmax_on_card_and_cpu(tag, module, x, mask, gen_cuda):
+    """Forward and backward of ``module`` on the card, then on a CPU copy of
+    the first batch entry's first heads: outputs within one bf16 ulp
+    (2**-8 absolute, 2**-7 relative), input gradients within 2**-6
+    relative and 1e-3 of the largest entry."""
+    dy = torch.randn(x.shape, generator=gen_cuda, device="cuda",
+                     dtype=x.dtype)
+    xg = x.detach().clone().requires_grad_(True)
+    y = module(xg, mask)
+    y.backward(dy)
+    rows = (slice(0, 1), slice(0, SLICE_HEADS))
+    xc = x[rows].cpu().requires_grad_(True)
+    mc = None if mask is None else mask[:1].cpu()
+    yc = module(xc, mc)
+    yc.backward(dy[rows].cpu())
+    y_err = check_close(f"{tag} output", y[rows].detach().cpu(),
+                        yc.detach(), 2.0 ** -8, 2.0 ** -7)
+    ref = xc.grad
+    dx_err = check_close(f"{tag} input gradient", xg.grad[rows].cpu(), ref,
+                         1e-3 * max_err(ref, torch.zeros_like(ref)),
+                         2.0 ** -6)
+    fwd_ms = call_ms(lambda: module(x, mask), iters=10)
+
+    def fwd_bwd():
+        xg.grad = None
+        module(xg, mask).backward(dy)
+    step_ms = call_ms(fwd_bwd, iters=10)
+    log(f"{tag} {tuple(x.shape)} {x.dtype}: forward {fwd_ms:.4f} ms, "
+        f"forward + backward {step_ms:.4f} ms (eager, plain PyTorch)")
+    return dict(shape=list(x.shape), output_max_abs_err=y_err,
+                grad_max_abs_err=dx_err, forward_ms=fwd_ms,
+                forward_backward_ms=step_ms)
+
+
+def _xentropy_on_card_and_cpu(gen_cuda):
+    """``SoftmaxCrossEntropyLoss`` at GPT-350M's head (8192 x 50304 bf16,
+    smoothing 0.1, ``half_to_float``, padding index 0 on every 16th row
+    and wherever a label is 0): padded rows give zero loss and gradient;
+    the first 64 rows against a CPU copy (loss 1e-4 + 1e-5 relative, the
+    bf16 gradient 2**-7 relative and 1e-6 of its largest entry)."""
+    from apex_tpu_torch.contrib.xentropy import SoftmaxCrossEntropyLoss
+    vocab = GPT350M["vocab_size"]
+    logits = 3 * torch.randn((XENT_ROWS, vocab), generator=gen_cuda,
+                             device="cuda", dtype=torch.bfloat16)
+    labels = torch.randint(0, vocab, (XENT_ROWS,), generator=gen_cuda,
+                           device="cuda")
+    labels[::16] = XENT_PAD
+    dloss = torch.rand((XENT_ROWS,), generator=gen_cuda, device="cuda")
+    args = (0.1, XENT_PAD, True)
+    lg = logits.clone().requires_grad_(True)
+    loss = SoftmaxCrossEntropyLoss.apply(lg, labels, *args)
+    loss.backward(dloss)
+    pad = labels == XENT_PAD
+    if not (loss.dtype == torch.float32 and bool(torch.isfinite(loss).all())
+            and float(loss[pad].abs().max()) == 0.0
+            and float(lg.grad[pad].float().abs().max()) == 0.0):
+        raise AssertionError("[12] xentropy: padded rows carry a loss or a "
+                             "gradient, or the loss is not finite f32")
+    lc = logits[:XENT_SLICE].cpu().requires_grad_(True)
+    ref = SoftmaxCrossEntropyLoss.apply(lc, labels[:XENT_SLICE].cpu(), *args)
+    ref.backward(dloss[:XENT_SLICE].cpu())
+    loss_err = check_close("[12] xentropy loss",
+                           loss[:XENT_SLICE].detach().cpu(), ref.detach(),
+                           1e-4, 1e-5)
+    grad_err = check_close(
+        "[12] xentropy gradient", lg.grad[:XENT_SLICE].cpu(), lc.grad,
+        1e-6 * max_err(lc.grad, torch.zeros_like(lc.grad)), 2.0 ** -7)
+    fwd_ms = call_ms(lambda: SoftmaxCrossEntropyLoss.apply(logits, labels,
+                                                           *args), iters=10)
+
+    def fwd_bwd():
+        lg.grad = None
+        SoftmaxCrossEntropyLoss.apply(lg, labels, *args).backward(dloss)
+    step_ms = call_ms(fwd_bwd, iters=10)
+    log(f"[12] xentropy ({XENT_ROWS} x {vocab} bf16, smoothing 0.1, "
+        f"half_to_float, {int(pad.sum())} padded rows): forward "
+        f"{fwd_ms:.4f} ms, forward + backward {step_ms:.4f} ms (eager, plain "
+        f"PyTorch)")
+    return dict(loss_max_abs_err=loss_err, grad_max_abs_err=grad_err,
+                padded_rows=int(pad.sum()), forward_ms=fwd_ms,
+                forward_backward_ms=step_ms)
+
+
+def _legacy_skip(tag, model, opt, step, state_of, scale_of):
+    """A clean step, then one with an inf in one gradient: the second is
+    skipped on the device (parameters, optimizer state and step count
+    unchanged bit for bit) and the scale halves."""
+    first = step(False)
+    snap = {n: (p.detach().clone(),
+                {k: v.clone() for k, v in state_of(p).items()})
+            for n, p in model.named_parameters()}
+    step0, scale0 = int(opt.param_groups[0]["step"]), scale_of()
+    found_inf = float(step(True))
+    torch.cuda.synchronize()
+    same = all(torch.equal(p, snap[n][0]) and all(
+        torch.equal(state_of(p)[k], v) for k, v in snap[n][1].items())
+        for n, p in model.named_parameters())
+    step1, scale1 = int(opt.param_groups[0]["step"]), scale_of()
+    log(f"{tag} clean step (found_inf {first}), then an inf in "
+        f"layers.1.mlp.fc1.weight's gradient: found_inf {found_inf}, step "
+        f"count {step0} -> {step1}, scale {scale0} -> {scale1}, parameters "
+        f"and optimizer state unchanged bit for bit: {same}")
+    if not (first == 0.0 and found_inf == 1.0 and same
+            and step1 == step0 == 1 and scale1 == scale0 / 2):
+        raise AssertionError(f"{tag} the overflow step was not skipped")
+    return dict(found_inf=found_inf, step_before=step0, step_after=step1,
+                scale_before=scale0, scale_after=scale1, unchanged=same)
+
+
+def _legacy_amp_on_card():
+    """``amp.init()`` + ``wrap_optimizer(FusedAdam)`` and
+    ``FP16_Optimizer(dynamic_loss_scale=True)`` over ``network_to_half``
+    on phase 6's small GPT: each skips an injected overflow step."""
+    from apex_tpu_torch import amp, fp16_utils
+    from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+    from apex_tpu_torch.optimizers import FusedAdam
+    cfg = GPTConfig(**PARITY_TRAIN)
+    rng = np.random.RandomState(5)
+    shape = (2, PARITY_TRAIN["max_seq_len"])
+    tokens, targets = (torch.from_numpy(rng.randint(0, cfg.vocab_size, shape))
+                       .to("cuda") for _ in range(2))
+
+    def inject(model):
+        model.layers[1].mlp.fc1.weight.grad[3, 5] = float("inf")
+
+    out = {}
+    model = GPTModel(cfg, device="cuda").init_params(
+        torch.Generator().manual_seed(4))
+    handle = amp.init(loss_scale="dynamic", device="cuda")
+    opt = handle.wrap_optimizer(FusedAdam(model.parameters(), lr=LR))
+
+    def legacy_step(bad):
+        opt.zero_grad()
+        with handle.scale_loss(model.loss(tokens, targets, 3)) as scaled:
+            scaled.backward()
+        if bad:
+            inject(model)
+        return float(opt.step())
+    try:
+        out["amp_init"] = _legacy_skip(
+            "[12] amp.init + wrap_optimizer(FusedAdam):", model, opt,
+            legacy_step, lambda p: opt.optimizer.state[p], handle.loss_scale)
+    finally:
+        handle._deactivate()
+    out["amp_init"]["scaler"] = handle.scaler.stats()
+
+    model = fp16_utils.network_to_half(GPTModel(cfg, device="cuda")
+                                       .init_params(
+        torch.Generator().manual_seed(4)))
+    fopt = fp16_utils.FP16_Optimizer(FusedAdam(model.parameters(), lr=LR),
+                                     dynamic_loss_scale=True)
+
+    def fp16_step(bad):
+        fopt.zero_grad()
+        fopt.backward(model.loss(tokens, targets, 3))
+        if bad:
+            inject(model)
+        return float(fopt.step())
+    out["fp16_optimizer"] = _legacy_skip(
+        "[12] network_to_half + FP16_Optimizer(FusedAdam, dynamic):", model,
+        fopt, fp16_step, lambda p: fopt.optimizer.state[p],
+        lambda: fopt.loss_scale)
+    out["fp16_optimizer"]["scaler"] = fopt.loss_scaler.stats()
+    return out
+
+
+def phase_new_ops():
+    """Phase 12: the fused softmax module and the softmax cross entropy at
+    full width, card against CPU copies, and the legacy amp surface's
+    overflow skip on the card (its kernels counted, no plain version)."""
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
+    gen_cuda = torch.Generator(device="cuda").manual_seed(12)
+    out = {}
+    b, _, _, s = SOFTMAX_PADDED
+    x = torch.randn(SOFTMAX_PADDED, generator=gen_cuda, device="cuda",
+                    dtype=torch.bfloat16) * 3
+    lens = torch.randint(s // 4, s + 1, (b,), generator=gen_cuda,
+                         device="cuda")
+    mask = (torch.arange(s, device="cuda")[None, :] >= lens[:, None])[
+        :, None, None, :]                       # True past each length
+    out["padding"] = _softmax_on_card_and_cpu(
+        "[12] FusedScaleMaskSoftmax padding", FusedScaleMaskSoftmax(
+            attn_mask_type=AttnMaskType.padding, scale=0.125), x, mask,
+        gen_cuda)
+    del x, mask
+    x = torch.randn(SOFTMAX_CAUSAL, generator=gen_cuda, device="cuda",
+                    dtype=torch.bfloat16) * 3
+    out["causal"] = _softmax_on_card_and_cpu(
+        "[12] FusedScaleMaskSoftmax causal", FusedScaleMaskSoftmax(
+            attn_mask_type=AttnMaskType.causal, scale=0.125), x, None,
+        gen_cuda)
+    del x
+    torch.cuda.empty_cache()
+    out["xentropy"] = _xentropy_on_card_and_cpu(gen_cuda)
+    torch.cuda.empty_cache()
+    counters = _all_counters()
+    for c in counters:
+        c.launches = 0
+    with counting_plain_versions() as plain_calls:
+        out.update(_legacy_amp_on_card())
+    launches = {c.__name__: c.launches for c in counters if c.launches}
+    log(f"[12] legacy amp launches {launches}; plain-version calls "
+        f"{dict(plain_calls)}")
+    if sum(plain_calls.values()) or not (launches.get("multi_tensor_adam")
+                                         and launches.get(
+                                             "multi_tensor_sumsq")):
+        raise AssertionError("[12] the legacy amp steps did not run the "
+                             "Adam and found-inf kernels alone")
+    out["legacy_launches"] = launches
+    return out
 
 
 # -- phase 9 -----------------------------------------------------------------
@@ -4734,7 +5059,8 @@ def main(argv=None):
     ap.add_argument("--profile", metavar="PATH",
                     help="also profile one prefill, one decode step and one "
                          "step of each training path, each with and without "
-                         "the fused FFN, one ResNet-50 step at O1 and O2, "
+                         "the fused FFN and under remat, one ResNet-50 step "
+                         "at O1 and O2, "
                          "one paged decode step with f32 and with int8 "
                          "weights and one int8 prefill, and write the "
                          "kernel breakdown to PATH")
@@ -4805,9 +5131,23 @@ def main(argv=None):
     log_fused_change("[5f] GPT-350M", train, train_f)
     del tmodel, topt
     torch.cuda.empty_cache()
+    log_remat_support()
+    train_remat = {}
+    for policy in REMAT_POLICIES:
+        tmodel, topt, ttokens, ttargets, train_remat[policy] = phase_train(
+            tag="[5r]", remat_policy=policy)
+        if args.profile:
+            profiled.update(phase_profile_train(
+                tmodel, topt, ttokens, ttargets, profile_lines,
+                f"train_step_remat_{policy}"))
+        del tmodel, topt
+        torch.cuda.empty_cache()
+    remat_gpt = check_remat("[5r]", train, train_remat)
     train_parity = phase_train_parity()
     train_parity_f32_head = phase_train_parity(fused_lm_head=False)
     train_parity_ffn = phase_train_parity(fused_ffn=True)
+    train_parity_remat = {policy: phase_train_parity(
+        remat_policy=policy, tag="[6r]") for policy in REMAT_POLICIES}
     torch.cuda.empty_cache()
 
     bmodel, bopt, btokens, blabels, bert = phase_bert_train()
@@ -4825,9 +5165,21 @@ def main(argv=None):
     log_fused_change("[7f] BERT-large O2", bert, bert_f)
     del bmodel, bopt
     torch.cuda.empty_cache()
+    # bench.py builds BERT-large with remat_policy="dots" when it remats
+    bmodel, bopt, btokens, blabels, bert_r = phase_bert_train(
+        tag="[7r]", remat_policy="dots")
+    if args.profile:
+        profiled.update(phase_profile_bert(bmodel, bopt, btokens, blabels,
+                                           profile_lines,
+                                           "bert_train_step_remat_dots"))
+    del bmodel, bopt
+    torch.cuda.empty_cache()
+    remat_bert = check_remat("[7r]", bert, {"dots": bert_r})
     bert_parity = phase_bert_parity()
     bert_parity_ffn = phase_bert_parity(fused_ffn=True)
     skip = phase_dynamic_skip()
+    torch.cuda.empty_cache()
+    new_ops = phase_new_ops()
     torch.cuda.empty_cache()
 
     resnet = {}
@@ -4864,7 +5216,8 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     both = collections.Counter(serve["launches"])
-    for run in (serve_f, train, train_f, bert, bert_f, clip, resnet["O1"],
+    for run in (serve_f, train, train_f, *train_remat.values(), bert,
+                bert_f, bert_r, clip, resnet["O1"],
                 resnet["O2"], resnet_baseline, *resnet_opts.values(),
                 paged["contiguous"], paged["paged"], paged["chunked"],
                 paged["pressure"], paged["int8_weights"]["contiguous"],
@@ -4948,10 +5301,13 @@ def main(argv=None):
                            serve=serve,
                            parity=parity, serve_ffn=serve_f,
                            parity_ffn=parity_f, train=train,
-                           train_ffn=train_f, train_parity=train_parity,
+                           train_ffn=train_f, train_remat=remat_gpt,
+                           train_parity=train_parity,
                            train_parity_f32_head=train_parity_f32_head,
-                           train_parity_ffn=train_parity_ffn, bert=bert,
-                           bert_ffn=bert_f, unscale_clip=clip,
+                           train_parity_ffn=train_parity_ffn,
+                           train_parity_remat=train_parity_remat, bert=bert,
+                           bert_ffn=bert_f, bert_remat=remat_bert,
+                           new_ops=new_ops, unscale_clip=clip,
                            bert_parity=bert_parity,
                            bert_parity_ffn=bert_parity_ffn,
                            dynamic_skip=skip, resnet50=resnet,

@@ -181,7 +181,10 @@ def test_unported_knobs_raise_and_name_their_slice():
     loss equals the f32-logits head's within 1e-6 relative and every
     gradient within 1e-5 of its largest entry, and ``apply`` is the same;
     the knobs of later slices still raise, naming their slice
-    (``fused_ffn`` runs now: ``test_fused_ffn_loss_and_every_grad_match_jax``)."""
+    (``fused_ffn`` runs now: ``test_fused_ffn_loss_and_every_grad_match_jax``;
+    so does ``remat``, which raised until the recompute was ported: under
+    either policy the fused head's loss and gradients equal those without
+    remat within 1e-6)."""
     fused = BertModel(BertConfig(**dict(TINY, fused_lm_head=True)),
                       device="cpu").init_params(
         torch.Generator().manual_seed(2))
@@ -204,11 +207,31 @@ def test_unported_knobs_raise_and_name_their_slice():
             continue
         assert float((p.grad - want).abs().max()) <= 1e-5 * float(
             want.abs().max()), name
-    for knob in (dict(remat=True),
-                 dict(tensor_parallel_size=2), dict(sequence_parallel=True),
+    for knob in (dict(tensor_parallel_size=2), dict(sequence_parallel=True),
                  dict(plan=object())):
         with pytest.raises(NotImplementedError, match="slice"):
             BertConfig(**TINY, **knob)
+    for policy in ("full", "dots"):
+        remat = BertModel(BertConfig(**dict(TINY, fused_lm_head=True),
+                                     remat=True, remat_policy=policy),
+                          device="cpu")
+        remat.load_state_dict(fused.state_dict())
+        fused.zero_grad()
+        remat.zero_grad()
+        losses = []
+        for model in (remat, fused):
+            loss = model.loss(tokens, labels)
+            loss.backward()
+            losses.append(loss.item())
+        assert losses[0] == pytest.approx(losses[1], rel=1e-6)
+        grads = dict(fused.named_parameters())
+        for name, p in remat.named_parameters():
+            want = grads[name].grad
+            if want is None:
+                assert p.grad is None, name
+                continue
+            assert float((p.grad - want).abs().max()) <= 1e-6 * float(
+                want.abs().max()), name
 
 
 def test_init_params_draws_the_jax_init_distribution():

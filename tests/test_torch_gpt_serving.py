@@ -24,7 +24,8 @@ from apex_tpu_torch.convert import gpt_params_from_jax
 from apex_tpu_torch.inference import (InferenceEngine, KVCache, QueueFull,
                                       Request, SamplingParams, sample)
 from apex_tpu_torch.inference.sampling import stream_generator
-from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+from apex_tpu_torch.models.gpt import (GPTConfig, GPTModel,
+                                       quantize_decode_params)
 from apex_tpu_torch.utils.profiling import ServingMetrics
 
 TINY = dict(vocab_size=64, hidden_size=64, num_layers=2,
@@ -204,15 +205,48 @@ def test_sampling_streams_are_deterministic_with_top_k_and_top_p():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(fused_ffn=True, remat=True), dict(weight_quant="int8", remat=True),
-    dict(n_experts=2),
-    dict(context_axis="ctx"), dict(sequence_parallel=True),
-    dict(tensor_parallel_size=2), dict(remat=True)])
+    dict(n_experts=2), dict(context_axis="ctx"), dict(sequence_parallel=True),
+    dict(tensor_parallel_size=2)])
 def test_unported_config_knobs_raise(knob):
-    """Knobs of later slices raise, naming their slice (``fused_ffn`` and
-    ``weight_quant`` run now; with remat they still raise for remat)."""
+    """Knobs of later slices raise, naming their slice (``fused_ffn``,
+    ``weight_quant`` and ``remat`` run now)."""
     with pytest.raises(NotImplementedError, match="slice"):
         GPTConfig(**TINY, **knob)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(fused_ffn=True), dict(weight_quant="int8"), dict()],
+    ids=["fused_ffn", "weight_quant", "alone"])
+def test_remat_config_knobs_build_and_match(models, knob):
+    """``remat=True`` (which raised until the recompute was ported) builds
+    with each knob: serving's prefill is the model's without remat, bit for
+    bit (it never recomputes), and a trainable model's loss and gradients
+    equal those without remat within 1e-6."""
+    _, _, tm = models
+    sd = tm.state_dict()
+    built = []
+    for remat in (True, False):
+        model = GPTModel(GPTConfig(**TINY, remat=remat, **knob), device="cpu")
+        if "weight_quant" in knob:
+            model.load_quantized_(quantize_decode_params(sd))
+        else:
+            model.load_state_dict(sd)
+        built.append(model)
+    toks = torch.from_numpy(_tokens(9, (2, 16)))
+    assert torch.equal(built[0].prefill(toks)[0], built[1].prefill(toks)[0])
+    if "weight_quant" in knob:
+        return
+    runs = []
+    for model in built:
+        loss = model.loss(toks, toks.roll(-1, 1))
+        loss.backward()
+        runs.append((loss.item(), {n: p.grad for n, p in
+                                   model.named_parameters()}))
+    (a, ga), (b, gb) = runs
+    assert a == pytest.approx(b, rel=1e-6)
+    for name, want in gb.items():
+        assert float((ga[name] - want).abs().max()) <= 1e-6 * float(
+            want.abs().max()), name
 
 
 def test_fused_ffn_config_raises_jax_value_errors():
@@ -321,16 +355,34 @@ def test_gpt_config_takes_every_jax_field_at_its_default(name):
     dict(context_mechanism="ulysses"), dict(moe_top_k=2),
     dict(moe_capacity_factor=2.0), dict(moe_aux_weight=0.1),
     dict(n_experts=4, expert_axis="expert"), dict(expert_parallel_size=2),
-    dict(remat_policy="dots"), dict(plan=object())],
+    dict(plan=object())],
     ids=lambda k: list(k)[-1])
 def test_gpt_config_new_fields_raise_naming_their_slice(knob):
-    """A value other than the default of the ten added fields needs a part
-    not ported yet: it raises ``NotImplementedError`` naming the slice
-    (the JAX config accepts each of these)."""
+    """A value other than the default of nine of the ten added fields
+    needs a part not ported yet: it raises ``NotImplementedError`` naming
+    the slice (the JAX config accepts each of these)."""
     if "plan" not in knob:
         JConfig(**TINY, **knob)
     with pytest.raises(NotImplementedError, match="slice"):
         GPTConfig(**TINY, **knob)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])
+def test_gpt_config_remat_policy_dots_builds_and_matches_jax(models, remat):
+    """``remat_policy="dots"``, the tenth added field (it raised until the
+    recompute was ported), builds as the JAX config does, alone and with
+    ``remat=True``, and the model's grad-enabled logits match JAX's."""
+    jm, jp, tm = models
+    JConfig(**TINY, remat=remat, remat_policy="dots")
+    cfg = GPTConfig(**TINY, remat=remat, remat_policy="dots")
+    model = GPTModel(cfg, device="cpu")
+    model.load_state_dict(tm.state_dict())
+    toks = _tokens(4, (2, 11))
+    out = model(torch.from_numpy(toks))
+    assert out.requires_grad
+    want, _ = jm.prefill(jp, jnp.asarray(toks))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               atol=TOL, rtol=TOL)
 
 
 def test_gpt_config_keeps_jax_value_errors_for_the_new_fields():

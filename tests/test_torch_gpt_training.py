@@ -262,7 +262,9 @@ def test_fused_lm_head_raises_in_head_loss_only():
     in f32 its loss equals the f32-logits head's within 1e-6 relative and
     every gradient within 1e-5 of its largest entry (the same math, sums
     in other orders); serving's prefill logits are the same f32 head GEMM
-    on both configs; remat still raises."""
+    on both configs; with ``remat=True`` (which raised until the recompute
+    was ported) the fused head's loss and gradients are the same within
+    1e-6."""
     fused = GPTModel(GPTConfig(**dict(TINY, fused_lm_head=True)),
                      device="cpu").init_params(
         torch.Generator().manual_seed(3))
@@ -283,8 +285,17 @@ def test_fused_lm_head_raises_in_head_loss_only():
         want = grads[name].grad
         assert float((p.grad - want).abs().max()) <= 1e-5 * float(
             want.abs().max()), name
-    with pytest.raises(NotImplementedError, match="slice"):
-        GPTConfig(**TINY, remat=True)
+    remat = GPTModel(GPTConfig(**dict(TINY, fused_lm_head=True),
+                               remat=True), device="cpu")
+    remat.load_state_dict(fused.state_dict())
+    loss = remat.loss(tokens, targets)
+    loss.backward()
+    assert loss.item() == pytest.approx(losses[0], rel=1e-6)
+    grads = dict(fused.named_parameters())
+    for name, p in remat.named_parameters():
+        want = grads[name].grad
+        assert float((p.grad - want).abs().max()) <= 1e-6 * float(
+            want.abs().max()), name
 
 
 def test_grad_enabled_forward_matches_jax_logits():
