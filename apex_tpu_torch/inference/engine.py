@@ -11,7 +11,10 @@ table:
   logits give the first token;
 * decode — every step runs ALL slots; inactive slots compute garbage that
   is never read;
-* completion — eos / ``max_new_tokens`` / cache exhaustion free the slot.
+* completion — eos / ``max_new_tokens`` / cache exhaustion free the slot;
+  a request past its ``deadline`` is EVICTED mid-flight with whatever it
+  has generated; a request past its per-request ``timeout`` (a budget
+  relative to submission) finishes with ``reason="timeout"``.
 
 ``submit`` validates what it can and applies bounded-queue backpressure
 (:class:`QueueFull`).  What validation cannot see is QUARANTINED: the
@@ -22,15 +25,22 @@ so a caller that must not tolerate it checks for ``"error"`` responses.
 
 ``preempt`` requeues every in-flight request with its progress stashed:
 the next admission re-prefills ``prompt + generated`` and resumes the
-request's sampling stream at the token index it stopped at.  The storage
+request's sampling stream at the token index it stopped at.
+``export_inflight`` / ``adopt`` are the cross-replica form of the same
+requeue (the serving fleet's migration), and ``injected_faults`` is the
+fleet's fault hook (``"reject_admission"``, ``"kv_pool_exhaustion"``).
+``registry=`` merges the serving series into a shared
+:class:`~apex_tpu_torch.observability.MetricsRegistry`; ``tracer=`` turns
+on per-request Chrome trace events.  The storage
 is a backend behind three hooks (``_init_backend``, ``_release``,
 ``_cache_advance``): the slot ring here, the paged block pool in
 :class:`apex_tpu_torch.serving.PagedInferenceEngine`.  With
 ``cfg.weight_quant == "int8"`` the engine quantizes the model's weights in
-place at init (once; a model already quantized is left as it is).
+place at init (once; a model already quantized is left as it is, so
+several engines can serve one shared model).
 
-Deadline/timeout eviction, ``adopt``, ``export_inflight``, the
-injected-fault hooks and the request tracer wait for later slices.
+``plan=`` (the parallel plan of the JAX engine) waits for the port of
+``parallel/plan.py``.
 """
 
 from __future__ import annotations
@@ -46,6 +56,8 @@ import torch
 from apex_tpu_torch.inference.kv_cache import KVCache
 from apex_tpu_torch.inference.sampling import (SamplingParams, sample,
                                                stream_generator)
+from apex_tpu_torch.observability.fleetobs import TraceContext
+from apex_tpu_torch.observability.request_trace import RequestTracer
 from apex_tpu_torch.utils.device import resolve_device
 from apex_tpu_torch.utils.profiling import ServingMetrics
 
@@ -56,23 +68,38 @@ class QueueFull(RuntimeError):
 
 @dataclasses.dataclass
 class Request:
-    """One generation request.  ``seed`` feeds the per-request sampling
-    stream (stochastic modes only), keyed by (seed, token index)."""
+    """One generation request.
+
+    ``deadline`` is an absolute value of the engine's ``clock``; a request
+    still running past it is evicted.  ``timeout`` is a RELATIVE budget in
+    clock units from submission — queued or decoding, a request over
+    budget finishes with ``reason="timeout"``.  ``seed`` feeds the
+    per-request sampling stream (stochastic modes only), keyed by (seed,
+    token index).  ``trace`` is the fleet-wide causal identity
+    (:class:`~apex_tpu_torch.observability.TraceContext`): the router
+    mints it and it rides the request through retry, hedge and migration.
+    """
     request_id: int
     prompt: Sequence[int]
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
     sampling: SamplingParams = dataclasses.field(
         default_factory=SamplingParams)
+    deadline: Optional[float] = None
+    timeout: Optional[float] = None
     seed: int = 0
+    trace: Optional[TraceContext] = None
 
 
 @dataclasses.dataclass
 class Response:
     """A completed request: ``tokens`` holds the generated ids (including
     the eos token when one was emitted); ``finish_reason`` is ``"eos"``,
-    ``"length"`` (max_new_tokens or cache row exhausted) or ``"error"``
-    (quarantined — ``error`` carries the exception message)."""
+    ``"length"`` (max_new_tokens or cache row exhausted), ``"evicted"``
+    (deadline), ``"timeout"`` (per-request budget), ``"error"``
+    (quarantined — ``error`` carries the exception message) or
+    ``"preempted"`` (the context no longer fits for a resume).  The fleet
+    router adds ``"shed"`` (retry budget exhausted)."""
     request_id: int
     prompt: List[int]
     tokens: List[int]
@@ -102,6 +129,7 @@ class InferenceEngine:
                  max_seq: Optional[int] = None, cache_dtype=None,
                  clock: Callable[[], float] = time.monotonic,
                  metrics: Optional[ServingMetrics] = None,
+                 registry=None, tracer=None,
                  min_prompt_bucket: int = 8,
                  max_queue: Optional[int] = None, device=None):
         self.device = resolve_device(device)
@@ -117,12 +145,23 @@ class InferenceEngine:
         self.weight_bytes = sum(t.numel() * t.element_size()
                                 for t in model.state_dict().values())
         self.clock = clock
-        self.metrics = metrics or ServingMetrics(clock)
+        # `registry` merges this engine's serving series into a shared
+        # MetricsRegistry; ignored when `metrics` is given
+        self.metrics = metrics or ServingMetrics(clock, registry=registry)
+        # `tracer` turns on per-request Chrome trace events; the lifecycle
+        # bookkeeping is always on and feeds the queue-wait / decode-ticks
+        # series
+        self.trace = RequestTracer(clock=clock, tracer=tracer,
+                                   metrics=self.metrics)
         self._min_bucket = min_prompt_bucket
         if max_queue is not None and max_queue < 1:
             raise ValueError("max_queue must be >= 1 (or None: unbounded)")
         self.max_queue = max_queue
         self._queue: collections.deque = collections.deque()
+        # the serving fleet's fault hooks, set per tick
+        # ("reject_admission" fails submit with QueueFull,
+        # "kv_pool_exhaustion" stalls admission); empty in normal runs
+        self.injected_faults: frozenset = frozenset()
         self._active: dict = {}          # slot -> _Active
         self._submit_time: dict = {}     # request_id -> submit clock value
         self._progress: dict = {}        # request_id -> tokens generated
@@ -130,6 +169,14 @@ class InferenceEngine:
         self._done: List[Response] = []
         self._init_backend(max_slots, max_seq or cfg.max_seq_len,
                            cache_dtype or cfg.dtype)
+        # cache-accounting gauges: the router and admission policies read
+        # capacity in bytes, not slots
+        self._g_kv_free = self.metrics.registry.gauge(
+            "serving_kv_free_bytes", "free KV-cache bytes")
+        self._g_kv_occ = self.metrics.registry.gauge(
+            "serving_kv_occupancy",
+            "fraction of KV-cache capacity in use (token-granular)")
+        self._export_cache_gauges()
 
     def _init_backend(self, max_slots: int, max_seq: int,
                       cache_dtype) -> None:
@@ -140,6 +187,10 @@ class InferenceEngine:
                              cfg.local_heads, cfg.head_dim, cache_dtype,
                              device=self.device)
         self.max_seq = self.cache.max_seq
+
+    def _export_cache_gauges(self) -> None:
+        self._g_kv_free.set(self.cache.free_bytes())
+        self._g_kv_occ.set(self.cache.occupancy())
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -166,17 +217,24 @@ class InferenceEngine:
         if request.eos_id is not None and not isinstance(
                 request.eos_id, (int, np.integer)):
             raise ValueError(f"eos_id {request.eos_id!r} must be an int")
+        if request.timeout is not None and not request.timeout > 0:
+            raise ValueError(
+                f"timeout {request.timeout!r} must be positive")
 
     def submit(self, request: Request) -> None:
         """Validate and enqueue; raises :class:`QueueFull` when the
         bounded queue is at capacity."""
         self._validate(request)
+        if "reject_admission" in self.injected_faults:
+            raise QueueFull("injected fault: admission rejected at this "
+                            "replica")
         if self.max_queue is not None and len(self._queue) >= self.max_queue:
             raise QueueFull(
                 f"submit queue is full ({len(self._queue)}/"
                 f"{self.max_queue}); retry after step() drains it")
         self._submit_time[request.request_id] = self.clock()
         self.metrics.request_submitted(request.request_id)
+        self.trace.enqueue(request.request_id, ctx=request.trace)
         self._queue.append(request)
 
     @property
@@ -207,20 +265,23 @@ class InferenceEngine:
                 error: Optional[str] = None) -> None:
         self._release(slot, st)
         del self._active[slot]
-        # ticks = decode steps that produced a token (the first token
-        # comes from the prefill)
-        self.metrics.request_decode_ticks(st.request.request_id,
-                                          len(st.generated) - 1)
         self._finish_response(st.request, st.generated, reason, error)
 
     def _finish_response(self, req: Request, generated: List[int],
                          reason: str, error: Optional[str] = None) -> None:
+        """Completion tail of active AND still-queued requests: metrics,
+        trace and the Response record."""
         self._submit_time.pop(req.request_id, None)
         self._progress.pop(req.request_id, None)
-        if reason == "error":
+        if reason == "evicted":
+            self.metrics.request_evicted(req.request_id)
+        elif reason == "timeout":
+            self.metrics.request_timeout(req.request_id)
+        elif reason == "error":
             self.metrics.request_error(req.request_id)
         else:
             self.metrics.request_finished(req.request_id, reason)
+        self.trace.finish(req.request_id, reason, error=error)
         self._done.append(Response(req.request_id, list(req.prompt),
                                    list(generated), reason, error=error))
 
@@ -235,6 +296,37 @@ class InferenceEngine:
         else:
             return False
         return True
+
+    def _evict_expired(self) -> None:
+        now = self.clock()
+
+        def expired(req):
+            # deadline wins when both trip the same tick: "no longer
+            # wanted" is the stronger statement than "over budget"
+            if req.deadline is not None and now >= req.deadline:
+                return "evicted"
+            if req.timeout is not None:
+                t0 = self._submit_time.get(req.request_id)
+                if t0 is not None and now - t0 >= req.timeout:
+                    return "timeout"
+            return None
+
+        for slot in [s for s in sorted(self._active)
+                     if expired(self._active[s].request)]:
+            st = self._active[slot]
+            self._finish(slot, st, expired(st.request))
+        keep: collections.deque = collections.deque()
+        while self._queue:
+            req = self._queue.popleft()
+            reason = expired(req)
+            if reason:
+                # a requeued request keeps its partial progress
+                self._finish_response(
+                    req, list(self._progress.get(req.request_id, [])),
+                    reason)
+            else:
+                keep.append(req)
+        self._queue = keep
 
     def preempt(self) -> int:
         """Requeue every in-flight request instead of dropping it: each
@@ -263,8 +355,52 @@ class InferenceEngine:
         del self._active[slot]
         self._progress[req.request_id] = list(st.generated)
         self.metrics.request_requeued(req.request_id)
+        self.trace.requeue(req.request_id)
         self._queue.appendleft(req)
         return 1
+
+    def adopt(self, request: Request, progress: Sequence[int] = ()) -> None:
+        """Admit a request migrated from another replica: ``progress`` is
+        the tokens it already streamed there.  Validation and backpressure
+        are :meth:`submit`'s; the next admission re-prefills ``prompt +
+        progress`` and resumes the sampling stream at ``len(progress)`` —
+        the cross-replica form of the preemption requeue, token for token
+        for the same reason."""
+        if len(request.prompt) + len(progress) >= self.max_seq:
+            raise ValueError(
+                f"context {len(request.prompt)} + {len(progress)} does "
+                f"not fit max_seq={self.max_seq}; finish with "
+                "reason='preempted' instead of adopting")
+        self.submit(request)
+        if progress:
+            self._progress[request.request_id] = list(progress)
+
+    def export_inflight(self) -> List:
+        """Strip every in-flight and queued request off this engine for
+        cross-replica migration; returns ``[(request, generated)]`` in
+        ascending slot order, then the waiting queue.  ``generated`` is
+        what was already streamed to the client, so a replica that dies
+        without warning still leaves its requests recoverable: a healthy
+        replica :meth:`adopt` s each one.  On THIS engine each request
+        ends with reason ``"migrated"`` (metrics and trace, no
+        Response)."""
+        out = []
+        for slot in sorted(self._active):
+            st = self._active[slot]
+            out.append((st.request, list(st.generated)))
+        for slot in sorted(self._active, reverse=True):
+            st = self._active.pop(slot)
+            self._release(slot, st)
+        while self._queue:
+            req = self._queue.popleft()
+            out.append((req, list(self._progress.get(req.request_id, []))))
+        for req, _ in out:
+            rid = req.request_id
+            self._submit_time.pop(rid, None)
+            self._progress.pop(rid, None)
+            self.metrics.request_migrated(rid)
+            self.trace.finish(rid, "migrated")
+        return out
 
     def cancel(self, request_id) -> bool:
         """Withdraw one request with NO Response: frees its slot or queue
@@ -283,22 +419,25 @@ class InferenceEngine:
         self._submit_time.pop(request_id, None)
         self._progress.pop(request_id, None)
         self.metrics.request_cancelled(request_id)
+        self.trace.finish(request_id, "cancelled")
         return True
 
     def _admitted(self, req: Request, resumed: bool) -> None:
-        """Metrics of an admission: the queue wait of a first admission."""
+        """Trace of an admission (the trace feeds the queue-wait series
+        of a first admission)."""
         if not resumed:
-            self.metrics.request_admitted(
-                req.request_id,
-                self.clock() - self._submit_time[req.request_id])
+            self.trace.admit(req.request_id)
 
     def _first_token(self, req: Request, resumed: bool) -> None:
         """Metrics of the token a prefill samples: a resumed request's
         TTFT already happened, its token joins the throughput series."""
         if resumed:
             self.metrics.token(req.request_id)
+            self.trace.decode_tick(req.request_id)
+            self.trace.resumed(req.request_id)
         else:
             self.metrics.first_token(req.request_id)
+            self.trace.first_token(req.request_id)
 
     def _prefill_context(self, ctx: List[int]):
         """One prefill of ``ctx`` padded to its bucket: ``(logits, kv)``."""
@@ -307,6 +446,8 @@ class InferenceEngine:
         return self.model.prefill(torch.from_numpy(toks).to(self.device))
 
     def _admit(self) -> None:
+        if "kv_pool_exhaustion" in self.injected_faults:
+            return                      # injected: no capacity to admit
         while self._queue and self.cache.free_slots:
             req = self._queue.popleft()
             slot = self.cache.allocate()
@@ -333,9 +474,11 @@ class InferenceEngine:
     # -- the decode loop -----------------------------------------------------
 
     def step(self) -> bool:
-        """One engine iteration: admit, one batched decode step.  Returns
-        True while there is (or may be) work left."""
+        """One engine iteration: evict, admit, one batched decode step.
+        Returns True while there is (or may be) work left."""
+        self._evict_expired()
         self._admit()
+        self._export_cache_gauges()
         if not self._active:
             return bool(self._queue)
         n = self.cache.slots
@@ -369,6 +512,7 @@ class InferenceEngine:
                              error=f"{type(e).__name__}: {e}")
                 continue
             self.metrics.token(st.request.request_id)
+            self.trace.decode_tick(st.request.request_id)
             st.generated.append(tok)
             st.next_token = tok
             st.position += 1
@@ -383,4 +527,8 @@ class InferenceEngine:
             steps += 1
             if max_steps is not None and steps >= max_steps:
                 break
+        return list(self._done)
+
+    @property
+    def completed(self) -> List[Response]:
         return list(self._done)

@@ -29,8 +29,13 @@ blocks allocated on demand, with prefix sharing.
   insert requantizes its block, so the pool state does not depend on how
   the scheduler sliced a prompt.
 
-The disaggregated handoff (``export_kv``, ``adopt_kv``,
-``prefill_only=True``) waits for the fleet slice and raises.
+* **The disaggregated handoff** (``prefill_only=True``, ``export_kv``,
+  ``adopt_kv``): a prefill-only replica parks each request after its
+  chunked prefill; ``export_kv`` ships the raw storage of the blocks that
+  back its context (a :class:`KvHandoff`) and ``adopt_kv`` installs them
+  on a decode replica, which resumes without re-running prefill —
+  bitwise, because paged decode only reads the storage the payload is a
+  literal copy of (see :mod:`apex_tpu_torch.serving.disagg`).
 """
 
 from __future__ import annotations
@@ -41,14 +46,41 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from apex_tpu_torch.inference.engine import InferenceEngine, _Active
+from apex_tpu_torch.inference.engine import (InferenceEngine, QueueFull,
+                                             Request, _Active)
 from apex_tpu_torch.inference.kv_cache import KVCache
 from apex_tpu_torch.serving.paged_kv import (PagedKVCache,
                                              QuantizedPagedKVCache)
 from apex_tpu_torch.serving.scheduler import TickScheduler
 from apex_tpu_torch.serving.speculative import SpeculativeConfig
 
-FLEET_SLICE = "the fleet-serving slice"
+
+@dataclasses.dataclass
+class KvHandoff:
+    """A request's KV state in flight between engines — what
+    :meth:`PagedInferenceEngine.export_kv` produces and
+    :meth:`PagedInferenceEngine.adopt_kv` installs.
+
+    ``payload`` is the exporting pool's raw block storage
+    (:meth:`PagedKVCache.export_blocks` — ``data``, plus ``scales`` for
+    the int8 pool), ``kv_tokens`` the ``kv_len`` tokens it backs
+    (``prompt + generated[:-1]`` — ``generated[-1]`` is the next token
+    to FEED, whose KV the first decode step writes), and ``kind`` /
+    ``block_size`` the storage tags the adopting pool must match for a
+    bitwise install."""
+    request: Request
+    generated: List[int]
+    kv_len: int
+    kv_tokens: List[int]
+    payload: dict
+    block_size: int
+    kind: str
+    src_replica: int = -1
+
+    def nbytes(self) -> int:
+        """Bytes the handoff moves (block storage only)."""
+        return int(sum(v.numel() * v.element_size()
+                       for v in self.payload.values()))
 
 
 @dataclasses.dataclass
@@ -94,20 +126,25 @@ class PagedInferenceEngine(InferenceEngine):
         if prefill_only and not chunked_prefill:
             raise ValueError("prefill_only requires chunked_prefill=True "
                              "(prefill replicas run chunked prefill only)")
-        if prefill_only:
-            raise NotImplementedError(
-                f"prefill_only (disaggregated prefill replicas) comes with "
-                f"{FLEET_SLICE} of apex_tpu_torch")
         self._block_size = block_size
         self._num_blocks = num_blocks
         self._share_prefixes = share_prefixes
         self.chunked_prefill = chunked_prefill
         self.kv_quant = kv_quant
+        self.prefill_only = prefill_only
         self.scheduler = scheduler or TickScheduler()
         self.spec = speculative
+        # runtime switch over the configured speculative path: the fleet's
+        # degradation ladder turns it off under SLO burn and back on when
+        # the burn clears (exact-match acceptance makes it token-invisible)
+        self.spec_enabled = True
         self.spec_proposed = 0
         self.spec_accepted = 0
         super().__init__(model, **kw)
+
+    @property
+    def _spec_active(self) -> bool:
+        return self.spec is not None and self.spec_enabled
 
     # -- backend -------------------------------------------------------------
 
@@ -131,12 +168,13 @@ class PagedInferenceEngine(InferenceEngine):
         self.pool = pool_cls(
             self._num_blocks, bs, cfg.num_layers, cfg.local_heads,
             cfg.head_dim, cache_dtype, share_prefixes=self._share_prefixes,
-            device=self.device)
+            device=self.device, registry=self.metrics.registry)
         self._free_slots = list(range(max_slots - 1, -1, -1))
         self._seqs: dict = {}            # slot -> PagedSequence
         self._tables = np.zeros((max_slots, self.max_blocks), np.int32)
         self._prefilling: dict = {}      # slot -> _ChunkPrefill
         self._prefill_order: List[int] = []
+        self._handoff_ready: List[int] = []   # parked prefill_only slots
         self._admit_stamp: dict = {}     # slot -> admission counter
         self._admitted_count = 0
         if self.spec is not None:
@@ -146,6 +184,16 @@ class PagedInferenceEngine(InferenceEngine):
             self._draft_cache = KVCache(max_slots, dcfg.num_layers, max_seq,
                                         dcfg.local_heads, dcfg.head_dim,
                                         cache_dtype, device=self.device)
+            r = self.metrics.registry
+            self._c_spec_prop = r.counter(
+                "serving_spec_proposed_total", "draft tokens proposed")
+            self._c_spec_acc = r.counter(
+                "serving_spec_accepted_total",
+                "draft tokens matching the canonical stream")
+
+    def _export_cache_gauges(self) -> None:
+        self._g_kv_free.set(self.pool.free_bytes())
+        self._g_kv_occ.set(self.pool.occupancy())
 
     def _dev(self, arr) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -158,6 +206,8 @@ class PagedInferenceEngine(InferenceEngine):
         self._prefilling.pop(slot, None)
         if slot in self._prefill_order:
             self._prefill_order.remove(slot)
+        if slot in self._handoff_ready:
+            self._handoff_ready.remove(slot)
         self._admit_stamp.pop(slot, None)
         self._free_slots.append(slot)
 
@@ -168,6 +218,8 @@ class PagedInferenceEngine(InferenceEngine):
     # -- admission -----------------------------------------------------------
 
     def _admit(self) -> None:
+        if "kv_pool_exhaustion" in self.injected_faults:
+            return                      # injected: no blocks to admit with
         while self._queue and self._free_slots:
             req = self._queue[0]
             prev = self._progress.get(req.request_id)
@@ -246,24 +298,28 @@ class PagedInferenceEngine(InferenceEngine):
         """One tick: admit, run the scheduler's prefill chunks, then one
         batched decode (or speculative) round.  Returns True while there
         is (or may be) work left."""
+        self._evict_expired()
         self._admit()
+        self._export_cache_gauges()
         if not self._active:
             return bool(self._queue)
-        decoding = [s for s in self._active if s not in self._prefilling]
+        decoding = [s for s in self._active if s not in self._prefilling
+                    and s not in self._handoff_ready]
         if self._prefilling:
             plan = self.scheduler.plan(
                 len(decoding),
                 [(s, len(self._prefilling[s].ctx) - self._prefilling[s].done)
                  for s in self._prefill_order],
-                self.spec.num_tokens if (self.spec is not None and decoding)
+                self.spec.num_tokens if (self._spec_active and decoding)
                 else 0)
             for slot, n in plan.chunks.items():
                 if slot in self._prefilling:     # may have been preempted
                     self._run_prefill_chunk(slot, n)
         decoding = sorted(s for s in self._active
-                          if s not in self._prefilling)
+                          if s not in self._prefilling
+                          and s not in self._handoff_ready)
         if decoding:
-            if self.spec is not None:
+            if self._spec_active:
                 self._spec_round(decoding)
             else:
                 self._decode_round(decoding)
@@ -284,9 +340,10 @@ class PagedInferenceEngine(InferenceEngine):
             st = self._active[slot]
             tokens[slot] = st.next_token
             positions[slot] = st.position
-        # a slot that is not decoding (its prefill still chunking) feeds
-        # token 0 at position 0: its row must point at the garbage block,
-        # or that write lands on its real position 0
+        # a slot that is not decoding (its prefill still chunking, or
+        # parked for a handoff) feeds token 0 at position 0: its row must
+        # point at the garbage block, or that write lands on its real
+        # position 0
         tables = np.zeros_like(self._tables)
         tables[decoding] = self._tables[decoding]
         tok, tbl, pos = (self._dev(tokens), self._dev(tables),
@@ -352,19 +409,120 @@ class PagedInferenceEngine(InferenceEngine):
         st.generated.append(nxt)
         del self._prefilling[slot]
         self._prefill_order.remove(slot)
+        if not self._maybe_finish(slot, st) and self.prefill_only:
+            # disaggregated prefill replica: park the request (no decode
+            # steps here) until the fleet ships its KV with export_kv
+            self._handoff_ready.append(slot)
+
+    # -- the disaggregated KV handoff ----------------------------------------
+
+    def handoffs_ready(self) -> List[tuple]:
+        """``(slot, request_id)`` pairs parked after a completed prefill on
+        a ``prefill_only`` engine, ascending slot — the export queue the
+        disaggregated fleet drains each tick."""
+        return [(s, self._active[s].request.request_id)
+                for s in sorted(self._handoff_ready)]
+
+    def export_kv(self, request_id) -> KvHandoff:
+        """Strip ``request_id`` off this engine WITH its KV blocks.  The
+        :class:`KvHandoff` carries a copy of every block backing ``kv_len =
+        position`` valid positions (the KV of ``prompt + generated[:-1]``),
+        so :meth:`adopt_kv` resumes without re-running prefill.  The copy
+        is a gather into fresh device memory, queued on the stream before
+        any later write, so the blocks can be reused as soon as this
+        returns.  Terminal on this engine like a migration: reason
+        ``"migrated"``, no Response.  Raises KeyError when the id is not
+        active here and ValueError while its prefill is still chunking."""
+        slot = next((s for s, st in self._active.items()
+                     if st.request.request_id == request_id), None)
+        if slot is None:
+            raise KeyError(f"request {request_id!r} is not active on "
+                           "this engine")
+        if slot in self._prefilling:
+            raise ValueError(
+                f"request {request_id!r} is mid-prefill; its KV is "
+                "incomplete — export_inflight() re-prefills instead")
+        st = self._active[slot]
+        seq = self._seqs[slot]
+        kv_len = st.position
+        ids = seq.block_ids[:self.pool.blocks_for(kv_len)]
+        handoff = KvHandoff(
+            request=st.request,
+            generated=list(st.generated),
+            kv_len=kv_len,
+            kv_tokens=list(st.request.prompt) + list(st.generated[:-1]),
+            payload=self.pool.export_blocks(ids),
+            block_size=self.pool.block_size,
+            kind=self.pool.kind)
+        st = self._active.pop(slot)
+        self._release(slot, st)
+        rid = st.request.request_id
+        self._submit_time.pop(rid, None)
+        self._progress.pop(rid, None)
+        self.metrics.request_migrated(rid)
+        self.trace.finish(rid, "migrated")
+        return handoff
+
+    def adopt_kv(self, handoff: KvHandoff) -> int:
+        """Install a shipped-KV request: acquire blocks for its
+        ``kv_tokens``, copy the payload into them, and resume decode at
+        ``position = kv_len`` feeding ``generated[-1]`` — no re-prefill.
+        The storage tags (``kind``, ``block_size``) must match: a
+        mismatch goes through the re-prefill fallback (:meth:`adopt`).
+        Admission is immediate: raises :class:`QueueFull` when no slot or
+        no blocks are free, ValueError on a tag or context misfit.
+        Returns the slot."""
+        req = handoff.request
+        if handoff.kind != self.pool.kind:
+            raise ValueError(
+                f"handoff cache kind {handoff.kind!r} does not match "
+                f"this pool ({self.pool.kind!r}); re-prefill via adopt()")
+        if handoff.block_size != self.pool.block_size:
+            raise ValueError(
+                f"handoff block_size {handoff.block_size} does not "
+                f"match this pool ({self.pool.block_size})")
+        if len(req.prompt) + len(handoff.generated) >= self.max_seq:
+            raise ValueError(
+                f"context {len(req.prompt)} + {len(handoff.generated)} "
+                f"does not fit max_seq={self.max_seq}; finish with "
+                "reason='preempted' instead of adopting")
+        self._validate(req)
+        if "reject_admission" in self.injected_faults:
+            raise QueueFull("injected fault: admission rejected at this "
+                            "replica")
+        if not self._free_slots:
+            raise QueueFull("no free decode slot for the KV handoff; "
+                            "retry after step() completes one")
+        seq = self.pool.acquire(handoff.kv_tokens)
+        if seq is None:
+            raise QueueFull("no free blocks for the KV handoff; retry "
+                            "after decode completions release some")
+        # trie-shared prefix blocks already hold the same KV (published by
+        # an earlier adopt of the same prefix): copy only the fresh tail
+        start = seq.shared_tokens // self.pool.block_size
+        self.pool.import_blocks(
+            seq.block_ids[start:],
+            {k: v[start:] for k, v in handoff.payload.items()})
+        self.pool.register_prefix(seq, handoff.kv_tokens)
+        slot = self._free_slots.pop()
+        self._admitted_count += 1
+        self._admit_stamp[slot] = self._admitted_count
+        self._seqs[slot] = seq
+        self._tables[slot] = self.pool.table_row(seq, self.max_blocks)
+        rid = req.request_id
+        self._submit_time[rid] = self.clock()
+        self.metrics.request_submitted(rid)
+        self.trace.enqueue(rid, ctx=req.trace)
+        self.trace.admit(rid)
+        self.trace.resumed(rid)
+        self._draft_admit(slot, handoff.kv_tokens)
+        st = _Active(req, len(req.prompt),
+                     next_token=handoff.generated[-1],
+                     position=handoff.kv_len,
+                     generated=list(handoff.generated))
+        self._active[slot] = st
         self._maybe_finish(slot, st)
-
-    # -- the disaggregated handoff (fleet slice) -----------------------------
-
-    def export_kv(self, request_id):
-        raise NotImplementedError(
-            f"export_kv (the disaggregated KV handoff) comes with "
-            f"{FLEET_SLICE} of apex_tpu_torch")
-
-    def adopt_kv(self, handoff):
-        raise NotImplementedError(
-            f"adopt_kv (the disaggregated KV handoff) comes with "
-            f"{FLEET_SLICE} of apex_tpu_torch")
+        return slot
 
     # -- speculative decoding ------------------------------------------------
 
@@ -443,6 +601,7 @@ class PagedInferenceEngine(InferenceEngine):
                                  error=f"{type(e).__name__}: {e}")
                     break
                 self.metrics.token(st.request.request_id)
+                self.trace.decode_tick(st.request.request_id)
                 st.generated.append(tok)
                 st.next_token = tok
                 st.position += 1
@@ -452,9 +611,11 @@ class PagedInferenceEngine(InferenceEngine):
                 if j == lim[s] - 1:
                     break
                 self.spec_proposed += 1
+                self._c_spec_prop.inc()
                 if tok != proposals[s, j]:
                     break               # rejected KV stays masked garbage
                 self.spec_accepted += 1
+                self._c_spec_acc.inc()
 
     @property
     def spec_accept_rate(self) -> float:

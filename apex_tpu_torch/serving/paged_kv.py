@@ -25,9 +25,10 @@ Block 0 is the *garbage block*: inactive decode rows point their whole
 table at it, so their writes never touch a live block.
 
 Bookkeeping is host-side Python; the pool tensor is updated in place (the
-JAX pool is rebound on every write).  The registry gauges of the JAX class
-wait for the observability slice (the counters are attributes here), and
-``export_blocks`` / ``import_blocks`` for the fleet slice.
+JAX pool is rebound on every write).  ``registry=`` publishes the pool's
+``serving_paged_*`` gauges and counters, labelled by the pool's ``name``.
+``export_blocks`` / ``import_blocks`` copy raw block storage between two
+pools of the same ``kind`` (the disaggregated KV handoff).
 """
 
 from __future__ import annotations
@@ -78,9 +79,12 @@ class PagedSequence:
 class PagedKVCache:
     """Block pool + block tables + prefix trie for paged decode."""
 
+    kind = "paged"                  # handoff compatibility tag
+
     def __init__(self, num_blocks: int, block_size: int, layers: int,
                  kv_heads: int, head_dim: int, dtype=torch.bfloat16,
-                 share_prefixes: bool = True, device=None):
+                 share_prefixes: bool = True, device=None, registry=None,
+                 name: str = "pool0"):
         if num_blocks < 2:
             raise ValueError("num_blocks must be >= 2 (block 0 is the "
                              "reserved garbage block)")
@@ -91,6 +95,7 @@ class PagedKVCache:
             dtype=dtype, device=resolve_device(device))
         self.block_size = block_size
         self.share_prefixes = share_prefixes
+        self.name = name
         # block 0 is reserved: never allocated, never freed
         self._ref = np.zeros((num_blocks,), np.int32)
         self._ref[0] = 1
@@ -101,6 +106,29 @@ class PagedKVCache:
         self.prefix_lookup_tokens = 0
         self.evicted_blocks = 0
         self.cow_copies = 0
+        self._g_free = self._g_used = self._g_shared = None
+        self._c_hits = self._c_evict = self._c_cow = None
+        if registry is not None:
+            self._g_free = registry.gauge(
+                "serving_paged_blocks_free", "free pool blocks", ["cache"])
+            self._g_used = registry.gauge(
+                "serving_paged_blocks_used", "allocated pool blocks",
+                ["cache"])
+            self._g_shared = registry.gauge(
+                "serving_paged_blocks_shared",
+                "blocks referenced more than once (prefix sharing / COW)",
+                ["cache"])
+            self._c_hits = registry.counter(
+                "serving_paged_prefix_hit_tokens_total",
+                "prompt tokens served from the prefix trie", ["cache"])
+            self._c_evict = registry.counter(
+                "serving_paged_evicted_blocks_total",
+                "cached prefix blocks reclaimed under memory pressure",
+                ["cache"])
+            self._c_cow = registry.counter(
+                "serving_paged_cow_total", "copy-on-write block copies",
+                ["cache"])
+        self._update_gauges()
 
     # -- accounting ----------------------------------------------------------
 
@@ -145,6 +173,12 @@ class PagedKVCache:
                 "prefix_lookup_tokens": self.prefix_lookup_tokens,
                 "evicted_blocks": self.evicted_blocks,
                 "cow_copies": self.cow_copies}
+
+    def _update_gauges(self) -> None:
+        if self._g_free is not None:
+            self._g_free.set(self.free_blocks, cache=self.name)
+            self._g_used.set(self.used_blocks, cache=self.name)
+            self._g_shared.set(self.shared_blocks, cache=self.name)
 
     # -- block-level plumbing ------------------------------------------------
 
@@ -192,7 +226,29 @@ class PagedKVCache:
         del victim.parent.children[victim.key]
         self._deref(victim.block)
         self.evicted_blocks += 1
+        if self._c_evict is not None:
+            self._c_evict.inc(cache=self.name)
         return True
+
+    def flush_prefixes(self) -> int:
+        """Drop the ENTIRE prefix trie at once (the degradation ladder's
+        level 2: shed cached state before shedding requests).  Blocks
+        still held by live sequences survive until those release;
+        trie-only blocks return to the free list now.  Returns the number
+        of trie nodes dropped."""
+        dropped = 0
+        stack = list(self._root.children.values())
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            self._deref(node.block)
+            dropped += 1
+        self._root.children = {}
+        self.evicted_blocks += dropped
+        if self._c_evict is not None and dropped:
+            self._c_evict.inc(dropped, cache=self.name)
+        self._update_gauges()
+        return dropped
 
     # -- sequence lifecycle --------------------------------------------------
 
@@ -224,6 +280,9 @@ class PagedKVCache:
             self._ref[bid] += 1
         self.prefix_hit_tokens += shared_tokens
         self.prefix_lookup_tokens += n
+        if self._c_hits is not None and shared_tokens:
+            self._c_hits.inc(shared_tokens, cache=self.name)
+        self._update_gauges()
         return PagedSequence(blocks, n, shared_tokens)
 
     def register_prefix(self, seq: PagedSequence,
@@ -243,6 +302,7 @@ class PagedKVCache:
                 self._ref[seq.block_ids[i]] += 1
             child.stamp = self._tick()
             node = child
+        self._update_gauges()
 
     def release(self, seq: PagedSequence) -> None:
         """Drop ``seq``'s references (trie-published blocks stay cached)."""
@@ -250,6 +310,7 @@ class PagedKVCache:
             self._deref(bid)
         seq.block_ids = []
         seq.num_tokens = 0
+        self._update_gauges()
 
     def ensure_capacity(self, seq: PagedSequence, n_tokens: int) -> bool:
         """Grow ``seq``'s table to cover ``n_tokens`` positions with fresh
@@ -260,6 +321,7 @@ class PagedKVCache:
         if not self._reserve(need):
             return False
         seq.block_ids.extend(self._alloc_block() for _ in range(need))
+        self._update_gauges()
         return True
 
     def ensure_writable(self, seq: PagedSequence, block_index: int) -> int:
@@ -276,6 +338,9 @@ class PagedKVCache:
         self._ref[bid] -= 1
         seq.block_ids[block_index] = new
         self.cow_copies += 1
+        if self._c_cow is not None:
+            self._c_cow.inc(cache=self.name)
+        self._update_gauges()
         return new
 
     def fork(self, seq: PagedSequence) -> PagedSequence:
@@ -283,6 +348,7 @@ class PagedKVCache:
         :meth:`ensure_writable` on the tail block before appending."""
         for bid in seq.block_ids:
             self._ref[bid] += 1
+        self._update_gauges()
         return PagedSequence(list(seq.block_ids), seq.num_tokens,
                              seq.shared_tokens)
 
@@ -323,6 +389,28 @@ class PagedKVCache:
             row[:len(seq.block_ids)] = seq.block_ids
         return row
 
+    # -- cross-pool handoff (serving.disagg) ----------------------------------
+
+    def _ids(self, block_ids: Sequence[int]) -> torch.Tensor:
+        return torch.tensor(list(block_ids), dtype=torch.long,
+                            device=self.data.device)
+
+    def export_blocks(self, block_ids: Sequence[int]) -> Dict[str, Any]:
+        """Copy ``block_ids``'s raw storage into fresh tensors on the
+        pool's device — the payload a KV handoff ships.  The gather is
+        queued on the current stream, so a later write into these blocks
+        cannot reach the copy.  :meth:`import_blocks` on a pool of the
+        same :attr:`kind` installs it bitwise."""
+        return {"data": self.data.index_select(0, self._ids(block_ids))}
+
+    def import_blocks(self, block_ids: Sequence[int],
+                      payload: Dict[str, Any]) -> None:
+        """Install an :meth:`export_blocks` payload into ``block_ids``
+        (blocks that THIS pool owns exclusively)."""
+        self.data.index_copy_(0, self._ids(block_ids),
+                              payload["data"].to(self.data.device,
+                                                 self.data.dtype))
+
 
 class QuantizedPagedKVCache(PagedKVCache):
     """Int8 scale-per-block paged KV cache: int8 blocks with one f32 scale
@@ -341,14 +429,27 @@ class QuantizedPagedKVCache(PagedKVCache):
       blocks), so a published prefix block's quantization is frozen.
     """
 
+    kind = "paged_int8"
+
     def __init__(self, num_blocks: int, block_size: int, layers: int,
                  kv_heads: int, head_dim: int, dtype=torch.bfloat16,
-                 share_prefixes: bool = True, device=None):
+                 share_prefixes: bool = True, device=None, registry=None,
+                 name: str = "pool0"):
         super().__init__(num_blocks, block_size, layers, kv_heads,
                          head_dim, dtype=torch.int8,
-                         share_prefixes=share_prefixes, device=device)
+                         share_prefixes=share_prefixes, device=device,
+                         registry=registry, name=name)
+        self.compute_dtype = dtype
         self.scales = torch.ones((num_blocks, layers, 2, kv_heads),
                                  dtype=_f32, device=self.data.device)
+        if registry is not None:
+            ref_bytes = (self.data[0].numel()
+                         * torch.empty((), dtype=dtype).element_size())
+            registry.gauge(
+                "serving_kv_quant_compression_ratio",
+                "quantized block bytes (incl. scales) over the compute-"
+                "dtype block bytes", ["cache"]).set(
+                    self.block_bytes / ref_bytes, cache=self.name)
 
     @property
     def block_bytes(self) -> int:
@@ -388,3 +489,16 @@ class QuantizedPagedKVCache(PagedKVCache):
         idx = torch.tensor(ids, device=self.data.device)
         self.data[idx] = q8
         self.scales[idx] = sc
+
+    def export_blocks(self, block_ids: Sequence[int]) -> Dict[str, Any]:
+        ids = self._ids(block_ids)
+        return {"data": self.data.index_select(0, ids),
+                "scales": self.scales.index_select(0, ids)}
+
+    def import_blocks(self, block_ids: Sequence[int],
+                      payload: Dict[str, Any]) -> None:
+        ids = self._ids(block_ids)
+        self.data.index_copy_(0, ids, payload["data"].to(self.data.device,
+                                                         torch.int8))
+        self.scales.index_copy_(0, ids, payload["scales"].to(
+            self.scales.device, _f32))

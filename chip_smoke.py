@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive apex_tpu_torch's serving and training paths (GPT serving, GPT
 training, BERT training under amp O2, each also with the fused FFN and
-under activation recompute, ResNet-50 ImageNet training under amp O1 and O2, paged and int8 GPT
-serving) on one NVIDIA H100 and hold every kernel of the paths against its
-plain PyTorch version.
+under activation recompute, ResNet-50 ImageNet training under amp O1 and
+O2, paged and int8 GPT serving, the serving fleet) on one NVIDIA H100 and
+hold every kernel of the paths against its plain PyTorch version.
 
     python3 chip_smoke.py [--out results.json] [--profile breakdown.txt]
 
@@ -168,6 +168,34 @@ Phases (any failure exits non-zero; nothing is caught):
    ``wrap_optimizer(FusedAdam)`` and ``FP16_Optimizer`` (dynamic scale)
    over ``network_to_half``, each skipping an injected overflow step bit
    for bit, no plain version called.  (Phase 12 runs after 8b.)
+13. the serving fleet on phase 3's GPT-350M (after phase 11, on a virtual
+   clock; every run counts its launches exactly, calls no plain version and
+   answers no request with ``"error"``): (13a) ``tools/loadgen_torch.py``'s
+   ``replica_kill`` over 3 ``PagedInferenceEngine(max_slots=4,
+   block_size=16)`` replicas, 16 requests of 4..512 prompt tokens, about
+   half behind one 64-token prefix, 32 new tokens, replica 1 crashing at
+   tick 4: exactly once, the crash migrates work, only replica 1's health
+   changes (suspect, then dead), tokens equal one uninterrupted paged
+   engine's; (13b) ``bursty`` (bursts of 8, 2 queued a replica, no fleet
+   retry budget): exactly once, every shed names its ``ShedReason``;
+   (13c) two ``InferenceEngine(max_slots=8)``: ``export_inflight`` at
+   decode step 8 and ``adopt`` give the uninterrupted tokens, or leave
+   them only at a near-tie (top-2 gap under ``LOGITS_ATOL``: the re-prefill
+   rounds in another order than the decode steps it replaces), a deadline
+   and a timeout end ``"evicted"`` / ``"timeout"`` with their partial
+   tokens; (13d) ``DisaggregatedFleet`` (1 prefill-only + 1 decode replica,
+   chunked prefill, ``KvChannel``) with a bf16 pool, the int8 KV pool, and
+   int8 KV with int8 weights (#14): every request ships (no handoff lost),
+   each install is its payload bit for bit, the channel's bytes are the
+   blocks shipped times ``block_bytes``, the prefill replica never decodes,
+   and one request at a time the tokens equal the chunked paged engine's
+   (at full concurrency the agreement is measured); (13e)
+   ``PoolCapacityController`` moves one replica prefill -> decode under
+   traffic: it commits, exactly once, ``audit()`` clean; (13f) 13a's merged
+   trace passes ``check_flows`` (one connected chain per request, the
+   migrated ones included), the engines' ``serving_*`` registry series
+   match the responses, and the host time a tick with the tracers on and
+   off.
 
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -180,6 +208,7 @@ import collections
 import contextlib
 import importlib
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -5053,6 +5082,633 @@ def log_fused_change(tag, base, fused):
 
 # -- main --------------------------------------------------------------------
 
+# -- phase 13 ----------------------------------------------------------------
+
+FLEET_SLOTS = 4                # slots of each fleet replica (13a, 13b)
+FLEET_NEW_TOKENS = 32
+SEQ_NEW_TOKENS = 16            # 13d's one-at-a-time runs, 13e
+FLEET_REASONS = ("eos", "length", "evicted", "timeout", "error", "preempted",
+                 "migrated", "cancelled")
+
+
+def _loadgen():
+    """``tools/loadgen_torch.py``, the fleet's entry point, as a module."""
+    tools = str(pathlib.Path(__file__).resolve().parent / "tools")
+    sys.path.insert(0, tools)
+    try:
+        return importlib.import_module("loadgen_torch")
+    finally:
+        sys.path.remove(tools)
+
+
+def fleet_args(scenario, **kw):
+    """``tools/loadgen_torch.py``'s flags for phase 13's fleet: 3 replicas
+    of 4 slots with blocks of 16, 16 requests of 4..512 prompt tokens
+    (bounded Pareto) of which about half sit behind one 64-token prefix,
+    32 new tokens each, arriving at once; replica 1 crashes at tick 4 for
+    good (``replica_kill``).  Ticks are 0.02 s of a virtual clock."""
+    base = dict(
+        scenario=scenario, requests=16, rate=1e9, replicas=3,
+        max_slots=FLEET_SLOTS, max_queue=64, max_queue_depth=8,
+        burn_threshold=14.4, burn_window_s=60.0, ttft_slo_s=0.5,
+        block_size=PAGED_BS, chunked=False, token_budget=64,
+        client_retries=3, tick_s=0.02, e2e_slo_s=3.0, max_ticks=3000,
+        retry_budget=4, hedge_after_s=None, ladder_step_down_s=0.5,
+        kill_tick=4, kill_replica=1, kill_duration=10 ** 6, slow_tick=4,
+        slow_s=0.1, slow_duration=40, burst_n=8, burst_gap_s=0.5,
+        period_s=4.0, seed=0, min_prompt=4, pareto_shape=2.5,
+        max_new=FLEET_NEW_TOKENS, shared_prefix_prob=0.5,
+        shared_prefix_len=SYSTEM_PROMPT, num_prefixes=1,
+        vocab=GPT350M["vocab_size"], hidden=HIDDEN,
+        layers=GPT350M["num_layers"], heads=HEADS,
+        max_seq=512 + FLEET_NEW_TOKENS + 1, device="cuda", trace=True)
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+@contextlib.contextmanager
+def counting_programs():
+    """Count the engines' device programs while the block runs: monolithic
+    prefills (``prefill``) and prefill chunks (``chunk``) of every engine.
+    Decode steps are each engine's ``metrics.occupancy`` entries."""
+    from apex_tpu_torch.inference import InferenceEngine
+    from apex_tpu_torch.serving import PagedInferenceEngine
+    counts = collections.Counter()
+    patched = ((InferenceEngine, "_prefill_context", "prefill"),
+               (PagedInferenceEngine, "_chunk_forward", "chunk"))
+    saved = [(cls, name, cls.__dict__[name]) for cls, name, _ in patched]
+    for (cls, name, key), (_, _, fn) in zip(patched, saved):
+        def counted(self, *args, _fn=fn, _key=key):
+            counts[_key] += 1
+            return _fn(self, *args)
+        setattr(cls, name, counted)
+    try:
+        yield counts
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+def fleet_counted(tag, run, engines=None):
+    """Run ``run()`` (which returns ``(result, engines)``) with the serving
+    kernels' counters set to 0 just before and read just after, the
+    engines' device programs and plain-version calls counted.  Returns
+    ``(result, launches dict for check_launches)``; fails on a plain
+    version called or an ``"error"`` response."""
+    counters = _serving_counters()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with counting_programs() as programs, \
+            counting_plain_versions() as plain_calls:
+        result, engines = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    if sum(plain_calls.values()):
+        raise AssertionError(f"{tag} called plain versions: "
+                             f"{dict(plain_calls)}")
+    errors = [(r.request_id, r.error) for e in engines for r in e.completed
+              if r.finish_reason == "error"]
+    if errors:
+        raise AssertionError(f"{tag} requests failed inside an engine: "
+                             f"{errors}")
+    steps = sum(len(e.metrics.occupancy) for e in engines)
+    return result, dict(launches=launches, prefills=programs["prefill"],
+                        chunks=programs["chunk"], steps=steps, wall_s=wall)
+
+
+def _exactly_once(tag, rep):
+    if rep["lost"] or rep["duplicated"] or rep["fleet_pending"] \
+            or rep["responses"] != rep["submitted"]:
+        raise AssertionError(
+            f"{tag} exactly-once broken: {rep['submitted']} submitted, "
+            f"{rep['responses']} answered, lost {rep['lost']}, duplicated "
+            f"{rep['duplicated']}, pending {rep['fleet_pending']}")
+
+
+def _registry_ledger(tag, engines, responses):
+    """The engines' ``serving_requests_total`` and
+    ``serving_finished_total{reason}`` against the responses: every request
+    an engine took reached a terminal reason there, and the eos / length
+    finishes are the fleet's eos / length responses."""
+    took = finished = 0
+    by_reason = collections.Counter()
+    for e in engines:
+        reg = e.metrics.registry
+        took += reg.get("serving_requests_total").value()
+        fin = reg.get("serving_finished_total")
+        for reason in FLEET_REASONS:
+            n = fin.value(reason=reason)
+            by_reason[reason] += n
+            finished += n
+    answered = collections.Counter(r.finish_reason for r in responses)
+    ok = took == finished and all(
+        by_reason[r] == answered[r] for r in ("eos", "length"))
+    nonzero = {k: v for k, v in by_reason.items() if v}
+    log(f"    registry: serving_requests_total {took:g}, "
+        f"serving_finished_total {nonzero}; responses {dict(answered)}")
+    if not ok:
+        raise AssertionError(f"{tag} the registry's serving series do not "
+                             "match the responses")
+    return dict(requests_total=took, finished_total=dict(by_reason))
+
+
+def phase_fleet_kill(model, smi):
+    """13a: ``replica_kill`` through ``tools/loadgen_torch.py`` on three
+    replicas of GPT-350M, against one uninterrupted paged engine on the
+    same prompts; then 13f's tracer-off run of the same scenario."""
+    from apex_tpu_torch.inference import Request
+    from apex_tpu_torch.observability import check_flows
+    from apex_tpu_torch.serving import PagedInferenceEngine
+    lg = _loadgen()
+    args = fleet_args("replica_kill")
+    work = lg.synthesize_scenario(args)
+    lens = [len(r.prompt) for _, r in work]
+    log(f"[13a] replica_kill: {args.replicas} x PagedInferenceEngine("
+        f"max_slots={FLEET_SLOTS}, block_size={PAGED_BS}), {len(work)} "
+        f"requests of {min(lens)}..{max(lens)} prompt tokens ({lens}), "
+        f"{FLEET_NEW_TOKENS} new tokens, replica {args.kill_replica} "
+        f"crashing at tick {args.kill_tick}")
+    ref = PagedInferenceEngine(model, max_slots=FLEET_SLOTS,
+                               block_size=PAGED_BS)
+    for _, r in work:
+        ref.submit(Request(r.request_id, list(r.prompt),
+                           max_new_tokens=r.max_new_tokens))
+    want = {r.request_id: r.tokens for r in ref.run()}
+    del ref
+    stack = {}
+
+    def run():
+        rep = lg.run_scenario(args, model=model, stack=stack)
+        return rep, stack["replicas"]
+    rep, counted = fleet_counted("[13a]", run)
+    fleet, replicas = stack["fleet"], stack["replicas"]
+    responses = fleet.completed
+    got = {r.request_id: r.tokens for r in responses}
+    check_launches("[13a]", counted, model.cfg.num_layers, paged=True)
+    _exactly_once("[13a]", rep)
+    trans = {i: [(a, b) for _, r, a, b in rep["health_log"] if r == i]
+             for i in range(args.replicas)}
+    rec = rep["recovery"]
+    kill_t = (args.kill_tick - 1) * args.tick_s
+    detect = rec["first_dead"]["tick"] - args.kill_tick \
+        if rec["first_dead"] else None
+    resumed = (rec["first_resumed_token"]["t"] - kill_t
+               if rec["first_resumed_token"] else None)
+    tok_s = rep["tokens"] / counted["wall_s"]
+    log(f"    {rep['responses']}/{rep['submitted']} answered in "
+        f"{rep['ticks']} ticks ({rep['virtual_s']:.2f} virtual s), "
+        f"outcomes {rep['outcomes']}, {rep['migrations']} migrations, "
+        f"{counted['prefills']} prefills, {counted['steps']} decode steps; "
+        f"health {rep['health_log']}; fault log {rep['fault_log']}")
+    log(f"    recovery {rec}: dead {detect} ticks after the crash, first "
+        f"resumed token {resumed} virtual s after it; fleet wall "
+        f"{counted['wall_s']:.3f} s, {rep['tokens']} tokens, {tok_s:.1f} "
+        f"tokens/s ({smi})")
+    if rep["migrations"] < 1:
+        raise AssertionError("[13a] the crash migrated nothing")
+    if trans[args.kill_replica] != [("healthy", "suspect"),
+                                    ("suspect", "dead")] or any(
+            trans[i] for i in trans if i != args.kill_replica):
+        raise AssertionError(f"[13a] unplanned health changes: {trans}")
+    diff = sorted(i for i in want if got.get(i) != want[i])
+    log(f"    tokens {'equal to' if not diff else 'DIFFER from'} one "
+        f"uninterrupted paged engine's" + (f" for {diff}" if diff else ""))
+    if diff:
+        raise AssertionError(f"[13a] requests {diff} resumed with other "
+                             "tokens")
+    # 13f: the merged trace and the registry
+    fc = lg.fleet_collector(fleet, replicas)
+    flows = check_flows(fc.events())
+    migrated = sorted(t for t, c in flows["chains"].items()
+                      if c["migrated"])
+    log(f"[13f] check_flows over the merged timeline: "
+        f"{len(flows['complete'])}/{len(flows['chains'])} chains complete, "
+        f"{len(flows['broken'])} broken, {len(flows['orphans'])} orphans, "
+        f"{len(migrated)} migrated ({migrated})")
+    if (len(flows["chains"]) != len(work) or len(flows["complete"])
+            != len(work) or flows["broken"] or flows["orphans"]
+            or not migrated):
+        raise AssertionError("[13f] the request flows are not one "
+                             "connected chain each")
+    ledger = _registry_ledger("[13f]", replicas, responses)
+    untraced = {}
+
+    def run_untraced():
+        r = lg.run_scenario(fleet_args("replica_kill", trace=False),
+                            model=model, stack=untraced)
+        return r, untraced["replicas"]
+    rep_off, counted_off = fleet_counted("[13f]", run_untraced)
+    check_launches("[13f] untraced", counted_off, model.cfg.num_layers,
+                   paged=True)
+    same = ({r.request_id: r.tokens for r in untraced["fleet"].completed}
+            == got and rep_off["ticks"] == rep["ticks"])
+    on = counted["wall_s"] / rep["ticks"]
+    off = counted_off["wall_s"] / rep_off["ticks"]
+    log(f"    host time per fleet tick: {on * 1e3:.3f} ms traced, "
+        f"{off * 1e3:.3f} ms untraced ({(on - off) * 1e3:+.3f} ms, "
+        f"{on / off - 1:+.2%}; {smi}); the untraced run "
+        f"{'answers the same' if same else 'DIFFERS'}")
+    if not same:
+        raise AssertionError("[13f] the untraced fleet served other tokens")
+    return dict(report=rep, launches=counted["launches"],
+                counts={k: counted[k] for k in ("prefills", "steps")},
+                wall_s=counted["wall_s"], tokens_per_s=tok_s,
+                detect_ticks=detect, resumed_virtual_s=resumed,
+                flows=dict(chains=len(flows["chains"]),
+                           complete=len(flows["complete"]),
+                           migrated=migrated),
+                registry=ledger, tick_ms_traced=on * 1e3,
+                tick_ms_untraced=off * 1e3,
+                untraced_launches=counted_off["launches"])
+
+
+def phase_fleet_bursty(model, smi):
+    """13b: ``bursty`` on the same fleet and model: bursts of 8 at once
+    against a router bound of 2 queued per replica and no fleet retry
+    budget, so the overflow is shed with a reason and the client backs off
+    and resubmits; the degradation ladder follows the burn."""
+    lg = _loadgen()
+    args = fleet_args("bursty", max_queue_depth=2, burst_n=8,
+                      burst_gap_s=0.1, retry_budget=0, client_retries=8)
+    stack = {}
+
+    def run():
+        rep = lg.run_scenario(args, model=model, stack=stack)
+        return rep, stack["replicas"]
+    rep, counted = fleet_counted("[13b]", run)
+    check_launches("[13b]", counted, model.cfg.num_layers, paged=True)
+    _exactly_once("[13b]", rep)
+    log(f"[13b] bursty: {rep['responses']}/{rep['submitted']} answered in "
+        f"{rep['ticks']} ticks, outcomes {rep['outcomes']}, sheds by "
+        f"reason {rep['shed_reasons']}, SLO attainment "
+        f"{rep['slo_attainment']:.4f} (e2e p50 {rep['e2e_p50_s']:.3f} / "
+        f"p99 {rep['e2e_p99_s']:.3f} virtual s), highest degradation level "
+        f"{rep['degraded_max_level']}, {rep['retries']} retries; wall "
+        f"{counted['wall_s']:.3f} s ({smi})")
+    if None in rep["shed_reasons"]:
+        raise AssertionError("[13b] a shed carried no ShedReason")
+    return dict(report=rep, launches=counted["launches"],
+                wall_s=counted["wall_s"])
+
+
+def resumed_divergence(model, prompts, got, want):
+    """Where each resumed stream first leaves the uninterrupted one:
+    ``{request: (index, margin)}``, the margin being the uninterrupted
+    run's top-2 logit gap at that index (one prefill of the prompt and the
+    tokens before it).  A resumed request re-prefills its context, so its
+    K / V and its next logits come from the prefill's GEMM shapes and the
+    flash forward, where the uninterrupted run had decode steps: in bf16
+    the two orders of rounding differ by up to LOGITS_ATOL (phase 4's
+    bound for two such orders), and a greedy pick whose top-2 gap is below
+    that may flip."""
+    out = {}
+    for i in want:
+        g, w = got[i], want[i]
+        if g == w:
+            continue
+        k = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        ctx = torch.tensor([list(prompts[i]) + w[:k]],
+                           device=model.device)
+        logits, _ = model.prefill(ctx)
+        top2 = logits[0, -1].float().topk(2).values
+        out[i] = (k, round(float(top2[0] - top2[1]), 5))
+    return out
+
+
+def phase_fleet_contiguous(model):
+    """13c: two ``InferenceEngine(max_slots=8)`` (#6) on phase 3's prompts:
+    ``export_inflight`` at decode step 8 and ``adopt`` on the second engine
+    give the uninterrupted run's tokens up to, at most, one near-tie
+    (``resumed_divergence``) a request; a request past its ``deadline``
+    and one past its ``timeout`` end ``"evicted"`` / ``"timeout"`` with
+    their partial tokens (a prefix of the uninterrupted ones)."""
+    from apex_tpu_torch.inference import InferenceEngine, Request
+    from apex_tpu_torch.serving import VirtualClock
+    prompts = serving_prompts(np.random.RandomState(0),
+                              model.cfg.vocab_size)
+    new = SEQ_NEW_TOKENS
+
+    def reqs(**kw):
+        return [Request(i, p, max_new_tokens=new, **kw)
+                for i, p in enumerate(prompts)]
+
+    def run():
+        ref = InferenceEngine(model, max_slots=SLOTS)
+        for r in reqs():
+            ref.submit(r)
+        want = {r.request_id: r.tokens for r in ref.run()}
+        src = InferenceEngine(model, max_slots=SLOTS)
+        dst = InferenceEngine(model, max_slots=SLOTS)
+        for r in reqs():
+            src.submit(r)
+        while len(src.metrics.occupancy) < 8:
+            src.step()
+        moved = src.export_inflight()
+        for req, progress in moved:
+            dst.adopt(req, progress)
+        got = {r.request_id: r.tokens for r in src.completed + dst.run()}
+        clock = VirtualClock()
+        timed = InferenceEngine(model, max_slots=SLOTS, clock=clock)
+        timed.submit(Request(0, prompts[0], max_new_tokens=new,
+                             deadline=0.45))
+        timed.submit(Request(1, prompts[1], max_new_tokens=new,
+                             timeout=0.65))
+        timed.submit(Request(2, prompts[2], max_new_tokens=new))
+        while timed.queue_depth or timed.active_requests:
+            timed.step()
+            clock.advance(0.1)
+        out = {r.request_id: r for r in timed.completed}
+        return (want, got, moved, out), (ref, src, dst, timed)
+    (want, got, moved, out), counted = fleet_counted("[13c]", run)
+    check_launches("[13c]", counted, model.cfg.num_layers, paged=False)
+    streamed = {r.request_id: len(p) for r, p in moved}
+    splits = resumed_divergence(model, prompts, got, want)
+    log(f"[13c] export_inflight at decode step 8 moved "
+        f"{sorted(streamed.items())} (request, tokens streamed); adopted "
+        f"tokens {'equal' if got == want else 'DIFFER from'} the "
+        f"uninterrupted run's: {sum(got[i] == want[i] for i in want)} of "
+        f"{len(want)} requests equal; first difference (request: index, "
+        f"top-2 margin there) {splits}")
+    bad = {i: d for i, d in splits.items()
+           if d[0] < streamed.get(i, 0) or d[1] >= LOGITS_ATOL}
+    if bad:
+        raise AssertionError(f"[13c] adopted requests {sorted(bad)} resumed "
+                             "with other tokens away from a near-tie")
+    ends = {i: (r.finish_reason, len(r.tokens)) for i, r in out.items()}
+    log(f"    deadline 0.45 / timeout 0.65 virtual s (0.1 a step): "
+        f"{ends}")
+    ok = (out[0].finish_reason == "evicted"
+          and out[1].finish_reason == "timeout"
+          and out[2].finish_reason == "length"
+          and all(0 < len(out[i].tokens) < new for i in (0, 1))
+          and all(out[i].tokens == want[i][:len(out[i].tokens)]
+                  for i in (0, 1, 2)))
+    if not ok:
+        raise AssertionError("[13c] deadline / timeout outcomes wrong")
+    return dict(moved=len(moved), ends=ends, launches=counted["launches"])
+
+
+def _watch_handoffs(fleet):
+    """Wrap the decode engines' ``adopt_kv`` to hold every install against
+    its payload (``torch.equal`` on the pool rows the handoff filled, data
+    and scales) and the channel's ``send`` to time each device -> host ->
+    device copy.  Returns the log they fill."""
+    seen = dict(blocks=0, installs=0, mismatched=0, sends=[])
+    for _, eng in fleet.decode._live():
+        inner = eng.adopt_kv
+
+        def adopt(h, _eng=eng, _inner=inner):
+            slot = _inner(h)
+            seq = _eng._seqs[slot]
+            start = seq.shared_tokens // _eng.pool.block_size
+            ids = torch.tensor(seq.block_ids[start:],
+                               device=_eng.pool.data.device)
+            same = torch.equal(_eng.pool.data[ids], h.payload["data"][start:])
+            if "scales" in h.payload:
+                same = same and torch.equal(_eng.pool.scales[ids],
+                                            h.payload["scales"][start:])
+            seen["installs"] += 1
+            seen["blocks"] += len(h.payload["data"])
+            seen["mismatched"] += not same
+            return slot
+        eng.adopt_kv = adopt
+    ch = fleet.channel
+    send = ch.send
+
+    def timed_send(value, *args, _send=send, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = _send(value, *args, **kw)
+        torch.cuda.synchronize()
+        seen["sends"].append((ch._nbytes(value), time.perf_counter() - t0))
+        return out
+    ch.send = timed_send
+    return seen
+
+
+def _disagg_fleet(model, n_prefill=1, n_decode=1, slots=SLOTS, **kw):
+    from apex_tpu_torch.serving import (DisaggregatedFleet, KvChannel,
+                                        PagedInferenceEngine, VirtualClock)
+    clock = VirtualClock()
+
+    def engine(prefill_only):
+        return PagedInferenceEngine(model, max_slots=slots,
+                                    block_size=PAGED_BS, chunked_prefill=True,
+                                    prefill_only=prefill_only, clock=clock,
+                                    **kw)
+    fleet = DisaggregatedFleet(
+        [engine(True) for _ in range(n_prefill)],
+        [engine(False) for _ in range(n_decode)], clock=clock,
+        channel=KvChannel(), handoff_retry_ticks=64)
+    return fleet, clock, engine
+
+
+def _drive(fleet, clock, requests, one_at_a_time=False):
+    batches = [[r] for r in requests] if one_at_a_time else [requests]
+    for batch in batches:
+        for r in batch:
+            fleet.submit(r)
+        for _ in range(20000):
+            busy = fleet.step()
+            clock.advance(0.01)
+            if not busy and fleet.pending == 0:
+                break
+    return {r.request_id: r.tokens for r in fleet.completed}
+
+
+def _disagg_run(tag, model, prompts, new, kv_quant, int8_weights,
+                one_at_a_time):
+    """One disaggregated run (1 prefill + 1 decode replica), counted and
+    gated: every request shipped (handoffs = requests, nothing lost, no
+    fallback), each install bitwise its payload, the channel's bytes the
+    blocks shipped times ``block_bytes``, no #7 on the prefill replica."""
+    from apex_tpu_torch.inference import Request
+    fleet, clock, _ = _disagg_fleet(model, kv_quant=kv_quant)
+    seen = _watch_handoffs(fleet)
+    requests = [Request(i, p, max_new_tokens=new)
+                for i, p in enumerate(prompts)]
+
+    def run():
+        toks = _drive(fleet, clock, requests, one_at_a_time)
+        return toks, [e for r in (fleet.prefill, fleet.decode)
+                      for _, e in r._live()]
+    tokens, counted = fleet_counted(tag, run)
+    check_launches(tag, counted, model.cfg.num_layers, paged=True,
+                   int8_weights=int8_weights, int8_kv=kv_quant == "int8")
+    ch = fleet.channel
+    pool = fleet.decode.replicas[0].pool
+    prefill_steps = sum(len(e.metrics.occupancy)
+                        for _, e in fleet.prefill._live())
+    big = max(seen["sends"])
+    log(f"    {len(tokens)} answered; {fleet.handoffs} handoffs, "
+        f"{ch.lost_handoffs} lost, {fleet.fallbacks} fallbacks, "
+        f"{seen['installs']} installs ({seen['mismatched']} not bitwise), "
+        f"{seen['blocks']} blocks x {pool.block_bytes} B = "
+        f"{seen['blocks'] * pool.block_bytes} B against the channel's "
+        f"{ch.handoff_bytes} B; prefill replica decode steps "
+        f"{prefill_steps}; largest handoff {big[0]} B device -> host -> "
+        f"device in {big[1] * 1e3:.3f} ms ({big[0] / big[1] / 1e9:.2f} "
+        f"GB/s); wall {counted['wall_s']:.3f} s")
+    if (len(tokens) != len(prompts) or fleet.handoffs != len(prompts)
+            or ch.lost_handoffs or fleet.fallbacks or fleet.pending
+            or fleet.duplicate_responses):
+        raise AssertionError(f"{tag} not every request shipped once")
+    if seen["installs"] != len(prompts) or seen["mismatched"]:
+        raise AssertionError(f"{tag} an install is not its payload")
+    if ch.handoff_bytes != seen["blocks"] * pool.block_bytes:
+        raise AssertionError(f"{tag} handoff bytes do not match the blocks")
+    if prefill_steps:
+        raise AssertionError(f"{tag} the prefill replica decoded")
+    return dict(tokens=tokens, launches=counted["launches"],
+                handoffs=fleet.handoffs, handoff_bytes=ch.handoff_bytes,
+                blocks=seen["blocks"], largest_handoff_bytes=big[0],
+                largest_handoff_ms=big[1] * 1e3,
+                largest_handoff_gb_s=big[0] / big[1] / 1e9,
+                wall_s=counted["wall_s"])
+
+
+def _paged_one_at_a_time(model, prompts, new, kv_quant):
+    """The chunked paged engine's tokens with the requests admitted one at
+    a time (the disaggregated fleet's chunk schedule)."""
+    from apex_tpu_torch.inference import Request
+    from apex_tpu_torch.serving import PagedInferenceEngine
+    eng = PagedInferenceEngine(model, max_slots=SLOTS, block_size=PAGED_BS,
+                               chunked_prefill=True, kv_quant=kv_quant)
+    out = {}
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p, max_new_tokens=new))
+        out.update({r.request_id: r.tokens for r in eng.run()})
+    return out
+
+
+def phase_disagg(model, qmodel, paged, smi):
+    """13d: ``DisaggregatedFleet`` (1 prefill-only + 1 decode replica, 8
+    slots each, chunked prefill) over ``KvChannel``: a bf16 pool, the int8
+    KV pool, and int8 KV with int8 weights (#14).  Full concurrency
+    (agreement with phase 11's chunked runs measured) and one request at a
+    time (tokens equal to the chunked paged engine's in the same order)."""
+    prompts = paged_prompts(model.cfg.vocab_size)
+    short = [p[:128] for p in prompts[:4]]          # 11k's prompts
+    seq = [prompts[0][:96], prompts[2][:96]]        # both behind the prefix
+    configs = (("bf16", model, None, prompts, PAGED_NEW_TOKENS,
+                paged["chunked"]["tokens"]),
+               ("int8 KV", model, "int8", short, 32,
+                paged["int8_kv"]["tokens"]),
+               ("int8 KV + int8 weights", qmodel, "int8", short, 32,
+                paged["int8_kv"]["tokens"]))
+    out = {}
+    for name, m, kvq, full_prompts, new, ref in configs:
+        int8_w = m.cfg.weight_quant == "int8"
+        log(f"[13d] {name}: {len(full_prompts)} prompts of "
+            f"{[len(p) for p in full_prompts]} tokens, {new} new tokens, "
+            "all at once")
+        full = _disagg_run(f"[13d] {name}", m, full_prompts, new, kvq,
+                           int8_w, one_at_a_time=False)
+        agree = sum(full["tokens"][i] == ref[i] for i in ref) / len(ref)
+        log(f"    requests whose tokens equal phase 11's chunked paged "
+            f"engine at full concurrency: {agree:.4f} (measured: the "
+            "chunk schedules differ)")
+        log(f"[13d] {name}: {len(seq)} prompts of {[len(p) for p in seq]} "
+            f"tokens, {SEQ_NEW_TOKENS} new tokens, one at a time")
+        one = _disagg_run(f"[13d] {name}, one at a time", m, seq,
+                          SEQ_NEW_TOKENS, kvq, int8_w, one_at_a_time=True)
+        want = _paged_one_at_a_time(m, seq, SEQ_NEW_TOKENS, kvq)
+        same = one["tokens"] == want
+        log(f"    tokens {'equal to' if same else 'DIFFER from'} the "
+            "chunked paged engine's, one request at a time")
+        if not same:
+            raise AssertionError(f"[13d] {name}: tokens differ from the "
+                                 "paged engine's")
+        out[name] = dict(full=dict(full, agreement=agree), one=one)
+    ratio = (out["int8 KV"]["one"]["handoff_bytes"]
+             / out["bf16"]["one"]["handoff_bytes"])
+    log(f"    int8 / bf16 handoff bytes on the same requests: {ratio:.4f} "
+        f"({out['int8 KV']['one']['handoff_bytes']} / "
+        f"{out['bf16']['one']['handoff_bytes']} B; {smi})")
+    out["int8_over_bf16_bytes"] = ratio
+    return out
+
+
+def phase_pool_capacity(model):
+    """13e: ``PoolCapacityController`` over a bf16 disaggregated fleet of 2
+    prefill + 1 decode replicas with one forced ``request_shift``: it
+    commits, the pools become 1 + 2, every request answered once, and
+    ``audit()`` is clean."""
+    from apex_tpu_torch.inference import Request
+    from apex_tpu_torch.resilience import PoolCapacityController
+    fleet, clock, engine = _disagg_fleet(model, n_prefill=2, n_decode=1)
+    ctl = PoolCapacityController(
+        {"prefill": fleet.prefill, "decode": fleet.decode},
+        lambda pool: engine(pool == "prefill"), clock=clock,
+        cooldown_s=1.0)
+    prompts = [p[:128] for p in paged_prompts(model.cfg.vocab_size)[:4]]
+    before = ctl.split
+
+    def run():
+        for i, p in enumerate(prompts):
+            fleet.submit(Request(i, p, max_new_tokens=SEQ_NEW_TOKENS))
+        ctl.request_shift("to_decode")
+        for _ in range(5000):
+            busy = fleet.step()
+            ctl.tick()
+            clock.advance(0.01)
+            if not busy and fleet.pending == 0 and not ctl.shifting:
+                break
+        return fleet.completed, [e for r in (fleet.prefill, fleet.decode)
+                                 for _, e in r._live()]
+    responses, counted = fleet_counted("[13e]", run)
+    check_launches("[13e]", counted, model.cfg.num_layers, paged=True)
+    audit = ctl.audit()
+    log(f"[13e] pools {before} -> {ctl.split}, stats "
+        f"{ {k: v for k, v in ctl.stats.items() if k != 'last_shift'} }, "
+        f"audit {audit}; {len(responses)}/{len(prompts)} answered "
+        f"({collections.Counter(r.finish_reason for r in responses)}), "
+        f"{fleet.handoffs} handoffs, {fleet.fallbacks} fallbacks")
+    if (ctl.stats["shifts"] != 1 or ctl.stats["rollbacks"]
+            or ctl.split != {"prefill": before["prefill"] - 1,
+                             "decode": before["decode"] + 1}):
+        raise AssertionError("[13e] the shift did not commit")
+    if (len(responses) != len(prompts) or fleet.pending
+            or fleet.duplicate_responses
+            or any(r.finish_reason != "length" for r in responses)):
+        raise AssertionError("[13e] exactly-once broken across the shift")
+    if audit:
+        raise AssertionError(f"[13e] audit found {audit}")
+    return dict(split=ctl.split, stats={k: v for k, v in ctl.stats.items()
+                                        if k != "last_shift"},
+                launches=counted["launches"])
+
+
+def phase_fleet(model, qmodel, paged, smi):
+    """Phase 13 on GPT-350M (phase 3's weights, bf16): 13a + 13f, 13b,
+    13c, 13d, 13e.  Returns the results and the runs whose launches the
+    kernel line counts."""
+    t0 = time.perf_counter()
+    out = dict(kill=phase_fleet_kill(model, smi))
+    torch.cuda.empty_cache()
+    out["bursty"] = phase_fleet_bursty(model, smi)
+    torch.cuda.empty_cache()
+    out["contiguous"] = phase_fleet_contiguous(model)
+    torch.cuda.empty_cache()
+    out["disagg"] = phase_disagg(model, qmodel, paged, smi)
+    torch.cuda.empty_cache()
+    out["capacity"] = phase_pool_capacity(model)
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[13] phase 13 took {out['wall_s']:.1f} s")
+    d = out["disagg"]
+    runs = [out["kill"]["launches"], out["kill"]["untraced_launches"],
+            out["bursty"]["launches"], out["contiguous"]["launches"],
+            out["capacity"]["launches"]] + [
+        d[k][w]["launches"] for k in d if isinstance(d[k], dict)
+        for w in ("full", "one")]
+    return out, runs
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write all results to this JSON file")
@@ -5205,17 +5861,22 @@ def main(argv=None):
     qmodel, paged = phase_paged(model, np.random.RandomState(1))
     if args.profile:
         profiled.update(phase_profile_paged(model, qmodel, profile_lines))
+    torch.cuda.empty_cache()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    # the serving fleet on the same weights
+    fleet, fleet_runs = phase_fleet(model, qmodel, paged, smi)
     del model, qmodel
     torch.cuda.empty_cache()
     if args.profile:
         with open(args.profile, "w") as f:
             f.write("\n".join(profile_lines) + "\n")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
     both = collections.Counter(serve["launches"])
+    for launches in fleet_runs:
+        both.update(launches)
     for run in (serve_f, train, train_f, *train_remat.values(), bert,
                 bert_f, bert_r, clip, resnet["O1"],
                 resnet["O2"], resnet_baseline, *resnet_opts.values(),
@@ -5296,6 +5957,7 @@ def main(argv=None):
                            layer_norm_bwd=ln_bwd, flash=fl, flash_bwd=fl_bwd,
                            decode=dec, decode_paged=dec_paged,
                            quant_gemm=qgemm, paged_serving=paged,
+                           fleet=fleet,
                            adam=adam, multi_tensor=mt,
                            lm_head=lmh, fused_ffn=ffn, optimizers=opts,
                            serve=serve,

@@ -55,7 +55,8 @@ BERT_TINY = dict(vocab_size=64, hidden_size=64, num_layers=2,
 
 
 def _port_files():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("*_torch.py")))
 
 
 def test_importing_the_port_loads_no_jax_and_no_apex_tpu():
@@ -551,3 +552,34 @@ def test_tp_layers_keep_the_reference_refusals():
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         tL.ColumnParallelLinear(8, 8, gather_output=False,
                                 sequence_parallel_enabled=True, device="cpu")
+
+
+def test_fleet_parts_of_the_paged_engine_no_longer_raise():
+    """``prefill_only``, ``export_kv`` and ``adopt_kv`` (which raised
+    ``NotImplementedError`` until the fleet slice) run on the CPU: a
+    parked request's KV moves between two engines and decodes there."""
+    import apex_tpu_torch.serving.engine as paged
+    from apex_tpu_torch.inference import Request
+    from apex_tpu_torch.serving import PagedInferenceEngine
+    assert not hasattr(paged, "FLEET_SLICE")
+    model = GPTModel(GPTConfig(**TINY), device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    pf = PagedInferenceEngine(model, device="cpu", block_size=4,
+                              chunked_prefill=True, prefill_only=True)
+    dc = PagedInferenceEngine(model, device="cpu", block_size=4)
+    pf.submit(Request(0, [1, 2, 3, 4, 5], max_new_tokens=3))
+    while not pf.handoffs_ready():
+        pf.step()
+    handoff = pf.export_kv(0)
+    assert handoff.nbytes() == 2 * dc.pool.block_bytes
+    dc.adopt_kv(handoff)
+    (resp,) = dc.run()
+    assert resp.finish_reason == "length" and len(resp.tokens) == 3
+
+
+def test_serving_exports_every_name_of_the_reference():
+    import apex_tpu.serving as reference
+    import apex_tpu_torch.serving as port
+    missing = [n for n in reference.__all__ if not hasattr(port, n)]
+    assert not missing, missing
+    assert sorted(port.__all__) == sorted(reference.__all__)

@@ -696,11 +696,24 @@ def test_speculative_config_refusals_match_jax(tiny):
 
 
 def test_fleet_parts_raise_naming_their_slice(tiny):
-    tm = tiny[2]
-    with pytest.raises(NotImplementedError, match="slice"):
-        PagedInferenceEngine(tm, device="cpu", chunked_prefill=True,
-                             prefill_only=True)
-    eng = PagedInferenceEngine(tm, device="cpu")
-    for call in (lambda: eng.export_kv(0), lambda: eng.adopt_kv(None)):
-        with pytest.raises(NotImplementedError, match="slice"):
-            call()
+    """The fleet parts (``NotImplementedError`` naming the fleet slice
+    until it was ported) now build and refuse only what JAX's engine
+    refuses: an unknown request id, and a handoff into a pool of another
+    cache kind."""
+    jm, jp, tm = tiny
+    for make, req in ((lambda **kw: JPaged(jm, jp, **kw), JRequest),
+                      (lambda **kw: PagedInferenceEngine(tm, device="cpu",
+                                                         **kw), Request)):
+        pf = make(chunked_prefill=True, prefill_only=True, block_size=4)
+        assert pf.prefill_only and pf.handoffs_ready() == []
+        eng = make(block_size=4)
+        with pytest.raises(KeyError):
+            eng.export_kv(0)
+        pf.submit(req(0, [1, 2, 3], max_new_tokens=4))
+        while not pf.handoffs_ready():
+            pf.step()
+        handoff = pf.export_kv(0)
+        other = make(chunked_prefill=True, kv_quant="int8", block_size=4)
+        with pytest.raises(ValueError, match="kind"):
+            other.adopt_kv(handoff)
+        assert eng.adopt_kv(handoff) >= 0
