@@ -17,6 +17,14 @@ from apex_tpu_torch.amp.scaler import LossScaler
 __all__ = ["scale_loss", "unscale_step"]
 
 
+def global_found_inf(optimizer, found_inf):
+    """``found_inf`` as the optimizer's data-parallel group sees it: a
+    ZeRO optimizer's ``global_found_inf`` (the flag taken over the ranks,
+    whose gradients it reduces only in its step), else the flag itself."""
+    reduce = getattr(optimizer, "global_found_inf", None)
+    return found_inf if reduce is None else reduce(found_inf)
+
+
 def scale_loss(loss, scaler: LossScaler):
     """The loss times the scaler's current scale (call ``backward`` on
     it)."""
@@ -28,12 +36,14 @@ def unscale_step(optimizer, scaler: LossScaler):
     found-inf flag (a device scalar).
 
     Under a static scaler (the bf16 default) the check is skipped, as apex
-    skips it: no found-inf pass, no noop.
+    skips it: no found-inf pass, no noop.  A ZeRO optimizer, whose step
+    reduces the gradients, makes the flag the group's
+    (``global_found_inf``), so every rank skips and rescales together.
     """
     if scaler.dynamic:
-        grads = [p.grad for g in optimizer.param_groups for p in g["params"]
-                 if p.grad is not None]
-        found_inf = LossScaler.found_inf(grads)
+        found_inf = global_found_inf(optimizer, LossScaler.found_inf(
+            [p.grad for g in optimizer.param_groups for p in g["params"]
+             if p.grad is not None]))
         noop = found_inf.to(torch.int32)
     else:
         found_inf = torch.zeros((), dtype=torch.float32,

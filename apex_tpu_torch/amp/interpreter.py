@@ -31,7 +31,7 @@ from torch.overrides import TorchFunctionMode
 
 from apex_tpu_torch.amp.lists import classify
 
-__all__ = ["autocast"]
+__all__ = ["autocast", "autocast_dtype"]
 
 
 def _floats(args, kwargs):
@@ -95,3 +95,11 @@ def autocast(fn, compute_dtype=torch.bfloat16):
             return fn(*args, **kwargs)
 
     return functools.update_wrapper(wrapped, fn, updated=())
+
+
+def autocast_dtype():
+    """The compute dtype of the innermost active O1 autocast, or None."""
+    for mode in reversed(torch.overrides._get_current_function_mode_stack()):
+        if isinstance(mode, _AutocastMode):
+            return mode.compute_dtype
+    return None

@@ -326,3 +326,43 @@ def fused_novograd_state_from_jax(state, model, layout=None) -> dict:
     parameter) and ``"master"`` under master weights."""
     return _per_leaf_state_from_jax(state, model, {
         "m": "exp_avg", "v": "exp_avg_sq", "master": "master"}, layout)
+
+
+def distributed_state_from_jax(opt, state) -> dict:
+    """A JAX ZeRO optimizer's state (``DistributedFusedAdam`` /
+    ``DistributedFusedLAMB``) as this rank's ``opt.state_dict()``.
+
+    ``state``: ``{"step": int, "buckets": {key: {"m", "v"[, "master"]}}}``
+    with numpy leaves, each bucket the global ``(nrows, 128)`` array that
+    ``shard_map`` reassembles from the per-device shards (out_specs
+    ``state_specs()``).  The port's buckets carry the JAX keys
+    (``"default/float32"``, with ``"/j"`` under ``message_size``) when its
+    parameters are one group in the JAX tree's leaf order with the same
+    ``block_rows`` and world size; each bucket's rows must agree.  Rank
+    ``r`` takes rows ``[r L, (r+1) L)``.  Pass the result to
+    ``opt.load_state_dict``.
+    """
+    sd = opt.state_dict()
+    device = opt.param_groups[0]["params"][0].device
+    for info in opt._layout().buckets:
+        if info.key not in state["buckets"]:
+            raise ValueError(f"the JAX state has no bucket {info.key!r} "
+                             f"(it has {sorted(state['buckets'])})")
+        rows = opt._local_rows(info)
+        lo = opt.rank * rows
+        shards = {}
+        for name, arr in state["buckets"][info.key].items():
+            arr = np.asarray(arr, np.float32)
+            if arr.shape != (info.meta.nrows, 128):
+                raise ValueError(f"bucket {info.key}: JAX {name} has shape "
+                                 f"{arr.shape}, the port's bucket "
+                                 f"({info.meta.nrows}, 128)")
+            shards[name] = torch.from_numpy(
+                np.ascontiguousarray(arr[lo:lo + rows])).to(device)
+        if set(shards) != set(sd["buckets"][info.key]):
+            raise ValueError(f"bucket {info.key}: JAX keys {sorted(shards)}, "
+                             f"port keys {sorted(sd['buckets'][info.key])}")
+        sd["buckets"][info.key] = shards
+    sd["step"] = torch.tensor(int(np.asarray(state["step"])),
+                              dtype=torch.int32, device=device)
+    return sd

@@ -20,11 +20,24 @@ prefetcher that stages the next batch while the current step runs).
 
 Data is synthetic, made from ``--seed``: uint8 images of ImageNet's shape
 and labels, normalised on the device with ImageNet's mean and std (apex's
-prefetcher does this to its decoded uint8 batches).  One device, no data
-parallelism (``devices=1``).
+prefetcher does this to its decoded uint8 batches).
+
+Data parallelism (the JAX example's batch sharded over a ``data`` mesh,
+``examples/imagenet/main_amp.py:111-177``): under ``torchrun`` (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK`` in the environment) each rank initialises
+``torch.distributed`` (NCCL on the card, gloo with ``--device cpu``) unless
+its caller already has, builds the ``data`` group
+(``parallel_state.initialize_model_parallel``), wraps the model in
+:class:`~apex_tpu_torch.parallel.DistributedDataParallel` after
+``amp.initialize`` and, with ``--sync-bn``, sets the batch norms' group
+(``convert_syncbn_model(model, process_group=<data group>)``); every rank
+makes the same global batch of ``--batch-size`` rows from the seed and
+trains on its shard.  One process runs as before.
 
 Run:  python -m apex_tpu_torch.examples.imagenet.main_amp --arch resnet50 \\
           --batch-size 256 --opt-level O1 --steps 100 [--device cpu]
+      torchrun --nproc-per-node 4 -m apex_tpu_torch.examples.imagenet.\\
+          main_amp --sync-bn ...
 
 ``main(argv)`` returns what it prints (losses, step times, img/s, peak
 device memory) and the trainer it ran.
@@ -60,8 +73,9 @@ def parse_args(argv=None):
     p.add_argument("--loss-scale", default=None,
                    help='None, a float, or "dynamic"')
     p.add_argument("--sync-bn", action="store_true",
-                   help="apex convert_syncbn_model (one device: the local "
-                        "statistics are the batch's)")
+                   help="apex convert_syncbn_model: batch statistics over "
+                        "every rank of the data group (one process: the "
+                        "local statistics are the batch's)")
     p.add_argument("--no-fused-sgd", dest="fused_sgd", action="store_false")
     p.add_argument("--synthetic", action="store_true", default=True)
     p.add_argument("--print-freq", type=int, default=10)
@@ -125,11 +139,12 @@ class Trainer:
     """The model, its optimizer (``None``: the hand-written SGD) and amp
     state, and one training step on a device batch."""
 
-    def __init__(self, args, device):
+    def __init__(self, args, device, group=None):
         from apex_tpu_torch import amp
         from apex_tpu_torch.models.resnet import resnet18, resnet50
         from apex_tpu_torch.optimizers import FusedSGD
-        from apex_tpu_torch.parallel import convert_syncbn_model
+        from apex_tpu_torch.parallel import (DistributedDataParallel,
+                                             convert_syncbn_model)
 
         self.args, self.device = args, device
         half = torch.bfloat16
@@ -139,7 +154,7 @@ class Trainer:
                      dtype=compute).init_params(
             torch.Generator().manual_seed(args.seed))
         if args.sync_bn:
-            model = convert_syncbn_model(model)
+            model = convert_syncbn_model(model, process_group=group)
         opt = (FusedSGD(model.parameters(), lr=args.lr,
                         momentum=args.momentum,
                         weight_decay=args.weight_decay,
@@ -153,6 +168,10 @@ class Trainer:
                 loss_scale = float(loss_scale)
         self.amp = amp.initialize(model, opt, opt_level=args.opt_level,
                                   loss_scale=loss_scale, device=device)
+        # the gradient reduction rides on DDP's hooks; the step calls the
+        # model's own loss
+        self.ddp = (None if group is None else
+                    DistributedDataParallel(model, process_group=group))
         self.model, self.optimizer = model, opt
         self.scaler = self.amp.scaler
         # the hand-written baseline keeps f32 momentum whatever the
@@ -195,22 +214,26 @@ class Trainer:
         return loss.detach()
 
 
-def make_data(args, device):
+def make_data(args, device, rank=0, world=1):
     """The batch maker and the device stager of the prefetcher: uint8 NHWC
-    images and int64 labels from ``--seed`` on the host; on the device
-    (on a side stream where it is a card) the images as f32, normalised
-    with ImageNet's mean and std."""
+    images and int64 labels from ``--seed`` on the host (rank ``rank``'s
+    rows of the global batch); on the device (on a side stream where it is
+    a card) the images as f32, normalised with ImageNet's mean and std."""
     rng = np.random.default_rng(args.seed)
     shape = (args.batch_size, args.image_size, args.image_size, 3)
+    if args.batch_size % world:
+        raise SystemExit(f"--batch-size must divide over {world} ranks")
+    rows = slice(rank * args.batch_size // world,
+                 (rank + 1) * args.batch_size // world)
     mean = torch.tensor(MEAN, device=device)
     std = torch.tensor(STD, device=device)
     cuda = device.type == "cuda"
     side = torch.cuda.Stream(device) if cuda else None
 
     def make_batch():
-        x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
+        x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)[rows])
         y = torch.from_numpy(rng.integers(0, args.num_classes,
-                                          args.batch_size))
+                                          args.batch_size)[rows])
         return (x.pin_memory(), y.pin_memory()) if cuda else (x, y)
 
     def put(x, y):
@@ -226,12 +249,39 @@ def make_data(args, device):
     return make_batch, put
 
 
+def init_distributed(device):
+    """Under torchrun (``WORLD_SIZE`` in the environment): the process
+    group (unless the caller made one; NCCL for the card, gloo for the
+    CPU), this rank's card, and the data-parallel group.  Returns
+    ``(device, group, rank, world, owned)`` — ``group`` None for one
+    process."""
+    import os
+    import torch.distributed as dist
+    from apex_tpu_torch.transformer import parallel_state as ps
+    if "WORLD_SIZE" not in os.environ and not dist.is_initialized():
+        return device, None, 0, 1, False
+    owned = not dist.is_initialized()
+    if device.type == "cuda":
+        index = os.environ.get("LOCAL_RANK")
+        device = torch.device("cuda", torch.cuda.current_device()
+                              if index is None else int(index))
+        torch.cuda.set_device(device)
+    if owned:
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    if not ps.model_parallel_is_initialized():
+        ps.initialize_model_parallel()
+    group = ps.get_data_parallel_group()
+    return device, group, dist.get_rank(group), dist.get_world_size(group), \
+        owned
+
+
 def main(argv=None):
     args = parse_args(argv)
     from apex_tpu_torch.utils.device import resolve_device
-    device = resolve_device(args.device)
-    trainer = Trainer(args, device)
-    make_batch, put = make_data(args, device)
+    device, group, rank, world, owned = init_distributed(
+        resolve_device(args.device))
+    trainer = Trainer(args, device, group)
+    make_batch, put = make_data(args, device, rank, world)
 
     def sync():
         if device.type == "cuda":
@@ -255,7 +305,8 @@ def main(argv=None):
             times.append(time.perf_counter() - ts)
             losses.append(float(loss))
             seen += args.batch_size
-            if step % args.print_freq == 0 or step == args.steps:
+            if rank == 0 and (step % args.print_freq == 0
+                              or step == args.steps):
                 dt = time.perf_counter() - t0
                 print(f"step {step:5d}  loss {losses[-1]:.4f}  "
                       f"{seen / dt:9.1f} img/s  "
@@ -264,15 +315,23 @@ def main(argv=None):
         dt = time.perf_counter() - t0
         peak = (torch.cuda.max_memory_allocated(device)
                 if device.type == "cuda" else None)
-        print(f"DONE arch={args.arch} opt_level={args.opt_level} devices=1 "
-              f"throughput={seen / dt:.1f} img/s", flush=True)
+        if rank == 0:
+            print(f"DONE arch={args.arch} opt_level={args.opt_level} "
+                  f"devices={world} throughput={seen / dt:.1f} img/s",
+                  flush=True)
     finally:
         pre.close()
+        if owned:
+            import torch.distributed as dist
+            from apex_tpu_torch.transformer import parallel_state as ps
+            ps.destroy_model_parallel()
+            dist.destroy_process_group()
     return dict(arch=args.arch, opt_level=args.opt_level,
                 batch_size=args.batch_size, image_size=args.image_size,
                 warmup_loss=float(warm), losses=losses, step_times_s=times,
                 images_per_s=seen / dt, peak_memory_bytes=peak,
-                device=str(device), devices=1, trainer=trainer, batch=(x, y))
+                device=str(device), devices=world, rank=rank, trainer=trainer,
+                batch=(x, y))
 
 
 if __name__ == "__main__":

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from apex_tpu_torch.amp.frontend import _is_norm_param
+from apex_tpu_torch.amp.handle import global_found_inf
 from apex_tpu_torch.amp.scaler import LossScaler
 
 __all__ = [
@@ -144,7 +145,8 @@ class FP16_Optimizer:
         """Returns the f32 found-inf device flag."""
         grads = [p.grad for g in self.param_groups for p in g["params"]
                  if p.grad is not None]
-        found_inf = LossScaler.found_inf(grads)
+        found_inf = global_found_inf(self.optimizer,
+                                     LossScaler.found_inf(grads))
         self.optimizer.step(grad_scale=1.0 / self.loss_scaler.loss_scale,
                             noop_flag=found_inf.to(torch.int32))
         self.loss_scaler.update(found_inf)

@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from apex_tpu_torch.parallel.sync_batchnorm import batch_norm_
+from apex_tpu_torch.parallel.sync_batchnorm import batch_norm_, group_of
 from apex_tpu_torch.utils.device import resolve_device
 
 _f32 = torch.float32
@@ -57,13 +57,6 @@ class ResNetConfig:
     bn_eps: float = 1e-5
     dtype: torch.dtype = _f32                  # activation/compute dtype
     param_dtype: torch.dtype = _f32
-
-    def __post_init__(self):
-        if self.axis_name is not None:
-            raise NotImplementedError(
-                "ResNetConfig.axis_name (SyncBN across devices) is not "
-                "ported yet: it comes with the multi-GPU slice of "
-                "apex_tpu_torch")
 
     @property
     def stage_channels(self):
@@ -107,10 +100,15 @@ def _pad_same(x, k, stride, value=0.0):
 
 
 class _ConvBN(nn.Module):
-    """conv -> BN (-> ReLU) unit."""
+    """conv -> BN (-> ReLU) unit.  ``process_group`` (the config's
+    ``axis_name`` at first; ``convert_syncbn_model`` sets it) combines the
+    batch statistics across its ranks."""
+
+    sync_bn_unit = True
 
     def __init__(self, cfg, kh, kw, cin, cout, stride=1, device=None):
         super().__init__()
+        self.process_group = cfg.axis_name
         self.cfg, self.kh, self.kw = cfg, kh, kw
         self.cin, self.cout, self.stride = cin, cout, stride
         self.weight = nn.Parameter(torch.zeros(
@@ -143,7 +141,8 @@ class _ConvBN(nn.Module):
         h = batch_norm_(h, self.bn_weight, self.bn_bias, self.running_mean,
                         self.running_var, self.num_batches_tracked,
                         training=self.training, momentum=self.cfg.bn_momentum,
-                        eps=self.cfg.bn_eps)
+                        eps=self.cfg.bn_eps,
+                        group=group_of(self.process_group))
         return F.relu(h) if relu else h
 
 

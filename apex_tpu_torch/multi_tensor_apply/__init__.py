@@ -1,7 +1,7 @@
-"""Multi-tensor apply — port of ``apex_tpu/multi_tensor_apply`` without
-its ``(rows, 128)`` packing (``bucketing.py`` is a TPU lane layout; the
-CUDA launch table of ``csrc/multi_tensor.cuh`` takes the tensors where
-they lie)."""
+"""Multi-tensor apply — port of ``apex_tpu/multi_tensor_apply``.  The CUDA
+launch table of ``csrc/multi_tensor.cuh`` takes the tensors where they lie;
+the ``(rows, 128)`` packing of :mod:`.bucketing` is the ZeRO optimizers'
+sharding unit and the compressed all-reduce's layout."""
 from apex_tpu_torch.multi_tensor_apply.functional import (
     MultiTensorApply,
     multi_tensor_applier,

@@ -1,5 +1,5 @@
 """Shared machinery of the fused optimizers — port of
-``apex_tpu/optimizers/base.py`` in its per-leaf layout.
+``apex_tpu/optimizers/base.py``.
 
 A :class:`FusedOptimizer` is a :class:`torch.optim.Optimizer`: parameters
 and hyperparameters live in ``param_groups`` (torch's own grouping takes the
@@ -18,17 +18,44 @@ parameter that is not f32 (``state[p]["master"]``, made from the parameter
 at its first step): the update runs on the master, and the parameter
 receives the master rounded to its dtype (JAX ``base.py:165-181,
 273-303``).  ``load_state_dict`` keeps the saved dtypes of the state.
-The packed ``bucketed=True`` layout (the ZeRO optimizers' sharding unit)
-is not ported yet and raises.
+
+Two layouts, as in the JAX package (``bucketed``, default per class):
+the per-parameter one above, every plain optimizer's, and the packed
+``(rows, 128)`` buckets of :mod:`apex_tpu_torch.multi_tensor_apply.
+bucketing` (:meth:`FusedOptimizer._layout`: one bucket per parameter group
+and dtype, split at ``message_size`` bytes, rows padded to a multiple of
+``block_rows``), which only the ZeRO optimizers of
+:mod:`apex_tpu_torch.parallel.distributed_optimizer` use: the packed rows
+are what their reduce-scatter and all-gather shard.  ``bucketed=True`` on a
+plain optimizer raises ``ValueError``, as in JAX.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
+
+from apex_tpu_torch.multi_tensor_apply import bucketing as B
 
 _f32 = torch.float32
 
-ZERO_SLICE = "the ZeRO / multi-GPU slice"
+
+class BucketInfo(NamedTuple):
+    key: str               # "group/dtype" (or "group/dtype/j") — state key
+    group: int             # index into ``param_groups``
+    params: tuple          # the bucket's parameters, in packing order
+    meta: B.BucketMeta     # layout in the parameters' dtype
+
+
+class Layout(NamedTuple):
+    buckets: tuple         # tuple[BucketInfo]
+    n_params: int
+
+
+def dtype_name(dtype) -> str:
+    """``torch.float32`` -> ``"float32"`` (the JAX bucket keys' name)."""
+    return str(dtype).replace("torch.", "")
 
 
 class FusedOptimizer(torch.optim.Optimizer):
@@ -37,14 +64,70 @@ class FusedOptimizer(torch.optim.Optimizer):
     optimizers (torch's ``defaults`` fill each group's hyperparameters
     in)."""
 
+    # the per-parameter layout is the plain optimizers' default; the ZeRO
+    # mixin sets True: its sharding IS the packed layout
+    _default_bucketed = False
+
     def __init__(self, params, defaults, *, master_weights=False,
-                 bucketed=None):
-        if bucketed:
-            raise NotImplementedError(
-                "bucketed=True (the packed multi_tensor layout) is not ported "
-                f"yet: it comes with {ZERO_SLICE} of apex_tpu_torch")
+                 bucketed=None, message_size: Optional[int] = None,
+                 block_rows: int = B.DEFAULT_BLOCK_ROWS):
+        if bucketed is None:
+            bucketed = self._default_bucketed
+        elif bucketed and not self._default_bucketed:
+            raise ValueError(
+                "bucketed=True (packed multi_tensor layout) is not supported "
+                "on plain optimizers: the packed layout copies every "
+                "gradient and parameter into its buckets and back each step, "
+                "which the per-parameter layout (the same kernels over the "
+                "tensors where they lie) never does.  Use the per-parameter "
+                "default; the packed layout is the distributed (ZeRO) "
+                "optimizers' sharding unit.")
+        self.bucketed = bool(bucketed)
         self.master_weights = bool(master_weights)
+        # apex: cap each packed bucket at ``message_size`` BYTES; None =
+        # one bucket per (group, dtype)
+        self.message_size = None if message_size is None else int(
+            message_size)
+        self.block_rows = int(block_rows)
+        self._layout_cache = {}
         super().__init__(params, defaults)
+
+    # -- the packed layout (ZeRO optimizers) --------------------------------
+
+    def _meta_block_rows(self) -> int:
+        """Row multiple of a bucket (the ZeRO mixin aligns to
+        ``block_rows * world_size``, so every shard is whole blocks)."""
+        return self.block_rows
+
+    def _layout(self) -> Layout:
+        """The buckets of the parameter groups: per group, one per dtype
+        (in order of first appearance), split at ``message_size`` bytes."""
+        cache_key = tuple((id(p), tuple(p.shape), p.dtype)
+                          for g in self.param_groups for p in g["params"])
+        hit = self._layout_cache.get(cache_key)
+        if hit is not None:
+            return hit
+        buckets = []
+        for gi, group in enumerate(self.param_groups):
+            name = group.get("name", "default" if gi == 0 else f"group{gi}")
+            params = list(group["params"])
+            for dtype, idxs in B.group_by_dtype(params).items():
+                shapes = [tuple(params[i].shape) for i in idxs]
+                parts = ([list(range(len(idxs)))]
+                         if self.message_size is None else
+                         B.split_by_message_size(shapes, dtype,
+                                                 self.message_size))
+                for j, part in enumerate(parts):
+                    meta = B.bucket_meta([shapes[k] for k in part], dtype,
+                                         self._meta_block_rows())
+                    key = f"{name}/{dtype_name(dtype)}"
+                    if len(parts) > 1:
+                        key += f"/{j}"
+                    buckets.append(BucketInfo(
+                        key, gi, tuple(params[idxs[k]] for k in part), meta))
+        layout = Layout(tuple(buckets), len(cache_key))
+        self._layout_cache = {cache_key: layout}
+        return layout
 
     @staticmethod
     def _bias_corrections(group, step_count):

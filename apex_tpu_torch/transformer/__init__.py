@@ -1,5 +1,5 @@
-"""Megatron-style transformer building blocks (world size 1 in this
-slice)."""
+"""Megatron-style transformer building blocks: tensor parallelism at world
+size 1; :mod:`.parallel_state` maps the mesh axes to process groups."""
 
 from apex_tpu_torch.transformer.enums import (AttnMaskType, AttnType,
                                               LayerType, ModelType)

@@ -1,0 +1,267 @@
+"""Model-parallel topology — port of ``apex_tpu/transformer/parallel_state.py``.
+
+The JAX package names its collectives by mesh axis inside ``shard_map``:
+``data`` (data parallel), ``pipe`` (pipeline) and ``model`` (tensor model
+parallel), over a ``(data, pipe, model)`` mesh.  The port keeps the names
+and maps each to a :mod:`torch.distributed` process group.
+:func:`initialize_model_parallel` lays the ranks out as the JAX package lays
+out its devices, ``np.arange(world).reshape(dp, pp, tp)``, so rank ``r``
+holds what device ``r`` of the JAX mesh holds, and creates one group per
+line of that array along each axis (every rank creates every group, in the
+same order, as :func:`torch.distributed.new_group` requires).
+
+Without ``torch.distributed`` every axis has size 1 and rank 0, and the
+collectives over it are identities (the JAX package outside ``shard_map``).
+With ``torch.distributed`` but no :func:`initialize_model_parallel`, the
+``data`` axis is the whole world (apex's default data-parallel group) and
+the other two have size 1.
+
+The groups keep the default group's backend: NCCL for CUDA tensors, gloo
+for CPU tensors; :mod:`apex_tpu_torch.utils.collectives` refuses a tensor
+whose device does not match its group's backend.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch.distributed as dist
+
+DATA_AXIS = "data"
+PIPELINE_AXIS = "pipe"
+TENSOR_AXIS = "model"
+AXES = (DATA_AXIS, PIPELINE_AXIS, TENSOR_AXIS)
+
+_LAYOUT: Optional[np.ndarray] = None      # (dp, pp, tp) global ranks
+_GROUPS: dict = {}                        # axis -> this rank's group
+_GROUP_RANKS: dict = {}                   # axis -> the ranks of that group
+_VIRTUAL_PIPELINE_MODEL_PARALLEL_RANK: Optional[int] = None
+_VIRTUAL_PIPELINE_MODEL_PARALLEL_WORLD_SIZE: Optional[int] = None
+_PIPELINE_MODEL_PARALLEL_SPLIT_RANK: Optional[int] = None
+
+
+def _world_and_rank():
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def rank_layout(world: int, tp: int = 1, pp: int = 1) -> np.ndarray:
+    """The ``(dp, pp, tp)`` array of global ranks (the JAX mesh's device
+    array for devices ``0 .. world - 1``)."""
+    if world % (tp * pp) != 0:
+        raise RuntimeError(
+            f"world size ({world}) is not divisible by tensor parallel "
+            f"size ({tp}) x pipeline parallel size ({pp})")
+    return np.arange(world).reshape(world // (tp * pp), pp, tp)
+
+
+def _lines(layout, axis):
+    """Every line of ``layout`` along mesh axis ``axis`` (0 data, 1 pipe,
+    2 model), as lists of ranks, in a fixed order."""
+    moved = np.moveaxis(layout, axis, -1)
+    return [list(map(int, line)) for line in moved.reshape(-1,
+                                                           moved.shape[-1])]
+
+
+def initialize_model_parallel(
+        tensor_model_parallel_size_: int = 1,
+        pipeline_model_parallel_size_: int = 1,
+        virtual_pipeline_model_parallel_size_: Optional[int] = None,
+        pipeline_model_parallel_split_rank_: Optional[int] = None,
+        *, default_backend=None) -> np.ndarray:
+    """Build the ``data`` / ``pipe`` / ``model`` groups over the world of
+    :mod:`torch.distributed` (one rank when it is not initialised); the
+    data-parallel size is ``world // (tp * pp)`` as in apex.  Returns the
+    ``(dp, pp, tp)`` rank layout (also :func:`get_rank_layout`).
+    ``default_backend`` (apex's NCCL / UCC choice) is accepted and unused:
+    the groups keep the default group's backend."""
+    global _LAYOUT, _VIRTUAL_PIPELINE_MODEL_PARALLEL_WORLD_SIZE
+    global _VIRTUAL_PIPELINE_MODEL_PARALLEL_RANK
+    global _PIPELINE_MODEL_PARALLEL_SPLIT_RANK
+    del default_backend
+    world, rank = _world_and_rank()
+    layout = rank_layout(world, int(tensor_model_parallel_size_),
+                         int(pipeline_model_parallel_size_))
+    groups, ranks = {}, {}
+    for axis, name in enumerate(AXES):
+        for line in _lines(layout, axis):
+            group = dist.new_group(line) if dist.is_initialized() else None
+            if rank in line:
+                groups[name], ranks[name] = group, line
+    _LAYOUT = layout
+    _GROUPS.clear()
+    _GROUPS.update(groups)
+    _GROUP_RANKS.clear()
+    _GROUP_RANKS.update(ranks)
+    if virtual_pipeline_model_parallel_size_ is not None:
+        _VIRTUAL_PIPELINE_MODEL_PARALLEL_RANK = 0
+        _VIRTUAL_PIPELINE_MODEL_PARALLEL_WORLD_SIZE = \
+            int(virtual_pipeline_model_parallel_size_)
+    else:
+        _VIRTUAL_PIPELINE_MODEL_PARALLEL_RANK = None
+        _VIRTUAL_PIPELINE_MODEL_PARALLEL_WORLD_SIZE = None
+    _PIPELINE_MODEL_PARALLEL_SPLIT_RANK = pipeline_model_parallel_split_rank_
+    return layout
+
+
+def model_parallel_is_initialized() -> bool:
+    return _LAYOUT is not None
+
+
+def get_rank_layout() -> np.ndarray:
+    if _LAYOUT is None:
+        raise RuntimeError("model parallel groups are not initialized "
+                           "(call initialize_model_parallel first)")
+    return _LAYOUT
+
+
+def destroy_model_parallel():
+    global _LAYOUT, _VIRTUAL_PIPELINE_MODEL_PARALLEL_RANK
+    global _VIRTUAL_PIPELINE_MODEL_PARALLEL_WORLD_SIZE
+    global _PIPELINE_MODEL_PARALLEL_SPLIT_RANK
+    _LAYOUT = None
+    _GROUPS.clear()
+    _GROUP_RANKS.clear()
+    _VIRTUAL_PIPELINE_MODEL_PARALLEL_RANK = None
+    _VIRTUAL_PIPELINE_MODEL_PARALLEL_WORLD_SIZE = None
+    _PIPELINE_MODEL_PARALLEL_SPLIT_RANK = None
+
+
+# -- groups ------------------------------------------------------------------
+
+def get_group(axis_name: str):
+    """The process group of mesh axis ``axis_name`` holding this rank, or
+    None where the axis is this rank alone (its collectives are then
+    identities): without ``torch.distributed``, and for ``pipe`` and
+    ``model`` before :func:`initialize_model_parallel`."""
+    if axis_name not in AXES:
+        raise ValueError(f"unknown mesh axis {axis_name!r}; the axes are "
+                         f"{AXES}")
+    if _LAYOUT is not None:
+        return _GROUPS.get(axis_name)
+    if axis_name == DATA_AXIS and dist.is_available() \
+            and dist.is_initialized():
+        return dist.group.WORLD
+    return None
+
+
+def resolve_group(axis_name: Optional[str] = DATA_AXIS, process_group=None):
+    """``process_group`` when given (apex's keyword), else the group of
+    ``axis_name`` (the JAX keyword); None for no axis at all."""
+    if process_group is not None:
+        return process_group
+    if axis_name is None:
+        return None
+    return get_group(axis_name)
+
+
+def group_size(group) -> int:
+    """Ranks in ``group``; None (no group: this rank alone) has 1."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+def get_data_parallel_group():
+    return get_group(DATA_AXIS)
+
+
+def get_pipeline_model_parallel_group():
+    return get_group(PIPELINE_AXIS)
+
+
+def get_tensor_model_parallel_group():
+    return get_group(TENSOR_AXIS)
+
+
+# -- world sizes and ranks -----------------------------------------------------
+
+def _axis_size(axis):
+    return group_size(get_group(axis))
+
+
+def _axis_rank(axis):
+    return group_rank(get_group(axis))
+
+
+def get_tensor_model_parallel_world_size() -> int:
+    return _axis_size(TENSOR_AXIS)
+
+
+def get_pipeline_model_parallel_world_size() -> int:
+    return _axis_size(PIPELINE_AXIS)
+
+
+def get_data_parallel_world_size() -> int:
+    return _axis_size(DATA_AXIS)
+
+
+def get_model_parallel_world_size() -> int:
+    """tp*pp (apex asserts pp==1 here; this returns the product)."""
+    return (get_tensor_model_parallel_world_size()
+            * get_pipeline_model_parallel_world_size())
+
+
+def get_tensor_model_parallel_rank() -> int:
+    return _axis_rank(TENSOR_AXIS)
+
+
+def get_pipeline_model_parallel_rank() -> int:
+    return _axis_rank(PIPELINE_AXIS)
+
+
+def get_data_parallel_rank() -> int:
+    return _axis_rank(DATA_AXIS)
+
+
+def is_pipeline_first_stage(ignore_virtual: bool = False) -> bool:
+    if not ignore_virtual:
+        vp = _VIRTUAL_PIPELINE_MODEL_PARALLEL_WORLD_SIZE
+        if vp is not None and \
+                get_virtual_pipeline_model_parallel_rank() != 0:
+            return False
+    return get_pipeline_model_parallel_rank() == 0
+
+
+def is_pipeline_last_stage(ignore_virtual: bool = False) -> bool:
+    if not ignore_virtual:
+        vp = _VIRTUAL_PIPELINE_MODEL_PARALLEL_WORLD_SIZE
+        if vp is not None and (get_virtual_pipeline_model_parallel_rank()
+                               != vp - 1):
+            return False
+    return (get_pipeline_model_parallel_rank()
+            == get_pipeline_model_parallel_world_size() - 1)
+
+
+# -- virtual pipeline ranks (host-side ints, as in apex) -----------------------
+
+def get_virtual_pipeline_model_parallel_rank():
+    return _VIRTUAL_PIPELINE_MODEL_PARALLEL_RANK
+
+
+def set_virtual_pipeline_model_parallel_rank(rank: int):
+    global _VIRTUAL_PIPELINE_MODEL_PARALLEL_RANK
+    _VIRTUAL_PIPELINE_MODEL_PARALLEL_RANK = rank
+
+
+def get_virtual_pipeline_model_parallel_world_size():
+    return _VIRTUAL_PIPELINE_MODEL_PARALLEL_WORLD_SIZE
+
+
+def get_pipeline_model_parallel_split_rank():
+    return _PIPELINE_MODEL_PARALLEL_SPLIT_RANK
+
+
+def set_pipeline_model_parallel_split_rank(rank: int):
+    global _PIPELINE_MODEL_PARALLEL_SPLIT_RANK
+    _PIPELINE_MODEL_PARALLEL_SPLIT_RANK = rank
+
+
+def get_tensor_model_parallel_src_rank() -> int:
+    """apex: the global rank of the first rank of this rank's tensor
+    model parallel group (0 with one rank)."""
+    return _GROUP_RANKS.get(TENSOR_AXIS, [0])[0]

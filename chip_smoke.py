@@ -196,6 +196,28 @@ Phases (any failure exits non-zero; nothing is caught):
    migrated ones included), the engines' ``serving_*`` registry series
    match the responses, and the host time a tick with the tracers on and
    off.
+14. data parallelism over NCCL (PR 20): ``torch.cuda.device_count()``
+   ranks, spawned processes that join through ``parallel_state``, each on
+   its rows of the same global batches as the single-process phases:
+   (14a) BERT-large O2 at phase 7's recipe stepped by
+   ``DistributedFusedLAMB`` (#17 over the rank's gradient segments, #20,
+   #21 on its shard of the packed buckets), 4 steps, then 2 with
+   ``allreduce_dtype="int8"``; (14b) GPT-350M at phase 5's recipe
+   stepped by ``DistributedFusedAdam(message_size=10_000_000)`` (#18 on
+   its 10 MB buckets; its reduce-scatter is the gradient reduction, so no
+   DDP), 4 steps; (14c) ResNet-50 O1 through the example's distributed
+   path (``--sync-bn``: statistics over the ranks, DDP, FusedSGD #19), a
+   warm-up step and 4.  Each rank's launches are exact (the optimizer's
+   from its own shard's segments), no plain version is called, its peak
+   memory is logged beside the single-process phase's, and the ranks' mean
+   losses are held against phases 7 and 5 (14b bit for bit), and 14c's
+   against the example's recipe in one process with its batch norms on
+   the same group path and no DDP (``DP_*_RTOL``; phase 9's cuDNN batch
+   norm is logged beside it).  The ranks join through a ``file://`` store
+   under ``build/phase14/``.  A rank that raises fails the run.  Phase 2 also holds #18 on GPT-350M's f32 bucket and #17, #20,
+   #21 on BERT-large's O2 buckets in this packed segment form (one rank's
+   shard at world 1) against their plain versions, timed beside the
+   per-parameter lists.
 
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -209,6 +231,7 @@ import contextlib
 import importlib
 import json
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -5709,6 +5732,478 @@ def phase_fleet(model, qmodel, paged, smi):
     return out, runs
 
 
+# -- the packed segment form of #17, #18, #20, #21 (phase 2, PR 20) ----------
+
+def _segment_lists(specs, block_rows):
+    """A one-rank shard of the packed bucket of each dtype in ``specs``
+    ((shape, dtype) pairs): its meta and segments."""
+    from apex_tpu_torch.multi_tensor_apply import bucketing as B
+    out = []
+    for dtype, idx in B.group_by_dtype(
+            [torch.empty(0, dtype=dt) for _, dt in specs]).items():
+        meta = B.bucket_meta([specs[i][0] for i in idx], dtype, block_rows)
+        out.append((meta, B.shard_segments(meta, 0, meta.nrows)))
+    return out
+
+
+def _rows(meta, gen_cuda, std, dtype=torch.float32, positive=False):
+    t = torch.randn((meta.nrows, 128), generator=gen_cuda,
+                    device="cuda") * std
+    return (t.abs() if positive else t).to(dtype)
+
+
+def kernel_packed_segments(gen_cuda):
+    """#18 on GPT-350M's f32 bucket and #17, #20, #21 on BERT-large's O2
+    buckets (bf16 gradients with f32 masters, the f32 LayerNorms), each at
+    one rank's shard of the packed layout (world 1: the whole bucket), as
+    the ZeRO optimizers run them: the segments (each tensor's rows, one
+    view each) against the plain versions on the same views, and the time
+    beside the per-parameter list's."""
+    from apex_tpu_torch.multi_tensor_apply import bucketing as B
+    from apex_tpu_torch.ops import multi_tensor as K
+    out = {}
+    (meta, segs), = _segment_lists(
+        [(tuple(s), torch.float32) for s in gpt350m_shapes()],
+        B.DEFAULT_BLOCK_ROWS)
+    numels = [(s.stop - s.start) * 128 for s in segs]
+    bufs = [_rows(meta, gen_cuda, 1e-3), _rows(meta, gen_cuda, 0.02),
+            _rows(meta, gen_cuda, 1e-4),
+            _rows(meta, gen_cuda, 1e-6, positive=True)]
+    scal = torch.tensor([LR, 0.9, 0.999, 1e-8, 0.01, 1 - 0.9 ** 3,
+                         1 - 0.999 ** 3, 1.0], dtype=torch.float32,
+                        device="cuda")
+    views = [B.segment_views(b, segs) for b in bufs]
+    ref = [[v.clone() for v in vs] for vs in views[1:]]
+    before = K.multi_tensor_adam.launches
+    K.multi_tensor_adam(views[0], *[[v.clone() for v in vs]
+                                    for vs in views[1:]], scal)
+    n_launch = K.multi_tensor_adam.launches - before
+    got = [[v.clone() for v in vs] for vs in views[1:]]
+    K.multi_tensor_adam(views[0], *got, scal)
+    K.multi_tensor_adam_reference(views[0], *ref, scal)
+    torch.cuda.synchronize()
+    if n_launch != table_launches(numels):
+        raise AssertionError("packed #18 launch count")
+    err = max(_check_lists(f"multi_tensor_adam packed GPT-350M shard {k}",
+                           a, b, 1e-6, 1e-9)
+              for k, a, b in zip("pmv", got, ref))
+    shapes = gpt350m_shapes()
+    leaf = [[torch.randn(s, generator=gen_cuda, device="cuda") * std
+             for s in shapes] for std in (1e-3, 0.02, 1e-4)]
+    leaf.append([torch.randn(s, generator=gen_cuda, device="cuda").abs()
+                 * 1e-6 for s in shapes])
+    n_el = sum(numels)
+    out["adam"] = dict(
+        max_abs_err=err, segments=len(segs), elements=n_el,
+        launches_per_call=n_launch,
+        ms=time_ms([lambda: K.multi_tensor_adam(*views, scal)] * 5),
+        per_leaf_ms=time_ms([lambda: K.multi_tensor_adam(*leaf, scal)] * 5),
+        plain_ms=time_ms([lambda: K.multi_tensor_adam_reference(
+            *views, scal)] * 2, rounds=3),
+        bound_ms=bound_ms(7 * 4 * n_el, 15 * n_el, PEAK_F32_FLOPS)[0])
+    log(f"  multi_tensor_adam packed (GPT-350M f32 bucket, {len(segs)} "
+        f"segments, {n_el} elements, {n_launch} launches): "
+        f"{out['adam']['ms']:.4f} ms, per-parameter list "
+        f"{out['adam']['per_leaf_ms']:.4f} ms, plain "
+        f"{out['adam']['plain_ms']:.4f} ms")
+    del bufs, views, ref, got, leaf
+    torch.cuda.empty_cache()
+
+    specs = bert_param_specs()
+    stage1 = stage2 = sumsq = 0.0
+    times = collections.Counter()
+    scal1 = lamb_stage1_scal()
+    lr = torch.full((), BERT_LR, device="cuda")
+    launches = collections.Counter()
+    for meta, segs in _segment_lists(specs, B.DEFAULT_BLOCK_ROWS):
+        numels = [(s.stop - s.start) * 128 for s in segs]
+        g = _rows(meta, gen_cuda, 1e-3, meta.dtype)
+        p = _rows(meta, gen_cuda, 0.02, meta.dtype).float()
+        bufs = [g, p, _rows(meta, gen_cuda, 1e-4),
+                _rows(meta, gen_cuda, 1e-6, positive=True),
+                torch.empty((meta.nrows, 128), device="cuda")]
+        views = [B.segment_views(b, segs) for b in bufs]
+        total, _, _ = K.multi_tensor_sumsq(views[0])
+        rtotal, _, _ = K.multi_tensor_sumsq_reference(views[0])
+        sumsq = max(sumsq, check_close(
+            f"multi_tensor_sumsq packed {meta.dtype} shard", total, rtotal,
+            0, 1e-5))
+        kin = [[v.clone() for v in vs] for vs in views[1:]]
+        rin = [[v.clone() for v in vs] for vs in views[1:]]
+        before = K.multi_tensor_lamb_stage1.launches
+        ku, kp = K.multi_tensor_lamb_stage1(views[0], *kin, scal1)
+        launches["multi_tensor_lamb_stage1"] += (
+            K.multi_tensor_lamb_stage1.launches - before)
+        ru, rp = K.multi_tensor_lamb_stage1_reference(views[0], *rin, scal1)
+        torch.cuda.synchronize()
+        stage1 = max(stage1, _check_lists(
+            f"multi_tensor_lamb_stage1 packed {meta.dtype} shard (m, v, u)",
+            kin[1] + kin[2] + kin[3], rin[1] + rin[2] + rin[3], 1e-6, 0.0,
+            scale_rtol=1e-6))
+        check_close(f"lamb stage 1 packed {meta.dtype} u^2 partials", ku, ru,
+                    0, 1e-5)
+        check_close(f"lamb stage 1 packed {meta.dtype} p^2 partials", kp, rp,
+                    0, 1e-5)
+        kpp, rpp = ([v.clone() for v in kin[0]] for _ in range(2))
+        before = K.multi_tensor_lamb_stage2.launches
+        K.multi_tensor_lamb_stage2(kin[3], kpp, [None] * len(segs), ku, kp,
+                                   lr)
+        launches["multi_tensor_lamb_stage2"] += (
+            K.multi_tensor_lamb_stage2.launches - before)
+        K.multi_tensor_lamb_stage2_reference(kin[3], rpp, [None] * len(segs),
+                                             ku, kp, lr)
+        torch.cuda.synchronize()
+        stage2 = max(stage2, _check_lists(
+            f"multi_tensor_lamb_stage2 packed {meta.dtype} shard", kpp, rpp,
+            1e-6, 1e-9))
+        if launches["multi_tensor_lamb_stage2"] and table_launches(
+                numels) != K.multi_tensor_lamb_stage2.launches - before:
+            raise AssertionError("packed #21 launch count")
+        times["sumsq"] += time_ms([lambda: K.multi_tensor_sumsq(
+            views[0])] * 5)
+        times["stage1"] += time_ms([lambda: K.multi_tensor_lamb_stage1(
+            *views, scal1)] * 5)
+        u_sq, p_sq = K.multi_tensor_lamb_stage1(*views, scal1)
+        times["stage2"] += time_ms([lambda: K.multi_tensor_lamb_stage2(
+            views[4], views[1], [None] * len(segs), u_sq, p_sq, lr)] * 5)
+        del bufs, views, kin, rin, kpp, rpp
+        torch.cuda.empty_cache()
+    grads = [torch.randn(s, generator=gen_cuda, device="cuda").to(dt)
+             for s, dt in specs]
+    masters = [torch.randn(s, generator=gen_cuda, device="cuda")
+               for s, _ in specs]
+    mv = [[torch.zeros(s, device="cuda") for s, _ in specs]
+          for _ in range(3)]
+    leaf_s1 = time_ms([lambda: K.multi_tensor_lamb_stage1(
+        grads, masters, *mv, scal1)] * 5)
+    u_sq, p_sq = K.multi_tensor_lamb_stage1(grads, masters, *mv, scal1)
+    copies = [None] * len(specs)
+    leaf_s2 = time_ms([lambda: K.multi_tensor_lamb_stage2(
+        mv[2], masters, copies, u_sq, p_sq, lr)] * 5)
+    leaf_sq = time_ms([lambda: K.multi_tensor_sumsq(grads)] * 5)
+    out["lamb"] = dict(max_abs_err_stage1=stage1, max_abs_err_stage2=stage2,
+                       max_abs_err_sumsq=sumsq, ms=dict(times),
+                       per_leaf_ms=dict(sumsq=leaf_sq, stage1=leaf_s1,
+                                        stage2=leaf_s2),
+                       launches=dict(launches))
+    log(f"  BERT-large O2 packed shard: #17 {times['sumsq']:.4f} ms "
+        f"(per-parameter list {leaf_sq:.4f}), #20 {times['stage1']:.4f} ms "
+        f"({leaf_s1:.4f}), #21 {times['stage2']:.4f} ms ({leaf_s2:.4f}); "
+        f"launches {dict(launches)}")
+    return out
+
+
+# -- phase 14: data parallelism over NCCL (PR 20) -----------------------------
+
+# Losses of the data-parallel runs against their single-process
+# references, largest relative gap over the steps; each limit sits between
+# the gap of the correct run and the gap a planted fault opens, both read
+# by tools/dp_loss_gates.py at one rank (PERF.md, PR 20 finding):
+# * 14b: DistributedFusedAdam's packed step is FusedAdam's per-parameter
+#   step bit for bit at one rank (#18 is elementwise): exactly equal;
+# * 14a: DistributedFusedLAMB sums its norms by shard segment, FusedLAMB
+#   by tensor, so bf16 parameters may round the other way here and there;
+# * 14c: against the example in one process with its batch norms on the
+#   same group path (E[x^2] - mean^2 in f32) and no DDP.  Phase 9's cuDNN
+#   batch norm is another formula, whose f32 differences flip bf16
+#   roundings under O1 (a gap larger than a dropped bucket's): logged only.
+DP_GPT_RTOL = 0.0
+DP_BERT_RTOL = 1e-4
+DP_RESNET_RTOL = 1e-4
+DP_INT8_STEPS = 2
+
+
+def _shard(t, rank, world, axis=1):
+    k = t.shape[axis] // world
+    return t.narrow(axis, rank * k, k).contiguous()
+
+
+def zero_launches(opt, kernel_names):
+    """Per step, the launches of a ZeRO optimizer's kernels from its
+    layout: each bucket's segments in this rank's shard."""
+    from apex_tpu_torch.ops import multi_tensor as K
+    per = collections.Counter()
+    all_segments = []
+    for info in opt._layout().buckets:
+        numels = [(s.stop - s.start) * 128 for s in opt._bucket(info)[1]]
+        all_segments += numels
+        if not numels:
+            continue
+        if "multi_tensor_adam" in kernel_names:
+            per["multi_tensor_adam"] += table_launches(numels)
+        if "multi_tensor_lamb_stage1" in kernel_names:
+            per["multi_tensor_lamb_stage1"] += K.lamb_stage1_launches(numels)
+            per["multi_tensor_lamb_stage2"] += table_launches(numels)
+    if "multi_tensor_sumsq" in kernel_names and all_segments:
+        per["multi_tensor_sumsq"] += sumsq_launches(all_segments)
+    return per
+
+
+def _dp_bert(rank, world):
+    """14a: BERT-large O2, phase 7's recipe and batch (this rank's rows of
+    each micro-batch), DistributedFusedLAMB; then int8 transport."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.bert import BertConfig, BertModel
+    from apex_tpu_torch.parallel import DistributedFusedLAMB
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = BertModel(BertConfig(**BERT_LARGE, dtype=torch.bfloat16),
+                      device="cuda").init_params(
+        torch.Generator().manual_seed(0))
+    opt = DistributedFusedLAMB(model.parameters(), lr=BERT_LR,
+                               betas=LAMB_BETAS, weight_decay=LAMB_WD)
+    amp.initialize(model, opt, opt_level="O2")
+    tokens, labels = (_shard(t, rank, world).to("cuda") for t in mlm_batch(
+        BERT_LARGE["vocab_size"], (BERT_ACCUM, BERT_MICRO, BERT_SEQ), 0))
+    counters = _all_counters()
+    for c in counters:
+        c.launches = 0
+    losses, times = [], []
+    with counting_plain_versions() as plain:
+        for i in range(BERT_STEPS + DP_INT8_STEPS):
+            if i == BERT_STEPS:
+                opt.allreduce_dtype = "int8"
+            t0 = time.perf_counter()
+            losses.append(float(bert_step(model, opt, tokens, labels)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    n, layers = BERT_STEPS + DP_INT8_STEPS, BERT_LARGE["num_layers"]
+    rows = tokens.shape[1] * BERT_SEQ
+    per_mb = 2 * layers + 2
+    expected = {"layer_norm_fwd": n * BERT_ACCUM * per_mb,
+                "layer_norm_bwd": n * BERT_ACCUM * per_mb,
+                "flash_fwd": n * BERT_ACCUM * layers,
+                "flash_attention_dq": n * BERT_ACCUM * layers,
+                "flash_attention_dkv": n * BERT_ACCUM * layers,
+                "lm_head_fwd": n * BERT_ACCUM * 2,
+                **lm_head_bwd_launches(n * BERT_ACCUM, rows,
+                                       BERT_LARGE["vocab_size"])}
+    per_step = zero_launches(opt, ("multi_tensor_sumsq",
+                                   "multi_tensor_lamb_stage1"))
+    for k, v in per_step.items():
+        expected[k] = n * v
+    return dict(losses=losses, step_times_s=times,
+                launches=_launches_of(counters), expected=expected,
+                launches_per_step_optimizer=dict(per_step),
+                plain_calls=dict(plain),
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                buckets=len(opt._layout().buckets),
+                state_shard_bytes=sum(t.numel() * t.element_size()
+                                      for st in opt._shards.values()
+                                      for t in st.values()))
+
+
+def _dp_gpt(rank, world):
+    """14b: GPT-350M, phase 5's recipe and batch (this rank's rows),
+    stepped by DistributedFusedAdam over 10 MB buckets (its
+    reduce-scatter is the gradient reduction: no DDP)."""
+    from apex_tpu_torch.parallel import DistributedFusedAdam
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model("cuda").init_params(torch.Generator().manual_seed(0))
+    opt = DistributedFusedAdam(model.parameters(), lr=LR,
+                               message_size=10_000_000)
+    rng = np.random.RandomState(0)
+    shape = (ACCUM, MICRO, SEQ)
+    tokens = _shard(torch.from_numpy(rng.randint(
+        0, GPT350M["vocab_size"], shape)), rank, world).to("cuda")
+    targets = _shard(torch.from_numpy(rng.randint(
+        0, GPT350M["vocab_size"], shape)), rank, world).to("cuda")
+    counters = _all_counters()
+    for c in counters:
+        c.launches = 0
+    losses, times = [], []
+    with counting_plain_versions() as plain:
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(train_step(model, opt, tokens, targets)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    n, layers = TRAIN_STEPS, GPT350M["num_layers"]
+    per_mb = 2 * layers + 1
+    expected = {"layer_norm_fwd": n * ACCUM * per_mb,
+                "layer_norm_bwd": n * ACCUM * per_mb,
+                "flash_fwd": n * ACCUM * layers,
+                "flash_attention_dq": n * ACCUM * layers,
+                "flash_attention_dkv": n * ACCUM * layers,
+                "lm_head_fwd": n * ACCUM * 2,
+                **lm_head_bwd_launches(n * ACCUM, tokens.shape[1] * SEQ,
+                                       GPT350M["vocab_size"])}
+    per_step = zero_launches(opt, ("multi_tensor_adam",))
+    for k, v in per_step.items():
+        expected[k] = n * v
+    return dict(losses=losses, step_times_s=times,
+                launches=_launches_of(counters), expected=expected,
+                launches_per_step_optimizer=dict(per_step),
+                plain_calls=dict(plain),
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                buckets=len(opt._layout().buckets))
+
+
+def resnet_group_path_reference(argv, group):
+    """The ImageNet example's recipe (``argv`` with ``--sync-bn``) in one
+    process on the whole global batch, its batch norms on the group path
+    of ``group`` (a group of this rank alone: the E[x^2] - mean^2
+    statistics of 14c) and no DDP: the losses of the warm-up step and the
+    ``--steps`` after it."""
+    from apex_tpu_torch.examples.imagenet import main_amp
+    from apex_tpu_torch.parallel import convert_syncbn_model
+    from apex_tpu_torch.utils.device import resolve_device
+    args = main_amp.parse_args(argv)
+    device = resolve_device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    trainer = main_amp.Trainer(args, device)
+    convert_syncbn_model(trainer.model, process_group=group)
+    make_batch, put = main_amp.make_data(args, device)
+    losses = []
+    for _ in range(1 + args.steps):
+        x, y, ready = put(*make_batch())
+        if ready is not None:
+            torch.cuda.current_stream(device).wait_event(ready)
+        losses.append(float(trainer.step(x, y)))
+    return losses
+
+
+def _dp_resnet(rank, world):
+    """14c: ResNet-50 O1 through the example's distributed path
+    (``--sync-bn``, DDP, FusedSGD) on this rank's rows of the global
+    batch; first its one-process reference
+    (:func:`resnet_group_path_reference`, over a group of this rank
+    alone)."""
+    import torch.distributed as dist
+    from apex_tpu_torch.examples.imagenet import main_amp
+    from apex_tpu_torch.ops.multi_tensor import sgd_launches
+    argv = RESNET_ARGV + ["--opt-level", "O1", "--sync-bn"]
+    alone = [dist.new_group([r]) for r in range(world)][rank]
+    reference = resnet_group_path_reference(argv, alone)
+    torch.cuda.empty_cache()
+    counters = _all_counters()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    with counting_plain_versions() as plain:
+        res = main_amp.main(argv)
+    torch.cuda.synchronize()
+    numels = [int(np.prod(s)) for s, _ in resnet50_specs("O1")]
+    return dict(losses=[res["warmup_loss"]] + res["losses"],
+                reference=reference,
+                step_times_s=res["step_times_s"],
+                images_per_s=res["images_per_s"],
+                launches=_launches_of(counters),
+                expected={"multi_tensor_sgd": RESNET_STEPS
+                          * sgd_launches(numels)},
+                plain_calls=dict(plain), devices=res["devices"],
+                peak_memory_bytes=res["peak_memory_bytes"])
+
+
+def _dp_rank(rank, world, out_dir):
+    """One rank of phase 14 (a spawned process): NCCL through a
+    ``file://`` store in ``out_dir`` and ``parallel_state``, then 14a-14c;
+    its results pickled into ``out_dir``.  An exception ends the process
+    non-zero."""
+    import pickle
+    import torch.distributed as dist
+    from apex_tpu_torch.transformer import parallel_state as ps
+    torch.cuda.set_device(rank)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{pathlib.Path(out_dir).resolve()}/store",
+        rank=rank, world_size=world)
+    ps.initialize_model_parallel()
+    out = {}
+    for key, fn in (("bert", _dp_bert), ("gpt", _dp_gpt),
+                    ("resnet", _dp_resnet)):
+        out[key] = fn(rank, world)
+        torch.cuda.empty_cache()
+    with open(pathlib.Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    ps.destroy_model_parallel()
+    dist.destroy_process_group()
+
+
+def _dp_gap(tag, got, want, rtol=None):
+    """The largest relative gap of ``got`` to ``want``, logged; beyond
+    ``rtol`` (when given) it fails the phase."""
+    gap = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    log(f"    {tag}: losses {got} against {want}: largest relative gap "
+        f"{gap!r} ({'logged only' if rtol is None else f'limit {rtol}'})")
+    if rtol is not None and not gap <= rtol:
+        raise AssertionError(f"{tag}: losses leave their reference's by "
+                             f"{gap!r}")
+    return gap
+
+
+def dp_loss_limits(world):
+    """The loss gates of 14a-14c at ``world`` ranks: the readings' limits
+    at one rank; at more, where the reduction sums in other orders and no
+    reading bounds the gap yet, the card-vs-CPU training tolerance (14a,
+    14b) and 2e-2 (14c, whose bf16 roundings then flip)."""
+    if world == 1:
+        return dict(bert=DP_BERT_RTOL, gpt=DP_GPT_RTOL, resnet=DP_RESNET_RTOL)
+    return dict(bert=TRAIN_LOSS_RTOL, gpt=TRAIN_LOSS_RTOL, resnet=2e-2)
+
+
+def phase_data_parallel(train, bert, resnet):
+    """Phase 14: ``torch.cuda.device_count()`` ranks over NCCL (spawned
+    processes), 14a-14c: exact launches, no plain version, peak memory
+    beside the single-process phase's (7, 5, 9), and the ranks' mean
+    losses held against phases 7 and 5 and 14c's one-process reference
+    (phase 9's logged beside it)."""
+    import pickle
+    import torch.multiprocessing as mp
+    world = torch.cuda.device_count()
+    out_dir = pathlib.Path("build") / "phase14"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    # a rank that raises makes start_processes raise here (not caught)
+    mp.start_processes(_dp_rank, args=(world, str(out_dir)),
+                       nprocs=world, start_method="spawn", join=True)
+    ranks = []
+    for r in range(world):
+        with open(out_dir / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    log(f"[14] data parallelism over NCCL, {world} rank(s) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    res = dict(world=world, ranks=ranks, gaps={})
+    limits = dp_loss_limits(world)
+    singles = {"bert": ("[14a] BERT-large O2 + DistributedFusedLAMB", bert),
+               "gpt": ("[14b] GPT-350M + DistributedFusedAdam", train),
+               "resnet": ("[14c] ResNet-50 O1 --sync-bn DDP + FusedSGD",
+                          resnet)}
+    for key, (tag, single) in singles.items():
+        for r, rank in enumerate(ranks):
+            run = rank[key]
+            log(f"{tag} rank {r}: step times (s) "
+                f"{[round(t, 4) for t in run['step_times_s']]}; peak memory "
+                f"{run['peak_memory_bytes'] / 2 ** 30:.3f} GiB (single "
+                f"process {single['peak_memory_bytes'] / 2 ** 30:.3f} GiB)")
+            log(f"    launches {run['launches']} (expected "
+                f"{run['expected']}); plain-version calls "
+                f"{run['plain_calls']}")
+            if run["launches"] != run["expected"]:
+                raise AssertionError(f"{tag}: launch counts do not match "
+                                     "the path")
+            if run["plain_calls"]:
+                raise AssertionError(f"{tag}: a plain version was called")
+            if not np.all(np.isfinite(run["losses"])):
+                raise AssertionError(f"{tag}: non-finite loss")
+        # the ranks' mean loss is the global batch's
+        mean = [float(x) for x in np.mean(
+            [rank[key]["losses"] for rank in ranks], axis=0)]
+        if key == "resnet":
+            res["gaps"]["resnet_phase9"] = _dp_gap(
+                f"{tag} against phase 9 (cuDNN batch norm)", mean,
+                [single["warmup_loss"]] + single["losses"])
+            want = ranks[0][key]["reference"]
+            tag += " against one process on the group path"
+        else:
+            want = single["losses"]
+        n = min(len(mean), len(want))
+        res["gaps"][key] = _dp_gap(tag, mean[:n], want[:n], limits[key])
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write all results to this JSON file")
@@ -5753,6 +6248,9 @@ def main(argv=None):
     ffn = kernel_fused_ffn(gen)
     torch.cuda.empty_cache()
     opts = kernel_optimizers(torch.Generator(device="cuda").manual_seed(2))
+    torch.cuda.empty_cache()
+    packed = kernel_packed_segments(
+        torch.Generator(device="cuda").manual_seed(4))
     torch.cuda.empty_cache()
 
     model = build_model("cuda").init_params(torch.Generator().manual_seed(0))
@@ -5870,6 +6368,8 @@ def main(argv=None):
     fleet, fleet_runs = phase_fleet(model, qmodel, paged, smi)
     del model, qmodel
     torch.cuda.empty_cache()
+    # data parallelism over NCCL, against phases 5, 7 and 9
+    dp = phase_data_parallel(train, bert, resnet["O1"])
     if args.profile:
         with open(args.profile, "w") as f:
             f.write("\n".join(profile_lines) + "\n")
@@ -5877,6 +6377,9 @@ def main(argv=None):
     both = collections.Counter(serve["launches"])
     for launches in fleet_runs:
         both.update(launches)
+    for rank in dp["ranks"]:
+        for run in rank.values():
+            both.update(run["launches"])
     for run in (serve_f, train, train_f, *train_remat.values(), bert,
                 bert_f, bert_r, clip, resnet["O1"],
                 resnet["O2"], resnet_baseline, *resnet_opts.values(),
@@ -5976,6 +6479,7 @@ def main(argv=None):
                            resnet50_optimizers=resnet_opts,
                            resnet50_hand_written_sgd=resnet_baseline,
                            resnet_parity=resnet_parity,
+                           packed_segments=packed, data_parallel=dp,
                            profile=profiled or None, kernels=kernels), f,
                       indent=1, sort_keys=True)
     log(smi)

@@ -182,7 +182,7 @@ def test_fused_lamb_refusals_and_mixed_precision_variant():
     params = [nn.Parameter(torch.zeros(3))]
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedLAMB(params, amsgrad=True)
-    with pytest.raises(NotImplementedError, match="ZeRO"):
+    with pytest.raises(ValueError, match="ZeRO"):
         FusedLAMB(params, bucketed=True)
     assert FusedMixedPrecisionLamb(params).master_weights
     assert not FusedMixedPrecisionLamb(params,

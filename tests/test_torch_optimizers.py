@@ -168,7 +168,7 @@ def test_fused_adam_refuses_what_is_not_ported():
     params = [nn.Parameter(torch.zeros(3))]
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedAdam(params, amsgrad=True)
-    with pytest.raises(NotImplementedError, match="ZeRO"):
+    with pytest.raises(ValueError, match="ZeRO"):
         FusedAdam(params, bucketed=True)
     assert FusedAdam(params, master_weights=True).master_weights
 
@@ -439,7 +439,7 @@ def test_fused_sgd_adagrad_novograd_refuse_what_apex_refuses():
     with pytest.raises(RuntimeError, match="l2 norm"):
         FusedNovoGrad(params, norm_type=1)
     for cls in (FusedSGD, FusedAdagrad, FusedNovoGrad):
-        with pytest.raises(NotImplementedError, match="ZeRO"):
+        with pytest.raises(ValueError, match="ZeRO"):
             cls(params, bucketed=True)
 
 

@@ -114,6 +114,43 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         amp.initialize(None, None, opt_level="O2")
 
 
+def test_data_parallel_entry_points_follow_their_tensors(monkeypatch):
+    """``DistributedDataParallel`` and the ZeRO optimizers run where their
+    parameters are: CPU parameters take the CPU (no process group: an axis
+    of one rank); a module without parameters defaults to the card and
+    raises without one."""
+    from torch import nn
+    from apex_tpu_torch.parallel import (DistributedDataParallel,
+                                         DistributedFusedAdam,
+                                         DistributedFusedLAMB)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DistributedDataParallel(nn.ReLU())
+    net = nn.Linear(3, 2)
+    ddp = DistributedDataParallel(net)
+    ddp(torch.ones(4, 3)).sum().backward()
+    assert ddp.world_size == 1 and net.weight.grad.shape == (2, 3)
+    for cls in (DistributedFusedAdam, DistributedFusedLAMB):
+        bare = nn.Linear(3, 2)      # its reduce-scatter is the reduction
+        bare(torch.ones(4, 3)).sum().backward()
+        opt = cls(bare.parameters(), lr=1e-2, block_rows=8)
+        opt.step()
+        assert opt.world_size == 1 and opt.state_dict()["rank"] == 0
+
+
+def test_cpu_two_rank_data_parallel_launches_no_kernel(tmp_path):
+    """Two gloo ranks on the CPU run DDP, the ZeRO optimizers, SyncBN
+    across the ranks and LARC over tiny BERT (O2), GPT and resnet26 on the
+    plain versions: no counter moves on either rank."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_dist import run
+    out = run(tmp_path, 2, "cpu_launches", {})
+    for rank in out:
+        assert rank["launches"] and not any(rank["launches"].values()), \
+            rank["launches"]
+        assert np.all(np.isfinite(rank["losses"]))
+
+
 def test_cpu_serving_launches_no_kernel():
     for c in COUNTERS:
         c.launches = 0

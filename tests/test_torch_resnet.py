@@ -477,8 +477,10 @@ def test_sync_batch_norm_bf16_input_keeps_its_dtype():
 def test_sync_batchnorm_module_and_convert():
     """The module updates its buffers in training mode only, fuses the
     ReLU where asked, and ``convert_syncbn_model`` replaces torch's
-    BatchNorm2d with it, carrying parameters and running statistics;
-    statistics across devices raise, naming the multi-GPU slice."""
+    BatchNorm2d with it, carrying parameters and running statistics; a
+    process group of one rank (no ``torch.distributed``: the ``data``
+    axis is this rank alone) normalises as the local path does
+    (``tests/test_torch_ddp.py`` holds the statistics across ranks)."""
     rng = np.random.RandomState(6)
     x = torch.from_numpy(rng.randn(4, 3, 5, 5).astype(np.float32))
     net = nn.Sequential(nn.Conv2d(3, 3, 1), nn.BatchNorm2d(3))
@@ -507,11 +509,13 @@ def test_sync_batchnorm_module_and_convert():
     assert torch.equal(net[1].running_mean, before)
     relu = SyncBatchNorm(3, fuse_relu=True)
     assert (relu(x) >= 0).all()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        SyncBatchNorm(3, process_group="data")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        sync_batch_norm(x, None, None, BatchNormState(
-            torch.zeros(3), torch.ones(3), torch.zeros((), dtype=torch.int32)),
-            training=True, axis_name="data")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tR.ResNetConfig(axis_name="data")
+    local = SyncBatchNorm(3)
+    synced = SyncBatchNorm(3, process_group="data")
+    assert torch.equal(synced(x), local(x))
+    state = BatchNormState(torch.zeros(3), torch.ones(3),
+                           torch.zeros((), dtype=torch.int32))
+    ya, sa = sync_batch_norm(x, None, None, state, training=True,
+                             axis_name="data")
+    yb, sb = sync_batch_norm(x, None, None, state, training=True)
+    assert torch.equal(ya, yb) and all(map(torch.equal, sa, sb))
+    assert tR.ResNetConfig(axis_name="data").axis_name == "data"
