@@ -8,6 +8,11 @@ imports JAX) and returns a state dict for
 are the tree's paths joined by dots, so the mapping is a flatten; shapes
 are checked against the model the config describes.
 
+Under tensor parallelism both take ``rank=r``: the serial tree converted,
+then cut into rank ``r``'s shards (``models.gpt.shard_params_for_tp``,
+the JAX ``shard_params_for_tp`` slicing; BERT by its partition specs), for
+the model of the tensor-parallel ``cfg``.
+
 :func:`gpt_quant_params_from_jax` carries a tree that the JAX
 ``quantize_decode_params`` quantized: int8 weights and their f32 scales
 bit for bit, for a model with ``weight_quant="int8"``.
@@ -36,9 +41,13 @@ layout).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from apex_tpu_torch.models import bert as _bert
+from apex_tpu_torch.models import gpt as _gpt
 from apex_tpu_torch.models.bert import BertConfig, BertModel
 from apex_tpu_torch.models.gpt import (GPTConfig, GPTModel,
                                        quantize_decode_params)
@@ -88,12 +97,38 @@ def _params_from_jax(tree, model) -> dict:
     return sd
 
 
-def gpt_params_from_jax(tree, cfg: GPTConfig) -> dict:
+def _serial(cfg):
+    return dataclasses.replace(cfg, tensor_parallel_size=1, axis_name=None,
+                               sequence_parallel=False, overlap_chunks=0)
+
+
+def _rank_params(tree, cfg, rank, model_cls, shard):
+    """The serial conversion, then rank ``rank``'s shards of it, checked
+    against the tensor-parallel model's shapes."""
+    t = cfg.tensor_parallel_size
+    if rank is None:
+        if t > 1:
+            raise ValueError(f"tensor_parallel_size={t}: pass the rank whose "
+                             "shards to return")
+        return _params_from_jax(tree, model_cls(cfg, device="meta"))
+    if not 0 <= int(rank) < t:
+        raise ValueError(f"rank {rank} is not in [0, {t})")
+    sd = shard(cfg, _params_from_jax(
+        tree, model_cls(_serial(cfg), device="meta")), int(rank))
+    for name, want in model_cls(cfg, device="meta").state_dict().items():
+        if tuple(sd[name].shape) != tuple(want.shape):
+            raise ValueError(f"{name}: shard {tuple(sd[name].shape)} != "
+                             f"port shape {tuple(want.shape)}")
+    return sd
+
+
+def gpt_params_from_jax(tree, cfg: GPTConfig, rank=None) -> dict:
     """State dict (CPU tensors in ``cfg.param_dtype``) for
-    ``GPTModel(cfg)`` from a JAX GPT parameter tree of numpy arrays.
-    Load it with ``model.load_state_dict(sd)``.  Raises when the tree's
-    names or shapes do not match the model."""
-    return _params_from_jax(tree, GPTModel(cfg, device="meta"))
+    ``GPTModel(cfg)`` from a JAX GPT parameter tree of numpy arrays (the
+    serial tree; with ``rank``, that rank's shards of it for a
+    tensor-parallel ``cfg``).  Load it with ``model.load_state_dict(sd)``.
+    Raises when the tree's names or shapes do not match the model."""
+    return _rank_params(tree, cfg, rank, GPTModel, _gpt.shard_params_for_tp)
 
 
 def gpt_quant_params_from_jax(tree, cfg: GPTConfig) -> dict:
@@ -134,14 +169,16 @@ def gpt_quant_params_from_jax(tree, cfg: GPTConfig) -> dict:
     return sd
 
 
-def bert_params_from_jax(tree, cfg: BertConfig) -> dict:
+def bert_params_from_jax(tree, cfg: BertConfig, rank=None) -> dict:
     """State dict for ``BertModel(cfg)`` from a JAX BERT parameter tree of
     numpy arrays: each leaf in the dtype of the port parameter it fills
     (``cfg.param_dtype``, f32 for the LayerNorms), so an O2-cast tree
     (bf16 leaves) carries over exactly; ``load_state_dict`` then rounds
-    nothing into a model cast by ``amp.initialize``.  Raises when the
-    tree's names or shapes do not match the model."""
-    return _params_from_jax(tree, BertModel(cfg, device="meta"))
+    nothing into a model cast by ``amp.initialize``.  With ``rank``, that
+    rank's shards for a tensor-parallel ``cfg``.  Raises when the tree's
+    names or shapes do not match the model."""
+    return _rank_params(tree, cfg, rank, BertModel,
+                        _bert.shard_params_for_tp)
 
 
 def mlp_params_from_jax(tree, module) -> dict:

@@ -1,5 +1,6 @@
 """BERT encoder with MLM/NSP heads — port of ``apex_tpu/models/bert.py``
-(the serial path: ``apply``, the MLM head and the training loss).
+(``apply``, the MLM head and the training loss, serial or tensor- and
+sequence-parallel).
 
 The JAX model's wiring: token (vocab) + learned position + segment
 embeddings → MixedFusedLayerNorm → N × post-LN blocks (bidirectional flash
@@ -18,6 +19,18 @@ non-causal flash forward, dq and dk/dv kernels through
 ``remat=True`` recomputes each layer in the backward as the GPT model
 does (:func:`apex_tpu_torch.models.gpt.remat_call`, both policies).
 
+Tensor and sequence parallelism (``tensor_parallel_size=t,
+axis_name="model"``, ``sequence_parallel``, ``overlap_chunks``) are the
+GPT model's (:mod:`apex_tpu_torch.models.gpt`): the linears and the
+embedding hold their rank's shards, the MLM loss is the vocab-parallel
+logits and cross entropy, and under sequence parallelism the layers run
+on the sequence shard, the per-layer LayerNorms and the MLM transform and
+LayerNorm (which see the vocab shard's partial gradient) taking
+``copy_to_tensor_model_parallel_region`` on their parameters.  Outside it
+the decoder's f32 input is copied into the region.
+:func:`shard_params_for_tp` cuts a serial state dict by the models'
+partition specs.
+
 Parameter names and shapes mirror the JAX tree (``layers.3.attention.qkv.
 weight`` is ``params["layers"][3]["attention"]["qkv"]["weight"]``), so the
 conversion is a flatten and amp's O2 name pattern sees the same names.  As
@@ -29,6 +42,7 @@ the MLM transform and NSP head keep ``(in, out)`` weights used as
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Optional
 
 import torch
@@ -36,10 +50,11 @@ from torch import nn
 import torch.nn.functional as F
 
 from apex_tpu_torch.models.gpt import (MULTI_GPU_SLICE, _reset_layer_norm,
-                                       remat_call)
+                                       fused_ffn_tp_of, remat_call,
+                                       shard_state_dict, sp_param_map,
+                                       tp_layer_kwargs)
 from apex_tpu_torch.normalization import MixedFusedLayerNorm
 from apex_tpu_torch.ops.flash_attention import flash_attention
-from apex_tpu_torch.ops.fused_ffn import fused_ffn
 from apex_tpu_torch.ops.lm_head import fused_linear_cross_entropy
 from apex_tpu_torch.transformer import tensor_parallel as tp
 from apex_tpu_torch.transformer.tensor_parallel.layers import _normal_
@@ -47,7 +62,8 @@ from apex_tpu_torch.utils.device import resolve_device
 
 _f32 = torch.float32
 
-__all__ = ["BertConfig", "BertSelfAttention", "BertLayer", "BertModel"]
+__all__ = ["BertConfig", "BertSelfAttention", "BertLayer", "BertModel",
+           "shard_params_for_tp"]
 
 
 @dataclasses.dataclass
@@ -80,19 +96,25 @@ class BertConfig:
         if self.hidden_size % self.num_attention_heads:
             raise ValueError(
                 "hidden_size must be divisible by num_attention_heads")
-        unsupported = [
-            (self.plan is not None, "plan", MULTI_GPU_SLICE),
-            (self.tensor_parallel_size > 1, "tensor_parallel_size > 1",
-             MULTI_GPU_SLICE),
-            (self.axis_name is not None, "axis_name", MULTI_GPU_SLICE),
-            (self.sequence_parallel, "sequence_parallel", MULTI_GPU_SLICE),
-            (self.overlap_chunks > 0, "overlap_chunks", MULTI_GPU_SLICE),
-        ]
-        for on, knob, slice_name in unsupported:
-            if on:
-                raise NotImplementedError(
-                    f"BertConfig.{knob} is not ported yet: it comes with "
-                    f"{slice_name} of apex_tpu_torch")
+        if self.num_attention_heads % self.tensor_parallel_size:
+            raise ValueError("num_attention_heads must be divisible by "
+                             "tensor_parallel_size")
+        if self.overlap_chunks < 0:
+            raise ValueError(
+                f"overlap_chunks must be >= 0, got {self.overlap_chunks}")
+        if self.overlap_chunks > 0 and not self.sequence_parallel:
+            raise ValueError(
+                "overlap_chunks rings the sequence-parallel collective/GEMM "
+                "pairs; it requires sequence_parallel=True")
+        if self.tensor_parallel_size > 1 and self.axis_name is None:
+            raise ValueError(
+                "tensor_parallel_size > 1 needs axis_name (the model "
+                "process group): the port has no GSPMD form, its layers "
+                "hold their rank's shards")
+        if self.plan is not None:
+            raise NotImplementedError(
+                f"BertConfig.plan is not ported yet: it comes with "
+                f"{MULTI_GPU_SLICE} of apex_tpu_torch")
 
     @property
     def head_dim(self):
@@ -107,11 +129,11 @@ class BertSelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.qkv = tp.ColumnParallelLinear(
-            cfg.hidden_size, 3 * cfg.hidden_size,
-            param_dtype=cfg.param_dtype, device=device)
+            cfg.hidden_size, 3 * cfg.hidden_size, gather_output=False,
+            device=device, **tp_layer_kwargs(cfg))
         self.proj = tp.RowParallelLinear(
-            cfg.hidden_size, cfg.hidden_size, param_dtype=cfg.param_dtype,
-            device=device)
+            cfg.hidden_size, cfg.hidden_size, input_is_parallel=True,
+            device=device, **tp_layer_kwargs(cfg))
 
     def forward(self, x, seqlens=None):
         b = x.shape[0]
@@ -133,28 +155,29 @@ class BertLayer(nn.Module):
 
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
+        self.cfg = cfg
         self.fused_ffn = cfg.fused_ffn
         self.attention = BertSelfAttention(cfg, device)
         self.attention_layernorm = MixedFusedLayerNorm(cfg.hidden_size,
                                                        device=device)
         self.fc1 = tp.ColumnParallelLinear(
-            cfg.hidden_size, cfg.ffn_hidden_size,
-            param_dtype=cfg.param_dtype, device=device)
+            cfg.hidden_size, cfg.ffn_hidden_size, gather_output=False,
+            device=device, **tp_layer_kwargs(cfg))
         self.fc2 = tp.RowParallelLinear(
-            cfg.ffn_hidden_size, cfg.hidden_size,
-            param_dtype=cfg.param_dtype, device=device)
+            cfg.ffn_hidden_size, cfg.hidden_size, input_is_parallel=True,
+            device=device, **tp_layer_kwargs(cfg))
         self.output_layernorm = MixedFusedLayerNorm(cfg.hidden_size,
                                                     device=device)
 
     def forward(self, x, seqlens=None):
-        x = self.attention_layernorm(x + self.attention(x, seqlens))
+        wrap = sp_param_map(self.cfg)
+        x = self.attention_layernorm(x + self.attention(x, seqlens), wrap)
         if self.fused_ffn:
-            h = fused_ffn(x, self.fc1.weight, self.fc1.bias, self.fc2.weight,
-                          self.fc2.bias)
+            h = fused_ffn_tp_of(self.cfg, x, self.fc1, self.fc2)
         else:
             h, _ = self.fc1(x)
             h, _ = self.fc2(F.gelu(h, approximate="tanh"))
-        return self.output_layernorm(x + h)
+        return self.output_layernorm(x + h, wrap)
 
 
 class _Dense(nn.Module):
@@ -169,8 +192,11 @@ class _Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros((n_out,), dtype=param_dtype,
                                              device=device))
 
-    def forward(self, x):
-        return x.to(_f32) @ self.weight.to(_f32) + self.bias.to(_f32)
+    def forward(self, x, param_map=None):
+        weight, bias = self.weight, self.bias
+        if param_map is not None:
+            weight, bias = param_map(weight), param_map(bias)
+        return x.to(_f32) @ weight.to(_f32) + bias.to(_f32)
 
 
 class BertModel(nn.Module):
@@ -199,8 +225,9 @@ class BertModel(nn.Module):
         self.cfg = cfg
         dev = self.device
         self.embedding = tp.VocabParallelEmbedding(
-            cfg.vocab_size, cfg.hidden_size, param_dtype=cfg.param_dtype,
-            device=dev)
+            cfg.vocab_size, cfg.hidden_size,
+            world_size=cfg.tensor_parallel_size, axis_name=cfg.axis_name,
+            param_dtype=cfg.param_dtype, device=dev)
         self.position_embedding = nn.Parameter(torch.zeros(
             (cfg.max_seq_len, cfg.hidden_size), dtype=cfg.param_dtype,
             device=dev))
@@ -244,6 +271,25 @@ class BertModel(nn.Module):
         """Final hidden states ``(b, s, hidden)`` at ``cfg.dtype``.
         ``seqlens``: optional ``(b,)`` int valid lengths (keys past them
         are masked)."""
+        return self._gather(self._encode(tokens, token_type_ids, seqlens))
+
+    forward = apply
+
+    @property
+    def _sp(self):
+        return self.cfg.sequence_parallel and self.cfg.axis_name is not None
+
+    def _gather(self, x):
+        """The whole sequence of an encoder output (reduce-scatter
+        backward under sequence parallelism)."""
+        if not self._sp:
+            return x
+        return tp.gather_from_sequence_parallel_region(
+            x, self.cfg.axis_name, 1)
+
+    def _encode(self, tokens, token_type_ids, seqlens):
+        """The encoder's output, under sequence parallelism this rank's
+        sequence shard ``(b, s / t, hidden)``."""
         x = self.embedding(tokens)
         x = x + self.position_embedding[:tokens.shape[1]]
         if token_type_ids is None:
@@ -251,21 +297,37 @@ class BertModel(nn.Module):
         else:
             x = x + self.token_type_embedding[token_type_ids]
         x = self.embedding_layernorm(x).to(self.cfg.dtype)
+        cfg = self.cfg
+        if self._sp:
+            # the per-layer LNs and residuals run on (b, s/t, h); each
+            # block's tensor-parallel edges gather / reduce-scatter
+            if tokens.shape[1] % cfg.tensor_parallel_size:
+                raise ValueError(
+                    f"sequence_parallel requires seq_len divisible by "
+                    f"tensor_parallel_size ({tokens.shape[1]} % "
+                    f"{cfg.tensor_parallel_size} != 0)")
+            x = tp.scatter_to_sequence_parallel_region(x, cfg.axis_name, 1)
         for layer in self.layers:
-            x = remat_call(self.cfg, layer, x, seqlens)
+            x = remat_call(cfg, layer, x, seqlens)
         return x
 
-    forward = apply
-
     def _mlm_transform(self, hidden):
-        """f32 dense + GELU + LN before the tied decoder."""
-        h = F.gelu(self.mlm_transform(hidden), approximate="tanh")
-        return self.mlm_layernorm(h)
+        """f32 dense + GELU + LN before the tied decoder; under sequence
+        parallelism their parameters see the vocab shard's partial
+        gradient and are wrapped (:func:`~apex_tpu_torch.models.gpt.
+        sp_param_map`)."""
+        wrap = sp_param_map(self.cfg)
+        h = F.gelu(self.mlm_transform(hidden, wrap), approximate="tanh")
+        return self.mlm_layernorm(h, wrap)
 
     def mlm_logits(self, hidden):
-        """Tied-decoder logits ``(b, s, vocab)`` in full f32."""
-        h = self._mlm_transform(hidden)
-        return torch.matmul(h.to(_f32), self.embedding.weight.to(_f32).t())
+        """Tied-decoder logits ``(b, s, vocab / t)`` in full f32 (this
+        rank's vocab shard; outside sequence parallelism the decoder's
+        input is copied into the tensor-parallel region)."""
+        h = self._mlm_transform(hidden).to(_f32)
+        if self.cfg.axis_name is not None and not self.cfg.sequence_parallel:
+            h = tp.copy_to_tensor_model_parallel_region(h, self.cfg.axis_name)
+        return torch.matmul(h, self.embedding.weight.to(_f32).t())
 
     def loss(self, tokens, mlm_labels, token_type_ids=None, seqlens=None,
              nsp_labels=None):
@@ -281,11 +343,12 @@ class BertModel(nn.Module):
         run their f32 instantiation (see :meth:`GPTModel.head_loss
         <apex_tpu_torch.models.gpt.GPTModel.head_loss>`: slower on the card
         than ``fused_lm_head=False``)."""
-        hidden = self.apply(tokens, token_type_ids, seqlens)
+        x = self._encode(tokens, token_type_ids, seqlens)
+        hidden = self._gather(x)
         b, s = mlm_labels.shape
         mask = mlm_labels >= 0
         safe = torch.where(mask, mlm_labels, torch.zeros_like(mlm_labels))
-        if self.cfg.fused_lm_head:
+        if self.cfg.axis_name is None and self.cfg.fused_lm_head:
             h = self._mlm_transform(hidden)
             per = fused_linear_cross_entropy(
                 h.reshape(b * s, h.shape[-1]).to(self.cfg.dtype),
@@ -295,13 +358,39 @@ class BertModel(nn.Module):
             logits = self.mlm_logits(hidden)
             per = tp.vocab_parallel_cross_entropy(
                 logits.reshape(b * s, logits.shape[-1]),
-                safe.reshape(b * s)).reshape(b, s)
+                safe.reshape(b * s),
+                axis_name=self.cfg.axis_name).reshape(b, s)
         denom = torch.clamp(torch.sum(mask), min=1)
         loss = torch.sum(torch.where(mask, per, torch.zeros_like(per))) \
             / denom
         if nsp_labels is not None:
-            pooled = torch.tanh(hidden[:, 0].to(_f32))
+            first = hidden[:, 0]
+            if self._sp:
+                # every rank computes the same NSP loss: gather each
+                # shard's first token with a split backward (the global
+                # first token is rank 0's), so its cotangent reaches the
+                # encoder once and not once a rank.  The JAX package sums
+                # it over the ranks (ROADMAP queue C)
+                first = tp.gather_from_sequence_parallel_region(
+                    x[:, :1], self.cfg.axis_name, 1,
+                    tensor_parallel_output_grad=False)[:, 0]
+            pooled = torch.tanh(first.to(_f32))
             logp = torch.log_softmax(self.nsp_head(pooled), dim=-1)
             loss = loss - torch.mean(
                 torch.gather(logp, 1, nsp_labels.reshape(-1, 1)))
         return loss
+
+
+_COLUMN_SHARDED = re.compile(
+    r"(embedding|layers\.\d+\.(attention\.qkv|fc1))\.(weight|bias)")
+_ROW_SHARDED = re.compile(r"layers\.\d+\.(attention\.proj|fc2)\.weight")
+
+
+def shard_params_for_tp(cfg: BertConfig, state_dict, rank: int) -> dict:
+    """Rank ``rank``'s tensor-parallel state dict cut from a serial
+    :class:`BertModel` state dict by the JAX model's ``partition_specs``
+    (``apex_tpu/models/bert.py:333``): the embedding's and the column
+    layers' (qkv, fc1) rows, the row layers' (proj, fc2) weight columns;
+    everything else whole."""
+    return shard_state_dict(state_dict, rank, cfg.tensor_parallel_size,
+                            _COLUMN_SHARDED, _ROW_SHARDED)

@@ -1,5 +1,6 @@
 """GPT decoder for serving and training — port of ``apex_tpu/models/gpt.py``
-(the serial path: prefill / decode, and the training loss).
+(prefill / decode and the training loss, serial or tensor- and
+sequence-parallel).
 
 The same pre-LN wiring as the JAX model: vocab embedding → N ×
 (MixedFusedLayerNorm → causal attention with RoPE → residual →
@@ -18,7 +19,7 @@ model, all reached through :mod:`apex_tpu_torch.normalization` and
 LM head (``fused_lm_head=True``, the JAX default: the forward, dX and dW
 kernels of :mod:`apex_tpu_torch.ops.lm_head` on compute-dtype operands), or
 with ``fused_lm_head=False`` the f32 head GEMM and the vocab-parallel cross
-entropy at world size 1.  Serving's logits are the f32 head GEMM.
+entropy.  Serving's logits are the f32 head GEMM.
 With ``remat=True`` each layer of the training path runs under
 ``torch.utils.checkpoint`` (:func:`remat_call`): ``remat_policy="full"``
 keeps only the layer's input and recomputes the whole layer in the
@@ -39,6 +40,29 @@ engines quantize the weights once (:func:`quantize_decode_params`,
 :meth:`GPTModel.load_quantized_`): every qkv / proj / fc1 / fc2 GEMM and
 the tied head then run the int8 dequant-GEMM kernel of
 :mod:`apex_tpu_torch.ops.quant_gemm`, and training refuses the model.
+
+Tensor parallelism (``tensor_parallel_size=t, axis_name="model"``, the
+JAX model's shard_map form) runs over the ``model`` process group of
+:mod:`apex_tpu_torch.transformer.parallel_state`: each rank holds the
+column shards of qkv and fc1, the row shards of proj and fc2, the vocab
+rows of the tied embedding and its ``local_heads`` heads, and the head
+loss is the f32 vocab-parallel logits and cross entropy (the fused LM head
+serves the serial vocab only, as in JAX).  ``sequence_parallel=True``
+shards the residual stream along the sequence between the layers'
+tensor-parallel regions (:meth:`GPTModel.loss` scatters it after the
+embedding and gathers it before the head); ``overlap_chunks > 0`` takes
+the overlap rings for the linears.  Torch sums no gradient across ranks by
+itself (JAX's shard_map psums a replicated leaf's cotangents): what
+rank-local work uses of the replicated stream takes
+``copy_to_tensor_model_parallel_region`` (identity forward, all-reduce
+backward) — under sequence parallelism the LayerNorms' parameters, the
+row biases and the final LayerNorm's, outside it the head's input (each
+rank's head sees its vocab shard only) — so every rank holds the serial
+gradient of a replicated parameter and the slice of it of a sharded one.
+With attention dropout rank ``r`` adds ``r * _SEED_TP_RANK_STRIDE`` to the
+seed (int32 wraparound, as in JAX): the kernels' mask hashes the local
+head index.  :func:`shard_params_for_tp` cuts a serial state dict into
+rank ``r``'s.
 
 Parameter names mirror the JAX parameter tree (``layers.3.attention.qkv.
 weight`` is ``params["layers"][3]["attention"]["qkv"]["weight"]``), which
@@ -62,25 +86,53 @@ from apex_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_chunk_paged, flash_attention_decode,
     flash_attention_decode_paged, flash_attention_decode_paged_quant,
     quantize_kv_blocks)
-from apex_tpu_torch.ops.fused_ffn import fused_ffn
+from apex_tpu_torch.ops.fused_ffn import fused_ffn_tp
 from apex_tpu_torch.ops.lm_head import fused_linear_cross_entropy
 from apex_tpu_torch.ops.quant_gemm import quant_gemm, quantize_weight
 from apex_tpu_torch.ops.rope import (fused_apply_rotary_pos_emb_at_positions,
                                      fused_apply_rotary_pos_emb_cached,
                                      rope_freqs)
+from apex_tpu_torch.transformer import parallel_state as ps
 from apex_tpu_torch.transformer import tensor_parallel as tp
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     INIT_STD, install_int8_weight)
+from apex_tpu_torch.transformer.tensor_parallel.mappings import axis_group
 from apex_tpu_torch.utils.device import resolve_device
 
 _f32 = torch.float32
 
-MULTI_GPU_SLICE = "the multi-GPU slice"
+MULTI_GPU_SLICE = ("the pipeline / context / expert-parallel slice "
+                   "(ROADMAP.md queue A item 14)")
 
 # layer i's attention-dropout stream is seeded dropout_seed + i * stride
 # (modulo 2**32), as in the JAX model: a caller advancing the base seed by
 # +1 per step never replays another layer's mask
 _SEED_LAYER_STRIDE = 0x3C6EF35F
+_SEED_TP_RANK_STRIDE = 0x7F4A7C15  # per-TP-rank dropout stream offset
+
+
+def wrap_int32(v: int) -> int:
+    """``v`` wrapped into int32 as JAX's int32 arithmetic wraps it."""
+    return (int(v) + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def sp_param_map(cfg):
+    """The map the sequence-parallel regions apply to a replicated
+    parameter (``copy_to_tensor_model_parallel_region``: its gradient
+    summed over the ranks), or None outside sequence parallelism."""
+    if not (cfg.sequence_parallel and cfg.axis_name is not None):
+        return None
+    return functools.partial(tp.copy_to_tensor_model_parallel_region,
+                             axis_name=cfg.axis_name)
+
+
+def tp_layer_kwargs(cfg):
+    """The tensor-parallel keywords every linear of the models takes (the
+    JAX models' wiring)."""
+    return dict(world_size=cfg.tensor_parallel_size, axis_name=cfg.axis_name,
+                sequence_parallel_enabled=cfg.sequence_parallel, seq_dim=1,
+                overlap_chunks=cfg.overlap_chunks,
+                param_dtype=cfg.param_dtype)
 
 
 def _remat_policy(name: str):
@@ -159,6 +211,15 @@ class GPTConfig:
         if self.hidden_size % self.num_attention_heads:
             raise ValueError(
                 "hidden_size must be divisible by num_attention_heads")
+        if self.num_attention_heads % self.tensor_parallel_size:
+            raise ValueError(
+                "num_attention_heads must be divisible by "
+                "tensor_parallel_size")
+        if self.tensor_parallel_size > 1 and self.axis_name is None:
+            raise ValueError(
+                "tensor_parallel_size > 1 needs axis_name (the model "
+                "process group): the port has no GSPMD form, its layers "
+                "hold their rank's shards")
         if not 0.0 <= self.attention_dropout < 1.0:
             raise ValueError(f"attention_dropout must be in [0, 1), got "
                              f"{self.attention_dropout}")
@@ -211,11 +272,6 @@ class GPTConfig:
             (self.context_axis is not None, "context_axis", MULTI_GPU_SLICE),
             (self.context_mechanism != "ring", "context_mechanism",
              MULTI_GPU_SLICE),
-            (self.axis_name is not None, "axis_name", MULTI_GPU_SLICE),
-            (self.sequence_parallel, "sequence_parallel", MULTI_GPU_SLICE),
-            (self.overlap_chunks > 0, "overlap_chunks", MULTI_GPU_SLICE),
-            (self.tensor_parallel_size > 1, "tensor_parallel_size > 1",
-             MULTI_GPU_SLICE),
         ]
         for on, knob, slice_name in unsupported:
             if on:
@@ -239,11 +295,11 @@ class ParallelAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.qkv = tp.ColumnParallelLinear(
-            cfg.hidden_size, 3 * cfg.hidden_size,
-            param_dtype=cfg.param_dtype, device=device)
+            cfg.hidden_size, 3 * cfg.hidden_size, gather_output=False,
+            device=device, **tp_layer_kwargs(cfg))
         self.proj = tp.RowParallelLinear(
-            cfg.hidden_size, cfg.hidden_size, param_dtype=cfg.param_dtype,
-            device=device)
+            cfg.hidden_size, cfg.hidden_size, input_is_parallel=True,
+            device=device, **tp_layer_kwargs(cfg))
 
     def _qkv(self, x):
         """Project ``x`` and split into ``(q, k, v)``, each
@@ -273,6 +329,12 @@ class ParallelAttention(nn.Module):
                 k.transpose(0, 1), rope_cos, rope_sin).transpose(0, 1)
         rate = self.cfg.attention_dropout if dropout_seed is not None \
             else 0.0
+        if rate > 0.0 and self.cfg.axis_name is not None:
+            # the kernels' mask hashes the LOCAL (batch, head) index: without
+            # an offset head j would draw the same mask on every rank
+            rank = ps.group_rank(axis_group(self.cfg.axis_name))
+            dropout_seed = wrap_int32(int(dropout_seed)
+                                      + rank * _SEED_TP_RANK_STRIDE)
         ctx = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=True, dropout=rate,
                               dropout_seed=dropout_seed)
@@ -440,28 +502,41 @@ class ParallelMLP(nn.Module):
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
+        self.cfg = cfg
         self.fused_ffn = cfg.fused_ffn
         self.fc1 = tp.ColumnParallelLinear(
-            cfg.hidden_size, cfg.ffn_hidden_size,
-            param_dtype=cfg.param_dtype, device=device)
+            cfg.hidden_size, cfg.ffn_hidden_size, gather_output=False,
+            device=device, **tp_layer_kwargs(cfg))
         self.fc2 = tp.RowParallelLinear(
-            cfg.ffn_hidden_size, cfg.hidden_size,
-            param_dtype=cfg.param_dtype, device=device)
+            cfg.ffn_hidden_size, cfg.hidden_size, input_is_parallel=True,
+            device=device, **tp_layer_kwargs(cfg))
 
     def forward(self, x):
         if self.fused_ffn:
-            return fused_ffn(x, self.fc1.weight, self.fc1.bias,
-                             self.fc2.weight, self.fc2.bias)
+            return fused_ffn_tp_of(self.cfg, x, self.fc1, self.fc2)
         h, _ = self.fc1(x)
         y, _ = self.fc2(F.gelu(h, approximate="tanh"))
         return y
 
 
+def fused_ffn_tp_of(cfg, x, fc1, fc2):
+    """The fused FFN on the ``fc1`` / ``fc2`` layers' shards between their
+    tensor- and sequence-parallel edges (:func:`~apex_tpu_torch.ops.
+    fused_ffn.fused_ffn_tp`)."""
+    return fused_ffn_tp(x, fc1.weight, fc1.bias, fc2.weight, fc2.bias,
+                        tensor_parallel_size=cfg.tensor_parallel_size,
+                        axis_name=cfg.axis_name,
+                        sequence_parallel=cfg.sequence_parallel, seq_dim=1)
+
+
 class ParallelTransformerLayer(nn.Module):
-    """Pre-LN transformer block (apex ParallelTransformerLayer)."""
+    """Pre-LN transformer block (apex ParallelTransformerLayer).  Under
+    sequence parallelism the two LayerNorms run on the sequence shard with
+    their parameters wrapped by :func:`sp_param_map`."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
+        self.cfg = cfg
         self.input_layernorm = MixedFusedLayerNorm(cfg.hidden_size,
                                                    device=device)
         self.attention = ParallelAttention(cfg, device)
@@ -476,10 +551,11 @@ class ParallelTransformerLayer(nn.Module):
     def prefill(self, x, rope_cos=None, rope_sin=None, dropout_seed=None):
         """Returns ``(x_out, (k, v))`` with this layer's post-RoPE cache
         entries."""
-        attn, kv = self.attention.prefill(self.input_layernorm(x), rope_cos,
-                                          rope_sin, dropout_seed)
+        wrap = sp_param_map(self.cfg)
+        attn, kv = self.attention.prefill(self.input_layernorm(x, wrap),
+                                          rope_cos, rope_sin, dropout_seed)
         x = x + attn
-        return x + self.mlp(self.post_attention_layernorm(x)), kv
+        return x + self.mlp(self.post_attention_layernorm(x, wrap)), kv
 
     def _around(self, x, attend):
         """The block's residual / LN / MLP wiring around ``attend(ln(x))``,
@@ -529,7 +605,9 @@ class GPTModel(nn.Module):
     deterministic values of a fresh ``nn.Module`` (zero weights, unit LN
     gains); :meth:`init_params` draws the random weights from a
     :class:`torch.Generator`, or load a state dict (for instance one from
-    :func:`apex_tpu_torch.convert.gpt_params_from_jax`).
+    :func:`apex_tpu_torch.convert.gpt_params_from_jax`).  Under tensor
+    parallelism each rank builds its own shards (a ``model`` group of
+    ``tensor_parallel_size`` ranks must exist when it runs).
     """
 
     def __init__(self, cfg: GPTConfig, device=None):
@@ -545,8 +623,9 @@ class GPTModel(nn.Module):
         self.cfg = cfg
         dev = self.device
         self.embedding = tp.VocabParallelEmbedding(
-            cfg.vocab_size, cfg.hidden_size, param_dtype=cfg.param_dtype,
-            device=dev)
+            cfg.vocab_size, cfg.hidden_size,
+            world_size=cfg.tensor_parallel_size, axis_name=cfg.axis_name,
+            param_dtype=cfg.param_dtype, device=dev)
         self.layers = nn.ModuleList(ParallelTransformerLayer(cfg, dev)
                                     for _ in range(cfg.num_layers))
         self.final_layernorm = MixedFusedLayerNorm(cfg.hidden_size,
@@ -562,7 +641,9 @@ class GPTModel(nn.Module):
         weight N(0, 0.02), biases 0, LayerNorm gains 1 and shifts 0.
         ``generator`` is a CPU :class:`torch.Generator` (the numbers are
         drawn on the CPU, so a seed gives the same model on every device;
-        they cannot replay ``jax.random``)."""
+        they cannot replay ``jax.random``).  Each tensor-parallel rank
+        draws the full weights and keeps its slices, so the shards are
+        those of the serial model from the same seed."""
         self.embedding.reset_parameters(generator)
         for layer in self.layers:
             for lin in (layer.attention.qkv, layer.attention.proj,
@@ -603,14 +684,26 @@ class GPTModel(nn.Module):
         return torch.matmul(x.to(_f32), emb.weight.to(_f32).t())
 
     def logits(self, x):
-        """Final LN + tied head: ``(b, s, vocab)`` f32."""
-        return self._head_logits(self.final_layernorm(x))
+        """Final LN + tied head: ``(b, s, vocab / t)`` f32 (this rank's
+        vocab shard under tensor parallelism).  Outside sequence
+        parallelism the f32 head input is copied into the tensor-parallel
+        region (all-reduce backward: each rank's head sees its vocab shard
+        only), under it the final LayerNorm's parameters are wrapped
+        (:func:`sp_param_map`) and the gather before the head sums the
+        input's gradient."""
+        h = self.final_layernorm(x, sp_param_map(self.cfg))
+        if self.cfg.axis_name is not None and not self.cfg.sequence_parallel:
+            h = tp.copy_to_tensor_model_parallel_region(
+                h.to(_f32), self.cfg.axis_name)
+        return self._head_logits(h)
 
-    def backbone(self, x, dropout_seed=None):
-        """The layers over embedded ``x`` ``(b, s, hidden)``.  With a
-        ``dropout_seed``, layer ``i`` drops attention probabilities with
-        the stream ``dropout_seed + i * _SEED_LAYER_STRIDE``."""
-        cos, sin = self.rope_tables(x.shape[1])
+    def backbone(self, x, dropout_seed=None, seq_len=None):
+        """The layers over embedded ``x`` ``(b, s, hidden)`` (``(b, s / t,
+        hidden)`` under sequence parallelism, with ``seq_len`` the whole
+        sequence's length for the RoPE tables).  With a ``dropout_seed``,
+        layer ``i`` drops attention probabilities with the stream
+        ``dropout_seed + i * _SEED_LAYER_STRIDE``."""
+        cos, sin = self.rope_tables(seq_len or x.shape[1])
         for li, layer in enumerate(self.layers):
             seed = (None if dropout_seed is None
                     else int(dropout_seed) + li * _SEED_LAYER_STRIDE)
@@ -632,7 +725,8 @@ class GPTModel(nn.Module):
         entropy on an H100 (PERF.md): an f32 model trains faster on the
         card with ``fused_lm_head=False``.  Else the f32 head GEMM, then
         :func:`~apex_tpu_torch.transformer.tensor_parallel.
-        vocab_parallel_cross_entropy`."""
+        vocab_parallel_cross_entropy`; under tensor parallelism always the
+        latter (vocab-parallel logits), as in JAX."""
         if self.cfg.weight_quant is not None:
             raise ValueError(
                 f"weight_quant={self.cfg.weight_quant!r} is a decode/prefill-"
@@ -640,7 +734,7 @@ class GPTModel(nn.Module):
                 "have none — train with weight_quant=None and let the "
                 "inference engine quantize at init (quantize_decode_params)")
         b, s = targets.shape
-        if self.cfg.fused_lm_head:
+        if self.cfg.axis_name is None and self.cfg.fused_lm_head:
             h = self.final_layernorm(x)
             return fused_linear_cross_entropy(
                 h.reshape(b * s, h.shape[-1]).to(self.cfg.dtype),
@@ -649,20 +743,57 @@ class GPTModel(nn.Module):
         logits = self.logits(x)
         return tp.vocab_parallel_cross_entropy(
             logits.reshape(b * s, logits.shape[-1]),
-            targets.reshape(b * s)).reshape(b, s)
+            targets.reshape(b * s),
+            axis_name=self.cfg.axis_name).reshape(b, s)
+
+    def _sp_enabled(self):
+        return self.cfg.sequence_parallel and self.cfg.axis_name is not None
+
+    def _sp_scatter(self, x):
+        """The sequence-parallel entry edge: this rank's shard of the
+        sequence (all-gather backward)."""
+        if x.shape[1] % self.cfg.tensor_parallel_size:
+            raise ValueError(
+                f"sequence_parallel requires seq_len divisible by "
+                f"tensor_parallel_size ({x.shape[1]} % "
+                f"{self.cfg.tensor_parallel_size} != 0)")
+        return tp.scatter_to_sequence_parallel_region(x, self.cfg.axis_name,
+                                                      1)
+
+    def _sp_gather(self, x):
+        """The exit edge before the vocab-parallel head; its backward
+        reduce-scatters, summing the ranks' vocab-shard contributions."""
+        return tp.gather_from_sequence_parallel_region(x, self.cfg.axis_name,
+                                                       1)
+
+    def hidden(self, tokens, dropout_seed=None):
+        """Embedding and layers: the backbone output ``(b, s, hidden)``,
+        scattered over the sequence after the embedding and gathered again
+        under sequence parallelism."""
+        x = self.embed(tokens)
+        if self._sp_enabled():
+            x = self._sp_scatter(x)
+        x = self.backbone(x, dropout_seed, seq_len=tokens.shape[1])
+        return self._sp_gather(x) if self._sp_enabled() else x
 
     def loss(self, tokens, targets, dropout_seed=None):
         """Mean next-token loss (f32 scalar) of ``tokens (b, s)`` against
         ``targets (b, s)``; differentiable in every parameter.
         ``dropout_seed`` (int) enables ``cfg.attention_dropout`` for this
         step (advance it by +1 per step); ``None`` means no dropout."""
-        x = self.backbone(self.embed(tokens), dropout_seed)
+        x = self.hidden(tokens, dropout_seed)
         return torch.mean(self.head_loss(x, targets))
 
     def forward(self, tokens, dropout_seed=None):
-        """Full causal forward: ``tokens (b, s)`` → logits ``(b, s, vocab)``
-        f32; differentiable."""
-        return self.logits(self.backbone(self.embed(tokens), dropout_seed))
+        """Full causal forward: ``tokens (b, s)`` → logits ``(b, s, vocab /
+        t)`` f32; differentiable."""
+        return self.logits(self.hidden(tokens, dropout_seed))
+
+    def _check_decode_supported(self):
+        if self.cfg.sequence_parallel:
+            raise ValueError(
+                "KV-cache decode requires sequence_parallel=False "
+                "(decode steps are single-token)")
 
     @torch.no_grad()
     def prefill(self, tokens):
@@ -674,6 +805,7 @@ class GPTModel(nn.Module):
         Prompts padded beyond their true length are safe: causal masking
         keeps the logits at positions ``< prompt_len`` unaffected.
         """
+        self._check_decode_supported()
         x = self.embed(tokens)
         cos, sin = self.rope_tables(tokens.shape[1])
         ks, vs = [], []
@@ -694,6 +826,7 @@ class GPTModel(nn.Module):
         ``(logits (slots, vocab) f32, cache)``.  Inactive slots compute
         garbage that is never read.
         """
+        self._check_decode_supported()
         x = self._embed_at(tokens[:, None], positions[:, None])
         cos, sin = self.rope_tables(cache.shape[3])
         for li, layer in enumerate(self.layers):
@@ -726,6 +859,7 @@ class GPTModel(nn.Module):
         all garbage (block 0) compute garbage that is never read.  Returns
         ``(logits (slots, vocab) f32, pool)``.
         """
+        self._check_decode_supported()
         x = self._embed_at(tokens[:, None], positions[:, None])
         cos, sin = self._pool_rope(block_tables, pool)
         for li, layer in enumerate(self.layers):
@@ -744,6 +878,7 @@ class GPTModel(nn.Module):
         ``(slots, chunk)``.  Returns ``(logits (slots, chunk, vocab),
         pool)`` through the same head as :meth:`prefill`.
         """
+        self._check_decode_supported()
         x = self._embed_at(tokens, positions)
         cos, sin = self._pool_rope(block_tables, pool)
         for li, layer in enumerate(self.layers):
@@ -759,6 +894,7 @@ class GPTModel(nn.Module):
         (``pool`` int8, ``scales`` ``(num_blocks, layers, 2, local_heads)``
         f32; see :class:`apex_tpu_torch.serving.QuantizedPagedKVCache`).
         Returns ``(logits, pool, scales)``."""
+        self._check_decode_supported()
         x = self._embed_at(tokens[:, None], positions[:, None])
         cos, sin = self._pool_rope(block_tables, pool)
         for li, layer in enumerate(self.layers):
@@ -774,6 +910,7 @@ class GPTModel(nn.Module):
         the chunk's tokens one at a time (see
         :meth:`ParallelAttention.decode_chunk_quant`).  Returns ``(logits,
         pool, scales)``."""
+        self._check_decode_supported()
         x = self._embed_at(tokens, positions)
         cos, sin = self._pool_rope(block_tables, pool)
         for li, layer in enumerate(self.layers):
@@ -842,6 +979,45 @@ def quantize_decode_params(state_dict) -> dict:
             out[name + "_scale"] = scale
         else:
             out[name] = t
+    return out
+
+
+_COLUMN_SHARDED = re.compile(
+    r"(embedding|layers\.\d+\.(attention\.qkv|mlp\.fc1))"
+    r"\.(weight|bias|weight_scale)")
+_ROW_SHARDED = re.compile(r"layers\.\d+\.(attention\.proj|mlp\.fc2)\.weight")
+
+
+def shard_params_for_tp(cfg, state_dict, rank: int) -> dict:
+    """Rank ``rank``'s tensor-parallel state dict cut from a serial
+    :class:`GPTModel` state dict (the JAX ``shard_params_for_tp``): the
+    column layers' (qkv, fc1) and the vocab embedding's weight, bias and
+    int8 scale rows, the row layers' (proj, fc2) weight columns; their
+    biases and per-output-row scales, the LayerNorms and the position
+    embedding whole.  A column layer's scales are the slice of the full
+    weight's, so quantizing then sharding equals sharding then quantizing
+    there bit for bit; a row shard quantized alone has its own, tighter
+    scales.  Works on any ``cfg`` with the model's names (BERT's column /
+    row layers have their own names: :func:`apex_tpu_torch.models.bert.
+    shard_params_for_tp`)."""
+    return shard_state_dict(state_dict, rank, cfg.tensor_parallel_size,
+                            _COLUMN_SHARDED, _ROW_SHARDED)
+
+
+def shard_state_dict(state_dict, rank, t, column, row) -> dict:
+    """``state_dict`` with the names that ``column`` matches cut to their
+    ``rank``-th block of rows out of ``t`` and those that ``row`` matches
+    to their block of columns; every other entry as it is."""
+    out = {}
+    for name, v in state_dict.items():
+        if column.fullmatch(name):
+            per = v.shape[0] // t
+            out[name] = v[rank * per:(rank + 1) * per].contiguous()
+        elif row.fullmatch(name):
+            per = v.shape[1] // t
+            out[name] = v[:, rank * per:(rank + 1) * per].contiguous()
+        else:
+            out[name] = v
     return out
 
 

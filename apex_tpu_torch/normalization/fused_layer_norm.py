@@ -55,14 +55,22 @@ class FusedLayerNorm(nn.Module):
             self.bias = None if self.rms else nn.Parameter(torch.zeros(
                 self.normalized_shape, dtype=param_dtype, device=dev))
 
-    def forward(self, x):
+    def forward(self, x, param_map=None):
+        """``param_map``, when given, is applied to the weight and the bias
+        before they are used (the models wrap them in
+        ``copy_to_tensor_model_parallel_region`` under sequence
+        parallelism)."""
         if self.elementwise_affine:
+            weight, bias = self.weight, self.bias
+            if param_map is not None:
+                weight = param_map(weight)
+                bias = None if bias is None else param_map(bias)
             if self.rms:
                 return fused_rms_norm_affine(
-                    x, self.weight, self.normalized_shape, self.eps,
+                    x, weight, self.normalized_shape, self.eps,
                     self.memory_efficient)
             return fused_layer_norm_affine(
-                x, self.weight, self.bias, self.normalized_shape, self.eps,
+                x, weight, bias, self.normalized_shape, self.eps,
                 self.memory_efficient)
         if self.rms:
             return fused_rms_norm(x, self.normalized_shape, self.eps)
@@ -84,8 +92,8 @@ class MixedFusedLayerNorm(FusedLayerNorm):
         super().__init__(normalized_shape, eps=eps, elementwise_affine=True,
                          param_dtype=torch.float32, device=device, **kwargs)
 
-    def forward(self, x):
-        return super().forward(x).to(x.dtype)
+    def forward(self, x, param_map=None):
+        return super().forward(x, param_map).to(x.dtype)
 
 
 class MixedFusedRMSNorm(MixedFusedLayerNorm):

@@ -391,12 +391,34 @@ def fused_ffn(x, w1, b1, w2, b2=None):
 
 def fused_ffn_tp(x, w1, b1, w2, b2, *, tensor_parallel_size=1,
                  axis_name=None, sequence_parallel=False, seq_dim=1):
-    """The model-side fused FFN block at tensor-parallel size 1:
-    :func:`fused_ffn`.  The sharded forms (column-sharded fc1, row-sharded
-    fc2 and their collectives) come with the multi-GPU slice."""
-    if (tensor_parallel_size or 1) != 1 or sequence_parallel:
-        raise NotImplementedError(
-            "fused_ffn_tp with tensor_parallel_size > 1 or "
-            "sequence_parallel comes with the multi-GPU slice of "
-            "apex_tpu_torch")
-    return fused_ffn(x, w1, b1, w2, b2)
+    """The model-side fused FFN block: the kernels between the tensor- and
+    sequence-parallel edges of the unfused ``ColumnParallelLinear -> gelu
+    -> RowParallelLinear`` pair (``apex_tpu/ops/fused_ffn.py:395-427``).
+
+    ``w1`` / ``b1`` are fc1's column shard (the FFN dim over the group of
+    ``axis_name``), ``w2`` fc2's row shard and ``b2`` fc2's whole bias.
+    ``x`` is gathered along ``seq_dim`` under ``sequence_parallel`` (else
+    copied into the region: all-reduce backward), the kernels run
+    ``fused_ffn(x, w1, b1, w2, None)`` on the shards, the output is
+    reduce-scattered along ``seq_dim`` (else all-reduced), and ``b2`` is
+    added after the reduction; under ``sequence_parallel`` it lands on a
+    sequence shard, so it is wrapped in
+    ``copy_to_tensor_model_parallel_region`` (its gradient summed over the
+    ranks).  At ``tensor_parallel_size <= 1``: ``fused_ffn`` with ``b2``,
+    as in JAX.  The overlap rings do not apply: the fused op takes the
+    plain edges, as in JAX."""
+    if tensor_parallel_size <= 1:
+        return fused_ffn(x, w1, b1, w2, b2)
+    from apex_tpu_torch.transformer.tensor_parallel import mappings as M
+    if sequence_parallel:
+        x = M.gather_from_sequence_parallel_region(x, axis_name, seq_dim)
+    else:
+        x = M.copy_to_tensor_model_parallel_region(x, axis_name)
+    y = fused_ffn(x, w1, b1, w2, None)
+    if sequence_parallel:
+        y = M.reduce_scatter_to_sequence_parallel_region(y, axis_name,
+                                                         seq_dim)
+        b2 = M.copy_to_tensor_model_parallel_region(b2, axis_name)
+    else:
+        y = M.reduce_from_tensor_model_parallel_region(y, axis_name)
+    return y + b2.to(y.dtype)

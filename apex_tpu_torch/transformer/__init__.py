@@ -1,5 +1,6 @@
-"""Megatron-style transformer building blocks: tensor parallelism at world
-size 1; :mod:`.parallel_state` maps the mesh axes to process groups."""
+"""Megatron-style transformer building blocks: :mod:`.tensor_parallel`
+(tensor and sequence parallelism over the ``model`` process group);
+:mod:`.parallel_state` maps the mesh axes to process groups."""
 
 from apex_tpu_torch.transformer.enums import (AttnMaskType, AttnType,
                                               LayerType, ModelType)

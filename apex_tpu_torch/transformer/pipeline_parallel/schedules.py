@@ -1,6 +1,7 @@
 """Micro-batch schedules — port of
 ``apex_tpu/transformer/pipeline_parallel/schedules/__init__.py`` (the
-no-pipelining schedule; the pipelined ones come with the multi-GPU slice).
+no-pipelining schedule; the pipelined ones come with the pipeline-parallel
+slice).
 
 ``forward_backward_no_pipelining`` keeps the JAX signature and order:
 micro-batches run in ascending order, each one's loss cotangent is seeded

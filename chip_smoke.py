@@ -2,8 +2,9 @@
 """Drive apex_tpu_torch's serving and training paths (GPT serving, GPT
 training, BERT training under amp O2, each also with the fused FFN and
 under activation recompute, ResNet-50 ImageNet training under amp O1 and
-O2, paged and int8 GPT serving, the serving fleet) on one NVIDIA H100 and
-hold every kernel of the paths against its plain PyTorch version.
+O2, paged and int8 GPT serving, the serving fleet, data and tensor
+parallelism over NCCL) on one NVIDIA H100 and hold every kernel of the
+paths against its plain PyTorch version.
 
     python3 chip_smoke.py [--out results.json] [--profile breakdown.txt]
 
@@ -218,6 +219,26 @@ Phases (any failure exits non-zero; nothing is caught):
    #21 on BERT-large's O2 buckets in this packed segment form (one rank's
    shard at world 1) against their plain versions, timed beside the
    per-parameter lists.
+15. tensor and sequence parallelism over NCCL: ``torch.cuda.device_count()``
+   ranks, spawned processes joined through ``parallel_state.
+   initialize_model_parallel(tp=ranks)``, each first running the
+   one-process references (``axis_name=None``, ``fused_lm_head=False``),
+   then at ``tensor_parallel_size`` = the ranks, ``axis_name="model"``,
+   ``sequence_parallel=True``, ``fused_ffn=True`` and the f32
+   vocab-parallel head: (15a) GPT-350M at phase 5's recipe with FusedAdam,
+   4 steps; (15b) the same with ``overlap_chunks=2``, 2 steps; (15c)
+   BERT-large O2 + FusedLAMB at phase 7's recipe with
+   ``overlap_chunks=2``, 2 steps.  Each rank's launches of #1-#5, #11-#13
+   and #18 (15c: #17, #20, #21) are exact, no plain version is called, no
+   loss is non-finite, the peak memory is logged beside the reference's
+   and phase 5's / 7's, and the losses are held against the references
+   (``tp_loss_limits``: at one rank 15a bit for bit, 15b and 15c at a
+   gate between a correct and a planted-fault reading of
+   ``tools/tensor_parallel_torch.py --gates``; at 2 and 4 cards all three
+   at such gates read on 2 / 4 cards; a count of ranks without readings
+   raises).  Phase 2 also holds #3-#5
+   at the local heads (8, 8, 1024, 64) and (8, 4, 1024, 64) and #11-#13 at
+   the FFN shards 8192 x 1024 -> 2048 / 1024 -> 1024.
 
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -687,7 +708,7 @@ def _ln_bwd_edges(gen):
         _ln_bwd_edge_case(gen, 300, HIDDEN, dtype, False, False, offset=1)
 
 
-def _flash_bound(batch, s, causal, n_products, n_io, lens=None):
+def _flash_bound(batch, s, causal, n_products, n_io, lens=None, heads=HEADS):
     """Bytes: n_io (b, h, s, d) bf16 tensors read or written once, plus the
     f32 row statistics; operations: n_products products of head_dim per
     (query, key) pair the masks leave."""
@@ -697,8 +718,8 @@ def _flash_bound(batch, s, causal, n_products, n_io, lens=None):
         pairs = batch * s * (s + 1) // 2
     else:
         pairs = batch * s * s
-    flops = 2 * n_products * HEAD_DIM * pairs * HEADS
-    n_bytes = n_io * batch * HEADS * s * HEAD_DIM * 2 + batch * HEADS * s * 4
+    flops = 2 * n_products * HEAD_DIM * pairs * heads
+    n_bytes = n_io * batch * heads * s * HEAD_DIM * 2 + batch * heads * s * 4
     return bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
 
 
@@ -1026,6 +1047,70 @@ def kernel_flash_bwd(gen):
                        ("flash_attention_dkv", flash_attention_dkv)):
         _check_refuses_misaligned(kernel, lambda fn=fn: fn(
             q, k, v, o, lse, delta, True, 32 ** -0.5))
+    return out
+
+
+# the local heads of GPT-350M's 16 at tensor-parallel sizes 2 and 4
+TP_LOCAL_HEADS = (8, 4)
+
+
+def kernel_flash_shards(gen):
+    """#3-#5 at the tensor-parallel shard shapes of GPT-350M's training
+    step, (8, 8, 1024, 64) and (8, 4, 1024, 64) causal bf16 (phase 15's
+    local heads): each against its plain version at the phase's bf16
+    tolerance, timed beside SDPA, with its bound."""
+    from apex_tpu_torch.ops.flash_attention import (
+        flash_attention_dkv, flash_attention_dkv_reference, flash_attention_dq,
+        flash_attention_dq_reference, flash_attention_reference, flash_fwd)
+    scale = HEAD_DIM ** -0.5
+    out = {}
+    for heads in TP_LOCAL_HEADS:
+        q, k, v = _qkv_views(gen, MICRO, SEQ, heads)
+        do = torch.randn(MICRO, SEQ, heads, HEAD_DIM, generator=gen).to(
+            "cuda", torch.bfloat16).transpose(1, 2)
+        o, lse = flash_fwd(q, k, v, True, scale)
+        ro = flash_attention_reference(q, k, v, True, scale)
+        delta = (do.float() * o.float()).sum(-1).reshape(MICRO * heads, SEQ)
+        args = (q, k, v, do, lse, delta, True, scale)
+        dq = flash_attention_dq(*args)
+        dk, dv = flash_attention_dkv(*args)
+        rdq = flash_attention_dq_reference(*args)
+        rdk, rdv = flash_attention_dkv_reference(*args)
+        torch.cuda.synchronize()
+        name = f"({MICRO},{heads},{SEQ},{HEAD_DIM}) causal"
+        err_o = check_close(f"flash_fwd {name}", o, ro, BF16_ATOL, BF16_RTOL)
+        err_q = check_close(f"flash_attention_dq {name}", dq, rdq, BF16_ATOL,
+                            BF16_RTOL)
+        err_kv = max(check_close(f"flash_attention_dkv {name} dk", dk, rdk,
+                                 BF16_ATOL, BF16_RTOL),
+                     check_close(f"flash_attention_dkv {name} dv", dv, rdv,
+                                 BF16_ATOL, BF16_RTOL))
+        lib_bwd = _flash_bwd_library_ms([(q, k, v, do)], True, scale)
+        out[f"fwd_h{heads}"] = numbers(
+            err_o, time_ms(lambda: flash_fwd(q, k, v, True, scale)),
+            time_ms(lambda: flash_attention_reference(q, k, v, True, scale)),
+            time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=scale)),
+            _flash_bound(MICRO, SEQ, True, 2, 4, heads=heads),
+            call_ms(lambda: flash_fwd(q, k, v, True, scale)))
+        out[f"dq_h{heads}"] = numbers(
+            err_q, time_ms(lambda: flash_attention_dq(*args)),
+            time_ms(lambda: flash_attention_dq_reference(*args)), lib_bwd,
+            _flash_bound(MICRO, SEQ, True, 3, 5, heads=heads),
+            call_ms(lambda: flash_attention_dq(*args)))
+        out[f"dkv_h{heads}"] = numbers(
+            err_kv, time_ms(lambda: flash_attention_dkv(*args)),
+            time_ms(lambda: flash_attention_dkv_reference(*args)), lib_bwd,
+            _flash_bound(MICRO, SEQ, True, 4, 6, heads=heads),
+            call_ms(lambda: flash_attention_dkv(*args)))
+        log_numbers(f"flash_fwd tp shard {name}", out[f"fwd_h{heads}"],
+                    "sdpa")
+        log_numbers(f"flash_attention_dq tp shard {name}",
+                    out[f"dq_h{heads}"], "sdpa backward (dq+dk+dv)")
+        log_numbers(f"flash_attention_dkv tp shard {name}",
+                    out[f"dkv_h{heads}"], "sdpa backward (dq+dk+dv)")
+        del q, k, v, do, o, ro, lse, delta, args, dq, dk, dv, rdq, rdk, rdv
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1993,7 +2078,14 @@ def _ffn_library(x, w1, b1, w2, b2, dy):
     return fwd, fwd_bwd
 
 
-def kernel_fused_ffn(gen):
+# GPT-350M's FFN shards at tensor-parallel sizes 2 and 4 (phase 15): fc1's
+# column shard and fc2's row shard, bf16 x with f32 W at the micro-batch
+FFN_TP_CASES = [(f"gpt tp{t}", TRAIN_ROWS, HIDDEN,
+                 GPT350M["ffn_hidden_size"] // t, HIDDEN, torch.bfloat16,
+                 torch.float32, True) for t in (2, 4)]
+
+
+def kernel_fused_ffn(gen, cases=None):
     """#11, #12 and #13 against their plain versions, entry by entry
     (``ffn_bounds``), and timed: bf16 x with f32 W at GPT-350M's
     micro-batch (8192 x 1024 -> 4096 -> 1024), bf16/bf16 at BERT-large's
@@ -2008,7 +2100,8 @@ def kernel_fused_ffn(gen):
     ffn_dw_reference's outputs by the same rule, and must give ffn_dx's
     and ffn_dw's bits; every output is bitwise equal on a repeat, and each
     call makes ``ffn_bwd_launches`` launches (the off-grid and f32 / f16
-    cases run the FMA tile, the others TMA + wgmma)."""
+    cases run the FMA tile, the others TMA + wgmma).  ``cases``: other
+    cases in the same form (``FFN_TP_CASES``: phase 15's shard shapes)."""
     from apex_tpu_torch.ops.fused_ffn import (
         ffn_bwd, ffn_bwd_reference, ffn_dw, ffn_dw_reference, ffn_dx,
         ffn_dx_reference, ffn_fwd, ffn_fwd_reference)
@@ -2016,7 +2109,8 @@ def kernel_fused_ffn(gen):
     bf, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     k, f, n = HIDDEN, GPT350M["ffn_hidden_size"], HIDDEN
     # tag, m, k, f, n, x dtype, w dtype, timed
-    cases = [("gpt", TRAIN_ROWS, k, f, n, bf, f32, True),
+    cases = cases or [
+             ("gpt", TRAIN_ROWS, k, f, n, bf, f32, True),
              ("bert", BERT_ROWS, k, f, n, bf, bf, True),
              ("prefill", 512, k, f, n, bf, f32, True),
              ("decode", SLOTS, k, f, n, bf, f32, True),
@@ -6204,6 +6298,277 @@ def phase_data_parallel(train, bert, resnet):
     return res
 
 
+# -- phase 15 ----------------------------------------------------------------
+
+# The three runs of phase 15 at tensor-parallel size = the ranks: (key,
+# tag, model, config overrides, steps).  Each holds its recipe's losses
+# against the same configuration in one process with axis_name=None
+# (reference_overrides; both take the f32 vocab-parallel head: the fused
+# LM head serves the serial vocab only); 15b's reference is 15a's.
+TP_RUNS = (
+    ("gpt", "[15a] GPT-350M TP + SP + fused FFN + FusedAdam", "gpt",
+     dict(sequence_parallel=True), 4),
+    ("gpt_overlap", "[15b] GPT-350M TP + SP + overlap_chunks=2", "gpt",
+     dict(sequence_parallel=True, overlap_chunks=2), 2),
+    ("bert", "[15c] BERT-large O2 TP + SP + overlap_chunks=2 + FusedLAMB",
+     "bert", dict(sequence_parallel=True, overlap_chunks=2), 2),
+)
+# The loss gates, each between a correct and a planted-fault reading of
+# tools/tensor_parallel_torch.py --gates on the card at full width (every
+# correct run reads the same on a repeat; PERF.md):
+# * one rank: 15a bit for bit (the same operations as one process; 0
+#   with every fault, which touch only the rings); 15b correct 4.91e-6,
+#   ring_row 5.58e-5; 15c correct 1.34e-5, ring_row 9.53e-5 (ring_dw reads
+#   1.7e-6 / 6.2e-6: Adam's normalized step hides a gradient missing one
+#   token in 1024);
+# * 2 / 4 cards: 15a correct 6.48e-5 / 3.13e-5, bias_copy 7.88e-5 /
+#   9.62e-5; 15b correct 5.82e-5 / 2.52e-5, bias_copy 7.92e-5 / 5.25e-5,
+#   ring_row 1.18e-4 / 2.70e-4; 15c correct 2.49e-4 / 4.73e-4, bias_copy
+#   3.58e-4 / 7.00e-4, ring_row 4.84e-4 / 8.25e-4.  Single readings, and at
+#   2 cards bias_copy reads only 1.2x the correct run after 4 steps: the
+#   gloo tests against JAX (tests/test_torch_tensor_parallel*.py) are the
+#   check of the wrappers, these gates a coarse one on the card.
+TP_LOSS_RTOL = {
+    1: dict(gpt=0.0, gpt_overlap=2e-5, bert=4e-5),
+    2: dict(gpt=7e-5, gpt_overlap=7e-5, bert=3e-4),
+    4: dict(gpt=6e-5, gpt_overlap=4e-5, bert=6e-4)}
+
+
+def _tp_plant(fault):
+    """A context manager planting ``fault`` (for the gate readings), or
+    none for None: ``ring_dw``: the overlap rings' weight gradient skips
+    each shard's last token; ``ring_row``: each product of the rings
+    loses its last row (an off-by-one in the chunk placement);
+    ``bias_copy``: the row layers' bias loses its ``copy_to`` wrapper
+    under sequence parallelism (its gradient stays a rank's partial; the
+    identity at one rank)."""
+    from unittest import mock
+    from apex_tpu_torch.transformer.tensor_parallel import layers as L
+    from apex_tpu_torch.transformer.tensor_parallel import mappings as M
+    if fault is None:
+        return contextlib.nullcontext()
+    if fault == "ring_dw":
+        full = M._dw_f32
+        return mock.patch.object(M, "_dw_f32", lambda g, x: full(
+            g[..., :-1, :], x[..., :-1, :]))
+    if fault == "ring_row":
+        product = M._chunked_matmul
+
+        def last_row_lost(block, w_t, chunks, seq_dim):
+            y = product(block, w_t, chunks, seq_dim)
+            y.narrow(seq_dim, y.shape[seq_dim] - 1, 1).zero_()
+            return y
+        return mock.patch.object(M, "_chunked_matmul", last_row_lost)
+    if fault == "bias_copy":
+        return mock.patch.object(L.RowParallelLinear, "_bias",
+                                 lambda self: self.bias)
+    raise ValueError(f"unknown fault {fault!r}")
+
+
+def _tp_train(kind, device, overrides, steps):
+    """``steps`` steps of phase 5's GPT recipe (fused FFN, FusedAdam) or
+    phase 7's BERT O2 + FusedLAMB recipe (fused FFN), each with
+    ``fused_lm_head=False`` and ``overrides``, on the card ``device``:
+    losses, step times, peak memory, launches, plain-version calls and
+    the optimizer's tensor sizes."""
+    from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        forward_backward_no_pipelining)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(fused_ffn=True, fused_lm_head=False, **overrides)
+    if kind == "gpt":
+        sizes, shape = GPT350M, (ACCUM, MICRO, SEQ)
+        model = GPTModel(GPTConfig(**dict(sizes, dtype=torch.bfloat16, **kw)),
+                         device=device).init_params(
+            torch.Generator().manual_seed(0))
+        opt = FusedAdam(model.parameters(), lr=LR)
+        rng = np.random.RandomState(0)
+        tokens, targets = (torch.from_numpy(rng.randint(
+            0, sizes["vocab_size"], shape)).to(device) for _ in range(2))
+
+        def step():
+            opt.zero_grad()
+            loss = forward_backward_no_pipelining(
+                lambda m, x: x, lambda x, t: model.loss(x, t), model, tokens,
+                targets)
+            opt.step()
+            return loss
+    else:
+        sizes, shape = BERT_LARGE, (BERT_ACCUM, BERT_MICRO, BERT_SEQ)
+        model, opt, _ = build_bert(device, dict(sizes, **kw), BERT_LR, 0)
+        tokens, targets = (t.to(device) for t in mlm_batch(
+            sizes["vocab_size"], shape, 0))
+
+        def step():
+            return bert_step(model, opt, tokens, targets)
+    numels = [p.numel() for p in model.parameters()]
+    counters = _all_counters()
+    for c in counters:
+        c.launches = 0
+    losses, times = [], []
+    with counting_plain_versions() as plain:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(step()))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    return dict(losses=losses, step_times_s=times,
+                launches=_launches_of(counters), plain_calls=dict(plain),
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                numels=numels, rows=shape[1] * shape[2],
+                layers=sizes["num_layers"], micro_batches=shape[0])
+
+
+def tp_expected_launches(kind, run, steps):
+    """The launches of one rank's run: the LayerNorms, flash and fused FFN
+    kernels per micro-batch and layer, the optimizer's kernels over the
+    rank's shards; no LM-head launch (the vocab-parallel head)."""
+    from apex_tpu_torch.ops import multi_tensor as K
+    n = steps * run["micro_batches"]
+    layers = run["layers"]
+    per_mb = 2 * layers + (1 if kind == "gpt" else 2)
+    out = {"layer_norm_fwd": n * per_mb, "layer_norm_bwd": n * per_mb,
+           "flash_fwd": n * layers, "flash_attention_dq": n * layers,
+           "flash_attention_dkv": n * layers,
+           **ffn_launches(steps, run["micro_batches"], layers, True)}
+    if kind == "gpt":
+        out["multi_tensor_adam"] = steps * table_launches(run["numels"])
+    else:
+        out.update(
+            multi_tensor_sumsq=steps * sumsq_launches(run["numels"]),
+            multi_tensor_lamb_stage1=steps * K.lamb_stage1_launches(
+                run["numels"]),
+            multi_tensor_lamb_stage2=steps * table_launches(run["numels"]))
+    return out
+
+
+def _tp_rank(rank, world, out_dir, fault=None):
+    """One rank of phase 15 (a spawned process on card ``rank``): first
+    the one-process references (axis_name=None) of 15a and 15c, then the
+    ``model`` group of all the ranks (NCCL, a ``file://`` store in
+    ``out_dir``) and 15a-15c, with ``fault`` planted in them; results
+    pickled into ``out_dir``.  An exception ends the process non-zero."""
+    import pickle
+    import torch.distributed as dist
+    from apex_tpu_torch.transformer import parallel_state as ps
+    torch.cuda.set_device(rank)
+    device = torch.device("cuda", rank)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{pathlib.Path(out_dir).resolve()}/store",
+        rank=rank, world_size=world)
+    reference = {}
+    for key, _, kind, _, steps in TP_RUNS:
+        if key != "gpt_overlap":
+            reference[key] = _tp_train(kind, device, {}, steps)
+            torch.cuda.empty_cache()
+    reference["gpt_overlap"] = reference["gpt"]
+    ps.initialize_model_parallel(world)
+    out = {}
+    with _tp_plant(fault):
+        for key, _, kind, overrides, steps in TP_RUNS:
+            out[key] = _tp_train(kind, device, dict(
+                overrides, tensor_parallel_size=world, axis_name="model"),
+                steps)
+            out[key]["reference"] = reference[key]["losses"][:steps]
+            out[key]["reference_peak_memory_bytes"] = \
+                reference[key]["peak_memory_bytes"]
+            torch.cuda.empty_cache()
+    with open(pathlib.Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    ps.destroy_model_parallel()
+    dist.destroy_process_group()
+
+
+def run_tp_ranks(world, out_dir, fault=None):
+    """Spawn ``world`` ranks of :func:`_tp_rank` and return their results
+    (a rank that raises makes this raise)."""
+    import pickle
+    import torch.multiprocessing as mp
+    out_dir = pathlib.Path(out_dir)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    mp.start_processes(_tp_rank, args=(world, str(out_dir), fault),
+                       nprocs=world, start_method="spawn", join=True)
+    ranks = []
+    for r in range(world):
+        with open(out_dir / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    return ranks
+
+
+def tp_loss_gaps(ranks):
+    """Per run, the largest relative gap of the ranks' losses (equal on
+    every rank: the loss is the whole batch's) to the reference's."""
+    return {key: max(abs(a - b) / abs(b)
+                     for rank in ranks
+                     for a, b in zip(rank[key]["losses"],
+                                     rank[key]["reference"]))
+            for key, *_ in TP_RUNS}
+
+
+def tp_loss_limits(world):
+    """Phase 15's loss gates at ``world`` ranks (``TP_LOSS_RTOL``).  A
+    world without readings raises: its gates are not guessed from
+    another's."""
+    if world not in TP_LOSS_RTOL:
+        raise ValueError(
+            f"phase 15 has no loss-gate readings at {world} ranks (it has "
+            f"{sorted(TP_LOSS_RTOL)}): take them with python3 "
+            f"tools/tensor_parallel_torch.py --gates --world {world}")
+    return dict(TP_LOSS_RTOL[world])
+
+
+def phase_tensor_parallel(single=None, world=None):
+    """Phase 15: ``world`` (default ``torch.cuda.device_count()``) NCCL
+    ranks (spawned processes), one ``model`` group: 15a-15c at
+    tensor-parallel size = the ranks, each rank's launches exact, no plain
+    version, finite losses held against the one-process references
+    (``tp_loss_limits``), peak memory beside the reference's (and phase
+    5's / 7's, ``single``)."""
+    world = world or torch.cuda.device_count()
+    limits = tp_loss_limits(world)
+    t0 = time.perf_counter()
+    ranks = run_tp_ranks(world, pathlib.Path("build") / "phase15")
+    seconds = time.perf_counter() - t0
+    log(f"[15] tensor and sequence parallelism over NCCL, tensor-parallel "
+        f"size {world} ({seconds:.1f} s)")
+    gaps = tp_loss_gaps(ranks)
+    for key, tag, kind, _, steps in TP_RUNS:
+        for r, rank in enumerate(ranks):
+            run = rank[key]
+            expected = tp_expected_launches(kind, run, steps)
+            run["expected"] = expected
+            extra = ""
+            if single and key in single:
+                extra = (f", phase {5 if kind == 'gpt' else 7} "
+                         f"{single[key] / 2 ** 30:.3f} GiB")
+            log(f"{tag} rank {r}: losses {run['losses']} (one process "
+                f"{run['reference']}); step times (s) "
+                f"{[round(t, 4) for t in run['step_times_s']]}; peak memory "
+                f"{run['peak_memory_bytes'] / 2 ** 30:.3f} GiB (one process "
+                f"{run['reference_peak_memory_bytes'] / 2 ** 30:.3f} GiB"
+                f"{extra})")
+            log(f"    launches {run['launches']} (expected {expected}); "
+                f"plain-version calls {run['plain_calls']}")
+            if run["launches"] != expected:
+                raise AssertionError(f"{tag}: launch counts do not match "
+                                     "the path")
+            if run["plain_calls"]:
+                raise AssertionError(f"{tag}: a plain version was called")
+            if not np.all(np.isfinite(run["losses"])):
+                raise AssertionError(f"{tag}: non-finite loss")
+        log(f"    {tag}: largest relative loss gap {gaps[key]!r} (limit "
+            f"{limits[key]})")
+    # every run's gap is logged before a gate fails
+    over = {key: gap for key, gap in gaps.items() if not gap <= limits[key]}
+    if over:
+        raise AssertionError(f"phase 15: losses leave the one-process "
+                             f"runs' by {over} (limits {limits})")
+    return dict(world=world, seconds=seconds, gaps=gaps, ranks=ranks)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write all results to this JSON file")
@@ -6234,6 +6599,7 @@ def main(argv=None):
     ln_bwd = kernel_layer_norm_bwd(gen)
     fl = kernel_flash(gen)
     fl_bwd = kernel_flash_bwd(gen)
+    fl_tp = kernel_flash_shards(gen)
     dec = kernel_decode(gen)
     dec_paged = kernel_decode_paged(gen)
     torch.cuda.empty_cache()
@@ -6246,6 +6612,8 @@ def main(argv=None):
     lmh = kernel_lm_head(gen)
     torch.cuda.empty_cache()
     ffn = kernel_fused_ffn(gen)
+    torch.cuda.empty_cache()
+    ffn_tp = kernel_fused_ffn(gen, FFN_TP_CASES)
     torch.cuda.empty_cache()
     opts = kernel_optimizers(torch.Generator(device="cuda").manual_seed(2))
     torch.cuda.empty_cache()
@@ -6370,6 +6738,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     # data parallelism over NCCL, against phases 5, 7 and 9
     dp = phase_data_parallel(train, bert, resnet["O1"])
+    torch.cuda.empty_cache()
+    # tensor and sequence parallelism over NCCL, against one process
+    tp = phase_tensor_parallel(single=dict(
+        gpt=train["peak_memory_bytes"], gpt_overlap=train["peak_memory_bytes"],
+        bert=bert["peak_memory_bytes"]))
     if args.profile:
         with open(args.profile, "w") as f:
             f.write("\n".join(profile_lines) + "\n")
@@ -6377,7 +6750,7 @@ def main(argv=None):
     both = collections.Counter(serve["launches"])
     for launches in fleet_runs:
         both.update(launches)
-    for rank in dp["ranks"]:
+    for rank in dp["ranks"] + tp["ranks"]:
         for run in rank.values():
             both.update(run["launches"])
     for run in (serve_f, train, train_f, *train_remat.values(), bert,
@@ -6480,6 +6853,8 @@ def main(argv=None):
                            resnet50_hand_written_sgd=resnet_baseline,
                            resnet_parity=resnet_parity,
                            packed_segments=packed, data_parallel=dp,
+                           tensor_parallel=tp, flash_tp_shards=fl_tp,
+                           fused_ffn_tp_shards=ffn_tp,
                            profile=profiled or None, kernels=kernels), f,
                       indent=1, sort_keys=True)
     log(smi)

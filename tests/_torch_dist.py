@@ -27,6 +27,26 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 def run(tmp_path, world, case, inputs, timeout=120):
     """Run ``case`` on ``world`` ranks; returns the per-rank results."""
+    return start(tmp_path, world, case, inputs, timeout).result()
+
+
+class start:
+    """Start ``case`` on ``world`` ranks and return at once (the caller may
+    work meanwhile); :meth:`result` waits for the ranks, within
+    ``timeout`` seconds of the start, and returns their results."""
+
+    def __init__(self, tmp_path, world, case, inputs, timeout=120):
+        self.world, self.case = world, case
+        self.d, self.procs = _spawn(tmp_path, world, case, inputs)
+        self.deadline = time.monotonic() + timeout
+        self.timeout = timeout
+
+    def result(self):
+        return _finish(self.d, self.procs, self.world, self.case,
+                       self.deadline, self.timeout)
+
+
+def _spawn(tmp_path, world, case, inputs):
     d = pathlib.Path(tmp_path) / f"{case}_w{world}"
     d.mkdir(parents=True)
     with open(d / "inputs.pkl", "wb") as f:
@@ -39,7 +59,10 @@ def run(tmp_path, world, case, inputs, timeout=120):
         procs.append((subprocess.Popen(
             [sys.executable, __file__, str(d), case, str(r), str(world)],
             stdout=log, stderr=subprocess.STDOUT, env=env), log))
-    deadline = time.monotonic() + timeout
+    return d, procs
+
+
+def _finish(d, procs, world, case, deadline, timeout):
     try:
         while any(p.poll() is None for p, _ in procs):
             if time.monotonic() > deadline:
@@ -397,9 +420,164 @@ def case_examples(rank, world, inp):
     return out
 
 
+def _tp_mappings(rank, inp):
+    """The seven mappings and both rings on this rank's input: outputs and
+    the input gradients of sum(y * c)."""
+    import torch
+    from apex_tpu_torch.transformer.tensor_parallel import mappings as M
+    out = {}
+    for name, c in inp.items():
+        x = torch.tensor(c["x"][rank]).requires_grad_()
+        args = [x]
+        if "w" in c:
+            args.append(torch.tensor(c["w"][rank]).requires_grad_())
+        y = getattr(M, c["fn"])(*args, **c["kw"])
+        (y * torch.tensor(c["c"][rank])).sum().backward()
+        out[name] = (_np(y), [_np(a.grad) for a in args])
+    return out
+
+
+def _tp_step(rank, world, inp, c):
+    """One step of a tensor-parallel GPT (or BERT) from the JAX init's
+    shards: ``forward_backward_no_pipelining`` over the model's loss, then
+    FusedAdam.  Returns the loss, every gradient and the parameters after
+    the step."""
+    import torch
+    from apex_tpu_torch import convert
+    from apex_tpu_torch.models.bert import BertConfig, BertModel
+    from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        forward_backward_no_pipelining)
+    bert = c.get("bert", False)
+    cfg = (BertConfig if bert else GPTConfig)(
+        **inp["tiny"], **c["kw"], dtype=getattr(torch, c["dtype"]),
+        tensor_parallel_size=world, axis_name="model")
+    model = (BertModel if bert else GPTModel)(cfg, device="cpu")
+    params = inp["bert_params"] if bert else inp["params"]
+    model.load_state_dict((convert.bert_params_from_jax if bert else
+                           convert.gpt_params_from_jax)(params, cfg, rank))
+    opt = FusedAdam(model.parameters(), lr=inp["lr"])
+    seed = c.get("seed")
+    tokens = torch.from_numpy(inp["tokens"])[None]
+    targets = torch.from_numpy(inp["labels" if bert else "targets"])[None]
+    nsp = (dict(nsp_labels=torch.from_numpy(inp["nsp_labels"]))
+           if c.get("nsp") else {})
+    opt.zero_grad()
+    loss = forward_backward_no_pipelining(
+        lambda m, x: x,
+        (lambda x, t: model.loss(x, t, **nsp)) if bert else
+        (lambda x, t: model.loss(x, t, seed)), model, tokens, targets)
+    # without NSP labels the NSP head has no gradient (JAX's is 0)
+    grads = {n: _np(torch.zeros_like(p) if p.grad is None else p.grad)
+             for n, p in model.named_parameters()}
+    opt.step()
+    return dict(loss=float(loss), grads=grads,
+                params={n: _np(p) for n, p in model.named_parameters()})
+
+
+def _tp_masks(rank, world, inp):
+    """The attention context of one layer on every rank, each rank holding
+    the same local shard and input, with and without dropout: the ranks'
+    masks must differ."""
+    import torch
+    from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+    c = inp["masks"]
+    cfg = GPTConfig(**c["tiny"], attention_dropout=0.5,
+                    tensor_parallel_size=world, axis_name="model")
+    attn = GPTModel(cfg, device="cpu").layers[0].attention
+    with torch.no_grad():
+        for name, v in c["shard"].items():
+            attn.get_parameter(name).copy_(torch.from_numpy(v))
+    seen = []
+    attn.proj.register_forward_pre_hook(
+        lambda mod, args: seen.append(_np(args[0])))
+    x = torch.from_numpy(c["x"])
+    with torch.no_grad():
+        attn(x, dropout_seed=9)
+        attn(x)
+    return seen
+
+
+def _tp_int8(rank, world, inp):
+    """Vocab-parallel prefill logits of an int8 GPT at this rank, its
+    weights quantized then sharded, and sharded then quantized."""
+    import torch
+    from apex_tpu_torch import convert
+    from apex_tpu_torch.models.gpt import (GPTConfig, GPTModel,
+                                           quantize_decode_params,
+                                           shard_params_for_tp)
+    serial = convert.gpt_params_from_jax(inp["params"],
+                                         GPTConfig(**inp["tiny"]))
+    cfg = GPTConfig(**inp["tiny"], weight_quant="int8",
+                    tensor_parallel_size=world, axis_name="model")
+    out = {}
+    for key, sd in (
+            ("quantize_then_shard", shard_params_for_tp(
+                cfg, quantize_decode_params(serial), rank)),
+            ("shard_then_quantize", quantize_decode_params(
+                shard_params_for_tp(cfg, serial, rank)))):
+        model = GPTModel(cfg, device="cpu").load_quantized_(sd)
+        logits, kv = model.prefill(torch.from_numpy(inp["tokens"]))
+        out[key] = (_np(logits), _np(kv))
+    return out
+
+
+def _tp_surface(rank, world, inp):
+    """The column layer with ``gather_output`` into the row layer with
+    ``input_is_parallel=False`` (shards of one serial pair: output and
+    the gradients of sum(y * c)); ``broadcast_data`` from rank 0; this
+    rank's ``model_parallel_rng_key`` seed."""
+    import torch
+    from apex_tpu_torch.transformer import tensor_parallel as tp
+    c = inp["surface"]
+    col = tp.ColumnParallelLinear(8, 12, gather_output=True,
+                                  world_size=world, device="cpu")
+    row = tp.RowParallelLinear(12, 8, input_is_parallel=False,
+                               world_size=world, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    col.reset_parameters(gen)
+    row.reset_parameters(gen)
+    with torch.no_grad():
+        col.bias.copy_(torch.from_numpy(c["b1"]).chunk(world)[rank])
+        row.bias.copy_(torch.from_numpy(c["b2"]))
+    x = torch.tensor(c["x"]).requires_grad_()
+    y, _ = row(col(x)[0])
+    (y * torch.from_numpy(c["c"])).sum().backward()
+    data = tp.broadcast_data(["tokens", "mask"], {
+        k: torch.from_numpy(v) for k, v in c["data"].items()}
+        if rank == 0 else None, torch.int64)
+    return dict(y=_np(y), dx=_np(x.grad),
+                col=(_np(col.weight), _np(col.weight.grad),
+                     _np(col.bias.grad)),
+                row=(_np(row.weight), _np(row.weight.grad),
+                     _np(row.bias.grad)),
+                data={k: v.numpy().copy() for k, v in data.items()},
+                rng_seed=tp.model_parallel_rng_key(5).initial_seed())
+
+
+def case_tp(rank, world, inp):
+    """Tensor and sequence parallelism over the ``model`` group of all the
+    ranks: the mappings and rings, GPT (and BERT) training steps in each
+    configuration, and at two ranks the dropout streams and the int8
+    linears."""
+    from apex_tpu_torch.transformer import parallel_state as ps
+    ps.initialize_model_parallel(world)
+    out = {"mappings": _tp_mappings(rank, inp["mappings"]),
+           "surface": _tp_surface(rank, world, inp),
+           "steps": {name: _tp_step(rank, world, inp, c)
+                     for name, c in inp["steps"].items()}}
+    if "masks" in inp:
+        out["masks"] = _tp_masks(rank, world, inp)
+    if "int8" in inp:
+        out["int8"] = _tp_int8(rank, world, inp)
+    ps.destroy_model_parallel()
+    return out
+
+
 CASES = {"collectives": case_collectives, "examples": case_examples, "ddp": case_ddp,
          "syncbn": case_syncbn, "zero": case_zero,
-         "cpu_launches": case_cpu_launches}
+         "cpu_launches": case_cpu_launches, "tp": case_tp}
 
 
 def main():

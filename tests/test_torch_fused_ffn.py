@@ -318,10 +318,12 @@ def test_public_op_validates_like_jax():
             jffn.fused_ffn(*(jnp.asarray(a.numpy()) for a in args))
         with pytest.raises(ValueError, match=msg):
             exported(*args)
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        tffn.fused_ffn_tp(x, w1, b1, w2, b2, tensor_parallel_size=2)
+    # without a group the tensor-parallel edges are identities: the shards
+    # are the whole weights and b2 is added after the (empty) reduction
     y = tffn.fused_ffn_tp(x, w1, b1, w2, b2)
     assert y.shape == (4, 6)
+    assert torch.equal(tffn.fused_ffn_tp(x, w1, b1, w2, b2,
+                                         tensor_parallel_size=2), y)
     meta = torch.empty((4, 8), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         exported(meta, w1, b1, w2, b2)

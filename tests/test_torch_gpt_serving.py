@@ -205,11 +205,12 @@ def test_sampling_streams_are_deterministic_with_top_k_and_top_p():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(n_experts=2), dict(context_axis="ctx"), dict(sequence_parallel=True),
-    dict(tensor_parallel_size=2)])
+    dict(n_experts=2), dict(context_axis="ctx"), dict(plan=object()),
+    dict(expert_parallel_size=2)])
 def test_unported_config_knobs_raise(knob):
     """Knobs of later slices raise, naming their slice (``fused_ffn``,
-    ``weight_quant`` and ``remat`` run now)."""
+    ``weight_quant``, ``remat`` and, since the tensor-parallel slice,
+    ``sequence_parallel`` and ``tensor_parallel_size`` run now)."""
     with pytest.raises(NotImplementedError, match="slice"):
         GPTConfig(**TINY, **knob)
 
@@ -358,11 +359,17 @@ def test_gpt_config_takes_every_jax_field_at_its_default(name):
     dict(plan=object())],
     ids=lambda k: list(k)[-1])
 def test_gpt_config_new_fields_raise_naming_their_slice(knob):
-    """A value other than the default of nine of the ten added fields
+    """A value other than the default of seven of the ten added fields
     needs a part not ported yet: it raises ``NotImplementedError`` naming
-    the slice (the JAX config accepts each of these)."""
+    the slice (the JAX config accepts each of these).  ``axis_name`` and
+    ``overlap_chunks`` build since the tensor-parallel slice, with the
+    JAX config's values."""
     if "plan" not in knob:
         JConfig(**TINY, **knob)
+    if "axis_name" in knob or "overlap_chunks" in knob:
+        cfg = GPTConfig(**TINY, **knob)
+        assert all(getattr(cfg, k) == v for k, v in knob.items())
+        return
     with pytest.raises(NotImplementedError, match="slice"):
         GPTConfig(**TINY, **knob)
 

@@ -575,8 +575,9 @@ def test_tp_layers_take_the_reference_keywords_at_world_size_1(kind, kw):
 
 
 def test_tp_layers_keep_the_reference_refusals():
-    """apex's RuntimeErrors for keyword combinations, then the multi-GPU
-    refusal of sequence parallelism."""
+    """apex's RuntimeErrors for keyword combinations; sequence parallelism
+    builds since the tensor-parallel slice, and a layer whose group lacks
+    its ``world_size`` ranks refuses to run."""
     from apex_tpu_torch.transformer.tensor_parallel import layers as tL
     with pytest.raises(RuntimeError, match="gather_output"):
         tL.ColumnParallelLinear(8, 8, sequence_parallel_enabled=True,
@@ -586,9 +587,14 @@ def test_tp_layers_keep_the_reference_refusals():
                              device="cpu")
     with pytest.raises(RuntimeError, match="overlap_chunks"):
         tL.RowParallelLinear(8, 8, overlap_chunks=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tL.ColumnParallelLinear(8, 8, gather_output=False,
-                                sequence_parallel_enabled=True, device="cpu")
+    layer = tL.ColumnParallelLinear(8, 8, gather_output=False,
+                                    sequence_parallel_enabled=True,
+                                    device="cpu")
+    assert layer(torch.zeros(2, 3, 8))[0].shape == (2, 3, 8)
+    layer = tL.RowParallelLinear(8, 8, world_size=2, device="cpu")
+    assert tuple(layer.weight.shape) == (8, 4)
+    with pytest.raises(ValueError, match="world_size=2"):
+        layer(torch.zeros(2, 8))
 
 
 def test_fleet_parts_of_the_paged_engine_no_longer_raise():
