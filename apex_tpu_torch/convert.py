@@ -11,7 +11,10 @@ are checked against the model the config describes.
 Under tensor parallelism both take ``rank=r``: the serial tree converted,
 then cut into rank ``r``'s shards (``models.gpt.shard_params_for_tp``,
 the JAX ``shard_params_for_tp`` slicing; BERT by its partition specs), for
-the model of the tensor-parallel ``cfg``.
+the model of the tensor-parallel ``cfg``.  The GPT conversion also cuts an
+expert-parallel rank's experts (``expert_rank=``) and a pipeline rank's
+layers (``pipeline_stage=``): the per-rank counterparts of the JAX
+package's ``pack_for_shard_map``.
 
 :func:`gpt_quant_params_from_jax` carries a tree that the JAX
 ``quantize_decode_params`` quantized: int8 weights and their f32 scales
@@ -98,8 +101,12 @@ def _params_from_jax(tree, model) -> dict:
 
 
 def _serial(cfg):
+    extra = {}
+    if isinstance(cfg, GPTConfig):
+        extra = dict(expert_parallel_size=1, expert_axis=None)
     return dataclasses.replace(cfg, tensor_parallel_size=1, axis_name=None,
-                               sequence_parallel=False, overlap_chunks=0)
+                               sequence_parallel=False, overlap_chunks=0,
+                               plan=None, **extra)
 
 
 def _rank_params(tree, cfg, rank, model_cls, shard):
@@ -122,13 +129,54 @@ def _rank_params(tree, cfg, rank, model_cls, shard):
     return sd
 
 
-def gpt_params_from_jax(tree, cfg: GPTConfig, rank=None) -> dict:
+def gpt_params_from_jax(tree, cfg: GPTConfig, rank=None, *,
+                        expert_rank=None, pipeline_stage=None) -> dict:
     """State dict (CPU tensors in ``cfg.param_dtype``) for
     ``GPTModel(cfg)`` from a JAX GPT parameter tree of numpy arrays (the
-    serial tree; with ``rank``, that rank's shards of it for a
-    tensor-parallel ``cfg``).  Load it with ``model.load_state_dict(sd)``.
-    Raises when the tree's names or shapes do not match the model."""
-    return _rank_params(tree, cfg, rank, GPTModel, _gpt.shard_params_for_tp)
+    serial tree).  Load it with ``model.load_state_dict(sd)``.  Raises when
+    the tree's names or shapes do not match the model.
+
+    A MoE slot's ``gate`` / ``w1`` / ``w2`` carry over whole.  Of a
+    parallel ``cfg`` it returns one rank's part: with ``rank``, that
+    tensor-parallel rank's shards (a MoE slot's expert stacks cut along
+    their FFN dimension); with ``expert_rank``, that expert-parallel rank's
+    ``n_experts / expert_parallel_size`` experts
+    (:func:`~apex_tpu_torch.transformer.expert_parallel.
+    localize_expert_params`); with ``pipeline_stage=(n_stages, n_virtual,
+    stage)``, that pipeline rank's layers in its chunk order
+    (:func:`~apex_tpu_torch.models.gpt.stage_state_dict`, for
+    ``GPTModel(cfg, pipeline_stage=...)``).  A context-parallel rank holds
+    the whole model (its parameters are replicated over the group): the
+    serial conversion is its state dict."""
+    from apex_tpu_torch.transformer.expert_parallel import (
+        localize_expert_params)
+    t, ep = cfg.tensor_parallel_size, cfg.expert_parallel_size
+    if t == 1 and ep == 1 and pipeline_stage is None:
+        return _rank_params(tree, cfg, rank, GPTModel,
+                            _gpt.shard_params_for_tp)
+    sd = _params_from_jax(tree, GPTModel(_serial(cfg), device="meta"))
+    if t > 1:
+        if rank is None or not 0 <= int(rank) < t:
+            raise ValueError(f"tensor_parallel_size={t}: pass the rank "
+                             f"(in [0, {t})) whose shards to return")
+        sd = _gpt.shard_params_for_tp(cfg, sd, int(rank))
+    if ep > 1:
+        if expert_rank is None:
+            raise ValueError(f"expert_parallel_size={ep}: pass the "
+                             "expert_rank whose experts to return")
+        sd = localize_expert_params(sd, int(expert_rank), ep)
+    if pipeline_stage is not None:
+        sd = _gpt.stage_state_dict(sd, cfg.num_layers, *pipeline_stage)
+    want = GPTModel(cfg, device="meta",
+                    pipeline_stage=pipeline_stage).state_dict()
+    if set(sd) != set(want):
+        raise KeyError(f"the converted names differ from the model's: "
+                       f"{sorted(set(sd) ^ set(want))[:8]}")
+    for name, w in want.items():
+        if tuple(sd[name].shape) != tuple(w.shape):
+            raise ValueError(f"{name}: shard {tuple(sd[name].shape)} != "
+                             f"port shape {tuple(w.shape)}")
+    return sd
 
 
 def gpt_quant_params_from_jax(tree, cfg: GPTConfig) -> dict:

@@ -39,8 +39,10 @@ is a backend behind three hooks (``_init_backend``, ``_release``,
 place at init (once; a model already quantized is left as it is, so
 several engines can serve one shared model).
 
-``plan=`` (the parallel plan of the JAX engine) waits for the port of
-``parallel/plan.py``.
+``plan=`` (a :class:`~apex_tpu_torch.parallel.plan.ParallelPlan`) is
+checked against the model as the JAX engine checks it: serving does not
+pipeline, does not take sequence parallelism, and runs the model's
+tensor-parallel degree.
 """
 
 from __future__ import annotations
@@ -131,13 +133,31 @@ class InferenceEngine:
                  metrics: Optional[ServingMetrics] = None,
                  registry=None, tracer=None,
                  min_prompt_bucket: int = 8,
-                 max_queue: Optional[int] = None, device=None):
+                 max_queue: Optional[int] = None, device=None, plan=None):
+        model._check_decode_supported()
+        cfg = model.cfg
+        if plan is not None:
+            # decode runs one stage deep and token-at-a-time: of the plan,
+            # only the tp degree applies, and it must match the model
+            if plan.pp > 1:
+                raise ValueError(
+                    f"serving does not pipeline: plan.pp={plan.pp}")
+            if plan.sequence_parallel:
+                raise ValueError(
+                    "sequence_parallel shards the seq axis the decode "
+                    "path appends to; serve with sequence_parallel=False")
+            if plan.tp != cfg.tensor_parallel_size:
+                raise ValueError(
+                    f"plan.tp={plan.tp} does not match the model's "
+                    f"tensor_parallel_size={cfg.tensor_parallel_size}; "
+                    "build the model from the same plan "
+                    "(GPTConfig(plan=plan))")
+        self.plan = plan
         self.device = resolve_device(device)
         model_device = next(model.parameters()).device
         if model_device.type != self.device.type:
             raise ValueError(f"InferenceEngine on {self.device} was given a "
                              f"model on {model_device}")
-        cfg = model.cfg
         self.model = model
         if cfg.weight_quant == "int8" and not model.quantized:
             from apex_tpu_torch.models.gpt import quantize_decode_params

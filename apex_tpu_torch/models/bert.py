@@ -49,7 +49,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from apex_tpu_torch.models.gpt import (MULTI_GPU_SLICE, _reset_layer_norm,
+from apex_tpu_torch.models.gpt import (_reset_layer_norm,
                                        fused_ffn_tp_of, remat_call,
                                        shard_state_dict, sp_param_map,
                                        tp_layer_kwargs)
@@ -85,9 +85,13 @@ class BertConfig:
     remat_policy: str = "full"                 # "full" | "dots"
     dtype: torch.dtype = _f32                  # activation/compute dtype
     param_dtype: torch.dtype = _f32
+    # a ParallelPlan: same supersede-with-warning semantics as GPTConfig.plan
     plan: Optional[object] = None
 
     def __post_init__(self):
+        if self.plan is not None:
+            from apex_tpu_torch.parallel.plan import apply_plan_to_config
+            apply_plan_to_config(self)
         if self.ffn_hidden_size is None:
             self.ffn_hidden_size = 4 * self.hidden_size
         if self.remat_policy not in ("full", "dots"):
@@ -111,10 +115,6 @@ class BertConfig:
                 "tensor_parallel_size > 1 needs axis_name (the model "
                 "process group): the port has no GSPMD form, its layers "
                 "hold their rank's shards")
-        if self.plan is not None:
-            raise NotImplementedError(
-                f"BertConfig.plan is not ported yet: it comes with "
-                f"{MULTI_GPU_SLICE} of apex_tpu_torch")
 
     @property
     def head_dim(self):

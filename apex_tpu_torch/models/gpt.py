@@ -1,6 +1,6 @@
 """GPT decoder for serving and training — port of ``apex_tpu/models/gpt.py``
-(prefill / decode and the training loss, serial or tensor- and
-sequence-parallel).
+(prefill / decode and the training loss, serial or tensor-, sequence-,
+expert-, context- or pipeline-parallel).
 
 The same pre-LN wiring as the JAX model: vocab embedding → N ×
 (MixedFusedLayerNorm → causal attention with RoPE → residual →
@@ -64,6 +64,23 @@ seed (int32 wraparound, as in JAX): the kernels' mask hashes the local
 head index.  :func:`shard_params_for_tp` cuts a serial state dict into
 rank ``r``'s.
 
+With ``n_experts > 0`` every FFN slot is a Switch / GShard mixture of
+experts (:class:`MoEFFN`, the port of :mod:`apex_tpu_torch.transformer.
+expert_parallel`'s ``MoEMLP``; its experts over the ``expert`` group with
+``expert_axis``), and the loss adds ``moe_aux_weight * aux / num_layers``;
+the serving paths route every token too (a decode step's few tokens meet a
+capacity of 1 and may be dropped, as in JAX).  With ``context_axis`` each
+rank holds a shard of the sequence: attention is ring or Ulysses
+(:mod:`apex_tpu_torch.transformer.context_parallel`), RoPE and learned
+positions start at the shard's global offset, and the loss is the mean
+over the group.  :func:`pipeline_step` trains a pipeline rank's stage model
+(``pipeline_stage=``) on the ring engine of :mod:`apex_tpu_torch.
+transformer.pipeline_parallel`.  The JAX ``pack_for_shard_map`` /
+``unpack_from_shard_map`` pack a whole parameter tree for one
+``shard_map`` (GSPMD bookkeeping): here each rank loads its own part,
+which :func:`apex_tpu_torch.convert.gpt_params_from_jax` (``rank=``,
+``expert_rank=``, ``pipeline_stage=``) and :func:`stage_state_dict` cut.
+
 Parameter names mirror the JAX parameter tree (``layers.3.attention.qkv.
 weight`` is ``params["layers"][3]["attention"]["qkv"]["weight"]``), which
 is what :func:`apex_tpu_torch.convert.gpt_params_from_jax` relies on.
@@ -74,6 +91,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import re
+import types
 from typing import Optional
 
 import torch
@@ -94,6 +112,7 @@ from apex_tpu_torch.ops.rope import (fused_apply_rotary_pos_emb_at_positions,
                                      rope_freqs)
 from apex_tpu_torch.transformer import parallel_state as ps
 from apex_tpu_torch.transformer import tensor_parallel as tp
+from apex_tpu_torch.transformer.expert_parallel import MoEConfig, MoEMLP
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     INIT_STD, install_int8_weight)
 from apex_tpu_torch.transformer.tensor_parallel.mappings import axis_group
@@ -101,13 +120,11 @@ from apex_tpu_torch.utils.device import resolve_device
 
 _f32 = torch.float32
 
-MULTI_GPU_SLICE = ("the pipeline / context / expert-parallel slice "
-                   "(ROADMAP.md queue A item 14)")
-
 # layer i's attention-dropout stream is seeded dropout_seed + i * stride
 # (modulo 2**32), as in the JAX model: a caller advancing the base seed by
 # +1 per step never replays another layer's mask
 _SEED_LAYER_STRIDE = 0x3C6EF35F
+_SEED_MB_STRIDE = 0x5BD1E995       # per-micro-batch stream (the pipeline)
 _SEED_TP_RANK_STRIDE = 0x7F4A7C15  # per-TP-rank dropout stream offset
 
 
@@ -203,9 +220,15 @@ class GPTConfig:
     remat_policy: str = "full"                 # "full" | "dots"
     dtype: torch.dtype = _f32                  # activation/compute dtype
     param_dtype: torch.dtype = _f32
-    plan: Optional[object] = None              # a ParallelPlan
+    # one validated ParallelPlan instead of the per-knob fields above: the
+    # tp / SP / overlap / fused-FFN / remat knobs are filled from it (the
+    # plan wins a conflict, with a DeprecationWarning)
+    plan: Optional[object] = None
 
     def __post_init__(self):
+        if self.plan is not None:
+            from apex_tpu_torch.parallel.plan import apply_plan_to_config
+            apply_plan_to_config(self)
         if self.ffn_hidden_size is None:
             self.ffn_hidden_size = 4 * self.hidden_size
         if self.hidden_size % self.num_attention_heads:
@@ -226,6 +249,16 @@ class GPTConfig:
         if self.context_mechanism not in ("ring", "ulysses"):
             raise ValueError(f"context_mechanism must be 'ring' or "
                              f"'ulysses', got {self.context_mechanism!r}")
+        if self.n_experts > 0 and (
+                self.ffn_hidden_size % self.tensor_parallel_size):
+            raise ValueError(
+                "MoE ffn_hidden_size must be divisible by "
+                "tensor_parallel_size (each expert's FFN dim is "
+                "Column/Row-sharded over the tensor axis)")
+        if self.attention_dropout > 0.0 and self.context_axis is not None:
+            raise ValueError(
+                "attention_dropout is not supported with context "
+                "parallelism (the ring/ulysses kernels take no dropout)")
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(f"remat_policy must be 'full' or 'dots', got "
                              f"{self.remat_policy!r}")
@@ -234,6 +267,15 @@ class GPTConfig:
         if self.overlap_chunks > 0 and not self.sequence_parallel:
             raise ValueError("overlap_chunks > 0 rings the sequence-parallel "
                              "GEMMs; it requires sequence_parallel=True")
+        if self.sequence_parallel and self.context_axis is not None:
+            raise ValueError(
+                "sequence_parallel and context parallelism both shard the "
+                "sequence dimension; enable one or the other")
+        if self.sequence_parallel and self.n_experts > 0:
+            raise ValueError(
+                "sequence_parallel does not compose with MoE FFNs: the "
+                "router's TP-internal psum assumes every tensor rank sees "
+                "the same (replicated) tokens, but SP shards them")
         if self.expert_axis is not None and self.n_experts <= 0:
             raise ValueError("expert_axis shards MoE experts; it requires "
                              "n_experts > 0")
@@ -257,28 +299,6 @@ class GPTConfig:
                 "dequant-GEMMs, which fused_ffn would bypass (the fused "
                 "kernel consumes raw f32/bf16 fc1/fc2 leaves) — enable "
                 "one or the other")
-        # every field of the JAX config is accepted at its default; a
-        # value that needs a part not ported yet raises naming its slice
-        unsupported = [
-            (self.plan is not None, "plan", MULTI_GPU_SLICE),
-            (self.n_experts > 0, "n_experts > 0", MULTI_GPU_SLICE),
-            (self.moe_top_k != 1, "moe_top_k", MULTI_GPU_SLICE),
-            (self.moe_capacity_factor != 1.25, "moe_capacity_factor",
-             MULTI_GPU_SLICE),
-            (self.moe_aux_weight != 1e-2, "moe_aux_weight", MULTI_GPU_SLICE),
-            (self.expert_axis is not None, "expert_axis", MULTI_GPU_SLICE),
-            (self.expert_parallel_size != 1, "expert_parallel_size",
-             MULTI_GPU_SLICE),
-            (self.context_axis is not None, "context_axis", MULTI_GPU_SLICE),
-            (self.context_mechanism != "ring", "context_mechanism",
-             MULTI_GPU_SLICE),
-        ]
-        for on, knob, slice_name in unsupported:
-            if on:
-                raise NotImplementedError(
-                    f"GPTConfig.{knob} is not ported yet: it comes with "
-                    f"{slice_name} of apex_tpu_torch")
-
     @property
     def head_dim(self):
         return self.hidden_size // self.num_attention_heads
@@ -327,6 +347,18 @@ class ParallelAttention(nn.Module):
                 q.transpose(0, 1), rope_cos, rope_sin).transpose(0, 1)
             k = fused_apply_rotary_pos_emb_cached(
                 k.transpose(0, 1), rope_cos, rope_sin).transpose(0, 1)
+        if self.cfg.context_axis is not None:
+            # s is the LOCAL shard: attention over the global sequence
+            from apex_tpu_torch.transformer.context_parallel import (
+                ring_attention, ulysses_attention)
+            attend = (ring_attention if self.cfg.context_mechanism == "ring"
+                      else ulysses_attention)
+            ctx = attend(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), self.cfg.context_axis,
+                         causal=True)
+            ctx = ctx.transpose(1, 2).reshape(b, s, nh * self.cfg.head_dim)
+            out, _ = self.proj(ctx)
+            return out, (k, v)
         rate = self.cfg.attention_dropout if dropout_seed is not None \
             else 0.0
         if rate > 0.0 and self.cfg.axis_name is not None:
@@ -529,40 +561,81 @@ def fused_ffn_tp_of(cfg, x, fc1, fc2):
                         sequence_parallel=cfg.sequence_parallel, seq_dim=1)
 
 
+class MoEFFN(MoEMLP):
+    """Switch / GShard FFN in the layer slot: flattens ``(b, s, h)`` to
+    tokens for :class:`~apex_tpu_torch.transformer.expert_parallel.MoEMLP`
+    and returns ``(y, aux_loss)``.  Its parameters are ``gate`` / ``w1`` /
+    ``w2`` (the JAX ``mlp`` leaves)."""
+
+    def __init__(self, cfg: GPTConfig, device=None):
+        super().__init__(MoEConfig(
+            hidden_size=cfg.hidden_size, ffn_hidden_size=cfg.ffn_hidden_size,
+            n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
+            capacity_factor=cfg.moe_capacity_factor,
+            expert_parallel_size=cfg.expert_parallel_size,
+            axis_name=cfg.expert_axis,
+            tensor_parallel_size=cfg.tensor_parallel_size,
+            tensor_axis=cfg.axis_name, param_dtype=cfg.param_dtype,
+            compute_dtype=cfg.dtype), device)
+
+    def forward(self, x):
+        b, s, h = x.shape
+        y, aux = super().forward(x.reshape(b * s, h))
+        return y.reshape(b, s, h), aux
+
+
 class ParallelTransformerLayer(nn.Module):
-    """Pre-LN transformer block (apex ParallelTransformerLayer).  Under
-    sequence parallelism the two LayerNorms run on the sequence shard with
-    their parameters wrapped by :func:`sp_param_map`."""
+    """Pre-LN transformer block (apex ParallelTransformerLayer); the FFN
+    slot is dense (:class:`ParallelMLP`) or a mixture of experts
+    (:class:`MoEFFN`, ``cfg.n_experts > 0``), whose ``forward`` then
+    returns ``(x, aux)`` (the serving paths drop the aux).  Under sequence
+    parallelism the two LayerNorms run on the sequence shard with their
+    parameters wrapped by :func:`sp_param_map`."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
         self.cfg = cfg
+        self.is_moe = cfg.n_experts > 0
         self.input_layernorm = MixedFusedLayerNorm(cfg.hidden_size,
                                                    device=device)
         self.attention = ParallelAttention(cfg, device)
         self.post_attention_layernorm = MixedFusedLayerNorm(cfg.hidden_size,
                                                             device=device)
-        self.mlp = ParallelMLP(cfg, device)
+        self.mlp = (MoEFFN(cfg, device) if self.is_moe
+                    else ParallelMLP(cfg, device))
 
-    def forward(self, x, rope_cos=None, rope_sin=None, dropout_seed=None):
-        x, _ = self.prefill(x, rope_cos, rope_sin, dropout_seed)
-        return x
+    def _ffn(self, h):
+        """``(y, aux)`` of the FFN slot (aux None when dense)."""
+        if self.is_moe:
+            return self.mlp(h)
+        return self.mlp(h), None
 
-    def prefill(self, x, rope_cos=None, rope_sin=None, dropout_seed=None):
-        """Returns ``(x_out, (k, v))`` with this layer's post-RoPE cache
-        entries."""
+    def _block(self, x, rope_cos, rope_sin, dropout_seed):
         wrap = sp_param_map(self.cfg)
         attn, kv = self.attention.prefill(self.input_layernorm(x, wrap),
                                           rope_cos, rope_sin, dropout_seed)
         x = x + attn
-        return x + self.mlp(self.post_attention_layernorm(x, wrap)), kv
+        y, aux = self._ffn(self.post_attention_layernorm(x, wrap))
+        return x + y, kv, aux
+
+    def forward(self, x, rope_cos=None, rope_sin=None, dropout_seed=None):
+        x, _, aux = self._block(x, rope_cos, rope_sin, dropout_seed)
+        return (x, aux) if self.is_moe else x
+
+    def prefill(self, x, rope_cos=None, rope_sin=None, dropout_seed=None):
+        """Returns ``(x_out, (k, v))`` with this layer's post-RoPE cache
+        entries (a MoE aux is dropped: load balancing is a training
+        concern)."""
+        x, kv, _ = self._block(x, rope_cos, rope_sin, dropout_seed)
+        return x, kv
 
     def _around(self, x, attend):
         """The block's residual / LN / MLP wiring around ``attend(ln(x))``,
         which returns ``(attn, *cache_state)``."""
         attn, *state = attend(self.input_layernorm(x))
         x = x + attn
-        return (x + self.mlp(self.post_attention_layernorm(x)), *state)
+        y, _ = self._ffn(self.post_attention_layernorm(x))
+        return (x + y, *state)
 
     def decode(self, x, cache, layer_index, positions, rope_cos=None,
                rope_sin=None):
@@ -607,10 +680,17 @@ class GPTModel(nn.Module):
     :class:`torch.Generator`, or load a state dict (for instance one from
     :func:`apex_tpu_torch.convert.gpt_params_from_jax`).  Under tensor
     parallelism each rank builds its own shards (a ``model`` group of
-    ``tensor_parallel_size`` ranks must exist when it runs).
+    ``tensor_parallel_size`` ranks must exist when it runs), under expert
+    parallelism its ``n_experts / expert_parallel_size`` experts.
+
+    ``pipeline_stage=(n_stages, n_virtual, stage)`` builds pipeline rank
+    ``stage``'s model for :func:`pipeline_step`: the embedding and final
+    LayerNorm whole, and only the layers of its ``n_virtual`` chunks, chunk
+    ``c`` being logical stage ``c * n_stages + stage``
+    (:func:`pipeline_layer_ids`; ``layers.j`` is the ``j``-th of them).
     """
 
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None, pipeline_stage=None):
         super().__init__()
         self.device = resolve_device(device)
         # full-precision f32 products: the head GEMM (and the f32 reference
@@ -626,8 +706,12 @@ class GPTModel(nn.Module):
             cfg.vocab_size, cfg.hidden_size,
             world_size=cfg.tensor_parallel_size, axis_name=cfg.axis_name,
             param_dtype=cfg.param_dtype, device=dev)
+        self.pipeline_stage = pipeline_stage
+        self.layer_ids = (list(range(cfg.num_layers)) if pipeline_stage is None
+                          else pipeline_layer_ids(cfg.num_layers,
+                                                  *pipeline_stage))
         self.layers = nn.ModuleList(ParallelTransformerLayer(cfg, dev)
-                                    for _ in range(cfg.num_layers))
+                                    for _ in self.layer_ids)
         self.final_layernorm = MixedFusedLayerNorm(cfg.hidden_size,
                                                    device=dev)
         if not cfg.rotary:
@@ -642,13 +726,31 @@ class GPTModel(nn.Module):
         ``generator`` is a CPU :class:`torch.Generator` (the numbers are
         drawn on the CPU, so a seed gives the same model on every device;
         they cannot replay ``jax.random``).  Each tensor-parallel rank
-        draws the full weights and keeps its slices, so the shards are
-        those of the serial model from the same seed."""
+        draws the full weights and keeps its slices (an expert-parallel rank
+        its experts, a pipeline stage its layers: the others' are drawn and
+        dropped), so the shards are those of the serial model from the same
+        seed.  A MoE slot draws the JAX init's scales: gate N(0, 0.02), w1
+        N(0, 1/hidden), w2 N(0, 1/ffn)."""
         self.embedding.reset_parameters(generator)
-        for layer in self.layers:
-            for lin in (layer.attention.qkv, layer.attention.proj,
-                        layer.mlp.fc1, layer.mlp.fc2):
+        held = dict(zip(self.layer_ids, self.layers))
+        cfg = self.cfg
+        moe = cfg.n_experts > 0
+        expert_rank = (ps.group_rank(ps.resolve_group(cfg.expert_axis))
+                       if moe and cfg.expert_axis is not None else 0)
+        tensor_rank = (ps.group_rank(axis_group(cfg.axis_name))
+                       if moe and cfg.axis_name is not None else 0)
+        for i in range(self.cfg.num_layers):
+            layer = held.get(i)
+            if layer is None:       # drawn and dropped, to keep the stream
+                layer = ParallelTransformerLayer(self.cfg, "meta")
+            for lin in (layer.attention.qkv, layer.attention.proj):
                 lin.reset_parameters(generator)
+            if layer.is_moe:
+                layer.mlp.reset_parameters(generator, expert_rank,
+                                           tensor_rank)
+            else:
+                layer.mlp.fc1.reset_parameters(generator)
+                layer.mlp.fc2.reset_parameters(generator)
             for ln in (layer.input_layernorm, layer.post_attention_layernorm):
                 _reset_layer_norm(ln)
         _reset_layer_norm(self.final_layernorm)
@@ -669,10 +771,24 @@ class GPTModel(nn.Module):
             self._rope[seq_len] = (torch.cos(f), torch.sin(f))
         return self._rope[seq_len]
 
+    def _context(self):
+        """``(size, rank)`` of the context group (``(1, 0)`` without
+        context parallelism)."""
+        if self.cfg.context_axis is None:
+            return 1, 0
+        group = ps.resolve_group(self.cfg.context_axis)
+        return ps.group_size(group), ps.group_rank(group)
+
+    def _seq_offset(self, local_len):
+        """Global position of this shard's first token (0 without context
+        parallelism)."""
+        return self._context()[1] * local_len
+
     def embed(self, tokens):
         x = self.embedding(tokens)
         if not self.cfg.rotary:
-            x = x + self.position_embedding[:tokens.shape[1]]
+            off = self._seq_offset(tokens.shape[1])
+            x = x + self.position_embedding[off:off + tokens.shape[1]]
         return x.to(self.cfg.dtype)
 
     def _head_logits(self, x):
@@ -697,18 +813,42 @@ class GPTModel(nn.Module):
                 h.to(_f32), self.cfg.axis_name)
         return self._head_logits(h)
 
+    def _check_whole(self):
+        if self.pipeline_stage is not None and self.pipeline_stage[0] > 1:
+            raise ValueError(
+                "this model holds one pipeline stage's layers: run it "
+                "through pipeline_step")
+
     def backbone(self, x, dropout_seed=None, seq_len=None):
         """The layers over embedded ``x`` ``(b, s, hidden)`` (``(b, s / t,
         hidden)`` under sequence parallelism, with ``seq_len`` the whole
-        sequence's length for the RoPE tables).  With a ``dropout_seed``,
-        layer ``i`` drops attention probabilities with the stream
-        ``dropout_seed + i * _SEED_LAYER_STRIDE``."""
-        cos, sin = self.rope_tables(seq_len or x.shape[1])
+        sequence's length for the RoPE tables; under context parallelism
+        the local shard, whose RoPE rows start at its global offset).  With
+        a ``dropout_seed``, layer ``i`` drops attention probabilities with
+        the stream ``dropout_seed + i * _SEED_LAYER_STRIDE``."""
+        return self.backbone_aux(x, dropout_seed, seq_len)[0]
+
+    def backbone_aux(self, x, dropout_seed=None, seq_len=None):
+        """:meth:`backbone` and the layers' summed MoE aux loss (an f32
+        scalar; 0 for dense FFNs)."""
+        self._check_whole()
+        local = seq_len or x.shape[1]
+        n_ctx, _ = self._context()
+        cos, sin = self.rope_tables(local * n_ctx)
+        if cos is not None and n_ctx > 1:
+            off = self._seq_offset(local)
+            cos, sin = cos[off:off + local], sin[off:off + local]
+        aux_total = torch.zeros((), dtype=_f32, device=x.device)
         for li, layer in enumerate(self.layers):
             seed = (None if dropout_seed is None
                     else int(dropout_seed) + li * _SEED_LAYER_STRIDE)
-            x = remat_call(self.cfg, layer, x, cos, sin, seed)
-        return x
+            out = remat_call(self.cfg, layer, x, cos, sin, seed)
+            if layer.is_moe:
+                x, aux = out
+                aux_total = aux_total + aux
+            else:
+                x = out
+        return x, aux_total
 
     def head_loss(self, x, targets):
         """Per-token cross entropy ``(b, s)`` f32 of the tied head on
@@ -770,19 +910,38 @@ class GPTModel(nn.Module):
         """Embedding and layers: the backbone output ``(b, s, hidden)``,
         scattered over the sequence after the embedding and gathered again
         under sequence parallelism."""
+        return self._hidden_aux(tokens, dropout_seed)[0]
+
+    def _hidden_aux(self, tokens, dropout_seed=None):
         x = self.embed(tokens)
         if self._sp_enabled():
             x = self._sp_scatter(x)
-        x = self.backbone(x, dropout_seed, seq_len=tokens.shape[1])
-        return self._sp_gather(x) if self._sp_enabled() else x
+        x, aux = self.backbone_aux(x, dropout_seed, seq_len=tokens.shape[1])
+        return (self._sp_gather(x) if self._sp_enabled() else x), aux
 
     def loss(self, tokens, targets, dropout_seed=None):
         """Mean next-token loss (f32 scalar) of ``tokens (b, s)`` against
-        ``targets (b, s)``; differentiable in every parameter.
-        ``dropout_seed`` (int) enables ``cfg.attention_dropout`` for this
-        step (advance it by +1 per step); ``None`` means no dropout."""
-        x = self.hidden(tokens, dropout_seed)
-        return torch.mean(self.head_loss(x, targets))
+        ``targets (b, s)``; differentiable in every parameter.  With MoE
+        FFNs it adds ``moe_aux_weight * aux / num_layers`` (the Switch
+        load-balancing term).  ``dropout_seed`` (int) enables
+        ``cfg.attention_dropout`` for this step (advance it by +1 per
+        step); ``None`` means no dropout.
+
+        Under context parallelism ``tokens`` / ``targets`` are this rank's
+        sequence shard and the local mean is averaged over the context
+        group (JAX's ``pmean``; its backward hands each rank ``1 / n`` of
+        the cotangent): each rank's parameter gradients are then its
+        partial sums, whose sum over the group
+        (:func:`apex_tpu_torch.utils.collectives.psum_if_varying`) is the
+        whole batch's gradient, as in JAX."""
+        x, aux = self._hidden_aux(tokens, dropout_seed)
+        mean = torch.mean(self.head_loss(x, targets))
+        if self.cfg.n_experts > 0:
+            self.moe_aux = aux.detach()     # the last call's, for logging
+            mean = mean + self.cfg.moe_aux_weight * aux / self.cfg.num_layers
+        if self.cfg.context_axis is not None:
+            mean = context_mean(mean, self.cfg.context_axis)
+        return mean
 
     def forward(self, tokens, dropout_seed=None):
         """Full causal forward: ``tokens (b, s)`` → logits ``(b, s, vocab /
@@ -790,6 +949,11 @@ class GPTModel(nn.Module):
         return self.logits(self.hidden(tokens, dropout_seed))
 
     def _check_decode_supported(self):
+        self._check_whole()
+        if self.cfg.context_axis is not None:
+            raise ValueError(
+                "KV-cache decode does not compose with context "
+                "parallelism (the cache would be sequence-sharded)")
         if self.cfg.sequence_parallel:
             raise ValueError(
                 "KV-cache decode requires sequence_parallel=False "
@@ -973,6 +1137,12 @@ def quantize_decode_params(state_dict) -> dict:
     for name, t in state_dict.items():
         if name.endswith(".weight_scale"):
             raise ValueError(f"{name}: the state dict is already quantized")
+        if name.endswith("mlp.gate"):
+            raise ValueError(
+                "quantize_decode_params covers dense GPT state dicts; this "
+                "one has MoE expert stacks (mlp.gate) — "
+                "GPTConfig(weight_quant=...) rejects n_experts > 0 for the "
+                "same reason")
         if _QUANTIZED.fullmatch(name):
             w8, scale = quantize_weight(t)
             out[name] = w8
@@ -986,6 +1156,7 @@ _COLUMN_SHARDED = re.compile(
     r"(embedding|layers\.\d+\.(attention\.qkv|mlp\.fc1))"
     r"\.(weight|bias|weight_scale)")
 _ROW_SHARDED = re.compile(r"layers\.\d+\.(attention\.proj|mlp\.fc2)\.weight")
+_MOE_LEAF = re.compile(r"layers\.\d+\.mlp\.(w1|w2)")
 
 
 def shard_params_for_tp(cfg, state_dict, rank: int) -> dict:
@@ -994,14 +1165,24 @@ def shard_params_for_tp(cfg, state_dict, rank: int) -> dict:
     column layers' (qkv, fc1) and the vocab embedding's weight, bias and
     int8 scale rows, the row layers' (proj, fc2) weight columns; their
     biases and per-output-row scales, the LayerNorms and the position
-    embedding whole.  A column layer's scales are the slice of the full
+    embedding whole; a MoE slot's ``w1`` along its FFN dim (dim 2) and
+    ``w2`` along dim 1, its gate whole.  A column layer's scales are the
+    slice of the full
     weight's, so quantizing then sharding equals sharding then quantizing
     there bit for bit; a row shard quantized alone has its own, tighter
     scales.  Works on any ``cfg`` with the model's names (BERT's column /
     row layers have their own names: :func:`apex_tpu_torch.models.bert.
     shard_params_for_tp`)."""
-    return shard_state_dict(state_dict, rank, cfg.tensor_parallel_size,
-                            _COLUMN_SHARDED, _ROW_SHARDED)
+    t = cfg.tensor_parallel_size
+    out = shard_state_dict(state_dict, rank, t, _COLUMN_SHARDED,
+                           _ROW_SHARDED)
+    for name, v in state_dict.items():
+        dim = {"w1": 2, "w2": 1}.get(name.rsplit(".", 1)[-1]) \
+            if _MOE_LEAF.fullmatch(name) else None
+        if dim is not None:
+            per = v.shape[dim] // t
+            out[name] = v.narrow(dim, rank * per, per).contiguous()
+    return out
 
 
 def shard_state_dict(state_dict, rank, t, column, row) -> dict:
@@ -1026,3 +1207,273 @@ def _reset_layer_norm(ln) -> None:
         ln.weight.fill_(1.0)
         if ln.bias is not None:
             ln.bias.zero_()
+
+
+class _ContextMean(torch.autograd.Function):
+    """The mean over the context group (JAX ``pmean``): forward the
+    all-reduced sum over ``n``; backward ``1 / n`` of the cotangent, as
+    JAX transposes a ``pmean`` of a varying value."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        n = ps.group_size(group)
+        ctx.n = n
+        out = x.detach().clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def context_mean(x, axis_name):
+    """Mean of ``x`` over the ``axis_name`` group (identity at one
+    rank)."""
+    group = axis_group(axis_name)
+    if group is None:
+        return x
+    return _ContextMean.apply(x, group)
+
+
+# -- pipeline composition ----------------------------------------------------
+#
+# The JAX package packs the whole parameter tree for one ``shard_map``
+# (``pack_for_shard_map`` / ``unpack_from_shard_map``: GSPMD bookkeeping
+# with no counterpart here).  Each pipeline rank of the port builds its own
+# model (``GPTModel(cfg, pipeline_stage=(n_stages, n_virtual, stage))``)
+# and loads its own state dict (:func:`stage_state_dict`,
+# ``convert.gpt_params_from_jax(..., pipeline_stage=...)``).
+
+def stack_layers_for_pipeline(layer_params, n_stages: int,
+                              n_virtual: int = 1):
+    """Split the per-layer ``layer_params`` (any sequence, one item a
+    layer) into pipeline stages as the JAX function stacks them: with
+    ``n_virtual == 1`` a list of ``n_stages`` lists of contiguous layers;
+    otherwise ``n_stages`` lists of ``n_virtual`` chunks, device ``s``
+    chunk ``c`` holding logical stage ``c * n_stages + s`` (Megatron's
+    interleaved assignment)."""
+    n_layers = len(layer_params)
+    n_logical = n_stages * n_virtual
+    if n_layers % n_logical:
+        raise ValueError(
+            f"num_layers ({n_layers}) must be divisible by the number of "
+            f"logical pipeline stages ({n_stages} x {n_virtual})")
+    lpc = n_layers // n_logical
+    logical = [list(layer_params[i * lpc:(i + 1) * lpc])
+               for i in range(n_logical)]
+    if n_virtual == 1:
+        return logical
+    return [[logical[c * n_stages + s] for c in range(n_virtual)]
+            for s in range(n_stages)]
+
+
+def pipeline_layer_ids(num_layers: int, n_stages: int, n_virtual: int,
+                       stage: int):
+    """The global layer indices of pipeline rank ``stage``, chunk by chunk
+    (:func:`stack_layers_for_pipeline`'s assignment)."""
+    if not 0 <= stage < n_stages:
+        raise ValueError(f"stage {stage} is not in [0, {n_stages})")
+    stacks = stack_layers_for_pipeline(list(range(num_layers)), n_stages,
+                                       n_virtual)[stage]
+    if n_virtual == 1:
+        return list(stacks)
+    return [i for chunk in stacks for i in chunk]
+
+
+_LAYER_NAME = re.compile(r"layers\.(\d+)\.(.*)")
+
+
+def stage_state_dict(state_dict, num_layers: int, n_stages: int,
+                     n_virtual: int, stage: int) -> dict:
+    """Pipeline rank ``stage``'s state dict cut from a whole model's: its
+    layers renumbered in its chunk order, the embedding, final LayerNorm
+    (and position embedding) whole."""
+    local = {g: j for j, g in enumerate(
+        pipeline_layer_ids(num_layers, n_stages, n_virtual, stage))}
+    out = {}
+    for name, v in state_dict.items():
+        m = _LAYER_NAME.fullmatch(name)
+        if m is None:
+            out[name] = v
+        elif int(m.group(1)) in local:
+            out[f"layers.{local[int(m.group(1))]}.{m.group(2)}"] = v
+    return out
+
+
+def make_stage_fn(model: GPTModel, dropout_seed=None,
+                  remat: Optional[bool] = None):
+    """The ring engine's ``stage_fn(chunk_layers, carry, info)``: this
+    chunk's layers over the activation ``(mb, s, h)`` (or, for MoE models,
+    ``(x, aux)``, each logical stage adding its layers' aux losses so the
+    last stage holds the micro-batch's total; the tuple rides the ring).
+
+    ``dropout_seed`` enables attention dropout with the per-layer stream
+    derived from the job: layer ``j`` of logical stage ``info.stage`` on
+    micro-batch ``info.microbatch`` draws ``base + m * MB_STRIDE + (stage *
+    lpc + j) * LAYER_STRIDE`` (int32, wrapping), as in JAX.  ``remat``
+    (default ``cfg.remat``) runs each layer under :func:`remat_call`."""
+    cfg = model.cfg
+    moe = cfg.n_experts > 0
+    remat_cfg = types.SimpleNamespace(
+        remat=cfg.remat if remat is None else bool(remat),
+        remat_policy=cfg.remat_policy)
+
+    def stage_fn(chunk_layers, carry, info):
+        x, aux = carry if moe else (carry, None)
+        # under SP the carry is the sequence shard; RoPE rows are global
+        seq = x.shape[1]
+        if model._sp_enabled():
+            seq = seq * cfg.tensor_parallel_size
+        cos, sin = model.rope_tables(seq)
+        seed = None
+        if dropout_seed is not None:
+            seed = wrap_int32(int(dropout_seed)
+                              + int(info.microbatch) * _SEED_MB_STRIDE
+                              + int(info.stage) * len(chunk_layers)
+                              * _SEED_LAYER_STRIDE)
+        for layer in chunk_layers:
+            out = remat_call(remat_cfg, layer, x, cos, sin, seed)
+            if moe:
+                x, la = out
+                aux = aux + la.to(aux.dtype)
+            else:
+                x = out
+            if seed is not None:
+                seed = wrap_int32(seed + _SEED_LAYER_STRIDE)
+        return (x, aux) if moe else x
+
+    return stage_fn
+
+
+def pipeline_step(model: GPTModel, tokens, targets, *,
+                  pipe_axis: str = ps.PIPELINE_AXIS,
+                  data_axis: Optional[str] = None, n_virtual: int = 1,
+                  remat: Optional[bool] = None, dropout_seed=None):
+    """GPT training step (loss and gradients) over the ring pipeline
+    engine (:func:`~apex_tpu_torch.transformer.pipeline_parallel.
+    pipeline_schedule_step`): ``model`` is this pipe rank's stage model
+    (``GPTModel(cfg, pipeline_stage=(S, n_virtual, rank))``), ``tokens`` /
+    ``targets`` ``(M, mb, s)`` micro-batches (the same on every pipe rank).
+    Adds the step's gradients to every parameter's ``.grad`` and returns
+    the mean loss (a detached f32 scalar).
+
+    The embedding runs once outside the engine (all micro-batches
+    flattened); its pullback consumes the engine's ``dx0`` (summed over the
+    pipe group: only rank 0 has it), and the tied embedding's gradient is
+    that pullback plus the last stage's head contribution (summed over
+    the pipe group), as in JAX.  Dropout seeds come from the logical stage
+    and the micro-batch, never the rank.  A MoE model's aux rides with the
+    activation.  ``data_axis`` averages loss and gradients over that group;
+    an ``expert_axis`` applies :func:`~apex_tpu_torch.transformer.
+    expert_parallel.reduce_moe_grads` (and the loss mean).
+
+    Tensor parallelism inside the pipeline requires
+    ``sequence_parallel=True`` (as in JAX); ``weight_quant`` is refused."""
+    from apex_tpu_torch.transformer.expert_parallel import (
+        is_gpt_expert_leaf)
+    from apex_tpu_torch.transformer.pipeline_parallel.ring import (
+        pipeline_schedule_step)
+    from apex_tpu_torch.utils.collectives import all_reduce_
+
+    cfg = model.cfg
+    if cfg.weight_quant is not None:
+        raise ValueError(
+            f"weight_quant={cfg.weight_quant!r} is a decode/prefill-only "
+            "knob: pipeline_step builds gradients, and int8 weights have "
+            "none — train with weight_quant=None and let the inference "
+            "engine quantize at init (quantize_decode_params)")
+    if cfg.axis_name is not None and not cfg.sequence_parallel:
+        raise ValueError(
+            "pipeline_step under tensor parallelism requires "
+            "sequence_parallel=True (non-SP TP grads need shard_map's "
+            "auto-psum, which the hand-rolled pipeline backward bypasses)")
+    group = ps.resolve_group(pipe_axis)
+    n_stages = ps.group_size(group)
+    want = (n_stages, int(n_virtual), ps.group_rank(group))
+    have = model.pipeline_stage or (1, 1, 0)
+    if n_stages > 1 and tuple(have) != want:
+        raise ValueError(
+            f"pipeline_step over {n_stages} stages with n_virtual="
+            f"{n_virtual} on rank {want[2]} needs the model of that stage "
+            f"(GPTModel(cfg, pipeline_stage={want})); it was built with "
+            f"{model.pipeline_stage}")
+    moe = cfg.n_experts > 0
+    n_mb, mb, seq = tokens.shape
+    with_seed = cfg.attention_dropout > 0.0 and dropout_seed is not None
+
+    # ---- embedding: one flattened-batch pass outside the engine ---------
+    embed_params = [model.embedding.weight] + (
+        [] if cfg.rotary else [model.position_embedding])
+    x_all = model.embed(tokens.reshape(n_mb * mb, seq))
+    if model._sp_enabled():
+        x_all = model._sp_scatter(x_all)
+    x_all = x_all.reshape((n_mb, mb) + tuple(x_all.shape[1:]))
+    x0 = x_all.detach()
+    if moe:
+        x0 = (x0, torch.zeros((n_mb,), dtype=_f32, device=x0.device))
+
+    # ---- last stage: final LN + tied head + CE --------------------------
+    last_params = list(model.final_layernorm.parameters()) + [
+        model.embedding.weight]
+
+    def last_fn(_, y, tgt, info):
+        aux = None
+        if moe:
+            y, aux = y
+        if model._sp_enabled():
+            y = model._sp_gather(y)
+        lm = torch.mean(model.head_loss(y, tgt))
+        if moe:
+            lm = lm + cfg.moe_aux_weight * aux / cfg.num_layers
+        return lm
+
+    lpc = len(model.layers) // int(n_virtual)
+    chunks = [model.layers[c * lpc:(c + 1) * lpc]
+              for c in range(int(n_virtual))]
+    loss, layer_grads, last_grads, dx0 = pipeline_schedule_step(
+        make_stage_fn(model, dropout_seed if with_seed else None,
+                      remat=remat),
+        last_fn, chunks if n_virtual > 1 else chunks[0], last_params, x0,
+        targets, axis_name=pipe_axis, n_virtual=n_virtual)
+
+    # ---- embedding pullback (dx0 is summed over the pipe group) ---------
+    dx = dx0[0] if moe else dx0
+    embed_grads = torch.autograd.grad(x_all, embed_params, dx,
+                                      allow_unused=True)
+    grads = {id(p): g for p, g in zip(embed_params, embed_grads)}
+    for p, g in zip(last_params, last_grads):
+        grads[id(p)] = g if id(p) not in grads else grads[id(p)] + g
+    chunk_grads = layer_grads if n_virtual > 1 else [layer_grads]
+    for chunk, gs in zip(chunks, chunk_grads):
+        for p, g in zip(chunk.parameters(), gs):
+            grads[id(p)] = g
+    by_param = [(name, p, grads.get(id(p)))
+                for name, p in model.named_parameters()]
+    reductions = []
+    if data_axis is not None:
+        reductions.append((ps.resolve_group(data_axis), False))
+    if moe and cfg.expert_axis is not None:
+        # the expert axis doubles as a batch axis for the dense compute:
+        # dense leaves average over it, expert stacks (per-shard sums of
+        # the whole batch) divide by its size (reduce_moe_grads)
+        reductions.append((ps.resolve_group(cfg.expert_axis), True))
+    for rgroup, experts in reductions:
+        n = ps.group_size(rgroup)
+        if n == 1:
+            continue
+        all_reduce_(loss, rgroup).div_(n)
+        for name, p, g in by_param:
+            if g is None:
+                continue
+            if not (experts and is_gpt_expert_leaf(name)):
+                all_reduce_(g, rgroup)
+            g.div_(n)
+    for _, p, g in by_param:
+        if g is None:
+            continue
+        if p.grad is None:
+            p.grad = g.to(p.dtype)
+        else:
+            p.grad.add_(g)
+    return loss

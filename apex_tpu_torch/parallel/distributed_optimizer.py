@@ -63,8 +63,37 @@ class _DistributedMixin:
     # the packed (rows, 128) buckets ARE the ZeRO sharding unit
     _default_bucketed = True
 
+    @staticmethod
+    def _resolve_plan(plan, world_size, allreduce_dtype):
+        """Fold a :class:`~apex_tpu_torch.parallel.plan.ParallelPlan` into
+        the per-knob arguments (JAX ``_resolve_plan``): silent without a
+        plan; a knob that conflicts with the plan is superseded — the plan
+        wins and a DeprecationWarning names it."""
+        if plan is None:
+            return world_size, allreduce_dtype
+        import warnings
+        kw = plan.optimizer_kwargs()
+        if world_size is not None and world_size != 1 \
+                and world_size != kw["world_size"]:
+            warnings.warn(
+                f"world_size={world_size} is superseded by the attached "
+                f"ParallelPlan (zero_shard={kw['world_size']}); set "
+                "zero_shard on the plan instead", DeprecationWarning,
+                stacklevel=4)
+        if allreduce_dtype is not None \
+                and allreduce_dtype != kw["allreduce_dtype"]:
+            warnings.warn(
+                f"allreduce_dtype={allreduce_dtype!r} is superseded by "
+                f"the attached ParallelPlan "
+                f"({kw['allreduce_dtype']!r})", DeprecationWarning,
+                stacklevel=4)
+        return kw["world_size"], kw["allreduce_dtype"]
+
     def _dist_init(self, world_size, axis_name, process_group, average_grads,
-                   allreduce_dtype):
+                   allreduce_dtype, plan=None):
+        world_size, allreduce_dtype = self._resolve_plan(
+            plan, world_size, allreduce_dtype)
+        self.plan = plan
         self.axis_name = axis_name
         self.process_group = ps.resolve_group(axis_name, process_group)
         self.world_size = ps.group_size(self.process_group)
@@ -243,14 +272,16 @@ class DistributedFusedAdam(_DistributedMixin, FusedAdam):
     ``DistributedFusedAdam(params, lr=..., axis_name="data")`` (or
     ``process_group=``); ``world_size``, when given, must be the group's
     size.  ``allreduce_dtype`` in ``{None/'f32', 'bf16', 'int8'}`` picks
-    the gradient reduce-scatter's transport."""
+    the gradient reduce-scatter's transport.  ``plan=`` (a
+    :class:`~apex_tpu_torch.parallel.plan.ParallelPlan`) sets both from
+    its ``zero_shard`` and ``allreduce_dtype``."""
 
     def __init__(self, params, lr=1e-3, world_size=None, axis_name="data",
                  average_grads=True, allreduce_dtype=None, *,
-                 process_group=None, **kw):
+                 process_group=None, plan=None, **kw):
         super().__init__(params, lr=lr, **kw)
         self._dist_init(world_size, axis_name, process_group, average_grads,
-                        allreduce_dtype)
+                        allreduce_dtype, plan)
 
 
 class DistributedFusedLAMB(_DistributedMixin, FusedLAMB):
@@ -262,8 +293,8 @@ class DistributedFusedLAMB(_DistributedMixin, FusedLAMB):
 
     def __init__(self, params, lr=1e-3, world_size=None, axis_name="data",
                  average_grads=True, allreduce_dtype=None, *,
-                 process_group=None, **kw):
+                 process_group=None, plan=None, **kw):
         super().__init__(params, lr=lr, **kw)
         self._dist_init(world_size, axis_name, process_group, average_grads,
-                        allreduce_dtype)
+                        allreduce_dtype, plan)
 

@@ -2,13 +2,24 @@
 
 The JAX package names its collectives by mesh axis inside ``shard_map``:
 ``data`` (data parallel), ``pipe`` (pipeline) and ``model`` (tensor model
-parallel), over a ``(data, pipe, model)`` mesh.  The port keeps the names
-and maps each to a :mod:`torch.distributed` process group.
+parallel), over a ``(data, pipe, model)`` mesh, and ``context`` (the
+sequence shards of context parallelism) and ``expert`` (the expert stacks
+of a mixture of experts) where a model names them.  The port keeps the
+names and maps each to a :mod:`torch.distributed` process group.
 :func:`initialize_model_parallel` lays the ranks out as the JAX package lays
 out its devices, ``np.arange(world).reshape(dp, pp, tp)``, so rank ``r``
 holds what device ``r`` of the JAX mesh holds, and creates one group per
 line of that array along each axis (every rank creates every group, in the
-same order, as :func:`torch.distributed.new_group` requires).
+same order, as :func:`torch.distributed.new_group` requires).  The
+``expert`` and ``context`` axes are carved out of the data axis, as
+Megatron carves them: with ``expert_parallel_size_=e`` and
+``context_parallel_size_=c`` the ranks lie as ``np.arange(world).reshape(
+dp / (e c), e, c, pp, tp)``, so a context group is ``c`` neighbouring data
+ranks, an expert group ``e`` of them ``c`` apart (with ``e == dp`` it is
+the whole data axis: the experts double as the data replicas, as in the
+JAX Switch example), and the ``data`` group what is left.  Their groups
+exist only where they have more than one rank: an axis of one rank is
+None and its collectives are identities.
 
 Without ``torch.distributed`` every axis has size 1 and rank 0, and the
 collectives over it are identities (the JAX package outside ``shard_map``).
@@ -31,9 +42,15 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 PIPELINE_AXIS = "pipe"
 TENSOR_AXIS = "model"
+CONTEXT_AXIS = "context"
+EXPERT_AXIS = "expert"
 AXES = (DATA_AXIS, PIPELINE_AXIS, TENSOR_AXIS)
+# every axis of the rank mesh, in the order of its dimensions
+MESH_AXES = (DATA_AXIS, EXPERT_AXIS, CONTEXT_AXIS, PIPELINE_AXIS,
+             TENSOR_AXIS)
 
 _LAYOUT: Optional[np.ndarray] = None      # (dp, pp, tp) global ranks
+_MESH: Optional[np.ndarray] = None        # (dp', ep, cp, pp, tp)
 _GROUPS: dict = {}                        # axis -> this rank's group
 _GROUP_RANKS: dict = {}                   # axis -> the ranks of that group
 _VIRTUAL_PIPELINE_MODEL_PARALLEL_RANK: Optional[int] = None
@@ -57,6 +74,21 @@ def rank_layout(world: int, tp: int = 1, pp: int = 1) -> np.ndarray:
     return np.arange(world).reshape(world // (tp * pp), pp, tp)
 
 
+def mesh_layout(world: int, tp: int = 1, pp: int = 1, cp: int = 1,
+                ep: int = 1) -> np.ndarray:
+    """The ``(dp / (ep cp), ep, cp, pp, tp)`` array of global ranks
+    (:data:`MESH_AXES`): :func:`rank_layout` with the data axis split into
+    its data, expert and context parts."""
+    layout = rank_layout(world, tp, pp)
+    dp = layout.shape[0]
+    if dp % (cp * ep):
+        raise RuntimeError(
+            f"the data-parallel extent ({dp} = world / (tp x pp)) is not "
+            f"divisible by context parallel size ({cp}) x expert parallel "
+            f"size ({ep})")
+    return np.arange(world).reshape(dp // (cp * ep), ep, cp, pp, tp)
+
+
 def _lines(layout, axis):
     """Every line of ``layout`` along mesh axis ``axis`` (0 data, 1 pipe,
     2 model), as lists of ranks, in a fixed order."""
@@ -70,11 +102,15 @@ def initialize_model_parallel(
         pipeline_model_parallel_size_: int = 1,
         virtual_pipeline_model_parallel_size_: Optional[int] = None,
         pipeline_model_parallel_split_rank_: Optional[int] = None,
-        *, default_backend=None) -> np.ndarray:
+        *, context_parallel_size_: int = 1, expert_parallel_size_: int = 1,
+        default_backend=None) -> np.ndarray:
     """Build the ``data`` / ``pipe`` / ``model`` groups over the world of
-    :mod:`torch.distributed` (one rank when it is not initialised); the
-    data-parallel size is ``world // (tp * pp)`` as in apex.  Returns the
-    ``(dp, pp, tp)`` rank layout (also :func:`get_rank_layout`).
+    :mod:`torch.distributed` (one rank when it is not initialised), and the
+    ``context`` / ``expert`` groups where their sizes exceed one; the
+    data-parallel extent is ``world // (tp * pp)`` as in apex, of which the
+    ``data`` group keeps ``1 / (cp * ep)``.  Returns the ``(dp, pp, tp)``
+    rank layout (also :func:`get_rank_layout`; the five-axis one is
+    :func:`get_mesh_layout`).
     ``default_backend`` (apex's NCCL / UCC choice) is accepted and unused:
     the groups keep the default group's backend."""
     global _LAYOUT, _VIRTUAL_PIPELINE_MODEL_PARALLEL_WORLD_SIZE
@@ -82,15 +118,22 @@ def initialize_model_parallel(
     global _PIPELINE_MODEL_PARALLEL_SPLIT_RANK
     del default_backend
     world, rank = _world_and_rank()
-    layout = rank_layout(world, int(tensor_model_parallel_size_),
-                         int(pipeline_model_parallel_size_))
+    global _MESH
+    tp, pp = int(tensor_model_parallel_size_), int(
+        pipeline_model_parallel_size_)
+    layout = rank_layout(world, tp, pp)
+    mesh = mesh_layout(world, tp, pp, int(context_parallel_size_),
+                       int(expert_parallel_size_))
     groups, ranks = {}, {}
-    for axis, name in enumerate(AXES):
-        for line in _lines(layout, axis):
+    for axis, name in enumerate(MESH_AXES):
+        if name not in AXES and mesh.shape[axis] == 1:
+            continue
+        for line in _lines(mesh, axis):
             group = dist.new_group(line) if dist.is_initialized() else None
             if rank in line:
                 groups[name], ranks[name] = group, line
     _LAYOUT = layout
+    _MESH = mesh
     _GROUPS.clear()
     _GROUPS.update(groups)
     _GROUP_RANKS.clear()
@@ -110,6 +153,14 @@ def model_parallel_is_initialized() -> bool:
     return _LAYOUT is not None
 
 
+def get_mesh_layout() -> np.ndarray:
+    """The ``(dp', ep, cp, pp, tp)`` rank array of :data:`MESH_AXES`."""
+    if _MESH is None:
+        raise RuntimeError("model parallel groups are not initialized "
+                           "(call initialize_model_parallel first)")
+    return _MESH
+
+
 def get_rank_layout() -> np.ndarray:
     if _LAYOUT is None:
         raise RuntimeError("model parallel groups are not initialized "
@@ -118,10 +169,11 @@ def get_rank_layout() -> np.ndarray:
 
 
 def destroy_model_parallel():
-    global _LAYOUT, _VIRTUAL_PIPELINE_MODEL_PARALLEL_RANK
+    global _LAYOUT, _MESH, _VIRTUAL_PIPELINE_MODEL_PARALLEL_RANK
     global _VIRTUAL_PIPELINE_MODEL_PARALLEL_WORLD_SIZE
     global _PIPELINE_MODEL_PARALLEL_SPLIT_RANK
     _LAYOUT = None
+    _MESH = None
     _GROUPS.clear()
     _GROUP_RANKS.clear()
     _VIRTUAL_PIPELINE_MODEL_PARALLEL_RANK = None
@@ -134,11 +186,12 @@ def destroy_model_parallel():
 def get_group(axis_name: str):
     """The process group of mesh axis ``axis_name`` holding this rank, or
     None where the axis is this rank alone (its collectives are then
-    identities): without ``torch.distributed``, and for ``pipe`` and
-    ``model`` before :func:`initialize_model_parallel`."""
-    if axis_name not in AXES:
+    identities): without ``torch.distributed``, for ``pipe`` and
+    ``model`` before :func:`initialize_model_parallel`, and for
+    ``context`` and ``expert`` wherever they have one rank."""
+    if axis_name not in MESH_AXES:
         raise ValueError(f"unknown mesh axis {axis_name!r}; the axes are "
-                         f"{AXES}")
+                         f"{MESH_AXES}")
     if _LAYOUT is not None:
         return _GROUPS.get(axis_name)
     if axis_name == DATA_AXIS and dist.is_available() \
@@ -178,6 +231,14 @@ def get_tensor_model_parallel_group():
     return get_group(TENSOR_AXIS)
 
 
+def get_context_parallel_group():
+    return get_group(CONTEXT_AXIS)
+
+
+def get_expert_parallel_group():
+    return get_group(EXPERT_AXIS)
+
+
 # -- world sizes and ranks -----------------------------------------------------
 
 def _axis_size(axis):
@@ -204,6 +265,22 @@ def get_model_parallel_world_size() -> int:
     """tp*pp (apex asserts pp==1 here; this returns the product)."""
     return (get_tensor_model_parallel_world_size()
             * get_pipeline_model_parallel_world_size())
+
+
+def get_context_parallel_world_size() -> int:
+    return _axis_size(CONTEXT_AXIS)
+
+
+def get_expert_parallel_world_size() -> int:
+    return _axis_size(EXPERT_AXIS)
+
+
+def get_context_parallel_rank() -> int:
+    return _axis_rank(CONTEXT_AXIS)
+
+
+def get_expert_parallel_rank() -> int:
+    return _axis_rank(EXPERT_AXIS)
 
 
 def get_tensor_model_parallel_rank() -> int:

@@ -3,8 +3,9 @@
 training, BERT training under amp O2, each also with the fused FFN and
 under activation recompute, ResNet-50 ImageNet training under amp O1 and
 O2, paged and int8 GPT serving, the serving fleet, data and tensor
-parallelism over NCCL) on one NVIDIA H100 and hold every kernel of the
-paths against its plain PyTorch version.
+parallelism over NCCL, Switch-GPT-350M/8 training and serving, the ring
+pipeline and context parallelism) on one NVIDIA H100 and hold every kernel
+of the paths against its plain PyTorch version.
 
     python3 chip_smoke.py [--out results.json] [--profile breakdown.txt]
 
@@ -239,6 +240,39 @@ Phases (any failure exits non-zero; nothing is caught):
    raises).  Phase 2 also holds #3-#5
    at the local heads (8, 8, 1024, 64) and (8, 4, 1024, 64) and #11-#13 at
    the FFN shards 8192 x 1024 -> 2048 / 1024 -> 1024.
+16. expert, pipeline and context parallelism over NCCL:
+   ``torch.cuda.device_count()`` ranks (spawned processes under
+   ``build/phase16/``, one on a one-card machine, where every hop and
+   collective is local): (16a) Switch-GPT-350M/8 (phase 5's GPT-350M with
+   8 experts a layer, top-1, capacity factor 1.25, aux weight 1e-2: 1.76
+   billion parameters) trained through the ported example's ``main()``
+   (``apex_tpu_torch/examples/moe/train_switch_gpt.py``: micro-batch 8 x
+   2 x 1024 tokens, ``FusedAdam(lr=1e-4)``, a warm-up step and 4): losses,
+   aux losses, step times, peak memory, exact launches of #1-#5, #8-#10
+   and #18, no plain version; then one GShard (top-2) step at the same
+   widths; (16p) a small Switch and GShard GPT (phase 6's widths, 8
+   experts, f32: routing is discrete) 2 steps on the card and on a CPU
+   copy under phase 6's gates, the experts' ``w1`` gradient in norm
+   (ReLU's kink, ``PARITY_MOE``) at a gate between a correct and a
+   planted-fault reading (``MOE_W1_NORM_TOL``);
+   (16b) the trained Switch model serving phase 3's 10 requests through
+   ``InferenceEngine``: exact #1, #3, #6 launches, no plain version, the
+   share of the real tokens' token-choices the capacity dropped logged for
+   the prefills and the decode steps apart (a decode step's 8 rows over 8
+   experts have capacity 1: JAX's semantics), and a small
+   f32 Switch GPT's prefill and decode on the card against a CPU copy
+   under phase 4's gates; (16c) GPT-350M at phase 5's recipe through
+   ``pipeline_step`` with ``n_virtual=2`` (interleaved chunks; at one rank
+   the wrap hop is local), 4 steps, exact launches, the losses held
+   against ``forward_backward_no_pipelining`` on the same weights and
+   batch at a gate between a correct and a planted-fault reading
+   (``MP_LOSS_RTOL``); (16d) the same model with ``context_axis``, 2 steps
+   each with Ulysses and ring attention on the rank's sequence shard: at
+   one rank both are the flash path, held bit for bit against 16c's
+   reference.  ``tools/model_parallel_torch.py`` runs the same code at 2
+   and 4 cards (EP, PP 1F1B and interleaved, PP x TP with SP, CP), each
+   path held to its gate from the readings at that card count (a count
+   without readings raises).
 
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -6569,6 +6603,815 @@ def phase_tensor_parallel(single=None, world=None):
     return dict(world=world, seconds=seconds, gaps=gaps, ranks=ranks)
 
 
+# -- phase 16 ----------------------------------------------------------------
+
+# Switch-GPT-350M/8 through the ported MoE example: bench.py's GPT-350M
+# (phase 5's widths, micro-batch 8 x 2, seq 1024, FusedAdam lr 1e-4) with
+# examples/moe/train_switch_gpt.py's expert settings
+SWITCH_ARGV = ["--n-experts", "8", "--capacity-factor", "1.25",
+               "--batch-per-device", str(MICRO),
+               "--accum", str(ACCUM), "--seq-len", str(SEQ), "--hidden",
+               str(HIDDEN), "--layers", str(GPT350M["num_layers"]),
+               "--heads", str(HEADS), "--vocab", str(GPT350M["vocab_size"]),
+               "--lr", str(LR), "--print-freq", "1", "--seed", "0"]
+SWITCH_STEPS = 4               # timed steps after the example's warm-up
+# 16p / 16b's small Switch GPT in f32: routing is discrete, and at bf16 the
+# card's and the CPU's rounding of a token's hidden state flips its top
+# choice wherever two gate probabilities lie within a bf16 ulp, moving
+# that token's whole contribution to another expert (tools/
+# moe_parity_torch.py --dtype bfloat16: 51 / 97 token-choices rerouted, 58%
+# / 68% of the largest embedding gradient entry off); in f32 the two runs
+# route the same tokens (the tool: none rerouted).  The experts' ReLU is a
+# kink too: an entry of the first expert product within rounding of 0
+# (|z| <= 5.3e-7, two a run) takes the other side, and its token's whole
+# product row then enters or leaves ``w1``'s gradient (up to 10% of its
+# largest entry, 3.1e-3 in norm), so ``w1`` is held in norm, every other
+# gradient entry by entry
+PARITY_MOE = dict(PARITY_TRAIN, n_experts=8, dtype=torch.float32)
+# 16p's gate on the experts' w1 in norm, between the correct and the
+# planted-fault readings of tools/model_parallel_torch.py --gates --parts
+# parity on the card (PERF.md): correct 3.06e-3 (top-1) / 3.50e-4 (top-2),
+# drop_slot (one token's row out of one expert's w1 gradient) 5.80e-2 /
+# 5.08e-2, which the card-vs-CPU gradient tolerance would let pass
+MOE_W1_NORM_TOL = 1e-2
+# Phase 16's loss gates, each between a correct and a planted-fault
+# reading of tools/model_parallel_torch.py --gates on the card at full
+# width (PERF.md; every fault of MP_FAULTS planted in one run, each in its
+# own path).  One rank: 16c the ring pipeline (n_virtual=2) against
+# forward_backward_no_pipelining on the same weights and batch reads 0.0
+# over 4 steps (bit for bit: the same kernels in the same order; only the
+# tied embedding's two gradient terms are added in the other order, which
+# commutes), drop_microbatch 3.46e-2, so the gate is bit for bit; 16d's
+# Ulysses and ring at one rank are the flash path (the JAX functions'
+# n == 1 branch), so both are held bit for bit against 16c's reference.
+# 2 / 4 cards, correct against faulted: EP 2.37e-5 / 3.43e-5 against
+# 1.85e-4 / 7.92e-4 (a2a_bwd_local), PP 1F1B and interleaved 0.0 against
+# 3.46e-2 / 1.69e-2, PP x TP + SP (4 cards) 2.35e-6 against 3.45e-2,
+# Ulysses 8.93e-8 against 3.20e-3 / 4.21e-3 (a2a_bwd_local), ring 2.37e-5
+# / 3.14e-5 against 1.03e-3 / 2.48e-3 (ring_dkv).  Single readings (the
+# correct ones equal an earlier run's); another rank count raises.
+MP_LOSS_RTOL = {
+    1: dict(pipeline_v2=0.0, ulysses=0.0, ring=0.0),
+    2: dict(ep=6e-5, pipeline_v1=0.0, pipeline_v2=0.0, ulysses=1e-5,
+            ring=1e-4),
+    4: dict(ep=1.5e-4, pipeline_v1=0.0, pipeline_v2=0.0, pp_tp=1e-5,
+            ulysses=1e-5, ring=1.5e-4)}
+CP_STEPS = 2
+
+
+def _mp_counters():
+    from apex_tpu_torch.ops.flash_attention import flash_attention_decode
+    return _all_counters() + (flash_attention_decode,)
+
+
+def _reset(counters):
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+
+
+def _gpt_train_expected(steps, micro, layers, numels, last=True,
+                        rows=MICRO * SEQ, flash=True):
+    """Launches of ``steps`` steps of ``micro`` micro-batches through
+    ``layers`` layers (and, with ``last``, the final LayerNorm and the
+    fused LM head), then FusedAdam over ``numels``."""
+    n = steps * micro
+    out = {"layer_norm_fwd": n * (2 * layers + last),
+           "layer_norm_bwd": n * (2 * layers + last),
+           "multi_tensor_adam": steps * table_launches(numels)}
+    if flash:
+        out.update(flash_fwd=n * layers, flash_attention_dq=n * layers,
+                   flash_attention_dkv=n * layers)
+    if last:
+        out["lm_head_fwd"] = n * 2
+        out.update(lm_head_bwd_launches(n, rows, GPT350M["vocab_size"]))
+    return {k: v for k, v in out.items() if v}
+
+
+def _switch_train(top_k, steps, ep_argv=()):
+    """16a: the ported example's ``main()`` at Switch-GPT-350M/8 widths:
+    losses, aux losses, step times, peak memory, exact launches (the MoE
+    slots add none: dispatch, expert products and combine are plain
+    PyTorch and cuBLAS), plain-version calls."""
+    from apex_tpu_torch.examples.moe import train_switch_gpt as ex
+    counters = _mp_counters()
+    _reset(counters)
+    with counting_plain_versions() as plain:
+        res = ex.main(SWITCH_ARGV + ["--top-k", str(top_k), "--steps",
+                                     str(steps), *ep_argv])
+    torch.cuda.synchronize()
+    model = res.pop("model")
+    opt = res.pop("optimizer")
+    launches = _launches_of(counters)
+    # one more FusedAdam step on the last gradients, timed alone (#18 over
+    # the whole list; after the counts were read)
+    res["adam_step_ms"] = min(_cuda_ms(opt.step) for _ in range(3))
+    del opt
+    numels = [p.numel() for p in model.parameters()]
+    res.update(launches=launches, plain_calls=dict(plain),
+               expected=_gpt_train_expected(
+                   steps + 1, ACCUM, GPT350M["num_layers"], numels),
+               parameters=sum(numels))
+    return model, res
+
+
+def _cuda_ms(fn):
+    """Device time of one call of ``fn`` by CUDA events."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _moe_counting(model, on):
+    for layer in model.layers:
+        mlp = layer.mlp
+        mlp.count_drops = on
+        mlp.count_rows = mlp.dropped = mlp.routed = mlp.chosen = None
+
+
+def _count_real_rows(engine, model, into):
+    """Wrap ``engine``'s prefill and ``model.decode_step`` so that each MoE
+    slot counts the rows of real tokens only (a prompt's length of its
+    bucket; the active decode slots), summed into ``into["prefill"]`` /
+    ``into["decode"]`` as device tensors: the dropped and routed
+    token-choices, and the busiest expert's share of a slot's first
+    choices in one call (where the capacity bites), summed over the
+    (slot, call) pairs, and its largest."""
+    real_prefill, real_decode = engine._prefill_context, model.decode_step
+
+    def counted(kind, rows, call, *args):
+        mlps = [layer.mlp for layer in model.layers]
+        for mlp in mlps:
+            mlp.count_rows = rows
+        out = call(*args)
+        share = torch.stack([m.chosen.max() / m.chosen.sum() for m in mlps])
+        got = dict(dropped=sum(m.dropped for m in mlps),
+                   routed=sum(m.routed for m in mlps),
+                   share_sum=share.sum(), share_max=share.max(),
+                   slot_calls=len(mlps))
+        acc = into.setdefault(kind, got)
+        if acc is not got:
+            for key in ("dropped", "routed", "share_sum", "slot_calls"):
+                acc[key] = acc[key] + got[key]
+            acc["share_max"] = torch.maximum(acc["share_max"],
+                                             got["share_max"])
+        _moe_counting(model, True)
+        return out
+
+    def prefill(ctx):
+        rows = torch.arange(engine._bucket(len(ctx)),
+                            device=engine.device) < len(ctx)
+        return counted("prefill", rows, real_prefill, ctx)
+
+    def decode(tokens, cache, positions):
+        active = np.zeros((engine.cache.slots,), bool)
+        active[list(engine._active)] = True
+        rows = torch.from_numpy(active).to(engine.device)
+        return counted("decode", rows, real_decode, tokens, cache,
+                       positions)
+    engine._prefill_context, model.decode_step = prefill, decode
+
+
+def _switch_serve(model):
+    """16b: phase 3's 10 greedy requests through ``InferenceEngine`` on the
+    Switch model: exact #1 / #3 / #6 launches, no plain version, and the
+    share of the real tokens' token-choices that the capacity dropped, in
+    the prefills and in the decode steps (a decode step's 8 rows over 8
+    experts give capacity 1: JAX's semantics), with the busiest expert's
+    share of a MoE slot's real first choices in one call."""
+    from apex_tpu_torch.inference import InferenceEngine, Request
+    counters = _mp_counters()
+    cfg = model.cfg
+    engine = InferenceEngine(model, max_slots=SLOTS, device="cuda")
+    prompts = serving_prompts(np.random.RandomState(0), cfg.vocab_size)
+    for i, p in enumerate(prompts):
+        engine.submit(Request(request_id=i, max_new_tokens=32, prompt=p))
+    counts = {}
+    _moe_counting(model, True)
+    _count_real_rows(engine, model, counts)
+    _reset(counters)
+    t0 = time.perf_counter()
+    try:
+        with counting_plain_versions() as plain:
+            responses = engine.run()
+        torch.cuda.synchronize()
+    finally:
+        # the wrappers close over the engine: unbind them so the engine
+        # and its cache are freed with this frame
+        del model.decode_step, engine._prefill_context
+        _moe_counting(model, False)
+    wall = time.perf_counter() - t0
+    drops = {}
+    for kind, c in counts.items():
+        drops[kind] = dict(
+            dropped=int(c["dropped"]), routed=int(c["routed"]),
+            share=int(c["dropped"]) / int(c["routed"]),
+            busiest_mean=float(c["share_sum"]) / c["slot_calls"],
+            busiest_max=float(c["share_max"]))
+    prefills, steps, layers = len(prompts), len(engine.metrics.occupancy), \
+        cfg.num_layers
+    bad = [r.request_id for r in responses
+           if r.finish_reason not in ("eos", "length") or len(r.tokens) != 32
+           or not all(0 <= t < cfg.vocab_size for t in r.tokens)]
+    return dict(
+        wall_s=wall, responses=len(responses), bad=bad,
+        launches=_launches_of(counters), plain_calls=dict(plain),
+        expected={"layer_norm_fwd": (2 * layers + 1) * (prefills + steps),
+                  "flash_fwd": layers * prefills,
+                  "flash_attention_decode": layers * steps},
+        prefills=prefills, decode_steps=steps, drops=drops,
+        tokens_per_s=engine.metrics.summary()["tokens_per_s"])
+
+
+def _plant_moe(fault):
+    """``drop_slot`` (for the gate readings of ``MOE_W1_NORM_TOL``): the
+    first slot of the first expert that holds a token carries no gradient
+    through the experts' ReLU, so one token's row leaves that expert's
+    ``w1`` gradient (and its path back); None plants nothing."""
+    from unittest import mock
+    if fault is None:
+        return contextlib.nullcontext()
+    if fault != "drop_slot":
+        raise ValueError(f"unknown fault {fault!r}")
+    relu = torch.relu
+
+    def dropped(z):
+        out = relu(z)
+        if z.dim() != 3:                  # not the (E, cap, F) expert product
+            return out
+        e = int((z[:, 0] != 0).any(-1).nonzero()[0])
+        keep = torch.ones_like(out)
+        keep[e, 0] = 0
+        return out * keep + (out * (1 - keep)).detach()
+    return mock.patch.object(torch, "relu", dropped)
+
+
+def _moe_train_parity(top_k, fault=None):
+    """16p: a small Switch / GShard GPT (phase 6's widths, 8 experts) 2
+    steps on the card (with ``fault`` planted there, for the gate
+    readings) and on a CPU copy, with phase 6's gates."""
+    from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+    from apex_tpu_torch.optimizers import FusedAdam
+    cfg = GPTConfig(**PARITY_MOE, moe_top_k=top_k)
+    card = GPTModel(cfg, device="cuda").init_params(
+        torch.Generator().manual_seed(1))
+    cpu = GPTModel(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    rng = np.random.RandomState(2)
+    shape = (2, 2, PARITY_MOE["max_seq_len"])
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape))
+    targets = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape))
+    runs = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        dev = next(model.parameters()).device
+        opt = FusedAdam(model.parameters(), lr=LR)
+        losses, grads = [], None
+        for step in range(2):
+            with _plant_moe(fault if name == "card" else None):
+                losses.append(float(_loss_step(
+                    model, opt, tokens.to(dev), targets.to(dev), seed=3)))
+            if step == 0:
+                grads = {n: p.grad.float().cpu()
+                         for n, p in model.named_parameters()}
+        runs[name] = (losses, grads)
+    (cl, cg), (rl, rg) = runs["card"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(cl, rl))
+    errs = {n: float((cg[n] - rg[n]).abs().max() / rg[n].abs().max())
+            for n in rg}
+    kinked = {n: float((cg[n] - rg[n]).norm() / rg[n].norm())
+              for n in rg if n.endswith("mlp.w1")}
+    entrywise = {n: e for n, e in errs.items() if n not in kinked}
+    worst = max(entrywise, key=entrywise.get)
+    worst_w1 = max(kinked, key=kinked.get)
+    return dict(top_k=top_k, losses_card=cl, losses_cpu=rl,
+                loss_rel_err=loss_err, grad_rel_err=entrywise[worst],
+                worst_grad=worst, w1_norm_err=kinked[worst_w1],
+                worst_w1=worst_w1, w1_entry_err=max(errs[n] for n in kinked))
+
+
+def _loss_step(model, opt, tokens, targets, seed=None, reduce=None):
+    """One step of ``forward_backward_no_pipelining`` over ``model.loss``
+    (``reduce`` then sums the gradients where a group must), FusedAdam."""
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        forward_backward_no_pipelining)
+    opt.zero_grad()
+    loss = forward_backward_no_pipelining(
+        lambda m, x: x, lambda x, t: model.loss(x, t, dropout_seed=seed),
+        model, tokens, targets)
+    if reduce is not None:
+        reduce(model)
+    opt.step()
+    return loss
+
+
+def _moe_serve_parity():
+    """16b's small-width check: a small Switch GPT's prefill(64) + 4 decode
+    steps on the card and a CPU copy, with phase 4's gates."""
+    from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+    cfg = GPTConfig(**dict(PARITY_MOE, attention_dropout=0.0))
+    card = GPTModel(cfg, device="cuda").init_params(
+        torch.Generator().manual_seed(4))
+    cpu = GPTModel(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    prompt = torch.from_numpy(np.random.RandomState(5).randint(
+        0, cfg.vocab_size, (1, 64)))
+
+    def run(model, forced=None):
+        dev = next(model.parameters()).device
+        cache = torch.zeros((1, cfg.num_layers, 2, cfg.max_seq_len,
+                             cfg.num_attention_heads, cfg.head_dim),
+                            dtype=cfg.dtype, device=dev)
+        with torch.no_grad():
+            logits, kv = model.prefill(prompt.to(dev))
+            cache[0, :, :, :64] = kv[:, :, 0].to(cache.dtype)
+            rows = [logits[0, 63]]
+            for i in range(4):
+                tok = forced[i] if forced is not None \
+                    else int(rows[-1].argmax())
+                lg, cache = model.decode_step(
+                    torch.tensor([tok], device=dev), cache,
+                    torch.tensor([64 + i], dtype=torch.int32, device=dev))
+                rows.append(lg[0])
+        return torch.stack(rows).float().cpu()
+
+    got = run(card)
+    tokens = got.argmax(-1).tolist()
+    want = run(cpu, forced=tokens)
+    diff = (got - want).abs()
+    return dict(max_logit_diff=float(diff.max()),
+                mean_logit_diff=float(diff.mean()), tokens=tokens,
+                cpu_tokens=want.argmax(-1).tolist(),
+                finite=bool(torch.isfinite(got).all()))
+
+
+def _gpt350m_batch(rank=0, world=1, seq_axis=False, n_micro=ACCUM):
+    """Phase 5's fixed batch (seed 0) as ``n_micro`` micro-batches of its
+    16 rows (the interleaved schedule over S stages needs a multiple of
+    S), this rank's sequence shard under context parallelism."""
+    rng = np.random.RandomState(0)
+    shape = (ACCUM, MICRO, SEQ)
+    out = [torch.from_numpy(rng.randint(0, GPT350M["vocab_size"], shape))
+           .reshape(n_micro, ACCUM * MICRO // n_micro, SEQ)
+           for _ in range(2)]
+    if seq_axis:
+        out = [_shard(t, rank, world, axis=2) for t in out]
+    return [t.to("cuda") for t in out]
+
+
+# The faults planted for phase 16's gate readings, each in one path's own
+# code (the references never run it: they take no pipeline engine and no
+# collective), so one run with all of them planted reads every path's gap
+MP_FAULTS = ("drop_microbatch", "ring_dkv", "a2a_bwd_local")
+
+
+def _own_block_only(x, group, axis):
+    """``x`` with its ``n`` blocks along ``axis`` zeroed but this rank's
+    (what an exchange then delivers: the rank's own block, zeros from the
+    others)."""
+    import torch.distributed as dist
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    size = x.shape[axis] // n
+    mask = torch.zeros(x.shape[axis], dtype=x.dtype, device=x.device)
+    mask[r * size:(r + 1) * size] = 1
+    shape = [1] * x.dim()
+    shape[axis] = -1
+    return x * mask.view(shape)
+
+
+def _plant_mp(faults):
+    """Plant ``faults`` (for the gate readings): ``drop_microbatch``: the
+    pipeline engine's last micro-batch loses its gradients (its loss still
+    counts); ``ring_dkv``: ring attention's dK / dV accumulators do not
+    travel the reverse ring (each hop delivers zeros, so a chunk keeps only
+    its owner's last step); ``a2a_bwd_local``: the backward exchanges of
+    the MoE ``all_to_all`` and of Ulysses' reshards deliver only the
+    rank's own block."""
+    from unittest import mock
+    from apex_tpu_torch.transformer import context_parallel as cp
+    from apex_tpu_torch.transformer import expert_parallel as ep
+    from apex_tpu_torch.transformer.pipeline_parallel import ring
+    stack = contextlib.ExitStack()
+    for fault in faults:
+        if fault not in MP_FAULTS:
+            raise ValueError(f"unknown fault {fault!r}")
+    if "drop_microbatch" in faults:
+        real = ring.pipeline_schedule_step
+
+        def dropped(stage_fn, last_fn, stage_params, last_params, x0,
+                    targets, **kw):
+            m = len(targets)
+
+            def last(lp, y, t, info):
+                lm = last_fn(lp, y, t, info)
+                return lm.detach() + 0 * lm if info.microbatch == m - 1 \
+                    else lm
+            return real(stage_fn, last, stage_params, last_params, x0,
+                        targets, **kw)
+        stack.enter_context(mock.patch.object(
+            ring, "pipeline_schedule_step", dropped))
+    if "ring_dkv" in faults:
+        real_hop = cp._ring_hop
+
+        def hop(tensors, group, step=1):
+            out = real_hop(tensors, group, step)
+            if len(tensors) == 4:           # the reverse ring's K, V, dK, dV
+                out[2:] = [torch.zeros_like(t) for t in out[2:]]
+            return out
+        stack.enter_context(mock.patch.object(cp, "_ring_hop", hop))
+    if "a2a_bwd_local" in faults:
+        def a2a_backward(ctx, g):
+            return ep._exchange(_own_block_only(g, ctx.group, 0),
+                                ctx.group), None
+
+        def reshard_backward(ctx, g):
+            return (cp._tiled_all_to_all(
+                _own_block_only(g, ctx.group, ctx.concat), ctx.group,
+                ctx.concat, ctx.split), None, None, None)
+        stack.enter_context(mock.patch.object(
+            ep._AllToAll, "backward", staticmethod(a2a_backward)))
+        stack.enter_context(mock.patch.object(
+            cp._Reshard, "backward", staticmethod(reshard_backward)))
+    return stack
+
+
+def _pipeline_train(world, rank, n_virtual, steps, overrides=None,
+                    n_micro=ACCUM):
+    """16c: GPT-350M at phase 5's recipe through ``pipeline_step`` over
+    ``world`` pipe ranks with ``n_virtual`` chunks a rank (this rank's
+    stage model), FusedAdam; losses, launches and peak memory."""
+    from apex_tpu_torch.models.gpt import (GPTConfig, GPTModel,
+                                           pipeline_step)
+    from apex_tpu_torch.optimizers import FusedAdam
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = GPTConfig(**dict(GPT350M, dtype=torch.bfloat16,
+                           **(overrides or {})))
+    model = GPTModel(cfg, device="cuda",
+                     pipeline_stage=(world, n_virtual, rank)).init_params(
+        torch.Generator().manual_seed(0))
+    opt = FusedAdam(model.parameters(), lr=LR)
+    tokens, targets = _gpt350m_batch(n_micro=n_micro)
+    numels = [p.numel() for p in model.parameters()]
+    counters = _mp_counters()
+    _reset(counters)
+    losses, times = [], []
+    with counting_plain_versions() as plain:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss = pipeline_step(model, tokens, targets,
+                                 n_virtual=n_virtual)
+            opt.step()
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    tp = cfg.tensor_parallel_size
+    return dict(losses=losses, step_times_s=times,
+                launches=_launches_of(counters), plain_calls=dict(plain),
+                expected=_gpt_train_expected(
+                    steps, n_micro, len(model.layers), numels,
+                    last=rank == world - 1 or world == 1,
+                    rows=ACCUM * MICRO // n_micro * SEQ)
+                if tp == 1 else None,
+                peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def _reference_train(steps, overrides=None, seq_rank=0, seq_world=1,
+                     reduce=None, n_micro=ACCUM):
+    """Phase 5's recipe through ``forward_backward_no_pipelining`` over
+    ``GPTModel.loss`` (16c's reference; 16d with ``context_axis`` in
+    ``overrides``, on this rank's sequence shard, its gradients summed over
+    the context group by ``reduce``)."""
+    from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+    from apex_tpu_torch.optimizers import FusedAdam
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = GPTConfig(**dict(GPT350M, dtype=torch.bfloat16,
+                           **(overrides or {})))
+    model = GPTModel(cfg, device="cuda").init_params(
+        torch.Generator().manual_seed(0))
+    opt = FusedAdam(model.parameters(), lr=LR)
+    tokens, targets = _gpt350m_batch(seq_rank, seq_world,
+                                     seq_axis=seq_world > 1, n_micro=n_micro)
+    numels = [p.numel() for p in model.parameters()]
+    counters = _mp_counters()
+    _reset(counters)
+    losses, times = [], []
+    with counting_plain_versions() as plain:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(_loss_step(model, opt, tokens, targets,
+                                           reduce=reduce)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    ring = (overrides or {}).get("context_mechanism") == "ring"
+    return dict(losses=losses, step_times_s=times,
+                launches=_launches_of(counters), plain_calls=dict(plain),
+                expected=_gpt_train_expected(
+                    steps, n_micro, GPT350M["num_layers"], numels,
+                    rows=ACCUM * MICRO // n_micro * SEQ // seq_world,
+                    flash=not (ring and seq_world > 1)),
+                peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def _context_grad_sum(group):
+    """Sum every parameter's gradient over the context group (each rank
+    differentiated its share of the pmean loss: JAX's psum of the
+    partial gradients)."""
+    import torch.distributed as dist
+
+    def reduce(model):
+        for p in model.parameters():
+            if p.grad is not None:
+                dist.all_reduce(p.grad, group=group)
+    return reduce
+
+
+def _mp_rank(rank, world, out_dir, parts, faults=()):
+    """One rank of phase 16 (a spawned process on card ``rank``, NCCL
+    through a ``file://`` store in ``out_dir``): the ``parts`` of 16a,
+    16p, 16b, 16c, 16d (and, for the tool, the EP and PP x TP runs), with
+    ``faults`` planted (``_plant_mp``); results pickled into ``out_dir``.
+    An exception ends the process non-zero."""
+    with _plant_mp(faults):
+        _mp_parts(rank, world, out_dir, parts)
+
+
+def _mp_parts(rank, world, out_dir, parts):
+    import pickle
+    import torch.distributed as dist
+    from apex_tpu_torch.transformer import parallel_state as ps
+    torch.cuda.set_device(rank)
+    out = {}
+    if "ep_reference" in parts:
+        # one process on this card: the per-shard golden of 16a's EP run
+        # (the same global batch, each rank's rows its own micro-batches)
+        model, out["ep_reference"] = _switch_train(
+            1, SWITCH_STEPS, ["--accum", str(ACCUM * world)])
+        del model
+        torch.cuda.empty_cache()
+    dist.init_process_group(
+        "nccl", init_method=f"file://{pathlib.Path(out_dir).resolve()}/store",
+        rank=rank, world_size=world)
+    if "switch" in parts:
+        model, out["switch"] = _switch_train(1, SWITCH_STEPS)
+        ps.destroy_model_parallel()
+        torch.cuda.empty_cache()
+        if world == 1:
+            model.zero_grad(set_to_none=True)
+            out["serve"] = _switch_serve(model)
+        del model
+        torch.cuda.empty_cache()
+        model, out["gshard"] = _switch_train(2, 1)
+        ps.destroy_model_parallel()
+        del model
+        torch.cuda.empty_cache()
+    if "parity" in parts:
+        out["parity"] = [_moe_train_parity(k) for k in (1, 2)]
+        out["serve_parity"] = _moe_serve_parity()
+        torch.cuda.empty_cache()
+    if "pipeline" in parts:
+        ps.initialize_model_parallel(1, world)
+        n_micro = max(ACCUM, world)
+        out["reference"] = _reference_train(TRAIN_STEPS, n_micro=n_micro)
+        torch.cuda.empty_cache()
+        for v in parts["pipeline"]:
+            out[f"pipeline_v{v}"] = _pipeline_train(
+                world, rank, v, TRAIN_STEPS, n_micro=n_micro)
+            torch.cuda.empty_cache()
+        ps.destroy_model_parallel()
+    if "pp_tp" in parts:
+        # pipe 2 x model 2 with sequence parallelism, against the same
+        # configuration without the pipeline
+        ps.initialize_model_parallel(2, world // 2)
+        sp = dict(tensor_parallel_size=2, axis_name="model",
+                  sequence_parallel=True)
+        out["pp_tp_reference"] = _reference_train(TRAIN_STEPS, sp)
+        torch.cuda.empty_cache()
+        out["pp_tp"] = _pipeline_train(world // 2, ps.
+                                       get_pipeline_model_parallel_rank(),
+                                       1, TRAIN_STEPS, sp)
+        ps.destroy_model_parallel()
+        torch.cuda.empty_cache()
+    if "context" in parts:
+        ps.initialize_model_parallel(context_parallel_size_=world)
+        reduce = (_context_grad_sum(ps.get_context_parallel_group())
+                  if world > 1 else None)
+        for mech in ("ulysses", "ring"):
+            out[mech] = _reference_train(
+                CP_STEPS, dict(context_axis="context",
+                               context_mechanism=mech), rank, world, reduce)
+            torch.cuda.empty_cache()
+        ps.destroy_model_parallel()
+    with open(pathlib.Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def run_mp_ranks(world, out_dir, parts, faults=()):
+    """Spawn ``world`` ranks of :func:`_mp_rank` and return their results
+    (a rank that raises makes this raise)."""
+    import pickle
+    import torch.multiprocessing as mp
+    out_dir = pathlib.Path(out_dir)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    mp.start_processes(_mp_rank, args=(world, str(out_dir), parts,
+                                       tuple(faults)),
+                       nprocs=world, start_method="spawn", join=True)
+    ranks = []
+    for r in range(world):
+        with open(out_dir / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    return ranks
+
+
+PHASE16_PARTS = {"switch": True, "parity": True, "pipeline": (2,),
+                 "context": True}
+
+
+def _check_run(tag, run):
+    """Exact launches, no plain version, finite losses."""
+    log(f"    {tag}: launches {run['launches']} (expected "
+        f"{run['expected']}); plain-version calls {run['plain_calls']}")
+    if run["launches"] != run["expected"]:
+        raise AssertionError(f"{tag}: launch counts do not match the path")
+    if run["plain_calls"]:
+        raise AssertionError(f"{tag}: a plain version was called")
+    if "losses" in run and not np.all(np.isfinite(run["losses"])):
+        raise AssertionError(f"{tag}: non-finite loss")
+
+
+def _gap(a, b):
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def mp_loss_limits(world):
+    """Phase 16's loss gates at ``world`` ranks (``MP_LOSS_RTOL``).  A
+    world without readings raises: its gates are not guessed from
+    another's."""
+    if world not in MP_LOSS_RTOL:
+        raise ValueError(
+            f"phase 16 has no loss-gate readings at {world} ranks (it has "
+            f"{sorted(MP_LOSS_RTOL)}): take them with python3 "
+            f"tools/model_parallel_torch.py --gates --world {world}")
+    return dict(MP_LOSS_RTOL[world])
+
+
+def gate_mp(gaps, world):
+    """Hold every gap of :func:`report_mp` to its gate at ``world`` ranks
+    (a gap without a gate raises)."""
+    limits = mp_loss_limits(world)
+    missing = sorted(set(gaps) - set(limits))
+    if missing:
+        raise ValueError(f"phase 16 has no loss-gate readings for "
+                         f"{missing} at {world} ranks")
+    over = {key: gap for key, gap in gaps.items() if not gap <= limits[key]}
+    if over:
+        raise AssertionError(f"phase 16: losses leave their references' by "
+                             f"{over} (limits {limits})")
+
+
+def report_mp(ranks, world, parts):
+    """Log and check phase 16's results (launches, plain calls, 16p, 16b);
+    returns the loss gaps to the references, for :func:`gate_mp`."""
+    limits = MP_LOSS_RTOL.get(world, {})
+    gaps = {}
+    for r, rank in enumerate(ranks):
+        if "switch" in rank:
+            for key, tag in (("switch", "[16a] Switch-GPT-350M/8 (top-1)"),
+                             ("gshard", "[16a] GShard-GPT-350M/8 (top-2)")):
+                run = rank[key]
+                steps = run["step_times_s"]
+                log(f"{tag} rank {r} via examples/moe/train_switch_gpt "
+                    f"main(): {run['parameters']:,} parameters on the rank; "
+                    f"warm-up loss {run['warmup_loss']:.5f} (aux "
+                    f"{run['warmup_aux']:.5f}), losses "
+                    f"{[round(x, 5) for x in run['losses']]}, aux "
+                    f"{[round(x, 5) for x in run['aux_losses']]}; step times "
+                    f"(s) {[round(t, 4) for t in steps]}, median "
+                    f"{statistics.median(steps):.4f} s, "
+                    f"{run['tokens_per_s']:.1f} tokens/s; peak memory "
+                    f"{run['peak_memory_bytes'] / 2 ** 30:.3f} GiB; one more "
+                    f"FusedAdam step alone {run['adam_step_ms']:.3f} ms")
+                _check_run(tag, run)
+            if "ep_reference" in rank:
+                ref = rank["ep_reference"]
+                gap = _gap(rank["switch"]["losses"], ref["losses"])
+                gaps["ep"] = max(gaps.get("ep", 0.0), gap)
+                log(f"    EP {world} rank {r} against one process on the "
+                    f"same global batch (per-shard micro-batches): losses "
+                    f"{ref['losses']}, gap {gap!r}")
+        if "serve" in rank:
+            run = rank["serve"]
+            log(f"[16b] Switch-GPT-350M/8 served {run['responses']} "
+                f"requests in {run['wall_s']:.3f} s ({run['prefills']} "
+                f"prefills, {run['decode_steps']} decode steps, "
+                f"{run['tokens_per_s']:.1f} tokens/s); the real tokens' "
+                f"token-choices dropped by capacity: " + "; ".join(
+                    f"{kind} {d['dropped']} of {d['routed']} "
+                    f"({d['share']:.4f}; the busiest expert took on "
+                    f"average {d['busiest_mean']:.4f}, at most "
+                    f"{d['busiest_max']:.4f}, of a slot's first choices in "
+                    f"a call)"
+                    for kind, d in run["drops"].items()))
+            if run["bad"]:
+                raise AssertionError(f"[16b] bad responses {run['bad']}")
+            _check_run("[16b]", run)
+        if "parity" in rank:
+            for p in rank["parity"]:
+                log(f"[16p] top-{p['top_k']} card vs CPU (4 layers, hidden "
+                    f"256, 8 experts, dropout 0.1, f32, 2 steps): losses card "
+                    f"{p['losses_card']} cpu {p['losses_cpu']}, relative "
+                    f"{p['loss_rel_err']:.3e} (tolerance {TRAIN_LOSS_RTOL}); "
+                    f"step-1 grads max |diff| / max|grad| "
+                    f"{p['grad_rel_err']:.3e} at {p['worst_grad']} "
+                    f"(tolerance {TRAIN_GRAD_TOL}); the experts' w1 "
+                    f"||diff|| / ||grad|| {p['w1_norm_err']:.3e} at "
+                    f"{p['worst_w1']} (tolerance {MOE_W1_NORM_TOL}; entry by "
+                    f"entry {p['w1_entry_err']:.3e}, ReLU's kink)")
+                if not (p["loss_rel_err"] <= TRAIN_LOSS_RTOL
+                        and p["grad_rel_err"] <= TRAIN_GRAD_TOL
+                        and p["w1_norm_err"] <= MOE_W1_NORM_TOL):
+                    raise AssertionError("[16p] card and CPU disagree")
+            s = rank["serve_parity"]
+            log(f"[16b] small Switch GPT (f32) card vs CPU, prefill(64) + 4 "
+                f"decode "
+                f"steps: max |logit diff| {s['max_logit_diff']:.3e} "
+                f"(tolerance {LOGITS_ATOL}), mean {s['mean_logit_diff']:.3e} "
+                f"(tolerance {LOGITS_MEAN_ATOL}); greedy card {s['tokens']} "
+                f"cpu {s['cpu_tokens']}")
+            if not (s["finite"] and s["max_logit_diff"] <= LOGITS_ATOL
+                    and s["mean_logit_diff"] <= LOGITS_MEAN_ATOL
+                    and s["tokens"] == s["cpu_tokens"]):
+                raise AssertionError("[16b] card and CPU serving disagree")
+        if "reference" in rank:
+            ref = rank["reference"]
+            _check_run(f"[16c] reference rank {r}", ref)
+            for v in parts.get("pipeline", ()):
+                run = rank[f"pipeline_v{v}"]
+                key = f"pipeline_v{v}"
+                gaps[key] = max(gaps.get(key, 0.0),
+                                _gap(run["losses"], ref["losses"]))
+                log(f"[16c] GPT-350M pipeline_step over {world} stage(s), "
+                    f"n_virtual={v}, rank {r}: losses {run['losses']} "
+                    f"(forward_backward_no_pipelining {ref['losses']}); step "
+                    f"times (s) {[round(t, 4) for t in run['step_times_s']]}"
+                    f" (reference "
+                    f"{[round(t, 4) for t in ref['step_times_s']]}); peak "
+                    f"memory {run['peak_memory_bytes'] / 2 ** 30:.3f} GiB "
+                    f"(reference {ref['peak_memory_bytes'] / 2 ** 30:.3f})")
+                _check_run(f"[16c] v={v} rank {r}", run)
+        if "pp_tp" in rank:
+            run, ref = rank["pp_tp"], rank["pp_tp_reference"]
+            gaps["pp_tp"] = max(gaps.get("pp_tp", 0.0),
+                                _gap(run["losses"], ref["losses"]))
+            log(f"[16c] PP x TP + SP rank {r}: losses {run['losses']} "
+                f"(no pipeline {ref['losses']}); step times (s) "
+                f"{[round(t, 4) for t in run['step_times_s']]}; peak memory "
+                f"{run['peak_memory_bytes'] / 2 ** 30:.3f} GiB")
+        for mech in ("ulysses", "ring"):
+            if mech in rank:
+                run = rank[mech]
+                want = ranks[0].get("reference", {}).get("losses")
+                log(f"[16d] GPT-350M context_axis ({mech}) over {world} "
+                    f"rank(s), rank {r}: losses {run['losses']} (16c "
+                    f"reference {want and want[:CP_STEPS]}); step times (s) "
+                    f"{[round(t, 4) for t in run['step_times_s']]}; peak "
+                    f"memory {run['peak_memory_bytes'] / 2 ** 30:.3f} GiB")
+                _check_run(f"[16d] {mech} rank {r}", run)
+                if want:
+                    gaps[mech] = max(gaps.get(mech, 0.0),
+                                     _gap(run["losses"], want[:CP_STEPS]))
+    for key, gap in gaps.items():
+        log(f"    phase 16 {key}: largest relative loss gap {gap!r} (limit "
+            f"{limits.get(key)})")
+    return gaps
+
+
+def phase_model_parallel(world=None):
+    """Phase 16 on ``world`` (default ``torch.cuda.device_count()``) NCCL
+    ranks (spawned processes, ``build/phase16/``): 16a Switch-GPT-350M/8
+    training through the ported example (and one GShard step), 16p small
+    MoE card vs CPU, 16b Switch-GPT-350M/8 serving (one rank), 16c the
+    ring pipeline (interleaved, ``n_virtual=2``) against
+    ``forward_backward_no_pipelining``, 16d context parallelism (Ulysses
+    and ring) against 16c's reference."""
+    world = world or torch.cuda.device_count()
+    mp_loss_limits(world)           # a world without readings stops here
+    t0 = time.perf_counter()
+    ranks = run_mp_ranks(world, pathlib.Path("build") / "phase16",
+                         PHASE16_PARTS)
+    seconds = time.perf_counter() - t0
+    log(f"[16] expert, pipeline and context parallelism over NCCL, {world} "
+        f"rank(s) ({seconds:.1f} s)")
+    gaps = report_mp(ranks, world, PHASE16_PARTS)
+    gate_mp(gaps, world)
+    return dict(world=world, seconds=seconds, gaps=gaps, ranks=ranks)
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write all results to this JSON file")
@@ -6743,6 +7586,9 @@ def main(argv=None):
     tp = phase_tensor_parallel(single=dict(
         gpt=train["peak_memory_bytes"], gpt_overlap=train["peak_memory_bytes"],
         bert=bert["peak_memory_bytes"]))
+    torch.cuda.empty_cache()
+    # expert, pipeline and context parallelism over NCCL
+    mp = phase_model_parallel()
     if args.profile:
         with open(args.profile, "w") as f:
             f.write("\n".join(profile_lines) + "\n")
@@ -6753,6 +7599,10 @@ def main(argv=None):
     for rank in dp["ranks"] + tp["ranks"]:
         for run in rank.values():
             both.update(run["launches"])
+    for rank in mp["ranks"]:
+        for run in rank.values():
+            if isinstance(run, dict) and "launches" in run:
+                both.update(run["launches"])
     for run in (serve_f, train, train_f, *train_remat.values(), bert,
                 bert_f, bert_r, clip, resnet["O1"],
                 resnet["O2"], resnet_baseline, *resnet_opts.values(),
@@ -6853,7 +7703,8 @@ def main(argv=None):
                            resnet50_hand_written_sgd=resnet_baseline,
                            resnet_parity=resnet_parity,
                            packed_segments=packed, data_parallel=dp,
-                           tensor_parallel=tp, flash_tp_shards=fl_tp,
+                           tensor_parallel=tp, model_parallel=mp,
+                           flash_tp_shards=fl_tp,
                            fused_ffn_tp_shards=ffn_tp,
                            profile=profiled or None, kernels=kernels), f,
                       indent=1, sort_keys=True)

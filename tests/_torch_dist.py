@@ -575,7 +575,14 @@ def case_tp(rank, world, inp):
     return out
 
 
-CASES = {"collectives": case_collectives, "examples": case_examples, "ddp": case_ddp,
+def case_mp(rank, world, inp):
+    """Expert, context and pipeline parallelism: the functions of
+    ``tests/_torch_mp_ranks.py`` that ``inp["parts"]`` names."""
+    import _torch_mp_ranks
+    return _torch_mp_ranks.run(rank, world, inp)
+
+
+CASES = {"collectives": case_collectives, "mp": case_mp, "examples": case_examples, "ddp": case_ddp,
          "syncbn": case_syncbn, "zero": case_zero,
          "cpu_launches": case_cpu_launches, "tp": case_tp}
 

@@ -180,8 +180,8 @@ def test_unported_knobs_raise_and_name_their_slice():
     """``fused_lm_head=True`` (the JAX default) now runs: in f32 its MLM
     loss equals the f32-logits head's within 1e-6 relative and every
     gradient within 1e-5 of its largest entry, and ``apply`` is the same;
-    the knobs of later slices still raise, naming their slice
-    (``fused_ffn`` runs now: ``test_fused_ffn_loss_and_every_grad_match_jax``;
+    the knobs of later slices build now (``plan`` since the pipeline /
+    context / expert slice; ``fused_ffn`` runs: ``test_fused_ffn_loss_and_every_grad_match_jax``;
     so does ``remat``, which raised until the recompute was ported: under
     either policy the fused head's loss and gradients equal those without
     remat within 1e-6)."""
@@ -208,10 +208,13 @@ def test_unported_knobs_raise_and_name_their_slice():
         assert float((p.grad - want).abs().max()) <= 1e-5 * float(
             want.abs().max()), name
     # tensor / sequence parallelism build since their slice (a tensor-
-    # parallel size needs the model axis); the plan still raises
+    # parallel size needs the model axis), and since the pipeline /
+    # context / expert slice so does a plan (a non-plan fails as in JAX)
+    from apex_tpu_torch.parallel import ParallelPlan
     BertConfig(**TINY, tensor_parallel_size=2, axis_name="model")
     BertConfig(**TINY, sequence_parallel=True)
-    with pytest.raises(NotImplementedError, match="slice"):
+    assert BertConfig(**TINY, plan=ParallelPlan(remat=True)).remat
+    with pytest.raises(AttributeError):
         BertConfig(**TINY, plan=object())
     for policy in ("full", "dots"):
         remat = BertModel(BertConfig(**dict(TINY, fused_lm_head=True),

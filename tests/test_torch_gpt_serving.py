@@ -208,11 +208,23 @@ def test_sampling_streams_are_deterministic_with_top_k_and_top_p():
     dict(n_experts=2), dict(context_axis="ctx"), dict(plan=object()),
     dict(expert_parallel_size=2)])
 def test_unported_config_knobs_raise(knob):
-    """Knobs of later slices raise, naming their slice (``fused_ffn``,
-    ``weight_quant``, ``remat`` and, since the tensor-parallel slice,
-    ``sequence_parallel`` and ``tensor_parallel_size`` run now)."""
-    with pytest.raises(NotImplementedError, match="slice"):
-        GPTConfig(**TINY, **knob)
+    """These knobs raised until the pipeline / context / expert slice
+    ported them: each now does what the JAX config does with it — builds
+    with the same fields, or (a plan that is not a ``ParallelPlan``)
+    raises the same exception."""
+    _same_as_jax_config(knob)
+
+
+def _same_as_jax_config(knob):
+    def build(cls):
+        try:
+            return cls(**TINY, **knob), None
+        except Exception as e:          # the JAX config's type is the bar
+            return None, type(e)
+    (jcfg, jerr), (tcfg, terr) = build(JConfig), build(GPTConfig)
+    assert terr is jerr
+    if jcfg is not None:
+        assert all(getattr(tcfg, k) == getattr(jcfg, k) for k in knob)
 
 
 @pytest.mark.parametrize("knob", [
@@ -359,19 +371,13 @@ def test_gpt_config_takes_every_jax_field_at_its_default(name):
     dict(plan=object())],
     ids=lambda k: list(k)[-1])
 def test_gpt_config_new_fields_raise_naming_their_slice(knob):
-    """A value other than the default of seven of the ten added fields
-    needs a part not ported yet: it raises ``NotImplementedError`` naming
-    the slice (the JAX config accepts each of these).  ``axis_name`` and
-    ``overlap_chunks`` build since the tensor-parallel slice, with the
-    JAX config's values."""
-    if "plan" not in knob:
-        JConfig(**TINY, **knob)
-    if "axis_name" in knob or "overlap_chunks" in knob:
-        cfg = GPTConfig(**TINY, **knob)
-        assert all(getattr(cfg, k) == v for k, v in knob.items())
-        return
-    with pytest.raises(NotImplementedError, match="slice"):
-        GPTConfig(**TINY, **knob)
+    """A value other than the default of the added fields raised
+    ``NotImplementedError`` until its slice was ported; since the
+    pipeline / context / expert slice every one builds as the JAX config
+    does, with its values (``axis_name`` and ``overlap_chunks`` since the
+    tensor-parallel slice), and a plan that is not a ``ParallelPlan``
+    fails as in JAX."""
+    _same_as_jax_config(knob)
 
 
 @pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])

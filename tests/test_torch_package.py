@@ -480,17 +480,45 @@ def test_decode_split_is_the_kernels_and_fits_the_pool_block_sizes():
 
 
 def test_configs_accept_fused_ffn_and_keep_jax_refusals():
-    """``fused_ffn=True`` constructs on both configs (it is ported); GPT's
-    JAX ValueErrors for MoE and int8 weights come before any
-    not-ported error."""
+    """``fused_ffn=True`` constructs on both configs (it is ported), and so
+    do the expert, context and plan knobs (ported since the pipeline /
+    context / expert slice: none raises ``NotImplementedError`` any more);
+    GPT's JAX ValueErrors for MoE with the fused FFN, int8 weights or
+    sequence parallelism, and for context parallelism with sequence
+    parallelism or attention dropout, stay."""
+    from apex_tpu_torch.parallel import ParallelPlan
     assert GPTConfig(**TINY, fused_ffn=True).fused_ffn
     assert BertConfig(**BERT_TINY, fused_ffn=True).fused_ffn
     model = GPTModel(GPTConfig(**TINY, fused_ffn=True), device="cpu")
     assert model.layers[0].mlp.fused_ffn
+    moe = GPTConfig(**TINY, n_experts=4, moe_top_k=2,
+                    moe_capacity_factor=2.0, moe_aux_weight=0.1,
+                    expert_axis="expert", expert_parallel_size=2)
+    assert (moe.n_experts, moe.moe_top_k, moe.expert_parallel_size) \
+        == (4, 2, 2)
+    assert GPTConfig(**TINY, context_axis="context",
+                     context_mechanism="ulysses").context_mechanism \
+        == "ulysses"
+    plan = ParallelPlan(remat=True)
+    assert GPTConfig(**TINY, plan=plan).remat
+    assert BertConfig(**BERT_TINY, plan=plan).remat
     with pytest.raises(ValueError, match="n_experts > 0"):
         GPTConfig(**TINY, fused_ffn=True, n_experts=4)
     with pytest.raises(ValueError, match="weight_quant"):
         GPTConfig(**TINY, fused_ffn=True, weight_quant="int8")
+    with pytest.raises(ValueError, match="3D weight layout"):
+        GPTConfig(**TINY, n_experts=4, weight_quant="int8")
+    with pytest.raises(ValueError, match="does not compose with MoE"):
+        GPTConfig(**TINY, n_experts=4, tensor_parallel_size=2,
+                  axis_name="model", sequence_parallel=True)
+    with pytest.raises(ValueError, match="both shard the"):
+        GPTConfig(**TINY, context_axis="context", tensor_parallel_size=2,
+                  axis_name="model", sequence_parallel=True)
+    with pytest.raises(ValueError, match="attention_dropout is not"):
+        GPTConfig(**TINY, context_axis="context", attention_dropout=0.1)
+    with pytest.raises(ValueError, match="expert_axis requires|requires "
+                       "n_experts"):
+        GPTConfig(**TINY, expert_axis="expert")
 
 
 _TP_CASES = [

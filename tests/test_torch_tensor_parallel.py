@@ -148,11 +148,19 @@ def test_int8_column_shards_commute_with_quantization():
                                   dict(context_axis="ctx")],
                          ids=["plan", "n_experts", "context_axis"])
 def test_plan_moe_and_context_parallelism_still_raise(knob):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        GPTConfig(**TINY, **knob)
+    """These raised ``NotImplementedError`` until ROADMAP item 14 was
+    ported: MoE and context parallelism now build, and a ``plan`` that is
+    not a ``ParallelPlan`` fails as the JAX configs fail
+    (``AttributeError``); a real plan builds both configs."""
+    from apex_tpu_torch.parallel import ParallelPlan
     if "plan" in knob:
-        with pytest.raises(NotImplementedError, match="item 14"):
-            BertConfig(**TINY, **knob)
+        for cls in (GPTConfig, BertConfig):
+            with pytest.raises(AttributeError):
+                cls(**TINY, **knob)
+            assert cls(**TINY, plan=ParallelPlan(tp=2)).axis_name == "model"
+        return
+    cfg = GPTConfig(**TINY, **knob)
+    assert all(getattr(cfg, k) == v for k, v in knob.items())
 
 
 def test_tp_configs_and_layers_refuse_what_cannot_run():
