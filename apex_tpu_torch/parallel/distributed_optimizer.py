@@ -12,7 +12,9 @@ to ``block_rows * world`` rows so rank ``r`` owns rows ``[r L, (r+1) L)``
   (``allreduce_dtype``: exact, bf16 or int8 transport through
   :mod:`apex_tpu_torch.utils.compressed_allreduce`; the reduce-scatter IS
   the gradient reduction, so the model needs no DDP reduction), averages
-  (``average_grads``);
+  (``average_grads``); :meth:`~_DistributedMixin.reduce_gradients` does
+  this part ahead of the step, for a caller that needs the reduced
+  gradient first (the anomaly guard's norm);
 * the fused update runs on the local shard only — its segments, each
   tensor's rows in the shard as one view, through the same kernels as the
   per-parameter optimizers (#18 Adam; #17, #20, #21 LAMB, whose global
@@ -112,6 +114,7 @@ class _DistributedMixin:
         self._shards = {}      # bucket key -> {"m", "v"[, "master"]}
         self._segments = {}    # bucket key -> the shard's segments
         self._step_count = None
+        self._reduced = None   # bucket key -> reduced shard, for the step
         if any(owner_of(p) is not None
                for g in self.param_groups for p in g["params"]):
             raise ValueError(
@@ -167,6 +170,31 @@ class _DistributedMixin:
         noop = self.global_found_inf(noop)
         return noop, step + (noop == 0).to(torch.int32)
 
+    def _reduce_scatter(self, layout):
+        local = {}
+        for info in layout.buckets:
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in info.params]
+            g_full = B.flatten_bucket(grads, info.meta._replace(
+                dtype=grads[0].dtype))
+            g_loc = CA.reduce_scatter(g_full, mode=self.allreduce_dtype,
+                                      process_group=self.process_group,
+                                      axis_name=None)
+            if self.average_grads:
+                g_loc = g_loc / self.world_size
+            local[info.key] = g_loc
+        return local
+
+    @torch.no_grad()
+    def reduce_gradients(self):
+        """Reduce-scatter (and average) the gradients now rather than in
+        the next :meth:`step`, which then updates with these shards as they
+        are.  Returns this rank's shards of the reduced gradient, one per
+        bucket: what the step applies, so a norm taken over them (summed
+        across the group) is the applied gradient's."""
+        self._reduced = self._reduce_scatter(self._layout())
+        return list(self._reduced.values())
+
     @torch.no_grad()
     def step(self, closure=None, *, grad_scale=1.0, noop_flag=None):
         """One ZeRO step over every parameter (``grad_scale`` and
@@ -181,17 +209,8 @@ class _DistributedMixin:
         group_ = self.process_group
         device = layout.buckets[0].params[0].device
         noop, step_count = self._noop_and_step(noop_flag, device)
-        local = {}
-        for info in layout.buckets:
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in info.params]
-            g_full = B.flatten_bucket(grads, info.meta._replace(
-                dtype=grads[0].dtype))
-            g_loc = CA.reduce_scatter(g_full, mode=self.allreduce_dtype,
-                                      process_group=group_, axis_name=None)
-            if self.average_grads:
-                g_loc = g_loc / self.world_size
-            local[info.key] = g_loc
+        local = self._reduced or self._reduce_scatter(layout)
+        self._reduced = None
         g_views = [v for info in layout.buckets
                    for v in B.segment_views(local[info.key],
                                             self._bucket(info)[1])]

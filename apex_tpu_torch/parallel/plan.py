@@ -14,9 +14,8 @@ port of ``apex_tpu/parallel/plan.py``.
   versioned JSON form (``PLAN_VERSION``), equal to the JAX package's.
 
 :meth:`ParallelPlan.topology` and :meth:`ParallelPlan.from_topology`
-project onto the elastic layer's ``TopologySpec``, which is not ported
-yet (``ROADMAP.md`` queue A item 15): they raise ``NotImplementedError``.
-A plan with ``n_pods > 1`` validates as in JAX; only the MPMD engine
+project onto the elastic layer's :class:`~apex_tpu_torch.resilience.
+elastic.TopologySpec` (the checkpoint manifests' schema).  A plan with ``n_pods > 1`` validates as in JAX; only the MPMD engine
 (queue A item 17) runs it.
 """
 
@@ -35,10 +34,6 @@ __all__ = ["PLAN_VERSION", "ParallelPlan", "apply_plan_to_config"]
 PLAN_VERSION = 1
 
 _ALLREDUCE_DTYPES = (None, "f32", "bf16", "int8")
-_ELASTIC = ("ParallelPlan.topology / from_topology project onto "
-            "resilience.elastic.TopologySpec, which comes with the "
-            "resilience.elastic port of apex_tpu_torch (ROADMAP.md queue A "
-            "item 15)")
 _REMAT_POLICIES = ("full", "dots")
 
 
@@ -202,15 +197,24 @@ class ParallelPlan:
         return "model" if self.tp > 1 else None
 
     def topology(self):
-        """The elastic layer's ``TopologySpec`` of this plan: not ported
-        yet."""
-        raise NotImplementedError(_ELASTIC)
+        """Project onto the elastic layer's :class:`~apex_tpu_torch.
+        resilience.elastic.TopologySpec` (the checkpoint-manifest schema —
+        lossless for the fields it carries)."""
+        from apex_tpu_torch.resilience.elastic import TopologySpec
+        return TopologySpec(dp=self.dp, tp=self.tp, pp=self.pp,
+                            sequence_parallel=self.sequence_parallel,
+                            zero_shard=self.zero_shard)
 
     @classmethod
     def from_topology(cls, spec, **overrides) -> "ParallelPlan":
-        """A plan from the elastic layer's ``TopologySpec``: not ported
-        yet."""
-        raise NotImplementedError(_ELASTIC)
+        """Lift a :class:`TopologySpec` (or its manifest dict form) into a
+        full plan; ``overrides`` supply the knobs the spec does not carry
+        (schedule, remat, transport)."""
+        if isinstance(spec, dict):
+            return cls.from_dict(spec, **overrides)
+        return cls(dp=spec.dp, tp=spec.tp, pp=spec.pp,
+                   sequence_parallel=spec.sequence_parallel,
+                   zero_shard=spec.zero_shard, **overrides)
 
     def model_kwargs(self) -> dict:
         """The :class:`GPTConfig`/:class:`BertConfig` knobs this plan

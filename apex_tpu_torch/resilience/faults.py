@@ -60,10 +60,12 @@ with ``jnp.where``, so one compiled program serves both clean and
 faulty steps and injection never perturbs compilation caches.
 
 Port of ``apex_tpu/resilience/faults.py``; it imports no JAX.  The
-serving fleet uses ``seeded_schedule``, the KV channel ``check_dcn`` and
-the pool capacity controller ``check_capacity_change``; the training-side
-consumers (the guarded step, elastic training, the autopilot) are not
-ported yet.
+serving fleet uses ``seeded_schedule``, the KV channel ``check_dcn``, the
+capacity controllers ``check_capacity_change``, the guarded step
+``grad_flags`` / ``check_preempt`` / ``maybe_slow_host``, the checkpoint
+``should_corrupt`` and the elastic trainer ``check_topology_change`` /
+``check_preempt``; the autopilot's kinds (``cost_drift``,
+``plan_regression``) wait for its port.
 """
 
 from __future__ import annotations

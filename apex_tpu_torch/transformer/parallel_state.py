@@ -149,6 +149,49 @@ def initialize_model_parallel(
     return layout
 
 
+_SUBSET_GROUPS: dict = {}                 # tuple(ranks) -> process group
+
+
+def _subset_group(line):
+    """The process group of the global ranks ``line`` (made once: every
+    rank of the world calls this with the same lines in the same order,
+    as :func:`torch.distributed.new_group` requires)."""
+    key = tuple(int(r) for r in line)
+    if key not in _SUBSET_GROUPS:
+        _SUBSET_GROUPS[key] = dist.new_group(list(key))
+    return _SUBSET_GROUPS[key]
+
+
+def subset_groups(ranks, tp: int = 1, pp: int = 1):
+    """The ``data`` / ``pipe`` / ``model`` groups of a mesh over the global
+    ranks ``ranks`` alone (the elastic layer's plans over the first ``n``
+    ranks), laid out as :func:`rank_layout` lays out the world.  Returns
+    ``(layout, groups, group)``: the ``(dp, pp, tp)`` rank array, this
+    rank's group of each axis and the group of all of ``ranks``.  Under
+    :mod:`torch.distributed` an axis of one rank gets a group of that rank
+    alone (None would mean the whole world to :func:`resolve_group`); a
+    rank outside ``ranks`` gets None, as does every axis without
+    :mod:`torch.distributed`.  Every rank of the world must call it, in the
+    same order, including ranks outside ``ranks``; the globals of
+    :func:`initialize_model_parallel` are left alone."""
+    ranks = [int(r) for r in ranks]
+    layout = rank_layout(len(ranks), tp, pp)
+    layout = np.asarray(ranks)[layout]
+    _, rank = _world_and_rank()
+    multi = dist.is_available() and dist.is_initialized()
+    groups = {}
+    if not multi:
+        return layout, dict.fromkeys(AXES), None
+    for axis, name in enumerate(AXES):
+        for line in _lines(layout, axis):
+            group = _subset_group(line)
+            if rank in line:
+                groups[name] = group
+    whole = _subset_group(ranks)
+    return layout, {name: groups.get(name) for name in AXES}, (
+        whole if rank in ranks else None)
+
+
 def model_parallel_is_initialized() -> bool:
     return _LAYOUT is not None
 

@@ -4,8 +4,9 @@ training, BERT training under amp O2, each also with the fused FFN and
 under activation recompute, ResNet-50 ImageNet training under amp O1 and
 O2, paged and int8 GPT serving, the serving fleet, data and tensor
 parallelism over NCCL, Switch-GPT-350M/8 training and serving, the ring
-pipeline and context parallelism) on one NVIDIA H100 and hold every kernel
-of the paths against its plain PyTorch version.
+pipeline and context parallelism, and GPT-350M under the resilience layer:
+checkpoints, the guarded step, elastic training) on one NVIDIA H100 and
+hold every kernel of the paths against its plain PyTorch version.
 
     python3 chip_smoke.py [--out results.json] [--profile breakdown.txt]
 
@@ -273,6 +274,31 @@ Phases (any failure exits non-zero; nothing is caught):
    and 4 cards (EP, PP 1F1B and interleaved, PP x TP with SP, CP), each
    path held to its gate from the readings at that card count (a count
    without readings raises).
+17. resilience on GPT-350M at phase 5's recipe and batch (``FusedAdam(lr=
+   1e-4)``, weights from seed 0; checkpoints of 4.25 GB under a temporary
+   directory of ``build/``, removed after; ``keep=2``, a save every 4
+   steps): (17a) ``GuardedTrainStep`` over 13 steps of one
+   ``FaultInjector`` schedule (an inf loss, a x64 gradient spike after the
+   warm-up, three NaN-gradient steps in a row that roll back, the
+   checkpoint before them corrupted so the rollback falls back to the one
+   before it): the (skipped, anomaly, next step, rolled back, restored
+   from) sequence equals the schedule's, a skipped step leaves the
+   parameters, Adam's m and v and the step count bitwise unchanged, the
+   rollback restores the checkpointed state bitwise, every clean step is
+   bitwise an unguarded phase-5 step on a second model, and each step's
+   launches are phase 5's plus #17's sum of squares; (17b)
+   ``ElasticTrainer``: a ``HostSignals`` soft preemption checkpoints and
+   stops, a fresh trainer resumes from disk and replans in place, and its
+   final state is bitwise an uninterrupted run's; a ``save_async`` followed
+   at once by a step restores to the pre-step state bitwise; (17c)
+   ``DistributedFusedAdam`` through ``ZeROGuardAdapter`` at one rank: a
+   checkpoint stamped dp=1 zero=1 restored and re-sharded onto the same
+   plan bitwise, exact launches (#18 on the packed segments); (17d) the
+   native host library must load, and every save and restore logs its
+   bytes, seconds, GB/s and sha256 seconds.  ``tools/elastic_torch.py``
+   runs ZeRO dp 4 -> 2 -> 4, 2 -> 1 -> 2 and a hard preemption while
+   shrunk at 2 and 4 cards, each held to its gate from the readings at
+   that card count.
 
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -283,13 +309,16 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import gc
 import importlib
 import json
+import os
 import pathlib
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -7412,6 +7441,436 @@ def phase_model_parallel(world=None):
     gate_mp(gaps, world)
     return dict(world=world, seconds=seconds, gaps=gaps, ranks=ranks)
 
+
+# -- phase 17: resilience -------------------------------------------------------
+
+RESILIENCE_KEEP = 2            # kept checkpoints (4.25 GB each at GPT-350M)
+RESILIENCE_SAVE_EVERY = 4
+# 17a's FaultInjector schedule: (step, kind, magnitude, once).  The save
+# committed at step 8 is corrupted, so the rollback that the nan steps 8-10
+# trigger (K = 3 in a row) falls back to the checkpoint of step 4; the
+# spike fires once (a rolled-back re-run of step 6 would be clean)
+GUARD_FAULTS = ((1, "inf_loss", 0.0, False), (6, "grad_spike", 64.0, True),
+                (8, "corrupt_checkpoint", 0.0, False),
+                (8, "nan_grads", 0.0, False), (9, "nan_grads", 0.0, False),
+                (10, "nan_grads", 0.0, False))
+# (step, skipped, anomaly, next_step, rolled_back, restored_from) per call
+GUARD_EXPECTED = (
+    (0, False, None, 1, False, None), (1, True, "nonfinite", 2, False, None),
+    (2, False, None, 3, False, None), (3, False, None, 4, False, None),
+    (4, False, None, 5, False, None), (5, False, None, 6, False, None),
+    (6, True, "spike", 7, False, None), (7, False, None, 8, False, None),
+    (8, True, "nonfinite", 9, False, None),
+    (9, True, "nonfinite", 10, False, None),
+    (10, True, "nonfinite", 4, True, 4),
+    (4, False, None, 5, False, None), (5, False, None, 6, False, None))
+GUARD_WARMUP = 3
+# the states 17a keeps (4.25 GB each): after steps 3 (the checkpoint of step
+# 4 that the rollback restores), 4 and 5 (what the re-run after it repeats)
+GUARD_SNAPSHOTS = (4, 5, 6)
+ELASTIC_STEPS = 6              # 17b's run length
+ELASTIC_PREEMPT_AT = 2         # 17b's soft preemption (seen at this step)
+ELASTIC_REPLAN_AT = 5          # 17b's in-place replan (seen at this step)
+
+
+def _gpt_grad_fn(model, tokens, targets):
+    """Phase 5's step without the optimizer: the schedule over the model's
+    loss and backward (the guard's ``grad_fn``)."""
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        forward_backward_no_pipelining)
+    return forward_backward_no_pipelining(
+        lambda m, x: m.backbone(m.embed(x), None),
+        lambda x, t: model.head_loss(x, t).mean(), model, tokens, targets)
+
+
+def _train_state(model, opt):
+    """The tensors a checkpoint of (model, opt) holds: parameters, then the
+    optimizer's state leaves (live references)."""
+    from apex_tpu_torch.resilience import optimizer_state
+    from apex_tpu_torch.resilience.checkpoint import (ShardedLeaf,
+                                                      tree_flatten)
+    leaves, _ = tree_flatten(optimizer_state(opt))
+    return list(model.parameters()) + [
+        leaf.data if isinstance(leaf, ShardedLeaf) else leaf
+        for leaf in leaves]
+
+
+def _clone_all(tensors):
+    return [t.detach().clone() for t in tensors]
+
+
+def _equal_all(a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _trace_io(mgr, tag, into):
+    """Record every save's and restore's statistics of ``mgr`` (the
+    snapshot, hash, write and read seconds and rates) into ``into``."""
+    commit, restore = mgr._commit, mgr.restore
+
+    def traced_commit(*args, **kwargs):
+        path = commit(*args, **kwargs)
+        into.append(dict(mgr.last_save, tag=tag, op="save"))
+        return path
+
+    def traced_restore(*args, **kwargs):
+        out = restore(*args, **kwargs)
+        into.append(dict(mgr.last_restore, tag=tag, op="restore"))
+        return out
+    mgr._commit, mgr.restore = traced_commit, traced_restore
+    return mgr
+
+
+def _log_io(io):
+    for e in io:
+        extra = (f"snapshot {e['snapshot_s']:.3f} s, write+fsync "
+                 f"{e['write_s']:.3f} s" if e["op"] == "save"
+                 else f"read {e['read_s']:.3f} s")
+        log(f"    {e['tag']} {e['op']} step {e['step']}: "
+            f"{e['bytes'] / 1e9:.3f} GB in {e['seconds']:.3f} s "
+            f"({e['gb_per_s']:.3f} GB/s; {extra}, sha256 "
+            f"{e['sha256_s']:.3f} s)")
+
+
+def _guard_expected(numels, steps):
+    """Launches of ``steps`` guarded phase-5 steps: phase 5's and the
+    guard's one #17 sum of squares over the gradients a step."""
+    out = _gpt_train_expected(steps, ACCUM, GPT350M["num_layers"], numels)
+    out["multi_tensor_sumsq"] = steps * sumsq_launches(numels)
+    return out
+
+
+def _phase17_batch():
+    rng = np.random.RandomState(0)
+    shape = (ACCUM, MICRO, SEQ)
+    return tuple(torch.from_numpy(rng.randint(
+        0, GPT350M["vocab_size"], shape)).to("cuda") for _ in range(2))
+
+
+def _resilience_guard(init, batch, ckdir, io):
+    """17a: the guarded GPT-350M step under one fault schedule, against an
+    unguarded phase-5 loop on the same weights and batch."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.resilience import (CheckpointManager, Fault,
+                                           FaultInjector, GuardedTrainStep)
+    model = build_model("cuda")
+    model.load_state_dict(init)
+    opt = FusedAdam(model.parameters(), lr=LR)
+    ref = build_model("cuda")
+    ref.load_state_dict(init)
+    ref_opt = FusedAdam(ref.parameters(), lr=LR)
+    inj = FaultInjector([Fault(s, k, m, once) for s, k, m, once
+                         in GUARD_FAULTS])
+    mgr = _trace_io(CheckpointManager(ckdir, keep=RESILIENCE_KEEP,
+                                      fault_injector=inj), "[17a]", io)
+    guard = GuardedTrainStep(grad_fn=_gpt_grad_fn, optimizer=opt,
+                             warmup_steps=GUARD_WARMUP, spike_factor=10.0,
+                             max_consecutive=3, checkpoint=mgr,
+                             fault_injector=inj)
+    numels = [p.numel() for p in model.parameters()]
+    per_step = _guard_expected(numels, 1)
+    counters = _train_counters() + (_sumsq_counter(),)
+    gstate = guard.init_state()
+    seq, step_times, snaps, checks = [], [], {}, collections.Counter()
+    ref_in_step, step = True, 0
+    with counting_plain_versions() as plain:
+        for _ in GUARD_EXPECTED:
+            before = _clone_all(_train_state(model, opt))
+            _reset(counters)
+            t0 = time.perf_counter()
+            res = guard(model, gstate, *batch, step=step)
+            torch.cuda.synchronize()
+            step_times.append(time.perf_counter() - t0)
+            launches = _launches_of(counters)
+            if launches != per_step:
+                raise AssertionError(
+                    f"[17a] step {step}: launches {launches}, expected "
+                    f"{per_step}")
+            gstate = res.guard_state
+            seq.append((step, res.skipped, res.anomaly, res.next_step,
+                        res.rolled_back, res.restored_from))
+            state = _train_state(model, opt)
+            if res.rolled_back:
+                if not _equal_all(state, snaps[res.restored_from]):
+                    raise AssertionError("[17a] the rollback did not "
+                                         "restore the checkpointed state")
+                checks["rollback_bitwise"] += 1
+                ref_in_step = False
+            elif res.skipped:
+                if not _equal_all(state, before):
+                    raise AssertionError(f"[17a] skipped step {step} moved "
+                                         "the parameters or Adam's state")
+                checks["skip_bitwise"] += 1
+            elif ref_in_step:
+                # the same clean step unguarded: bit for bit
+                train_step(ref, ref_opt, *batch)
+                if not _equal_all(state, _train_state(ref, ref_opt)):
+                    raise AssertionError(f"[17a] clean step {step} differs "
+                                         "from an unguarded step")
+                checks["clean_bitwise"] += 1
+            elif step + 1 in snaps:
+                # after the rollback: the re-run equals the first pass
+                if not _equal_all(state, snaps[step + 1]):
+                    raise AssertionError(f"[17a] re-run of step {step} "
+                                         "differs from its first pass")
+                checks["rerun_bitwise"] += 1
+            step = res.next_step
+            if step in GUARD_SNAPSHOTS and ref_in_step:
+                snaps[step] = _clone_all(state)
+            if step % RESILIENCE_SAVE_EVERY == 0 and not res.rolled_back:
+                guard.save(step, model, gstate)
+    want = [tuple(e) for e in GUARD_EXPECTED]
+    log(f"[17a] GuardedTrainStep over GPT-350M (phase 5's recipe, "
+        f"FusedAdam lr={LR}, warm-up {GUARD_WARMUP}, spike x10, K 3, "
+        f"keep {RESILIENCE_KEEP}, a save every {RESILIENCE_SAVE_EVERY}): "
+        f"{len(seq)} steps, results {seq}; step times (s) "
+        f"{[round(t, 4) for t in step_times]}; bitwise checks "
+        f"{dict(checks)}; guard stats {guard.stats}; applied faults "
+        f"{inj.log}; launches a step {per_step}; plain-version calls "
+        f"{dict(plain)}")
+    if seq != want:
+        raise AssertionError(f"[17a] step results {seq} != {want}")
+    if sum(plain.values()):
+        raise AssertionError("[17a] a plain version was called")
+    if checks != {"clean_bitwise": 6, "skip_bitwise": 4,
+                  "rollback_bitwise": 1, "rerun_bitwise": 2}:
+        raise AssertionError(f"[17a] bitwise checks {dict(checks)}")
+    launches = {k: v * len(seq) for k, v in per_step.items()}
+    return dict(results=seq, step_times_s=step_times, checks=dict(checks),
+                stats=guard.stats, launches=launches)
+
+
+def _sumsq_counter():
+    from apex_tpu_torch.ops.multi_tensor import multi_tensor_sumsq
+    return multi_tensor_sumsq
+
+
+def _resilience_factory(init, counters_io=None):
+    """17b's plan factory: GPT-350M from ``init``, FusedAdam, the guard over
+    phase 5's step."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.resilience import ElasticComponents, GuardedTrainStep
+
+    def factory(plan, ckpt, inj):
+        model = build_model(plan.device)
+        model.load_state_dict(init)
+        guard = GuardedTrainStep(
+            grad_fn=_gpt_grad_fn,
+            optimizer=FusedAdam(model.parameters(), lr=LR),
+            warmup_steps=GUARD_WARMUP, checkpoint=ckpt, fault_injector=inj,
+            group=plan.group)
+        return ElasticComponents(guard, model, guard.init_state())
+    return factory
+
+
+def _elastic_trainer(init, directory, io, tag, **kw):
+    from apex_tpu_torch.resilience import (ElasticPlan, ElasticTrainer,
+                                           TopologySpec)
+    tr = ElasticTrainer(_resilience_factory(init),
+                        ElasticPlan.build(TopologySpec(), device="cuda"),
+                        directory=directory, keep=RESILIENCE_KEEP,
+                        save_every=RESILIENCE_SAVE_EVERY, **kw)
+    _trace_io(tr.checkpoint, tag, io)
+    return tr
+
+
+def _resilience_elastic(init, batch, root, io):
+    """17b: soft preemption and resume, an in-place replan and save_async
+    against an uninterrupted ElasticTrainer run."""
+    from apex_tpu_torch.resilience import HostSignals, TopologySpec
+    batch_fn = lambda step, plan: batch                 # noqa: E731
+    ref = _elastic_trainer(init, os.path.join(root, "ref"), io, "[17b] ref")
+    t0 = time.perf_counter()
+    ref.train(batch_fn, ELASTIC_STEPS)
+    ref_s = time.perf_counter() - t0
+    want = _clone_all(_train_state(ref.model, ref.guard.optimizer))
+    del ref
+    _drop_checkpoints(os.path.join(root, "ref"))
+
+    signals = HostSignals()
+
+    def preempting(step, plan):
+        if step == ELASTIC_PREEMPT_AT - 1:
+            signals.request_preempt()
+        return batch
+    run = _elastic_trainer(init, os.path.join(root, "run"), io,
+                           "[17b] preempted", signals=signals)
+    first = run.train(preempting, ELASTIC_STEPS)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    signals = HostSignals()
+
+    def replanning(step, plan):
+        if step == ELASTIC_REPLAN_AT - 1:
+            signals.request_replan(TopologySpec())
+        return batch
+    resumed = _elastic_trainer(init, os.path.join(root, "run"), io,
+                               "[17b] resumed", signals=signals)
+    second = resumed.train(replanning, ELASTIC_STEPS)
+    got = _train_state(resumed.model, resumed.guard.optimizer)
+    bitwise = _equal_all(got, want)
+    log(f"[17b] ElasticTrainer, GPT-350M: uninterrupted {ELASTIC_STEPS} "
+        f"steps {ref_s:.1f} s; soft preemption -> {first}; a fresh trainer "
+        f"resumed from disk with an in-place replan at step "
+        f"{ELASTIC_REPLAN_AT} -> {second} (stats {resumed.stats}); final "
+        f"parameters and Adam state bitwise the uninterrupted run's: "
+        f"{bitwise}")
+    if first["status"] != "preempted" or first["step"] != ELASTIC_PREEMPT_AT:
+        raise AssertionError(f"[17b] the soft preemption gave {first}")
+    if second["status"] != "completed" or second["replans"] != 1 \
+            or resumed.stats["resume_step"] != ELASTIC_REPLAN_AT:
+        raise AssertionError(f"[17b] the resumed run gave {second}")
+    if not bitwise:
+        raise AssertionError("[17b] preempt/resume/replan is not bitwise "
+                             "the uninterrupted run")
+    # trap 1: an optimizer step right after save_async must not reach it
+    snap = _clone_all(got)
+    step = resumed.current_step
+    resumed.guard.save(step, resumed.model, resumed.guard_state,
+                       async_=True)
+    resumed.step_once(batch_fn)
+    resumed.checkpoint.wait()
+    moved = not _equal_all(_train_state(resumed.model,
+                                        resumed.guard.optimizer), snap)
+    template = resumed.guard._template(resumed.model, resumed.guard_state)
+    restored, at = resumed.checkpoint.restore(template, step=step)
+    from apex_tpu_torch.resilience.checkpoint import tree_flatten
+    tparams = [restored["params"][n] for n, _ in
+               resumed.model.named_parameters()]
+    tleaves, _ = tree_flatten(restored["opt"])
+    async_ok = _equal_all(tparams + tleaves, snap)
+    log(f"[17b] save_async at step {step} then a step at once: the live "
+        f"state moved {moved}; the checkpoint restores the pre-step state "
+        f"bitwise: {async_ok}")
+    if not (moved and async_ok and at == step):
+        raise AssertionError("[17b] save_async did not snapshot the state "
+                             "before the next step")
+    del resumed, restored
+    torch.cuda.empty_cache()
+    return dict(preempted=first, resumed=second, bitwise=bitwise,
+                async_bitwise=async_ok, steps=ELASTIC_STEPS + 2 +
+                (ELASTIC_STEPS - ELASTIC_PREEMPT_AT) + 1)
+
+
+def _resilience_zero(init, batch, ckdir, io):
+    """17c: DistributedFusedAdam through ZeROGuardAdapter at one rank; a
+    checkpoint stamped dp=1 zero=1 restored and re-sharded onto the same
+    plan, bit for bit."""
+    from apex_tpu_torch.parallel import DistributedFusedAdam
+    from apex_tpu_torch.resilience import (CheckpointManager, ElasticPlan,
+                                           GuardedTrainStep, TopologySpec,
+                                           ZeROGuardAdapter,
+                                           reshard_optimizer_state)
+    plan = ElasticPlan.build(TopologySpec(zero_shard=1), device="cuda")
+    model = build_model("cuda")
+    model.load_state_dict(init)
+    zopt = DistributedFusedAdam(model.parameters(), lr=LR,
+                                process_group=plan.groups["data"])
+    mgr = _trace_io(CheckpointManager(ckdir, keep=RESILIENCE_KEEP,
+                                      topology=plan.spec), "[17c]", io)
+    guard = GuardedTrainStep(grad_fn=_gpt_grad_fn,
+                             optimizer=ZeROGuardAdapter(zopt, plan),
+                             warmup_steps=GUARD_WARMUP, checkpoint=mgr,
+                             plan=plan)
+    numels = [p.numel() for p in model.parameters()]
+    counters = _train_counters() + (_sumsq_counter(),)
+    gstate = guard.init_state()
+    _reset(counters)
+    with counting_plain_versions() as plain:
+        for step in range(2):
+            gstate = guard(model, gstate, *batch, step=step).guard_state
+        torch.cuda.synchronize()
+    launches = _launches_of(counters)
+    expected = _gpt_train_expected(2, ACCUM, GPT350M["num_layers"], numels)
+    expected.pop("multi_tensor_adam")
+    for k, v in zero_launches(zopt, ("multi_tensor_adam",)).items():
+        expected[k] = 2 * v
+    # the guard's norm: #17 over the reduced gradient's shards
+    expected["multi_tensor_sumsq"] = 2 * sumsq_launches(
+        [zopt._local_rows(info) * 128 for info in zopt._layout().buckets])
+    guard.save(2, model, gstate)
+    want = _clone_all(_train_state(model, zopt))
+    guard(model, gstate, *batch, step=2)            # moves the live state
+    restored, _ = mgr.restore(guard._template(model, gstate),
+                              topology=plan.spec)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(restored["params"][name])
+    reshard_optimizer_state(restored["opt"], plan, plan, optimizer=zopt)
+    bitwise = _equal_all(_train_state(model, zopt), want)
+    stamp = mgr.topology_of(2)
+    log(f"[17c] ZeRO DistributedFusedAdam ({len(zopt._layout().buckets)} "
+        f"bucket(s)) under the guard at 1 rank: launches {launches} "
+        f"(expected {expected}); plain-version calls {dict(plain)}; "
+        f"checkpoint stamped {stamp}, restored and re-sharded onto the same "
+        f"plan bitwise: {bitwise}")
+    if launches != expected or sum(plain.values()):
+        raise AssertionError("[17c] launch counts do not match the path")
+    if stamp != TopologySpec(zero_shard=1).to_dict() or not bitwise:
+        raise AssertionError("[17c] the ZeRO checkpoint did not restore "
+                             "bitwise")
+    return dict(launches=launches, bitwise=bitwise, stamp=stamp)
+
+
+def _drop_checkpoints(directory):
+    """A sub-phase's checkpoints go as soon as it ends (at most two kept
+    and one being written, about 13 GB, are on disk at a time), and the
+    page-locked host buffers of its managers with them."""
+    shutil.rmtree(directory, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_resilience():
+    """Phase 17: the guarded step (17a), elastic training (17b) and ZeRO
+    under the guard (17c) on GPT-350M, checkpoints under a temporary
+    directory of ``build/`` (removed after), every save and restore traced
+    (17d)."""
+    from apex_tpu_torch.utils import native
+    lib = native.library_path()
+    log(f"[17d] native host runtime: {lib}")
+    if lib is None:
+        raise AssertionError("[17d] the native host library did not load")
+    t0 = time.perf_counter()
+    model = build_model("cuda").init_params(torch.Generator().manual_seed(0))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    batch = _phase17_batch()
+    pathlib.Path("build").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="phase17_", dir="build")
+    io, parts = [], {"init": time.perf_counter() - t0}
+    try:
+        t1 = time.perf_counter()
+        guard = _resilience_guard(init, batch, os.path.join(root, "guard"),
+                                  io)
+        _drop_checkpoints(os.path.join(root, "guard"))
+        parts["17a"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        elastic = _resilience_elastic(init, batch, os.path.join(root, "el"),
+                                      io)
+        _drop_checkpoints(os.path.join(root, "el"))
+        parts["17b"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        zero = _resilience_zero(init, batch, os.path.join(root, "zero"), io)
+        parts["17c"] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"[17d] {len(io)} checkpoint operations (save: snapshot to the host "
+        f"and write + fsync while a second thread hashes; restore: read, "
+        f"then the copies to the card while a second thread hashes):")
+    _log_io(io)
+    log(f"[17] resilience on GPT-350M: {seconds:.1f} s "
+        f"({ {k: round(v, 1) for k, v in parts.items()} } s)")
+    launches = collections.Counter(guard["launches"])
+    launches.update(zero["launches"])
+    return dict(seconds=seconds, parts=parts, guard=guard, elastic=elastic,
+                zero=zero, io=io, native=lib, launches=dict(launches))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write all results to this JSON file")
@@ -7589,6 +8048,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     # expert, pipeline and context parallelism over NCCL
     mp = phase_model_parallel()
+    torch.cuda.empty_cache()
+    # resilience: the guarded step, elastic training, ZeRO checkpoints
+    resilience = phase_resilience()
     if args.profile:
         with open(args.profile, "w") as f:
             f.write("\n".join(profile_lines) + "\n")
@@ -7603,6 +8065,7 @@ def main(argv=None):
         for run in rank.values():
             if isinstance(run, dict) and "launches" in run:
                 both.update(run["launches"])
+    both.update(resilience["launches"])
     for run in (serve_f, train, train_f, *train_remat.values(), bert,
                 bert_f, bert_r, clip, resnet["O1"],
                 resnet["O2"], resnet_baseline, *resnet_opts.values(),
@@ -7704,6 +8167,7 @@ def main(argv=None):
                            resnet_parity=resnet_parity,
                            packed_segments=packed, data_parallel=dp,
                            tensor_parallel=tp, model_parallel=mp,
+                           resilience=resilience,
                            flash_tp_shards=fl_tp,
                            fused_ffn_tp_shards=ffn_tp,
                            profile=profiled or None, kernels=kernels), f,

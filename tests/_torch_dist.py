@@ -582,7 +582,16 @@ def case_mp(rank, world, inp):
     return _torch_mp_ranks.run(rank, world, inp)
 
 
-CASES = {"collectives": case_collectives, "mp": case_mp, "examples": case_examples, "ddp": case_ddp,
+def case_elastic(rank, world, inp):
+    """Elastic training, re-sharding and the capacity controller over a
+    real trainer: the functions of ``tests/_torch_elastic_ranks.py`` that
+    ``inp["parts"]`` names."""
+    import _torch_elastic_ranks
+    return _torch_elastic_ranks.run(rank, world, inp)
+
+
+CASES = {"collectives": case_collectives, "mp": case_mp,
+         "elastic": case_elastic, "examples": case_examples, "ddp": case_ddp,
          "syncbn": case_syncbn, "zero": case_zero,
          "cpu_launches": case_cpu_launches, "tp": case_tp}
 

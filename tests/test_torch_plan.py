@@ -87,10 +87,21 @@ def test_from_dict_lifts_topology_dicts_and_refuses_other_versions():
 
 
 def test_topology_waits_for_the_elastic_port():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ParallelPlan().topology()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ParallelPlan.from_topology(None)
+    """The elastic port is in: ``topology`` / ``from_topology`` give the
+    JAX plan's dicts, and ``spec.to_plan().topology() == spec``."""
+    from apex_tpu.resilience.elastic import TopologySpec as JTopologySpec
+    from apex_tpu_torch.resilience import TopologySpec
+    for kw in (dict(), dict(dp=4, zero_shard=4),
+               dict(dp=2, tp=2, sequence_parallel=True, pp=2)):
+        tp, jp = ParallelPlan(**kw), jplan.ParallelPlan(**kw)
+        assert tp.topology().to_dict() == jp.topology().to_dict()
+        spec, jspec = TopologySpec(**kw), JTopologySpec(**kw)
+        over = dict(remat=True, n_microbatches=4)
+        assert ParallelPlan.from_topology(spec, **over).to_dict() == \
+            jplan.ParallelPlan.from_topology(jspec, **over).to_dict()
+        assert ParallelPlan.from_topology(spec.to_dict()).to_dict() == \
+            jplan.ParallelPlan.from_topology(jspec.to_dict()).to_dict()
+        assert spec.to_plan().topology() == spec
 
 
 _TINY = dict(vocab_size=64, hidden_size=32, num_layers=2,
