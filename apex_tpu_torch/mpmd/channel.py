@@ -15,9 +15,10 @@ shared :class:`~apex_tpu_torch.resilience.faults.FaultInjector` (kind
 because :meth:`~apex_tpu_torch.resilience.faults.FaultInjector.check_dcn`
 consumes the fault, a retry of the SAME send succeeds.
 
-The MPMD engine that drives stage programs over this channel, and
-``from_cost_model`` (which prices the link off the fitted collective cost
-model), are not ported yet.
+:meth:`LocalDcnChannel.from_cost_model` prices the link off a fitted
+:class:`~apex_tpu_torch.observability.costmodel.CostModel` (its ``dcn``
+``ppermute`` curve).  The MPMD engine that drives stage programs over this
+channel is not ported yet.
 """
 
 from __future__ import annotations
@@ -78,7 +79,10 @@ class LocalDcnChannel:
     accounted latency and injectable faults.
 
     ``alpha_s``/``beta_s_per_byte`` price a transfer as
-    ``alpha + beta * nbytes``.
+    ``alpha + beta * nbytes``; alternatively
+    :meth:`from_cost_model` pulls the coefficients from a fitted
+    ``dcn`` ``ppermute`` curve so the channel and a planner price the
+    same fabric identically.
     """
 
     def __init__(self, *, alpha_s: float = 0.0,
@@ -96,6 +100,16 @@ class LocalDcnChannel:
         self.retries = 0
         self.bytes_sent = 0
         self.simulated_seconds = 0.0
+
+    @classmethod
+    def from_cost_model(cls, cost_model, *, link_class: str = "dcn",
+                        **kw) -> "LocalDcnChannel":
+        """Build from a fitted :class:`CostModel`: a point-to-point
+        hop is priced off the ``ppermute`` curve of ``link_class``
+        (every ring op reduces to per-hop alpha + per-byte beta)."""
+        fit = cost_model._fit_for("ppermute", "f32", link_class)
+        return cls(alpha_s=fit.alpha_s,
+                   beta_s_per_byte=fit.beta_s_per_byte, **kw)
 
     # -- transfer ---------------------------------------------------------
 

@@ -16,12 +16,31 @@ serving telemetry.
 * :mod:`~apex_tpu_torch.observability.fleetobs` — :class:`TraceContext`
   causal propagation across replicas, :class:`FleetCollector` merged
   timelines, :func:`check_flows` trace continuity, and the
-  :class:`FlightRecorder` black box.
+  :class:`FlightRecorder` black box;
+* :mod:`~apex_tpu_torch.observability.train_monitor` —
+  :class:`TrainingMonitor`, wrapping a train step (notably
+  :class:`~apex_tpu_torch.resilience.GuardedTrainStep`) into step-time /
+  tokens-s / MFU / grad-norm / loss-scale / anomaly series, with
+  :func:`calibrated_peak_flops`;
+* :mod:`~apex_tpu_torch.observability.comms` — per-collective byte
+  accounting of one call (:func:`collective_stats`) from the ``c10d``
+  ops it dispatches;
+* :mod:`~apex_tpu_torch.observability.costmodel` — the collective probe
+  over :mod:`torch.distributed` (:func:`probe_collectives`) and the fitted
+  alpha-beta ring :class:`CostModel` (``tools/comms_probe_torch.py`` is
+  the CLI).
 
-``anatomy``, ``comms``, ``costmodel`` and ``train_monitor`` are not ported
-yet.
+``anatomy`` (the MPMD engine's measured timelines) is not ported: its
+events come from the MPMD engine, which waits in ``ROADMAP.md`` queue A
+item 17.  ``hlo_collective_stats`` has no counterpart (there is no HLO).
 """
 
+from apex_tpu_torch.observability.comms import (collective_stats,
+                                                format_stats, wire_bytes)
+from apex_tpu_torch.observability.costmodel import (CostModel, Measurement,
+                                                    fit_cost_model,
+                                                    load_profile,
+                                                    probe_collectives)
 from apex_tpu_torch.observability.fleetobs import (FleetCollector,
                                                    FlightRecorder,
                                                    TraceContext, check_flows,
@@ -34,9 +53,14 @@ from apex_tpu_torch.observability.request_trace import (RequestRecord,
 from apex_tpu_torch.observability.slo import (BurnWindow, RollingPercentiles,
                                               SLOMonitor, SLOTarget)
 from apex_tpu_torch.observability.spans import Tracer, default_tracer, span
+from apex_tpu_torch.observability.train_monitor import (TrainingMonitor,
+                                                        calibrated_peak_flops)
 
-__all__ = ["BurnWindow", "Counter", "FleetCollector", "FlightRecorder",
-           "Gauge", "Histogram", "MetricsRegistry", "RequestRecord",
-           "RequestTracer", "RollingPercentiles", "SLOMonitor", "SLOTarget",
-           "TraceContext", "Tracer", "check_flows", "default_tracer",
-           "emit_flow", "replay_jsonl", "span"]
+__all__ = ["BurnWindow", "CostModel", "Counter", "FleetCollector",
+           "FlightRecorder", "Gauge", "Histogram", "Measurement",
+           "MetricsRegistry", "RequestRecord", "RequestTracer",
+           "RollingPercentiles", "SLOMonitor", "SLOTarget", "TraceContext",
+           "Tracer", "TrainingMonitor", "calibrated_peak_flops",
+           "check_flows", "collective_stats", "default_tracer", "emit_flow",
+           "fit_cost_model", "format_stats", "load_profile",
+           "probe_collectives", "replay_jsonl", "span", "wire_bytes"]

@@ -10,9 +10,12 @@ as wall-clock spans:
         logits, kv = prefill(params, tokens)
 
 Spans nest per thread (a span closed out of order raises — the same
-contract as ``profiling.range_push/pop``) and every span ALSO enters
-``torch.profiler.record_function`` with the same name by default, so the
-ops launched inside carry the name on the profiler's timeline: the host
+contract as ``profiling.range_push/pop``) and every span ALSO opens
+:func:`apex_tpu_torch.utils.profiling.annotate` with the same name by
+default — ``torch.profiler.record_function`` (and nvtx on the card) — so
+the ops launched inside carry the name on the profiler's timeline, and
+the collectives issued inside report it as their ``scope``
+(:func:`~apex_tpu_torch.observability.comms.collective_stats`): the host
 span in the Perfetto trace and the profiler's range share one vocabulary.
 
 Events use the Chrome trace-event format (``ph: "X"`` complete events,
@@ -30,7 +33,7 @@ import threading
 import time
 from typing import Optional
 
-import torch
+from apex_tpu_torch.utils.profiling import annotate
 
 # monotone instance counter: two Tracers in ONE process (an in-process
 # test fleet) must still mint distinct id tags, so pid alone is not
@@ -75,15 +78,15 @@ class Tracer:
     @contextlib.contextmanager
     def span(self, name: str, device: bool = True, **args):
         """Time a host-side region.  ``device=True`` (default) also
-        enters ``torch.profiler.record_function(name)`` so the ops
-        launched inside carry the same name on the profiler's timeline;
-        ``args`` become the trace event's ``args`` payload."""
+        opens ``profiling.annotate(name)`` (``torch.profiler.
+        record_function``) so the ops launched inside carry the same name
+        on the profiler's timeline; ``args`` become the trace event's
+        ``args`` payload."""
         stack = self._stack()
         stack.append(name)
         depth = len(stack)
         t0 = self.clock()
-        cm = (torch.profiler.record_function(name) if device
-              else contextlib.nullcontext())
+        cm = annotate(name) if device else contextlib.nullcontext()
         error = None
         try:
             with cm:

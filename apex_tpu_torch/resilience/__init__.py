@@ -20,14 +20,15 @@
 * :mod:`~apex_tpu_torch.resilience.capacity` — :class:`CapacityController`
   shifts chips between an :class:`ElasticTrainer` and a serving fleet on
   SLO burn, and :class:`PoolCapacityController` replicas between the
-  prefill and decode pools of a disaggregated fleet.
-
-The JAX package's ``ParallelismAutopilot`` and ``ADOPTION_OUTCOMES``
-(``resilience/autopilot.py``) are not ported: the autopilot refits
-``observability.costmodel``, which is ported with the rest of the
-observability layer (``ROADMAP.md`` queue A item 16).
+  prefill and decode pools of a disaggregated fleet;
+* :mod:`~apex_tpu_torch.resilience.autopilot` —
+  :class:`ParallelismAutopilot`: cost-model drift detection over refits,
+  re-ranking and gated, reversible plan adoption over an
+  :class:`ElasticTrainer` (``ADOPTION_OUTCOMES``).
 """
 
+from apex_tpu_torch.resilience.autopilot import (ADOPTION_OUTCOMES,
+                                                 ParallelismAutopilot)
 from apex_tpu_torch.resilience.capacity import (CAPACITY_FAULT_MODES,
                                                 CapacityBudget,
                                                 CapacityController,
@@ -50,11 +51,12 @@ from apex_tpu_torch.resilience.guard import (GuardedTrainStep, GuardState,
                                              load_optimizer_state,
                                              optimizer_state)
 
-__all__ = ["CAPACITY_FAULT_MODES", "CapacityBudget", "CapacityController",
-           "CheckpointManager", "CheckpointNotFound", "ElasticComponents",
-           "ElasticPlan", "ElasticSignal", "ElasticTrainer", "FAULT_KINDS",
-           "Fault", "FaultInjector", "GuardState", "GuardedTrainStep",
-           "HostSignals", "PoolCapacityController", "Preemption",
+__all__ = ["ADOPTION_OUTCOMES", "CAPACITY_FAULT_MODES", "CapacityBudget",
+           "CapacityController", "CheckpointManager", "CheckpointNotFound",
+           "ElasticComponents", "ElasticPlan", "ElasticSignal",
+           "ElasticTrainer", "FAULT_KINDS", "Fault", "FaultInjector",
+           "GuardState", "GuardedTrainStep", "HostSignals",
+           "ParallelismAutopilot", "PoolCapacityController", "Preemption",
            "ReshardFailed", "ShardedLeaf", "StepResult", "TopologySpec",
            "ZeROGuardAdapter", "fault_mode", "load_optimizer_state",
            "optimizer_state", "reshard_optimizer_state", "seeded_schedule"]

@@ -63,9 +63,11 @@ Port of ``apex_tpu/resilience/faults.py``; it imports no JAX.  The
 serving fleet uses ``seeded_schedule``, the KV channel ``check_dcn``, the
 capacity controllers ``check_capacity_change``, the guarded step
 ``grad_flags`` / ``check_preempt`` / ``maybe_slow_host``, the checkpoint
-``should_corrupt`` and the elastic trainer ``check_topology_change`` /
-``check_preempt``; the autopilot's kinds (``cost_drift``,
-``plan_regression``) wait for its port.
+``should_corrupt``, the elastic trainer ``check_topology_change`` /
+``check_preempt``, and the
+:class:`~apex_tpu_torch.resilience.autopilot.ParallelismAutopilot`
+``check_cost_drift`` (at every tick) / ``check_plan_regression`` (when an
+adoption starts).
 """
 
 from __future__ import annotations

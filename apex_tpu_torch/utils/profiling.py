@@ -1,16 +1,293 @@
-"""Serving metrics — port of ``ServingMetrics`` from
+"""Profiling and observability utilities — port of
 ``apex_tpu/utils/profiling.py``.
 
-Plain Python, with the JAX class's recording methods, ``summary()`` keys
-and ``serving_*`` registry series.  The rest of that module (annotations,
-device traces, memory stats, program hashes) is not ported yet.
+* :func:`annotate` / :func:`range_push` / :func:`range_pop` — named
+  ranges: each enters ``torch.profiler.record_function`` under its name
+  (and ``torch.cuda.nvtx`` once CUDA is in use), so the ops launched
+  inside carry the name on the profiler's timeline; the innermost open
+  name (:func:`current_scope`) is the ``scope`` that
+  :func:`~apex_tpu_torch.observability.comms.collective_stats` reports for
+  a collective, as JAX reads a ``named_scope`` from HLO metadata.
+* :func:`trace` — ``torch.profiler.profile`` over the CPU and CUDA
+  activities, written as a Chrome trace into a directory.
+* :func:`memory_stats` — argument / output / temp bytes of one call: the
+  CUDA allocator's bytes around it, or on the CPU the profiler's memory
+  events.
+* :func:`program_hash` / :func:`assert_same_program` — the sha256 of the
+  aten op sequence one call dispatches (the math the host built, as the
+  JAX package hashes StableHLO), compared across the ranks of
+  :mod:`torch.distributed`.
+* :class:`ServingMetrics` — serving observability (TTFT, per-token
+  latency, slot occupancy, tokens/s) over the metrics registry.
+
+The JAX package's ``utils/platform.py`` (Pallas or jnp by backend) has its
+counterpart in :mod:`apex_tpu_torch.utils.device`; its TPU-only switches
+(``set_force_pallas``, ``tpu_compiler_params``) have none.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import hashlib
+import os
+import threading
 import time
+import warnings
 from typing import Any, Callable, Optional
+
+import torch
+
+_LOCAL = threading.local()           # .stack: this thread's open ranges
+_POP_MISMATCH_WARNED = False         # warn-once flag for unmatched pops
+
+
+class _Range:
+    """One open named range: the profiler's ``record_function`` and, once
+    CUDA is in use, an nvtx range of the same name."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._rf = torch.profiler.record_function(name)
+        self._rf.__enter__()
+        self._nvtx = torch.cuda.is_available() and torch.cuda.is_initialized()
+        if self._nvtx:
+            torch.cuda.nvtx.range_push(name)
+
+    def close(self) -> None:
+        if self._nvtx:
+            torch.cuda.nvtx.range_pop()
+        self._rf.__exit__(None, None, None)
+
+
+def range_stack() -> list:
+    """This thread's open ranges, innermost last: the live list, so a reader
+    on another thread can name the scope this one is in
+    (``current_scope(fallback=...)``)."""
+    stack = getattr(_LOCAL, "stack", None)
+    if stack is None:
+        stack = _LOCAL.stack = []
+    return stack
+
+
+def range_push(name: str) -> None:
+    """``torch.cuda.nvtx.range_push`` equivalent (paired with
+    :func:`range_pop`); prefer the :func:`annotate` context manager.
+
+    The push/pop stack is per-thread and pops must nest within their
+    thread — interleaving pairs across threads is undefined, as it was
+    for nvtx ranges.
+    """
+    range_stack().append(_Range(name))
+
+
+def range_pop() -> None:
+    """Pop the innermost :func:`range_push` range on this thread.
+
+    An unmatched pop (empty stack) is a caller bug — annotations above
+    it are silently mis-nested from that point on — so it warns (once
+    per process; nvtx printed an error per event, which floods) instead
+    of no-opping invisibly."""
+    stack = range_stack()
+    if stack:
+        stack.pop().close()
+        return
+    global _POP_MISMATCH_WARNED
+    if not _POP_MISMATCH_WARNED:
+        _POP_MISMATCH_WARNED = True
+        warnings.warn(
+            "range_pop() with no matching range_push() on this thread — "
+            "push/pop pairs are mis-nested (warning once per process)",
+            RuntimeWarning, stacklevel=2)
+
+
+def range_depth() -> int:
+    """Current :func:`range_push` nesting depth on THIS thread (tests
+    assert push/pop balance with it)."""
+    return len(range_stack())
+
+
+def current_scope(fallback: Optional[list] = None) -> str:
+    """The innermost open range's name on this thread; on a thread with
+    none open, the innermost of ``fallback`` (another thread's
+    :func:`range_stack`), else "".  On the card the backward pass runs on
+    autograd's device thread, so ``collective_stats`` falls back to the
+    ranges of the thread that called it: the collectives the backward's
+    hooks issue report the range the training loop opened around it."""
+    top = (range_stack() or fallback or [])[-1:]   # another thread may pop
+    return top[0].name if top else ""
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """Named-range context manager: the ops launched inside carry ``name``
+    on the profiler's timeline, and collectives issued inside report it
+    as their scope."""
+    r = _Range(name)
+    stack = range_stack()
+    stack.append(r)
+    try:
+        yield
+    finally:
+        if stack and stack[-1] is r:
+            stack.pop()
+        elif r in stack:
+            stack.remove(r)
+        r.close()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the block with ``torch.profiler`` (CPU activity, and CUDA
+    where there is a card) and write a Chrome trace into ``log_dir``
+    (Perfetto and chrome://tracing open it).  Yields the profiler."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=activities)
+    prof.__enter__()
+    try:
+        yield prof
+    finally:
+        prof.__exit__(None, None, None)
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def _tensors(tree) -> list:
+    from torch.utils._pytree import tree_leaves
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _storage_bytes(tensors) -> dict:
+    """{storage pointer: bytes} over the tensors' distinct storages."""
+    out = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        out[st.data_ptr()] = st.nbytes()
+    return out
+
+
+def memory_stats(fn: Callable, *args, **kwargs) -> dict:
+    """Run ``fn(*args, **kwargs)`` once and return its memory use in bytes:
+    ``argument`` (the arguments' tensors), ``output`` (the result's),
+    ``alias`` (output bytes that share storage with an argument), ``temp``
+    (the peak allocated during the call above what was allocated before it
+    and the new outputs: live activations and workspaces) and
+    ``generated_code`` — always 0 here: eager PyTorch compiles no program
+    whose code size JAX's ``memory_analysis`` reports.
+
+    With a CUDA tensor among the arguments the CUDA allocator's counters
+    are read around the call (after a synchronize); otherwise the CPU
+    allocations and frees ``torch.profiler`` records (``profile_memory``)
+    are summed in order.
+    """
+    ins = _storage_bytes(_tensors((args, kwargs)))
+    cuda = any(t.is_cuda for t in _tensors((args, kwargs)))
+    if cuda:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+    else:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU],
+                profile_memory=True) as prof:
+            out = fn(*args, **kwargs)
+        events = sorted((e for e in prof.profiler.kineto_results.events()
+                         if e.name() == "[memory]"),
+                        key=lambda e: e.start_ns())
+        cur = peak = 0
+        for e in events:
+            cur += e.nbytes()
+            peak = max(peak, cur)
+    outs = _storage_bytes(_tensors(out))
+    alias = sum(b for p, b in outs.items() if p in ins)
+    output = sum(outs.values())
+    return {"argument": sum(ins.values()), "output": output,
+            "temp": max(0, peak - (output - alias)), "alias": alias,
+            "generated_code": 0}
+
+
+_VALUE_TYPES = (bool, int, float, complex, str, type(None), torch.dtype,
+                torch.layout, torch.memory_format)
+
+
+def _op_signature(func, args, kwargs, out) -> str:
+    """One dispatched op as text: its name, then each argument — a tensor
+    as its shape and dtype (not its device or values), a number, string
+    or dtype as its repr, any other object (a device, a boxed process
+    group) as its type — and the outputs' shapes and dtypes."""
+    from torch.utils._pytree import tree_leaves
+
+    def one(x):
+        if isinstance(x, torch.Tensor):
+            return f"{x.dtype}{list(x.shape)}"
+        if isinstance(x, _VALUE_TYPES):
+            return repr(x)
+        return type(x).__name__
+    ins = ",".join(one(x) for x in tree_leaves((args, kwargs)))
+    outs = ",".join(one(x) for x in tree_leaves(out))
+    return f"{func}({ins})->({outs})"
+
+
+def program_hash(fn: Callable, *args, **kwargs) -> str:
+    """sha256 of the aten op sequence that one call ``fn(*args,
+    **kwargs)`` dispatches (each op's name and its arguments' shapes and
+    dtypes, recorded by a ``TorchDispatchMode``).
+
+    The call runs once.  The value is a fingerprint of the MATH the host
+    built — the JAX package hashes the StableHLO text the same way — so
+    the same sources on every rank hash identically, on any device; the
+    profiler's named ranges are left out.  The hand-written kernels enter
+    through ``ctypes`` and dispatch no aten op; the allocations of their
+    outputs do.
+    """
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    h = hashlib.sha256()
+
+    class _Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            if func.namespace == "profiler":    # ranges, not math
+                return out
+            h.update(_op_signature(func, args, kwargs, out).encode())
+            h.update(b"\n")
+            return out
+
+    with _Record():
+        fn(*args, **kwargs)
+    return h.hexdigest()
+
+
+def assert_same_program(fn_or_hash: Any, *args, **kwargs) -> str:
+    """Multi-process divergence guard (SURVEY §5: "same program hash on
+    all hosts" in place of race detection).
+
+    Pass either a precomputed hash string or ``(fn, *args)``.  With
+    :mod:`torch.distributed` initialised over more than one rank the hash
+    is all-gathered over the default group and every value must agree;
+    otherwise it is a pass-through.  Returns the (verified) hash.
+    """
+    h = (fn_or_hash if isinstance(fn_or_hash, str)
+         else program_hash(fn_or_hash, *args, **kwargs))
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        gathered = [None] * dist.get_world_size()
+        dist.all_gather_object(gathered, h)
+        for rank, other in enumerate(gathered):
+            if other != h:
+                raise AssertionError(
+                    f"program hash divergence: rank {dist.get_rank()} has "
+                    f"{h}, rank {rank} has {other} — the ranks built "
+                    "different programs")
+    return h
 
 
 class ServingMetrics:

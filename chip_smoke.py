@@ -4,8 +4,9 @@ training, BERT training under amp O2, each also with the fused FFN and
 under activation recompute, ResNet-50 ImageNet training under amp O1 and
 O2, paged and int8 GPT serving, the serving fleet, data and tensor
 parallelism over NCCL, Switch-GPT-350M/8 training and serving, the ring
-pipeline and context parallelism, and GPT-350M under the resilience layer:
-checkpoints, the guarded step, elastic training) on one NVIDIA H100 and
+pipeline and context parallelism, GPT-350M under the resilience layer:
+checkpoints, the guarded step, elastic training, and its training telemetry,
+collective accounting and cost-model autopilot) on one NVIDIA H100 and
 hold every kernel of the paths against its plain PyTorch version.
 
     python3 chip_smoke.py [--out results.json] [--profile breakdown.txt]
@@ -299,6 +300,34 @@ Phases (any failure exits non-zero; nothing is caught):
    runs ZeRO dp 4 -> 2 -> 4, 2 -> 1 -> 2 and a hard preemption while
    shrunk at 2 and 4 cards, each held to its gate from the readings at
    that card count.
+18. training telemetry and the cost-model loop on GPT-350M (phase 17's
+   recipe, batch and weights): (18a) phase 17's ``GuardedTrainStep``
+   wrapped by ``TrainingMonitor`` (16,384 tokens a step, ``bench.py``'s
+   6 N + 12 L h s FLOP a token, the peak calibrated on the card), 8 steps
+   with one planted NaN gradient: each monitored step bit for bit an
+   unmonitored guarded step from the same state on a second model, each
+   step's launches phase 17a's, ``train_anomalies_total{kind=nonfinite}``
+   1 and the guard's stats, every ``train_step`` record carrying the
+   alerting keys; the calibrated peak (the products' rate: the chain of
+   the rescales alone is taken off), tokens/s, MFU against it and against
+   the dense bf16 peak, the monitored and unmonitored step medians and the monitor's host time logged beside the
+   card's name and power limit; on ``torch.cuda.device_count()`` NCCL
+   ranks (spawned processes): (18b) ``collective_stats`` of one ZeRO step
+   (phase 14b's ``DistributedFusedAdam``, 10 MB buckets, stepped with the
+   overflow flag) and of one DDP step, counts and bytes equal to their
+   bucket layouts' (at one rank the groups of one rank still dispatch
+   their collectives), each op's scope the range it ran under, and every
+   ``c10d`` op name this torch dispatches for the probe's collectives,
+   ``all_to_all``, the port's differentiable ``all_to_all`` and the
+   compressed all-reduce mapped to a kind; (18c) ``ParallelismAutopilot``
+   over a ZeRO ``ElasticTrainer`` of GPT-350M fed each real step's wall
+   time and an injected ``cost_drift``: its refit count and the ticks its
+   drift is confirmed at equal the same autopilot's over the reference's
+   ``FakeTrainer`` recipe on the same schedule, ``audit() == []``, and at
+   one rank (plan space dp 1) the outcome ``no_change``.
+   ``tools/comms_probe_torch.py`` fits the NVLink alpha-beta profile and
+   ``tools/autopilot_torch.py`` runs the commit and the rollback with real
+   replans at 2 and 4 cards.
 
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -7871,6 +7900,565 @@ def phase_resilience():
                 zero=zero, io=io, native=lib, launches=dict(launches))
 
 
+# -- phase 18: training telemetry and the cost-model loop ---------------------
+
+MONITOR_STEPS = 8              # 18a's monitored steps
+MONITOR_NAN_AT = 3             # 18a's planted nan_grads (after the warm-up)
+TOKENS_PER_STEP = ACCUM * MICRO * SEQ
+# 18c: the autopilot over an ElasticTrainer on real step times; the profile
+# is the reference tests' simulated dcn-class psum curve, the drift the
+# reference day's 16x
+AP_STEPS = 5
+AP_DRIFT_AT = 1
+AP_ALPHA, AP_BETA, AP_DRIFT = 2e-3, 1e-9, 16.0
+AP_KW = dict(link_class="dcn", drift_threshold=0.3, confirm_windows=2,
+             min_measurements=8, cooldown_s=0.0, gate_steps=2,
+             gate_tolerance=1.2, min_dp=1)
+
+
+def gpt_flops_per_token(n_params, cfg=GPT350M, seq=SEQ):
+    """``bench.py``'s PaLM-style count per token: 6 N (forward and
+    backward) plus the attention term 12 L h s."""
+    return 6 * n_params + 12 * cfg["num_layers"] * cfg["hidden_size"] * seq
+
+
+def _smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _same_float(a, b):
+    """Equal, or both NaN (a NaN-gradient step's norm)."""
+    return a == b or (a != a and b != b)
+
+
+def _monitored_training(init, batch, smi):
+    """18a: phase 17's guarded GPT-350M step wrapped by TrainingMonitor
+    (calibrated peak), against the same step unmonitored on a second model
+    from the same state, with one planted nan_grads each."""
+    import io
+    from apex_tpu_torch.observability import MetricsRegistry, TrainingMonitor
+    from apex_tpu_torch.observability.train_monitor import _STEP_KEYS
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.resilience import (Fault, FaultInjector,
+                                           GuardedTrainStep)
+
+    def guarded():
+        model = build_model("cuda")
+        model.load_state_dict(init)
+        opt = FusedAdam(model.parameters(), lr=LR)
+        guard = GuardedTrainStep(
+            grad_fn=_gpt_grad_fn, optimizer=opt, warmup_steps=GUARD_WARMUP,
+            fault_injector=FaultInjector([Fault(MONITOR_NAN_AT,
+                                                "nan_grads")]))
+        return model, opt, guard
+    model, opt, guard = guarded()
+    ref, ref_opt, ref_guard = guarded()
+    numels = [p.numel() for p in model.parameters()]
+    flops = gpt_flops_per_token(sum(numels))
+    stream = io.StringIO()
+    reg = MetricsRegistry()
+    reg.attach_stream(stream)
+    mon = TrainingMonitor(reg, tokens_per_step=TOKENS_PER_STEP,
+                          flops_per_token=flops, peak_flops="calibrated")
+    t0 = time.perf_counter()
+    peak = mon._resolve_peak()
+    calibrate_s = time.perf_counter() - t0
+    h = {"g": guard.init_state()}
+
+    def step(*batch, step):
+        r = guard(model, h["g"], *batch, step=step)
+        h["g"] = r.guard_state
+        return r
+    monitored = mon.wrap(step)
+    per_step = _guard_expected(numels, 1)
+    counters = _train_counters() + (_sumsq_counter(),)
+    gref = ref_guard.init_state()
+    mon_dt, ref_dt, host_s, results = [], [], [], []
+    with counting_plain_versions() as plain:
+        for i in range(MONITOR_STEPS):
+            _reset(counters)
+            t0 = time.perf_counter()
+            res = monitored(*batch, step=i)
+            outer = time.perf_counter() - t0
+            launches = _launches_of(counters)
+            if launches != per_step:
+                raise AssertionError(f"[18a] step {i}: launches {launches}, "
+                                     f"expected {per_step}")
+            dt = reg.get("train_step_time_s_last").value()
+            mon_dt.append(dt)
+            host_s.append(outer - dt)
+            t0 = time.perf_counter()
+            rres = ref_guard(ref, gref, *batch, step=i)
+            ref_dt.append(time.perf_counter() - t0)
+            gref = rres.guard_state
+            same = (_equal_all(_train_state(model, opt),
+                               _train_state(ref, ref_opt))
+                    and _equal_all(list(h["g"]), list(gref))
+                    and (res.skipped, res.anomaly, res.next_step)
+                    == (rres.skipped, rres.anomaly, rres.next_step)
+                    and _same_float(res.grad_norm, rres.grad_norm)
+                    and _same_float(res.loss_value, rres.loss_value))
+            if not same:
+                raise AssertionError(f"[18a] monitored step {i} differs from "
+                                     "the unmonitored step")
+            results.append((i, res.skipped, res.anomaly))
+    if sum(plain.values()):
+        raise AssertionError("[18a] a plain version was called")
+    records = [json.loads(ln) for ln in stream.getvalue().splitlines()]
+    steps = [r for r in records if r.get("event") == "train_step"]
+    missing = [sorted(set(_STEP_KEYS) - set(r)) for r in steps
+               if not set(_STEP_KEYS) <= set(r)]
+    nonfinite = reg.get("train_anomalies_total").value(kind="nonfinite")
+    gstats = guard.stats
+    tps = [r["tokens_per_s"] for r in steps]
+    mfu = [r["mfu"] for r in steps]
+    out = dict(peak_flops=peak, calibrate_s=calibrate_s,
+               flops_per_token=flops, tokens_per_step=TOKENS_PER_STEP,
+               results=results, step_times_s=mon_dt,
+               unmonitored_step_times_s=ref_dt, monitor_host_s=host_s,
+               tokens_per_s=tps, mfu=mfu,
+               median_step_s=statistics.median(mon_dt),
+               median_unmonitored_step_s=statistics.median(ref_dt),
+               median_tokens_per_s=statistics.median(tps),
+               median_mfu=statistics.median(mfu),
+               mfu_dense_bf16=[t * flops / PEAK_BF16_FLOPS for t in tps],
+               median_monitor_host_s=statistics.median(host_s),
+               anomalies_nonfinite=nonfinite, guard_stats=gstats,
+               monitor_stats=mon.stats,
+               launches={k: v * MONITOR_STEPS for k, v in per_step.items()})
+    log(f"[18a] TrainingMonitor around phase 17's GuardedTrainStep "
+        f"(GPT-350M, {TOKENS_PER_STEP} tokens a step, {flops:.6e} FLOP a "
+        f"token = 6 N + 12 L h s): {MONITOR_STEPS} steps, results {results}; "
+        f"each step bit for bit an unmonitored guarded step from the same "
+        f"state; launches a step {per_step}; guard stats {gstats}; "
+        f"train_anomalies_total{{kind=nonfinite}} {nonfinite}")
+    log(f"    calibrated peak (bf16 2048^3 chain of 32, a CUDA graph, the "
+        f"rescales' own chain taken off): {peak!r} FLOP/s "
+        f"({calibrate_s:.3f} s; {peak / PEAK_BF16_FLOPS!r} of the dense "
+        f"bf16 {PEAK_BF16_FLOPS:.3e}) [{smi}]")
+    log(f"    tokens/s per step {tps} (median {out['median_tokens_per_s']!r})"
+        f" [{smi}]")
+    log(f"    MFU per step {mfu} (median {out['median_mfu']!r}); against "
+        f"the dense bf16 peak {out['mfu_dense_bf16']} (median "
+        f"{statistics.median(out['mfu_dense_bf16'])!r}) [{smi}]")
+    log(f"    step s monitored {mon_dt} (median {out['median_step_s']!r}), "
+        f"unmonitored {ref_dt} (median "
+        f"{out['median_unmonitored_step_s']!r}); the monitor's host time "
+        f"a step {host_s} (median {out['median_monitor_host_s']!r}) [{smi}]")
+    if missing:
+        raise AssertionError(f"[18a] train_step records lack {missing}")
+    if len(steps) != MONITOR_STEPS:
+        raise AssertionError(f"[18a] {len(steps)} train_step records")
+    want = [(i, i == MONITOR_NAN_AT, "nonfinite" if i == MONITOR_NAN_AT
+             else None) for i in range(MONITOR_STEPS)]
+    if results != want:
+        raise AssertionError(f"[18a] step results {results} != {want}")
+    if not (nonfinite == 1 == gstats["nonfinite"] == gstats["skipped"]
+            == mon.stats["skipped"]):
+        raise AssertionError("[18a] the anomaly counter disagrees with the "
+                             "guard's stats")
+    if not all(np.isfinite(tps)) or not all(0 < m < 1 for m in mfu):
+        raise AssertionError(f"[18a] tokens/s {tps} or MFU {mfu} out of "
+                             "range")
+    return out
+
+
+class _RecordTicks:
+    """A recorder for the autopilot: (event, tick) of each record."""
+
+    def __init__(self):
+        self.events = []
+
+    def record(self, source, what, tick=None, **kw):
+        self.events.append((what, tick))
+
+    def trigger(self, *args, **kw):
+        pass
+
+
+class FakeTrainer:
+    """The reference tests' trainer recipe (``tests/test_autopilot.py``): a
+    plan with a spec, the job's ranks (under ``pool``: the port's ranker
+    reads ``_ranks``, JAX's ``_devices``), ``replan_to`` (whose first
+    ``fail_replans`` calls raise) and the drain and re-shard stats; no
+    model."""
+
+    def __init__(self, spec, ranks, pool="_ranks", fail_replans=0):
+        from types import SimpleNamespace
+        self.plan = SimpleNamespace(spec=spec)
+        setattr(self, pool, list(ranks))
+        self.stats = {"last_checkpoint_s": 1e-3, "last_reshard_s": 2e-3}
+        self.current_step = 0
+        self.replans = []
+        self.params = {}
+        self._fail = fail_replans
+
+    def replan_to(self, spec, **kw):
+        from types import SimpleNamespace
+        if self._fail > 0:
+            self._fail -= 1
+            raise RuntimeError("injected reshard failure")
+        self.replans.append(spec)
+        self.plan = SimpleNamespace(spec=spec)
+
+
+def ap_profile():
+    from apex_tpu_torch.observability.costmodel import (
+        fit_cost_model, simulate_link_measurements)
+    return fit_cost_model(simulate_link_measurements(
+        AP_ALPHA, AP_BETA, link_class="dcn", ops=("psum",)),
+        meta={"source": "simulated dcn psum"})
+
+
+def zero_factory(init):
+    """GPT-350M from ``init`` under ZeRO (``DistributedFusedAdam`` over the
+    plan's data group through ``ZeROGuardAdapter``), the guard over phase
+    5's step: the elastic plan factory of 18c and the autopilot tool."""
+    from apex_tpu_torch.parallel import DistributedFusedAdam
+    from apex_tpu_torch.resilience import (ElasticComponents,
+                                           GuardedTrainStep,
+                                           ZeROGuardAdapter)
+
+    def factory(plan, ckpt, inj):
+        model = build_model(plan.device)
+        model.load_state_dict(init)
+        zopt = DistributedFusedAdam(model.parameters(), lr=LR,
+                                    process_group=plan.groups["data"])
+        guard = GuardedTrainStep(
+            grad_fn=_gpt_grad_fn, optimizer=ZeROGuardAdapter(zopt, plan),
+            warmup_steps=GUARD_WARMUP, checkpoint=ckpt, fault_injector=inj,
+            group=plan.group, plan=plan)
+        return ElasticComponents(guard, model, guard.init_state())
+    return factory
+
+
+def _ticks_of(rec, what):
+    return [t for w, t in rec.events if w == what]
+
+
+def _autopilot_on_real_steps(world, init, batch, root):
+    """18c: ``ParallelismAutopilot`` over an ``ElasticTrainer`` of GPT-350M
+    (ZeRO, dp = the ranks) fed each real step's wall time, a cost_drift at
+    ``AP_DRIFT_AT``; then the same autopilot over the reference's
+    ``FakeTrainer`` recipe under the same schedule and step times."""
+    from apex_tpu_torch.resilience import (ElasticPlan, ElasticTrainer,
+                                           Fault, FaultInjector,
+                                           ParallelismAutopilot,
+                                           TopologySpec)
+    spec = TopologySpec(dp=world, zero_shard=world)
+
+    def injector():
+        return FaultInjector([Fault(AP_DRIFT_AT, "cost_drift",
+                                    magnitude=AP_DRIFT)])
+    inj = injector()
+    tr = ElasticTrainer(zero_factory(init),
+                        ElasticPlan.build(spec, device="cuda"),
+                        directory=os.path.join(root, "autopilot"),
+                        fault_injector=inj, keep=RESILIENCE_KEEP,
+                        save_every=1000)
+    rec = _RecordTicks()
+    ap = ParallelismAutopilot(tr, ap_profile(), injector=inj, recorder=rec,
+                              **AP_KW)
+    batch_fn = lambda step, plan: batch                 # noqa: E731
+    dts = []
+    for _ in range(AP_STEPS):
+        t0 = time.perf_counter()
+        tr.step_once(batch_fn)
+        dt = time.perf_counter() - t0
+        ap.record_step(dt)
+        dts.append(dt)
+        ap.tick()
+        ap.tick()
+    fake = FakeTrainer(spec, range(world))
+    frec = _RecordTicks()
+    fap = ParallelismAutopilot(fake, ap_profile(), injector=injector(),
+                               recorder=frec, clock=lambda: 0.0,
+                               grad_bytes=ap._grad_bytes
+                               or sum(p.numel() * p.element_size()
+                                      for p in tr.model.parameters()),
+                               **AP_KW)
+    for step, dt in enumerate(dts):
+        fake.current_step = step + 1
+        fap.record_step(dt)
+        fap.tick()
+        fap.tick()
+    out = dict(step_times_s=dts, refits=ap.stats["refits"],
+               fake_refits=fap.stats["refits"],
+               confirm_ticks=_ticks_of(rec, "drift_confirmed"),
+               fake_confirm_ticks=_ticks_of(frec, "drift_confirmed"),
+               outcomes=[e["outcome"] for e in ap.adoption_log],
+               fake_outcomes=[e["outcome"] for e in fap.adoption_log],
+               audit=ap.audit(), faults=list(inj.log),
+               final=tr.plan.spec.to_dict(), stats={
+                   k: v for k, v in ap.stats.items()
+                   if k not in ("last_adoption",)})
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dispatched_names(group, world):
+    """The ``c10d`` op names this torch dispatches for the probe's four
+    collectives, ``all_to_all_single``, the port's differentiable
+    ``all_to_all`` and the compressed (bf16, int8) all-reduce."""
+    import torch.distributed as dist
+    from apex_tpu_torch.observability import collective_stats
+    from apex_tpu_torch.transformer.expert_parallel import all_to_all
+    from apex_tpu_torch.utils import compressed_allreduce as CA
+    x = torch.ones(world * 128, 128, device="cuda")
+
+    def calls():
+        dist.all_reduce(x.clone(), group=group)
+        out = torch.empty(world * x.shape[0], 128, device="cuda")
+        dist.all_gather_into_tensor(out, x, group=group)
+        shard = torch.empty(x.shape[0] // world, 128, device="cuda")
+        dist.reduce_scatter_tensor(shard, x, group=group)
+        o = torch.empty_like(x)
+        dist.all_to_all_single(o, x, group=group)
+        all_to_all(x.clone().requires_grad_(), group).sum().backward()
+        for mode in ("bf16", "int8"):
+            CA.psum_compressed(x, mode=mode, process_group=group)
+        if world > 1:
+            rank = dist.get_rank(group)
+            recv = torch.empty_like(x)
+            for r in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, x, (rank + 1) % world,
+                               group=group),
+                    dist.P2POp(dist.irecv, recv, (rank - 1) % world,
+                               group=group)]):
+                r.wait()
+    st = collective_stats(calls)
+    torch.cuda.synchronize()
+    return st
+
+
+def _ddp_step(model, ddp, opt, tokens, targets):
+    """One DDP step over the micro-batches: the backward of each but the
+    last under ``no_sync``, the last one's reducing every bucket."""
+    from apex_tpu_torch.utils.profiling import annotate
+    opt.zero_grad()
+    m = tokens.shape[0]
+    for i in range(m):
+        ctx = ddp.no_sync() if i < m - 1 else contextlib.nullcontext()
+        with ctx, annotate("ddp_backward"):
+            x = model.backbone(model.embed(tokens[i]), None)
+            loss = model.head_loss(x, targets[i]).mean()
+            loss.backward(torch.full_like(loss, 1.0 / m))
+    opt.step()
+
+
+def _accounting(rank, world, init):
+    """18b: ``collective_stats`` of one ZeRO GPT-350M step (phase 14b's
+    optimizer and buckets, stepped with an overflow flag) and of one DDP
+    step, each against its bucket layout; the weights ``init``."""
+    from apex_tpu_torch.observability import collective_stats, format_stats
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import (DistributedDataParallel,
+                                         DistributedFusedAdam)
+    from apex_tpu_torch.transformer import parallel_state as ps
+    from apex_tpu_torch.utils.profiling import annotate
+    rng = np.random.RandomState(0)
+    shape = (ACCUM, MICRO, SEQ)
+    tokens, targets = (_shard(torch.from_numpy(rng.randint(
+        0, GPT350M["vocab_size"], shape)), rank, world).to("cuda")
+        for _ in range(2))
+    out = {"dispatched": _dispatched_names(ps.get_group("data"), world)}
+    model = build_model("cuda")
+    model.load_state_dict(init)
+    opt = DistributedFusedAdam(model.parameters(), lr=LR,
+                               message_size=10_000_000)
+    flag = torch.zeros((), dtype=torch.int32, device="cuda")
+
+    def zero_step():
+        from apex_tpu_torch.transformer.pipeline_parallel import (
+            forward_backward_no_pipelining)
+        opt.zero_grad()
+        forward_backward_no_pipelining(
+            lambda m, x: m.backbone(m.embed(x), None),
+            lambda x, t: model.head_loss(x, t).mean(), model, tokens,
+            targets)
+        with annotate("zero_step"):
+            opt.step(noop_flag=flag)
+    train_step(model, opt, tokens, targets)           # builds the shards
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = collective_stats(zero_step)
+    torch.cuda.synchronize()
+    zero_s = time.perf_counter() - t0
+    buckets = opt._layout().buckets
+    full = [int(info.meta.nrows) * 128 * 4 for info in buckets]
+    out["zero"] = dict(stats=st, bucket_bytes=full, seconds=zero_s,
+                       table=format_stats(st, by_scope=True))
+    del model, opt
+    torch.cuda.empty_cache()
+    model = build_model("cuda")
+    model.load_state_dict(init)
+    ddp = DistributedDataParallel(model)
+    dopt = FusedAdam(model.parameters(), lr=LR)
+    _ddp_step(model, ddp, dopt, tokens, targets)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = collective_stats(_ddp_step, model, ddp, dopt, tokens, targets)
+    torch.cuda.synchronize()
+    ddp_s = time.perf_counter() - t0
+    out["ddp"] = dict(stats=st, seconds=ddp_s,
+                      bucket_bytes=[int(b.meta.nrows) * 128
+                                    * b.params[0].element_size()
+                                    for b in ddp._buckets],
+                      table=format_stats(st, by_scope=True))
+    del model, ddp, dopt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _telemetry_rank(rank, world, out_dir):
+    """One rank of phase 18b and 18c (a spawned process on card ``rank``):
+    NCCL through a ``file://`` store in ``out_dir``; results pickled into
+    ``out_dir``."""
+    import pickle
+    import torch.distributed as dist
+    from apex_tpu_torch.transformer import parallel_state as ps
+    torch.cuda.set_device(rank)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{pathlib.Path(out_dir).resolve()}/store",
+        rank=rank, world_size=world)
+    ps.initialize_model_parallel()
+    model = build_model("cuda").init_params(torch.Generator().manual_seed(0))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    t0 = time.perf_counter()
+    out = {"accounting": _accounting(rank, world, init)}
+    ps.destroy_model_parallel()
+    t1 = time.perf_counter()
+    out["autopilot"] = _autopilot_on_real_steps(
+        world, init, _phase17_batch(), str(out_dir))
+    out["seconds"] = {"18b": t1 - t0, "18c": time.perf_counter() - t1}
+    with open(pathlib.Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _check_zero_stats(tag, z, world):
+    st, full = z["stats"], z["bucket_bytes"]
+    got = {k: [o["bytes"] for o in st[k]["ops"]]
+           for k in ("reduce_scatter", "all_gather", "all_reduce")}
+    want = {"reduce_scatter": full, "all_gather": full, "all_reduce": [4]}
+    scopes = {o["scope"] for k in got for o in st[k]["ops"]}
+    groups = {o["group_size"] for k in got for o in st[k]["ops"]}
+    log(f"{tag} ZeRO GPT-350M step (phase 14b's DistributedFusedAdam, "
+        f"{len(full)} buckets of 10 MB, with the overflow flag): counts "
+        f"{ {k: len(v) for k, v in got.items()} }, bytes "
+        f"{ {k: sum(v) for k, v in got.items()} } (the layout's "
+        f"{sum(full)} per reduce-scatter and all-gather, 4 for the flag), "
+        f"scopes {sorted(scopes)}, group sizes {sorted(groups)} "
+        f"({z['seconds']:.3f} s)")
+    if got != want or st["collective_permute"]["count"] \
+            or st["all_to_all"]["count"]:
+        raise AssertionError(f"{tag} ZeRO step collectives {got} != the "
+                             f"layout's {want}")
+    if scopes != {"zero_step"} or groups != {world}:
+        raise AssertionError(f"{tag} ZeRO step scopes {scopes} or groups "
+                             f"{groups}")
+
+
+def _check_ddp_stats(tag, d, world):
+    st, full = d["stats"], d["bucket_bytes"]
+    got = [o["bytes"] for o in st["all_reduce"]["ops"]]
+    scopes = {o["scope"] for o in st["all_reduce"]["ops"]}
+    log(f"{tag} DDP GPT-350M step ({ACCUM} micro-batches, the last "
+        f"reducing): {len(got)} all-reduces of {sum(got)} bytes (the "
+        f"layout: {len(full)} buckets, {sum(full)} bytes), scopes "
+        f"{sorted(scopes)} ({d['seconds']:.3f} s)")
+    if sorted(got) != sorted(full) or st["total"]["count"] != len(full):
+        raise AssertionError(f"{tag} DDP all-reduces {got} != the layout's "
+                             f"{full}")
+    if scopes != {"ddp_backward"}:
+        raise AssertionError(f"{tag} DDP scopes {scopes}")
+
+
+def phase_telemetry(smi):
+    """Phase 18: (18a) the monitored guarded GPT-350M step in this
+    process; (18b) collective accounting and (18c) the autopilot on real
+    step times on ``torch.cuda.device_count()`` NCCL ranks (spawned
+    processes)."""
+    import pickle
+    import torch.multiprocessing as mp
+    from apex_tpu_torch.observability.comms import _C10D_OPS
+    t0 = time.perf_counter()
+    model = build_model("cuda").init_params(torch.Generator().manual_seed(0))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    monitor = _monitored_training(init, _phase17_batch(), smi)
+    del init
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts = {"18a": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    world = torch.cuda.device_count()
+    out_dir = pathlib.Path("build") / "phase18"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    try:
+        mp.start_processes(_telemetry_rank, args=(world, str(out_dir)),
+                           nprocs=world, start_method="spawn", join=True)
+        ranks = []
+        for r in range(world):
+            with open(out_dir / f"rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+    finally:
+        for sub in out_dir.iterdir():
+            if sub.is_dir():
+                shutil.rmtree(sub, ignore_errors=True)
+    parts["18b+18c"] = time.perf_counter() - t1
+    parts.update({k: v for k, v in ranks[0]["seconds"].items()})
+    for r, rank in enumerate(ranks):
+        tag = f"[18b] rank {r} of {world}:"
+        acc = rank["accounting"]
+        seen = acc["dispatched"]["dispatched"]
+        log(f"{tag} c10d ops this torch dispatches for all_reduce, "
+            f"all_gather_into_tensor, reduce_scatter_tensor, "
+            f"all_to_all_single, the port's all_to_all, the compressed "
+            f"all-reduce (bf16, int8)"
+            f"{' and a batch_isend_irecv ring' if world > 1 else ''}: "
+            f"{seen}")
+        unknown = sorted(set(seen) - set(_C10D_OPS))
+        if unknown:
+            raise AssertionError(f"{tag} c10d ops without a kind: {unknown}")
+        if world == 1:
+            log(f"{tag} at one rank the ZeRO buckets still reduce-scatter "
+                "and all-gather over a group of one rank (c10d dispatches "
+                "them), so the expected counts are the layout's")
+        _check_zero_stats(tag, acc["zero"], world)
+        _check_ddp_stats(tag, acc["ddp"], world)
+        a = rank["autopilot"]
+        log(f"[18c] rank {r}: ParallelismAutopilot over ElasticTrainer "
+            f"(GPT-350M, ZeRO dp {world}) on real step times "
+            f"{a['step_times_s']} s, cost_drift x{AP_DRIFT} at step "
+            f"{AP_DRIFT_AT}: refits {a['refits']} (FakeTrainer recipe "
+            f"{a['fake_refits']}), drift confirmed at ticks "
+            f"{a['confirm_ticks']} (FakeTrainer {a['fake_confirm_ticks']}), "
+            f"outcomes {a['outcomes']} (FakeTrainer {a['fake_outcomes']}), "
+            f"audit {a['audit']}, faults {a['faults']}, final plan "
+            f"{a['final']}")
+        if (a["refits"], a["confirm_ticks"]) != (a["fake_refits"],
+                                                 a["fake_confirm_ticks"]) \
+                or not a["confirm_ticks"] or a["audit"] != []:
+            raise AssertionError("[18c] the autopilot on real step times "
+                                 "departs from the FakeTrainer recipe's run")
+        if world == 1 and (a["outcomes"] != ["no_change"]
+                           or a["fake_outcomes"] != ["no_change"]):
+            raise AssertionError(f"[18c] at one rank the outcome must be "
+                                 f"no_change, got {a['outcomes']}")
+    seconds = time.perf_counter() - t0
+    log(f"[18] telemetry and the cost-model loop: {seconds:.1f} s "
+        f"({ {k: round(v, 1) for k, v in parts.items()} } s)")
+    return dict(seconds=seconds, parts=parts, world=world, monitor=monitor,
+                ranks=ranks, launches=monitor["launches"])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write all results to this JSON file")
@@ -8030,10 +8618,7 @@ def main(argv=None):
     if args.profile:
         profiled.update(phase_profile_paged(model, qmodel, profile_lines))
     torch.cuda.empty_cache()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = _smi()
     # the serving fleet on the same weights
     fleet, fleet_runs = phase_fleet(model, qmodel, paged, smi)
     del model, qmodel
@@ -8051,6 +8636,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     # resilience: the guarded step, elastic training, ZeRO checkpoints
     resilience = phase_resilience()
+    torch.cuda.empty_cache()
+    # training telemetry, collective accounting and the autopilot
+    telemetry = phase_telemetry(smi)
     if args.profile:
         with open(args.profile, "w") as f:
             f.write("\n".join(profile_lines) + "\n")
@@ -8066,6 +8654,7 @@ def main(argv=None):
             if isinstance(run, dict) and "launches" in run:
                 both.update(run["launches"])
     both.update(resilience["launches"])
+    both.update(telemetry["launches"])
     for run in (serve_f, train, train_f, *train_remat.values(), bert,
                 bert_f, bert_r, clip, resnet["O1"],
                 resnet["O2"], resnet_baseline, *resnet_opts.values(),
@@ -8167,7 +8756,7 @@ def main(argv=None):
                            resnet_parity=resnet_parity,
                            packed_segments=packed, data_parallel=dp,
                            tensor_parallel=tp, model_parallel=mp,
-                           resilience=resilience,
+                           resilience=resilience, telemetry=telemetry,
                            flash_tp_shards=fl_tp,
                            fused_ffn_tp_shards=ffn_tp,
                            profile=profiled or None, kernels=kernels), f,

@@ -590,8 +590,16 @@ def case_elastic(rank, world, inp):
     return _torch_elastic_ranks.run(rank, world, inp)
 
 
+def case_obs(rank, world, inp):
+    """Training telemetry and the cost model over real ranks: the
+    functions of ``tests/_torch_obs_ranks.py`` that ``inp["parts"]``
+    names."""
+    import _torch_obs_ranks
+    return _torch_obs_ranks.run(rank, world, inp)
+
+
 CASES = {"collectives": case_collectives, "mp": case_mp,
-         "elastic": case_elastic, "examples": case_examples, "ddp": case_ddp,
+         "elastic": case_elastic, "obs": case_obs, "examples": case_examples, "ddp": case_ddp,
          "syncbn": case_syncbn, "zero": case_zero,
          "cpu_launches": case_cpu_launches, "tp": case_tp}
 
