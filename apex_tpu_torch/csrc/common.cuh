@@ -8,7 +8,27 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace apex_tpu_torch {
+
+// Allow a kernel `bytes` of dynamic shared memory on the current device,
+// once per kernel and device: a function's attributes belong to one
+// device's context, so `done` (the caller's static) holds a bit a device
+// already set (devices 64 and up are set on every call).  Returns a
+// cudaError_t.
+template <typename Kernel>
+int set_smem(Kernel kernel, int bytes, std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (bit != 0 && (done.load(std::memory_order_acquire) & bit) != 0) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  done.fetch_or(bit, std::memory_order_release);
+  return 0;
+}
 
 // dtype codes passed from Python (_kernels.DTYPE_CODES)
 enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };

@@ -1048,7 +1048,7 @@ inline int stored_b_rows(const Product& q) {
 template <class C, class Epi>
 int launch_mma(const bf16* a, const bf16* b, int m, int n, int k, bool vec, const Epi& epi,
                cudaStream_t s, int b_rows = 0) {
-  static bool attr_set = false;
+  static std::atomic<uint64_t> attr_set{0};
   const int rc = set_smem(gemm_nt_mma_kernel<C, Epi>, C::kSmemBytes, attr_set);
   if (rc != 0) return rc;
   const dim3 grid(static_cast<unsigned>((n + C::BN - 1) / C::BN),
@@ -1062,7 +1062,7 @@ int launch_mma(const bf16* a, const bf16* b, int m, int n, int k, bool vec, cons
 template <int BN, bool kTA, bool kTB, class Epi>
 int launch_tma(const Product& q, const Epi& epi, cudaStream_t s) {
   constexpr int kBytes = tma_smem_bytes<BN, HasAux<Epi>::value>();
-  static bool attr_set = false;
+  static std::atomic<uint64_t> attr_set{0};
   int rc = set_smem(gemm_tma_kernel<BN, kTA, kTB, Epi>, kBytes, attr_set);
   if (rc != 0) return rc;
   // a K-major operand is boxed 64 contraction columns by the tile's rows,
@@ -1121,7 +1121,7 @@ inline int row_partial_cols(const Product& q, int code) {
 template <class Epi>
 int launch_tma_rows(const Product& q, const Epi& epi, cudaStream_t s) {
   constexpr int kBytes = kRowsSmemBytes<Epi>;
-  static bool attr_set = false;
+  static std::atomic<uint64_t> attr_set{0};
   int rc = set_smem(gemm_tma_rows_kernel<Epi>, kBytes, attr_set);
   if (rc != 0) return rc;
   CUtensorMap ta, tb, tc{};

@@ -333,12 +333,8 @@ static bool launch_warp(int nv, const void* dy, const void* res, const void* w, 
     }
     auto kernel = from_y ? layer_norm_bwd_warp_kernel<T, NV, true>
                          : layer_norm_bwd_warp_kernel<T, NV, false>;
-    static const cudaError_t attr[2] = {
-        cudaFuncSetAttribute(layer_norm_bwd_warp_kernel<T, NV, false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kLnBwdSmemBytes),
-        cudaFuncSetAttribute(layer_norm_bwd_warp_kernel<T, NV, true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kLnBwdSmemBytes)};
-    if (attr[from_y != 0] != cudaSuccess) return false;
+    static std::atomic<uint64_t> attr_set[2];
+    if (set_smem(kernel, kLnBwdSmemBytes, attr_set[from_y != 0]) != 0) return false;
     kernel<<<static_cast<unsigned>(n_parts), kLnBwdThreads, kLnBwdSmemBytes, st>>>(
         static_cast<const T*>(dy), static_cast<const T*>(res), static_cast<const float*>(w),
         static_cast<const float*>(b), static_cast<const float*>(mean),

@@ -122,17 +122,6 @@ __device__ __forceinline__ void load_b_t(unsigned (&r)[4], const bf16* tile, int
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// Allow a kernel `bytes` of dynamic shared memory (once per kernel: `done`
-// is the caller's flag); returns a cudaError_t.
-template <typename Kernel>
-int set_smem(Kernel kernel, int bytes, bool& done) {
-  if (done) return 0;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  done = true;
-  return 0;
-}
 
 // the f32 (FMA) instantiations read and write any float dtype through these
 __device__ __forceinline__ float load_f(const void* p, int code, int64_t i) {

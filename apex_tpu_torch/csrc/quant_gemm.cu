@@ -870,7 +870,7 @@ template <int BN, int P>
 int launch_qgemm_tma(const CUtensorMap& tw, const CUtensorMap& tx, const float* scale, float* y,
                      int m, int n, int k, int part_rows, int ks, cudaStream_t s) {
   using C = QTma<BN, P>;
-  static bool attr_set = false;
+  static std::atomic<uint64_t> attr_set{0};
   const int rc = set_smem(qgemm_tma_kernel<BN, P>, C::kSmem, attr_set);
   if (rc != 0) return rc;
   QLaunch q(dim3(static_cast<unsigned>(ks * ((m + BN - 1) / BN)),
@@ -885,7 +885,7 @@ int launch_qgemm_tma(const CUtensorMap& tw, const CUtensorMap& tx, const float* 
 template <int BN, int P>
 int qgemm_tma_slots(int ks) {
   using C = QTma<BN, P>;
-  static bool attr_set = false;
+  static std::atomic<uint64_t> attr_set{0};
   if (set_smem(qgemm_tma_kernel<BN, P>, C::kSmem, attr_set) != 0) return 0;
   QLaunch q(dim3(static_cast<unsigned>(ks), 1, 1), C::kSmem, ks, nullptr);
   int clusters = 0;

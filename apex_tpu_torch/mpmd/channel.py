@@ -17,8 +17,9 @@ consumes the fault, a retry of the SAME send succeeds.
 
 :meth:`LocalDcnChannel.from_cost_model` prices the link off a fitted
 :class:`~apex_tpu_torch.observability.costmodel.CostModel` (its ``dcn``
-``ppermute`` curve).  The MPMD engine that drives stage programs over this
-channel is not ported yet.
+``ppermute`` curve).  :class:`~apex_tpu_torch.mpmd.engine.MpmdPipeline`
+moves its stage boundaries and the tied-embedding sync over this channel,
+and the disaggregated serving fleet its KV blocks.
 """
 
 from __future__ import annotations

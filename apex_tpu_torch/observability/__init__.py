@@ -30,11 +30,18 @@ serving telemetry.
   alpha-beta ring :class:`CostModel` (``tools/comms_probe_torch.py`` is
   the CLI).
 
-``anatomy`` (the MPMD engine's measured timelines) is not ported: its
-events come from the MPMD engine, which waits in ``ROADMAP.md`` queue A
-item 17.  ``hlo_collective_stats`` has no counterpart (there is no HLO).
+* :mod:`~apex_tpu_torch.observability.anatomy` — measured critical-path
+  attribution of the MPMD engine's traced steps (:func:`reconstruct`,
+  :func:`attribute`, :func:`diff_timelines` against
+  :func:`~apex_tpu_torch.mpmd.schedule.simulate`;
+  ``tools/step_anatomy_torch.py`` is the CLI).
+
+``hlo_collective_stats`` has no counterpart (there is no HLO).
 """
 
+from apex_tpu_torch.observability.anatomy import (MeasuredTimeline, attribute,
+                                                  diff_timelines, reconstruct,
+                                                  synthesize_events)
 from apex_tpu_torch.observability.comms import (collective_stats,
                                                 format_stats, wire_bytes)
 from apex_tpu_torch.observability.costmodel import (CostModel, Measurement,
@@ -58,6 +65,8 @@ from apex_tpu_torch.observability.train_monitor import (TrainingMonitor,
 
 __all__ = ["BurnWindow", "CostModel", "Counter", "FleetCollector",
            "FlightRecorder", "Gauge", "Histogram", "Measurement",
+           "MeasuredTimeline", "attribute", "diff_timelines", "reconstruct",
+           "synthesize_events",
            "MetricsRegistry", "RequestRecord", "RequestTracer",
            "RollingPercentiles", "SLOMonitor", "SLOTarget", "TraceContext",
            "Tracer", "TrainingMonitor", "calibrated_peak_flops",

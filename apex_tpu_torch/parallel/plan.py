@@ -15,8 +15,10 @@ port of ``apex_tpu/parallel/plan.py``.
 
 :meth:`ParallelPlan.topology` and :meth:`ParallelPlan.from_topology`
 project onto the elastic layer's :class:`~apex_tpu_torch.resilience.
-elastic.TopologySpec` (the checkpoint manifests' schema).  A plan with ``n_pods > 1`` validates as in JAX; only the MPMD engine
-(queue A item 17) runs it.
+elastic.TopologySpec` (the checkpoint manifests' schema).  A plan with
+``n_pods > 1`` validates as in JAX and runs on
+:class:`~apex_tpu_torch.mpmd.engine.MpmdPipeline` (its stages at ``tp ==
+1``).
 """
 
 from __future__ import annotations
@@ -57,8 +59,9 @@ class ParallelPlan:
     boundary edges cross the slow (DCN) tier; ``stage_plans`` — one
     intra-pod SPMD plan per pod (``pp=1``, ``n_pods=1``, same ``dp``)
     — lets pods run heterogeneous tp/SP layouts.  Plans with
-    ``n_pods > 1`` are executed by the host-driven MPMD pipeline (not
-    ported yet), not the ring engine.
+    ``n_pods > 1`` are executed by the host-driven MPMD pipeline
+    (:class:`~apex_tpu_torch.mpmd.engine.MpmdPipeline`; tp > 1 inside a
+    stage is not ported), not the ring engine.
     """
 
     dp: int = 1

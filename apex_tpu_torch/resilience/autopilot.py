@@ -260,9 +260,9 @@ class ParallelismAutopilot:
 
     def observe_anatomy(self, report) -> bool:
         """Feed one step's measured-vs-predicted timeline diff (the
-        dict the JAX package's ``observability.anatomy.diff_timelines``
-        returns, whose port waits with the MPMD engine's events, or its
-        bare ``drift_score``).
+        dict :func:`apex_tpu_torch.observability.anatomy.diff_timelines`
+        returns for an :class:`~apex_tpu_torch.mpmd.engine.MpmdPipeline`
+        step, or its bare ``drift_score``).
 
         This is the STRUCTURAL drift channel: the cost-model path
         sees curve drift (links got slower), this one sees the

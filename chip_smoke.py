@@ -6,8 +6,9 @@ O2, paged and int8 GPT serving, the serving fleet, data and tensor
 parallelism over NCCL, Switch-GPT-350M/8 training and serving, the ring
 pipeline and context parallelism, GPT-350M under the resilience layer:
 checkpoints, the guarded step, elastic training, and its training telemetry,
-collective accounting and cost-model autopilot) on one NVIDIA H100 and
-hold every kernel of the paths against its plain PyTorch version.
+collective accounting and cost-model autopilot, and GPT-350M through the
+cross-pod MPMD pipeline) on one NVIDIA H100 and hold every kernel of the
+paths against its plain PyTorch version.
 
     python3 chip_smoke.py [--out results.json] [--profile breakdown.txt]
 
@@ -328,6 +329,27 @@ Phases (any failure exits non-zero; nothing is caught):
    ``tools/comms_probe_torch.py`` fits the NVLink alpha-beta profile and
    ``tools/autopilot_torch.py`` runs the commit and the rollback with real
    replans at 2 and 4 cards.
+19. the cross-pod MPMD pipeline on GPT-350M (phase 5's weights and batch
+   as 4 micro-batches of 4 x 1024 tokens, ``FusedAdam(lr=1e-4)``, two
+   pods): (19a) ``MpmdPipeline`` at dp 1, pp 2, ``dcn_hiding``, traced,
+   one scheduled ``dcn_fault``, 3 steps, step 0 as ``loss_and_grads`` and
+   each stage's ``apply_grads``; (19c) its ``save_checkpoint``, a step,
+   ``restore_stage(0)`` and ``restore_checkpoint``; (19b) pp 4, ``1f1b``,
+   ``measure_ops``, 2 steps.  Each run's launches of #1-#5, #8-#10 and #18
+   are exact (#18 from each stage's own list, ``table_launches``), no plain
+   version is called, the two tied-embedding replicas are bit for bit
+   equal after every step, the channel retries 19a's one fault and no
+   other, the flow chains are unbroken (M + 1 complete a step), step 0's
+   loss and every gradient are held against ``forward_backward_no_
+   pipelining`` over the same micro-batches in one process at
+   ``MPMD_GATES`` (bit for bit but the embedding's: gates from correct and
+   planted-fault readings of ``tools/mpmd_torch.py --gates``), each
+   stage's five attribution categories sum to its makespan within 1e-9
+   relative, and 19c restores every stage bit for bit at the saved step.
+   Step times, tokens/s, peak memory, the channel's bytes and seconds, the
+   attribution table and the diff against ``simulate`` at the measured
+   median op times are logged.  ``tools/mpmd_torch.py`` runs the same
+   recipes with stage ``i`` on ``cuda:i`` at 2 and 4 cards.
 
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -8459,6 +8481,372 @@ def phase_telemetry(smi):
                 ranks=ranks, launches=monitor["launches"])
 
 
+# -- phase 19: the cross-pod MPMD pipeline ----------------------------------
+
+MPMD_M = 4                     # micro-batches a step: 4 x (4 x 1024) tokens
+MPMD_STEPS = {"19a": 3, "19b": 2}
+# The planted faults of phase 19's gate readings, each in the MPMD engine's
+# own code (the one-process reference runs neither)
+MPMD_FAULTS = ("drop_head_grad", "mb_order")
+# Phase 19's gates on step 0 against one process on the same weights and
+# micro-batches (``_mpmd_gaps``: the loss's relative gap; for the layers,
+# the final LayerNorm and the tied embedding (both replicas) the largest
+# |difference| over the reference's largest entry), set from
+# ``tools/mpmd_torch.py --gates`` on the card, correct against faulted, the
+# same at pp 2 and pp 4: correct loss, layers and final LayerNorm 0 (the
+# same kernels in the same order), the embedding 2.94e-8 (one pullback over
+# the 16,384 tokens against the reference's four of 4096: another sum
+# order); drop_head_grad the embedding 0.466; mb_order the layers 1.81e-7,
+# the final LayerNorm 1.09e-7 (its loss 0: the four losses summed last
+# first round alike here).  So bit for bit but the embedding, held at 1e-6.
+MPMD_GATES = {"loss": 0.0, "layers": 0.0, "final_layernorm": 0.0,
+              "embedding": 1e-6}
+
+
+def _plant_mpmd(faults):
+    """Plant ``faults`` in the MPMD engine (for the gate readings):
+    ``drop_head_grad``: the first stage's embedding gradient leaves out the
+    tied head's (the sync's merge dropped); ``mb_order``: every stage
+    accumulates its micro-batches' gradients and losses last first (the
+    engine runs all forwards, then the backwards from micro-batch M - 1
+    down)."""
+    from unittest import mock
+    from apex_tpu_torch.mpmd import engine as mpmd_engine
+    from apex_tpu_torch.mpmd.schedule import Op
+    from apex_tpu_torch.mpmd.stage import StageProgram
+    stack = contextlib.ExitStack()
+    for fault in faults:
+        if fault not in MPMD_FAULTS:
+            raise ValueError(f"unknown fault {fault!r}")
+    if "drop_head_grad" in faults:
+        real = StageProgram.run_embed_bwd
+
+        def dropped(self, dx0, head_eg):
+            return real(self, dx0, [torch.zeros_like(g) for g in head_eg])
+        stack.enter_context(mock.patch.object(StageProgram, "run_embed_bwd",
+                                              dropped))
+    if "mb_order" in faults:
+        real_init = mpmd_engine.MpmdPipeline.__init__
+
+        def init(self, *args, **kw):
+            real_init(self, *args, **kw)
+            S, M = self.n_stages, self.M
+            self.order = ([Op(s, "fwd", m) for m in range(M)
+                           for s in range(S)]
+                          + [Op(s, "bwd", m) for m in reversed(range(M))
+                             for s in reversed(range(S))])
+        stack.enter_context(mock.patch.object(mpmd_engine.MpmdPipeline,
+                                              "__init__", init))
+    return stack
+
+
+def _mpmd_reference(init, tokens, targets):
+    """The port's one-process GPT-350M on the same weights and
+    micro-batches: ``forward_backward_no_pipelining`` over
+    ``GPTModel.loss``; its loss and every gradient."""
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        forward_backward_no_pipelining)
+    model = build_model(tokens.device)
+    model.load_state_dict(init)
+    loss = forward_backward_no_pipelining(
+        lambda m, x: x, lambda x, t: model.loss(x, t), model, tokens,
+        targets)
+    return float(loss), {n: p.grad for n, p in model.named_parameters()}
+
+
+def _mpmd_gaps(loss, grads, eng, ref_loss, ref_grads):
+    """Step 0 of the engine against the reference: the loss's relative gap,
+    and for the layers, the final LayerNorm and the tied embedding (both
+    replicas) the largest |difference| over the reference's largest
+    entry."""
+    from apex_tpu_torch.models.gpt import pipeline_layer_ids
+    gaps = {"loss": abs(loss - ref_loss) / abs(ref_loss)}
+    for i, g in enumerate(grads):
+        ids = pipeline_layer_ids(GPT350M["num_layers"], eng.n_stages, 1, i)
+        for name, t in g.items():
+            key = name.split(".")[0]
+            ref = name
+            if key == "layers":
+                j, rest = name[len("layers."):].split(".", 1)
+                ref = f"layers.{ids[int(j)]}.{rest}"
+            ref = ref_grads[ref]
+            gap = float((t.to(ref.device, torch.float32) - ref.float()).abs()
+                        .max() / ref.float().abs().max())
+            gaps[key] = max(gaps.get(key, 0.0), gap)
+    return gaps
+
+
+def _step_anatomy_tool():
+    """``tools/step_anatomy_torch.py`` (its ``predicted_from_measured``)."""
+    import importlib.util
+    path = pathlib.Path(__file__).resolve().parent / "tools" / \
+        "step_anatomy_torch.py"
+    spec = importlib.util.spec_from_file_location("step_anatomy_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _mpmd_anatomy(eng):
+    """The newest traced step's measured timeline: the attribution (each
+    stage's five categories sum to the makespan), its diff against
+    ``simulate`` at the measured median op times, the channel's seconds."""
+    from apex_tpu_torch.observability import anatomy
+    tl = anatomy.reconstruct(eng.anatomy_events())
+    attr = anatomy.attribute(tl)
+    sums = [abs(st["total"] - attr["makespan"]) / attr["makespan"]
+            for st in attr["per_stage"]]
+    predicted = _step_anatomy_tool().predicted_from_measured(tl)
+    diff = anatomy.diff_timelines(tl, predicted, fold_last_fwd=True)
+    xfer = collections.defaultdict(float)
+    for x in tl.xfers:
+        xfer["sync" if x["mb"] < 0 else str(x["kind"])] += (
+            x["end"] - x["start"])
+    return dict(makespan_s=tl.makespan, busy_s=tl.busy,
+                attribution={k: attr[k] for k in ("totals", "fractions")},
+                sum_error=max(sums), drift_score=diff["drift_score"],
+                median_ratio=diff["median_ratio"],
+                unpredicted_bubble=diff["unpredicted_bubble_fraction"],
+                predicted=predicted["priced_with"],
+                predicted_makespan_s=predicted["makespan"],
+                xfer_s=dict(xfer),
+                table=anatomy.render_attribution_table(attr),
+                diff=anatomy.render_diff(diff))
+
+
+def _mpmd_run(init, batch, ref, *, pp, n_pods, schedule, steps,
+              devices=None, trace=False, measure_ops=False,
+              dcn_fault_at=None, keep=False):
+    """``steps`` steps of GPT-350M through ``MpmdPipeline`` (stage ``i`` on
+    ``devices[i]``, default every stage on the card): step 0 as
+    ``loss_and_grads`` + each stage's ``apply_grads`` (its gaps to the
+    reference ``ref`` read in between), the others ``train_step``.  Losses,
+    step times, tokens/s, peak memory, launches, plain-version calls, the
+    replicas' equality after every step, the channel's ledger, the flow
+    chains and (``measure_ops``) the newest step's anatomy."""
+    from apex_tpu_torch.mpmd import MpmdPipeline
+    from apex_tpu_torch.parallel.plan import ParallelPlan
+    from apex_tpu_torch.resilience.faults import Fault, FaultInjector
+    tokens, targets = (t.reshape(-1, SEQ) for t in batch)
+    inj = (FaultInjector([Fault(dcn_fault_at, "dcn_fault")])
+           if dcn_fault_at is not None else None)
+    cards = (sorted({torch.device(d).index or 0 for d in devices})
+             if devices else [0])
+    for c in cards:
+        torch.cuda.synchronize(c)
+        torch.cuda.reset_peak_memory_stats(c)
+    eng = MpmdPipeline(
+        dict(GPT350M, dtype=torch.bfloat16), init,
+        ParallelPlan(pp=pp, n_pods=n_pods, n_microbatches=MPMD_M),
+        device=None if devices else "cuda", devices=devices, lr=LR,
+        fault_injector=inj, schedule=schedule, trace=trace,
+        measure_ops=measure_ops)
+    counters = _mp_counters()
+    _reset(counters)
+    losses, times, replicas, gaps = [], [], [], None
+    with counting_plain_versions() as plain:
+        for step in range(steps):
+            t0 = time.perf_counter()
+            if step == 0:
+                loss, grads = eng.loss_and_grads(tokens, targets)
+                for st, g in zip(eng.stages, grads):
+                    st.apply_grads(g)
+                eng.step_count += 1
+            else:
+                loss = eng.train_step(tokens, targets)
+            for c in cards:
+                torch.cuda.synchronize(c)
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            if step == 0:
+                gaps = _mpmd_gaps(losses[0], grads, eng, *ref)
+                del grads
+            first, last = (eng.stages[k].state["embedding.weight"]
+                           for k in (0, -1))
+            replicas.append(torch.equal(first, last.to(first.device)))
+    launches = _launches_of(counters)
+    expected = collections.Counter()
+    for st in eng.stages:
+        expected.update(_gpt_train_expected(
+            steps, MPMD_M, len(st.model.layers),
+            [p.numel() for p in st.state.values()], last=st.is_last,
+            rows=tokens.shape[0] // MPMD_M * SEQ))
+    step_s = statistics.median(times[1:] or times)
+    run = dict(losses=losses, step_times_s=times, median_step_s=step_s,
+               tokens_per_s=tokens.numel() / step_s,
+               peak_memory_bytes=[torch.cuda.max_memory_allocated(c)
+                                  for c in cards],
+               launches=launches, expected=dict(expected),
+               plain_calls=dict(plain), gaps=gaps, replicas_equal=replicas,
+               retries=eng.channel.retries, sends=eng.channel.sends,
+               bytes_sent=eng.channel.bytes_sent, steps=steps,
+               measured=measure_ops,
+               stage_adam_tensors=[len(st.state) for st in eng.stages])
+    if eng.tracers is not None:
+        cont = eng.collector().continuity()
+        run["continuity"] = dict(broken=len(cont["broken"]),
+                                 orphans=len(cont["orphans"]),
+                                 complete=len(cont["complete"]))
+        run["anatomy"] = _mpmd_anatomy(eng)
+    if keep:
+        run["engine"] = eng
+    return run
+
+
+def gate_mpmd(tag, gaps):
+    """Hold step 0's gaps to ``MPMD_GATES``."""
+    over = {k: v for k, v in gaps.items() if not v <= MPMD_GATES[k]}
+    if over:
+        raise AssertionError(f"{tag}: step 0 leaves the one-process "
+                             f"reference by {over} (gates {MPMD_GATES})")
+
+
+def check_mpmd(tag, run, retries):
+    """Exact launches, no plain version, finite losses, the replicas equal
+    after every step, ``retries`` retried sends, unbroken flow chains (M +
+    1 complete a step) and step 0 within its gates."""
+    _check_run(tag, run)
+    if not all(run["replicas_equal"]):
+        raise AssertionError(f"{tag}: the tied-embedding replicas differ "
+                             f"after steps {run['replicas_equal']}")
+    if run["retries"] != retries:
+        raise AssertionError(f"{tag}: {run['retries']} retried sends, "
+                             f"want {retries}")
+    cont = run.get("continuity")
+    if cont is not None and (cont["broken"] or cont["orphans"] or
+                             cont["complete"] != run["steps"] * (MPMD_M + 1)):
+        raise AssertionError(f"{tag}: flow chains {cont}")
+    anat = run.get("anatomy")
+    if anat is not None and not anat["sum_error"] <= 1e-9:
+        raise AssertionError(f"{tag}: the attribution misses a stage's "
+                             f"makespan by {anat['sum_error']} (relative)")
+    gate_mpmd(tag, run["gaps"])
+
+
+def _stage_tensors(st):
+    """A stage's checkpointed tensors: its state's parameters, then its
+    optimizer's state leaves (live references)."""
+    from apex_tpu_torch.resilience.checkpoint import tree_flatten
+    tree = st.checkpoint_state()
+    return list(tree["state"].values()) + tree_flatten(tree["opt"])[0]
+
+
+def _mpmd_checkpoint(eng, batch, root):
+    """19c: ``save_checkpoint``, a step, ``restore_stage(0)`` (the other
+    stages keep their moved state), ``restore_checkpoint``: each restored
+    stage's parameters and optimizer state bit for bit the saved ones, the
+    restored step the saved step."""
+    tokens, targets = (t.reshape(-1, SEQ) for t in batch)
+    shutil.rmtree(root, ignore_errors=True)
+    step = eng.step_count
+    try:
+        with counting_plain_versions() as plain:
+            t0 = time.perf_counter()
+            eng.save_checkpoint(str(root), step)
+            t_save = time.perf_counter() - t0
+            saved = [_clone_all(_stage_tensors(st)) for st in eng.stages]
+            eng.train_step(tokens, targets)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got0 = eng.restore_stage(0, str(root))
+            t_stage = time.perf_counter() - t0
+            first_back = _equal_all(_stage_tensors(eng.stages[0]), saved[0])
+            others_moved = not any(
+                _equal_all(_stage_tensors(st), want)
+                for st, want in zip(eng.stages[1:], saved[1:]))
+            t0 = time.perf_counter()
+            got = eng.restore_checkpoint(str(root))
+            t_all = time.perf_counter() - t0
+            all_back = all(_equal_all(_stage_tensors(st), want)
+                           for st, want in zip(eng.stages, saved))
+        nbytes = sum(t.numel() * t.element_size()
+                     for st in eng.stages for t in _stage_tensors(st))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = dict(step=step, restored_stage_step=got0, restored_step=got,
+               step_count=eng.step_count, first_back=first_back,
+               others_moved=others_moved, all_back=all_back,
+               save_s=t_save, restore_stage_s=t_stage, restore_all_s=t_all,
+               bytes=nbytes, plain_calls=dict(plain))
+    log(f"[19c] save_checkpoint of {len(eng.stages)} stage trees "
+        f"({nbytes / 1e9:.3f} GB) {t_save:.3f} s, restore_stage(0) "
+        f"{t_stage:.3f} s, restore_checkpoint {t_all:.3f} s: stage 0 back "
+        f"bit for bit {first_back}, the other stages kept their step "
+        f"{others_moved}, all back {all_back}, restored step "
+        f"{got0} / {got} (saved at {step}), step_count {eng.step_count}")
+    if not (first_back and others_moved and all_back and got0 == step
+            and got == step and eng.step_count == step) or plain:
+        raise AssertionError(f"[19c] the restore departs from the saved "
+                             f"state: {out}")
+    return out
+
+
+def log_mpmd(tag, run, what):
+    peak = ", ".join(f"{b / 2 ** 30:.3f}" for b in run["peak_memory_bytes"])
+    log(f"{tag} {what}: losses {[round(x, 5) for x in run['losses']]}; "
+        f"step times (s) {[round(t, 4) for t in run['step_times_s']]}, "
+        f"median of steps 2-{run['steps']} {run['median_step_s']:.4f} s, "
+        f"{run['tokens_per_s']:.1f} tokens/s; peak memory {peak} GiB; "
+        f"channel {run['sends']} sends, {run['bytes_sent'] / 1e6:.1f} MB "
+        f"({run['bytes_sent'] / run['steps'] / 1e6:.1f} MB a step), "
+        f"{run['retries']} retried; replicas equal after each step "
+        f"{run['replicas_equal']}; flow chains {run.get('continuity')}")
+    log(f"    step 0 against one process: {run['gaps']} (gates "
+        f"{MPMD_GATES})")
+    anat = run.get("anatomy")
+    if anat is not None:
+        spans = ("each op's span ends with a sync of its card"
+                 if run["measured"] else "host spans: a transfer's includes "
+                 "waiting for the kernels that produce its payload")
+        log(f"    the last step's timeline ({spans}): makespan "
+            f"{anat['makespan_s']:.4f} s, channel "
+            f"{ {k: round(v, 4) for k, v in anat['xfer_s'].items()} } s, "
+            f"predicted at the measured medians {anat['predicted']} -> "
+            f"{anat['predicted_makespan_s']:.4f} s, attribution sums within "
+            f"{anat['sum_error']:.2e}")
+        log("    " + anat["table"].replace("\n", "\n    "))
+        log("    " + anat["diff"].replace("\n", "\n    "))
+
+
+def phase_mpmd(smi):
+    """Phase 19: (19a) GPT-350M at phase 5's recipe through ``MpmdPipeline``
+    at dp 1, pp 2, 2 pods, M 4, ``dcn_hiding``, traced, one scheduled
+    ``dcn_fault``, 3 steps; (19c) its checkpoints; (19b) pp 4, 2 pods,
+    ``1f1b``, ``measure_ops``, 2 steps, the step's anatomy."""
+    t0 = time.perf_counter()
+    model = build_model("cuda").init_params(torch.Generator().manual_seed(0))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    batch = _gpt350m_batch(n_micro=MPMD_M)
+    ref = _mpmd_reference(init, *batch)
+    torch.cuda.empty_cache()
+    a = _mpmd_run(init, batch, ref, pp=2, n_pods=2, schedule="dcn_hiding",
+                  steps=MPMD_STEPS["19a"], trace=True, dcn_fault_at=0,
+                  keep=True)
+    log_mpmd("[19a]", a, "GPT-350M through MpmdPipeline (dp 1, pp 2, 2 "
+             "pods, M 4 x 4096 tokens, dcn_hiding, traced, a dcn_fault at "
+             "step 0)")
+    check_mpmd("[19a]", a, retries=1)
+    ckpt = _mpmd_checkpoint(a.pop("engine"), batch,
+                            pathlib.Path("build") / "phase19_ckpt")
+    gc.collect()
+    torch.cuda.empty_cache()
+    b = _mpmd_run(init, batch, ref, pp=4, n_pods=2, schedule="1f1b",
+                  steps=MPMD_STEPS["19b"], measure_ops=True)
+    log_mpmd("[19b]", b, "GPT-350M through MpmdPipeline (dp 1, pp 4, 2 "
+             "pods, M 4, 1f1b, measure_ops)")
+    check_mpmd("[19b]", b, retries=0)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    launches = collections.Counter(a["launches"])
+    launches.update(b["launches"])
+    log(f"[19] the MPMD pipeline: {seconds:.1f} s on {smi}")
+    return dict(seconds=seconds, a=a, b=b, checkpoint=ckpt,
+                launches=dict(launches))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write all results to this JSON file")
@@ -8639,6 +9027,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     # training telemetry, collective accounting and the autopilot
     telemetry = phase_telemetry(smi)
+    torch.cuda.empty_cache()
+    # the cross-pod MPMD pipeline
+    mpmd = phase_mpmd(smi)
     if args.profile:
         with open(args.profile, "w") as f:
             f.write("\n".join(profile_lines) + "\n")
@@ -8655,6 +9046,7 @@ def main(argv=None):
                 both.update(run["launches"])
     both.update(resilience["launches"])
     both.update(telemetry["launches"])
+    both.update(mpmd["launches"])
     for run in (serve_f, train, train_f, *train_remat.values(), bert,
                 bert_f, bert_r, clip, resnet["O1"],
                 resnet["O2"], resnet_baseline, *resnet_opts.values(),
@@ -8757,6 +9149,7 @@ def main(argv=None):
                            packed_segments=packed, data_parallel=dp,
                            tensor_parallel=tp, model_parallel=mp,
                            resilience=resilience, telemetry=telemetry,
+                           mpmd=mpmd,
                            flash_tp_shards=fl_tp,
                            fused_ffn_tp_shards=ffn_tp,
                            profile=profiled or None, kernels=kernels), f,
