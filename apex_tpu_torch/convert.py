@@ -33,6 +33,11 @@ models' ``fc1`` / ``fc2`` leaves, so ``fused_ffn`` changes no conversion.
 become OIHW, the head's ``(features, classes)`` weight becomes ``(classes,
 features)``, and each ``BatchNormState`` fills its unit's buffers.
 
+:func:`mha_params_from_jax`, :func:`rnn_params_from_jax` and
+:func:`conformer_params_from_jax` do the same for ``contrib.
+multihead_attn``'s modules, ``RNN``'s (the JAX ``(n_in, n_out)`` weights
+transposed into ``nn.Linear``) and the conformer RNN-T example's model.
+
 :func:`fused_adam_state_from_jax`, :func:`fused_lamb_state_from_jax`,
 :func:`fused_sgd_state_from_jax`, :func:`fused_adagrad_state_from_jax` and
 :func:`fused_novograd_state_from_jax` carry the per-leaf state of the JAX
@@ -62,7 +67,9 @@ __all__ = ["gpt_params_from_jax", "gpt_quant_params_from_jax",
            "resnet_params_from_jax", "resnet_layout",
            "fused_adam_state_from_jax",
            "fused_lamb_state_from_jax", "fused_sgd_state_from_jax",
-           "fused_adagrad_state_from_jax", "fused_novograd_state_from_jax"]
+           "fused_adagrad_state_from_jax", "fused_novograd_state_from_jax",
+           "mha_params_from_jax", "rnn_params_from_jax",
+           "conformer_params_from_jax"]
 
 
 def _flatten(tree, prefix=""):
@@ -77,15 +84,18 @@ def _flatten(tree, prefix=""):
         yield from _flatten(sub, f"{prefix}{key}.")
 
 
-def _params_from_jax(tree, model) -> dict:
+def _params_from_jax(tree, model, mapping=None) -> dict:
     """State dict of ``model`` (a model on the ``meta`` device) from a JAX
     parameter tree: each leaf as a CPU tensor in the dtype of the port
     parameter it fills (a bf16 leaf goes through f32, which holds it
-    exactly)."""
+    exactly).  ``mapping(name, arr) -> (port name, arr)`` renames or
+    re-lays a leaf (None: the tree's path, as is)."""
     expected = {name: p for name, p in model.state_dict().items()}
     sd = {}
     for name, leaf in _flatten(tree):
         arr = np.asarray(leaf, dtype=np.float32)
+        if mapping is not None:
+            name, arr = mapping(name, arr)
         if name not in expected:
             raise KeyError(f"JAX parameter {name!r} has no counterpart in "
                            f"apex_tpu_torch's {type(model).__name__}")
@@ -289,6 +299,44 @@ def resnet_params_from_jax(params, state, cfg: ResNetConfig) -> dict:
                              f"!= port shape {tuple(want.shape)}")
         sd[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(want.dtype)
     return sd
+
+
+def mha_params_from_jax(tree, module) -> dict:
+    """State dict for a :mod:`apex_tpu_torch.contrib.multihead_attn`
+    module from its JAX twin's parameter tree (``in_proj`` / ``q_proj`` /
+    ``kv_proj`` / ``out_proj`` weights are ``(out, in)`` in both, and
+    ``lyr_nrm``): the tree's paths are the port's names."""
+    return _params_from_jax(tree, module)
+
+
+def _rnn_leaf(name, arr):
+    """``<layer>.<i2h|h2h>.<weight|bias>`` of a JAX RNN tree -> the port's
+    ``layers.<layer>...``; the ``(n_in, n_out)`` weights (``x @ W``) become
+    ``nn.Linear``'s ``(n_out, n_in)``."""
+    if name.endswith(".weight"):
+        arr = arr.T
+    return "layers." + name, arr
+
+
+def rnn_params_from_jax(tree, module) -> dict:
+    """State dict for an :mod:`apex_tpu_torch.RNN` module from the JAX
+    ``init_params`` list (one ``{"i2h", "h2h"}`` dict a layer)."""
+    return _params_from_jax(tree, module, _rnn_leaf)
+
+
+def _conformer_leaf(name, arr):
+    if name.startswith("predictor."):
+        port, arr = _rnn_leaf(name[len("predictor."):], arr)
+        return "predictor." + port, arr
+    return name, arr
+
+
+def conformer_params_from_jax(tree, model) -> dict:
+    """State dict for ``examples.conformer.train_rnnt.ConformerRNNT`` from
+    the JAX example's parameter tree: its own matrices keep the ``x @ W``
+    orientation, the attention's keep ``(out, in)``, the LSTM predictor's
+    are transposed (:func:`rnn_params_from_jax`)."""
+    return _params_from_jax(tree, model, _conformer_leaf)
 
 
 def _jax_leaf_order(names):

@@ -192,20 +192,38 @@ def _scores(q, k, scale):
 
 
 def flash_attention_reference(q, k, v, causal=False, softmax_scale=None,
-                              kv_seqlens=None, dropout_mask=None):
+                              kv_seqlens=None, key_padding_mask=None,
+                              dropout=0.0, generator=None, dropout_mask=None):
     """Materialized-scores reference with the kernel's masking semantics
-    (f32 scores; a fully masked row yields 0).  ``dropout_mask`` is an
-    optional ``(b, h, sq, sk)`` keep-scale matrix multiplied into the
-    probabilities (how the fused kernel's hash mask is replayed)."""
+    (f32 scores; a fully masked row yields 0), and the one path for what
+    the kernels cannot express: an arbitrary ``key_padding_mask``
+    (``(b, sk)`` bool, True = masked out, apex's convention), which
+    ``contrib.multihead_attn`` takes only when its caller passes one.
+
+    Dropout: ``dropout_mask`` is an explicit ``(b, h, sq, sk)`` keep-scale
+    matrix multiplied into the probabilities (how the fused kernel's hash
+    mask is replayed); else ``dropout`` > 0 draws a Bernoulli keep mask
+    from ``generator`` (a :class:`torch.Generator` on q's device), the
+    JAX ``dropout_rng`` variant, which ``contrib.multihead_attn``'s
+    materialized path takes."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale = _softmax_scale(softmax_scale, d)
     valid = _valid(b, sq, sk, causal, kv_seqlens, q.device)
+    if key_padding_mask is not None:
+        valid = valid & ~key_padding_mask.to(q.device, torch.bool)[
+            :, None, None, :]
     s = torch.where(valid, _scores(q, k, scale), _MASK)
     p = torch.softmax(s, dim=-1)
     p = torch.where(valid, p, 0.0)
     if dropout_mask is not None:
         p = p * dropout_mask.to(p.dtype)
+    elif dropout > 0.0:
+        if generator is None:
+            raise ValueError("dropout > 0 needs a generator")
+        keep = torch.rand(p.shape, generator=generator,
+                          device=p.device) < 1.0 - dropout
+        p = torch.where(keep, p / (1.0 - dropout), 0.0)
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
 
 

@@ -6,9 +6,10 @@ O2, paged and int8 GPT serving, the serving fleet, data and tensor
 parallelism over NCCL, Switch-GPT-350M/8 training and serving, the ring
 pipeline and context parallelism, GPT-350M under the resilience layer:
 checkpoints, the guarded step, elastic training, and its training telemetry,
-collective accounting and cost-model autopilot, and GPT-350M through the
-cross-pod MPMD pipeline) on one NVIDIA H100 and hold every kernel of the
-paths against its plain PyTorch version.
+collective accounting and cost-model autopilot, GPT-350M through the
+cross-pod MPMD pipeline, and the Conformer RNN-T recipe at Conformer-M width
+with the contrib ops) on one NVIDIA H100 and hold every kernel of the paths
+against its plain PyTorch version.
 
     python3 chip_smoke.py [--out results.json] [--profile breakdown.txt]
 
@@ -350,6 +351,33 @@ Phases (any failure exits non-zero; nothing is caught):
    attribution table and the diff against ``simulate`` at the measured
    median op times are logged.  ``tools/mpmd_torch.py`` runs the same
    recipes with stage ``i`` on ``cuda:i`` at 2 and 4 cards.
+20. the Conformer RNN-T recipe and the contrib ops: #3-#5 at its attention
+   shape, (8, 4, 200, 64) f32 non-causal, against their plain versions,
+   with their times, SDPA's on the same f32 operands and the bound; #1 and
+   #2 at its LayerNorms' (1600 x 256 f32) and #17 and #23 over
+   Conformer-M's parameter list likewise (``F.layer_norm``, aten's
+   LayerNorm backward and ``torch._foreach_norm`` the library calls); (20a)
+   the ported example's ``main()``
+   (``apex_tpu_torch/examples/conformer/train_rnnt.py``) at Conformer-M
+   width (hidden 256, 4 heads, 16 layers, a 640-wide LSTM predictor; 8
+   utterances of 800 frames, 40 targets, vocab 128, f32,
+   ``FusedNovoGrad(lr=1e-3)``, a warm-up step and 3): losses, step times,
+   utt/s, peak memory, per step exactly 4L launches of #1 and #2, L of #3,
+   #4 and #5, and NovoGrad's #17 and #23 table launches, no plain version
+   called; (20b) 2 steps of a 2-layer model at the same encoder widths
+   (hidden 256, 4 heads; a 256-wide LSTM, 2 utterances) on the card
+   and on a CPU copy with the same weights and batches: losses, step 0's
+   gradients and the parameters after each step within
+   ``CONFORMER_GATES``, and each of ``CONFORMER_FAULTS`` planted in the
+   card run (a swapped LSTM gate, the lattice read at ``y_len - 1``)
+   outside every gate; (20c) ``EncdecMultiheadAttn`` (with and without
+   dropout), ``fmha`` over ragged ``cu_seqlens`` (and causal),
+   ``attention_core`` (flash, and with pair bias and mask),
+   ``FastLayerNorm``, ``FusedAdamSWA`` (2 steps), ``GroupNorm``,
+   ``BatchNorm2d_NHWC``, the four ``conv_bias_relu`` functions,
+   ``focal_loss``, ``index_mul_2d`` and the packed transducer joint, once
+   each on the card against a CPU run of the same inputs (outputs and
+   gradients), with exact launches and no plain version in the card runs.
 
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -8847,6 +8875,653 @@ def phase_mpmd(smi):
                 launches=dict(launches))
 
 
+# -- phase 20 ----------------------------------------------------------------
+
+# Conformer-M (Gulati et al. 2020, "Conformer", Table 1): encoder width 256,
+# 4 heads, 16 layers, a 640-wide decoder; the recipe's stem and conv kernel
+# of 5 (the reference has no other); 8 utterances of 800 frames (200 after
+# the stem), 40 target tokens, 128 tokens + blank
+CONFORMER_M_ARGV = ["--hidden", "256", "--heads", "4", "--layers", "16",
+                    "--pred-hidden", "640", "--batch-size", "8",
+                    "--audio-len", "800", "--target-len", "40",
+                    "--vocab", "128", "--steps", "3", "--print-freq", "3",
+                    "--seed", "0"]
+CONFORMER_LAYERS = 16
+CONFORMER_STEPS = 1 + 3         # the example's warm-up step, then 3
+CONFORMER_SHAPE = (8, 4, 200, 64)   # 20a's attention: b, heads, s, head dim
+# 20b: 2 layers at Conformer-M's encoder widths (hidden 256, 4 heads), a
+# 256-wide LSTM (Conformer-M's is 640), 2 utterances of 200 frames
+CONFORMER_PARITY_ARGV = ["--hidden", "256", "--heads", "4", "--layers", "2",
+                         "--pred-hidden", "256", "--batch-size", "2",
+                         "--audio-len", "200", "--target-len", "10",
+                         "--vocab", "128", "--seed", "1"]
+CONFORMER_FAULTS = ("lstm_gate", "lattice_end")
+# 20b's gates, card vs CPU (f32 both), between the correct and the planted-
+# fault readings that 20b takes on every run; at the first card run (PERF.md)
+# correct 7.4e-8 / 1.8e-6 / 7.5e-9, the nearest fault (lstm_gate) 2.3e-5 /
+# 5.0e-2 / 1.6e-6
+CONFORMER_GATES = {"loss": 1e-6, "grads": 1e-4, "params": 1e-7}
+
+
+@contextlib.contextmanager
+def _plant_conformer(fault):
+    """A fault in the port's conformer path: ``lstm_gate`` swaps the LSTM's
+    i and f gates, ``lattice_end`` reads the lattice at ``y_len - 1``."""
+    import apex_tpu_torch.contrib.transducer as ttr
+    import apex_tpu_torch.RNN as trnn
+    saved = (trnn._LSTM._cell, ttr._lattice_end)
+
+    def swapped_cell(self, p, x_t, state):
+        h, c = state
+        f, i, gc, o = (p["i2h"](x_t) + p["h2h"](h)).chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gc)
+        return torch.sigmoid(o) * torch.tanh(c), c
+
+    def early_end(alphas, blank, f_len, y_len):
+        return saved[1](alphas, blank, f_len, y_len - 1)
+    if fault == "lstm_gate":
+        trnn._LSTM._cell = swapped_cell
+    elif fault == "lattice_end":
+        ttr._lattice_end = early_end
+    elif fault is not None:
+        raise ValueError(f"unknown fault {fault!r}")
+    try:
+        yield
+    finally:
+        trnn._LSTM._cell, ttr._lattice_end = saved
+
+
+def phase_conformer_train(smi, tag="[20a]"):
+    """The ported conformer RNN-T example's ``main()`` at Conformer-M width:
+    losses, step times, utt/s and peak memory; exact launches of #1-#5,
+    #17 and #23 per step and no plain version called."""
+    from apex_tpu_torch.examples.conformer import train_rnnt
+    counters = _all_counters()
+    _reset(counters)
+    torch.cuda.synchronize()
+    with counting_plain_versions() as plain_calls:
+        res = train_rnnt.main(CONFORMER_M_ARGV)
+    torch.cuda.synchronize()
+    launches = _launches_of(counters)
+    trainer = res.pop("trainer")
+    res.pop("batch")
+    numels = [p.numel() for p in trainer.model.parameters()]
+    n, steps = CONFORMER_LAYERS, CONFORMER_STEPS
+    expected = {"layer_norm_fwd": 4 * n * steps,
+                "layer_norm_bwd": 4 * n * steps, "flash_fwd": n * steps,
+                "flash_attention_dq": n * steps,
+                "flash_attention_dkv": n * steps,
+                "multi_tensor_sumsq": steps * sumsq_launches(numels,
+                                                             per_tensor=True),
+                "multi_tensor_novograd": steps * table_launches(numels)}
+    step_s = statistics.median(res["step_times_s"])
+    utt = 8 / step_s
+    log(f"{tag} Conformer-M RNN-T (examples/conformer/train_rnnt: hidden "
+        f"256, 4 heads, 16 layers, LSTM 640, {sum(numels):,} parameters in "
+        f"{len(numels)} tensors; 8 x 800 frames, 40 targets, vocab 128, "
+        f"f32, FusedNovoGrad lr 1e-3) on {smi}: warm-up loss "
+        f"{res['warmup_loss']:.5f}, losses "
+        f"{[round(x, 5) for x in res['losses']]}; step times (s) "
+        f"{[round(t, 4) for t in res['step_times_s']]}, median "
+        f"{step_s:.4f} s, {utt:.1f} utt/s (main's "
+        f"{res['utterances_per_s']:.1f}); peak memory above the recipe's "
+        f"start {res['peak_memory_bytes'] / 2 ** 30:.3f} GiB")
+    run = dict(launches=launches, expected=expected,
+               plain_calls=dict(plain_calls),
+               losses=[res["warmup_loss"]] + res["losses"])
+    _check_run(tag, run)
+    del trainer
+    res.update(median_step_s=step_s, utt_per_s_median=utt,
+               launches=launches, parameters=sum(numels),
+               tensors=len(numels))
+    return res
+
+
+def _conformer_two_steps(device, init, batches, fault=None):
+    """20b's model on ``device`` from the state dict ``init``, 2 steps of
+    FusedNovoGrad on ``batches``: losses, step 0's gradients and the
+    parameters after each step, on the CPU."""
+    from apex_tpu_torch.examples.conformer import train_rnnt
+    from apex_tpu_torch.optimizers import FusedNovoGrad
+    args = train_rnnt.parse_args(CONFORMER_PARITY_ARGV)
+    model = train_rnnt.ConformerRNNT(args, device)
+    model.load_state_dict(init)
+    opt = FusedNovoGrad(model.parameters(), lr=args.lr)
+    losses, grads, params = [], None, []
+    with _plant_conformer(fault):
+        for step, batch in enumerate(batches):
+            opt.zero_grad()
+            loss = model.loss(*(t.to(device) for t in batch))
+            loss.backward()
+            if step == 0:
+                grads = {n: p.grad.detach().cpu().clone()
+                         for n, p in model.named_parameters()}
+            opt.step()
+            losses.append(float(loss.detach()))
+            params.append({n: p.detach().cpu().clone()
+                           for n, p in model.named_parameters()})
+    return losses, grads, params
+
+
+def conformer_parity_gaps(faults=CONFORMER_FAULTS):
+    """20b's readings: the small conformer 2 steps on the card (correct,
+    then with each planted fault) against one CPU run with the same
+    weights and batches.  Gaps: the losses' largest relative difference,
+    step 0's gradients' largest |diff| over each tensor's largest entry,
+    the parameters' largest |diff| after either step."""
+    from apex_tpu_torch.examples.conformer import train_rnnt
+    args = train_rnnt.parse_args(CONFORMER_PARITY_ARGV)
+    init = {k: v.cpu() for k, v in train_rnnt.ConformerRNNT(
+        args, "cpu").init_params(torch.Generator().manual_seed(1))
+        .state_dict().items()}
+    make = train_rnnt.batches(args, "cpu")
+    batches = [make(), make()]
+    ref = _conformer_two_steps("cpu", init, batches)
+    out = {}
+    for fault in (None,) + tuple(faults):
+        losses, grads, params = _conformer_two_steps("cuda", init, batches,
+                                                     fault)
+        out[fault or "correct"] = dict(
+            losses=losses, loss=_gap(losses, ref[0]),
+            grads=max(float((grads[n] - ref[1][n]).abs().max()
+                            / ref[1][n].abs().max()) for n in grads),
+            params=max(float((p[n] - r[n]).abs().max())
+                       for p, r in zip(params, ref[2]) for n in r))
+    out["cpu_losses"] = ref[0]
+    return out
+
+
+def phase_conformer_parity(tag="[20b]"):
+    """20b: the card's losses, gradients and parameters within
+    ``CONFORMER_GATES`` of the CPU's, and each planted fault outside
+    every gate."""
+    gaps = conformer_parity_gaps()
+    for name in ("correct",) + CONFORMER_FAULTS:
+        g = gaps[name]
+        log(f"{tag} conformer card vs CPU (2 layers, hidden 256, 4 heads, "
+            f"2 steps, f32), {name}: losses {g['losses']} (CPU "
+            f"{gaps['cpu_losses']}); loss {g['loss']:.3e}, grads "
+            f"{g['grads']:.3e}, params {g['params']:.3e} (gates "
+            f"{CONFORMER_GATES})")
+    if not all(gaps["correct"][k] <= v for k, v in CONFORMER_GATES.items()):
+        raise AssertionError(f"{tag} card and CPU conformer steps disagree")
+    for fault in CONFORMER_FAULTS:
+        if not all(gaps[fault][k] > v for k, v in CONFORMER_GATES.items()):
+            raise AssertionError(f"{tag} planted fault {fault} passes a "
+                                 "gate")
+    return gaps
+
+
+def _f32_flash_bound(shape, n_products, n_io):
+    """f32 operands: n_io (b, h, s, d) tensors read or written once plus
+    the row statistics; n_products products of head_dim per (query, key)
+    pair at the f32 peak."""
+    b, h, s, d = shape
+    return bound_ms(n_io * b * h * s * d * 4 + 2 * b * h * s * 4,
+                    2 * n_products * d * b * h * s * s, PEAK_F32_FLOPS)
+
+
+def kernel_flash_conformer(gen, tag="[20]"):
+    """#3-#5 at the conformer's attention, (8, 4, 200, 64) f32 non-causal,
+    as its MHA gives them (strided views of one (s, b, 3H) projection),
+    four input sets in turn: against the plain versions, the plain
+    versions' time, SDPA on the same f32 operands and the bound."""
+    from apex_tpu_torch.ops.flash_attention import (
+        flash_attention_dkv, flash_attention_dkv_reference,
+        flash_attention_dq, flash_attention_dq_reference, flash_fwd,
+        flash_fwd_reference)
+    b, h, s, d = CONFORMER_SHAPE
+    scale = d ** -0.5
+    sets = []
+    for _ in range(4):
+        qkv = torch.randn(s, b, 3 * h * d, generator=gen).to("cuda")
+        q, k, v = (t.reshape(s, b, h, d).permute(1, 2, 0, 3)
+                   for t in qkv.chunk(3, dim=-1))
+        do = torch.randn(s, b, h, d, generator=gen).to("cuda").permute(
+            1, 2, 0, 3)
+        sets.append((q, k, v, do))
+    q, k, v, do = sets[0]
+    o, lse = flash_fwd(q, k, v, False, scale)
+    ro, rlse = flash_fwd_reference(q, k, v, False, scale)
+    name = f"{CONFORMER_SHAPE} f32 non-causal"
+    err = max(check_close(f"flash_fwd {name}", o, ro, F32_ATOL, F32_RTOL),
+              check_close(f"flash_fwd {name} lse", lse, rlse, F32_ATOL,
+                          F32_RTOL))
+    out = {"fwd": numbers(
+        err, time_ms([lambda st=st: flash_fwd(*st[:3], False, scale)
+                      for st in sets] * 5),
+        time_ms(lambda: flash_fwd_reference(q, k, v, False, scale), 3),
+        time_ms([lambda st=st: F.scaled_dot_product_attention(
+            *st[:3], scale=scale) for st in sets] * 5),
+        _f32_flash_bound(CONFORMER_SHAPE, 2, 4),
+        call_ms(lambda: flash_fwd(q, k, v, False, scale)))}
+    bwd_args = []
+    for q, k, v, do in sets:
+        o, lse = flash_fwd(q, k, v, False, scale)
+        delta = (do * o).sum(-1).reshape(b * h, s)
+        bwd_args.append((q, k, v, do, lse, delta, False, scale))
+    args = bwd_args[0]
+    err_q = check_close(f"flash_attention_dq {name}", flash_attention_dq(
+        *args), flash_attention_dq_reference(*args), F32_ATOL, F32_RTOL)
+    dk, dv = flash_attention_dkv(*args)
+    rdk, rdv = flash_attention_dkv_reference(*args)
+    err_kv = max(check_close(f"flash_attention_dkv {name} dk", dk, rdk,
+                             F32_ATOL, F32_RTOL),
+                 check_close(f"flash_attention_dkv {name} dv", dv, rdv,
+                             F32_ATOL, F32_RTOL))
+    lib_bwd = _flash_bwd_library_ms(sets, False, scale)
+    out["dq"] = numbers(
+        err_q, time_ms([lambda a=a: flash_attention_dq(*a)
+                        for a in bwd_args] * 5),
+        time_ms(lambda: flash_attention_dq_reference(*args), 3), lib_bwd,
+        _f32_flash_bound(CONFORMER_SHAPE, 3, 5),
+        call_ms(lambda: flash_attention_dq(*args)))
+    out["dkv"] = numbers(
+        err_kv, time_ms([lambda a=a: flash_attention_dkv(*a)
+                         for a in bwd_args] * 5),
+        time_ms(lambda: flash_attention_dkv_reference(*args), 3), lib_bwd,
+        _f32_flash_bound(CONFORMER_SHAPE, 4, 6),
+        call_ms(lambda: flash_attention_dkv(*args)))
+    for key, lib in (("fwd", "sdpa f32"), ("dq", "sdpa f32 backward "
+                                                  "(dq+dk+dv)"),
+                     ("dkv", "sdpa f32 backward (dq+dk+dv)")):
+        log_numbers(f"{tag} flash {key} {name}", out[key], lib)
+    return out
+
+
+def kernel_ln_novograd_conformer(gen, gen_cuda, tag="[20]"):
+    """#1 and #2 at the conformer's LayerNorms (the (8 * 200, 256) f32 rows
+    of 20a's (B, T', H) activations) and #17 and #23 over Conformer-M's
+    parameter list as its FusedNovoGrad steps it (per-tensor sums; lr 1e-3,
+    betas 0.95 / 0.98, no weight decay, at step 3), each against its plain
+    version at phase 2's f32 tolerances: times, plain times, library calls
+    and bounds."""
+    from apex_tpu_torch.examples.conformer import train_rnnt
+    from apex_tpu_torch.ops import multi_tensor as K
+    from apex_tpu_torch.ops.layer_norm import (layer_norm_bwd,
+                                               layer_norm_bwd_reference,
+                                               layer_norm_fwd,
+                                               layer_norm_fwd_reference)
+    b, _, s, _ = CONFORMER_SHAPE
+    rows, hid = b * s, 256
+    w = (1 + 0.1 * torch.randn(hid, generator=gen)).to("cuda")
+    bias = (0.1 * torch.randn(hid, generator=gen)).to("cuda")
+    x = torch.randn(rows, hid, generator=gen).to("cuda")
+    dy = torch.randn(rows, hid, generator=gen).to("cuda")
+    name = f"{rows}x{hid} f32 (the conformer's LayerNorms)"
+    y, mean, rstd = layer_norm_fwd(x, w, bias, 1e-5, False)
+    ry, rmean, rrstd = layer_norm_fwd_reference(x, w, bias, 1e-5, False)
+    torch.cuda.synchronize()
+    err = check_close(f"layer_norm_fwd {name} y", y, ry,
+                      *LN_Y_TOL[torch.float32])
+    check_close(f"layer_norm_fwd {name} mean", mean, rmean, 1e-5, 1e-5)
+    check_close(f"layer_norm_fwd {name} rstd", rstd, rrstd, 1e-5, 1e-4)
+    out = {"ln_fwd": numbers(
+        err, time_ms(lambda: layer_norm_fwd(x, w, bias, 1e-5, False)),
+        time_ms(lambda: layer_norm_fwd_reference(x, w, bias, 1e-5, False)),
+        time_ms(lambda: F.layer_norm(x, (hid,), w, bias, 1e-5)),
+        bound_ms(2 * rows * hid * 4 + 2 * hid * 4 + 2 * rows * 4,
+                 8 * rows * hid, PEAK_F32_FLOPS),
+        call_ms(lambda: layer_norm_fwd(x, w, bias, 1e-5, False)))}
+    log_numbers(f"{tag} layer_norm_fwd {name}", out["ln_fwd"],
+                "F.layer_norm f32")
+    got = layer_norm_bwd(dy, x, w, bias, mean, rstd, False, False)
+    ref = layer_norm_bwd_reference(dy, x, w, bias, mean, rstd, False, False)
+    torch.cuda.synchronize()
+    err = _ln_bwd_check(f"layer_norm_bwd {name}", got, ref, torch.float32,
+                        False)
+    _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [hid], w, bias,
+                                                       1e-5)
+    out["ln_bwd"] = numbers(
+        err, time_ms(lambda: layer_norm_bwd(dy, x, w, bias, mean, rstd,
+                                            False, False)),
+        time_ms(lambda: layer_norm_bwd_reference(dy, x, w, bias, mean, rstd,
+                                                 False, False)),
+        time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, x, [hid], lmean, lrstd, w, bias, [True, True, True])),
+        bound_ms(3 * rows * hid * 4 + 4 * hid * 4 + 2 * rows * 4,
+                 12 * rows * hid, PEAK_F32_FLOPS),
+        call_ms(lambda: layer_norm_bwd(dy, x, w, bias, mean, rstd, False,
+                                       False)))
+    log_numbers(f"{tag} layer_norm_bwd {name}", out["ln_bwd"],
+                "aten native_layer_norm_backward f32")
+
+    model = train_rnnt.ConformerRNNT(train_rnnt.parse_args(CONFORMER_M_ARGV),
+                                     "cuda")
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    del model
+    numels = [int(np.prod(sh)) for sh in shapes]
+    n_el = sum(numels)
+
+    def rand(shape, std, positive=False):
+        t = torch.randn(shape, generator=gen_cuda, device="cuda") * std
+        return t.abs() + 1e-3 if positive else t
+    gs = [rand(sh, 1e-3) for sh in shapes]
+    ps = [rand(sh, 0.02) for sh in shapes]
+    ms = [rand(sh, 1e-4) for sh in shapes]
+    v = rand(len(shapes), 1e-6, positive=True)
+    none = [None] * len(shapes)
+    noop0 = torch.tensor(0, dtype=torch.int32, device="cuda")
+    lst = f"Conformer-M's {len(shapes)} f32 tensors, {n_el} elements"
+    total, per, _ = K.multi_tensor_sumsq(gs, per_tensor=True)
+    rtotal, rper, _ = K.multi_tensor_sumsq_reference(gs, per_tensor=True)
+    torch.cuda.synchronize()
+    err = check_close(f"multi_tensor_sumsq {lst} total", total, rtotal, 0,
+                      1e-5)
+    check_close(f"multi_tensor_sumsq {lst} per tensor", per, rper, 0, 1e-5)
+    before = K.multi_tensor_sumsq.launches
+    K.multi_tensor_sumsq(gs, per_tensor=True)
+    n_launch = K.multi_tensor_sumsq.launches - before
+    if n_launch != sumsq_launches(numels, per_tensor=True):
+        raise AssertionError(f"multi_tensor_sumsq {lst}: {n_launch} "
+                             "launches")
+    out["sumsq"] = numbers(
+        err, time_ms([lambda: K.multi_tensor_sumsq(gs, per_tensor=True)]
+                     * 5),
+        time_ms([lambda: K.multi_tensor_sumsq_reference(
+            gs, per_tensor=True)] * 2, rounds=3),
+        time_ms([lambda: torch._foreach_norm(gs)] * 5),
+        bound_ms(4 * n_el + 4 * len(shapes), 2 * n_el, PEAK_F32_FLOPS),
+        call_ms(lambda: K.multi_tensor_sumsq(gs, per_tensor=True), iters=10))
+    log_numbers(f"{tag} multi_tensor_sumsq per tensor, {lst}, {n_launch} "
+                "launches", out["sumsq"], "torch._foreach_norm")
+    t = 3
+    nv_scal = torch.tensor([1e-3 * (1 - 0.98 ** t) ** 0.5 / (1 - 0.95 ** t),
+                            0.95, 0.0, 1e-8, 1.0, 0.05], device="cuda")
+    err = _opt_kernel_check(
+        f"multi_tensor_novograd {lst}", K.multi_tensor_novograd,
+        K.multi_tensor_novograd_reference,
+        lambda f, p, st, c, n: f(gs, p, st, c, v, nv_scal, n, False),
+        ps, ms, none, numels)
+    out["novograd"] = numbers(
+        err, time_ms([lambda: K.multi_tensor_novograd(
+            gs, ps, ms, none, v, nv_scal, noop0, False)] * 5),
+        time_ms([lambda: K.multi_tensor_novograd_reference(
+            gs, ps, ms, none, v, nv_scal, noop0, False)] * 2, rounds=3),
+        None, bound_ms(5 * 4 * n_el + 4 * len(shapes), 10 * n_el,
+                       PEAK_F32_FLOPS),
+        call_ms(lambda: K.multi_tensor_novograd(gs, ps, ms, none, v, nv_scal,
+                                                noop0, False), iters=10))
+    log_numbers(f"{tag} multi_tensor_novograd {lst}, "
+                f"{table_launches(numels)} launches", out["novograd"],
+                "no single library call")
+    for key in ("sumsq", "novograd"):
+        out[key]["tensors"], out[key]["elements"] = len(shapes), n_el
+    return out
+
+
+def _rel_gap(got, want):
+    """Largest |got - want| over the largest |want|."""
+    got, want = got.detach().float().cpu(), want.detach().float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _contrib_cases(rng):
+    """20c's cases: (name, inputs (CPU tensors), run(device, inputs) ->
+    {output or gradient name: tensor}, relative tolerance, expected
+    launches).  Each run makes its module from seeded weights."""
+    from apex_tpu_torch.contrib.conv_bias_relu import (
+        ConvBias, ConvBiasMaskReLU, ConvBiasReLU, ConvFrozenScaleBiasReLU)
+    from apex_tpu_torch.contrib.fmha import fmha
+    from apex_tpu_torch.contrib.focal_loss import focal_loss
+    from apex_tpu_torch.contrib.group_norm import GroupNorm
+    from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+    from apex_tpu_torch.contrib.index_mul_2d import index_mul_2d
+    from apex_tpu_torch.contrib.layer_norm import FastLayerNorm
+    from apex_tpu_torch.contrib.multihead_attn import EncdecMultiheadAttn
+    from apex_tpu_torch.contrib.openfold_triton import (FusedAdamSWA,
+                                                        attention_core)
+    from apex_tpu_torch.contrib.transducer import transducer_joint
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.randn(*shape)).astype(
+            np.float32))
+
+    def grads(out, dy, named):
+        out.backward(dy.to(out.device, out.dtype))
+        return {n: v.grad for n, v in named.items()}
+
+    def leaves(device, **kw):
+        # copies: a CPU run must not touch the shared inputs
+        return {n: v.detach().to(device, copy=True).requires_grad_()
+                for n, v in kw.items()}
+
+    def encdec(dropout):
+        def run(dev, inp):
+            m = EncdecMultiheadAttn(256, 4, dropout=dropout, bias=True,
+                                    device=dev).init_params(
+                torch.Generator().manual_seed(5))
+            x = leaves(dev, q=inp["q"], mem=inp["mem"])
+            y = m(x["q"], x["mem"], kv_seqlens=inp["lens"].to(dev),
+                  dropout_seed=11 if dropout else None)
+            return dict(y=y, **grads(y, inp["dy"], dict(
+                x, **dict(m.named_parameters()))))
+        return run
+    mha_in = dict(q=t(200, 8, 256), mem=t(300, 8, 256), dy=t(200, 8, 256),
+                  lens=torch.tensor([300, 211, 77, 300, 5, 256, 128, 299]))
+    lens = [384, 211, 77, 500, 5, 256, 128, 512]
+    cu = torch.tensor(np.cumsum([0] + lens), dtype=torch.int32)
+
+    def packed(causal):
+        def run(dev, inp):
+            x = leaves(dev, qkv=inp["qkv"].bfloat16())
+            y = fmha(x["qkv"], inp["cu"].to(dev), 512, causal=causal)
+            return dict(y=y, **grads(y, inp["dy"], x))
+        return run
+    fmha_in = dict(qkv=t(sum(lens), 3, 16, 64), cu=cu,
+                   dy=t(sum(lens), 16, 64))
+
+    def core(bias):
+        def run(dev, inp):
+            x = leaves(dev, q=inp["q"], k=inp["k"], v=inp["v"])
+            y = attention_core(x["q"], x["k"], x["v"],
+                               mask=inp["mask"].to(dev) if bias else None,
+                               bias=inp["bias"].to(dev) if bias else None)
+            return dict(y=y, **grads(y, inp["dy"], x))
+        return run
+    mask = torch.ones(1, 32, 1, 1, 256)
+    mask[..., 200:] = 0
+    core_in = dict(q=t(1, 32, 8, 256, 32), k=t(1, 32, 8, 256, 32),
+                   v=t(1, 32, 8, 256, 32), dy=t(1, 32, 8, 256, 32),
+                   bias=t(1, 1, 8, 256, 256), mask=mask)
+
+    def fast_ln(dev, inp):
+        m = FastLayerNorm(1024, device=dev)
+        with torch.no_grad():
+            m.weight.copy_(inp["w"])
+            m.bias.copy_(inp["b"])
+        x = leaves(dev, x=inp["x"])
+        y = m(x["x"])
+        return dict(y=y, **grads(y, inp["dy"], dict(
+            x, **dict(m.named_parameters()))))
+
+    swa_shapes = [(256, 256), (256,), (1024, 256), (256, 1024), (128, 3),
+                  (7,), (4096, 64), (64,)] * 3
+
+    def swa(dev, inp):
+        ps = [torch.nn.Parameter(p.to(dev, copy=True)) for p in inp["p"]]
+        opt = FusedAdamSWA(ps, lr=1e-3, swa_start=0, swa_freq=1,
+                           weight_decay=0.01)
+        for gs in inp["g"]:
+            for p, g in zip(ps, gs):
+                p.grad = g.to(dev)
+            opt.step()
+        out = {f"p{i}": p.detach() for i, p in enumerate(ps)}
+        out.update({f"swa{i}": s for i, s in enumerate(opt.swa_params())})
+        return out
+    swa_in = dict(p=[t(*s) for s in swa_shapes],
+                  g=[[t(*s, scale=0.1) for s in swa_shapes]
+                     for _ in range(2)])
+
+    def gn(dev, inp):
+        m = GroupNorm(32, 256, act="silu", device=dev)
+        x = leaves(dev, x=inp["x"])
+        y = m(x["x"])
+        return dict(y=y, **grads(y, inp["dy"], dict(
+            x, **dict(m.named_parameters()))))
+
+    def bn(dev, inp):
+        m = BatchNorm2d_NHWC(256, device=dev)
+        x = leaves(dev, x=inp["x"], z=inp["z"])
+        y = m(x["x"], x["z"])
+        return dict(y=y, running_mean=m.running_mean,
+                    running_var=m.running_var, **grads(y, inp["dy"], dict(
+                        x, **dict(m.named_parameters()))))
+    nhwc = dict(x=t(8, 56, 56, 256), z=t(8, 56, 56, 256),
+                dy=t(8, 56, 56, 256))
+
+    def conv(fn):
+        def run(dev, inp):
+            x = leaves(dev, x=inp["x"], w=inp["w"], b=inp["b"])
+            extra = {ConvBiasMaskReLU: [inp["mask"].to(dev)],
+                     ConvFrozenScaleBiasReLU: [inp["scale"].to(dev)]}
+            args = [x["x"], x["w"]]
+            if fn is ConvFrozenScaleBiasReLU:
+                args += extra[fn]
+            args.append(x["b"])
+            if fn is ConvBiasMaskReLU:
+                args += extra[fn]
+            y = fn(*args, padding=1, stride=1)
+            return dict(y=y, **grads(y, inp["dy"], x))
+        return run
+    conv_in = dict(x=t(8, 56, 56, 64), w=t(3, 3, 64, 64, scale=0.05),
+                   b=t(64, scale=0.1), scale=t(64, scale=0.1) + 1.0,
+                   mask=torch.from_numpy((rng.rand(8, 56, 56, 64) > 0.1)
+                                         .astype(np.float32)),
+                   dy=t(8, 56, 56, 64))
+
+    def focal(dev, inp):
+        x = leaves(dev, x=inp["x"])
+        loss = focal_loss(x["x"], inp["t"].to(dev), inp["npos"], 90, 0.25,
+                          2.0, 0.1)
+        return dict(loss=loss, **grads(loss, torch.ones(()), x))
+    targets = rng.randint(-2, 90, (2, 76725))
+    focal_in = dict(x=t(2, 76725, 91), t=torch.from_numpy(targets),
+                    npos=float((targets >= 0).sum()))
+
+    def index_mul(dev, inp):
+        x = leaves(dev, a=inp["a"], b=inp["b"])
+        y = index_mul_2d(x["a"], x["b"], inp["idx"].to(dev))
+        return dict(y=y, **grads(y, inp["dy"], x))
+    idx_in = dict(a=t(65536, 64), b=t(262144, 64), dy=t(262144, 64),
+                  idx=torch.from_numpy(rng.randint(0, 65536, 262144)))
+
+    def joint(dev, inp):
+        x = leaves(dev, f=inp["f"], g=inp["g"])
+        y = transducer_joint(x["f"], x["g"], inp["f_len"].to(dev),
+                             inp["g_len"].to(dev), pack_output=True,
+                             relu=True, batch_offsets=inp["off"].to(dev),
+                             packed_batch=inp["total"])
+        return dict(y=y, **grads(y, inp["dy"], x))
+    f_len = rng.randint(100, 201, 8)
+    g_len = rng.randint(21, 42, 8)
+    sizes = f_len * g_len
+    joint_in = dict(f=t(8, 200, 256), g=t(8, 41, 256),
+                    f_len=torch.from_numpy(f_len),
+                    g_len=torch.from_numpy(g_len),
+                    off=torch.from_numpy(np.cumsum([0] + list(sizes[:-1]))),
+                    total=int(sizes.sum()), dy=t(int(sizes.sum()), 256))
+    fl = {"flash_fwd": 1, "flash_attention_dq": 1, "flash_attention_dkv": 1}
+    return [
+        ("EncdecMultiheadAttn (200 x 8 x 256 queries, 300 keys, kv_seqlens)",
+         mha_in, encdec(0.0), 1e-4, fl),
+        ("EncdecMultiheadAttn, dropout 0.1, seed 11", mha_in, encdec(0.1),
+         1e-4, fl),
+        ("fmha (8 ragged sequences, max 512, 16 heads x 64, bf16)", fmha_in,
+         packed(False), 2e-2, fl),
+        ("fmha causal", fmha_in, packed(True), 2e-2, fl),
+        ("attention_core flash (32 x 8 heads x 256 x 32)", core_in,
+         core(False), 1e-4, fl),
+        ("attention_core pair bias + mask", core_in, core(True), 1e-4, {}),
+        ("FastLayerNorm (4096 x 1024)",
+         dict(x=t(4096, 1024), dy=t(4096, 1024), w=t(1024, scale=0.1) + 1,
+              b=t(1024, scale=0.1)), fast_ln, 1e-4,
+         {"layer_norm_fwd": 1, "layer_norm_bwd": 1}),
+        (f"FusedAdamSWA (2 steps, {len(swa_shapes)} tensors)", swa_in, swa,
+         1e-5, {"multi_tensor_adam": 2 * table_launches(
+             [int(np.prod(s)) for s in swa_shapes])}),
+        ("GroupNorm (8 x 56 x 56 x 256, 32 groups, silu)", nhwc, gn, 1e-4,
+         {}),
+        ("BatchNorm2d_NHWC (8 x 56 x 56 x 256, residual)", nhwc, bn, 1e-4,
+         {}),
+        *[(f"{fn.__name__} (8 x 56 x 56 x 64, 3 x 3)", conv_in, conv(fn),
+           1e-4, {}) for fn in (ConvBias, ConvBiasReLU, ConvBiasMaskReLU,
+                                ConvFrozenScaleBiasReLU)],
+        ("focal_loss (2 x 76725 anchors x 91 classes)", focal_in, focal,
+         1e-4, {}),
+        ("index_mul_2d (65536 x 64 rows, 262144 indices)", idx_in,
+         index_mul, 1e-5, {}),
+        ("TransducerJoint packed (8 x 200 x 41 x 256, ragged)", joint_in,
+         joint, 1e-5, {})]
+
+
+def phase_contrib_ops(tag="[20c]"):
+    """20c: each contrib op once on the card against its CPU run on the
+    same inputs (every output and gradient within the case's relative
+    tolerance of its largest CPU entry); the card runs' launches exact and
+    no plain version called in them."""
+    counters = _all_counters()
+    total = collections.Counter()
+    flags = _matmul_flags()
+    _set_matmul_flags((False, False, False))     # f32 convolutions in f32
+    out = {}
+    try:
+        for name, inp, run, tol, expected in _contrib_cases(
+                np.random.RandomState(20)):
+            _reset(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with counting_plain_versions() as plain_calls:
+                card = run("cuda", inp)
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = _launches_of(counters)
+            cpu = run("cpu", inp)
+            gaps = {k: _rel_gap(card[k], cpu[k]) for k in cpu}
+            worst = max(gaps, key=gaps.get)
+            log(f"{tag} {name}: worst {worst} {gaps[worst]:.3e} of its "
+                f"largest entry (tolerance {tol}); card {dt:.4f} s; launches "
+                f"{launches} (expected {expected})")
+            _check_run(f"{tag} {name}", dict(
+                launches=launches, expected=expected,
+                plain_calls=dict(plain_calls)))
+            if gaps[worst] > tol:
+                raise AssertionError(f"{tag} {name}: card and CPU disagree")
+            total.update(launches)
+            out[name] = dict(gaps=gaps, card_s=dt, launches=launches)
+    finally:
+        _set_matmul_flags(flags)
+    return out, dict(total)
+
+
+def phase_conformer(smi):
+    """Phase 20: the conformer RNN-T recipe at Conformer-M width (20a),
+    card-vs-CPU parity of a small one with planted faults (20b), the contrib
+    ops on the card (20c); #3-#5 at the conformer's attention shape, #1 and
+    #2 at its LayerNorms' and #17 and #23 over its parameter list."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(20)
+    flash = kernel_flash_conformer(gen)
+    torch.cuda.empty_cache()
+    ln_opt = kernel_ln_novograd_conformer(
+        gen, torch.Generator(device="cuda").manual_seed(20))
+    torch.cuda.empty_cache()
+    train = phase_conformer_train(smi)
+    torch.cuda.empty_cache()
+    parity = phase_conformer_parity()
+    torch.cuda.empty_cache()
+    contrib, contrib_launches = phase_contrib_ops()
+    torch.cuda.empty_cache()
+    launches = collections.Counter(train["launches"])
+    launches.update(contrib_launches)
+    seconds = time.perf_counter() - t0
+    log(f"[20] the conformer RNN-T and the contrib ops: {seconds:.1f} s on "
+        f"{smi}")
+    return dict(seconds=seconds, flash=flash, ln_novograd=ln_opt,
+                train=train, parity=parity, contrib=contrib,
+                launches=dict(launches))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write all results to this JSON file")
@@ -9030,6 +9705,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     # the cross-pod MPMD pipeline
     mpmd = phase_mpmd(smi)
+    torch.cuda.empty_cache()
+    # the conformer RNN-T recipe and the contrib ops
+    conformer = phase_conformer(smi)
     if args.profile:
         with open(args.profile, "w") as f:
             f.write("\n".join(profile_lines) + "\n")
@@ -9047,6 +9725,7 @@ def main(argv=None):
     both.update(resilience["launches"])
     both.update(telemetry["launches"])
     both.update(mpmd["launches"])
+    both.update(conformer["launches"])
     for run in (serve_f, train, train_f, *train_remat.values(), bert,
                 bert_f, bert_r, clip, resnet["O1"],
                 resnet["O2"], resnet_baseline, *resnet_opts.values(),
@@ -9149,7 +9828,7 @@ def main(argv=None):
                            packed_segments=packed, data_parallel=dp,
                            tensor_parallel=tp, model_parallel=mp,
                            resilience=resilience, telemetry=telemetry,
-                           mpmd=mpmd,
+                           mpmd=mpmd, conformer=conformer,
                            flash_tp_shards=fl_tp,
                            fused_ffn_tp_shards=ffn_tp,
                            profile=profiled or None, kernels=kernels), f,

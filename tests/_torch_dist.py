@@ -598,10 +598,44 @@ def case_obs(rank, world, inp):
     return _torch_obs_ranks.run(rank, world, inp)
 
 
+def case_contrib_bn(rank, world, inp):
+    """contrib.groupbn / cudnn_gbn with the statistics of every rank:
+    outputs, running statistics and the gradients of sum(y * dy) (the
+    parameters' summed over the ranks)."""
+    import torch
+    from apex_tpu_torch.contrib.cudnn_gbn import GroupBatchNorm2d
+    from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+    from apex_tpu_torch.utils.collectives import all_reduce_
+    group = torch.distributed.group.WORLD
+    c = inp["x"].shape[-1]
+    out = {}
+    for name, m in (
+            ("groupbn", BatchNorm2d_NHWC(c, momentum=inp["momentum"],
+                                         bn_group=world, process_group=group,
+                                         device="cpu")),
+            ("cudnn_gbn", GroupBatchNorm2d(c, group_size=world,
+                                           process_group=group,
+                                           momentum=inp["momentum"],
+                                           device="cpu"))):
+        with torch.no_grad():
+            m.weight.copy_(torch.from_numpy(inp["w"]))
+            m.bias.copy_(torch.from_numpy(inp["b"]))
+        x = torch.from_numpy(inp["x"][rank]).requires_grad_()
+        y = m(x)
+        (y * torch.from_numpy(inp["dy"][rank])).sum().backward()
+        out[name] = dict(
+            y=_np(y), dx=_np(x.grad),
+            dw=_np(all_reduce_(m.weight.grad.clone(), group)),
+            db=_np(all_reduce_(m.bias.grad.clone(), group)),
+            running=(_np(m.running_mean), _np(m.running_var)))
+    return out
+
+
 CASES = {"collectives": case_collectives, "mp": case_mp,
          "elastic": case_elastic, "obs": case_obs, "examples": case_examples, "ddp": case_ddp,
          "syncbn": case_syncbn, "zero": case_zero,
-         "cpu_launches": case_cpu_launches, "tp": case_tp}
+         "cpu_launches": case_cpu_launches, "tp": case_tp,
+         "contrib_bn": case_contrib_bn}
 
 
 def main():

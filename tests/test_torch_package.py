@@ -654,3 +654,75 @@ def test_serving_exports_every_name_of_the_reference():
     missing = [n for n in reference.__all__ if not hasattr(port, n)]
     assert not missing, missing
     assert sorted(port.__all__) == sorted(reference.__all__)
+
+
+def _conformer_args():
+    from apex_tpu_torch.examples.conformer import train_rnnt
+    return train_rnnt.parse_args(["--layers", "1", "--hidden", "32",
+                                  "--heads", "2", "--vocab", "16",
+                                  "--pred-hidden", "32", "--n-mels", "8"])
+
+
+def test_rnn_contrib_and_conformer_entry_points_raise_without_cuda(
+        monkeypatch):
+    """The modules of the RNN, contrib and conformer slice default to the
+    card and raise without one unless ``device="cpu"`` is asked for."""
+    import warnings
+    from apex_tpu_torch import RNN
+    from apex_tpu_torch.contrib.cudnn_gbn import GroupBatchNorm2d
+    from apex_tpu_torch.contrib.group_norm import GroupNorm
+    from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+    from apex_tpu_torch.contrib.layer_norm import FastLayerNorm
+    from apex_tpu_torch.contrib.multihead_attn import (EncdecMultiheadAttn,
+                                                       SelfMultiheadAttn)
+    from apex_tpu_torch.examples.conformer import train_rnnt
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    makers = [lambda d=None: SelfMultiheadAttn(32, 2, device=d),
+              lambda d=None: EncdecMultiheadAttn(32, 2, device=d),
+              lambda d=None: FastLayerNorm(8, device=d),
+              lambda d=None: GroupNorm(2, 8, device=d),
+              lambda d=None: BatchNorm2d_NHWC(8, device=d),
+              lambda d=None: GroupBatchNorm2d(8, device=d),
+              lambda d=None: train_rnnt.ConformerRNNT(_conformer_args(), d)]
+    makers += [lambda d=None, f=f: getattr(RNN, f)(2, 2, device=d)
+               for f in RNN.__all__]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        for make in makers:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+            make("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_rnnt.main(["--steps", "1"])
+
+
+def test_cpu_contrib_ops_launch_no_kernel():
+    """The contrib ops over the kernels (MHA, fmha, attention_core, the
+    LayerNorms, FusedAdamSWA) and a conformer step take every wrapper's
+    plain version on CPU tensors: no counter moves."""
+    from apex_tpu_torch.contrib.fmha import fmha
+    from apex_tpu_torch.contrib.layer_norm import FastLayerNorm
+    from apex_tpu_torch.contrib.multihead_attn import SelfMultiheadAttn
+    from apex_tpu_torch.contrib.openfold_triton import (
+        FusedAdamSWA, LayerNormSmallShapeOptImpl, attention_core)
+    from apex_tpu_torch.examples.conformer import train_rnnt
+    for c in COUNTERS:
+        c.launches = 0
+    gen = torch.Generator().manual_seed(0)
+    mha = SelfMultiheadAttn(32, 2, include_norm_add=True, dropout=0.1,
+                            device="cpu").init_params(gen)
+    x = torch.randn(8, 2, 32, generator=gen)
+    mha(x, dropout_seed=3).sum().backward()
+    qkv = torch.randn(12, 3, 2, 16, generator=gen, requires_grad=True)
+    fmha(qkv, torch.tensor([0, 5, 12]), 8, causal=True).sum().backward()
+    q = torch.randn(2, 2, 8, 16, generator=gen, requires_grad=True)
+    attention_core(q, q, q).sum().backward()
+    ln = FastLayerNorm(32, device="cpu")
+    LayerNormSmallShapeOptImpl.apply(ln(x), ln.weight, ln.bias).sum() \
+        .backward()
+    opt = FusedAdamSWA(mha.parameters(), lr=1e-3)
+    opt.step()
+    trainer = train_rnnt.build(_conformer_args(), torch.device("cpu"))
+    batch = train_rnnt.batches(_conformer_args(), "cpu")()
+    assert torch.isfinite(trainer.step(*batch))
+    assert [c.launches for c in COUNTERS] == [0] * len(COUNTERS)
